@@ -1,0 +1,277 @@
+"""BLIP2-MR host wrapper, generate path (counterpart of
+``mr_blip_tpu/models/blip2_mr.py``).
+
+``BLIP2_MR(...).generate(samples)`` takes uint8 (or float) video plus query
+strings and returns prediction / raw_prediction / answer / qid / duration,
+as the JAX package's wrapper does. Strings, tokenization, timestamp
+formatting and the interleave plan run on the host; every tensor op runs in
+PyTorch on ``device``.
+
+Task-string flags supported here: ``lora`` (LoRA r=8 on every T5 Linear),
+``add_duration`` and ``no_task_prompt``. Training, the QA two-stage
+pipeline, the non-interleaved prompt and int8 are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from mr_blip_tpu_torch.models.blip2_mr_module import Blip2MRModule
+from mr_blip_tpu_torch.models.eva_vit import eva_vit_g_config, vit_tiny_config
+from mr_blip_tpu_torch.models.generation import beam_search
+from mr_blip_tpu_torch.models.prompt_assembly import build_interleave_plan
+from mr_blip_tpu_torch.models.qformer import qformer_base_config, qformer_tiny_config
+from mr_blip_tpu_torch.models.t5 import (
+    materialize_encoder_relpos_bias,
+    t5_flan_xl_config,
+    t5_tiny_config,
+)
+from mr_blip_tpu_torch.text.span_grammar import convert_to_absolute_time, post_process
+from mr_blip_tpu_torch.text.timestamps import (
+    find_annoying_numbers,
+    find_annoying_numbers_replacement_dict,
+    format_timestamps,
+)
+from mr_blip_tpu_torch.text.tokenizer import load_tokenizer
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# Encoder rel-pos biases kept per sequence length (~270 MB each in bf16 at
+# the flagship length 2056).
+_BIAS_CACHE_ENTRIES = 3
+# Standard deviation of the random weights (``scale`` of init_params_fast).
+_INIT_STD = 0.02
+
+
+def _pad_to(arr: np.ndarray, length: int, axis: int = 1, value=0) -> np.ndarray:
+    pad = length - arr.shape[axis]
+    if pad <= 0:
+        return arr
+    widths = [(0, 0)] * arr.ndim
+    widths[axis] = (0, pad)
+    return np.pad(arr, widths, constant_values=value)
+
+
+def _bucket(n: int, multiple: int = 16) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+class BLIP2_MR:
+    VIT_CONFIGS = {"eva_vit_g": eva_vit_g_config, "tiny": vit_tiny_config}
+    T5_CONFIGS = {"flan-t5-xl": t5_flan_xl_config, "tiny": t5_tiny_config}
+
+    def __init__(
+        self,
+        img_size: int = 224,
+        vit_model: str = "eva_vit_g",
+        t5_model: str = "flan-t5-xl",
+        tokenizer_path: str | None = None,
+        num_query_token: int = 32,
+        num_beams: int = 5,
+        min_new_tokens: int = 0,
+        max_txt_len: int = 200,
+        max_new_tokens: int = 50,
+        input_time_format: str = "seconds_integers",
+        task: str = "lora",
+        compute_dtype: str = "bfloat16",
+        seed: int = 42,
+        init_params: bool = True,
+        vocab_size: int | None = None,
+        device: str | torch.device = "cpu",
+    ):
+        """``init_params`` draws random weights on ``device`` from ``seed``."""
+        if "only_frames" in task or "QA" in task:
+            raise NotImplementedError(f"task {task!r}: only the interleaved "
+                                      "moment-retrieval generate path is ported")
+        self.task = task
+        self.use_lora = "lora" in task
+        self.input_time_format = input_time_format
+        self.max_txt_len = max_txt_len
+        self.max_new_tokens = max_new_tokens
+        self.min_new_tokens = min_new_tokens
+        self.num_beams = num_beams
+        self.img_size = img_size
+        self.device = torch.device(device)
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+        self.tokenizer = load_tokenizer(tokenizer_path)
+        annoying, _ = find_annoying_numbers(self.tokenizer, 200)
+        self.annoying_numbers_replacement_dict = (
+            find_annoying_numbers_replacement_dict(annoying))
+
+        vit_cfg = self.VIT_CONFIGS[vit_model](img_size=img_size)
+        qf_cfg = (qformer_base_config(vit_cfg.embed_dim, num_query_token)
+                  if vit_model == "eva_vit_g"
+                  else qformer_tiny_config(vit_cfg.embed_dim))
+        t5_kw = dict(lora_rank=8 if self.use_lora else 0)
+        if vocab_size is not None:
+            t5_kw["vocab_size"] = int(vocab_size)
+        elif tokenizer_path is None:
+            t5_kw["vocab_size"] = self.tokenizer.vocab_size
+        else:
+            default_vocab = self.T5_CONFIGS[t5_model]().vocab_size
+            padded = -(-self.tokenizer.vocab_size // 128) * 128
+            t5_kw["vocab_size"] = max(default_vocab, padded)
+        t5_cfg = self.T5_CONFIGS[t5_model](**t5_kw)
+        self.vit_config, self.qformer_config, self.t5_config = vit_cfg, qf_cfg, t5_cfg
+        self.module = Blip2MRModule(vit_cfg, qf_cfg, t5_cfg,
+                                    compute_dtype=self.compute_dtype,
+                                    device=self.device).eval()
+        self.module.requires_grad_(False)
+        self._enc_bias_cache: Dict[int, torch.Tensor] = {}
+        if init_params:
+            self.init_params(seed)
+
+    # ------------------------------------------------------------ weights
+    @torch.no_grad()
+    def init_params(self, seed: int):
+        """Random weights drawn on the device from a seeded generator, as
+        the JAX wrapper's ``init_params_fast(mode="random")`` draws them:
+        every 1-D tensor (norm scales and biases, linear biases) is one,
+        every other tensor N(0, 0.02)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for p in self.module.parameters():
+            if p.ndim == 1:
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device=self.device)
+                        * _INIT_STD)
+        self._enc_bias_cache.clear()
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        return self.module.state_dict()
+
+    def load_state_dict(self, state_dict, strict: bool = True):
+        """Load weights (e.g. from ``models/convert.py::state_dict_from_jax``);
+        clears the per-length encoder bias cache."""
+        self._enc_bias_cache.clear()
+        return self.module.load_state_dict(state_dict, strict=strict)
+
+    # ------------------------------------------------------ host batch prep
+    def prepare_mr_batch(self, samples: Dict[str, Any]) -> Dict[str, Any]:
+        """Strings + sampling metadata -> padded numpy arrays + gather plan."""
+        video = np.asarray(samples["video"])
+        if video.dtype != np.uint8:
+            video = video.astype(np.float32)
+        timestamps = np.asarray(samples["timestamps"], np.float64)
+        durations = np.asarray(samples["duration"], np.float64)
+        video_prompt_end = list(samples["video_prompt_end"])
+        if "add_duration" in self.task:
+            video_prompt_end = [">{}<extra_id_0>\n".format(round(float(d), 2))
+                                for d in durations]
+        fmt_ts, fmt_dur, _ = format_timestamps(
+            self.input_time_format, timestamps, durations,
+            self.annoying_numbers_replacement_dict)
+        query_prompt = list(samples["query_prompt"])
+        if "no_task_prompt" in self.task:
+            text_prompt = query_prompt
+        else:
+            text_prompt = [q + tp for q, tp in zip(query_prompt, samples["task_prompt"])]
+
+        tok = self.tokenizer
+        end_enc = tok(video_prompt_end, add_special_tokens=False,
+                      truncation=True, max_length=self.max_txt_len)
+        text_enc = tok(text_prompt, truncation=True, max_length=self.max_txt_len)
+        text_len = _bucket(text_enc.input_ids.shape[1])
+        plan = build_interleave_plan(tok, fmt_ts, fmt_dur,
+                                     self.module.tokens_per_frame)
+        return {
+            "frames": video,
+            "end_ids": end_enc.input_ids,
+            "end_mask": end_enc.attention_mask,
+            "text_ids": _pad_to(text_enc.input_ids, text_len),
+            "text_mask": _pad_to(text_enc.attention_mask, text_len),
+            "time_ids": plan.time_ids,
+            "src_type": plan.src_type,
+            "src_idx": plan.src_idx,
+            "int_mask": plan.attn_mask,
+        }
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def _encoder_bias_for(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """Per-length cached (1, H, L, L) encoder rel-pos bias in the compute
+        dtype: it depends only on the length and the (frozen) table."""
+        cfg = self.t5_config
+        length = (batch["int_mask"].shape[1] + batch["end_ids"].shape[1]
+                  + batch["text_ids"].shape[1])
+        length = -(-length // 8) * 8  # assemble right-pads to a multiple of 8
+        cache = self._enc_bias_cache
+        if length not in cache:
+            if len(cache) >= _BIAS_CACHE_ENTRIES:
+                cache.pop(next(iter(cache)))
+            table = self.module.t5.encoder.rel_bias.rel_embedding
+            with torch.no_grad():
+                cache[length] = materialize_encoder_relpos_bias(
+                    table, length, cfg.relative_attention_num_buckets,
+                    cfg.relative_attention_max_distance,
+                ).to(self.compute_dtype).contiguous()
+        return cache[length]
+
+    # --------------------------------------------------------- device path
+    def frames_to_t5(self, tensors):
+        """Stage 1: frames -> ViT -> ln_vision -> Q-Former -> t5_proj."""
+        return self.module.encode_frames(tensors["frames"])
+
+    def encode_t5(self, tensors, frames_for_t5, enc_bias):
+        """Stage 2: interleave + T5 encoder -> (encoder states, mask)."""
+        embeds, attn = self.module.assemble_encoder_input(
+            frames_for_t5, tensors["time_ids"], tensors["src_type"],
+            tensors["src_idx"], tensors["int_mask"], tensors["end_ids"],
+            tensors["end_mask"], tensors["text_ids"], tensors["text_mask"])
+        return self.module.encode(embeds, attn, position_bias=enc_bias), attn
+
+    def decode(self, enc, attn):
+        """Stage 3: beam search over the cached decoder."""
+        cfg = self.t5_config
+        b = enc.shape[0]
+        t5 = self.module.t5
+        cross_kv = t5.decoder.cross_kv(enc)
+        cache = t5.decoder.init_cache(b * self.num_beams, self.max_new_tokens,
+                                      enc.dtype, enc.device)
+
+        def decode_step(cache, tokens, position):
+            logits = t5.decode_step(tokens, position, cache, cross_kv, attn)
+            return logits[:, 0], cache
+
+        return beam_search(
+            decode_step, cache, batch_size=b, num_beams=self.num_beams,
+            max_length=self.max_new_tokens, min_new_tokens=self.min_new_tokens,
+            eos_token_id=cfg.eos_token_id, pad_token_id=cfg.pad_token_id,
+            decoder_start_token_id=cfg.decoder_start_token_id, device=enc.device)
+
+    # ------------------------------------------------------------- task API
+    @torch.inference_mode()
+    def generate_dispatch(self, samples) -> Dict[str, Any]:
+        """Host prep + device work; pair with ``generate_collect``."""
+        batch = self.prepare_mr_batch(samples)
+        tensors = self._to_device(batch)
+        enc_bias = self._encoder_bias_for(batch)
+        enc, attn = self.encode_t5(tensors, self.frames_to_t5(tensors), enc_bias)
+        seqs, scores = self.decode(enc, attn)
+        return {"seqs": seqs, "scores": scores, "samples": samples}
+
+    def generate_collect(self, handle) -> Dict[str, Any]:
+        """Copy the beams to the host and post-process them."""
+        samples = handle["samples"]
+        seqs = handle["seqs"].cpu().numpy()
+        pred_ans = self.tokenizer.batch_decode(seqs, skip_special_tokens=True)
+        out: Dict[str, Any] = {}
+        out["duration"] = [float(d) for d in np.asarray(samples["duration"])]
+        prediction = [post_process(p) for p in pred_ans]
+        if self.input_time_format in ("relative_integers", "relative_floats"):
+            prediction = convert_to_absolute_time(prediction, out["duration"],
+                                                  self.input_time_format)
+        out["prediction"] = prediction
+        out["raw_prediction"] = pred_ans
+        out["answer"] = samples.get("relevant_windows")
+        out["qid"] = samples.get("query_id")
+        return out
+
+    def generate(self, samples) -> Dict[str, Any]:
+        """Span generation: beam search -> decode -> grammar repair."""
+        return self.generate_collect(self.generate_dispatch(samples))

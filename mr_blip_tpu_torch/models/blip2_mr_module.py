@@ -1,0 +1,93 @@
+"""Device-side BLIP2-MR graph (counterpart of
+``mr_blip_tpu/models/blip2_mr_module.py``).
+
+Frozen EVA ViT over every frame, fp32 vision LayerNorm, Q-Former (32 query
+tokens per frame), the Q-Former->T5 projection, the interleaved prompt
+gather, and the T5 encoder-decoder. String work happens in the host
+wrapper (:mod:`mr_blip_tpu_torch.models.blip2_mr`).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mr_blip_tpu_torch.models.eva_vit import EvaViT, ViTConfig
+from mr_blip_tpu_torch.models.layers import Dense, LayerNormFP32
+from mr_blip_tpu_torch.models.prompt_assembly import interleave_on_device
+from mr_blip_tpu_torch.models.qformer import QFormer, QFormerConfig
+from mr_blip_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
+
+# CLIP normalization of the reference processors (mr_blip_tpu's
+# processors/video_processors.py).
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def _pad_seq_to_sublane(inputs_embeds, attn, mult: int = 8):
+    """Right-pad the assembled encoder sequence to a multiple of ``mult``.
+
+    The padded positions carry ``attn == 0``, so they are masked out of
+    encoder self-attention and decoder cross-attention. Kept from the JAX
+    package so the two produce sequences of the same length, which the
+    per-length encoder bias cache keys on."""
+    pad = (-inputs_embeds.shape[1]) % mult
+    if pad:
+        inputs_embeds = F.pad(inputs_embeds, (0, 0, 0, pad))
+        attn = F.pad(attn, (0, pad))
+    return inputs_embeds, attn
+
+
+class Blip2MRModule(nn.Module):
+    def __init__(self, vit_config: ViTConfig, qformer_config: QFormerConfig,
+                 t5_config: T5Config, compute_dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.vit_config = vit_config
+        self.qformer_config = qformer_config
+        self.t5_config = t5_config
+        self.compute_dtype = compute_dtype
+        kw = dict(device=device, dtype=compute_dtype)
+        self.visual_encoder = EvaViT(vit_config, **kw)
+        # torch nn.LayerNorm default eps (the reference's LayerNorm subclass).
+        self.ln_vision = LayerNormFP32(vit_config.embed_dim, 1e-5, device=device)
+        self.qformer = QFormer(qformer_config, **kw)
+        self.t5_proj = Dense(qformer_config.hidden_size, t5_config.d_model, **kw)
+        self.t5 = T5ForConditionalGeneration(t5_config, **kw)
+
+    @property
+    def tokens_per_frame(self) -> int:
+        return self.qformer_config.num_query_tokens
+
+    def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, C) frames -> (B, T*n, d_model) T5 tokens.
+
+        uint8 frames are CLIP-normalized here, in the compute dtype, as the
+        JAX package does on device."""
+        b, t = frames.shape[:2]
+        cdt = self.compute_dtype
+        if frames.dtype == torch.uint8:
+            mean = torch.tensor(CLIP_MEAN, dtype=cdt, device=frames.device) * 255.0
+            std = torch.tensor(CLIP_STD, dtype=cdt, device=frames.device) * 255.0
+            frames = (frames.to(cdt) - mean) / std
+        image_embeds = self.visual_encoder(frames.reshape((b * t,) + frames.shape[2:]))
+        image_embeds = self.ln_vision(image_embeds)
+        q = self.t5_proj(self.qformer(image_embeds))
+        return q.reshape(b, t * q.shape[1], self.t5_config.d_model)
+
+    def assemble_encoder_input(self, frames_for_t5, time_ids, src_type, src_idx,
+                               int_mask, end_ids, end_mask, text_ids, text_mask):
+        """[interleaved video prompt | video_prompt_end | query+task prompt]."""
+        embed = self.t5.shared
+        dtype = frames_for_t5.dtype
+        pad_id = torch.tensor(self.t5_config.pad_token_id, device=time_ids.device)
+        inter = interleave_on_device(frames_for_t5, embed(time_ids).to(dtype),
+                                     src_type, src_idx, embed(pad_id))
+        inputs_embeds = torch.cat(
+            [inter, embed(end_ids).to(dtype), embed(text_ids).to(dtype)], dim=1)
+        attn = torch.cat([int_mask, end_mask, text_mask], dim=1)
+        return _pad_seq_to_sublane(inputs_embeds, attn)
+
+    def encode(self, inputs_embeds, attn_mask, position_bias=None):
+        return self.t5.encode(inputs_embeds, mask=attn_mask,
+                              position_bias=position_bias)

@@ -1,0 +1,76 @@
+"""JAX package parameters -> the port's ``state_dict``.
+
+Input: the nested parameter dict of ``mr_blip_tpu``'s ``BLIP2_MR`` as numpy
+arrays, in the unscanned layout (``blocks_{i}`` / ``block_{i}`` subtrees;
+convert a scanned tree with ``mr_blip_tpu.models.scan_utils.
+unstack_blip2_mr_params`` first). Output: a flat ``{name: tensor}`` dict
+that ``Blip2MRModule.load_state_dict(..., strict=True)`` takes.
+
+Rules: flax ``Dense_0/kernel`` (in, out) becomes ``weight`` (out, in);
+``LayerNorm_0/{scale,bias}`` and RMSNorm ``scale`` become
+``weight``/``bias``; the patch conv goes HWIO -> OIHW; ``shared/embedding``
+becomes ``shared.weight``; numbered children ``blocks_3`` become
+``blocks.3``. Every other leaf keeps its name. A leaf no rule knows raises,
+so every leaf is consumed exactly once.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_NUMBERED = re.compile(r"^(blocks|block|layer)_(\d+)$")
+_KEPT = {"lora_a", "lora_b", "q_bias", "v_bias", "cls_token", "pos_embed",
+         "query_tokens", "rel_embedding"}
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield path, value
+
+
+def _convert_leaf(path, arr: np.ndarray):
+    *parents, leaf = path
+    if parents and parents[-1] in ("Dense_0", "LayerNorm_0"):
+        owner = parents.pop()
+        if owner == "Dense_0" and leaf == "kernel":
+            return parents + ["weight"], arr.T
+        if leaf == "bias":
+            return parents + ["bias"], arr
+        if owner == "LayerNorm_0" and leaf == "scale":
+            return parents + ["weight"], arr
+    elif parents and parents[-1] == "patch_embed" and leaf in ("kernel", "bias"):
+        return parents + ["weight" if leaf == "kernel" else "bias"], (
+            arr.transpose(3, 2, 0, 1) if leaf == "kernel" else arr)
+    elif parents and parents[-1] == "shared" and leaf == "embedding":
+        return parents + ["weight"], arr
+    elif leaf == "scale":  # RMSNormFP32
+        return parents + ["weight"], arr
+    elif leaf in _KEPT:
+        return parents + [leaf], arr
+    raise ValueError(f"no conversion rule for JAX leaf {'/'.join(path)}")
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Convert every leaf of the JAX parameter tree; see the module doc."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        names, value = _convert_leaf(path, np.asarray(arr))
+        parts = []
+        for name in names:
+            m = _NUMBERED.match(name)
+            parts.extend(m.groups() if m else (name,))
+        key = ".".join(parts)
+        if key in out:
+            raise ValueError(f"two JAX leaves map to {key}")
+        if value.dtype.name == "bfloat16":
+            value = value.astype(np.float32)
+        out[key] = torch.from_numpy(np.array(value))  # a writable copy
+    return out

@@ -1,0 +1,117 @@
+"""BLIP-2 Q-Former, query path only (counterpart of
+``mr_blip_tpu/models/qformer.py``).
+
+BERT-base geometry: 12 post-LN layers, d=768, 12 heads, LN eps 1e-12,
+cross-attention to the 1408-d ViT tokens in every second layer (0, 2, ...),
+and only the query FFN. The 32 query tokens pass the embeddings LayerNorm
+before the stack.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mr_blip_tpu_torch.models.layers import Dense, LayerNormFP32
+from mr_blip_tpu_torch.ops.attention import dot_product_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class QFormerConfig:
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    encoder_width: int = 1408
+    cross_attention_freq: int = 2
+    num_query_tokens: int = 32
+    layer_norm_eps: float = 1e-12
+
+
+def qformer_base_config(encoder_width: int = 1408, num_query_tokens: int = 32):
+    return QFormerConfig(encoder_width=encoder_width, num_query_tokens=num_query_tokens)
+
+
+def qformer_tiny_config(encoder_width: int = 32):
+    return QFormerConfig(hidden_size=32, num_layers=2, num_heads=2,
+                         intermediate_size=64, encoder_width=encoder_width,
+                         num_query_tokens=4)
+
+
+class QFormerAttention(nn.Module):
+    """Post-LN BERT attention; cross-attention K/V come from ``kv_states``."""
+
+    def __init__(self, cfg: QFormerConfig, kv_width: int, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.query = Dense(h, h, device=device, dtype=dtype)
+        self.key = Dense(kv_width, h, device=device, dtype=dtype)
+        self.value = Dense(kv_width, h, device=device, dtype=dtype)
+        self.output = Dense(h, h, device=device, dtype=dtype)
+        self.output_norm = LayerNormFP32(h, cfg.layer_norm_eps, device=device)
+
+    def forward(self, x, kv_states=None):
+        cfg = self.cfg
+        kv = x if kv_states is None else kv_states
+        q, k, v = self.query(x), self.key(kv), self.value(kv)
+        b, n, _ = q.shape
+        m = k.shape[1]
+        hd = cfg.hidden_size // cfg.num_heads
+        out = dot_product_attention(q.reshape(b, n, cfg.num_heads, hd),
+                                    k.reshape(b, m, cfg.num_heads, hd),
+                                    v.reshape(b, m, cfg.num_heads, hd))
+        out = self.output(out.reshape(b, n, cfg.hidden_size))
+        return self.output_norm(x + out)
+
+
+class QFormerLayer(nn.Module):
+    def __init__(self, cfg: QFormerConfig, has_cross_attention: bool,
+                 device=None, dtype=None):
+        super().__init__()
+        h = cfg.hidden_size
+        self.self_attention = QFormerAttention(cfg, h, device=device, dtype=dtype)
+        self.cross_attention = (
+            QFormerAttention(cfg, cfg.encoder_width, device=device, dtype=dtype)
+            if has_cross_attention else None)
+        self.intermediate_query = Dense(h, cfg.intermediate_size, device=device,
+                                        dtype=dtype)
+        self.output_query = Dense(cfg.intermediate_size, h, device=device,
+                                  dtype=dtype)
+        self.output_query_norm = LayerNormFP32(h, cfg.layer_norm_eps, device=device)
+
+    def forward(self, x, encoder_states):
+        x = self.self_attention(x)
+        if self.cross_attention is not None:
+            x = self.cross_attention(x, kv_states=encoder_states)
+        y = self.output_query(F.gelu(self.intermediate_query(x)))
+        return self.output_query_norm(x + y)
+
+
+class QFormer(nn.Module):
+    """(B, M, encoder_width) frame tokens -> (B, num_query_tokens, hidden)."""
+
+    def __init__(self, cfg: QFormerConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.query_tokens = nn.Parameter(
+            torch.zeros(1, cfg.num_query_tokens, cfg.hidden_size, device=device,
+                        dtype=dtype))
+        self.embeddings_norm = LayerNormFP32(cfg.hidden_size, cfg.layer_norm_eps,
+                                             device=device)
+        self.layer = nn.ModuleList([
+            QFormerLayer(cfg, i % cfg.cross_attention_freq == 0, device=device,
+                         dtype=dtype)
+            for i in range(cfg.num_layers)
+        ])
+
+    def forward(self, encoder_states):
+        b = encoder_states.shape[0]
+        x = self.query_tokens.expand(b, -1, -1).to(encoder_states.dtype)
+        x = self.embeddings_norm(x)
+        for layer in self.layer:
+            x = layer(x, encoder_states)
+        return x

@@ -1,0 +1,268 @@
+"""T5 encoder-decoder, float inference path (counterpart of
+``mr_blip_tpu/models/t5.py``).
+
+Flan-T5 geometry: relative-position-bucket attention bias (computed by the
+first layer's table and shared by every layer), RMSNorm, gated exact-GELU
+FFN, untied LM head with fp32 logits, LoRA deltas on every Linear. T5 applies
+no 1/sqrt(d) scale, so q is multiplied by sqrt(d_kv) before the attention
+core, which divides it back out.
+
+Decoding keeps a static self-attention cache per layer, (B*K, max_len,
+H*D) for K and for V, written in place at the step's position, and the
+cross-attention K/V once per batch row (B, M, H*D): the K beams of a row
+share them, folded into the query length at attention time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mr_blip_tpu_torch.models.layers import Dense, RMSNormFP32
+from mr_blip_tpu_torch.ops.attention import dot_product_attention
+from mr_blip_tpu_torch.ops.relpos import materialize_relpos_bias
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 32128
+    d_model: int = 2048
+    d_kv: int = 64
+    d_ff: int = 5120
+    num_layers: int = 24
+    num_decoder_layers: int = 24
+    num_heads: int = 32
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    pad_token_id: int = 0
+    eos_token_id: int = 1
+    decoder_start_token_id: int = 0
+    lora_rank: int = 0
+    lora_alpha: float = 8.0
+
+
+def t5_flan_xl_config(**kw) -> T5Config:
+    return T5Config(**kw)
+
+
+def t5_tiny_config(**kw) -> T5Config:
+    defaults = dict(vocab_size=256, d_model=32, d_kv=8, d_ff=64, num_layers=2,
+                    num_decoder_layers=2, num_heads=4)
+    defaults.update(kw)
+    return T5Config(**defaults)
+
+
+def materialize_encoder_relpos_bias(table: torch.Tensor, length: int,
+                                    num_buckets: int = 32,
+                                    max_distance: int = 128) -> torch.Tensor:
+    """(1, H, N, N) bidirectional bias from the (num_buckets, H) table."""
+    positions = torch.arange(length, device=table.device)
+    return materialize_relpos_bias(table, positions, positions, True,
+                                   num_buckets, max_distance)
+
+
+class T5RelativeBias(nn.Module):
+    """Relative position bias table (fp32), (num_buckets, H)."""
+
+    def __init__(self, cfg: T5Config, bidirectional: bool, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.bidirectional = bidirectional
+        self.rel_embedding = nn.Parameter(torch.zeros(
+            cfg.relative_attention_num_buckets, cfg.num_heads, device=device))
+
+    def forward(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        return materialize_relpos_bias(
+            self.rel_embedding, q_pos, k_pos, self.bidirectional,
+            cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance)
+
+
+class T5Attention(nn.Module):
+    def __init__(self, cfg: T5Config, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        inner = cfg.num_heads * cfg.d_kv
+        kw = dict(bias=False, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+                  device=device, dtype=dtype)
+        self.q = Dense(cfg.d_model, inner, **kw)
+        self.k = Dense(cfg.d_model, inner, **kw)
+        self.v = Dense(cfg.d_model, inner, **kw)
+        self.o = Dense(inner, cfg.d_model, **kw)
+
+    def _heads(self, t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(t.shape[0], t.shape[1], self.cfg.num_heads, self.cfg.d_kv)
+
+    def _attend(self, q, k, v, bias, mask):
+        # Cancel the D^-1/2 inside dot_product_attention: T5 has no scale.
+        out = dot_product_attention(q * (self.cfg.d_kv ** 0.5), k, v,
+                                    bias=bias, mask=mask)
+        return out.reshape(out.shape[0], out.shape[1], -1)
+
+    def forward(self, x, mask=None, position_bias=None):
+        """Full self-attention (encoder)."""
+        out = self._attend(self._heads(self.q(x)), self._heads(self.k(x)),
+                           self._heads(self.v(x)), position_bias, mask)
+        return self.o(out)
+
+    def project_kv(self, kv_states):
+        """Cross-attention K and V, (B, M, H*D) each, computed once."""
+        return self.k(kv_states), self.v(kv_states)
+
+    def decode_self(self, x, cache, position: int, position_bias):
+        """One cached step: write this step's K/V at ``position`` of the
+        (B*K, max_len, H*D) cache in place and attend over the written slots."""
+        cache_k, cache_v = cache
+        n = x.shape[1]
+        cache_k[:, position:position + n] = self.k(x)
+        cache_v[:, position:position + n] = self.v(x)
+        max_len = cache_k.shape[1]
+        valid = (torch.arange(max_len, device=x.device) < position + n)
+        out = self._attend(self._heads(self.q(x)), self._heads(cache_k),
+                           self._heads(cache_v), position_bias,
+                           valid[None, None, None, :])
+        return self.o(out)
+
+    def decode_cross(self, x, kv, mask):
+        """Cross-attention with K/V and ``mask`` at the encoder batch size:
+        beam-expanded query rows are folded into the query length (the K
+        beams of one row share its K/V), keeping the sqrt(d_kv) pre-scale."""
+        k_flat, v_flat = kv
+        b, n, _ = x.shape
+        b_enc = k_flat.shape[0]
+        beams = b // b_enc
+        q = self.q(x).reshape(b_enc, beams * n, self.cfg.num_heads, self.cfg.d_kv)
+        out = self._attend(q, self._heads(k_flat), self._heads(v_flat), None, mask)
+        return self.o(out.reshape(b, n, -1))
+
+
+class T5FeedForward(nn.Module):
+    """Gated exact-GELU FFN: wo(gelu(wi_0 x) * wi_1 x)."""
+
+    def __init__(self, cfg: T5Config, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+                  device=device, dtype=dtype)
+        self.wi_0 = Dense(cfg.d_model, cfg.d_ff, **kw)
+        self.wi_1 = Dense(cfg.d_model, cfg.d_ff, **kw)
+        self.wo = Dense(cfg.d_ff, cfg.d_model, **kw)
+
+    def forward(self, x):
+        return self.wo(F.gelu(self.wi_0(x)) * self.wi_1(x))
+
+
+class T5Block(nn.Module):
+    def __init__(self, cfg: T5Config, has_cross_attention: bool, device=None,
+                 dtype=None):
+        super().__init__()
+        eps = cfg.layer_norm_epsilon
+        self.self_attn_norm = RMSNormFP32(cfg.d_model, eps, device=device)
+        self.self_attention = T5Attention(cfg, device=device, dtype=dtype)
+        if has_cross_attention:
+            self.cross_attn_norm = RMSNormFP32(cfg.d_model, eps, device=device)
+            self.cross_attention = T5Attention(cfg, device=device, dtype=dtype)
+        self.ff_norm = RMSNormFP32(cfg.d_model, eps, device=device)
+        self.ff = T5FeedForward(cfg, device=device, dtype=dtype)
+
+    def forward(self, x, mask, position_bias):
+        """Encoder block."""
+        x = x + self.self_attention(self.self_attn_norm(x), mask, position_bias)
+        return x + self.ff(self.ff_norm(x))
+
+    def decode(self, x, self_cache, position, position_bias, cross_kv, cross_mask):
+        """Decoder block, one cached step."""
+        x = x + self.self_attention.decode_self(self.self_attn_norm(x), self_cache,
+                                                position, position_bias)
+        x = x + self.cross_attention.decode_cross(self.cross_attn_norm(x),
+                                                  cross_kv, cross_mask)
+        return x + self.ff(self.ff_norm(x))
+
+
+class T5Encoder(nn.Module):
+    def __init__(self, cfg: T5Config, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.rel_bias = T5RelativeBias(cfg, bidirectional=True, device=device)
+        self.block = nn.ModuleList([T5Block(cfg, False, device=device, dtype=dtype)
+                                    for _ in range(cfg.num_layers)])
+        self.final_norm = RMSNormFP32(cfg.d_model, cfg.layer_norm_epsilon,
+                                      device=device)
+
+    def forward(self, inputs_embeds, mask=None, position_bias=None):
+        dtype = self.block[0].ff.wo.weight.dtype
+        n = inputs_embeds.shape[1]
+        if position_bias is None:
+            pos = torch.arange(n, device=inputs_embeds.device)
+            position_bias = self.rel_bias(pos, pos)
+        if position_bias.shape[-1] != n:
+            raise ValueError(f"bias length {position_bias.shape[-1]} != {n}")
+        position_bias = position_bias.to(dtype)
+        attn_mask = None if mask is None else mask.bool()[:, None, None, :]
+        x = inputs_embeds.to(dtype)
+        for blk in self.block:
+            x = blk(x, attn_mask, position_bias)
+        return self.final_norm(x)
+
+
+class T5Decoder(nn.Module):
+    def __init__(self, cfg: T5Config, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.rel_bias = T5RelativeBias(cfg, bidirectional=False, device=device)
+        self.block = nn.ModuleList([T5Block(cfg, True, device=device, dtype=dtype)
+                                    for _ in range(cfg.num_decoder_layers)])
+        self.final_norm = RMSNormFP32(cfg.d_model, cfg.layer_norm_epsilon,
+                                      device=device)
+
+    def cross_kv(self, encoder_states):
+        """Every layer's cross-attention (K, V) at the encoder batch size."""
+        return [blk.cross_attention.project_kv(encoder_states) for blk in self.block]
+
+    def init_cache(self, rows: int, max_len: int, dtype, device):
+        """Zeroed self-attention (K, V) caches, (rows, max_len, H*D) each."""
+        inner = self.cfg.num_heads * self.cfg.d_kv
+        return [(torch.zeros(rows, max_len, inner, dtype=dtype, device=device),
+                 torch.zeros(rows, max_len, inner, dtype=dtype, device=device))
+                for _ in self.block]
+
+    def decode_step(self, x, position: int, cache, cross_kv, encoder_mask):
+        dtype = self.block[0].ff.wo.weight.dtype
+        max_len = cache[0][0].shape[1]
+        q_pos = torch.arange(position, position + x.shape[1], device=x.device)
+        k_pos = torch.arange(max_len, device=x.device)
+        position_bias = self.rel_bias(q_pos, k_pos).to(dtype)
+        cross_mask = (None if encoder_mask is None
+                      else encoder_mask.bool()[:, None, None, :])
+        x = x.to(dtype)
+        for blk, self_cache, kv in zip(self.block, cache, cross_kv):
+            x = blk.decode(x, self_cache, position, position_bias, kv, cross_mask)
+        return self.final_norm(x)
+
+
+class T5ForConditionalGeneration(nn.Module):
+    """Encoder-decoder with a shared token embedding and an untied LM head."""
+
+    def __init__(self, cfg: T5Config, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device,
+                                   dtype=dtype)
+        self.encoder = T5Encoder(cfg, device=device, dtype=dtype)
+        self.decoder = T5Decoder(cfg, device=device, dtype=dtype)
+        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, bias=False,
+                             lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+                             device=device, dtype=dtype)
+
+    def encode(self, inputs_embeds, mask=None, position_bias=None):
+        return self.encoder(inputs_embeds, mask=mask, position_bias=position_bias)
+
+    def decode_step(self, tokens, position: int, cache, cross_kv, encoder_mask):
+        """(rows, n) token ids -> (rows, n, vocab) fp32 logits; writes the
+        self-attention caches in place."""
+        x = self.decoder.decode_step(self.shared(tokens), position, cache,
+                                     cross_kv, encoder_mask)
+        return self.lm_head(x).float()

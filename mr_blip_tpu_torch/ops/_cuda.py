@@ -1,0 +1,114 @@
+"""Build and bind the hand-written Hopper kernels in ``csrc/``.
+
+On first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, which is loaded with
+``ctypes``. The library goes to ``mr_blip_tpu_torch/_build/<hash>/``, keyed
+by a hash of the sources and the flags, so an edited source rebuilds and an
+unchanged one is reused. Nothing is imported or built when this module is
+imported: the CPU tests import every module and have no ``nvcc``.
+
+Every C entry returns ``cudaGetLastError()`` after its launch; ``check``
+raises when it is not 0. Kernels launch on the caller's current stream,
+allocate nothing and do not synchronize.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_long
+_F = ctypes.c_float
+
+# C signatures: name -> argtypes (every entry returns a cudaError_t as int).
+_SIGNATURES = {
+    # x, weight, bias, out, rows, d, eps, stream
+    "mrb_layer_norm_bf16": [_P, _P, _P, _P, _L, _I, _F, _P],
+    # qkv, out, B, N, H, D, n_valid, scale, stream
+    "mrb_qkv_packed_attention_bf16": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, bias, kv_mask, out, B, N, M, H, D, scale, stream
+    "mrb_flash_bias_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _F, _P],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into ``_build/<hash>/libmrblip_kernels.so``
+    unless that file exists already; returns its path."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    lib = out_dir / "libmrblip_kernels.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # Build to a temporary name and rename, so a build cut short never
+    # leaves a library that looks complete.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    (out_dir / "ptxas.log").write_text(proc.stderr)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a C entry returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

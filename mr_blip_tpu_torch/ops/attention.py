@@ -1,0 +1,68 @@
+"""Attention core (counterpart of ``mr_blip_tpu/ops/attention.py``).
+
+Every attention site funnels through ``dot_product_attention``, which keeps
+the JAX dispatch rules with "on TPU" read as "tensor on CUDA": long
+(>= 256 query) biased self-attention with a key-only mask goes to the
+biased flash kernel; everything else is ``xla_attention`` in plain torch.
+
+Shapes follow the (batch, length, heads, head_dim) convention.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Below this many query positions the plain version is used.
+_FLASH_MIN_SEQ = 256
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor | None = None,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain attention: fp32 logits and softmax, output in v's dtype.
+
+    ``mask`` is boolean, broadcastable to (B, H, N, M), True = attend;
+    masked logits are filled with ``finfo(float32).min`` as in JAX."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    if mask is not None:
+        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhnm,bmhd->bnhd", probs.to(v.dtype), v)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: torch.Tensor | None = None,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-head attention with the JAX package's backend selection.
+
+    q: (B, N, H, D), scaled inside by D**-0.5; k, v: (B, M, H, D); bias
+    broadcastable to (B, H, N, M); mask boolean, True = attend.
+
+    The biased flash kernel takes a (1, H, N, M) bias, q_len == k_len and at
+    most a key-only (B, 1, 1, M) mask, as in JAX. Its only type is bf16, so
+    a CUDA call of another dtype that meets these rules raises in the
+    kernel's wrapper rather than running plain. The plain mask-free flash
+    kernel of the JAX package is not ported: no call on the generate path
+    reaches it, so that case stays plain here.
+    """
+    k_only_mask = (
+        mask is not None and mask.ndim == 4
+        and mask.shape[1] == 1 and mask.shape[2] == 1
+    )
+    if (
+        q.is_cuda and q.shape[1] >= _FLASH_MIN_SEQ
+        and bias is not None and bias.shape[0] == 1
+        and q.shape[1] == k.shape[1]
+        and (mask is None or k_only_mask)
+    ):
+        from mr_blip_tpu_torch.ops.flash_attention import flash_attention_bias
+
+        kv_mask = None
+        if mask is not None:
+            kv_mask = mask[:, 0, 0, :].expand(q.shape[0], k.shape[1])
+        bias = bias.to(q.dtype).expand(1, q.shape[2], q.shape[1], k.shape[1])
+        return flash_attention_bias(q, k, v, bias.contiguous(), kv_mask)
+    return xla_attention(q, k, v, bias=bias, mask=mask)
