@@ -11,10 +11,13 @@ is nonzero and the final line is not printed:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: nvcc compiles ``mr_blip_tpu_torch/csrc/*.cu`` for sm_90a;
 3. kernel vs plain on the card: each hand kernel against its plain PyTorch
-   version (fp32 math from the same bf16 inputs) at the generate path's
-   shapes and the ragged ones, max |diff| <= 0.02 with no NaN, and both
-   times (CUDA events, median of 10 launches);
-4. main path: ``BLIP2_MR(...).generate`` at full EVA ViT-g + Q-Former +
+   version (fp32 math from the same bf16 inputs) at the main paths' shapes
+   and the ragged ones (2049, 2040 x 2048, 300, a fully masked batch row),
+   with no NaN: forward outputs max |diff| <= 0.02; the biased forward's
+   logsumexp (kernel 5) <= 1e-3; the backward outputs dq, dk, dv and dbias
+   (kernels 6-8) max |diff| <= 0.02 x max |plain| and cosine >= 0.999; and
+   both times (CUDA events, median of 10 launches);
+4. generate path: ``BLIP2_MR(...).generate`` at full EVA ViT-g + Q-Former +
    Flan-T5-XL width with random weights, 3 batches of 4 videos x 60 uint8
    frames; every kernel's launch count must rise by its expected number per
    batch, predictions must parse and beam scores be finite;
@@ -23,15 +26,36 @@ is nonzero and the final line is not printed:
    bf16 on the CPU (plain versions) and on the card (kernels); the T5
    encoder outputs must agree row by row (cosine >= 0.999), and the plain
    path with the bias left out must not (so a kernel that dropped the bias
-   would fail).
+   would fail);
+6. train path: the LoRA step of the full-depth, full-width
+   ``qformer_freeze_lora`` model through ``TrainCtx`` (lr 3e-4, weight
+   decay 0.05, ``accum_grad_iters`` 2, dropouts on) over 4 micro-batches of
+   4 x 60 frames, so 2 optimizer updates; per micro-batch kernels 5, 6 and 8
+   must launch 24 times each (once per encoder layer), kernels 3 and 7 never,
+   LayerNorm 110 and packed QKV 39 times; every loss finite, every LoRA
+   gradient finite and nonzero before each update (weight decay alone
+   would move a LoRA tensor with no gradient), every LoRA tensor changed by
+   each update, every frozen tensor bit-identical; prints
+   seconds per micro-batch (forward / backward / optimizer), peak memory and
+   the trainable parameter count;
+7. gradients, kernel path vs plain path: the depth-2 full-width model (rel-pos
+   table at N(0, 1), T5 query projections at HF T5's init scale), dropouts
+   off, one forward and backward each for ``qformer_freeze_lora``, ``lora``
+   (the Q-Former trains: the LayerNorm backward runs on the card) and
+   ``qformer_freeze`` (the full-finetune backward: the rel-pos table trains
+   and kernel 7 launches once per encoder layer), on the card and on the CPU
+   in bf16; relative loss difference <= 1e-2 and, per trainable tensor,
+   gradient cosine >= 0.99.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last line is {"ok": true, "device": {...}}.
+The line before the last is one JSON object with every kernel's numbers
+(launches: kernels 1-3 from phase 4, 5, 6 and 8 from phase 6, 7 from phase
+7's ``qformer_freeze`` run); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -40,6 +64,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TOL = 0.02  # max |kernel - plain|, as for the TPU kernels (bf16 outputs)
+LSE_TOL = 1e-3  # max |kernel - plain| of the fp32 row logsumexp
+GRAD_REL_TOL = 0.02  # backward outputs: max |kernel - plain| / max |plain|
 COSINE_MIN = 0.999
 N_FRAMES, BATCH, N_BATCHES = 60, 4, 3
 REDUCED_DEPTH = 2  # layers per stack in phase 5
@@ -47,7 +73,24 @@ REDUCED_DEPTH = 2  # layers per stack in phase 5
 # + 1 (ln_vision) + 31 (Q-Former); packed QKV once per ViT block; biased
 # flash once per T5 encoder layer.
 EXPECTED_LAUNCHES = {"layer_norm": 110, "qkv_packed_attention": 39,
-                     "flash_bias_attention": 24}
+                     "flash_bias_attention": 24, "flash_bias_fwd_stats": 0,
+                     "flash_bias_bwd_dq": 0, "flash_bias_bwd_dq_dbias": 0,
+                     "flash_bias_bwd_dkv": 0}
+GENERATE_KERNELS = ("layer_norm", "qkv_packed_attention", "flash_bias_attention")
+# Phase 6, the LoRA train step (published config configs/projects/train/
+# qvh.yaml: task qformer_freeze_lora, init_lr 3e-4, weight_decay 0.05):
+# per micro-batch the forward with statistics, dQ and dK/dV once per T5
+# encoder layer; no no-grad forward and no dbias (the table is frozen).
+TRAIN_TASK, TRAIN_LR, TRAIN_WEIGHT_DECAY = "qformer_freeze_lora", 3e-4, 0.05
+ACCUM, TRAIN_MICRO_BATCHES = 2, 4
+EXPECTED_TRAIN_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_bias_attention=0,
+                               flash_bias_fwd_stats=24, flash_bias_bwd_dq=24,
+                               flash_bias_bwd_dkv=24)
+# Phase 7: kernel path vs plain path gradients, per task.
+GRAD_TASKS = ("qformer_freeze_lora", "lora", "qformer_freeze")
+LOSS_REL_TOL = 1e-2
+GRAD_COSINE_MIN = 0.99
+RELPOS_TABLE = "t5.encoder.rel_bias.rel_embedding"
 
 
 def say(*parts):
@@ -144,26 +187,23 @@ def check_kernels(torch, kernels):
         k, v = randn(b, m, heads, d), randn(b, m, heads, d)
         bias = randn(1, heads, n, m)
         kv_mask = None
-        check_rows = slice(0, b)
         if mask_kind == "tail":
             lengths = torch.tensor([m, m - 1, m - 100, 1500], device=dev)
             kv_mask = (torch.arange(m, device=dev)[None] < lengths[:, None]).to(torch.int8)
         elif mask_kind == "row1_all":
             kv_mask = torch.ones(b, m, dtype=torch.int8, device=dev)
             kv_mask[1] = 0
-            check_rows = slice(0, 1)
         got = fa.flash_attention_bias(q, k, v, bias, kv_mask)
         torch.cuda.synchronize()
-        want = fa._flash_bias_reference(q.float(), k.float(), v.float(),
-                                        bias.float(), kv_mask)
-        require(bool(torch.isfinite(got).all()), f"flash_bias ({b}, {n}x{m}) not finite")
-        err = max_err(torch, got[check_rows], want[check_rows])
+        want = fa._flash_bias_fwd_stats_reference(q.float(), k.float(), v.float(),
+                                                  bias.float(), kv_mask)[0]
+        err = max_err(torch, got, want)
         line = (f"flash_bias ({b}, {n}x{m}, {heads}, {d}) mask {mask_kind}: "
                 f"max|diff| {err:.5f}")
         if flagship:
             fb["ms"] = median_ms(torch, lambda: fa.flash_attention_bias(q, k, v, bias, kv_mask))
             fb["plain_ms"] = median_ms(
-                torch, lambda: fa._flash_bias_reference(q, k, v, bias, kv_mask))
+                torch, lambda: fa._flash_bias_fwd_stats_reference(q, k, v, bias, kv_mask))
             line += f"  kernel {fb['ms']:.4f} ms  plain {fb['plain_ms']:.4f} ms"
         say(line)
         require(err <= TOL, f"flash_bias ({b}, {n}x{m}) mask {mask_kind} off by {err}")
@@ -188,6 +228,94 @@ def check_kernels(torch, kernels):
     torch.cuda.empty_cache()
 
 
+def cosine(torch, got, want):
+    return float(torch.nn.functional.cosine_similarity(
+        got.float().flatten(), want.float().flatten(), dim=0))
+
+
+def check_train_kernels(torch, kernels):
+    """Kernels 5-8 against their plain versions (fp32 math from the same
+    bf16 inputs; the backward kernels get the plain forward's lse and δ, so
+    each is held alone)."""
+    from mr_blip_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    heads, d = 32, 64
+    for b, n, m, mask_kind, flagship in ((4, 2056, 2056, None, True),
+                                         (4, 2049, 2049, "tail", False),
+                                         (4, 2040, 2048, "tail", False),
+                                         (2, 300, 300, None, False),
+                                         (2, 300, 300, "row1_all", False)):
+        q, k, v, dout = randn(b, n, heads, d), randn(b, m, heads, d), \
+            randn(b, m, heads, d), randn(b, n, heads, d)
+        bias = randn(1, heads, n, m)
+        kv_mask = torch.ones(b, m, dtype=torch.int8, device=dev)
+        if mask_kind == "tail":
+            lengths = torch.tensor([m, m - 1, m - 100, 1500], device=dev)
+            kv_mask = (torch.arange(m, device=dev)[None] < lengths[:, None]).to(torch.int8)
+        elif mask_kind == "row1_all":
+            kv_mask[1] = 0
+        f32 = [t.float() for t in (q, k, v, bias)]
+        out_ref, lse_ref = fa._flash_bias_fwd_stats_reference(*f32, kv_mask)
+        delta = torch.einsum("bnhd,bnhd->bhn", dout.float(), out_ref).contiguous()
+        bwd_args = (q, k, v, bias, kv_mask, dout, lse_ref, delta)
+        dq_r, dk_r, dv_r, dbias_r = fa._flash_bias_bwd_reference(
+            *f32, kv_mask, dout.float(), lse_ref, delta)
+        out, lse = fa.flash_bias_fwd_stats(q, k, v, bias, kv_mask)
+        dq6 = fa.flash_bias_bwd_dq(*bwd_args)
+        dq7, dbias7 = fa.flash_bias_bwd_dq_dbias(*bwd_args)
+        dk8, dv8 = fa.flash_bias_bwd_dkv(*bwd_args)
+        torch.cuda.synchronize()
+        shape = f"({b}, {n}x{m}, {heads}, {d}) mask {mask_kind}"
+        err_out = max_err(torch, out, out_ref)
+        err_lse = max_err(torch, lse, lse_ref)
+        say(f"flash_bias_fwd_stats {shape}: out max|diff| {err_out:.5f}, "
+            f"lse max|diff| {err_lse:.6f}")
+        require(err_out <= TOL, f"fwd_stats {shape}: out off by {err_out}")
+        require(err_lse <= LSE_TOL, f"fwd_stats {shape}: lse off by {err_lse}")
+        kernels["flash_bias_fwd_stats"]["max_abs_err"] = max(
+            kernels["flash_bias_fwd_stats"].get("max_abs_err", 0.0), err_out)
+        for key, pairs in (("flash_bias_bwd_dq", (("dq", dq6, dq_r),)),
+                           ("flash_bias_bwd_dq_dbias", (("dq", dq7, dq_r),
+                                                        ("dbias", dbias7, dbias_r))),
+                           ("flash_bias_bwd_dkv", (("dk", dk8, dk_r), ("dv", dv8, dv_r)))):
+            for name, got, want in pairs:
+                err = max_err(torch, got, want)
+                scale = float(want.abs().max())
+                cos = cosine(torch, got, want)
+                say(f"{key} {shape}: {name} max|diff| {err:.5f} (max|plain| "
+                    f"{scale:.4f}), cosine {cos:.6f}")
+                require(err <= GRAD_REL_TOL * scale,
+                        f"{key} {shape}: {name} off by {err} > {GRAD_REL_TOL} x {scale}")
+                require(cos >= COSINE_MIN, f"{key} {shape}: {name} cosine {cos}")
+                kernels[key]["max_abs_err"] = max(kernels[key].get("max_abs_err", 0.0), err)
+        if flagship:
+            plain_bwd = lambda: fa._flash_bias_bwd_reference(  # noqa: E731
+                q, k, v, bias, kv_mask, dout, lse_ref, delta)
+            timed = {
+                "flash_bias_fwd_stats": (
+                    lambda: fa.flash_bias_fwd_stats(q, k, v, bias, kv_mask),
+                    lambda: fa._flash_bias_fwd_stats_reference(q, k, v, bias, kv_mask)),
+                "flash_bias_bwd_dq": (lambda: fa.flash_bias_bwd_dq(*bwd_args), plain_bwd),
+                "flash_bias_bwd_dq_dbias": (
+                    lambda: fa.flash_bias_bwd_dq_dbias(*bwd_args), plain_bwd),
+                "flash_bias_bwd_dkv": (lambda: fa.flash_bias_bwd_dkv(*bwd_args), plain_bwd),
+            }
+            for key, (kernel_fn, plain_fn) in timed.items():
+                kernels[key]["ms"] = median_ms(torch, kernel_fn)
+                kernels[key]["plain_ms"] = median_ms(torch, plain_fn)
+                say(f"{key} {shape}: kernel {kernels[key]['ms']:.4f} ms  "
+                    f"plain {kernels[key]['plain_ms']:.4f} ms")
+        del q, k, v, dout, bias, f32, out_ref, lse_ref, delta, dq_r, dk_r, dv_r, dbias_r
+        del out, lse, dq6, dq7, dbias7, dk8, dv8
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------- phase 4
 def flagship_model(device="cuda"):
     from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
@@ -196,7 +324,7 @@ def flagship_model(device="cuda"):
     return BLIP2_MR(**FLAGSHIP, device=device)
 
 
-def reduced_model(device, init_params=True):
+def reduced_model(device, init_params=True, task=None):
     """The flagship model at full widths, every stack REDUCED_DEPTH deep."""
     import dataclasses
 
@@ -218,7 +346,8 @@ def reduced_model(device, init_params=True):
         T5_CONFIGS = {"flan-t5-xl": t5_config}
 
         def __init__(self):
-            super().__init__(**FLAGSHIP, init_params=False, device=device)
+            super().__init__(**dict(FLAGSHIP, task=task or FLAGSHIP["task"]),
+                             init_params=False, device=device)
             self.qformer_config = dataclasses.replace(self.qformer_config,
                                                       num_layers=REDUCED_DEPTH)
             self.module = Blip2MRModule(
@@ -319,14 +448,15 @@ def kernel_vs_plain_path(torch, wrappers):
     # The random init draws the rel-pos table at N(0, 0.02), too small to
     # move the attention; at N(0, 1) the bias does, so the check sees it.
     state = gpu.state_dict()
-    table = "t5.encoder.rel_bias.rel_embedding"
+    table = RELPOS_TABLE
     gen = torch.Generator(device="cuda").manual_seed(1)
     state[table] = torch.randn(state[table].shape, generator=gen, device="cuda")
     gpu.load_state_dict(state)
     before = {name: w.launches for name, w in wrappers.items()}
     enc_gpu = encoder_outputs(torch, gpu, samples)
     rose = {name: w.launches - before[name] for name, w in wrappers.items()}
-    require(all(rose.values()), f"reduced model skipped a kernel: {rose}")
+    require(all(rose[k] for k in GENERATE_KERNELS),
+            f"reduced model skipped a kernel: {rose}")
     state = {k: v.cpu() for k, v in gpu.state_dict().items()}
     del gpu
     cpu = reduced_model("cpu", init_params=False)
@@ -352,8 +482,208 @@ def kernel_vs_plain_path(torch, wrappers):
             f"{float(cos_nobias.min())}")
 
 
+# --------------------------------------------------------------- phase 6
+def checksums(torch, tensors):
+    """Two integer checksums of each tensor's bits: any changed bit moves
+    at least one of them."""
+    out = []
+    for t in tensors:
+        bits = t.detach().contiguous().view(-1).view(torch.int16 if t.element_size() == 2
+                                                   else torch.int32).long()
+        weights = torch.arange(bits.numel(), device=bits.device) % 7919 + 1
+        out.append((int(bits.sum()), int((bits * weights).sum())))
+    return out
+
+
+def train_path(torch, wrappers):
+    """The LoRA train step at full depth and width: 4 micro-batches of
+    4 x 60 frames, 2 optimizer updates (accum_grad_iters 2), dropouts on."""
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.profile_inference import FLAGSHIP, make_samples
+    from mr_blip_tpu_torch.runners.train_state import TrainCtx
+
+    t0 = time.time()
+    model = BLIP2_MR(**dict(FLAGSHIP, task=TRAIN_TASK), device="cuda")
+    ctx = TrainCtx(model, weight_decay=TRAIN_WEIGHT_DECAY, accum_grad_iters=ACCUM,
+                   seed=0)
+    trainable, total = model.trainable_param_count()
+    named = dict(model.module.named_parameters())
+    lora = {n: p for n, p in named.items() if p.requires_grad}
+    frozen = [p for p in named.values() if not p.requires_grad]
+    require(lora and all("lora_" in n for n in lora), "trainable set is not LoRA-only")
+    frozen_sums = checksums(torch, frozen)
+    torch.cuda.synchronize()
+    say(f"train model built in {time.time() - t0:.1f} s: task {TRAIN_TASK}, "
+        f"{trainable:,} trainable of {total:,} params ({len(lora)} LoRA tensors, fp32)")
+    batches = [model.prepare_mr_batch(make_samples(BATCH, N_FRAMES, seed))
+               for seed in range(TRAIN_MICRO_BATCHES)]
+
+    # Stage clocks: synchronized host time around the loss and the update.
+    clock = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            start = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            clock[name] = time.time() - start
+            return out
+        return run
+
+    def check_grads():
+        start = time.time()
+        missing = [n for n, p in lora.items() if p.grad is None]
+        require(not missing, f"{len(missing)} LoRA tensors got no gradient, "
+                f"e.g. {missing[:3]}")
+        amax = torch.stack([p.grad.abs().amax() for p in lora.values()]).tolist()
+        bad = [n for n, a in zip(lora, amax) if not (math.isfinite(a) and a > 0)]
+        require(not bad, f"{len(bad)} LoRA gradients zero or not finite before "
+                f"the update, e.g. {bad[:3]}")
+        clock["grad_check"] = time.time() - start
+
+    model.loss = timed("forward", model.loss)
+    optimizer_step = timed("optimizer", ctx.optimizer.step)
+    ctx.optimizer.step = lambda *a, **kw: check_grads() or optimizer_step(*a, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    rows, snapshot = [], None
+    for i, batch in enumerate(batches):
+        if i % ACCUM == 0:
+            snapshot = {n: p.detach().clone() for n, p in lora.items()}
+        before = {name: w.launches for name, w in wrappers.items()}
+        clock.clear()
+        ctx.set_lr(TRAIN_LR)
+        start = time.time()
+        loss = ctx.step(batch)
+        torch.cuda.synchronize()
+        step_s = time.time() - start
+        rose = {name: w.launches - before[name] for name, w in wrappers.items()}
+        split = {"forward": clock["forward"], "optimizer": clock.get("optimizer", 0.0)}
+        split["backward"] = (step_s - split["forward"] - split["optimizer"]
+                             - clock.get("grad_check", 0.0))
+        rows.append((step_s, split))
+        say(f"train micro-batch {i}: loss {loss:.5f}  {step_s:.3f} s (forward "
+            f"{split['forward']:.3f}, backward {split['backward']:.3f}, optimizer "
+            f"{split['optimizer']:.4f})  launches {rose}")
+        require(math.isfinite(loss), f"micro-batch {i}: loss {loss}")
+        require(rose == EXPECTED_TRAIN_LAUNCHES, f"micro-batch {i}: launches {rose}, "
+                f"expected {EXPECTED_TRAIN_LAUNCHES}")
+        if (i + 1) % ACCUM == 0:
+            require("grad_check" in clock, f"update {(i + 1) // ACCUM}: gradients "
+                    "not checked")
+            same = [n for n, p in lora.items() if torch.equal(p, snapshot[n])]
+            require(not same, f"update {(i + 1) // ACCUM}: {len(same)} LoRA tensors "
+                    f"unchanged, e.g. {same[:3]}")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    require(ctx.updates == TRAIN_MICRO_BATCHES // ACCUM, f"{ctx.updates} updates")
+    require(checksums(torch, frozen) == frozen_sums, "a frozen tensor changed")
+    steady = rows[1:]
+    mean = {k: statistics.mean(r[1][k] for r in steady) for k in rows[0][1]}
+    say(f"train path: B={BATCH} x {N_FRAMES} frames, {TRAIN_MICRO_BATCHES} micro-batches, "
+        f"{ctx.updates} updates; every LoRA gradient finite and nonzero and every "
+        f"LoRA tensor moved at each update, every frozen tensor bit-identical; "
+        f"steady {statistics.mean(r[0] for r in steady):.3f} s per micro-batch (micro-batches 1-{len(rows) - 1}: forward "
+        f"{mean['forward']:.3f}, backward {mean['backward']:.3f}, optimizer "
+        f"{mean['optimizer']:.4f} averaged over all), first {rows[0][0]:.3f} s; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    del model, ctx, batches, lora, frozen, named, snapshot
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------- phase 7
+def path_gradients(torch, model, batch, task):
+    """Loss and gradients of the trainable tensors, in eval mode (dropouts
+    off). Under ``qformer_freeze`` the JAX policy trains nothing, so the
+    encoder's rel-pos table is set to train: the full-finetune backward
+    (dbias, kernel 7) is what reaches it."""
+    model.set_trainable()
+    if task == "qformer_freeze":
+        model.module.t5.encoder.rel_bias.rel_embedding.requires_grad_(True)
+    loss = model.loss(batch)
+    loss.backward()
+    grads = {n: p.grad.float().cpu() for n, p in model.module.named_parameters()
+             if p.requires_grad}
+    return float(loss.detach()), grads
+
+
+def gradients_kernel_vs_plain(torch, wrappers):
+    from mr_blip_tpu_torch.profile_inference import make_samples
+
+    samples = make_samples(2, 8, seed=7)
+    dbias_launches = 0
+    for task in GRAD_TASKS:
+        gpu = reduced_model("cuda", task=task)
+        cfg = gpu.t5_config
+        # The rel-pos table at N(0, 1), as in phase 5. The T5 query
+        # projections at HF T5's init scale (d_model * d_kv)^-1/2: at the
+        # random init's 0.02, T5's unscaled logits have std ~6, attention is
+        # near one-hot and bf16 rounding flips near-ties: there the plain
+        # path in bf16 against the plain path in fp32 (both on the CPU) gave
+        # gradient cosines down to 0.85.
+        state = gpu.state_dict()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        state[RELPOS_TABLE] = torch.randn(state[RELPOS_TABLE].shape, generator=gen,
+                                          device="cuda")
+        for name in state:
+            if name.startswith("t5.") and name.endswith("attention.q.weight"):
+                state[name] = (torch.randn(state[name].shape, generator=gen, device="cuda")
+                               * (cfg.d_model * cfg.d_kv) ** -0.5)
+        gpu.load_state_dict(state)
+        batch = gpu.prepare_mr_batch(samples)
+        for w in wrappers.values():
+            w.launches = 0
+        loss_gpu, g_gpu = path_gradients(torch, gpu, batch, task)
+        rose = {name: w.launches for name, w in wrappers.items()}
+        state = {k: v.cpu() for k, v in gpu.state_dict().items()}
+        del gpu
+        torch.cuda.empty_cache()
+        cpu = reduced_model("cpu", task=task, init_params=False)
+        cpu.load_state_dict(state)
+        t0 = time.time()
+        loss_cpu, g_cpu = path_gradients(torch, cpu, batch, task)
+        seconds = time.time() - t0
+        require(g_gpu.keys() == g_cpu.keys() and g_gpu, f"{task}: trainable sets differ")
+        # An attention key bias adds the same q·b to every logit of a row,
+        # which the softmax ignores: its gradient is zero but for rounding.
+        compared = [n for n in g_gpu if not n.endswith("key.bias")]
+        cos = {n: cosine(torch, g_gpu[n], g_cpu[n]) for n in compared}
+        worst = min(cos, key=cos.get)
+        rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        say(f"gradients {task} (depth {REDUCED_DEPTH}, full width, 2 x 8 frames): "
+            f"loss {loss_gpu:.5f} vs plain {loss_cpu:.5f} (rel {rel:.2e}); "
+            f"{len(cos)} trainable tensors compared ({len(g_gpu) - len(cos)} key "
+            f"biases left out), cosine min {cos[worst]:.6f} ({worst}), "
+            f"mean {statistics.mean(cos.values()):.6f}; launches "
+            f"{ {k: v for k, v in rose.items() if v} }; CPU run {seconds:.1f} s")
+        require(rel <= LOSS_REL_TOL, f"{task}: loss rel diff {rel}")
+        require(cos[worst] >= GRAD_COSINE_MIN, f"{task}: {worst} cosine {cos[worst]}")
+        require(rose["flash_bias_fwd_stats"] == REDUCED_DEPTH
+                and rose["flash_bias_bwd_dkv"] == REDUCED_DEPTH, f"{task}: {rose}")
+        if task == "qformer_freeze":
+            g = g_gpu[RELPOS_TABLE]
+            require(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0),
+                    "rel-pos table gradient not finite and nonzero")
+            require(rose["flash_bias_bwd_dq_dbias"] == REDUCED_DEPTH
+                    and rose["flash_bias_bwd_dq"] == 0, f"{task}: {rose}")
+            dbias_launches = rose["flash_bias_bwd_dq_dbias"]
+            say(f"  rel-pos table gradient: max|g| {float(g.abs().max()):.4e}, "
+                f"cosine {cos[RELPOS_TABLE]:.6f}")
+        else:
+            require(rose["flash_bias_bwd_dq"] == REDUCED_DEPTH
+                    and rose["flash_bias_bwd_dq_dbias"] == 0, f"{task}: {rose}")
+        if task == "lora":
+            require(rose["layer_norm"] > 0, "lora: LayerNorm kernel not launched")
+        del cpu, g_gpu, g_cpu
+    return dbias_launches
+
+
 # --------------------------------------------------------------------- main
 def main():
+    start = time.time()
     if not (ROOT / "mr_blip_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py: mr_blip_tpu_torch/csrc not found next "
                          "to this script; run it from a checkout of the repo")
@@ -376,10 +706,7 @@ def main():
 
     # phase 2: build
     from mr_blip_tpu_torch.ops import _cuda
-    from mr_blip_tpu_torch.ops.flash_attention import (
-        flash_attention_bias,
-        flash_attention_qkv_packed,
-    )
+    from mr_blip_tpu_torch.ops import flash_attention as fa
     from mr_blip_tpu_torch.ops.layer_norm import fused_layer_norm
 
     t0 = time.time()
@@ -391,31 +718,46 @@ def main():
             say("  ptxas:", line.strip())
 
     wrappers = {"layer_norm": fused_layer_norm,
-                "qkv_packed_attention": flash_attention_qkv_packed,
-                "flash_bias_attention": flash_attention_bias}
-    kernels = {
-        "layer_norm": {"name": "layer_norm", "route": "cuda",
-                       "source": "mr_blip_tpu_torch/csrc/layer_norm.cu",
-                       "replaces": "mr_blip_tpu/ops/layer_norm.py:26"},
-        "qkv_packed_attention": {
-            "name": "qkv_packed_attention", "route": "cuda",
-            "source": "mr_blip_tpu_torch/csrc/qkv_packed_attention.cu",
-            "replaces": "mr_blip_tpu/ops/flash_attention.py:1446"},
-        "flash_bias_attention": {
-            "name": "flash_bias_attention", "route": "cuda",
-            "source": "mr_blip_tpu_torch/csrc/flash_bias_attention.cu",
-            "replaces": "mr_blip_tpu/ops/flash_attention.py:195"},
+                "qkv_packed_attention": fa.flash_attention_qkv_packed,
+                "flash_bias_attention": fa.flash_attention_bias,
+                "flash_bias_fwd_stats": fa.flash_bias_fwd_stats,
+                "flash_bias_bwd_dq": fa.flash_bias_bwd_dq,
+                "flash_bias_bwd_dq_dbias": fa.flash_bias_bwd_dq_dbias,
+                "flash_bias_bwd_dkv": fa.flash_bias_bwd_dkv}
+    fa_src = "mr_blip_tpu/ops/flash_attention.py"
+    sources = {
+        "layer_norm": ("layer_norm.cu", "mr_blip_tpu/ops/layer_norm.py:26"),
+        "qkv_packed_attention": ("qkv_packed_attention.cu", f"{fa_src}:1446"),
+        "flash_bias_attention": ("flash_bias_attention.cu", f"{fa_src}:195"),
+        "flash_bias_fwd_stats": ("flash_bias_attention.cu", f"{fa_src}:421"),
+        "flash_bias_bwd_dq": ("flash_bias_backward.cu", f"{fa_src}:507"),
+        "flash_bias_bwd_dq_dbias": ("flash_bias_backward.cu", f"{fa_src}:545"),
+        "flash_bias_bwd_dkv": ("flash_bias_backward.cu", f"{fa_src}:594"),
     }
+    kernels = {key: {"name": key, "route": "cuda",
+                     "source": f"mr_blip_tpu_torch/csrc/{src}", "replaces": rep}
+               for key, (src, rep) in sources.items()}
 
     # phase 3: kernel vs plain
     check_kernels(torch, kernels)
-    # phase 4: the main path at full width
+    check_train_kernels(torch, kernels)
+    # phase 4: the generate path at full width (kernels 1-3)
     launches = main_path(torch, wrappers)
-    # phase 5: kernel path vs plain path
+    # phase 5: kernel path vs plain path, encoder outputs
     kernel_vs_plain_path(torch, wrappers)
+    # phase 6: the LoRA train path at full width (kernels 5, 6, 8)
+    train_launches = train_path(torch, wrappers)
+    # phase 7: kernel path vs plain path, gradients (kernel 7 under full finetune)
+    dbias_launches = gradients_kernel_vs_plain(torch, wrappers)
 
     for key, entry in kernels.items():
-        entry["launches"] = launches[key]
+        if key in GENERATE_KERNELS:
+            entry["launches"] = launches[key]
+        elif key == "flash_bias_bwd_dq_dbias":
+            entry["launches"] = dbias_launches
+        else:
+            entry["launches"] = train_launches[key]
+    say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
                                "max_abs_err", "ms", "plain_ms")}

@@ -18,7 +18,10 @@
 //    zero-filling the tile rows past the end and giving their keys -inf,
 //    so any N and M are exact;
 //  * fully masked rows keep m = -inf and l = 0 and come out as zeros, as the
-//    Pallas kernels' isfinite guards make them.
+//    Pallas kernels' isfinite guards make them;
+//  * with ``lse`` set, the tile also stores each row's logsumexp m + log(l)
+//    in fp32 (the statistics the backward kernels recompute p from); a
+//    fully masked row stores log(1e-30), as _flash_bias_stats_kernel does.
 // K/V loads are not yet overlapped with the math (no cp.async pipeline);
 // wgmma, TMA and warp specialisation are left for later versions.
 #pragma once
@@ -63,6 +66,7 @@ struct AttnArgs {
   int n_valid_k;                    // keys >= n_valid_k are masked
   int d;
   float scale;
+  float* lse = nullptr;             // (n_q,) row logsumexp out, or null
 };
 
 // Copy rows [row0, row0 + 64) x [0, d) of a bf16 matrix into a (64, DP)
@@ -271,6 +275,11 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
       }
+    }
+    // l_run is the same in the 4 threads of the quad: one stores it.
+    if (a.lse != nullptr && t == 0) {
+      const float m_safe = isfinite(m_run[h]) ? m_run[h] : 0.f;
+      a.lse[qr] = m_safe + logf(fmaxf(l_run[h], 1e-30f));
     }
   }
 }

@@ -20,6 +20,11 @@
 // accumulator, isfinite guards, output acc / max(l, 1e-30)). The ragged
 // tail is exact: key tiles past M are zero-filled and -inf'd in shared
 // memory, never read from device memory. The tile is attention_tile.cuh.
+//
+// Also replaces _flash_bias_stats_kernel (_flash_bias_fwd_stats, the
+// forward of the custom VJP when a gradient is needed): the same launch with
+// an fp32 (B, H, N) logsumexp output, through its own C entry
+// mrb_flash_bias_fwd_stats_bf16. The extra store is 4 bytes per query row.
 #include <cuda_runtime.h>
 
 #include "attention_tile.cuh"
@@ -29,8 +34,8 @@ namespace mrb {
 template <int DP>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bias_kernel(const bf16* q, const bf16* k, const bf16* v,
-                  const bf16* bias, const int8_t* kv_mask, bf16* out, int n,
-                  int m, int h, int d, float scale) {
+                  const bf16* bias, const int8_t* kv_mask, bf16* out,
+                  float* lse, int n, int m, int h, int d, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.z;
   const int head = blockIdx.y;
@@ -49,6 +54,7 @@ flash_bias_kernel(const bf16* q, const bf16* k, const bf16* v,
   a.n_valid_k = m;
   a.d = d;
   a.scale = scale;
+  if (lse != nullptr) a.lse = lse + (long(b) * h + head) * n;
   attention_tile<DP>(a, blockIdx.x * BQ, smem);
 }
 
@@ -56,8 +62,8 @@ template <int DP>
 struct FlashBiasLaunch {
   static cudaError_t run(const bf16* q, const bf16* k, const bf16* v,
                          const bf16* bias, const int8_t* kv_mask, bf16* out,
-                         int b, int n, int m, int h, int d, float scale,
-                         cudaStream_t stream) {
+                         float* lse, int b, int n, int m, int h, int d,
+                         float scale, cudaStream_t stream) {
     const size_t bytes = TileLayout<DP>::bytes;
     cudaError_t err = cudaFuncSetAttribute(
         flash_bias_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -65,19 +71,19 @@ struct FlashBiasLaunch {
     if (err != cudaSuccess) return err;
     dim3 grid((n + BQ - 1) / BQ, h, b);
     flash_bias_kernel<DP><<<grid, NTHREADS, bytes, stream>>>(
-        q, k, v, bias, kv_mask, out, n, m, h, d, scale);
+        q, k, v, bias, kv_mask, out, lse, n, m, h, d, scale);
     return cudaGetLastError();
   }
 };
 
 }  // namespace mrb
 
-extern "C" int mrb_flash_bias_attention_bf16(const void* q, const void* k,
-                                             const void* v, const void* bias,
-                                             const void* kv_mask, void* out,
-                                             int b, int n, int m, int h,
-                                             int d, float scale,
-                                             void* stream) {
+namespace {
+
+int launch_flash_bias(const void* q, const void* k, const void* v,
+                      const void* bias, const void* kv_mask, void* out,
+                      float* lse, int b, int n, int m, int h, int d,
+                      float scale, void* stream) {
   if (b <= 0 || n <= 0 || m <= 0 || h <= 0 || b > 65535 || h > 65535) {
     return int(cudaErrorInvalidValue);
   }
@@ -85,6 +91,31 @@ extern "C" int mrb_flash_bias_attention_bf16(const void* q, const void* k,
   return int(mrb::dispatch_head_dim<mrb::FlashBiasLaunch>(
       d, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(bias),
-      static_cast<const int8_t*>(kv_mask), static_cast<bf16*>(out), b, n, m,
-      h, d, scale, static_cast<cudaStream_t>(stream)));
+      static_cast<const int8_t*>(kv_mask), static_cast<bf16*>(out), lse, b,
+      n, m, h, d, scale, static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+extern "C" int mrb_flash_bias_attention_bf16(const void* q, const void* k,
+                                             const void* v, const void* bias,
+                                             const void* kv_mask, void* out,
+                                             int b, int n, int m, int h,
+                                             int d, float scale,
+                                             void* stream) {
+  return launch_flash_bias(q, k, v, bias, kv_mask, out, nullptr, b, n, m, h,
+                           d, scale, stream);
+}
+
+// As above, plus the (B, H, N) fp32 row logsumexp in `lse`.
+extern "C" int mrb_flash_bias_fwd_stats_bf16(const void* q, const void* k,
+                                             const void* v, const void* bias,
+                                             const void* kv_mask, void* out,
+                                             void* lse, int b, int n, int m,
+                                             int h, int d, float scale,
+                                             void* stream) {
+  if (lse == nullptr) return int(cudaErrorInvalidValue);
+  return launch_flash_bias(q, k, v, bias, kv_mask, out,
+                           static_cast<float*>(lse), b, n, m, h, d, scale,
+                           stream);
 }

@@ -1,1 +1,1 @@
-"""The BLIP2-MR float generate path: EVA ViT-g, Q-Former, Flan-T5."""
+"""The BLIP2-MR float generate and train paths: EVA ViT-g, Q-Former, Flan-T5."""

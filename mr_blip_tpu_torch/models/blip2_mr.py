@@ -1,15 +1,18 @@
-"""BLIP2-MR host wrapper, generate path (counterpart of
+"""BLIP2-MR host wrapper, generate and train paths (counterpart of
 ``mr_blip_tpu/models/blip2_mr.py``).
 
 ``BLIP2_MR(...).generate(samples)`` takes uint8 (or float) video plus query
 strings and returns prediction / raw_prediction / answer / qid / duration,
-as the JAX package's wrapper does. Strings, tokenization, timestamp
-formatting and the interleave plan run on the host; every tensor op runs in
-PyTorch on ``device``.
+as the JAX package's wrapper does. ``model(samples)`` returns ``{"loss"}``,
+the teacher-forced span loss against ``samples["relevant_windows"]``;
+``runners/train_state.py::TrainCtx`` drives training steps. Strings,
+tokenization, timestamp formatting and the interleave plan run on the host;
+every tensor op runs in PyTorch on ``device``.
 
 Task-string flags supported here: ``lora`` (LoRA r=8 on every T5 Linear),
-``add_duration`` and ``no_task_prompt``. Training, the QA two-stage
-pipeline, the non-interleaved prompt and int8 are not ported yet.
+``qformer_freeze``, ``add_duration`` and ``no_task_prompt``. The QA
+two-stage pipeline, the non-interleaved prompt and int8 are not ported yet.
+``train()``/``eval()`` switch every dropout (eval is the default).
 """
 
 from __future__ import annotations
@@ -81,7 +84,8 @@ class BLIP2_MR:
         vocab_size: int | None = None,
         device: str | torch.device = "cpu",
     ):
-        """``init_params`` draws random weights on ``device`` from ``seed``."""
+        """``init_params`` draws random weights on ``device`` from ``seed``.
+        The ViT is frozen (``freeze_vit: True`` in every published config)."""
         if "only_frames" in task or "QA" in task:
             raise NotImplementedError(f"task {task!r}: only the interleaved "
                                       "moment-retrieval generate path is ported")
@@ -144,14 +148,64 @@ class BLIP2_MR:
         return self.module.state_dict()
 
     def load_state_dict(self, state_dict, strict: bool = True):
-        """Load weights (e.g. from ``models/convert.py::state_dict_from_jax``);
-        clears the per-length encoder bias cache."""
+        """Load weights (e.g. from ``models/convert.py::state_dict_from_jax``)
+        into the tensors as they are stored (fp32 trainable, compute-dtype
+        frozen); clears the per-length encoder bias cache."""
         self._enc_bias_cache.clear()
         return self.module.load_state_dict(state_dict, strict=strict)
 
+    def clear_bias_cache(self):
+        """Drop the cached encoder biases (after the rel-pos table changed)."""
+        self._enc_bias_cache.clear()
+
+    def trainable_mask(self) -> Dict[str, bool]:
+        """Parameter name -> trains, by the JAX package's policy with the
+        ViT frozen: in the T5 only ``lora_a``/``lora_b`` train, and
+        only under a ``lora`` task; the Q-Former, ``t5_proj`` and
+        ``ln_vision`` train unless the task has ``qformer_freeze``."""
+        qformer_frozen = "qformer_freeze" in self.task
+
+        def trains(name: str) -> bool:
+            top = name.split(".")[0]
+            if top == "t5":
+                return self.use_lora and "lora_" in name
+            if top in ("qformer", "t5_proj", "ln_vision"):
+                return not qformer_frozen
+            return False
+
+        return {name: trains(name) for name, _ in self.module.named_parameters()}
+
+    def set_trainable(self):
+        """``requires_grad`` by ``trainable_mask``; trainable tensors become
+        fp32 master weights (cast to the compute dtype at use), frozen ones
+        stay as stored."""
+        mask = self.trainable_mask()
+        for name, p in self.module.named_parameters():
+            if mask[name] and p.is_floating_point():
+                p.data = p.data.float()
+            p.requires_grad_(mask[name])
+
+    def trainable_param_count(self) -> tuple[int, int]:
+        """(trainable, total) parameter counts."""
+        mask = self.trainable_mask()
+        params = dict(self.module.named_parameters())
+        total = sum(p.numel() for p in params.values())
+        return sum(params[n].numel() for n, m in mask.items() if m), total
+
+    def train(self, mode: bool = True):
+        """Train mode turns every dropout on; ``eval()`` off."""
+        self.module.train(mode)
+        return self
+
+    def eval(self):
+        return self.train(False)
+
     # ------------------------------------------------------ host batch prep
-    def prepare_mr_batch(self, samples: Dict[str, Any]) -> Dict[str, Any]:
-        """Strings + sampling metadata -> padded numpy arrays + gather plan."""
+    def prepare_mr_batch(self, samples: Dict[str, Any],
+                         need_targets: bool = True) -> Dict[str, Any]:
+        """Strings + sampling metadata -> padded numpy arrays + gather plan;
+        with ``need_targets`` and ``relevant_windows`` in the samples, also
+        the target ids and mask, padded to a multiple of 8."""
         video = np.asarray(samples["video"])
         if video.dtype != np.uint8:
             video = video.astype(np.float32)
@@ -177,7 +231,7 @@ class BLIP2_MR:
         text_len = _bucket(text_enc.input_ids.shape[1])
         plan = build_interleave_plan(tok, fmt_ts, fmt_dur,
                                      self.module.tokens_per_frame)
-        return {
+        batch = {
             "frames": video,
             "end_ids": end_enc.input_ids,
             "end_mask": end_enc.attention_mask,
@@ -188,6 +242,13 @@ class BLIP2_MR:
             "src_idx": plan.src_idx,
             "int_mask": plan.attn_mask,
         }
+        if need_targets and "relevant_windows" in samples:
+            target = tok(list(samples["relevant_windows"]), truncation=True,
+                         max_length=self.max_txt_len)
+            target_len = _bucket(target.input_ids.shape[1], 8)
+            batch["target_ids"] = _pad_to(target.input_ids, target_len)
+            batch["target_mask"] = _pad_to(target.attention_mask, target_len)
+        return batch
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -244,15 +305,45 @@ class BLIP2_MR:
             eos_token_id=cfg.eos_token_id, pad_token_id=cfg.pad_token_id,
             decoder_start_token_id=cfg.decoder_start_token_id, device=enc.device)
 
+    def loss(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """Teacher-forced span loss of a ``prepare_mr_batch`` batch (the
+        JAX ``_loss_fn``). The encoder bias comes from the per-length cache
+        while the rel-pos table is frozen, and is computed in the graph from
+        the table when it trains."""
+        tensors = self._to_device(batch)
+        table = self.module.t5.encoder.rel_bias.rel_embedding
+        enc_bias = None if table.requires_grad else self._encoder_bias_for(batch)
+        embeds, attn = self.module.assemble_encoder_input(
+            self.frames_to_t5(tensors), tensors["time_ids"], tensors["src_type"],
+            tensors["src_idx"], tensors["int_mask"], tensors["end_ids"],
+            tensors["end_mask"], tensors["text_ids"], tensors["text_mask"])
+        loss, _ = self.module.loss_from_encoder_input(
+            embeds, attn, tensors["target_ids"], tensors["target_mask"],
+            position_bias=enc_bias)
+        return loss
+
     # ------------------------------------------------------------- task API
+    def forward(self, samples) -> Dict[str, Any]:
+        """``{"loss": scalar tensor}`` on the samples' relevant_windows."""
+        return {"loss": self.loss(self.prepare_mr_batch(samples))}
+
+    __call__ = forward
+
     @torch.inference_mode()
     def generate_dispatch(self, samples) -> Dict[str, Any]:
-        """Host prep + device work; pair with ``generate_collect``."""
-        batch = self.prepare_mr_batch(samples)
+        """Host prep + device work; pair with ``generate_collect``. Runs in
+        eval mode (every dropout off, as the JAX generate is
+        deterministic) and restores the module's mode after."""
+        batch = self.prepare_mr_batch(samples, need_targets=False)
         tensors = self._to_device(batch)
         enc_bias = self._encoder_bias_for(batch)
-        enc, attn = self.encode_t5(tensors, self.frames_to_t5(tensors), enc_bias)
-        seqs, scores = self.decode(enc, attn)
+        training = self.module.training
+        self.module.eval()
+        try:
+            enc, attn = self.encode_t5(tensors, self.frames_to_t5(tensors), enc_bias)
+            seqs, scores = self.decode(enc, attn)
+        finally:
+            self.module.train(training)
         return {"seqs": seqs, "scores": scores, "samples": samples}
 
     def generate_collect(self, handle) -> Dict[str, Any]:

@@ -17,7 +17,12 @@ from mr_blip_tpu_torch.models.eva_vit import EvaViT, ViTConfig
 from mr_blip_tpu_torch.models.layers import Dense, LayerNormFP32
 from mr_blip_tpu_torch.models.prompt_assembly import interleave_on_device
 from mr_blip_tpu_torch.models.qformer import QFormer, QFormerConfig
-from mr_blip_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
+from mr_blip_tpu_torch.models.t5 import (
+    T5Config,
+    T5ForConditionalGeneration,
+    cross_entropy_lm_loss,
+    shift_right,
+)
 
 # CLIP normalization of the reference processors (mr_blip_tpu's
 # processors/video_processors.py).
@@ -63,14 +68,17 @@ class Blip2MRModule(nn.Module):
         """(B, T, H, W, C) frames -> (B, T*n, d_model) T5 tokens.
 
         uint8 frames are CLIP-normalized here, in the compute dtype, as the
-        JAX package does on device."""
+        JAX package does on device. The ViT is frozen and runs without
+        building a graph (the JAX package's stop-gradient on its output)."""
         b, t = frames.shape[:2]
         cdt = self.compute_dtype
         if frames.dtype == torch.uint8:
             mean = torch.tensor(CLIP_MEAN, dtype=cdt, device=frames.device) * 255.0
             std = torch.tensor(CLIP_STD, dtype=cdt, device=frames.device) * 255.0
             frames = (frames.to(cdt) - mean) / std
-        image_embeds = self.visual_encoder(frames.reshape((b * t,) + frames.shape[2:]))
+        flat = frames.reshape((b * t,) + frames.shape[2:])
+        with torch.no_grad():
+            image_embeds = self.visual_encoder(flat)
         image_embeds = self.ln_vision(image_embeds)
         q = self.t5_proj(self.qformer(image_embeds))
         return q.reshape(b, t * q.shape[1], self.t5_config.d_model)
@@ -91,3 +99,18 @@ class Blip2MRModule(nn.Module):
     def encode(self, inputs_embeds, attn_mask, position_bias=None):
         return self.t5.encode(inputs_embeds, mask=attn_mask,
                               position_bias=position_bias)
+
+    def loss_from_encoder_input(self, inputs_embeds, attn_mask, target_ids,
+                                target_mask, position_bias=None):
+        """Teacher-forced span LM loss -> (loss, fp32 logits): pad targets
+        become -100 labels, the decoder input is the labels shifted right."""
+        cfg = self.t5_config
+        labels = torch.where(target_ids == cfg.pad_token_id,
+                             torch.full_like(target_ids, -100), target_ids)
+        decoder_input_ids = shift_right(labels, cfg.decoder_start_token_id,
+                                        cfg.pad_token_id)
+        enc = self.t5.encode(inputs_embeds, mask=attn_mask,
+                             position_bias=position_bias)
+        logits = self.t5.decode(decoder_input_ids, enc, decoder_mask=target_mask,
+                                encoder_mask=attn_mask)
+        return cross_entropy_lm_loss(logits, labels, target_mask), logits

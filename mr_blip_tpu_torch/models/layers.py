@@ -1,9 +1,15 @@
 """Shared building blocks with an explicit precision policy (counterpart of
 ``mr_blip_tpu/models/layers.py``).
 
-Policy: matmuls run in the module's compute dtype (bf16 on the card),
-LayerNorm and RMSNorm reduce in fp32 whatever the input dtype, and every
-norm keeps fp32 parameters.
+Policy: matmuls run in the module's compute dtype (bf16 on the card), every
+weight is cast to it at use, LayerNorm and RMSNorm reduce in fp32 whatever
+the input dtype, and every norm keeps fp32 parameters. Weights are built in
+the compute dtype; training turns the trainable ones to fp32 master copies
+(``BLIP2_MR.set_trainable``), as the JAX package keeps fp32 params.
+
+Dropout draws its keep masks from an explicit ``torch.Generator``, set on
+every dropout module of a tree by ``set_dropout_generator``; it is active
+in train mode only.
 """
 
 from __future__ import annotations
@@ -15,22 +21,68 @@ from torch import nn
 from mr_blip_tpu_torch.ops.layer_norm import _ln_reference, fused_layer_norm
 
 
-class Dense(nn.Linear):
-    """``nn.Linear`` computing in its weight's dtype, with an optional LoRA
-    delta. The weight is stored in the compute dtype (bf16 on the card), so
-    the JAX package's cast of fp32 params at every use is done once, at load.
+class Dropout(nn.Module):
+    """Inverted dropout (``flax.linen.Dropout``): keep with probability
+    1 - rate and scale by 1 / (1 - rate). Identity in eval mode or at
+    rate 0. ``rate`` is the attention-probability rate for the callers that
+    pass it to ``dot_product_attention`` (read ``active_rate``)."""
 
-    With ``lora_rank > 0`` the layer adds ``x @ lora_a @ lora_b *
-    (alpha / rank)`` (JAX layout: ``lora_a`` is (in, r), ``lora_b`` (r, out)),
-    as the reference applies LoRA r=8, alpha=8 to every T5 Linear.
-    Inference only: LoRA dropout is not applied.
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    @property
+    def active_rate(self) -> float:
+        return self.rate if self.training else 0.0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rate = self.active_rate
+        if rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < 1.0 - rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class DropPath(Dropout):
+    """Stochastic depth (timm ``drop_path``): drops a whole residual branch
+    per sample with probability ``rate``, survivors scaled by 1/(1-rate)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rate = self.active_rate
+        if rate == 0.0:
+            return x
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        keep = torch.rand(shape, generator=self.generator,
+                          device=x.device) < 1.0 - rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def set_dropout_generator(root: nn.Module, generator: torch.Generator | None):
+    """Make every dropout module under ``root`` draw from ``generator``."""
+    for module in root.modules():
+        if isinstance(module, Dropout):
+            module.generator = generator
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` whatever its weights are stored
+    in (bf16 frozen weights, fp32 trainable ones), with an optional LoRA
+    delta.
+
+    With ``lora_rank > 0`` the layer adds ``dropout(x) @ lora_a @ lora_b *
+    (alpha / rank)`` (JAX layout: ``lora_a`` is (in, r), ``lora_b`` (r,
+    out)), as the reference applies LoRA r=8, alpha=8 to every T5 Linear;
+    the LoRA dropout (``lora_dropout``) acts in train mode only.
     """
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  lora_rank: int = 0, lora_alpha: float = 8.0,
-                 device=None, dtype=None):
+                 lora_dropout: float = 0.0, device=None, dtype=None):
         super().__init__(in_features, out_features, bias=bias, device=device,
                          dtype=dtype)
+        self.compute_dtype = self.weight.dtype
         self.lora_rank = lora_rank
         self.lora_scaling = lora_alpha / lora_rank if lora_rank else 0.0
         if lora_rank:
@@ -38,12 +90,16 @@ class Dense(nn.Linear):
                                                    device=device, dtype=dtype))
             self.lora_b = nn.Parameter(torch.zeros(lora_rank, out_features,
                                                    device=device, dtype=dtype))
+            self.lora_dropout = Dropout(lora_dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
-        y = F.linear(x, self.weight, self.bias)
+        cdt = self.compute_dtype
+        x = x.to(cdt)
+        y = F.linear(x, self.weight.to(cdt),
+                     None if self.bias is None else self.bias.to(cdt))
         if self.lora_rank:
-            y = y + (x @ self.lora_a) @ self.lora_b * self.lora_scaling
+            h = self.lora_dropout(x)
+            y = y + (h @ self.lora_a.to(cdt)) @ self.lora_b.to(cdt) * self.lora_scaling
         return y
 
 

@@ -4,7 +4,10 @@
 BERT-base geometry: 12 post-LN layers, d=768, 12 heads, LN eps 1e-12,
 cross-attention to the 1408-d ViT tokens in every second layer (0, 2, ...),
 and only the query FFN. The 32 query tokens pass the embeddings LayerNorm
-before the stack.
+(and dropout) before the stack. In train mode, ``dropout`` acts on the
+embeddings, the attention probabilities, and each attention and FFN output
+before its residual LayerNorm, as in the reference, even with the Q-Former
+frozen.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mr_blip_tpu_torch.models.layers import Dense, LayerNormFP32
+from mr_blip_tpu_torch.models.layers import Dense, Dropout, LayerNormFP32
 from mr_blip_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -29,6 +32,7 @@ class QFormerConfig:
     cross_attention_freq: int = 2
     num_query_tokens: int = 32
     layer_norm_eps: float = 1e-12
+    dropout: float = 0.1
 
 
 def qformer_base_config(encoder_width: int = 1408, num_query_tokens: int = 32):
@@ -53,6 +57,8 @@ class QFormerAttention(nn.Module):
         self.value = Dense(kv_width, h, device=device, dtype=dtype)
         self.output = Dense(h, h, device=device, dtype=dtype)
         self.output_norm = LayerNormFP32(h, cfg.layer_norm_eps, device=device)
+        self.attn_dropout = Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, kv_states=None):
         cfg = self.cfg
@@ -63,8 +69,10 @@ class QFormerAttention(nn.Module):
         hd = cfg.hidden_size // cfg.num_heads
         out = dot_product_attention(q.reshape(b, n, cfg.num_heads, hd),
                                     k.reshape(b, m, cfg.num_heads, hd),
-                                    v.reshape(b, m, cfg.num_heads, hd))
-        out = self.output(out.reshape(b, n, cfg.hidden_size))
+                                    v.reshape(b, m, cfg.num_heads, hd),
+                                    dropout_rate=self.attn_dropout.active_rate,
+                                    generator=self.attn_dropout.generator)
+        out = self.dropout(self.output(out.reshape(b, n, cfg.hidden_size)))
         return self.output_norm(x + out)
 
 
@@ -82,12 +90,13 @@ class QFormerLayer(nn.Module):
         self.output_query = Dense(cfg.intermediate_size, h, device=device,
                                   dtype=dtype)
         self.output_query_norm = LayerNormFP32(h, cfg.layer_norm_eps, device=device)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, encoder_states):
         x = self.self_attention(x)
         if self.cross_attention is not None:
             x = self.cross_attention(x, kv_states=encoder_states)
-        y = self.output_query(F.gelu(self.intermediate_query(x)))
+        y = self.dropout(self.output_query(F.gelu(self.intermediate_query(x))))
         return self.output_query_norm(x + y)
 
 
@@ -102,6 +111,7 @@ class QFormer(nn.Module):
                         dtype=dtype))
         self.embeddings_norm = LayerNormFP32(cfg.hidden_size, cfg.layer_norm_eps,
                                              device=device)
+        self.dropout = Dropout(cfg.dropout)
         self.layer = nn.ModuleList([
             QFormerLayer(cfg, i % cfg.cross_attention_freq == 0, device=device,
                          dtype=dtype)
@@ -111,7 +121,7 @@ class QFormer(nn.Module):
     def forward(self, encoder_states):
         b = encoder_states.shape[0]
         x = self.query_tokens.expand(b, -1, -1).to(encoder_states.dtype)
-        x = self.embeddings_norm(x)
+        x = self.dropout(self.embeddings_norm(x))
         for layer in self.layer:
             x = layer(x, encoder_states)
         return x

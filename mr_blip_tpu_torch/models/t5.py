@@ -1,5 +1,4 @@
-"""T5 encoder-decoder, float inference path (counterpart of
-``mr_blip_tpu/models/t5.py``).
+"""T5 encoder-decoder, float path (counterpart of ``mr_blip_tpu/models/t5.py``).
 
 Flan-T5 geometry: relative-position-bucket attention bias (computed by the
 first layer's table and shared by every layer), RMSNorm, gated exact-GELU
@@ -11,6 +10,13 @@ Decoding keeps a static self-attention cache per layer, (B*K, max_len,
 H*D) for K and for V, written in place at the step's position, and the
 cross-attention K/V once per batch row (B, M, H*D): the K beams of a row
 share them, folded into the query length at attention time.
+
+Training uses the teacher-forced, uncached decoder (``decode``), with
+dropout at the JAX package's places in train mode: the encoder and decoder
+inputs and final outputs, every residual branch, the FFN hidden state and
+the LoRA inputs (attention weights too with ``attn_weight_dropout``).
+When the encoder's rel-pos table trains, its bias is computed in the graph
+and the biased flash kernel's backward emits dbias for it.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mr_blip_tpu_torch.models.layers import Dense, RMSNormFP32
+from mr_blip_tpu_torch.models.layers import Dense, Dropout, RMSNormFP32
 from mr_blip_tpu_torch.ops.attention import dot_product_attention
 from mr_blip_tpu_torch.ops.relpos import materialize_relpos_bias
 
@@ -37,12 +43,17 @@ class T5Config:
     num_heads: int = 32
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
+    dropout_rate: float = 0.1
     layer_norm_epsilon: float = 1e-6
     pad_token_id: int = 0
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
     lora_rank: int = 0
     lora_alpha: float = 8.0
+    lora_dropout: float = 0.05
+    # HF T5 also drops the attention weights in training; off by default in
+    # the JAX package (it forces the plain attention path).
+    attn_weight_dropout: bool = False
 
 
 def t5_flan_xl_config(**kw) -> T5Config:
@@ -51,7 +62,7 @@ def t5_flan_xl_config(**kw) -> T5Config:
 
 def t5_tiny_config(**kw) -> T5Config:
     defaults = dict(vocab_size=256, d_model=32, d_kv=8, d_ff=64, num_layers=2,
-                    num_decoder_layers=2, num_heads=4)
+                    num_decoder_layers=2, num_heads=4, dropout_rate=0.0)
     defaults.update(kw)
     return T5Config(**defaults)
 
@@ -88,25 +99,31 @@ class T5Attention(nn.Module):
         self.cfg = cfg
         inner = cfg.num_heads * cfg.d_kv
         kw = dict(bias=False, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
-                  device=device, dtype=dtype)
+                  lora_dropout=cfg.lora_dropout, device=device, dtype=dtype)
         self.q = Dense(cfg.d_model, inner, **kw)
         self.k = Dense(cfg.d_model, inner, **kw)
         self.v = Dense(cfg.d_model, inner, **kw)
         self.o = Dense(inner, cfg.d_model, **kw)
+        self.attn_dropout = Dropout(cfg.dropout_rate if cfg.attn_weight_dropout
+                                    else 0.0)
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
         return t.reshape(t.shape[0], t.shape[1], self.cfg.num_heads, self.cfg.d_kv)
 
     def _attend(self, q, k, v, bias, mask):
         # Cancel the D^-1/2 inside dot_product_attention: T5 has no scale.
-        out = dot_product_attention(q * (self.cfg.d_kv ** 0.5), k, v,
-                                    bias=bias, mask=mask)
+        out = dot_product_attention(
+            q * (self.cfg.d_kv ** 0.5), k, v, bias=bias, mask=mask,
+            dropout_rate=self.attn_dropout.active_rate,
+            generator=self.attn_dropout.generator)
         return out.reshape(out.shape[0], out.shape[1], -1)
 
-    def forward(self, x, mask=None, position_bias=None):
-        """Full self-attention (encoder)."""
-        out = self._attend(self._heads(self.q(x)), self._heads(self.k(x)),
-                           self._heads(self.v(x)), position_bias, mask)
+    def forward(self, x, mask=None, position_bias=None, kv_states=None):
+        """Uncached attention: self-attention, or cross-attention over
+        ``kv_states``."""
+        kv = x if kv_states is None else kv_states
+        out = self._attend(self._heads(self.q(x)), self._heads(self.k(kv)),
+                           self._heads(self.v(kv)), position_bias, mask)
         return self.o(out)
 
     def project_kv(self, kv_states):
@@ -141,18 +158,19 @@ class T5Attention(nn.Module):
 
 
 class T5FeedForward(nn.Module):
-    """Gated exact-GELU FFN: wo(gelu(wi_0 x) * wi_1 x)."""
+    """Gated exact-GELU FFN: wo(dropout(gelu(wi_0 x) * wi_1 x))."""
 
     def __init__(self, cfg: T5Config, device=None, dtype=None):
         super().__init__()
         kw = dict(bias=False, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
-                  device=device, dtype=dtype)
+                  lora_dropout=cfg.lora_dropout, device=device, dtype=dtype)
         self.wi_0 = Dense(cfg.d_model, cfg.d_ff, **kw)
         self.wi_1 = Dense(cfg.d_model, cfg.d_ff, **kw)
         self.wo = Dense(cfg.d_ff, cfg.d_model, **kw)
+        self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x):
-        return self.wo(F.gelu(self.wi_0(x)) * self.wi_1(x))
+        return self.wo(self.dropout(F.gelu(self.wi_0(x)) * self.wi_1(x)))
 
 
 class T5Block(nn.Module):
@@ -167,14 +185,21 @@ class T5Block(nn.Module):
             self.cross_attention = T5Attention(cfg, device=device, dtype=dtype)
         self.ff_norm = RMSNormFP32(cfg.d_model, eps, device=device)
         self.ff = T5FeedForward(cfg, device=device, dtype=dtype)
+        self.dropout = Dropout(cfg.dropout_rate)
 
-    def forward(self, x, mask, position_bias):
-        """Encoder block."""
-        x = x + self.self_attention(self.self_attn_norm(x), mask, position_bias)
-        return x + self.ff(self.ff_norm(x))
+    def forward(self, x, mask, position_bias, encoder_states=None,
+                cross_mask=None):
+        """Uncached block: encoder, or teacher-forced decoder when
+        ``encoder_states`` is given."""
+        x = x + self.dropout(self.self_attention(self.self_attn_norm(x), mask,
+                                                 position_bias))
+        if encoder_states is not None:
+            x = x + self.dropout(self.cross_attention(
+                self.cross_attn_norm(x), cross_mask, kv_states=encoder_states))
+        return x + self.dropout(self.ff(self.ff_norm(x)))
 
     def decode(self, x, self_cache, position, position_bias, cross_kv, cross_mask):
-        """Decoder block, one cached step."""
+        """Decoder block, one cached step (inference: no dropout)."""
         x = x + self.self_attention.decode_self(self.self_attn_norm(x), self_cache,
                                                 position, position_bias)
         x = x + self.cross_attention.decode_cross(self.cross_attn_norm(x),
@@ -191,9 +216,12 @@ class T5Encoder(nn.Module):
                                     for _ in range(cfg.num_layers)])
         self.final_norm = RMSNormFP32(cfg.d_model, cfg.layer_norm_epsilon,
                                       device=device)
+        self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, inputs_embeds, mask=None, position_bias=None):
-        dtype = self.block[0].ff.wo.weight.dtype
+        """``position_bias`` None: computed here from the table (in the
+        graph, so a trained table gets its gradient)."""
+        dtype = self.block[0].ff.wo.compute_dtype
         n = inputs_embeds.shape[1]
         if position_bias is None:
             pos = torch.arange(n, device=inputs_embeds.device)
@@ -202,10 +230,10 @@ class T5Encoder(nn.Module):
             raise ValueError(f"bias length {position_bias.shape[-1]} != {n}")
         position_bias = position_bias.to(dtype)
         attn_mask = None if mask is None else mask.bool()[:, None, None, :]
-        x = inputs_embeds.to(dtype)
+        x = self.dropout(inputs_embeds.to(dtype))
         for blk in self.block:
             x = blk(x, attn_mask, position_bias)
-        return self.final_norm(x)
+        return self.dropout(self.final_norm(x))
 
 
 class T5Decoder(nn.Module):
@@ -217,6 +245,27 @@ class T5Decoder(nn.Module):
                                     for _ in range(cfg.num_decoder_layers)])
         self.final_norm = RMSNormFP32(cfg.d_model, cfg.layer_norm_epsilon,
                                       device=device)
+        self.dropout = Dropout(cfg.dropout_rate)
+
+    def forward(self, inputs_embeds, encoder_states, decoder_mask=None,
+                encoder_mask=None):
+        """Teacher-forced, uncached: causal self-attention with the
+        unidirectional rel-pos bias and ``decoder_mask`` over the keys, then
+        cross-attention over ``encoder_states`` masked by ``encoder_mask``."""
+        dtype = self.block[0].ff.wo.compute_dtype
+        n = inputs_embeds.shape[1]
+        pos = torch.arange(n, device=inputs_embeds.device)
+        position_bias = self.rel_bias(pos, pos).to(dtype)
+        self_mask = torch.tril(torch.ones(n, n, dtype=torch.bool,
+                                          device=pos.device))[None, None]
+        if decoder_mask is not None:
+            self_mask = self_mask & decoder_mask.bool()[:, None, None, :]
+        cross_mask = (None if encoder_mask is None
+                      else encoder_mask.bool()[:, None, None, :])
+        x = self.dropout(inputs_embeds.to(dtype))
+        for blk in self.block:
+            x = blk(x, self_mask, position_bias, encoder_states, cross_mask)
+        return self.dropout(self.final_norm(x))
 
     def cross_kv(self, encoder_states):
         """Every layer's cross-attention (K, V) at the encoder batch size."""
@@ -230,7 +279,7 @@ class T5Decoder(nn.Module):
                 for _ in self.block]
 
     def decode_step(self, x, position: int, cache, cross_kv, encoder_mask):
-        dtype = self.block[0].ff.wo.weight.dtype
+        dtype = self.block[0].ff.wo.compute_dtype
         max_len = cache[0][0].shape[1]
         q_pos = torch.arange(position, position + x.shape[1], device=x.device)
         k_pos = torch.arange(max_len, device=x.device)
@@ -255,10 +304,18 @@ class T5ForConditionalGeneration(nn.Module):
         self.decoder = T5Decoder(cfg, device=device, dtype=dtype)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, bias=False,
                              lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
-                             device=device, dtype=dtype)
+                             lora_dropout=cfg.lora_dropout, device=device,
+                             dtype=dtype)
 
     def encode(self, inputs_embeds, mask=None, position_bias=None):
         return self.encoder(inputs_embeds, mask=mask, position_bias=position_bias)
+
+    def decode(self, decoder_input_ids, encoder_states, decoder_mask=None,
+               encoder_mask=None):
+        """Teacher-forced decoder -> (B, n, vocab) fp32 logits."""
+        x = self.decoder(self.shared(decoder_input_ids), encoder_states,
+                         decoder_mask=decoder_mask, encoder_mask=encoder_mask)
+        return self.lm_head(x).float()
 
     def decode_step(self, tokens, position: int, cache, cross_kv, encoder_mask):
         """(rows, n) token ids -> (rows, n, vocab) fp32 logits; writes the
@@ -266,3 +323,23 @@ class T5ForConditionalGeneration(nn.Module):
         x = self.decoder.decode_step(self.shared(tokens), position, cache,
                                      cross_kv, encoder_mask)
         return self.lm_head(x).float()
+
+
+def shift_right(labels: torch.Tensor, decoder_start_token_id: int = 0,
+                pad_token_id: int = 0) -> torch.Tensor:
+    """Teacher-forcing decoder inputs: prepend the start token, drop the
+    last label, and turn -100 into the pad id."""
+    shifted = torch.roll(labels, 1, dims=-1)
+    shifted[:, 0] = decoder_start_token_id
+    return torch.where(shifted == -100, torch.full_like(shifted, pad_token_id),
+                       shifted)
+
+
+def cross_entropy_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                          label_mask: torch.Tensor) -> torch.Tensor:
+    """Mean token-level cross entropy over unmasked label positions."""
+    labels_clipped = torch.where(labels == -100, torch.zeros_like(labels), labels)
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    token_ll = log_probs.gather(-1, labels_clipped[..., None].long())[..., 0]
+    mask = label_mask.float() * (labels != -100).float()
+    return -(token_ll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -46,6 +46,14 @@ _SIGNATURES = {
     # q, k, v, bias, kv_mask, out, B, N, M, H, D, scale, stream
     "mrb_flash_bias_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _F, _P],
+    # q, k, v, bias, kv_mask, out, lse, B, N, M, H, D, scale, stream
+    "mrb_flash_bias_fwd_stats_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # q, k, v, bias, kv_mask, dout, lse, delta, dq, B, N, M, H, D, scale, stream
+    "mrb_flash_bias_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
+    # ... as above, then dq, dbias, ...
+    "mrb_flash_bias_bwd_dq_dbias_bf16": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # ... as above, then dk, dv, ...
+    "mrb_flash_bias_bwd_dkv_bf16": [_P] * 10 + [_I] * 5 + [_F, _P],
 }
 
 

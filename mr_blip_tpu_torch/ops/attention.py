@@ -4,6 +4,7 @@ Every attention site funnels through ``dot_product_attention``, which keeps
 the JAX dispatch rules with "on TPU" read as "tensor on CUDA": long
 (>= 256 query) biased self-attention with a key-only mask goes to the
 biased flash kernel; everything else is ``xla_attention`` in plain torch.
+Active attention-weight dropout forces the plain path, as in JAX.
 
 Shapes follow the (batch, length, heads, head_dim) convention.
 """
@@ -18,11 +19,15 @@ _FLASH_MIN_SEQ = 256
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: torch.Tensor | None = None,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None,
+                  dropout_rate: float = 0.0,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
     """Plain attention: fp32 logits and softmax, output in v's dtype.
 
     ``mask`` is boolean, broadcastable to (B, H, N, M), True = attend;
-    masked logits are filled with ``finfo(float32).min`` as in JAX."""
+    masked logits are filled with ``finfo(float32).min`` as in JAX.
+    ``dropout_rate`` > 0 drops attention probabilities (inverted scaling,
+    HF T5 / BERT semantics), with keep draws from ``generator``."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     if bias is not None:
@@ -30,24 +35,38 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_rate
+        probs = torch.where(keep, probs / (1.0 - dropout_rate),
+                            torch.zeros((), device=probs.device))
     return torch.einsum("bhnm,bmhd->bnhd", probs.to(v.dtype), v)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor | None = None,
-                          mask: torch.Tensor | None = None) -> torch.Tensor:
+                          mask: torch.Tensor | None = None,
+                          dropout_rate: float = 0.0,
+                          generator: torch.Generator | None = None
+                          ) -> torch.Tensor:
     """Multi-head attention with the JAX package's backend selection.
 
     q: (B, N, H, D), scaled inside by D**-0.5; k, v: (B, M, H, D); bias
     broadcastable to (B, H, N, M); mask boolean, True = attend.
+    ``dropout_rate`` > 0 (training) forces the plain path, whose dropout
+    draws from ``generator``. A bias that requires grad gets its gradient
+    on either path.
 
     The biased flash kernel takes a (1, H, N, M) bias, q_len == k_len and at
     most a key-only (B, 1, 1, M) mask, as in JAX. Its only type is bf16, so
     a CUDA call of another dtype that meets these rules raises in the
     kernel's wrapper rather than running plain. The plain mask-free flash
-    kernel of the JAX package is not ported: no call on the generate path
-    reaches it, so that case stays plain here.
+    kernel of the JAX package is not ported: no call on the generate or
+    train path reaches it, so that case stays plain here.
     """
+    if dropout_rate > 0.0:
+        return xla_attention(q, k, v, bias=bias, mask=mask,
+                             dropout_rate=dropout_rate, generator=generator)
     k_only_mask = (
         mask is not None and mask.ndim == 4
         and mask.shape[1] == 1 and mask.shape[2] == 1

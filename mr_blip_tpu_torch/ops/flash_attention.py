@@ -1,16 +1,25 @@
-"""Attention kernels of the generate path (counterpart of
-``mr_blip_tpu/ops/flash_attention.py``; only ``flash_attention_bias`` and
-``flash_attention_qkv_packed`` are ported).
+"""Attention kernels of the generate and train paths (counterpart of
+``mr_blip_tpu/ops/flash_attention.py``; only the packed-QKV and the biased
+flash kernels are ported).
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 hand-written kernel for a CUDA tensor, or raises:
 
 * ``flash_attention_qkv_packed`` -> ``csrc/qkv_packed_attention.cu``
-  (plain version ``_qkv_packed_reference``);
-* ``flash_attention_bias`` -> ``csrc/flash_bias_attention.cu``
-  (plain version ``xla_attention`` with the key mask).
+  (plain version ``_qkv_packed_reference``); backward: the plain version
+  recomputed, as in JAX;
+* ``flash_attention_bias`` -> ``csrc/flash_bias_attention.cu`` when no
+  gradient is needed; otherwise the custom VJP ``_FlashBias``: forward
+  ``flash_bias_fwd_stats`` (same file, with the row logsumexp), backward
+  ``flash_bias_bwd_dq``, or ``flash_bias_bwd_dq_dbias`` when the bias
+  requires grad, then
+  ``flash_bias_bwd_dkv`` (``csrc/flash_bias_backward.cu``). Plain versions:
+  ``_flash_bias_fwd_stats_reference`` (forward, both kernels) and
+  ``_flash_bias_bwd_reference``.
 
-Shapes follow the JAX package: (B, N, H, D) for q/k/v.
+Every launcher counts its launches in ``<wrapper>.launches``. Shapes follow
+the JAX package: (B, N, H, D) for q/k/v, (1, H, N, M) for the bias, (B, M)
+for the key mask, (B, H, N) fp32 for the logsumexp and δ.
 """
 
 from __future__ import annotations
@@ -20,8 +29,10 @@ import torch
 from mr_blip_tpu_torch.ops import _cuda
 from mr_blip_tpu_torch.ops.attention import xla_attention
 
-# Largest head dim the kernels instantiate (csrc/attention_tile.cuh).
+# Largest head dim the forward kernels instantiate (csrc/attention_tile.cuh).
 MAX_HEAD_DIM = 96
+# The only head dim of the statistics and backward kernels (T5 d_kv).
+BWD_HEAD_DIM = 64
 
 
 def _check_cuda_operand(name, t, dtype, device):
@@ -74,6 +85,25 @@ def _qkv_packed_cuda(qkv, num_heads, head_dim, n_valid):
     return out
 
 
+class _QkvPacked(torch.autograd.Function):
+    """Forward through ``launch`` (the kernel launcher; tests pass a CPU
+    stand-in), backward through the plain version recomputed."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, head_dim, n_valid, launch):
+        ctx.save_for_backward(qkv)
+        ctx.args = (num_heads, head_dim, n_valid)
+        return launch(qkv, num_heads, head_dim, n_valid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv = ctx.saved_tensors[0].detach().requires_grad_()
+        with torch.enable_grad():
+            out = _qkv_packed_reference(qkv, *ctx.args)
+        (dqkv,) = torch.autograd.grad(out, qkv, grad)
+        return dqkv, None, None, None, None
+
+
 def flash_attention_qkv_packed(qkv: torch.Tensor, num_heads: int,
                                n_valid: int = 0) -> torch.Tensor:
     """Self-attention over the packed (B, N, 3*H*D) QKV tensor -> (B, N, H*D).
@@ -86,41 +116,230 @@ def flash_attention_qkv_packed(qkv: torch.Tensor, num_heads: int,
     n_valid = int(n_valid or 0)
     if not 0 <= n_valid <= n:
         raise ValueError(f"n_valid={n_valid} outside [0, {n}]")
-    if qkv.is_cuda:
-        return _qkv_packed_cuda(qkv, num_heads, head_dim, n_valid)
-    return _qkv_packed_reference(qkv, num_heads, head_dim, n_valid)
+    if not qkv.is_cuda:
+        return _qkv_packed_reference(qkv, num_heads, head_dim, n_valid)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _QkvPacked.apply(qkv, num_heads, head_dim, n_valid,
+                                _qkv_packed_cuda)
+    return _qkv_packed_cuda(qkv, num_heads, head_dim, n_valid)
 
 
 flash_attention_qkv_packed.launches = 0
 
 
 # ------------------------------------------------- biased flash (T5 encoder)
-def _flash_bias_reference(q, k, v, bias, kv_mask):
-    mask = None if kv_mask is None else (kv_mask != 0)[:, None, None, :]
-    return xla_attention(q, k, v, bias=bias, mask=mask)
+def _math_dtype(t):
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _key_valid(kv_mask, k):
+    if kv_mask is None:
+        return torch.ones(k.shape[0], 1, 1, k.shape[1], dtype=torch.bool,
+                          device=k.device)
+    return (kv_mask != 0)[:, None, None, :]
+
+
+def _flash_bias_fwd_stats_reference(q, k, v, bias, kv_mask):
+    """Plain version of kernels 3 and 5, in fp32 (or wider) from the same
+    inputs: (out in q's dtype, lse (B, H, N)). Keys with kv_mask == 0 get
+    p = 0; a row whose keys are all masked gives zeros and lse =
+    log(1e-30), as the Pallas kernels do."""
+    ct = _math_dtype(q)
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bnhd,bmhd->bhnm", q.to(ct), k.to(ct)) * scale + bias.to(ct)
+    s = s.masked_fill(~_key_valid(kv_mask, k), float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m_safe)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhnm,bmhd->bnhd", p / l, v.to(ct))
+    return out.to(q.dtype), (m_safe + torch.log(l))[..., 0]
+
+
+def _flash_bias_bwd_reference(q, k, v, bias, kv_mask, dout, lse, delta):
+    """Plain version of kernels 6-8, in fp32 (or wider), with the formulas
+    of the Pallas kernel bodies: p = exp(s - lse) on valid keys,
+    dp = dO·vᵀ, ds = p∘(dp - δ), dq = ds·k·scale, dk = dsᵀ·q·scale,
+    dv = pᵀ·dO, dbias = Σ_b ds. Returns (dq, dk, dv) in q's dtype and
+    dbias (1, H, N, M) in the math dtype."""
+    ct = _math_dtype(q)
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, df = (t.to(ct) for t in (q, k, v, dout))
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale + bias.to(ct)
+    p = torch.exp(s - lse.to(ct)[..., None])
+    p = torch.where(_key_valid(kv_mask, k), p, torch.zeros_like(p))
+    dp = torch.einsum("bnhd,bmhd->bhnm", df, vf)
+    ds = p * (dp - delta.to(ct)[..., None])
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, df)
+    return (dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype),
+            ds.sum(dim=0, keepdim=True))
+
+
+def _bias_operands(q, k, v, bias, kv_mask, *more):
+    """Check the bf16 operands of a biased kernel launch (q, k, v, bias
+    and the (name, tensor) pairs in ``more``); returns the key mask as
+    contiguous int8 (all ones when None)."""
+    b = q.shape[0]
+    m = k.shape[1]
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), *more):
+        _check_cuda_operand(name, t, torch.bfloat16, dev)
+    if kv_mask is None:
+        kv_mask = torch.ones((b, m), dtype=torch.int8, device=dev)
+    kv_mask = kv_mask.to(torch.int8).contiguous()
+    _check_cuda_operand("kv_mask", kv_mask, torch.int8, dev)
+    return kv_mask
+
+
+def _check_stats(lse, delta, b, h, n, device):
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, n):
+            raise ValueError(f"{name} must be ({b}, {h}, {n}), got {tuple(t.shape)}")
+        _check_cuda_operand(name, t, torch.float32, device)
 
 
 def _flash_bias_cuda(q, k, v, bias, kv_mask):
     b, n, h, d = q.shape
     m = k.shape[1]
-    dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
-        _check_cuda_operand(name, t, torch.bfloat16, dev)
+    kv_mask = _bias_operands(q, k, v, bias, kv_mask)
     _check_head_dim(d)
-    if kv_mask is None:
-        kv_mask = torch.ones((b, m), dtype=torch.int8, device=dev)
-    kv_mask = kv_mask.to(torch.int8).contiguous()
-    _check_cuda_operand("kv_mask", kv_mask, torch.int8, dev)
     out = torch.empty_like(q)
     if b == 0 or n == 0:
         return out
     err = _cuda.library().mrb_flash_bias_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         kv_mask.data_ptr(), out.data_ptr(), b, n, m, h, d,
-        float(d ** -0.5), _cuda.stream_ptr(dev))
+        float(d ** -0.5), _cuda.stream_ptr(q.device))
     _cuda.check(err, "mrb_flash_bias_attention_bf16")
     flash_attention_bias.launches += 1
     return out
+
+
+def _check_bwd_head_dim(d):
+    if d != BWD_HEAD_DIM:
+        raise ValueError(f"head dim {d} unsupported by the biased flash "
+                         f"statistics and backward kernels: need {BWD_HEAD_DIM}")
+
+
+def flash_bias_fwd_stats(q, k, v, bias, kv_mask=None):
+    """Kernel 5: the biased flash forward plus the fp32 (B, H, N) row
+    logsumexp -> (out, lse). Plain version for a CPU tensor."""
+    if not q.is_cuda:
+        return _flash_bias_fwd_stats_reference(q, k, v, bias, kv_mask)
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    kv_mask = _bias_operands(q, k, v, bias, kv_mask)
+    _check_bwd_head_dim(d)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    err = _cuda.library().mrb_flash_bias_fwd_stats_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        kv_mask.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n, m, h, d,
+        float(d ** -0.5), _cuda.stream_ptr(q.device))
+    _cuda.check(err, "mrb_flash_bias_fwd_stats_bf16")
+    flash_bias_fwd_stats.launches += 1
+    return out, lse
+
+
+def _bwd_launch(name, q, k, v, bias, kv_mask, dout, lse, delta, outs):
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    kv_mask = _bias_operands(q, k, v, bias, kv_mask, ("dout", dout))
+    _check_bwd_head_dim(d)
+    _check_stats(lse, delta, b, h, n, q.device)
+    err = getattr(_cuda.library(), name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        kv_mask.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *[t.data_ptr() for t in outs], b, n, m, h, d, float(d ** -0.5),
+        _cuda.stream_ptr(q.device))
+    _cuda.check(err, name)
+
+
+def flash_bias_bwd_dq(q, k, v, bias, kv_mask, dout, lse, delta):
+    """Kernel 6: dq (B, N, H, D) in q's dtype."""
+    if not q.is_cuda:
+        return _flash_bias_bwd_reference(q, k, v, bias, kv_mask, dout, lse,
+                                         delta)[0]
+    dq = torch.empty_like(q)
+    _bwd_launch("mrb_flash_bias_bwd_dq_bf16", q, k, v, bias, kv_mask, dout,
+                lse, delta, (dq,))
+    flash_bias_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bias_bwd_dq_dbias(q, k, v, bias, kv_mask, dout, lse, delta):
+    """Kernel 7: dq and dbias = Σ_b ds, (1, H, N, M) fp32, summed over the
+    batch in order inside each block (deterministic)."""
+    if not q.is_cuda:
+        dq, _, _, dbias = _flash_bias_bwd_reference(q, k, v, bias, kv_mask,
+                                                    dout, lse, delta)
+        return dq, dbias
+    dq = torch.empty_like(q)
+    dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch("mrb_flash_bias_bwd_dq_dbias_bf16", q, k, v, bias, kv_mask,
+                dout, lse, delta, (dq, dbias))
+    flash_bias_bwd_dq_dbias.launches += 1
+    return dq, dbias
+
+
+def flash_bias_bwd_dkv(q, k, v, bias, kv_mask, dout, lse, delta):
+    """Kernel 8: (dk, dv), (B, M, H, D) each in k's dtype."""
+    if not q.is_cuda:
+        return _flash_bias_bwd_reference(q, k, v, bias, kv_mask, dout, lse,
+                                         delta)[1:3]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("mrb_flash_bias_bwd_dkv_bf16", q, k, v, bias, kv_mask, dout,
+                lse, delta, (dk, dv))
+    flash_bias_bwd_dkv.launches += 1
+    return dk, dv
+
+
+for _fn in (flash_bias_fwd_stats, flash_bias_bwd_dq, flash_bias_bwd_dq_dbias,
+            flash_bias_bwd_dkv):
+    _fn.launches = 0
+
+
+class _FlashBias(torch.autograd.Function):
+    """The custom VJP of the biased flash attention (``_flash_bias_vjp_fwd``
+    / ``_bwd`` in JAX). ``fwd`` is ``flash_bias_fwd_stats``; ``bwd_dq``,
+    ``bwd_dq_dbias`` and ``bwd_dkv`` are the backward wrappers (tests pass
+    CPU stand-ins). δ = rowsum(dO∘O) is computed here in fp32, as JAX
+    computes it in XLA outside its kernels. dbias (kernel 7 in place of
+    kernel 6) is computed only when the bias needs a gradient, which JAX
+    states with its ``bias_grad`` flag; otherwise the bias gets none (JAX
+    returns zeros, which LoRA training never reads)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kv_mask, fwd, bwd_dq, bwd_dq_dbias,
+                bwd_dkv):
+        out, lse = fwd(q, k, v, bias, kv_mask)
+        ctx.save_for_backward(q, k, v, bias, kv_mask, out, lse)
+        ctx.bwd = (bwd_dq, bwd_dq_dbias, bwd_dkv)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, bias, kv_mask, out, lse = ctx.saved_tensors
+        bwd_dq, bwd_dq_dbias, bwd_dkv = ctx.bwd
+        grad = grad.contiguous()
+        ct = _math_dtype(q)
+        delta = torch.einsum("bnhd,bnhd->bhn", grad.to(ct), out.to(ct))
+        delta = delta.to(lse.dtype).contiguous()
+        args = (q, k, v, bias, kv_mask, grad, lse, delta)
+        dbias = None
+        if ctx.needs_input_grad[3]:
+            dq, dbias = bwd_dq_dbias(*args)
+            dbias = dbias.to(bias.dtype)
+        else:
+            dq = bwd_dq(*args)
+        dk, dv = bwd_dkv(*args)
+        return dq, dk, dv, dbias, None, None, None, None, None
+
+
+_FLASH_BIAS_OPS = (flash_bias_fwd_stats, flash_bias_bwd_dq,
+                   flash_bias_bwd_dq_dbias, flash_bias_bwd_dkv)
 
 
 def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,9 +348,14 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q·kᵀ·D^-½ + bias, keys with kv_mask == 0 excluded)·v.
 
     q: (B, N, H, D); k, v: (B, M, H, D); bias: (1, H, N, M) broadcast over
-    the batch; kv_mask: optional (B, M), nonzero = attend. A row whose keys
-    are all masked comes out as zeros from the kernel (finite), and as the
-    mean of v from the plain version (``finfo.min`` fill)."""
+    the batch; kv_mask: optional (B, M), nonzero = attend. A bias that
+    requires grad gets the true dbias (full finetuning; kernel 7 in place
+    of kernel 6).
+
+    When nothing needs a gradient, a CUDA call launches kernel 3; when q,
+    k, v or bias needs one, the call goes through ``_FlashBias`` (kernels
+    5-8). A CPU call runs their plain versions. A row whose keys are all
+    masked comes out as zeros, as from the Pallas kernels."""
     b, n, h, d = q.shape
     m = k.shape[1]
     if k.shape != (b, m, h, d) or v.shape != (b, m, h, d):
@@ -143,9 +367,12 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_mask is not None and kv_mask.shape != (b, m):
         raise ValueError(f"kv_mask must be ({b}, {m}), got "
                          f"{tuple(kv_mask.shape)}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, bias)):
+        return _FlashBias.apply(q, k, v, bias, kv_mask, *_FLASH_BIAS_OPS)
     if q.is_cuda:
         return _flash_bias_cuda(q, k, v, bias, kv_mask)
-    return _flash_bias_reference(q, k, v, bias, kv_mask)
+    return _flash_bias_fwd_stats_reference(q, k, v, bias, kv_mask)[0]
 
 
 flash_attention_bias.launches = 0

@@ -3,6 +3,8 @@
 ``fused_layer_norm`` is the wrapper: a CPU tensor takes the plain version
 ``_ln_reference``; a CUDA tensor launches the hand-written kernel
 ``csrc/layer_norm.cu`` (bf16 in and out, fp32 weight and bias) or raises.
+When a gradient is needed the launch goes through ``_FusedLayerNorm``, whose
+backward is the plain version recomputed, as the JAX custom VJP's is.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ def _ln_reference(x2d: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def _layer_norm_cuda(x2d, weight, bias, eps):
+    """The kernel launcher: checks, allocates, launches, counts."""
     rows, d = x2d.shape
     if x2d.dtype != torch.bfloat16:
         raise TypeError(f"layer_norm kernel takes bfloat16, got {x2d.dtype}")
@@ -50,14 +53,38 @@ def _layer_norm_cuda(x2d, weight, bias, eps):
     return out
 
 
+class _FusedLayerNorm(torch.autograd.Function):
+    """Forward through ``launch`` (the kernel launcher; tests pass a CPU
+    stand-in), backward through the plain version recomputed."""
+
+    @staticmethod
+    def forward(ctx, x2d, weight, bias, eps, launch):
+        ctx.save_for_backward(x2d, weight, bias)
+        ctx.eps = eps
+        return launch(x2d, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = _ln_reference(*inputs, ctx.eps)
+        grads = torch.autograd.grad(y, inputs, grad)
+        return (*grads, None, None)
+
+
 def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics."""
     d = x.shape[-1]
     x2d = x.reshape(-1, d)
-    if x.is_cuda:
-        return _layer_norm_cuda(x2d, weight, bias, eps).reshape(x.shape)
-    return _ln_reference(x2d, weight, bias, eps).reshape(x.shape)
+    if not x.is_cuda:
+        return _ln_reference(x2d, weight, bias, eps).reshape(x.shape)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, weight, bias)):
+        out = _FusedLayerNorm.apply(x2d, weight, bias, eps, _layer_norm_cuda)
+    else:
+        out = _layer_norm_cuda(x2d, weight, bias, eps)
+    return out.reshape(x.shape)
 
 
 fused_layer_norm.launches = 0

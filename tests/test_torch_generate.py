@@ -197,6 +197,8 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.models.blip2_mr, mr_blip_tpu_torch.models.convert\n"
         "import mr_blip_tpu_torch.ops.flash_attention, mr_blip_tpu_torch.ops._cuda\n"
         "import mr_blip_tpu_torch.profile_inference\n"
+        "import mr_blip_tpu_torch.runners.train_state, mr_blip_tpu_torch.common.optims\n"
+        "import mr_blip_tpu_torch.models.layers, mr_blip_tpu_torch.ops.layer_norm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu')]\n"
         "assert not bad, bad\n"
