@@ -15,8 +15,27 @@ is nonzero and the final line is not printed:
    and the ragged ones (2049, 2040 x 2048, 300, a fully masked batch row),
    with no NaN: forward outputs max |diff| <= 0.02; the biased forward's
    logsumexp (kernel 5) <= 1e-3; the backward outputs dq, dk, dv and dbias
-   (kernels 6-8) max |diff| <= 0.02 x max |plain| and cosine >= 0.999; and
-   both times (CUDA events, median of 10 launches);
+   (kernels 6-8) max |diff| <= 0.02 x max |plain| and cosine >= 0.999. The
+   four W8A8 kernels (13-16) against their plain versions (the same integer
+   arithmetic, products exact in fp64): linear at (61,677, 1,408)^2 with a
+   residual and at its three main-path shapes (Q-Former cross K/V with bias,
+   T5 qkv with the RMS pre-norm, T5 o with the residual), max |diff| <= 0.35;
+   GELU MLP (61,677, 1,408, 6,144) with LN and residual <= 0.4; gated MLP
+   (8,191, 2,048, 5,120) and its main-path shape <= 0.4; attention block
+   (6, 264, 1,408) with n_valid 257 and large garbage in the pad rows (which
+   must not move a valid row by a bit) and (240, 257, 1,408) <= 0.05; each
+   with cosine >= 0.999, and the share of elements more than 2 bf16 ulps off
+   printed (a flipped requantization step moves one row); a float32 input on
+   the card must raise. Times by CUDA events, median of 10 launches: the
+   kernel, its plain version and, where one PyTorch call computes the same
+   function, that call (``library_ms``: ``F.layer_norm``;
+   ``scaled_dot_product_attention``, with the bias as ``attn_mask`` for
+   kernels 3 and 5; its autograd backward, dq, dk and dv together, as the
+   one number for kernels 6-8; ``torch._int_mm`` between the plain quantize
+   and dequantize passes for kernel 13; none for 14-16). ``bound_ms`` is the
+   least time the card could take: the larger of the bytes (inputs once,
+   outputs once) over 3.35 TB/s and the operations over the dense peak of
+   their type (989 TFLOP/s bf16, 1,979 TOP/s int8; H100 SXM data sheet);
 4. generate path: ``BLIP2_MR(...).generate`` at full EVA ViT-g + Q-Former +
    Flan-T5-XL width with random weights, 3 batches of 4 videos x 60 uint8
    frames; every kernel's launch count must rise by its expected number per
@@ -47,9 +66,27 @@ is nonzero and the final line is not printed:
    in bf16; relative loss difference <= 1e-2 and, per trainable tensor,
    gradient cosine >= 0.99.
 
+8. int8 generate path: the same full-depth, full-width model after
+   ``quantize_for_inference()``, 3 batches of 4 x 60 uint8 frames, beam 5;
+   per batch the fused attention block (kernel 16) and the GELU MLP (14)
+   must launch 39 times each, the W8A8 linear (13) 54 times (6 Q-Former
+   cross layers + 2 per T5 encoder layer), the gated MLP (15) 24 times, the
+   biased flash forward (3) 24 times, LayerNorm (1) 32 times (110 less the
+   78 ViT block norms, which the int8 kernels compute) and the packed QKV
+   kernel (2) never; predictions parse, beam scores finite; prints seconds
+   per batch, the three stage times and peak memory beside phase 4's;
+9. int8 kernel path vs int8 plain path: the depth-2 full-width model (rel-pos
+   table at N(0, 1), T5 query projections at HF T5's init scale) after
+   ``quantize_for_inference()``, in bf16 on the CPU (plain versions) and on
+   the card (kernels): T5 encoder outputs cosine >= 0.999 row by row and
+   first-step decoder logits cosine >= 0.999 per row; and on the card int8
+   against bf16: cosine > 0.99 for both.
+
 The line before the last is one JSON object with every kernel's numbers
 (launches: kernels 1-3 from phase 4, 5, 6 and 8 from phase 6, 7 from phase
-7's ``qformer_freeze`` run); the last line is {"ok": true, "device": {...}}.
+7's ``qformer_freeze`` run, 13-16 from phase 8; each count is taken with the
+counts set to 0 just before its path runs); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -75,8 +112,27 @@ REDUCED_DEPTH = 2  # layers per stack in phase 5
 EXPECTED_LAUNCHES = {"layer_norm": 110, "qkv_packed_attention": 39,
                      "flash_bias_attention": 24, "flash_bias_fwd_stats": 0,
                      "flash_bias_bwd_dq": 0, "flash_bias_bwd_dq_dbias": 0,
-                     "flash_bias_bwd_dkv": 0}
+                     "flash_bias_bwd_dkv": 0, "w8a8_linear": 0, "w8a8_mlp": 0,
+                     "w8a8_mlp_gated": 0, "w8a8_attn_block": 0}
 GENERATE_KERNELS = ("layer_norm", "qkv_packed_attention", "flash_bias_attention")
+INT8_KERNELS = ("w8a8_linear", "w8a8_mlp", "w8a8_mlp_gated", "w8a8_attn_block")
+# Phase 8, per int8 generate batch: the fused attention block and the GELU
+# MLP once per ViT block (their pre-norms inside: 78 LayerNorm launches
+# fewer), the W8A8 linear for 6 Q-Former cross K/V and 2 per T5 encoder layer,
+# the gated MLP and the biased flash once per T5 encoder layer.
+EXPECTED_INT8_LAUNCHES = {"layer_norm": 32, "qkv_packed_attention": 0,
+                          "flash_bias_attention": 24, "flash_bias_fwd_stats": 0,
+                          "flash_bias_bwd_dq": 0, "flash_bias_bwd_dq_dbias": 0,
+                          "flash_bias_bwd_dkv": 0, "w8a8_linear": 54, "w8a8_mlp": 39,
+                          "w8a8_mlp_gated": 24, "w8a8_attn_block": 39}
+# max |kernel - plain| of the W8A8 kernels (the bars of the TPU kernels' own
+# on-chip check) and the ulp distance past which an element is counted.
+INT8_TOL = {"w8a8_linear": 0.35, "w8a8_mlp": 0.4, "w8a8_mlp_gated": 0.4,
+            "w8a8_attn_block": 0.05}
+ULP_BAR = 2
+INT8_VS_BF16_COSINE_MIN = 0.99
+# Published dense peaks of one H100 SXM (NVIDIA data sheet), for bound_ms.
+PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_HBM_BYTES = 989e12, 1979e12, 3.35e12
 # Phase 6, the LoRA train step (published config configs/projects/train/
 # qvh.yaml: task qformer_freeze_lora, init_lr 3e-4, weight_decay 0.05):
 # per micro-batch the forward with statistics, dQ and dK/dV once per T5
@@ -118,6 +174,27 @@ def median_ms(torch, fn, iters=10, warmup=2):
     return statistics.median(times)
 
 
+def set_bound(entry, nbytes, bf16_flops=0.0, int8_ops=0.0):
+    """``bound_ms``: the larger of bytes over the memory rate and operations
+    over the peak rate of their type (two types add up: they share the
+    tensor cores); ``bound_by`` says which."""
+    by_bytes = nbytes / PEAK_HBM_BYTES
+    by_ops = bf16_flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
+    entry["bound_ms"] = 1e3 * max(by_bytes, by_ops)
+    entry["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def timing_line(entry):
+    lib = entry.get("library_ms")
+    return (f"  kernel {entry['ms']:.4f} ms  plain {entry['plain_ms']:.4f} ms  library "
+            + (f"{lib:.4f} ms" if lib is not None else "none")
+            + f"  bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+
+
 def max_err(torch, got, want):
     require(not torch.isnan(got).any(), "kernel output has NaN")
     require(bool(torch.isfinite(got).all()), "kernel output not finite")
@@ -126,6 +203,8 @@ def max_err(torch, got, want):
 
 # --------------------------------------------------------------- phase 3
 def check_kernels(torch, kernels):
+    import torch.nn.functional as F
+
     from mr_blip_tpu_torch.ops import flash_attention as fa
     from mr_blip_tpu_torch.ops.layer_norm import _ln_reference, fused_layer_norm
 
@@ -150,7 +229,11 @@ def check_kernels(torch, kernels):
         if flagship:
             ln["ms"] = median_ms(torch, lambda: fused_layer_norm(x, w, b, eps))
             ln["plain_ms"] = median_ms(torch, lambda: _ln_reference(x, w, b, eps))
-            line += f"  kernel {ln['ms']:.4f} ms  plain {ln['plain_ms']:.4f} ms"
+            w16, b16 = w.to(x.dtype), b.to(x.dtype)
+            ln["library_ms"] = median_ms(
+                torch, lambda: F.layer_norm(x, (d,), w16, b16, eps))
+            set_bound(ln, nbytes(x, got, w, b))
+            line += timing_line(ln)
         say(line)
         require(err <= TOL, f"layer_norm ({rows}, {d}) off by {err}")
         ln["max_abs_err"] = max(ln.get("max_abs_err", 0.0), err)
@@ -171,7 +254,13 @@ def check_kernels(torch, kernels):
             qk["ms"] = median_ms(torch, lambda: fa.flash_attention_qkv_packed(qkv, heads))
             qk["plain_ms"] = median_ms(
                 torch, lambda: fa._qkv_packed_reference(qkv, heads, hd))
-            line += f"  kernel {qk['ms']:.4f} ms  plain {qk['plain_ms']:.4f} ms"
+            # (B, H, N, D) views of the packed tensor for the library call.
+            q4, k4, v4 = (t.reshape(b, n, heads, hd).transpose(1, 2)
+                          for t in qkv.split(heads * hd, dim=-1))
+            qk["library_ms"] = median_ms(
+                torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
+            set_bound(qk, nbytes(qkv, got), bf16_flops=4.0 * b * heads * n * n * hd)
+            line += timing_line(qk)
         say(line)
         require(err <= TOL, f"qkv_packed ({b}, {n}) off by {err}")
         qk["max_abs_err"] = max(qk.get("max_abs_err", 0.0), err)
@@ -204,7 +293,12 @@ def check_kernels(torch, kernels):
             fb["ms"] = median_ms(torch, lambda: fa.flash_attention_bias(q, k, v, bias, kv_mask))
             fb["plain_ms"] = median_ms(
                 torch, lambda: fa._flash_bias_fwd_stats_reference(q, k, v, bias, kv_mask))
-            line += f"  kernel {fb['ms']:.4f} ms  plain {fb['plain_ms']:.4f} ms"
+            q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+            fb["library_ms"] = median_ms(
+                torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias))
+            set_bound(fb, nbytes(q, k, v, bias, got),
+                      bf16_flops=4.0 * b * heads * n * m * d)
+            line += timing_line(fb)
         say(line)
         require(err <= TOL, f"flash_bias ({b}, {n}x{m}) mask {mask_kind} off by {err}")
         fb["max_abs_err"] = max(fb.get("max_abs_err", 0.0), err)
@@ -306,14 +400,220 @@ def check_train_kernels(torch, kernels):
                     lambda: fa.flash_bias_bwd_dq_dbias(*bwd_args), plain_bwd),
                 "flash_bias_bwd_dkv": (lambda: fa.flash_bias_bwd_dkv(*bwd_args), plain_bwd),
             }
+            # Library yardsticks: the forward with the bias as attn_mask, and
+            # its autograd backward (dq, dk and dv in one call) as the one
+            # number for kernels 6-8.
+            qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib_fwd = median_ms(torch, lambda: sdpa(qg, kg, vg, attn_mask=bias))
+            lib_out = sdpa(qg, kg, vg, attn_mask=bias)
+            dout4 = dout.transpose(1, 2)
+            lib_bwd = median_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qg, kg, vg), dout4, retain_graph=True))
+            del lib_out, qg, kg, vg
+            unit = float(b) * heads * n * m * d  # one N x M x D product is 2 of these
+            qkv_io = nbytes(q, k, v, bias)
+            bounds = {
+                "flash_bias_fwd_stats": (qkv_io + nbytes(out, lse), 4 * unit),
+                "flash_bias_bwd_dq": (qkv_io + nbytes(dout, lse_ref, delta, dq6), 6 * unit),
+                "flash_bias_bwd_dq_dbias": (
+                    qkv_io + nbytes(dout, lse_ref, delta, dq7, dbias7), 6 * unit),
+                "flash_bias_bwd_dkv": (qkv_io + nbytes(dout, lse_ref, delta, dk8, dv8),
+                                       8 * unit),
+            }
             for key, (kernel_fn, plain_fn) in timed.items():
                 kernels[key]["ms"] = median_ms(torch, kernel_fn)
                 kernels[key]["plain_ms"] = median_ms(torch, plain_fn)
-                say(f"{key} {shape}: kernel {kernels[key]['ms']:.4f} ms  "
-                    f"plain {kernels[key]['plain_ms']:.4f} ms")
+                kernels[key]["library_ms"] = (lib_fwd if key == "flash_bias_fwd_stats"
+                                              else lib_bwd)
+                set_bound(kernels[key], bounds[key][0], bf16_flops=bounds[key][1])
+                say(f"{key} {shape}:" + timing_line(kernels[key]))
         del q, k, v, dout, bias, f32, out_ref, lse_ref, delta, dq_r, dk_r, dv_r, dbias_r
         del out, lse, dq6, dq7, dbias7, dk8, dv8
         torch.cuda.empty_cache()
+
+
+def ulp_distance(torch, got, want):
+    """Elementwise distance of two bf16 tensors in bf16 ulps."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(got) - ordered(want)).abs()
+
+
+def check_int8_kernels(torch, kernels):
+    """Kernels 13-16 against their plain versions (the same quantization
+    arithmetic, integer products exact in fp64) on the card."""
+    from mr_blip_tpu_torch.ops import int8_matmul as i8
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dev = "cuda"
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def qw(k, n, scale=0.05):
+        w = torch.randn(k, n, generator=gen, device=dev) * scale
+        s = i8.div_exact(w.abs().amax(dim=0).clamp_min(1e-8), 127.0)
+        return i8.k_major(torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)), s
+
+    def norm(kind, k):
+        if kind is None:
+            return None
+        return (kind, randn(k, scale=0.05, dtype=torch.float32) + 1.0,
+                randn(k, scale=0.05, dtype=torch.float32) if kind == "ln" else None, 1e-6)
+
+    def hold(key, label, got, want):
+        torch.cuda.synchronize()
+        err = max_err(torch, got, want)
+        cos = cosine(torch, got, want)
+        ulps = ulp_distance(torch, got, want)
+        off = float((ulps > ULP_BAR).float().mean())
+        say(f"{key} {label}: max|diff| {err:.5f}, cosine {cos:.6f}, share of elements "
+            f"> {ULP_BAR} bf16 ulps off {off:.2e} (any bit off {float((ulps > 0).float().mean()):.2e})")
+        require(err <= INT8_TOL[key], f"{key} {label} off by {err}")
+        require(cos >= COSINE_MIN, f"{key} {label}: cosine {cos}")
+        entry = kernels[key]
+        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), err)
+
+    def timed(key, label, kernel_fn, plain_fn, library_fn, io_bytes, int8_ops,
+              bf16_flops=0.0):
+        entry = kernels[key]
+        entry["ms"] = median_ms(torch, kernel_fn)
+        entry["plain_ms"] = median_ms(torch, plain_fn, iters=3, warmup=1)
+        entry["library_ms"] = (None if library_fn is None
+                               else median_ms(torch, library_fn))
+        set_bound(entry, io_bytes, bf16_flops=bf16_flops, int8_ops=int8_ops)
+        say(f"{key} {label}:" + timing_line(entry)
+            + f"  ({(int8_ops + bf16_flops) / entry['ms'] / 1e9:.0f} TOP/s)")
+
+    # Kernel 13. The ragged ViT token count with a residual, then the three
+    # main-path shapes; the Q-Former cross K/V shape is the one timed.
+    lin = "w8a8_linear"
+    for m, k, n, kind, has_bias, has_res, flagship in (
+            (61677, 1408, 1408, None, False, True, False),
+            (61680, 1408, 1536, None, True, False, True),
+            (8224, 2048, 6144, "rms", False, False, False),
+            (8224, 2048, 2048, None, False, True, False)):
+        x = randn(m, k, scale=0.3)
+        wq, sw = qw(k, n)
+        bias = randn(n, scale=0.05, dtype=torch.float32) if has_bias else None
+        res = randn(m, n, scale=0.3) if has_res else None
+        nm = norm(kind, k)
+        got = i8.w8a8_linear(x, wq, sw, bias, norm=nm, residual=res)
+        want = i8._w8a8_linear_plain(x, wq, sw, bias, nm, res)
+        label = f"({m}, {k}) x ({k}, {n}) norm {kind} bias {has_bias} residual {has_res}"
+        hold(lin, label, got, want)
+        if flagship:
+            def library():
+                q, sa = i8._quant_rows(i8._norm_rows(x.float(), nm))
+                y = torch._int_mm(q, wq).float() * (sa * sw)
+                return (y + bias).to(torch.bfloat16)
+            require(torch.equal(library(), want), "the _int_mm yardstick computes "
+                    "another function than w8a8_linear's plain version")
+            timed(lin, label,
+                  lambda: i8.w8a8_linear(x, wq, sw, bias, norm=nm, residual=res),
+                  lambda: i8._w8a8_linear_plain(x, wq, sw, bias, nm, res), library,
+                  nbytes(x, wq, sw, bias, got), 2.0 * m * k * n)
+        del x, wq, got, want, res
+    # A dtype the kernel does not take must raise, not run plain.
+    before = i8.w8a8_linear.launches
+    try:
+        i8.w8a8_linear(randn(64, 64, dtype=torch.float32), *qw(64, 64))
+    except TypeError as exc:
+        say(f"float32 w8a8_linear on the card raises: {exc}")
+    else:
+        raise RuntimeError("float32 w8a8_linear on the card did not raise")
+    require(i8.w8a8_linear.launches == before, "float32 w8a8_linear counted a launch")
+    torch.cuda.empty_cache()
+
+    # Kernel 14: the ViT MLP, LN pre-norm, residual, 4 hidden chunks of 1,536.
+    mlp = "w8a8_mlp"
+    d, h = 1408, 6144
+    w1, s1 = qw(d, h)
+    w2, s2 = qw(h, d)
+    b1 = randn(h, scale=0.01, dtype=torch.float32)
+    b2 = randn(d, scale=0.01, dtype=torch.float32)
+    nm = norm("ln", d)
+    for m, flagship in ((61677, False), (61680, True)):
+        x, r = randn(m, d, scale=0.3), randn(m, d, scale=0.3)
+        got = i8.w8a8_mlp(x, w1, s1, b1, w2, s2, b2, norm=nm, residual=r)
+        want = i8._w8a8_mlp_plain(x, w1, s1, b1, w2, s2, b2, nm, r, i8.DEFAULT_BLOCK_H)
+        label = f"({m}, {d}, {h}) LN residual"
+        hold(mlp, label, got, want)
+        if flagship:
+            timed(mlp, label,
+                  lambda: i8.w8a8_mlp(x, w1, s1, b1, w2, s2, b2, norm=nm, residual=r),
+                  lambda: i8._w8a8_mlp_plain(x, w1, s1, b1, w2, s2, b2, nm, r,
+                                             i8.DEFAULT_BLOCK_H),
+                  None, nbytes(x, r, w1, w2, got), 4.0 * m * d * h)
+        del x, r, got, want
+    del w1, w2
+    torch.cuda.empty_cache()
+
+    # Kernel 15: the T5 encoder FFN, 8 hidden chunks of 640.
+    gated = "w8a8_mlp_gated"
+    d, h = 2048, 5120
+    w0, s0 = qw(d, h)
+    w1, s1 = qw(d, h)
+    wo, so = qw(h, d)
+    for m, kind, has_res, flagship in ((8191, None, False, False),
+                                       (8224, "rms", True, True)):
+        x = randn(m, d, scale=0.3)
+        r = x if has_res else None
+        nm = norm(kind, d)
+        got = i8.w8a8_mlp_gated(x, w0, s0, w1, s1, wo, so, norm=nm, residual=r)
+        want = i8._w8a8_mlp_gated_plain(x, w0, s0, w1, s1, wo, so, nm, r,
+                                        i8.DEFAULT_GATED_BLOCK_H)
+        label = f"({m}, {d}, {h}) norm {kind} residual {has_res}"
+        hold(gated, label, got, want)
+        if flagship:
+            timed(gated, label,
+                  lambda: i8.w8a8_mlp_gated(x, w0, s0, w1, s1, wo, so, norm=nm,
+                                            residual=r),
+                  lambda: i8._w8a8_mlp_gated_plain(x, w0, s0, w1, s1, wo, so, nm, r,
+                                                   i8.DEFAULT_GATED_BLOCK_H),
+                  None, nbytes(x, r, w0, w1, wo, got), 6.0 * m * d * h)
+        del x, r, got, want
+    del w0, w1, wo
+    torch.cuda.empty_cache()
+
+    # Kernel 16: the padded shape of the TPU check (garbage in the pad rows
+    # must not move a valid row), then the main-path shape.
+    blk = "w8a8_attn_block"
+    c, heads = 1408, 16
+    wqkv, sqkv = qw(c, 3 * c, scale=0.02)
+    wp, sp = qw(c, c, scale=0.02)
+    qb = randn(3 * c, scale=0.05, dtype=torch.float32)
+    qb[c:2 * c] = 0.0
+    pb = randn(c, scale=0.05, dtype=torch.float32)
+    nm = norm("ln", c)
+
+    def block(x, n_valid):
+        return i8.w8a8_attn_block(x, wqkv, sqkv, qb, wp, sp, pb, norm=nm,
+                                  num_heads=heads, n_valid=n_valid)
+
+    def block_plain(x, n_valid):
+        return i8._w8a8_attn_block_plain(x, wqkv, sqkv, qb, wp, sp, pb, nm[1], nm[2],
+                                         nm[3], heads, n_valid)
+
+    x = randn(6, 264, c, scale=0.5)
+    x[:, 257:] = 1e4
+    got = block(x, 257)
+    hold(blk, "(6, 264, 1408) n_valid 257", got[:, :257], block_plain(x, 257)[:, :257])
+    x[:, 257:] = -3e3
+    require(torch.equal(block(x, 257)[:, :257], got[:, :257]),
+            "w8a8_attn_block: the pad rows moved a valid row")
+    b, n = 240, 257
+    x = randn(b, n, c, scale=0.5)
+    got = block(x, 0)
+    label = f"({b}, {n}, {c})"
+    hold(blk, label, got, block_plain(x, 0))
+    timed(blk, label, lambda: block(x, 0), lambda: block_plain(x, 0), None,
+          nbytes(x, got, wqkv, wp), 2.0 * b * n * c * 4 * c,
+          bf16_flops=4.0 * b * n * n * c)
+    del x, got
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- phase 4
@@ -360,15 +660,29 @@ def reduced_model(device, init_params=True, task=None):
     return ReducedDepth()
 
 
-def main_path(torch, wrappers):
+def main_path(torch, wrappers, int8=False):
+    """Phase 4 (bf16) or, with ``int8``, phase 8: the same model after
+    ``quantize_for_inference()``. Returns the launch counts of the run and
+    its summary numbers."""
     from mr_blip_tpu_torch.profile_inference import make_samples
     from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
 
+    expected = EXPECTED_INT8_LAUNCHES if int8 else EXPECTED_LAUNCHES
+    name = "int8 path" if int8 else "main path"
     t0 = time.time()
     model = flagship_model()
     torch.cuda.synchronize()
     say(f"model built with random weights in {time.time() - t0:.1f} s; "
         f"{sum(p.numel() for p in model.module.parameters()) / 1e9:.3f} B params")
+    if int8:
+        t0 = time.time()
+        model.quantize_for_inference()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        int8_numel = sum(b.numel() for b in model.module.buffers()
+                         if b.dtype == torch.int8)
+        say(f"quantize_for_inference in {time.time() - t0:.1f} s; {int8_numel / 1e9:.3f} B "
+            f"int8 weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     batches = [make_samples(BATCH, N_FRAMES, seed) for seed in range(N_BATCHES)]
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
@@ -383,11 +697,11 @@ def main_path(torch, wrappers):
         seconds.append(time.time() - t0)
         rose = {name: w.launches - before[name] for name, w in wrappers.items()}
         scores = handle["scores"].float().cpu()
-        say(f"batch {i}: {seconds[-1]:.3f} s  launches {rose}  "
+        say(f"{name} batch {i}: {seconds[-1]:.3f} s  launches {rose}  "
             f"scores {[round(float(s), 4) for s in scores]}  "
             f"predictions {out['prediction']}")
-        require(rose == EXPECTED_LAUNCHES, f"batch {i}: launches {rose}, "
-                f"expected {EXPECTED_LAUNCHES}")
+        require(rose == expected, f"{name} batch {i}: launches {rose}, "
+                f"expected {expected}")
         require(len(out["prediction"]) == BATCH, "wrong number of predictions")
         for p in out["prediction"]:
             moment_str_to_list(p)
@@ -419,15 +733,17 @@ def main_path(torch, wrappers):
         stage["decode_s"] = time.time() - t0
         del model.module.t5.decode_step
     steady = statistics.mean(seconds[1:])
-    say(f"main path: B={BATCH} x {N_FRAMES} frames, encoder length "
+    say(f"{name}: B={BATCH} x {N_FRAMES} frames, encoder length "
         f"{enc.shape[1]}; steady {steady:.3f} s/batch (batches 1-2), first "
         f"{seconds[0]:.3f} s; stages "
         + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
         + f" ({len(steps)} decode steps, {1e3 * stage['decode_s'] / len(steps):.1f} ms "
         f"each); peak memory {peak / 2**30:.2f} GiB")
+    summary = dict(stage, steady_s=steady, first_s=seconds[0], peak_gib=peak / 2**30,
+                   decode_steps=len(steps))
     del model, enc, frames
     torch.cuda.empty_cache()
-    return launches
+    return launches, summary
 
 
 # --------------------------------------------------------------- phase 5
@@ -681,6 +997,75 @@ def gradients_kernel_vs_plain(torch, wrappers):
     return dbias_launches
 
 
+# --------------------------------------------------------------- phase 9
+def int8_outputs(torch, model, samples):
+    """T5 encoder outputs and first-step decoder logits (one beam), fp32 on
+    the host."""
+    with torch.inference_mode():
+        batch = model.prepare_mr_batch(samples)
+        tensors = model._to_device(batch)
+        enc, attn = model.encode_t5(tensors, model.frames_to_t5(tensors),
+                                    model._encoder_bias_for(batch))
+        t5 = model.module.t5
+        rows = enc.shape[0]
+        cache = t5.decoder.init_cache(rows, 4, enc.dtype, enc.device)
+        start = torch.full((rows, 1), model.t5_config.decoder_start_token_id,
+                           dtype=torch.long, device=enc.device)
+        logits = t5.decode_step(start, 0, cache, t5.decoder.cross_kv(enc), attn)
+    return enc.float().cpu(), logits[:, 0].float().cpu()
+
+
+def int8_kernel_vs_plain_path(torch, wrappers):
+    from mr_blip_tpu_torch.profile_inference import make_samples
+
+    samples = make_samples(2, 8, seed=7)
+    gpu = reduced_model("cuda")
+    cfg = gpu.t5_config
+    # The rel-pos table and the T5 query projections as in phases 5 and 7, so
+    # that the bias moves the attention and bf16 rounding flips no near-tie.
+    state = gpu.state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state[RELPOS_TABLE] = torch.randn(state[RELPOS_TABLE].shape, generator=gen,
+                                      device="cuda")
+    for name in state:
+        if name.startswith("t5.") and name.endswith("attention.q.weight"):
+            state[name] = (torch.randn(state[name].shape, generator=gen, device="cuda")
+                           * (cfg.d_model * cfg.d_kv) ** -0.5)
+    gpu.load_state_dict(state)
+    state = {k: v.cpu() for k, v in state.items()}
+    enc_bf16, logits_bf16 = int8_outputs(torch, gpu, samples)
+    gpu.quantize_for_inference()
+    for w in wrappers.values():
+        w.launches = 0
+    enc_gpu, logits_gpu = int8_outputs(torch, gpu, samples)
+    rose = {name: w.launches for name, w in wrappers.items()}
+    require(all(rose[k] for k in INT8_KERNELS) and rose["qkv_packed_attention"] == 0,
+            f"reduced int8 model: launches {rose}")
+    del gpu
+    torch.cuda.empty_cache()
+    cpu = reduced_model("cpu", init_params=False)
+    cpu.load_state_dict(state)
+    cpu.quantize_for_inference()
+    t0 = time.time()
+    enc_cpu, logits_cpu = int8_outputs(torch, cpu, samples)
+    seconds = time.time() - t0
+    cos = torch.nn.functional.cosine_similarity
+    enc_cos = cos(enc_gpu, enc_cpu, dim=-1)
+    logit_cos = cos(logits_gpu, logits_cpu, dim=-1)
+    enc_q = cos(enc_gpu.flatten(), enc_bf16.flatten(), dim=0)
+    logit_q = cos(logits_gpu.flatten(), logits_bf16.flatten(), dim=0)
+    say(f"int8 kernel path vs int8 plain path (depth {REDUCED_DEPTH}, full width, "
+        f"2 x 8 frames, encoder length {enc_gpu.shape[1]}): encoder per-row cosine min "
+        f"{float(enc_cos.min()):.6f} mean {float(enc_cos.mean()):.6f}; first-step "
+        f"logits per-row cosine min {float(logit_cos.min()):.6f}; int8 vs bf16 on the "
+        f"card: encoder cosine {float(enc_q):.6f}, logits cosine {float(logit_q):.6f}; "
+        f"kernel launches { {k: v for k, v in rose.items() if v} }; CPU run {seconds:.1f} s")
+    require(float(enc_cos.min()) >= COSINE_MIN, f"encoder cosine {float(enc_cos.min())}")
+    require(float(logit_cos.min()) >= COSINE_MIN, f"logits cosine {float(logit_cos.min())}")
+    require(float(enc_q) > INT8_VS_BF16_COSINE_MIN and float(logit_q) > INT8_VS_BF16_COSINE_MIN,
+            f"int8 vs bf16 cosines {float(enc_q)}, {float(logit_q)}")
+
+
 # --------------------------------------------------------------------- main
 def main():
     start = time.time()
@@ -707,6 +1092,7 @@ def main():
     # phase 2: build
     from mr_blip_tpu_torch.ops import _cuda
     from mr_blip_tpu_torch.ops import flash_attention as fa
+    from mr_blip_tpu_torch.ops import int8_matmul as i8
     from mr_blip_tpu_torch.ops.layer_norm import fused_layer_norm
 
     t0 = time.time()
@@ -723,8 +1109,12 @@ def main():
                 "flash_bias_fwd_stats": fa.flash_bias_fwd_stats,
                 "flash_bias_bwd_dq": fa.flash_bias_bwd_dq,
                 "flash_bias_bwd_dq_dbias": fa.flash_bias_bwd_dq_dbias,
-                "flash_bias_bwd_dkv": fa.flash_bias_bwd_dkv}
+                "flash_bias_bwd_dkv": fa.flash_bias_bwd_dkv,
+                "w8a8_linear": i8.w8a8_linear, "w8a8_mlp": i8.w8a8_mlp,
+                "w8a8_mlp_gated": i8.w8a8_mlp_gated,
+                "w8a8_attn_block": i8.w8a8_attn_block}
     fa_src = "mr_blip_tpu/ops/flash_attention.py"
+    i8_src = "mr_blip_tpu/ops/int8_matmul.py"
     sources = {
         "layer_norm": ("layer_norm.cu", "mr_blip_tpu/ops/layer_norm.py:26"),
         "qkv_packed_attention": ("qkv_packed_attention.cu", f"{fa_src}:1446"),
@@ -733,6 +1123,10 @@ def main():
         "flash_bias_bwd_dq": ("flash_bias_backward.cu", f"{fa_src}:507"),
         "flash_bias_bwd_dq_dbias": ("flash_bias_backward.cu", f"{fa_src}:545"),
         "flash_bias_bwd_dkv": ("flash_bias_backward.cu", f"{fa_src}:594"),
+        "w8a8_linear": ("int8_matmul.cu", f"{i8_src}:123"),
+        "w8a8_mlp": ("int8_matmul.cu", f"{i8_src}:229"),
+        "w8a8_mlp_gated": ("int8_matmul.cu", f"{i8_src}:359"),
+        "w8a8_attn_block": ("int8_attn_block.cu", f"{i8_src}:505"),
     }
     kernels = {key: {"name": key, "route": "cuda",
                      "source": f"mr_blip_tpu_torch/csrc/{src}", "replaces": rep}
@@ -741,17 +1135,29 @@ def main():
     # phase 3: kernel vs plain
     check_kernels(torch, kernels)
     check_train_kernels(torch, kernels)
+    check_int8_kernels(torch, kernels)
     # phase 4: the generate path at full width (kernels 1-3)
-    launches = main_path(torch, wrappers)
+    launches, bf16_summary = main_path(torch, wrappers)
     # phase 5: kernel path vs plain path, encoder outputs
     kernel_vs_plain_path(torch, wrappers)
     # phase 6: the LoRA train path at full width (kernels 5, 6, 8)
     train_launches = train_path(torch, wrappers)
     # phase 7: kernel path vs plain path, gradients (kernel 7 under full finetune)
     dbias_launches = gradients_kernel_vs_plain(torch, wrappers)
+    # phase 8: the int8 generate path at full width and depth (kernels 13-16)
+    int8_launches, int8_summary = main_path(torch, wrappers, int8=True)
+    say("generate, bf16 (phase 4) vs int8 (phase 8), seconds: " + ", ".join(
+        f"{k} {bf16_summary[k]:.3f} vs {int8_summary[k]:.3f}"
+        for k in ("steady_s", "frames_to_qformer_s", "t5_encode_s", "decode_s"))
+        + f"; peak memory {bf16_summary['peak_gib']:.2f} vs "
+        f"{int8_summary['peak_gib']:.2f} GiB")
+    # phase 9: int8 kernel path vs int8 plain path, and int8 vs bf16
+    int8_kernel_vs_plain_path(torch, wrappers)
 
     for key, entry in kernels.items():
-        if key in GENERATE_KERNELS:
+        if key in INT8_KERNELS:
+            entry["launches"] = int8_launches[key]
+        elif key in GENERATE_KERNELS:
             entry["launches"] = launches[key]
         elif key == "flash_bias_bwd_dq_dbias":
             entry["launches"] = dbias_launches
@@ -760,7 +1166,8 @@ def main():
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
-                               "max_abs_err", "ms", "plain_ms")}
+                               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

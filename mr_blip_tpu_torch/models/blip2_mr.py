@@ -11,12 +11,21 @@ every tensor op runs in PyTorch on ``device``.
 
 Task-string flags supported here: ``lora`` (LoRA r=8 on every T5 Linear),
 ``qformer_freeze``, ``add_duration`` and ``no_task_prompt``. The QA
-two-stage pipeline, the non-interleaved prompt and int8 are not ported yet.
+two-stage pipeline and the non-interleaved prompt are not ported yet.
 ``train()``/``eval()`` switch every dropout (eval is the default).
+
+int8 inference: ``model.quantize_for_inference().generate(samples)`` converts
+the loaded float weights (W8A8 ViT, Q-Former cross K/V and T5 encoder on the
+kernels of ``ops/int8_matmul.py``; weight-only int8 decoder and LM head; int8
+cross-attention cache) and generates as before. Inference only.
+
+The model lives on ``device``, the card by default; pass ``device="cpu"``
+to run the kernels' plain versions on the host.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
@@ -27,6 +36,12 @@ from mr_blip_tpu_torch.models.eva_vit import eva_vit_g_config, vit_tiny_config
 from mr_blip_tpu_torch.models.generation import beam_search
 from mr_blip_tpu_torch.models.prompt_assembly import build_interleave_plan
 from mr_blip_tpu_torch.models.qformer import qformer_base_config, qformer_tiny_config
+from mr_blip_tpu_torch.models.quantize import (
+    quantize_qformer_cross_params,
+    quantize_t5_decoder_params,
+    quantize_t5_encoder_params,
+    quantize_vit_params,
+)
 from mr_blip_tpu_torch.models.t5 import (
     materialize_encoder_relpos_bias,
     t5_flan_xl_config,
@@ -82,10 +97,11 @@ class BLIP2_MR:
         seed: int = 42,
         init_params: bool = True,
         vocab_size: int | None = None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         """``init_params`` draws random weights on ``device`` from ``seed``.
-        The ViT is frozen (``freeze_vit: True`` in every published config)."""
+        The ViT is frozen (``freeze_vit: True`` in every published config).
+        Without a card, the default ``device`` raises: ask for the CPU."""
         if "only_frames" in task or "QA" in task:
             raise NotImplementedError(f"task {task!r}: only the interleaved "
                                       "moment-retrieval generate path is ported")
@@ -98,6 +114,10 @@ class BLIP2_MR:
         self.num_beams = num_beams
         self.img_size = img_size
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"BLIP2_MR(device={str(device)!r}): no CUDA device; pass "
+                "device='cpu' to run on the host")
         self.compute_dtype = _DTYPES[compute_dtype]
 
         self.tokenizer = load_tokenizer(tokenizer_path)
@@ -191,6 +211,67 @@ class BLIP2_MR:
         params = dict(self.module.named_parameters())
         total = sum(p.numel() for p in params.values())
         return sum(params[n].numel() for n, m in mask.items() if m), total
+
+    # ------------------------------------------------------- int8 inference
+    def quantize_vit(self):
+        """Convert the float ViT to the W8A8 int8 layout and rebuild it with
+        ``int8_matmul=True`` (the activations are quantized per token inside
+        the kernels: no calibration pass). Inference only; call after
+        loading float weights."""
+        if self.vit_config.int8_matmul:
+            raise RuntimeError("the ViT is already quantized")
+        self.vit_config = dataclasses.replace(self.vit_config, int8_matmul=True)
+        self.module.rebuild_submodule(
+            "visual_encoder", self.vit_config,
+            quantize_vit_params(self.module.visual_encoder.state_dict()))
+        return self
+
+    def quantize_qformer(self):
+        """Pack the Q-Former's cross-attention key and value projections into
+        W8A8 int8 ``kv_packed`` weights (``int8_cross=True``); the other
+        projections and the FFNs stay float. Inference only."""
+        if self.qformer_config.int8_cross:
+            raise RuntimeError("the Q-Former is already quantized")
+        self.qformer_config = dataclasses.replace(self.qformer_config,
+                                                  int8_cross=True)
+        self.module.rebuild_submodule(
+            "qformer", self.qformer_config,
+            quantize_qformer_cross_params(self.module.qformer.state_dict()))
+        return self
+
+    def _rebuild_t5(self, convert, **flags):
+        self.t5_config = dataclasses.replace(self.t5_config, **flags)
+        self.module.rebuild_submodule(
+            "t5", self.t5_config, convert(self.module.t5.state_dict()))
+        return self
+
+    def quantize_encoder(self):
+        """Convert the float T5 encoder to the W8A8 int8 layout
+        (``int8_encoder=True``), the LoRA deltas merged into the quantized
+        weights (the same function as base + delta). The rel-pos table is
+        untouched, so the cached encoder biases stay. Inference only."""
+        if self.t5_config.int8_encoder:
+            raise RuntimeError("the T5 encoder is already quantized")
+        alpha = self.t5_config.lora_alpha
+        return self._rebuild_t5(
+            lambda sd: quantize_t5_encoder_params(sd, lora_alpha=alpha),
+            int8_encoder=True)
+
+    def quantize_for_decode(self):
+        """Store the T5 decoder blocks and the LM head weight-only int8
+        (``int8_decode=True``; their LoRA deltas stay float) and keep the
+        decode-time cross-attention K/V cache int8 (``int8_cross_cache``,
+        quantized when the cache is built). Inference only."""
+        if self.t5_config.int8_decode:
+            raise RuntimeError("the T5 decoder is already quantized")
+        return self._rebuild_t5(quantize_t5_decoder_params, int8_decode=True,
+                                int8_cross_cache=True)
+
+    def quantize_for_inference(self):
+        """The int8 inference mode in one call: W8A8 ViT, W8A8 Q-Former
+        cross K/V, W8A8 T5 encoder, weight-only int8 decoder and LM head."""
+        return (self.quantize_vit().quantize_qformer().quantize_encoder()
+                .quantize_for_decode())
 
     def train(self, mode: bool = True):
         """Train mode turns every dropout on; ``eval()`` off."""

@@ -60,6 +60,21 @@ class Blip2MRModule(nn.Module):
         self.t5_proj = Dense(qformer_config.hidden_size, t5_config.d_model, **kw)
         self.t5 = T5ForConditionalGeneration(t5_config, **kw)
 
+    def rebuild_submodule(self, name: str, config, state_dict) -> None:
+        """Replace ``visual_encoder``, ``qformer`` or ``t5`` by one built from
+        ``config`` (the same config with an int8 flag set) holding
+        ``state_dict`` (the converted weights), frozen and in eval mode."""
+        cls, cfg_attr = {"visual_encoder": (EvaViT, "vit_config"),
+                         "qformer": (QFormer, "qformer_config"),
+                         "t5": (T5ForConditionalGeneration, "t5_config")}[name]
+        old = getattr(self, name)
+        device = next(old.parameters()).device
+        new = cls(config, device=device, dtype=self.compute_dtype)
+        new.load_state_dict(state_dict, strict=True)
+        new.requires_grad_(False)
+        setattr(self, name, new.train(self.training))
+        setattr(self, cfg_attr, config)
+
     @property
     def tokens_per_frame(self) -> int:
         return self.qformer_config.num_query_tokens

@@ -10,7 +10,11 @@ Rules: flax ``Dense_0/kernel`` (in, out) becomes ``weight`` (out, in);
 ``LayerNorm_0/{scale,bias}`` and RMSNorm ``scale`` become
 ``weight``/``bias``; the patch conv goes HWIO -> OIHW; ``shared/embedding``
 becomes ``shared.weight``; numbered children ``blocks_3`` become
-``blocks.3``. Every other leaf keeps its name. A leaf no rule knows raises,
+``blocks.3``. Every other leaf keeps its name. A tree the JAX package has
+already quantized converts too: ``kernel_q`` (int8, (in, out), stored here
+with the input axis contiguous, as the W8A8 kernels read it),
+``kernel_scale`` and the ``bias`` beside them keep their names under their
+``qkv_packed`` / ``kv_packed`` / Dense parents. A leaf no rule knows raises,
 so every leaf is consumed exactly once.
 """
 
@@ -36,8 +40,11 @@ def _flatten(tree: Mapping, prefix=()):
             yield path, value
 
 
-def _convert_leaf(path, arr: np.ndarray):
+def _convert_leaf(path, arr: np.ndarray, quantized_parents=frozenset()):
     *parents, leaf = path
+    if tuple(parents) in quantized_parents and leaf in (
+            "kernel_q", "kernel_scale", "bias"):
+        return parents + [leaf], arr
     if parents and parents[-1] in ("Dense_0", "LayerNorm_0"):
         owner = parents.pop()
         if owner == "Dense_0" and leaf == "kernel":
@@ -61,8 +68,12 @@ def _convert_leaf(path, arr: np.ndarray):
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Convert every leaf of the JAX parameter tree; see the module doc."""
     out: Dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(params):
-        names, value = _convert_leaf(path, np.asarray(arr))
+    leaves = list(_flatten(params))
+    # Quantized layers: the parents of an int8 kernel_q (never a Dense_0).
+    quantized = frozenset(path[:-1] for path, _ in leaves
+                          if path[-1] == "kernel_q" and path[-2:-1] != ("Dense_0",))
+    for path, arr in leaves:
+        names, value = _convert_leaf(path, np.asarray(arr), quantized)
         parts = []
         for name in names:
             m = _NUMBERED.match(name)
@@ -72,5 +83,8 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two JAX leaves map to {key}")
         if value.dtype.name == "bfloat16":
             value = value.astype(np.float32)
-        out[key] = torch.from_numpy(np.array(value))  # a writable copy
+        if names[-1] == "kernel_q":
+            out[key] = torch.from_numpy(np.ascontiguousarray(value.T)).t()
+        else:
+            out[key] = torch.from_numpy(np.array(value))  # a writable copy
     return out

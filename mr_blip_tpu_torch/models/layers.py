@@ -7,6 +7,11 @@ the input dtype, and every norm keeps fp32 parameters. Weights are built in
 the compute dtype; training turns the trainable ones to fp32 master copies
 (``BLIP2_MR.set_trainable``), as the JAX package keeps fp32 params.
 
+``Dense(quantize=True)`` stores its weight as int8 with one fp32 scale per
+output channel (weight-only int8, inference); ``QDenseParams`` holds the same
+layout for the modules that hand it to the W8A8 kernels of
+``ops/int8_matmul.py``. ``models/quantize.py`` converts float weights.
+
 Dropout draws its keep masks from an explicit ``torch.Generator``, set on
 every dropout module of a tree by ``set_dropout_generator``; it is active
 in train mode only.
@@ -66,6 +71,16 @@ def set_dropout_generator(root: nn.Module, generator: torch.Generator | None):
             module.generator = generator
 
 
+def _int8_weight_buffers(module: nn.Module, in_features: int, out_features: int,
+                         device):
+    """``kernel_q`` int8 of shape (in, out), as in JAX, stored with the input
+    axis contiguous (the layout the W8A8 kernels read), and ``kernel_scale``
+    fp32 (out,). Buffers, not parameters: they never train."""
+    module.register_buffer("kernel_q", torch.zeros(
+        out_features, in_features, dtype=torch.int8, device=device).t())
+    module.register_buffer("kernel_scale", torch.ones(out_features, device=device))
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype`` whatever its weights are stored
     in (bf16 frozen weights, fp32 trainable ones), with an optional LoRA
@@ -75,14 +90,30 @@ class Dense(nn.Linear):
     (alpha / rank)`` (JAX layout: ``lora_a`` is (in, r), ``lora_b`` (r,
     out)), as the reference applies LoRA r=8, alpha=8 to every T5 Linear;
     the LoRA dropout (``lora_dropout``) acts in train mode only.
+
+    With ``quantize`` the weight is int8 (``kernel_q`` (in, out) and
+    ``kernel_scale`` (out,), no ``weight``): the product of the activations
+    and the int8 values is accumulated in fp32, scaled per output channel in
+    fp32, and only then cast to the compute dtype; bias and the LoRA delta
+    (which stays float) follow.
     """
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  lora_rank: int = 0, lora_alpha: float = 8.0,
-                 lora_dropout: float = 0.0, device=None, dtype=None):
-        super().__init__(in_features, out_features, bias=bias, device=device,
-                         dtype=dtype)
-        self.compute_dtype = self.weight.dtype
+                 lora_dropout: float = 0.0, quantize: bool = False,
+                 device=None, dtype=None):
+        if quantize:
+            nn.Module.__init__(self)
+            self.in_features, self.out_features = in_features, out_features
+            self.compute_dtype = dtype or torch.get_default_dtype()
+            _int8_weight_buffers(self, in_features, out_features, device)
+            self.register_parameter("bias", nn.Parameter(torch.zeros(
+                out_features, device=device, dtype=dtype)) if bias else None)
+        else:
+            super().__init__(in_features, out_features, bias=bias, device=device,
+                             dtype=dtype)
+            self.compute_dtype = self.weight.dtype
+        self.quantize = quantize
         self.lora_rank = lora_rank
         self.lora_scaling = lora_alpha / lora_rank if lora_rank else 0.0
         if lora_rank:
@@ -95,12 +126,36 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
         x = x.to(cdt)
-        y = F.linear(x, self.weight.to(cdt),
-                     None if self.bias is None else self.bias.to(cdt))
+        if self.quantize:
+            # bf16 x int8 products are exact in fp32, so the fp32 matmul is
+            # the fp32-accumulated product of the compute-dtype operands.
+            y = (x.float() @ self.kernel_q.float()) * self.kernel_scale
+            y = y.to(cdt)
+            if self.bias is not None:
+                y = y + self.bias.to(cdt)
+        else:
+            y = F.linear(x, self.weight.to(cdt),
+                         None if self.bias is None else self.bias.to(cdt))
         if self.lora_rank:
             h = self.lora_dropout(x)
             y = y + (h @ self.lora_a.to(cdt)) @ self.lora_b.to(cdt) * self.lora_scaling
         return y
+
+
+class QDenseParams(nn.Module):
+    """Parameter holder in the ``Dense(quantize=True)`` layout (``kernel_q``,
+    ``kernel_scale`` and an optional fp32 ``bias``) for the modules that feed
+    the W8A8 kernels directly; calling it returns the three."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 device=None):
+        super().__init__()
+        _int8_weight_buffers(self, in_features, features, device)
+        self.register_buffer(
+            "bias", torch.zeros(features, device=device) if use_bias else None)
+
+    def forward(self):
+        return self.kernel_q, self.kernel_scale, self.bias
 
 
 class LayerNormFP32(nn.Module):

@@ -8,6 +8,11 @@ and only the query FFN. The 32 query tokens pass the embeddings LayerNorm
 embeddings, the attention probabilities, and each attention and FFN output
 before its residual LayerNorm, as in the reference, even with the Q-Former
 frozen.
+
+With ``QFormerConfig.int8_cross`` (inference only) each cross-attention
+layer computes K and V with one ``w8a8_linear`` over the frame tokens from a
+packed int8 ``kv_packed`` weight; convert float weights with
+``models/quantize.py::quantize_qformer_cross_params``.
 """
 
 from __future__ import annotations
@@ -18,8 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mr_blip_tpu_torch.models.layers import Dense, Dropout, LayerNormFP32
+from mr_blip_tpu_torch.models.layers import Dense, Dropout, LayerNormFP32, QDenseParams
 from mr_blip_tpu_torch.ops.attention import dot_product_attention
+from mr_blip_tpu_torch.ops.int8_matmul import w8a8_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +39,8 @@ class QFormerConfig:
     num_query_tokens: int = 32
     layer_norm_eps: float = 1e-12
     dropout: float = 0.1
+    # W8A8 int8 cross-attention K/V projections, packed into one weight.
+    int8_cross: bool = False
 
 
 def qformer_base_config(encoder_width: int = 1408, num_query_tokens: int = 32):
@@ -48,13 +56,18 @@ def qformer_tiny_config(encoder_width: int = 32):
 class QFormerAttention(nn.Module):
     """Post-LN BERT attention; cross-attention K/V come from ``kv_states``."""
 
-    def __init__(self, cfg: QFormerConfig, kv_width: int, device=None, dtype=None):
+    def __init__(self, cfg: QFormerConfig, kv_width: int, packed_kv: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
         self.query = Dense(h, h, device=device, dtype=dtype)
-        self.key = Dense(kv_width, h, device=device, dtype=dtype)
-        self.value = Dense(kv_width, h, device=device, dtype=dtype)
+        self.packed_kv = packed_kv
+        if packed_kv:
+            self.kv_packed = QDenseParams(kv_width, 2 * h, device=device)
+        else:
+            self.key = Dense(kv_width, h, device=device, dtype=dtype)
+            self.value = Dense(kv_width, h, device=device, dtype=dtype)
         self.output = Dense(h, h, device=device, dtype=dtype)
         self.output_norm = LayerNormFP32(h, cfg.layer_norm_eps, device=device)
         self.attn_dropout = Dropout(cfg.dropout)
@@ -63,7 +76,14 @@ class QFormerAttention(nn.Module):
     def forward(self, x, kv_states=None):
         cfg = self.cfg
         kv = x if kv_states is None else kv_states
-        q, k, v = self.query(x), self.key(kv), self.value(kv)
+        q = self.query(x)
+        if self.packed_kv:
+            # K and V of every frame token in one int8 product.
+            kv2 = w8a8_linear(kv.reshape(-1, kv.shape[-1]), *self.kv_packed())
+            kv2 = kv2.reshape(kv.shape[0], kv.shape[1], 2 * cfg.hidden_size)
+            k, v = kv2[..., :cfg.hidden_size], kv2[..., cfg.hidden_size:]
+        else:
+            k, v = self.key(kv), self.value(kv)
         b, n, _ = q.shape
         m = k.shape[1]
         hd = cfg.hidden_size // cfg.num_heads
@@ -83,7 +103,8 @@ class QFormerLayer(nn.Module):
         h = cfg.hidden_size
         self.self_attention = QFormerAttention(cfg, h, device=device, dtype=dtype)
         self.cross_attention = (
-            QFormerAttention(cfg, cfg.encoder_width, device=device, dtype=dtype)
+            QFormerAttention(cfg, cfg.encoder_width, packed_kv=cfg.int8_cross,
+                             device=device, dtype=dtype)
             if has_cross_attention else None)
         self.intermediate_query = Dense(h, cfg.intermediate_size, device=device,
                                         dtype=dtype)
@@ -106,6 +127,7 @@ class QFormer(nn.Module):
     def __init__(self, cfg: QFormerConfig, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = dtype or torch.get_default_dtype()
         self.query_tokens = nn.Parameter(
             torch.zeros(1, cfg.num_query_tokens, cfg.hidden_size, device=device,
                         dtype=dtype))
@@ -120,7 +142,9 @@ class QFormer(nn.Module):
 
     def forward(self, encoder_states):
         b = encoder_states.shape[0]
-        x = self.query_tokens.expand(b, -1, -1).to(encoder_states.dtype)
+        # The query stream runs in the compute dtype whatever the frame
+        # tokens' dtype (the int8 ViT emits bf16 under any compute dtype).
+        x = self.query_tokens.expand(b, -1, -1).to(self.compute_dtype)
         x = self.dropout(self.embeddings_norm(x))
         for layer in self.layer:
             x = layer(x, encoder_states)

@@ -1,4 +1,5 @@
-"""T5 encoder-decoder, float path (counterpart of ``mr_blip_tpu/models/t5.py``).
+"""T5 encoder-decoder, float and int8 inference paths (counterpart of
+``mr_blip_tpu/models/t5.py``).
 
 Flan-T5 geometry: relative-position-bucket attention bias (computed by the
 first layer's table and shared by every layer), RMSNorm, gated exact-GELU
@@ -17,6 +18,15 @@ inputs and final outputs, every residual branch, the FFN hidden state and
 the LoRA inputs (attention weights too with ``attn_weight_dropout``).
 When the encoder's rel-pos table trains, its bias is computed in the graph
 and the biased flash kernel's backward emits dbias for it.
+
+int8 inference modes (``models/quantize.py`` converts the weights):
+``int8_encoder`` runs every encoder block on the W8A8 kernels of
+``ops/int8_matmul.py`` (packed q/k/v with the RMS pre-norm folded in, ``o``
+with the skip add, the gated FFN in one call; LoRA merged into the weights;
+the attention itself stays the biased flash kernel in bf16);
+``int8_decode`` stores every decoder Dense and the LM head weight-only int8;
+``int8_cross_cache`` keeps the decode-time cross-attention K/V int8 with one
+scale per (batch row, channel).
 """
 
 from __future__ import annotations
@@ -27,8 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mr_blip_tpu_torch.models.layers import Dense, Dropout, RMSNormFP32
+from mr_blip_tpu_torch.models.layers import Dense, Dropout, QDenseParams, RMSNormFP32
 from mr_blip_tpu_torch.ops.attention import dot_product_attention
+from mr_blip_tpu_torch.ops.int8_matmul import div_exact, w8a8_linear, w8a8_mlp_gated
 from mr_blip_tpu_torch.ops.relpos import materialize_relpos_bias
 
 
@@ -54,6 +65,13 @@ class T5Config:
     # HF T5 also drops the attention weights in training; off by default in
     # the JAX package (it forces the plain attention path).
     attn_weight_dropout: bool = False
+    # Inference only. Weight-only int8 decoder blocks and LM head:
+    int8_decode: bool = False
+    # the decode-time cross-attention K/V cache int8, quantized when it is
+    # built, with per-(batch row, channel) scales over the length axis:
+    int8_cross_cache: bool = False
+    # every encoder block on the W8A8 kernels (LoRA merged into the weights):
+    int8_encoder: bool = False
 
 
 def t5_flan_xl_config(**kw) -> T5Config:
@@ -93,17 +111,36 @@ class T5RelativeBias(nn.Module):
             cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance)
 
 
+def _quantize_cache(t: torch.Tensor):
+    """(B, M, C) -> int8 values and (B, 1, C) fp32 scales: symmetric, per
+    (batch row, channel) over the length axis."""
+    tf = t.float()
+    scale = div_exact(tf.abs().amax(dim=1, keepdim=True).clamp_min(1e-6), 127.0)
+    return torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8), scale
+
+
 class T5Attention(nn.Module):
-    def __init__(self, cfg: T5Config, device=None, dtype=None):
+    """``quantize_dense``: weight-only int8 projections (decoder inference).
+    ``w8a8``: the encoder's W8A8 projections, ``qkv_packed`` and ``o``."""
+
+    def __init__(self, cfg: T5Config, quantize_dense: bool = False,
+                 w8a8: bool = False, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
+        self.w8a8 = w8a8
         inner = cfg.num_heads * cfg.d_kv
-        kw = dict(bias=False, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
-                  lora_dropout=cfg.lora_dropout, device=device, dtype=dtype)
-        self.q = Dense(cfg.d_model, inner, **kw)
-        self.k = Dense(cfg.d_model, inner, **kw)
-        self.v = Dense(cfg.d_model, inner, **kw)
-        self.o = Dense(inner, cfg.d_model, **kw)
+        if w8a8:
+            self.qkv_packed = QDenseParams(cfg.d_model, 3 * inner, use_bias=False,
+                                           device=device)
+            self.o = QDenseParams(inner, cfg.d_model, use_bias=False, device=device)
+        else:
+            kw = dict(bias=False, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+                      lora_dropout=cfg.lora_dropout, quantize=quantize_dense,
+                      device=device, dtype=dtype)
+            self.q = Dense(cfg.d_model, inner, **kw)
+            self.k = Dense(cfg.d_model, inner, **kw)
+            self.v = Dense(cfg.d_model, inner, **kw)
+            self.o = Dense(inner, cfg.d_model, **kw)
         self.attn_dropout = Dropout(cfg.dropout_rate if cfg.attn_weight_dropout
                                     else 0.0)
 
@@ -126,9 +163,34 @@ class T5Attention(nn.Module):
                            self._heads(self.v(kv)), position_bias, mask)
         return self.o(out)
 
+    def forward_w8a8(self, x, mask, position_bias, norm_scale, residual):
+        """Encoder self-attention on the W8A8 kernels: q, k and v from one
+        packed int8 product with the RMS pre-norm (``norm_scale``) folded in,
+        the biased attention in bf16, and ``o`` with the block's skip add
+        (``residual``) in its epilogue. LoRA is merged into the weights."""
+        cfg = self.cfg
+        b, n, d = x.shape
+        inner = cfg.num_heads * cfg.d_kv
+        wq3, sw3, _ = self.qkv_packed()
+        qkv = w8a8_linear(x.reshape(-1, d), wq3, sw3,
+                          norm=("rms", norm_scale, None, cfg.layer_norm_epsilon))
+        q, k, v = (qkv[:, i * inner:(i + 1) * inner]
+                   .reshape(b, n, cfg.num_heads, cfg.d_kv) for i in range(3))
+        # The flash kernel reads contiguous k and v (q is copied by its scale).
+        out = self._attend(q, k.contiguous(), v.contiguous(), position_bias, mask)
+        wo, so, _ = self.o()
+        y = w8a8_linear(out.reshape(-1, inner), wo, so,
+                        residual=residual.reshape(-1, d))
+        return y.reshape(b, n, d)
+
     def project_kv(self, kv_states):
-        """Cross-attention K and V, (B, M, H*D) each, computed once."""
-        return self.k(kv_states), self.v(kv_states)
+        """Cross-attention K and V, (B, M, H*D) each, computed once; with
+        ``int8_cross_cache`` as (K int8, V int8, K scale, V scale)."""
+        k, v = self.k(kv_states), self.v(kv_states)
+        if self.cfg.int8_cross_cache:
+            (k, k_scale), (v, v_scale) = _quantize_cache(k), _quantize_cache(v)
+            return k, v, k_scale, v_scale
+        return k, v
 
     def decode_self(self, x, cache, position: int, position_bias):
         """One cached step: write this step's K/V at ``position`` of the
@@ -148,49 +210,97 @@ class T5Attention(nn.Module):
         """Cross-attention with K/V and ``mask`` at the encoder batch size:
         beam-expanded query rows are folded into the query length (the K
         beams of one row share its K/V), keeping the sqrt(d_kv) pre-scale."""
-        k_flat, v_flat = kv
+        k_flat, v_flat = kv[:2]
         b, n, _ = x.shape
         b_enc = k_flat.shape[0]
         beams = b // b_enc
-        q = self.q(x).reshape(b_enc, beams * n, self.cfg.num_heads, self.cfg.d_kv)
-        out = self._attend(q, self._heads(k_flat), self._heads(v_flat), None, mask)
+        heads, d_kv = self.cfg.num_heads, self.cfg.d_kv
+        q = self.q(x).reshape(b_enc, beams * n, heads, d_kv)
+        if len(kv) == 4:
+            # int8 K/V feed the products directly: the per-channel K scale
+            # folds into q (it is constant over the contraction) and the V
+            # scale applies after p·v. No 1/sqrt(d) scale (T5 has none).
+            k_scale, v_scale = (s.reshape(b_enc, 1, heads, d_kv) for s in kv[2:])
+            qk = (q.float() * k_scale).to(q.dtype)
+            logits = torch.einsum("bnhd,bmhd->bhnm", qk.float(),
+                                  self._heads(k_flat).float())
+            if mask is not None:
+                logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+            p = torch.softmax(logits, dim=-1).to(q.dtype)
+            ctx = torch.einsum("bhnm,bmhd->bnhd", p.float(),
+                               self._heads(v_flat).float())
+            out = (ctx * v_scale).to(q.dtype)
+        else:
+            out = self._attend(q, self._heads(k_flat), self._heads(v_flat), None, mask)
         return self.o(out.reshape(b, n, -1))
 
 
 class T5FeedForward(nn.Module):
     """Gated exact-GELU FFN: wo(dropout(gelu(wi_0 x) * wi_1 x))."""
 
-    def __init__(self, cfg: T5Config, device=None, dtype=None):
+    def __init__(self, cfg: T5Config, quantize_dense: bool = False,
+                 w8a8: bool = False, device=None, dtype=None):
         super().__init__()
-        kw = dict(bias=False, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
-                  lora_dropout=cfg.lora_dropout, device=device, dtype=dtype)
-        self.wi_0 = Dense(cfg.d_model, cfg.d_ff, **kw)
-        self.wi_1 = Dense(cfg.d_model, cfg.d_ff, **kw)
-        self.wo = Dense(cfg.d_ff, cfg.d_model, **kw)
+        self.cfg = cfg
+        if w8a8:
+            kw = dict(use_bias=False, device=device)
+            self.wi_0 = QDenseParams(cfg.d_model, cfg.d_ff, **kw)
+            self.wi_1 = QDenseParams(cfg.d_model, cfg.d_ff, **kw)
+            self.wo = QDenseParams(cfg.d_ff, cfg.d_model, **kw)
+        else:
+            kw = dict(bias=False, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+                      lora_dropout=cfg.lora_dropout, quantize=quantize_dense,
+                      device=device, dtype=dtype)
+            self.wi_0 = Dense(cfg.d_model, cfg.d_ff, **kw)
+            self.wi_1 = Dense(cfg.d_model, cfg.d_ff, **kw)
+            self.wo = Dense(cfg.d_ff, cfg.d_model, **kw)
         self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x):
         return self.wo(self.dropout(F.gelu(self.wi_0(x)) * self.wi_1(x)))
 
+    def forward_w8a8(self, x, norm_scale, residual):
+        """The whole FFN in one ``w8a8_mlp_gated`` (tanh-GELU inside), with
+        the RMS pre-norm and the skip add folded in."""
+        d = x.shape[-1]
+        (w0, s0, _), (w1, s1, _), (wo, so, _) = self.wi_0(), self.wi_1(), self.wo()
+        y = w8a8_mlp_gated(
+            x.reshape(-1, d), w0, s0, w1, s1, wo, so,
+            norm=("rms", norm_scale, None, self.cfg.layer_norm_epsilon),
+            residual=residual.reshape(-1, d))
+        return y.reshape(x.shape)
+
 
 class T5Block(nn.Module):
-    def __init__(self, cfg: T5Config, has_cross_attention: bool, device=None,
+    def __init__(self, cfg: T5Config, has_cross_attention: bool,
+                 quantize_dense: bool = False, w8a8: bool = False, device=None,
                  dtype=None):
         super().__init__()
         eps = cfg.layer_norm_epsilon
+        kw = dict(quantize_dense=quantize_dense, device=device, dtype=dtype)
+        self.w8a8 = w8a8
         self.self_attn_norm = RMSNormFP32(cfg.d_model, eps, device=device)
-        self.self_attention = T5Attention(cfg, device=device, dtype=dtype)
+        self.self_attention = T5Attention(cfg, w8a8=w8a8, **kw)
         if has_cross_attention:
             self.cross_attn_norm = RMSNormFP32(cfg.d_model, eps, device=device)
-            self.cross_attention = T5Attention(cfg, device=device, dtype=dtype)
+            self.cross_attention = T5Attention(cfg, **kw)
         self.ff_norm = RMSNormFP32(cfg.d_model, eps, device=device)
-        self.ff = T5FeedForward(cfg, device=device, dtype=dtype)
+        self.ff = T5FeedForward(cfg, w8a8=w8a8, **kw)
         self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x, mask, position_bias, encoder_states=None,
                 cross_mask=None):
         """Uncached block: encoder, or teacher-forced decoder when
         ``encoder_states`` is given."""
+        if self.w8a8:
+            # Inference only: both pre-norms fold into the int8 kernels and
+            # both skip adds ride their epilogues; the norm modules only hold
+            # the scales.
+            if self.training:
+                raise RuntimeError("the W8A8 encoder is an inference mode")
+            x = self.self_attention.forward_w8a8(
+                x, mask, position_bias, self.self_attn_norm.weight, residual=x)
+            return self.ff.forward_w8a8(x, self.ff_norm.weight, residual=x)
         x = x + self.dropout(self.self_attention(self.self_attn_norm(x), mask,
                                                  position_bias))
         if encoder_states is not None:
@@ -211,8 +321,10 @@ class T5Encoder(nn.Module):
     def __init__(self, cfg: T5Config, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = dtype or torch.get_default_dtype()
         self.rel_bias = T5RelativeBias(cfg, bidirectional=True, device=device)
-        self.block = nn.ModuleList([T5Block(cfg, False, device=device, dtype=dtype)
+        self.block = nn.ModuleList([T5Block(cfg, False, w8a8=cfg.int8_encoder,
+                                            device=device, dtype=dtype)
                                     for _ in range(cfg.num_layers)])
         self.final_norm = RMSNormFP32(cfg.d_model, cfg.layer_norm_epsilon,
                                       device=device)
@@ -221,7 +333,7 @@ class T5Encoder(nn.Module):
     def forward(self, inputs_embeds, mask=None, position_bias=None):
         """``position_bias`` None: computed here from the table (in the
         graph, so a trained table gets its gradient)."""
-        dtype = self.block[0].ff.wo.compute_dtype
+        dtype = self.compute_dtype
         n = inputs_embeds.shape[1]
         if position_bias is None:
             pos = torch.arange(n, device=inputs_embeds.device)
@@ -241,7 +353,8 @@ class T5Decoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.rel_bias = T5RelativeBias(cfg, bidirectional=False, device=device)
-        self.block = nn.ModuleList([T5Block(cfg, True, device=device, dtype=dtype)
+        self.block = nn.ModuleList([T5Block(cfg, True, quantize_dense=cfg.int8_decode,
+                                            device=device, dtype=dtype)
                                     for _ in range(cfg.num_decoder_layers)])
         self.final_norm = RMSNormFP32(cfg.d_model, cfg.layer_norm_epsilon,
                                       device=device)
@@ -268,7 +381,8 @@ class T5Decoder(nn.Module):
         return self.dropout(self.final_norm(x))
 
     def cross_kv(self, encoder_states):
-        """Every layer's cross-attention (K, V) at the encoder batch size."""
+        """Every layer's cross-attention (K, V) at the encoder batch size
+        (int8 with their scales under ``int8_cross_cache``)."""
         return [blk.cross_attention.project_kv(encoder_states) for blk in self.block]
 
     def init_cache(self, rows: int, max_len: int, dtype, device):
@@ -304,7 +418,8 @@ class T5ForConditionalGeneration(nn.Module):
         self.decoder = T5Decoder(cfg, device=device, dtype=dtype)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, bias=False,
                              lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
-                             lora_dropout=cfg.lora_dropout, device=device,
+                             lora_dropout=cfg.lora_dropout,
+                             quantize=cfg.int8_decode, device=device,
                              dtype=dtype)
 
     def encode(self, inputs_embeds, mask=None, position_bias=None):

@@ -1,8 +1,8 @@
 """Build and bind the hand-written Hopper kernels in ``csrc/``.
 
 On first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, which is loaded with
-``ctypes``. The library goes to ``mr_blip_tpu_torch/_build/<hash>/``, keyed
+(one ``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface, which is loaded with ``ctypes``. The library goes to ``mr_blip_tpu_torch/_build/<hash>/``, keyed
 by a hash of the sources and the flags, so an edited source rebuilds and an
 unchanged one is reused. Nothing is imported or built when this module is
 imported: the CPU tests import every module and have no ``nvcc``.
@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -54,6 +54,18 @@ _SIGNATURES = {
     "mrb_flash_bias_bwd_dq_dbias_bf16": [_P] * 10 + [_I] * 5 + [_F, _P],
     # ... as above, then dk, dv, ...
     "mrb_flash_bias_bwd_dkv_bf16": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # x, ls, lb, norm_kind, eps, wq, sw, bias, residual, out, xq, sa, M, K, N,
+    # stream
+    "mrb_w8a8_linear": [_P] * 3 + [_I, _F] + [_P] * 7 + [_I] * 3 + [_P],
+    # x, ls, lb, norm_kind, eps, w1, s1, b1, w2, s2, b2, residual, out, xq, sa,
+    # h32, hq, sh, M, D, H, block_h, stream
+    "mrb_w8a8_mlp": [_P] * 3 + [_I, _F] + [_P] * 13 + [_I] * 4 + [_P],
+    # x, ls, lb, norm_kind, eps, w0, s0, w1, s1, wo, so, residual, out, xq, sa,
+    # h32, hq, sh, M, D, H, block_h, stream
+    "mrb_w8a8_mlp_gated": [_P] * 3 + [_I, _F] + [_P] * 13 + [_I] * 4 + [_P],
+    # x, ls, lb, eps, wqkv, sqkv, qkv_bias, wproj, sproj, proj_bias, out, xq,
+    # sa, qkv, attn, B, N, C, heads, n_valid, q_scale, stream
+    "mrb_w8a8_attn_block": [_P] * 3 + [_F] + [_P] * 11 + [_I] * 5 + [_F, _P],
 }
 
 
@@ -83,19 +95,38 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # Build to a temporary name and rename, so a build cut short never
-    # leaves a library that looks complete.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    # One nvcc per source, all started together; then one link. The library
+    # is built under a temporary name and renamed, so a build cut short
+    # never leaves a library that looks complete.
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    compiles = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+             str(work / (src.stem + ".o"))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src in sources]
+    logs, failed = [], []
+    for src, proc in zip(sources, compiles):
+        stdout, stderr = proc.communicate()
+        logs.append(f"== {src.name}\n{stderr}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{stdout}\n{stderr}")
+    tmp = work / "lib.so"
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp),
+             *[str(work / (src.stem + ".o")) for src in sources]],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    if failed:
+        shutil.rmtree(work)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
-    (out_dir / "ptxas.log").write_text(proc.stderr)
+    shutil.rmtree(work)
+    (out_dir / "ptxas.log").write_text("\n".join(logs))
     return lib
 
 

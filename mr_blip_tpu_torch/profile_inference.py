@@ -1,10 +1,11 @@
 """Device profile of one generate batch of the port, stage by stage.
 
-    python3 -m mr_blip_tpu_torch.profile_inference [--out output/profile_inference]
+    python3 -m mr_blip_tpu_torch.profile_inference [--int8] [--out output/profile_inference]
 
 Needs one CUDA card. Builds the flagship ``BLIP2_MR`` (EVA ViT-g/14 +
 Q-Former base + Flan-T5-XL at published widths and depths, random weights,
-bf16, beam 5), runs one warm-up batch of 4 videos x 60 uint8 frames, then
+bf16, beam 5; with ``--int8`` after ``quantize_for_inference()``), runs one
+warm-up batch of 4 videos x 60 uint8 frames, then
 runs each stage of one batch (frames -> Q-Former, T5 encode, decode) once
 unprofiled and once under ``torch.profiler``. Per stage it prints one JSON
 line:
@@ -104,6 +105,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="output/profile_inference",
                     help="directory for the Chrome traces")
+    ap.add_argument("--int8", action="store_true",
+                    help="profile the int8 inference mode "
+                         "(quantize_for_inference) instead of bf16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_inference: no CUDA device")
@@ -114,6 +118,8 @@ def main(argv=None) -> None:
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 
     model = BLIP2_MR(**FLAGSHIP, device="cuda")
+    if args.int8:
+        model.quantize_for_inference()
     model.generate(make_samples(BATCH, N_FRAMES, seed=0))  # warm-up
 
     def profile_stage(name, fn):
@@ -127,9 +133,9 @@ def main(argv=None) -> None:
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        trace = out / f"{name}.json"
+        trace = out / f"{name}{'_int8' if args.int8 else ''}.json"
         prof.export_chrome_trace(str(trace))
-        print(json.dumps({"stage": name, "wall_s": wall, **trace_summary(trace)}),
+        print(json.dumps({"stage": name, "int8": args.int8, "wall_s": wall, **trace_summary(trace)}),
               flush=True)
         return result
 

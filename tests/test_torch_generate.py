@@ -111,7 +111,7 @@ def tiny_pair():
         flat[key] = 1.0 + 0.1 * noise if key[-1] == "scale" else 0.3 * noise
     params = traverse_util.unflatten_dict(flat)
     jm.params = jax.tree.map(jnp.asarray, stack_blip2_mr_params(params))
-    port = BLIP2_MR(**kw, init_params=False)
+    port = BLIP2_MR(**kw, device="cpu", init_params=False)
     port.load_state_dict(state_dict_from_jax(params))
     return jm, port
 
@@ -138,7 +138,7 @@ def test_tiny_generate_bf16_runs(tiny_pair):
     _, port = tiny_pair
     model = BLIP2_MR(img_size=28, vit_model="tiny", t5_model="tiny", num_beams=2,
                      max_new_tokens=8, min_new_tokens=3, task="lora",
-                     compute_dtype="bfloat16", init_params=False)
+                     compute_dtype="bfloat16", init_params=False, device="cpu")
     model.load_state_dict(port.state_dict())
     handle = model.generate_dispatch(_samples("uint8"))
     out = model.generate_collect(handle)
@@ -199,6 +199,8 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.profile_inference\n"
         "import mr_blip_tpu_torch.runners.train_state, mr_blip_tpu_torch.common.optims\n"
         "import mr_blip_tpu_torch.models.layers, mr_blip_tpu_torch.ops.layer_norm\n"
+        "import mr_blip_tpu_torch.ops.int8_matmul, mr_blip_tpu_torch.models.quantize\n"
+        "import mr_blip_tpu_torch.profile_int8_kernels\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu')]\n"
         "assert not bad, bad\n"

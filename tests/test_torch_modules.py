@@ -177,7 +177,7 @@ def _tiny_pair(seed=0):
               max_new_tokens=8, task="lora", compute_dtype="float32")
     jm = JaxBLIP2_MR(**kw)
     params = _redraw(unstack_blip2_mr_params(jm.params), seed)
-    port = BLIP2_MR(**kw, init_params=False)
+    port = BLIP2_MR(**kw, device="cpu", init_params=False)
     port.load_state_dict(state_dict_from_jax(params))
     return jm, params, port
 
@@ -218,7 +218,7 @@ def test_init_params_draws_like_init_params_fast():
     jm = JaxBLIP2_MR(**kw, scan_layers=False, init_params=False)
     fast = jm.init_params_fast(jax.random.PRNGKey(0), dtype=jnp.float32)
     want = state_dict_from_jax(unstack_blip2_mr_params(fast))
-    port = BLIP2_MR(**kw, seed=3)
+    port = BLIP2_MR(**kw, device="cpu", seed=3)
     got = port.state_dict()
     assert got.keys() == want.keys()
     for key, w in want.items():
@@ -232,5 +232,5 @@ def test_init_params_draws_like_init_params_fast():
                        if not bool((want[key] == 1).all())])
     assert abs(float(drawn.mean())) < 1e-3
     assert abs(float(drawn.std()) - 0.02) < 1e-3
-    again = BLIP2_MR(**kw, seed=3).state_dict()
+    again = BLIP2_MR(**kw, device="cpu", seed=3).state_dict()
     assert all(torch.equal(again[k], got[k]) for k in got)

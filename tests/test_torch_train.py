@@ -80,7 +80,7 @@ def _pair(task="lora", seed=0):
     redrawn weights."""
     jm = JaxBLIP2_MR(**TINY, task=task, scan_layers=False)
     jm.params = jax.tree.map(jnp.asarray, _redraw(jm.params, seed))
-    port = BLIP2_MR(**TINY, task=task, init_params=False)
+    port = BLIP2_MR(**TINY, device="cpu", task=task, init_params=False)
     port.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray, jm.params)))
     return jm, _no_dropout(port)
 
@@ -228,7 +228,7 @@ def test_grad_accumulation_equals_big_batch():
     halves = [{k: v[i:i + 2] for k, v in samples.items()} for i in (0, 2)]
     results = []
     for accum, batches in ((1, [samples]), (2, halves)):
-        port = _no_dropout(BLIP2_MR(**TINY, task="lora", seed=8))
+        port = _no_dropout(BLIP2_MR(**TINY, device="cpu", task="lora", seed=8))
         ctx = TrainCtx(port, accum_grad_iters=accum, max_grad_norm=1.0, seed=0)
         ctx.set_lr(1e-3)
         for batch in batches:
@@ -241,7 +241,7 @@ def test_grad_accumulation_equals_big_batch():
 
 
 def test_nan_loss_raises_before_the_update():
-    port = BLIP2_MR(**TINY, task="qformer_freeze_lora", seed=9)
+    port = BLIP2_MR(**TINY, device="cpu", task="qformer_freeze_lora", seed=9)
     ctx = TrainCtx(port, seed=0)
     before = {k: v.clone() for k, v in port.state_dict().items()}
     port.loss = lambda batch: torch.tensor(float("nan"), requires_grad=True)
@@ -263,14 +263,14 @@ def test_generate_after_a_train_step_runs_in_eval_mode():
     beams and scores of a fresh model with the same weights, then restores
     train mode."""
     samples = _samples(b=2, seed=11)
-    trained = _with_dropout(BLIP2_MR(**TINY, task="lora", seed=3), 0.3)
+    trained = _with_dropout(BLIP2_MR(**TINY, device="cpu", task="lora", seed=3), 0.3)
     ctx = TrainCtx(trained, seed=0)
     ctx.set_lr(1e-3)
     ctx.step(trained.prepare_mr_batch(samples))
     assert trained.module.training
     got = trained.generate_dispatch(samples)
     assert trained.module.training
-    fresh = _with_dropout(BLIP2_MR(**TINY, task="lora", init_params=False), 0.3)
+    fresh = _with_dropout(BLIP2_MR(**TINY, device="cpu", task="lora", init_params=False), 0.3)
     fresh.load_state_dict(trained.state_dict())
     want = fresh.generate_dispatch(samples)
     assert torch.equal(got["seqs"], want["seqs"])
@@ -283,13 +283,13 @@ def test_mixed_dtype_state_dict_loads_strictly():
     back, and the fp32 masters stay fp32."""
     kw = dict(img_size=28, vit_model="tiny", t5_model="tiny", num_beams=1,
               max_new_tokens=4, task="qformer_freeze_lora", compute_dtype="bfloat16")
-    trained = BLIP2_MR(**kw, seed=1)
+    trained = BLIP2_MR(**kw, device="cpu", seed=1)
     trained.set_trainable()
     sd = trained.state_dict()
     dtypes = {sd[n].dtype for n, m in trained.trainable_mask().items() if m}
     assert dtypes == {torch.float32}
     assert sd["t5.shared.weight"].dtype == torch.bfloat16
-    fresh = BLIP2_MR(**kw, init_params=False)
+    fresh = BLIP2_MR(**kw, device="cpu", init_params=False)
     fresh.load_state_dict(sd, strict=True)
     trained.load_state_dict(fresh.state_dict(), strict=True)
     assert trained.state_dict()["t5.lm_head.lora_a"].dtype == torch.float32
@@ -356,7 +356,7 @@ def test_lora_dropout_acts_in_train_mode_only():
 def test_model_dropouts_follow_train_mode_and_generator():
     """In train mode the T5, LoRA and Q-Former dropouts change the loss and
     are reproducible from the generator; eval mode is deterministic."""
-    port = BLIP2_MR(**TINY, task="lora", seed=2)
+    port = BLIP2_MR(**TINY, device="cpu", task="lora", seed=2)
     batch = port.prepare_mr_batch(_samples(b=2, seed=10))
     with torch.no_grad():
         eval_loss = float(port.loss(batch))
