@@ -13,8 +13,8 @@ is nonzero and the final line is not printed:
 3. kernel vs plain on the card: each hand kernel against its plain PyTorch
    version (fp32 math from the same bf16 inputs) at the main paths' shapes
    and the ragged ones (2049, 2040 x 2048, 300, a fully masked batch row),
-   with no NaN: forward outputs max |diff| <= 0.02; the biased forward's
-   logsumexp (kernel 5) <= 1e-3; the backward outputs dq, dk, dv and dbias
+   with no NaN: forward outputs max |diff| <= 0.02; the forwards'
+   logsumexp (kernels 5 and 9) <= 1e-3; the backward outputs dq, dk, dv and dbias
    (kernels 6-8) max |diff| <= 0.02 x max |plain| and cosine >= 0.999. The
    four W8A8 kernels (13-16) against their plain versions (the same integer
    arithmetic, products exact in fp64): linear at (61,677, 1,408)^2 with a
@@ -35,7 +35,23 @@ is nonzero and the final line is not printed:
    and dequantize passes for kernel 13; none for 14-16). ``bound_ms`` is the
    least time the card could take: the larger of the bytes (inputs once,
    outputs once) over 3.35 TB/s and the operations over the dense peak of
-   their type (989 TFLOP/s bf16, 1,979 TOP/s int8; H100 SXM data sheet);
+   their type (989 TFLOP/s bf16, 1,979 TOP/s int8; H100 SXM data sheet).
+   The four in-kernel rel-pos flash kernels (9-12; table at N(0, 1), 32
+   buckets, max distance 128) against their plain versions (the bias
+   materialized from the table) at the long-context shapes (1 and 4 x 8,000
+   x H 32, the train micro-batch's and the generate batch's; the plain
+   versions run there one batch row and 8 heads at a time), at 4 x 4,008
+   (120 frames) and at 2,049, 1,037, 300, 257 (near tiles only), with ragged
+   key masks and a fully masked batch row: the same bars as kernels 5-8,
+   dtable max |diff| <= 0.02 x max |plain| and bit-equal between two
+   launches; the plain version with the table zeroed must fail the bar; a
+   float32 call on the card must raise. Kernel 9 is timed at the generate
+   shape, with kernel 3's time on the same inputs and the materialized 3.8
+   GiB bias beside it, kernels 10-12 at the train shape; their
+   ``library_ms`` is ``scaled_dot_product_attention`` with the materialized
+   bias as ``attn_mask`` (built outside the timed region), its autograd
+   backward for 10-12, and their ``plain_ms`` the chunked plain forward and
+   backward together;
 4. generate path: ``BLIP2_MR(...).generate`` at full EVA ViT-g + Q-Former +
    Flan-T5-XL width with random weights, 3 batches of 4 videos x 60 uint8
    frames; every kernel's launch count must rise by its expected number per
@@ -82,11 +98,33 @@ is nonzero and the final line is not printed:
    first-step decoder logits cosine >= 0.999 per row; and on the card int8
    against bf16: cosine > 0.99 for both.
 
+10. long-context generate path: ``BLIP2_MR(..., relpos_in_kernel=True)`` at
+    full depth and width, 2 batches of 4 videos x 240 uint8 frames (encoder
+    length 8,000), beam 5, in bf16 and after ``quantize_for_inference()``;
+    per batch kernel 9 must launch 24 times and kernel 3 never, the other
+    counts are those of phases 4 and 8 (the ViT takes the 960 frames of a
+    batch in one call), and no (1, H, L, L) bias may exist (the per-length
+    bias cache stays empty); then the same two batches with
+    ``relpos_in_kernel=False`` (kernel 3 over the materialized bias), and one
+    line with the three runs' seconds per batch, stage times and peak memory;
+11. long-context train path: phase 6 with ``relpos_in_kernel=True`` over 4
+    micro-batches of 1 video x 240 frames; per micro-batch kernels 9, 10 and
+    12 must launch 24 times each, kernels 3, 5-8 and 11 never;
+12. long context, kernel path vs plain path: the depth-2 full-width
+    ``relpos_in_kernel`` model (weights as in phase 7), one forward and
+    backward on the card and on the CPU in bf16: ``qformer_freeze_lora`` at
+    1 x 240 frames (also against the card's own ``relpos_in_kernel=False``
+    run of the same weights) and ``qformer_freeze`` at 1 x 120 frames (the
+    rel-pos table trains: kernel 11 launches once per encoder layer and the
+    table's gradient is compared with the plain path's); T5 encoder rows
+    cosine >= 0.999, loss and gradients within phase 7's bars.
+
 The line before the last is one JSON object with every kernel's numbers
 (launches: kernels 1-3 from phase 4, 5, 6 and 8 from phase 6, 7 from phase
-7's ``qformer_freeze`` run, 13-16 from phase 8; each count is taken with the
-counts set to 0 just before its path runs); the last line is
-{"ok": true, "device": {...}}.
+7's ``qformer_freeze`` run, 13-16 from phase 8, 9 from phase 10's bf16 run,
+10 and 12 from phase 11, 11 from phase 12's ``qformer_freeze`` run; each
+count is taken with the counts set to 0 just before its path runs); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -109,11 +147,13 @@ REDUCED_DEPTH = 2  # layers per stack in phase 5
 # Per generate batch at the flagship depth: LayerNorm 78 (ViT norm1/norm2 x 39)
 # + 1 (ln_vision) + 31 (Q-Former); packed QKV once per ViT block; biased
 # flash once per T5 encoder layer.
+NO_RELPOS_LAUNCHES = {"flash_relpos_fwd_stats": 0, "flash_relpos_bwd_dq": 0,
+                      "flash_relpos_bwd_dq_dtable": 0, "flash_relpos_bwd_dkv": 0}
 EXPECTED_LAUNCHES = {"layer_norm": 110, "qkv_packed_attention": 39,
                      "flash_bias_attention": 24, "flash_bias_fwd_stats": 0,
                      "flash_bias_bwd_dq": 0, "flash_bias_bwd_dq_dbias": 0,
                      "flash_bias_bwd_dkv": 0, "w8a8_linear": 0, "w8a8_mlp": 0,
-                     "w8a8_mlp_gated": 0, "w8a8_attn_block": 0}
+                     "w8a8_mlp_gated": 0, "w8a8_attn_block": 0, **NO_RELPOS_LAUNCHES}
 GENERATE_KERNELS = ("layer_norm", "qkv_packed_attention", "flash_bias_attention")
 INT8_KERNELS = ("w8a8_linear", "w8a8_mlp", "w8a8_mlp_gated", "w8a8_attn_block")
 # Phase 8, per int8 generate batch: the fused attention block and the GELU
@@ -124,7 +164,8 @@ EXPECTED_INT8_LAUNCHES = {"layer_norm": 32, "qkv_packed_attention": 0,
                           "flash_bias_attention": 24, "flash_bias_fwd_stats": 0,
                           "flash_bias_bwd_dq": 0, "flash_bias_bwd_dq_dbias": 0,
                           "flash_bias_bwd_dkv": 0, "w8a8_linear": 54, "w8a8_mlp": 39,
-                          "w8a8_mlp_gated": 24, "w8a8_attn_block": 39}
+                          "w8a8_mlp_gated": 24, "w8a8_attn_block": 39,
+                          **NO_RELPOS_LAUNCHES}
 # max |kernel - plain| of the W8A8 kernels (the bars of the TPU kernels' own
 # on-chip check) and the ulp distance past which an element is counted.
 INT8_TOL = {"w8a8_linear": 0.35, "w8a8_mlp": 0.4, "w8a8_mlp_gated": 0.4,
@@ -147,6 +188,25 @@ GRAD_TASKS = ("qformer_freeze_lora", "lora", "qformer_freeze")
 LOSS_REL_TOL = 1e-2
 GRAD_COSINE_MIN = 0.99
 RELPOS_TABLE = "t5.encoder.rel_bias.rel_embedding"
+# Phases 10-12, the long-context path (relpos_in_kernel=True): 240 frames a
+# video, ~7,944 encoder tokens. Every launch count is per call, whatever the
+# frame count (the ViT runs all 960 frames of a batch in one call, unchunked),
+# so the counts are those of phases 4, 6 and 8 with the rel-pos kernels 9, 10
+# and 12 in place of the biased kernels 3, 5, 6 and 8.
+LONG_FRAMES, LONG_BATCHES, LONG_TRAIN_BATCH = 240, 2, 1
+# The encoder length make_samples gives at 240 frames (7,680 frame tokens, the
+# interleaved timestamps, the prompts, padded to a multiple of 8): the length
+# phase 3 holds kernels 9-12 at, and phases 10 and 11 must show.
+LONG_ENCODER_LENGTH = 8000
+EXPECTED_LONG_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_bias_attention=0,
+                              flash_relpos_fwd_stats=24)
+EXPECTED_LONG_INT8_LAUNCHES = dict(EXPECTED_INT8_LAUNCHES, flash_bias_attention=0,
+                                   flash_relpos_fwd_stats=24)
+EXPECTED_LONG_TRAIN_LAUNCHES = dict(EXPECTED_LONG_LAUNCHES, flash_relpos_bwd_dq=24,
+                                    flash_relpos_bwd_dkv=24)
+# Phase 12, (task, frames): the CPU plain path takes ~130 s at 1 x 240 frames,
+# so only the LoRA task (the train path of phase 11) runs at the full length.
+LONG_GRAD_TASKS = (("qformer_freeze_lora", 240), ("qformer_freeze", 120))
 
 
 def say(*parts):
@@ -433,6 +493,191 @@ def check_train_kernels(torch, kernels):
         torch.cuda.empty_cache()
 
 
+def check_relpos_kernels(torch, kernels):
+    """Kernels 9-12 against their plain versions (fp32 math from the same
+    bf16 inputs, the bias materialized from the table; the backward kernels
+    get the plain forward's lse and δ). Above 3,000 positions the plain
+    versions run one batch row and 8 heads at a time (their (B, H, N, N)
+    fp32 temporaries are 2 GB each at 8,000 x 8 heads); the kernels always
+    get the whole tensors."""
+    import torch.nn.functional as F
+
+    from mr_blip_tpu_torch.ops import flash_attention as fa
+    from mr_blip_tpu_torch.ops.attention import relpos_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = "cuda"
+    heads, d, nb, maxd = 32, 64, 32, 128
+    keys = ("flash_relpos_fwd_stats", "flash_relpos_bwd_dq",
+            "flash_relpos_bwd_dq_dtable", "flash_relpos_bwd_dkv")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def plain(q, k, v, table, kv_mask, dout):
+        """(out, lse, δ, dq, dk, dv, dtable) of the plain versions."""
+        b, n = q.shape[:2]
+        step_b, step_h = (1, 8) if n > 3000 else (b, heads)
+        rows = []
+        dtable = torch.zeros(heads, nb, device=dev)
+        for b0 in range(0, b, step_b):
+            cols = []
+            for h0 in range(0, heads, step_h):
+                sl = (slice(b0, b0 + step_b), slice(None), slice(h0, h0 + step_h))
+                qf, kf, vf, df = (t[sl].float() for t in (q, k, v, dout))
+                tab, msk = table[h0:h0 + step_h], kv_mask[b0:b0 + step_b]
+                out, lse = fa._flash_relpos_fwd_stats_reference(qf, kf, vf, tab, msk,
+                                                                nb, maxd)
+                delta = torch.einsum("bnhd,bnhd->bhn", df, out)
+                dq, dk, dv, dtab = fa._flash_relpos_bwd_reference(
+                    qf, kf, vf, tab, msk, df, lse, delta, nb, maxd)
+                dtable[h0:h0 + step_h] += dtab
+                cols.append((out, lse, delta, dq, dk, dv))
+            # heads are dim 2 of (B, N, H, D) tensors and dim 1 of lse and δ
+            rows.append([torch.cat(ts, dim=1 if ts[0].ndim == 3 else 2)
+                         for ts in zip(*cols)])
+        return [torch.cat(ts, dim=0) for ts in zip(*rows)] + [dtable]
+
+    def hold_grad(key, shape, name, got, want):
+        err = max_err(torch, got, want)
+        scale = float(want.abs().max())
+        cos = cosine(torch, got, want)
+        say(f"{key} {shape}: {name} max|diff| {err:.5f} (max|plain| {scale:.4f}), "
+            f"cosine {cos:.6f}")
+        require(err <= GRAD_REL_TOL * scale,
+                f"{key} {shape}: {name} off by {err} > {GRAD_REL_TOL} x {scale}")
+        require(cos >= COSINE_MIN, f"{key} {shape}: {name} cosine {cos}")
+        kernels[key]["max_abs_err"] = max(kernels[key].get("max_abs_err", 0.0), err)
+
+    # "train": the train micro-batch's shape (1 video x 240 frames), timed
+    # for kernels 10-12; "generate": the generate batch's shape (4 x 240
+    # frames), timed for kernel 9; 4,008 is 4 x 120 frames; 257 has near
+    # tiles only (every |key - query| < 256).
+    for b, n, mask_kind, role in ((1, LONG_ENCODER_LENGTH, None, "train"),
+                                  (4, LONG_ENCODER_LENGTH, None, "generate"),
+                                  (4, 4008, "tail", None),
+                                  (4, 2049, "tail", "control"),
+                                  (2, 1037, None, None),
+                                  (2, 300, None, None),
+                                  (2, 257, "tail", None),
+                                  (2, 300, "row1_all", None)):
+        q, k, v, dout = (randn(b, n, heads, d) for _ in range(4))
+        table = torch.randn(heads, nb, generator=gen, device=dev)
+        kv_mask = torch.ones(b, n, dtype=torch.int8, device=dev)
+        if mask_kind == "tail":
+            lengths = torch.tensor([n, n - 1, n - 100, 3 * n // 4][:b], device=dev)
+            kv_mask = (torch.arange(n, device=dev)[None] < lengths[:, None]).to(torch.int8)
+        elif mask_kind == "row1_all":
+            kv_mask[1] = 0
+        out_r, lse_r, delta, dq_r, dk_r, dv_r, dtab_r = plain(q, k, v, table, kv_mask, dout)
+        delta = delta.contiguous()
+        lse_r = lse_r.contiguous()
+        bwd_args = (q, k, v, table, kv_mask, dout, lse_r, delta, nb, maxd)
+        out, lse = fa.flash_relpos_fwd_stats(q, k, v, table, kv_mask, nb, maxd)
+        dq10 = fa.flash_relpos_bwd_dq(*bwd_args)
+        dq11, dtab11 = fa.flash_relpos_bwd_dq_dtable(*bwd_args)
+        dtab_again = fa.flash_relpos_bwd_dq_dtable(*bwd_args)[1]
+        dk12, dv12 = fa.flash_relpos_bwd_dkv(*bwd_args)
+        torch.cuda.synchronize()
+        shape = f"({b}, {n}, {heads}, {d}) mask {mask_kind}"
+        err_out, err_lse = max_err(torch, out, out_r), max_err(torch, lse, lse_r)
+        say(f"flash_relpos_fwd_stats {shape}: out max|diff| {err_out:.5f}, "
+            f"lse max|diff| {err_lse:.6f}")
+        require(err_out <= TOL, f"relpos fwd {shape}: out off by {err_out}")
+        require(err_lse <= LSE_TOL, f"relpos fwd {shape}: lse off by {err_lse}")
+        kernels[keys[0]]["max_abs_err"] = max(kernels[keys[0]].get("max_abs_err", 0.0),
+                                              err_out)
+        hold_grad(keys[1], shape, "dq", dq10, dq_r)
+        hold_grad(keys[2], shape, "dq", dq11, dq_r)
+        hold_grad(keys[2], shape, "dtable", dtab11, dtab_r)
+        require(torch.equal(dtab11, dtab_again),
+                f"{keys[2]} {shape}: dtable differs between two launches")
+        hold_grad(keys[3], shape, "dk", dk12, dk_r)
+        hold_grad(keys[3], shape, "dv", dv12, dv_r)
+        if role == "control":
+            # A wrong bias cannot pass: the plain version with the table
+            # zeroed must fail the forward's bar.
+            zero = plain(q, k, v, torch.zeros_like(table), kv_mask, dout)
+            err_zero = float((out.float() - zero[0].float()).abs().max())
+            say(f"  control, plain version with the table zeroed: out max|diff| "
+                f"{err_zero:.5f} (bar {TOL})")
+            require(err_zero > TOL, "the check cannot tell the rel-pos bias from none")
+            del zero
+        if role in ("train", "generate"):
+            del out_r, dq_r, dk_r, dv_r
+            torch.cuda.empty_cache()
+            unit = float(b) * heads * n * n * d  # one N x N x D product is 2 of these
+            io = nbytes(q, k, v, table, kv_mask)
+            plain_all = lambda: plain(q, k, v, table, kv_mask, dout)  # noqa: E731
+            # The library yardstick needs the bias materialized: (1, H, N, N)
+            # bf16, built outside the timed region.
+            bias = fa._relpos_bias(table, n, nb, maxd).to(torch.bfloat16).contiguous()
+            qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention
+            if role == "generate":
+                entry = kernels[keys[0]]
+                entry["ms"] = median_ms(torch, lambda: fa.flash_relpos_fwd_stats(
+                    q, k, v, table, kv_mask, nb, maxd))
+                entry["plain_ms"] = median_ms(torch, plain_all, iters=1, warmup=0)
+                with torch.no_grad():
+                    entry["library_ms"] = median_ms(
+                        torch, lambda: sdpa(qg, kg, vg, attn_mask=bias))
+                set_bound(entry, io + nbytes(out, lse), bf16_flops=4 * unit)
+                k3_ms = median_ms(torch, lambda: fa.flash_attention_bias(
+                    q, k, v, bias, kv_mask))
+                say(f"{keys[0]} {shape}:" + timing_line(entry)
+                    + f"  ({4 * unit / entry['ms'] / 1e9:.1f} TFLOP/s); kernel 3 "
+                    f"(flash_bias_attention) on the same inputs with the materialized "
+                    f"{bias.numel() * 2 / 2**30:.2f} GiB bias: {k3_ms:.4f} ms")
+            else:
+                fwd_ms = median_ms(torch, lambda: fa.flash_relpos_fwd_stats(
+                    q, k, v, table, kv_mask, nb, maxd))
+                say(f"{keys[0]} {shape}: kernel {fwd_ms:.4f} ms "
+                    f"({4 * unit / fwd_ms / 1e9:.1f} TFLOP/s)")
+                plain_ms = median_ms(torch, plain_all, iters=1, warmup=0)
+                lib_out = sdpa(qg, kg, vg, attn_mask=bias)
+                dout4 = dout.transpose(1, 2)
+                lib_bwd = median_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, (qg, kg, vg), dout4, retain_graph=True))
+                del lib_out
+                bwd_io = io + nbytes(dout, lse_r, delta)
+                timed = {
+                    keys[1]: (lambda: fa.flash_relpos_bwd_dq(*bwd_args),
+                              bwd_io + nbytes(dq10), 6 * unit),
+                    keys[2]: (lambda: fa.flash_relpos_bwd_dq_dtable(*bwd_args),
+                              bwd_io + nbytes(dq11, dtab11), 6 * unit),
+                    keys[3]: (lambda: fa.flash_relpos_bwd_dkv(*bwd_args),
+                              bwd_io + nbytes(dk12, dv12), 8 * unit),
+                }
+                for key, (kernel_fn, io_bytes, flops) in timed.items():
+                    entry = kernels[key]
+                    entry["ms"] = median_ms(torch, kernel_fn)
+                    # The plain forward and backward run together (one chunked
+                    # pass): the one number for kernels 10-12.
+                    entry["plain_ms"] = plain_ms
+                    entry["library_ms"] = lib_bwd
+                    set_bound(entry, io_bytes, bf16_flops=flops)
+                    say(f"{key} {shape}:" + timing_line(entry)
+                        + f"  ({flops / entry['ms'] / 1e9:.1f} TFLOP/s)")
+            del bias, qg, kg, vg
+        del q, k, v, dout, out, lse, dq10, dq11, dk12, dv12, lse_r, delta
+        torch.cuda.empty_cache()
+
+    # A CUDA call the dispatch sends to the rel-pos kernels, in a dtype they
+    # do not take, must raise rather than run plain.
+    before = fa.flash_relpos_fwd_stats.launches
+    q32 = torch.randn(2, 300, heads, d, generator=gen, device=dev)
+    try:
+        relpos_attention(q32, q32, q32, torch.randn(heads, nb, device=dev))
+    except TypeError as exc:
+        say(f"float32 rel-pos attention on the card raises: {exc}")
+    else:
+        raise RuntimeError("float32 rel-pos attention on the card ran plain")
+    require(fa.flash_relpos_fwd_stats.launches == before,
+            "float32 rel-pos attention counted a launch")
+    torch.cuda.empty_cache()
+
+
 def ulp_distance(torch, got, want):
     """Elementwise distance of two bf16 tensors in bf16 ulps."""
     def ordered(t):
@@ -617,14 +862,14 @@ def check_int8_kernels(torch, kernels):
 
 
 # --------------------------------------------------------------- phase 4
-def flagship_model(device="cuda"):
+def flagship_model(device="cuda", **kw):
     from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
     from mr_blip_tpu_torch.profile_inference import FLAGSHIP
 
-    return BLIP2_MR(**FLAGSHIP, device=device)
+    return BLIP2_MR(**dict(FLAGSHIP, **kw), device=device)
 
 
-def reduced_model(device, init_params=True, task=None):
+def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False):
     """The flagship model at full widths, every stack REDUCED_DEPTH deep."""
     import dataclasses
 
@@ -647,7 +892,8 @@ def reduced_model(device, init_params=True, task=None):
 
         def __init__(self):
             super().__init__(**dict(FLAGSHIP, task=task or FLAGSHIP["task"]),
-                             init_params=False, device=device)
+                             init_params=False, device=device,
+                             relpos_in_kernel=relpos_in_kernel)
             self.qformer_config = dataclasses.replace(self.qformer_config,
                                                       num_layers=REDUCED_DEPTH)
             self.module = Blip2MRModule(
@@ -660,17 +906,26 @@ def reduced_model(device, init_params=True, task=None):
     return ReducedDepth()
 
 
-def main_path(torch, wrappers, int8=False):
+def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None):
     """Phase 4 (bf16) or, with ``int8``, phase 8: the same model after
-    ``quantize_for_inference()``. Returns the launch counts of the run and
-    its summary numbers."""
+    ``quantize_for_inference()``. With ``long``, phase 10: LONG_BATCHES
+    batches of 4 x LONG_FRAMES frames through the ``relpos_in_kernel`` model
+    (``relpos_in_kernel=False`` for its materialized-bias comparison run).
+    Returns the launch counts of the run and its summary numbers."""
     from mr_blip_tpu_torch.profile_inference import make_samples
     from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
 
-    expected = EXPECTED_INT8_LAUNCHES if int8 else EXPECTED_LAUNCHES
-    name = "int8 path" if int8 else "main path"
+    relpos = long if relpos_in_kernel is None else relpos_in_kernel
+    if relpos:
+        expected = EXPECTED_LONG_INT8_LAUNCHES if int8 else EXPECTED_LONG_LAUNCHES
+    else:
+        expected = EXPECTED_INT8_LAUNCHES if int8 else EXPECTED_LAUNCHES
+    n_frames, n_batches = (LONG_FRAMES, LONG_BATCHES) if long else (N_FRAMES, N_BATCHES)
+    name = ("long " if long else "") + ("int8 path" if int8 else "main path")
+    if long and not relpos:
+        name += ", materialized bias"
     t0 = time.time()
-    model = flagship_model()
+    model = flagship_model(relpos_in_kernel=relpos)
     torch.cuda.synchronize()
     say(f"model built with random weights in {time.time() - t0:.1f} s; "
         f"{sum(p.numel() for p in model.module.parameters()) / 1e9:.3f} B params")
@@ -683,7 +938,7 @@ def main_path(torch, wrappers, int8=False):
                          if b.dtype == torch.int8)
         say(f"quantize_for_inference in {time.time() - t0:.1f} s; {int8_numel / 1e9:.3f} B "
             f"int8 weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    batches = [make_samples(BATCH, N_FRAMES, seed) for seed in range(N_BATCHES)]
+    batches = [make_samples(BATCH, n_frames, seed) for seed in range(n_batches)]
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
@@ -706,6 +961,9 @@ def main_path(torch, wrappers, int8=False):
         for p in out["prediction"]:
             moment_str_to_list(p)
         require(bool(torch.isfinite(scores).all()), "beam scores not finite")
+        # No (1, H, L, L) tensor under relpos_in_kernel: the cache stays empty.
+        require(bool(model._enc_bias_cache) != relpos,
+                f"{name}: encoder bias cache holds {list(model._enc_bias_cache)}")
     launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
 
@@ -733,14 +991,17 @@ def main_path(torch, wrappers, int8=False):
         stage["decode_s"] = time.time() - t0
         del model.module.t5.decode_step
     steady = statistics.mean(seconds[1:])
-    say(f"{name}: B={BATCH} x {N_FRAMES} frames, encoder length "
-        f"{enc.shape[1]}; steady {steady:.3f} s/batch (batches 1-2), first "
+    require(not long or enc.shape[1] == LONG_ENCODER_LENGTH,
+            f"{name}: encoder length {enc.shape[1]}, kernels 9-12 were held at "
+            f"{LONG_ENCODER_LENGTH}")
+    say(f"{name}: B={BATCH} x {n_frames} frames, encoder length "
+        f"{enc.shape[1]}; steady {steady:.3f} s/batch (batches 1-{n_batches - 1}), first "
         f"{seconds[0]:.3f} s; stages "
         + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
         + f" ({len(steps)} decode steps, {1e3 * stage['decode_s'] / len(steps):.1f} ms "
         f"each); peak memory {peak / 2**30:.2f} GiB")
     summary = dict(stage, steady_s=steady, first_s=seconds[0], peak_gib=peak / 2**30,
-                   decode_steps=len(steps))
+                   decode_steps=len(steps), encoder_length=enc.shape[1])
     del model, enc, frames
     torch.cuda.empty_cache()
     return launches, summary
@@ -811,15 +1072,19 @@ def checksums(torch, tensors):
     return out
 
 
-def train_path(torch, wrappers):
+def train_path(torch, wrappers, long=False):
     """The LoRA train step at full depth and width: 4 micro-batches of
-    4 x 60 frames, 2 optimizer updates (accum_grad_iters 2), dropouts on."""
-    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
-    from mr_blip_tpu_torch.profile_inference import FLAGSHIP, make_samples
+    4 x 60 frames, 2 optimizer updates (accum_grad_iters 2), dropouts on.
+    With ``long``, phase 11: the ``relpos_in_kernel`` model over micro-batches
+    of 1 video x 240 frames (the token count of 4 x 60)."""
+    from mr_blip_tpu_torch.profile_inference import make_samples
     from mr_blip_tpu_torch.runners.train_state import TrainCtx
 
+    batch_size, n_frames = (LONG_TRAIN_BATCH, LONG_FRAMES) if long else (BATCH, N_FRAMES)
+    expected = EXPECTED_LONG_TRAIN_LAUNCHES if long else EXPECTED_TRAIN_LAUNCHES
+    label = "long train" if long else "train"
     t0 = time.time()
-    model = BLIP2_MR(**dict(FLAGSHIP, task=TRAIN_TASK), device="cuda")
+    model = flagship_model(task=TRAIN_TASK, relpos_in_kernel=long)
     ctx = TrainCtx(model, weight_decay=TRAIN_WEIGHT_DECAY, accum_grad_iters=ACCUM,
                    seed=0)
     trainable, total = model.trainable_param_count()
@@ -829,10 +1094,15 @@ def train_path(torch, wrappers):
     require(lora and all("lora_" in n for n in lora), "trainable set is not LoRA-only")
     frozen_sums = checksums(torch, frozen)
     torch.cuda.synchronize()
-    say(f"train model built in {time.time() - t0:.1f} s: task {TRAIN_TASK}, "
+    say(f"{label} model built in {time.time() - t0:.1f} s: task {TRAIN_TASK}, "
         f"{trainable:,} trainable of {total:,} params ({len(lora)} LoRA tensors, fp32)")
-    batches = [model.prepare_mr_batch(make_samples(BATCH, N_FRAMES, seed))
+    batches = [model.prepare_mr_batch(make_samples(batch_size, n_frames, seed))
                for seed in range(TRAIN_MICRO_BATCHES)]
+    lengths = {-(-(b["int_mask"].shape[1] + b["end_ids"].shape[1]
+                   + b["text_ids"].shape[1]) // 8) * 8 for b in batches}
+    require(not long or lengths == {LONG_ENCODER_LENGTH},
+            f"{label}: encoder lengths {lengths}, kernels 9-12 were held at "
+            f"{LONG_ENCODER_LENGTH}")
 
     # Stage clocks: synchronized host time around the loss and the update.
     clock = {}
@@ -880,12 +1150,12 @@ def train_path(torch, wrappers):
         split["backward"] = (step_s - split["forward"] - split["optimizer"]
                              - clock.get("grad_check", 0.0))
         rows.append((step_s, split))
-        say(f"train micro-batch {i}: loss {loss:.5f}  {step_s:.3f} s (forward "
+        say(f"{label} micro-batch {i}: loss {loss:.5f}  {step_s:.3f} s (forward "
             f"{split['forward']:.3f}, backward {split['backward']:.3f}, optimizer "
             f"{split['optimizer']:.4f})  launches {rose}")
         require(math.isfinite(loss), f"micro-batch {i}: loss {loss}")
-        require(rose == EXPECTED_TRAIN_LAUNCHES, f"micro-batch {i}: launches {rose}, "
-                f"expected {EXPECTED_TRAIN_LAUNCHES}")
+        require(rose == expected, f"micro-batch {i}: launches {rose}, "
+                f"expected {expected}")
         if (i + 1) % ACCUM == 0:
             require("grad_check" in clock, f"update {(i + 1) // ACCUM}: gradients "
                     "not checked")
@@ -896,9 +1166,12 @@ def train_path(torch, wrappers):
     peak = torch.cuda.max_memory_allocated()
     require(ctx.updates == TRAIN_MICRO_BATCHES // ACCUM, f"{ctx.updates} updates")
     require(checksums(torch, frozen) == frozen_sums, "a frozen tensor changed")
+    require(bool(model._enc_bias_cache) != long,
+            f"{label}: encoder bias cache holds {list(model._enc_bias_cache)}")
     steady = rows[1:]
     mean = {k: statistics.mean(r[1][k] for r in steady) for k in rows[0][1]}
-    say(f"train path: B={BATCH} x {N_FRAMES} frames, {TRAIN_MICRO_BATCHES} micro-batches, "
+    say(f"{label} path: B={batch_size} x {n_frames} frames (encoder length "
+        f"{', '.join(map(str, sorted(lengths)))}), {TRAIN_MICRO_BATCHES} micro-batches, "
         f"{ctx.updates} updates; every LoRA gradient finite and nonzero and every "
         f"LoRA tensor moved at each update, every frozen tensor bit-identical; "
         f"steady {statistics.mean(r[0] for r in steady):.3f} s per micro-batch (micro-batches 1-{len(rows) - 1}: forward "
@@ -919,20 +1192,32 @@ def path_gradients(torch, model, batch, task):
     model.set_trainable()
     if task == "qformer_freeze":
         model.module.t5.encoder.rel_bias.rel_embedding.requires_grad_(True)
+    rows = []  # the T5 encoder's output rows, fp32 on the host
+    hook = model.module.t5.encoder.register_forward_hook(
+        lambda mod, args, out: rows.append(out.detach().float().cpu()))
     loss = model.loss(batch)
+    hook.remove()
     loss.backward()
     grads = {n: p.grad.float().cpu() for n, p in model.module.named_parameters()
              if p.requires_grad}
-    return float(loss.detach()), grads
+    return float(loss.detach()), grads, rows[0]
 
 
-def gradients_kernel_vs_plain(torch, wrappers):
+def gradients_kernel_vs_plain(torch, wrappers, long=False):
+    """Phase 7 or, with ``long``, phase 12: the ``relpos_in_kernel`` model at
+    1 x 240 frames, where the encoder's rows are compared too (kernel path
+    against plain path, and against the card's own materialized-bias run).
+    Returns the launches of the kernel that emits the table's gradient."""
     from mr_blip_tpu_torch.profile_inference import make_samples
 
-    samples = make_samples(2, 8, seed=7)
+    family = "flash_relpos" if long else "flash_bias"
+    fwd, dq, dkv = (f"{family}_{k}" for k in ("fwd_stats", "bwd_dq", "bwd_dkv"))
+    dq_table = "flash_relpos_bwd_dq_dtable" if long else "flash_bias_bwd_dq_dbias"
     dbias_launches = 0
-    for task in GRAD_TASKS:
-        gpu = reduced_model("cuda", task=task)
+    for task, frames in (LONG_GRAD_TASKS if long else [(t, 8) for t in GRAD_TASKS]):
+        samples = make_samples(1 if long else 2, frames, seed=7)
+        size = f"{1 if long else 2} x {frames}"
+        gpu = reduced_model("cuda", task=task, relpos_in_kernel=long)
         cfg = gpu.t5_config
         # The rel-pos table at N(0, 1), as in phase 5. The T5 query
         # projections at HF T5's init scale (d_model * d_kv)^-1/2: at the
@@ -952,16 +1237,39 @@ def gradients_kernel_vs_plain(torch, wrappers):
         batch = gpu.prepare_mr_batch(samples)
         for w in wrappers.values():
             w.launches = 0
-        loss_gpu, g_gpu = path_gradients(torch, gpu, batch, task)
+        loss_gpu, g_gpu, enc_gpu = path_gradients(torch, gpu, batch, task)
         rose = {name: w.launches for name, w in wrappers.items()}
+        require(not (long and gpu._enc_bias_cache), "an encoder bias was materialized")
         state = {k: v.cpu() for k, v in gpu.state_dict().items()}
         del gpu
         torch.cuda.empty_cache()
-        cpu = reduced_model("cpu", task=task, init_params=False)
+        if long and frames == LONG_FRAMES:
+            # The card's own materialized-bias run of the same weights
+            # (kernel 5 over the (1, H, L, L) bias).
+            mat = reduced_model("cuda", task=task, init_params=False)
+            mat.load_state_dict(state)
+            enc_mat = path_gradients(torch, mat, batch, task)[2]
+            require(bool(mat._enc_bias_cache), "the comparison run built no bias")
+            del mat
+            torch.cuda.empty_cache()
+            cos_mat = torch.nn.functional.cosine_similarity(enc_gpu, enc_mat, dim=-1)
+            say(f"long context, encoder rows, in-kernel bias vs materialized bias on the "
+                f"card: per-row cosine min {float(cos_mat.min()):.6f} mean "
+                f"{float(cos_mat.mean()):.6f}")
+            require(float(cos_mat.min()) >= COSINE_MIN,
+                    f"in-kernel vs materialized bias: cosine {float(cos_mat.min())}")
+        cpu = reduced_model("cpu", task=task, init_params=False, relpos_in_kernel=long)
         cpu.load_state_dict(state)
         t0 = time.time()
-        loss_cpu, g_cpu = path_gradients(torch, cpu, batch, task)
+        loss_cpu, g_cpu, enc_cpu = path_gradients(torch, cpu, batch, task)
         seconds = time.time() - t0
+        if long:
+            cos_enc = torch.nn.functional.cosine_similarity(enc_gpu, enc_cpu, dim=-1)
+            say(f"long context {task}, encoder rows (length {enc_gpu.shape[1]}), kernel "
+                f"path vs plain path: per-row cosine min {float(cos_enc.min()):.6f} "
+                f"mean {float(cos_enc.mean()):.6f}")
+            require(float(cos_enc.min()) >= COSINE_MIN,
+                    f"long context {task}: encoder cosine {float(cos_enc.min())}")
         require(g_gpu.keys() == g_cpu.keys() and g_gpu, f"{task}: trainable sets differ")
         # An attention key bias adds the same q·b to every logit of a row,
         # which the softmax ignores: its gradient is zero but for rounding.
@@ -969,7 +1277,8 @@ def gradients_kernel_vs_plain(torch, wrappers):
         cos = {n: cosine(torch, g_gpu[n], g_cpu[n]) for n in compared}
         worst = min(cos, key=cos.get)
         rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-        say(f"gradients {task} (depth {REDUCED_DEPTH}, full width, 2 x 8 frames): "
+        say(f"gradients {task} (depth {REDUCED_DEPTH}, full width, {size} frames"
+            f"{', relpos_in_kernel' if long else ''}): "
             f"loss {loss_gpu:.5f} vs plain {loss_cpu:.5f} (rel {rel:.2e}); "
             f"{len(cos)} trainable tensors compared ({len(g_gpu) - len(cos)} key "
             f"biases left out), cosine min {cos[worst]:.6f} ({worst}), "
@@ -977,23 +1286,23 @@ def gradients_kernel_vs_plain(torch, wrappers):
             f"{ {k: v for k, v in rose.items() if v} }; CPU run {seconds:.1f} s")
         require(rel <= LOSS_REL_TOL, f"{task}: loss rel diff {rel}")
         require(cos[worst] >= GRAD_COSINE_MIN, f"{task}: {worst} cosine {cos[worst]}")
-        require(rose["flash_bias_fwd_stats"] == REDUCED_DEPTH
-                and rose["flash_bias_bwd_dkv"] == REDUCED_DEPTH, f"{task}: {rose}")
+        require(rose[fwd] == REDUCED_DEPTH and rose[dkv] == REDUCED_DEPTH,
+                f"{task}: {rose}")
+        require(not long or not any(v for k, v in rose.items() if k.startswith("flash_bias")),
+                f"{task}: a biased flash kernel ran on the relpos_in_kernel path: {rose}")
         if task == "qformer_freeze":
             g = g_gpu[RELPOS_TABLE]
             require(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0),
                     "rel-pos table gradient not finite and nonzero")
-            require(rose["flash_bias_bwd_dq_dbias"] == REDUCED_DEPTH
-                    and rose["flash_bias_bwd_dq"] == 0, f"{task}: {rose}")
-            dbias_launches = rose["flash_bias_bwd_dq_dbias"]
+            require(rose[dq_table] == REDUCED_DEPTH and rose[dq] == 0, f"{task}: {rose}")
+            dbias_launches = rose[dq_table]
             say(f"  rel-pos table gradient: max|g| {float(g.abs().max()):.4e}, "
                 f"cosine {cos[RELPOS_TABLE]:.6f}")
         else:
-            require(rose["flash_bias_bwd_dq"] == REDUCED_DEPTH
-                    and rose["flash_bias_bwd_dq_dbias"] == 0, f"{task}: {rose}")
+            require(rose[dq] == REDUCED_DEPTH and rose[dq_table] == 0, f"{task}: {rose}")
         if task == "lora":
             require(rose["layer_norm"] > 0, "lora: LayerNorm kernel not launched")
-        del cpu, g_gpu, g_cpu
+        del cpu, g_gpu, g_cpu, enc_gpu, enc_cpu
     return dbias_launches
 
 
@@ -1067,6 +1376,52 @@ def int8_kernel_vs_plain_path(torch, wrappers):
 
 
 # --------------------------------------------------------------------- main
+def kernel_tables():
+    """The wrappers whose launches are counted, and one entry per kernel for
+    the ``kernels`` line (source in the port, TPU kernel replaced)."""
+    from mr_blip_tpu_torch.ops import flash_attention as fa
+    from mr_blip_tpu_torch.ops import int8_matmul as i8
+    from mr_blip_tpu_torch.ops.layer_norm import fused_layer_norm
+
+    wrappers = {"layer_norm": fused_layer_norm,
+                "qkv_packed_attention": fa.flash_attention_qkv_packed,
+                "flash_bias_attention": fa.flash_attention_bias,
+                "flash_bias_fwd_stats": fa.flash_bias_fwd_stats,
+                "flash_bias_bwd_dq": fa.flash_bias_bwd_dq,
+                "flash_bias_bwd_dq_dbias": fa.flash_bias_bwd_dq_dbias,
+                "flash_bias_bwd_dkv": fa.flash_bias_bwd_dkv,
+                "flash_relpos_fwd_stats": fa.flash_relpos_fwd_stats,
+                "flash_relpos_bwd_dq": fa.flash_relpos_bwd_dq,
+                "flash_relpos_bwd_dq_dtable": fa.flash_relpos_bwd_dq_dtable,
+                "flash_relpos_bwd_dkv": fa.flash_relpos_bwd_dkv,
+                "w8a8_linear": i8.w8a8_linear, "w8a8_mlp": i8.w8a8_mlp,
+                "w8a8_mlp_gated": i8.w8a8_mlp_gated,
+                "w8a8_attn_block": i8.w8a8_attn_block}
+    fa_src = "mr_blip_tpu/ops/flash_attention.py"
+    i8_src = "mr_blip_tpu/ops/int8_matmul.py"
+    sources = {
+        "layer_norm": ("layer_norm.cu", "mr_blip_tpu/ops/layer_norm.py:26"),
+        "qkv_packed_attention": ("qkv_packed_attention.cu", f"{fa_src}:1446"),
+        "flash_bias_attention": ("flash_bias_attention.cu", f"{fa_src}:195"),
+        "flash_bias_fwd_stats": ("flash_bias_attention.cu", f"{fa_src}:421"),
+        "flash_bias_bwd_dq": ("flash_bias_backward.cu", f"{fa_src}:507"),
+        "flash_bias_bwd_dq_dbias": ("flash_bias_backward.cu", f"{fa_src}:545"),
+        "flash_bias_bwd_dkv": ("flash_bias_backward.cu", f"{fa_src}:594"),
+        "flash_relpos_fwd_stats": ("flash_relpos_attention.cu", f"{fa_src}:882"),
+        "flash_relpos_bwd_dq": ("flash_relpos_backward.cu", f"{fa_src}:1121"),
+        "flash_relpos_bwd_dq_dtable": ("flash_relpos_backward.cu", f"{fa_src}:1015"),
+        "flash_relpos_bwd_dkv": ("flash_relpos_backward.cu", f"{fa_src}:1180"),
+        "w8a8_linear": ("int8_matmul.cu", f"{i8_src}:123"),
+        "w8a8_mlp": ("int8_matmul.cu", f"{i8_src}:229"),
+        "w8a8_mlp_gated": ("int8_matmul.cu", f"{i8_src}:359"),
+        "w8a8_attn_block": ("int8_attn_block.cu", f"{i8_src}:505"),
+    }
+    kernels = {key: {"name": key, "route": "cuda",
+                     "source": f"mr_blip_tpu_torch/csrc/{src}", "replaces": rep}
+               for key, (src, rep) in sources.items()}
+    return wrappers, kernels
+
+
 def main():
     start = time.time()
     if not (ROOT / "mr_blip_tpu_torch" / "csrc").is_dir():
@@ -1091,9 +1446,6 @@ def main():
 
     # phase 2: build
     from mr_blip_tpu_torch.ops import _cuda
-    from mr_blip_tpu_torch.ops import flash_attention as fa
-    from mr_blip_tpu_torch.ops import int8_matmul as i8
-    from mr_blip_tpu_torch.ops.layer_norm import fused_layer_norm
 
     t0 = time.time()
     lib = _cuda.build()
@@ -1103,38 +1455,12 @@ def main():
         if "Used" in line or "spill" in line:
             say("  ptxas:", line.strip())
 
-    wrappers = {"layer_norm": fused_layer_norm,
-                "qkv_packed_attention": fa.flash_attention_qkv_packed,
-                "flash_bias_attention": fa.flash_attention_bias,
-                "flash_bias_fwd_stats": fa.flash_bias_fwd_stats,
-                "flash_bias_bwd_dq": fa.flash_bias_bwd_dq,
-                "flash_bias_bwd_dq_dbias": fa.flash_bias_bwd_dq_dbias,
-                "flash_bias_bwd_dkv": fa.flash_bias_bwd_dkv,
-                "w8a8_linear": i8.w8a8_linear, "w8a8_mlp": i8.w8a8_mlp,
-                "w8a8_mlp_gated": i8.w8a8_mlp_gated,
-                "w8a8_attn_block": i8.w8a8_attn_block}
-    fa_src = "mr_blip_tpu/ops/flash_attention.py"
-    i8_src = "mr_blip_tpu/ops/int8_matmul.py"
-    sources = {
-        "layer_norm": ("layer_norm.cu", "mr_blip_tpu/ops/layer_norm.py:26"),
-        "qkv_packed_attention": ("qkv_packed_attention.cu", f"{fa_src}:1446"),
-        "flash_bias_attention": ("flash_bias_attention.cu", f"{fa_src}:195"),
-        "flash_bias_fwd_stats": ("flash_bias_attention.cu", f"{fa_src}:421"),
-        "flash_bias_bwd_dq": ("flash_bias_backward.cu", f"{fa_src}:507"),
-        "flash_bias_bwd_dq_dbias": ("flash_bias_backward.cu", f"{fa_src}:545"),
-        "flash_bias_bwd_dkv": ("flash_bias_backward.cu", f"{fa_src}:594"),
-        "w8a8_linear": ("int8_matmul.cu", f"{i8_src}:123"),
-        "w8a8_mlp": ("int8_matmul.cu", f"{i8_src}:229"),
-        "w8a8_mlp_gated": ("int8_matmul.cu", f"{i8_src}:359"),
-        "w8a8_attn_block": ("int8_attn_block.cu", f"{i8_src}:505"),
-    }
-    kernels = {key: {"name": key, "route": "cuda",
-                     "source": f"mr_blip_tpu_torch/csrc/{src}", "replaces": rep}
-               for key, (src, rep) in sources.items()}
+    wrappers, kernels = kernel_tables()
 
     # phase 3: kernel vs plain
     check_kernels(torch, kernels)
     check_train_kernels(torch, kernels)
+    check_relpos_kernels(torch, kernels)
     check_int8_kernels(torch, kernels)
     # phase 4: the generate path at full width (kernels 1-3)
     launches, bf16_summary = main_path(torch, wrappers)
@@ -1153,6 +1479,24 @@ def main():
         f"{int8_summary['peak_gib']:.2f} GiB")
     # phase 9: int8 kernel path vs int8 plain path, and int8 vs bf16
     int8_kernel_vs_plain_path(torch, wrappers)
+    # phase 10: long-context generate at full depth and width (kernel 9), bf16
+    # and int8, and one materialized-bias run of the same batches beside them
+    long_launches, long_summary = main_path(torch, wrappers, long=True)
+    _, long_int8_summary = main_path(torch, wrappers, int8=True, long=True)
+    _, long_mat_summary = main_path(torch, wrappers, long=True, relpos_in_kernel=False)
+    say(f"long-context generate (4 x {LONG_FRAMES} frames, encoder length "
+        f"{long_summary['encoder_length']}), in-kernel bias bf16 / in-kernel bias int8 / "
+        "materialized bias bf16 (kernel 3), seconds: " + ", ".join(
+            f"{k} " + " / ".join(f"{x[k]:.3f}" for x in (long_summary, long_int8_summary,
+                                                         long_mat_summary))
+            for k in ("steady_s", "first_s", "frames_to_qformer_s", "t5_encode_s", "decode_s"))
+        + "; peak memory " + " / ".join(
+            f"{x['peak_gib']:.2f}" for x in (long_summary, long_int8_summary,
+                                             long_mat_summary)) + " GiB")
+    # phase 11: the long-context LoRA train step (kernels 9, 10, 12)
+    long_train_launches = train_path(torch, wrappers, long=True)
+    # phase 12: long context, kernel path vs plain path (kernel 11 under full finetune)
+    dtable_launches = gradients_kernel_vs_plain(torch, wrappers, long=True)
 
     for key, entry in kernels.items():
         if key in INT8_KERNELS:
@@ -1161,6 +1505,12 @@ def main():
             entry["launches"] = launches[key]
         elif key == "flash_bias_bwd_dq_dbias":
             entry["launches"] = dbias_launches
+        elif key == "flash_relpos_fwd_stats":
+            entry["launches"] = long_launches[key]
+        elif key == "flash_relpos_bwd_dq_dtable":
+            entry["launches"] = dtable_launches
+        elif key.startswith("flash_relpos"):
+            entry["launches"] = long_train_launches[key]
         else:
             entry["launches"] = train_launches[key]
     say(f"wall time {time.time() - start:.1f} s")

@@ -1,5 +1,6 @@
 // One 64-query tile of softmax attention for one (image or batch row, head),
-// shared by qkv_packed_attention.cu and flash_bias_attention.cu.
+// shared by qkv_packed_attention.cu, flash_bias_attention.cu and
+// flash_relpos_attention.cu.
 //
 // Design (first version for Hopper, sm_90a):
 //  * a block of 4 warps owns 64 query rows; each warp owns 16 of them and
@@ -21,7 +22,11 @@
 //    Pallas kernels' isfinite guards make them;
 //  * with ``lse`` set, the tile also stores each row's logsumexp m + log(l)
 //    in fp32 (the statistics the backward kernels recompute p from); a
-//    fully masked row stores log(1e-30), as _flash_bias_stats_kernel does.
+//    fully masked row stores log(1e-30), as _flash_bias_stats_kernel does;
+//  * with RELPOS the additive bias is not read from device memory: the block
+//    keeps bias_by_rel[c] = table[lut[c]] for the 2*maxd + 1 clamped
+//    relative positions in shared memory (in place of the bias tile) and
+//    adds bias_by_rel[clamp(key - query, -maxd, maxd) + maxd].
 // K/V loads are not yet overlapped with the math (no cp.async pipeline);
 // wgmma, TMA and warp specialisation are left for later versions.
 #pragma once
@@ -67,7 +72,29 @@ struct AttnArgs {
   int d;
   float scale;
   float* lse = nullptr;             // (n_q,) row logsumexp out, or null
+  // RELPOS only: this head's (num_buckets,) bias table, the bucket of every
+  // clamped relative position (2 * relpos_maxd + 1 entries), and the clamp.
+  const float* relpos_table = nullptr;
+  const int* relpos_lut = nullptr;
+  int relpos_maxd = 0;
 };
+
+// Largest clamp the shared bias_by_rel array holds (it takes the bias tile's
+// room: 64 * 64 bf16 = 2048 floats).
+constexpr int MAX_RELPOS_DISTANCE = 1023;
+
+// bias_by_rel[c] = table[lut[c]] for c in [0, 2 * maxd], by the whole block.
+__device__ __forceinline__ void load_bias_by_rel(float* dst, const float* table,
+                                                 const int* lut, int maxd) {
+  for (int c = threadIdx.x; c <= 2 * maxd; c += blockDim.x) {
+    dst[c] = table[lut[c]];
+  }
+}
+
+// Index of key - query into bias_by_rel (or the bucket lut).
+__device__ __forceinline__ int rel_index(int key, int query, int maxd) {
+  return min(max(key - query, -maxd), maxd) + maxd;
+}
 
 // Copy rows [row0, row0 + 64) x [0, d) of a bf16 matrix into a (64, DP)
 // shared tile, 16 bytes per thread per step; rows past n_rows and columns
@@ -129,7 +156,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int DP>
+template <int DP, bool RELPOS = false>
 __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
   using L = TileLayout<DP>;
   constexpr int LD = L::LD;
@@ -140,6 +167,7 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
   bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
   bf16* sBias = reinterpret_cast<bf16*>(smem + L::bias_off);
   float* sKeyOk = reinterpret_cast<float*>(smem + L::keyok_off);
+  float* sBiasByRel = reinterpret_cast<float*>(smem + L::bias_off);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -150,6 +178,9 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
   const int r1 = r0 + 8;
 
   load_tile<DP>(sQ, a.q, a.q_row, q0, a.n_q, a.d);
+  if constexpr (RELPOS) {
+    load_bias_by_rel(sBiasByRel, a.relpos_table, a.relpos_lut, a.relpos_maxd);
+  }
   __syncthreads();
   uint32_t qf[DP / 16][4];
 #pragma unroll
@@ -176,7 +207,7 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
                       (a.kv_mask == nullptr || a.kv_mask[key] != 0);
       sKeyOk[j] = ok ? 1.f : 0.f;
     }
-    if (a.bias != nullptr) {
+    if (!RELPOS && a.bias != nullptr) {
       for (int idx = threadIdx.x; idx < BQ * BK; idx += NTHREADS) {
         const int qr = q0 + idx / BK;
         const int key = k0 + idx % BK;
@@ -209,7 +240,11 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
         const int col = j * 8 + 2 * t + (e & 1);
         const int row = e < 2 ? r0 : r1;
         float v = s[j][e] * a.scale;
-        if (a.bias != nullptr) v += __bfloat162float(sBias[row * BK + col]);
+        if constexpr (RELPOS) {
+          v += sBiasByRel[rel_index(k0 + col, q0 + row, a.relpos_maxd)];
+        } else {
+          if (a.bias != nullptr) v += __bfloat162float(sBias[row * BK + col]);
+        }
         if (sKeyOk[col] == 0.f) v = -INFINITY;
         s[j][e] = v;
         mx[e >> 1] = fmaxf(mx[e >> 1], v);

@@ -19,6 +19,11 @@ the loaded float weights (W8A8 ViT, Q-Former cross K/V and T5 encoder on the
 kernels of ``ops/int8_matmul.py``; weight-only int8 decoder and LM head; int8
 cross-attention cache) and generates as before. Inference only.
 
+Long context: ``BLIP2_MR(relpos_in_kernel=True)`` (120/240-frame videos) has
+the T5 encoder look its rel-pos bias up inside the flash kernels, in
+``generate`` (bf16 and int8) and in ``loss``; no (1, H, L, L) bias is built
+or cached.
+
 The model lives on ``device``, the card by default; pass ``device="cpu"``
 to run the kernels' plain versions on the host.
 """
@@ -98,8 +103,12 @@ class BLIP2_MR:
         init_params: bool = True,
         vocab_size: int | None = None,
         device: str | torch.device = "cuda",
+        relpos_in_kernel: bool = False,
     ):
         """``init_params`` draws random weights on ``device`` from ``seed``.
+        ``relpos_in_kernel`` is the long-context mode (120/240-frame
+        videos): the T5 encoder's rel-pos bias is computed inside its flash
+        kernels and no (1, H, L, L) bias is ever built.
         The ViT is frozen (``freeze_vit: True`` in every published config).
         Without a card, the default ``device`` raises: ask for the CPU."""
         if "only_frames" in task or "QA" in task:
@@ -129,7 +138,8 @@ class BLIP2_MR:
         qf_cfg = (qformer_base_config(vit_cfg.embed_dim, num_query_token)
                   if vit_model == "eva_vit_g"
                   else qformer_tiny_config(vit_cfg.embed_dim))
-        t5_kw = dict(lora_rank=8 if self.use_lora else 0)
+        t5_kw = dict(lora_rank=8 if self.use_lora else 0,
+                     relpos_in_kernel=relpos_in_kernel)
         if vocab_size is not None:
             t5_kw["vocab_size"] = int(vocab_size)
         elif tokenizer_path is None:
@@ -335,10 +345,13 @@ class BLIP2_MR:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
-    def _encoder_bias_for(self, batch: Dict[str, Any]) -> torch.Tensor:
+    def _encoder_bias_for(self, batch: Dict[str, Any]) -> torch.Tensor | None:
         """Per-length cached (1, H, L, L) encoder rel-pos bias in the compute
-        dtype: it depends only on the length and the (frozen) table."""
+        dtype: it depends only on the length and the (frozen) table. None
+        under ``relpos_in_kernel``: the kernels compute the bias."""
         cfg = self.t5_config
+        if cfg.relpos_in_kernel:
+            return None
         length = (batch["int_mask"].shape[1] + batch["end_ids"].shape[1]
                   + batch["text_ids"].shape[1])
         length = -(-length // 8) * 8  # assemble right-pads to a multiple of 8

@@ -19,6 +19,12 @@ the LoRA inputs (attention weights too with ``attn_weight_dropout``).
 When the encoder's rel-pos table trains, its bias is computed in the graph
 and the biased flash kernel's backward emits dbias for it.
 
+Long context (``relpos_in_kernel``): the encoder hands its layers the
+(H, num_buckets) table instead of a (1, H, N, N) bias, and the attention
+core (``ops/attention.py::relpos_attention``) looks the bias up inside the
+rel-pos flash kernels, in the float and the W8A8 encoder alike; a trained
+table gets its gradient from their backward. The decoder is untouched.
+
 int8 inference modes (``models/quantize.py`` converts the weights):
 ``int8_encoder`` runs every encoder block on the W8A8 kernels of
 ``ops/int8_matmul.py`` (packed q/k/v with the RMS pre-norm folded in, ``o``
@@ -38,7 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mr_blip_tpu_torch.models.layers import Dense, Dropout, QDenseParams, RMSNormFP32
-from mr_blip_tpu_torch.ops.attention import dot_product_attention
+from mr_blip_tpu_torch.ops.attention import dot_product_attention, relpos_attention
 from mr_blip_tpu_torch.ops.int8_matmul import div_exact, w8a8_linear, w8a8_mlp_gated
 from mr_blip_tpu_torch.ops.relpos import materialize_relpos_bias
 
@@ -72,6 +78,10 @@ class T5Config:
     int8_cross_cache: bool = False
     # every encoder block on the W8A8 kernels (LoRA merged into the weights):
     int8_encoder: bool = False
+    # Long context: the encoder's rel-pos bias is computed inside the flash
+    # kernels from the table (O(N) memory) instead of being materialized as
+    # (1, H, N, N). Changes no parameter.
+    relpos_in_kernel: bool = False
 
 
 def t5_flan_xl_config(**kw) -> T5Config:
@@ -110,6 +120,10 @@ class T5RelativeBias(nn.Module):
             self.rel_embedding, q_pos, k_pos, self.bidirectional,
             cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance)
 
+    def head_major_table(self) -> torch.Tensor:
+        """(H, num_buckets) table for the in-kernel rel-pos path."""
+        return self.rel_embedding.T
+
 
 def _quantize_cache(t: torch.Tensor):
     """(B, M, C) -> int8 values and (B, 1, C) fp32 scales: symmetric, per
@@ -147,27 +161,40 @@ class T5Attention(nn.Module):
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
         return t.reshape(t.shape[0], t.shape[1], self.cfg.num_heads, self.cfg.d_kv)
 
-    def _attend(self, q, k, v, bias, mask):
-        # Cancel the D^-1/2 inside dot_product_attention: T5 has no scale.
-        out = dot_product_attention(
-            q * (self.cfg.d_kv ** 0.5), k, v, bias=bias, mask=mask,
-            dropout_rate=self.attn_dropout.active_rate,
-            generator=self.attn_dropout.generator)
+    def _attend(self, q, k, v, bias, mask, relpos_table=None):
+        # Cancel the D^-1/2 inside the attention core: T5 has no scale.
+        cfg = self.cfg
+        q = q * (cfg.d_kv ** 0.5)
+        drop = dict(dropout_rate=self.attn_dropout.active_rate,
+                    generator=self.attn_dropout.generator)
+        if relpos_table is not None:
+            out = relpos_attention(
+                q, k, v, relpos_table,
+                kv_mask=None if mask is None else mask[:, 0, 0, :],
+                num_buckets=cfg.relative_attention_num_buckets,
+                max_distance=cfg.relative_attention_max_distance, **drop)
+        else:
+            out = dot_product_attention(q, k, v, bias=bias, mask=mask, **drop)
         return out.reshape(out.shape[0], out.shape[1], -1)
 
-    def forward(self, x, mask=None, position_bias=None, kv_states=None):
+    def forward(self, x, mask=None, position_bias=None, kv_states=None,
+                relpos_table=None):
         """Uncached attention: self-attention, or cross-attention over
-        ``kv_states``."""
+        ``kv_states``. ``relpos_table`` (encoder self-attention only): the
+        (H, num_buckets) table in place of ``position_bias``."""
         kv = x if kv_states is None else kv_states
         out = self._attend(self._heads(self.q(x)), self._heads(self.k(kv)),
-                           self._heads(self.v(kv)), position_bias, mask)
+                           self._heads(self.v(kv)), position_bias, mask,
+                           relpos_table)
         return self.o(out)
 
-    def forward_w8a8(self, x, mask, position_bias, norm_scale, residual):
+    def forward_w8a8(self, x, mask, position_bias, norm_scale, residual,
+                     relpos_table=None):
         """Encoder self-attention on the W8A8 kernels: q, k and v from one
         packed int8 product with the RMS pre-norm (``norm_scale``) folded in,
-        the biased attention in bf16, and ``o`` with the block's skip add
-        (``residual``) in its epilogue. LoRA is merged into the weights."""
+        the biased attention in bf16 (the bias from ``position_bias`` or, in
+        the kernel, from ``relpos_table``), and ``o`` with the block's skip
+        add (``residual``) in its epilogue. LoRA is merged into the weights."""
         cfg = self.cfg
         b, n, d = x.shape
         inner = cfg.num_heads * cfg.d_kv
@@ -177,7 +204,8 @@ class T5Attention(nn.Module):
         q, k, v = (qkv[:, i * inner:(i + 1) * inner]
                    .reshape(b, n, cfg.num_heads, cfg.d_kv) for i in range(3))
         # The flash kernel reads contiguous k and v (q is copied by its scale).
-        out = self._attend(q, k.contiguous(), v.contiguous(), position_bias, mask)
+        out = self._attend(q, k.contiguous(), v.contiguous(), position_bias, mask,
+                           relpos_table)
         wo, so, _ = self.o()
         y = w8a8_linear(out.reshape(-1, inner), wo, so,
                         residual=residual.reshape(-1, d))
@@ -289,9 +317,10 @@ class T5Block(nn.Module):
         self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x, mask, position_bias, encoder_states=None,
-                cross_mask=None):
+                cross_mask=None, relpos_table=None):
         """Uncached block: encoder, or teacher-forced decoder when
-        ``encoder_states`` is given."""
+        ``encoder_states`` is given. ``relpos_table`` takes the place of
+        ``position_bias`` in the self-attention (long-context encoder)."""
         if self.w8a8:
             # Inference only: both pre-norms fold into the int8 kernels and
             # both skip adds ride their epilogues; the norm modules only hold
@@ -299,10 +328,12 @@ class T5Block(nn.Module):
             if self.training:
                 raise RuntimeError("the W8A8 encoder is an inference mode")
             x = self.self_attention.forward_w8a8(
-                x, mask, position_bias, self.self_attn_norm.weight, residual=x)
+                x, mask, position_bias, self.self_attn_norm.weight, residual=x,
+                relpos_table=relpos_table)
             return self.ff.forward_w8a8(x, self.ff_norm.weight, residual=x)
-        x = x + self.dropout(self.self_attention(self.self_attn_norm(x), mask,
-                                                 position_bias))
+        x = x + self.dropout(self.self_attention(
+            self.self_attn_norm(x), mask, position_bias,
+            relpos_table=relpos_table))
         if encoder_states is not None:
             x = x + self.dropout(self.cross_attention(
                 self.cross_attn_norm(x), cross_mask, kv_states=encoder_states))
@@ -331,20 +362,27 @@ class T5Encoder(nn.Module):
         self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, inputs_embeds, mask=None, position_bias=None):
-        """``position_bias`` None: computed here from the table (in the
-        graph, so a trained table gets its gradient)."""
+        """``position_bias`` handed in: used as it is. None: under
+        ``relpos_in_kernel`` no bias is built and every layer gets the
+        (H, num_buckets) table; otherwise the bias is computed here from the
+        table. Either way in the graph, so a trained table gets its
+        gradient."""
         dtype = self.compute_dtype
         n = inputs_embeds.shape[1]
-        if position_bias is None:
-            pos = torch.arange(n, device=inputs_embeds.device)
-            position_bias = self.rel_bias(pos, pos)
-        if position_bias.shape[-1] != n:
-            raise ValueError(f"bias length {position_bias.shape[-1]} != {n}")
-        position_bias = position_bias.to(dtype)
+        relpos_table = None
+        if position_bias is None and self.cfg.relpos_in_kernel:
+            relpos_table = self.rel_bias.head_major_table()
+        else:
+            if position_bias is None:
+                pos = torch.arange(n, device=inputs_embeds.device)
+                position_bias = self.rel_bias(pos, pos)
+            if position_bias.shape[-1] != n:
+                raise ValueError(f"bias length {position_bias.shape[-1]} != {n}")
+            position_bias = position_bias.to(dtype)
         attn_mask = None if mask is None else mask.bool()[:, None, None, :]
         x = self.dropout(inputs_embeds.to(dtype))
         for blk in self.block:
-            x = blk(x, attn_mask, position_bias)
+            x = blk(x, attn_mask, position_bias, relpos_table=relpos_table)
         return self.dropout(self.final_norm(x))
 
 

@@ -54,6 +54,15 @@ _SIGNATURES = {
     "mrb_flash_bias_bwd_dq_dbias_bf16": [_P] * 10 + [_I] * 5 + [_F, _P],
     # ... as above, then dk, dv, ...
     "mrb_flash_bias_bwd_dkv_bf16": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # q, k, v, table, lut, kv_mask, out, lse, B, N, H, D, nb, maxd, scale, stream
+    "mrb_flash_relpos_fwd_stats_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # q, k, v, table, lut, kv_mask, dout, lse, delta, dq, B, N, H, D, nb, maxd,
+    # scale, stream
+    "mrb_flash_relpos_bwd_dq_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
+    # ... as above, then dq, dtable, partial (workspace), ...
+    "mrb_flash_relpos_bwd_dq_dtable_bf16": [_P] * 12 + [_I] * 6 + [_F, _P],
+    # ... as above, then dk, dv, ...
+    "mrb_flash_relpos_bwd_dkv_bf16": [_P] * 11 + [_I] * 6 + [_F, _P],
     # x, ls, lb, norm_kind, eps, wq, sw, bias, residual, out, xq, sa, M, K, N,
     # stream
     "mrb_w8a8_linear": [_P] * 3 + [_I, _F] + [_P] * 7 + [_I] * 3 + [_P],

@@ -5,6 +5,9 @@ the JAX dispatch rules with "on TPU" read as "tensor on CUDA": long
 (>= 256 query) biased self-attention with a key-only mask goes to the
 biased flash kernel; everything else is ``xla_attention`` in plain torch.
 Active attention-weight dropout forces the plain path, as in JAX.
+``relpos_attention`` is the long-context T5 encoder's core: the rel-pos
+bias comes from the (H, num_buckets) table inside the rel-pos flash kernels
+on the card, and is materialized for ``xla_attention`` elsewhere.
 
 Shapes follow the (batch, length, heads, head_dim) convention.
 """
@@ -12,6 +15,8 @@ Shapes follow the (batch, length, heads, head_dim) convention.
 from __future__ import annotations
 
 import torch
+
+from mr_blip_tpu_torch.ops.relpos import materialize_relpos_bias
 
 # Below this many query positions the plain version is used.
 _FLASH_MIN_SEQ = 256
@@ -60,9 +65,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The biased flash kernel takes a (1, H, N, M) bias, q_len == k_len and at
     most a key-only (B, 1, 1, M) mask, as in JAX. Its only type is bf16, so
     a CUDA call of another dtype that meets these rules raises in the
-    kernel's wrapper rather than running plain. The plain mask-free flash
-    kernel of the JAX package is not ported: no call on the generate or
-    train path reaches it, so that case stays plain here.
+    kernel's wrapper rather than running plain. The bias-free, mask-free
+    flash kernel of the JAX package (``_flash_fwd``, kernel 4 of PERF.md's
+    table) is not ported yet: no call on the generate, train or
+    long-context path reaches it, so that case stays plain here.
     """
     if dropout_rate > 0.0:
         return xla_attention(q, k, v, bias=bias, mask=mask,
@@ -85,3 +91,37 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias = bias.to(q.dtype).expand(1, q.shape[2], q.shape[1], k.shape[1])
         return flash_attention_bias(q, k, v, bias.contiguous(), kv_mask)
     return xla_attention(q, k, v, bias=bias, mask=mask)
+
+
+def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     table: torch.Tensor,
+                     kv_mask: torch.Tensor | None = None,
+                     num_buckets: int = 32, max_distance: int = 128,
+                     dropout_rate: float = 0.0,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+    """Attention with the T5 bidirectional rel-pos bias derived from a
+    (H, num_buckets) table.
+
+    On a CUDA tensor with at least 256 positions, q_len == k_len and no
+    active dropout this goes to ``flash_attention_relpos``, whose kernels
+    look the bias up themselves (O(N) memory, no (1, H, N, M) tensor; bf16
+    only: another dtype raises there). Otherwise (short sequences, the CPU,
+    active attention-weight dropout) the bias is materialized and
+    ``xla_attention`` runs, as in JAX: the same bucket function and the same
+    table, so the two routes compute one function. ``kv_mask``: optional
+    (B, M), nonzero = attend. A table that requires grad gets its gradient
+    on either route."""
+    if (q.is_cuda and dropout_rate <= 0.0 and q.shape[1] >= _FLASH_MIN_SEQ
+            and q.shape[1] == k.shape[1]):
+        from mr_blip_tpu_torch.ops.flash_attention import flash_attention_relpos
+
+        return flash_attention_relpos(q, k, v, table, kv_mask=kv_mask,
+                                      num_buckets=num_buckets,
+                                      max_distance=max_distance)
+    bias = materialize_relpos_bias(
+        table.T, torch.arange(q.shape[1], device=q.device),
+        torch.arange(k.shape[1], device=q.device), True, num_buckets,
+        max_distance)
+    mask = None if kv_mask is None else (kv_mask != 0)[:, None, None, :]
+    return xla_attention(q, k, v, bias=bias, mask=mask,
+                         dropout_rate=dropout_rate, generator=generator)

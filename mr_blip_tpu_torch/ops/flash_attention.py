@@ -1,6 +1,6 @@
-"""Attention kernels of the generate and train paths (counterpart of
-``mr_blip_tpu/ops/flash_attention.py``; only the packed-QKV and the biased
-flash kernels are ported).
+"""Attention kernels of the generate, train and long-context paths
+(counterpart of ``mr_blip_tpu/ops/flash_attention.py``; every kernel of it
+but the bias-free, mask-free ``flash_attention`` (``_flash_fwd``) is ported).
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 hand-written kernel for a CUDA tensor, or raises:
@@ -15,19 +15,33 @@ hand-written kernel for a CUDA tensor, or raises:
   requires grad, then
   ``flash_bias_bwd_dkv`` (``csrc/flash_bias_backward.cu``). Plain versions:
   ``_flash_bias_fwd_stats_reference`` (forward, both kernels) and
-  ``_flash_bias_bwd_reference``.
+  ``_flash_bias_bwd_reference``;
+* ``flash_attention_relpos`` (self-attention with the T5 rel-pos bias
+  computed inside the kernel from the (H, num_buckets) table, so that no
+  (1, H, N, N) bias exists): always the custom VJP's forward
+  ``flash_relpos_fwd_stats`` -> ``csrc/flash_relpos_attention.cu``; when a
+  gradient is needed, through ``_FlashRelpos``, whose backward is
+  ``flash_relpos_bwd_dq``, or ``flash_relpos_bwd_dq_dtable`` when the table
+  requires grad, then ``flash_relpos_bwd_dkv``
+  (``csrc/flash_relpos_backward.cu``). Plain versions:
+  ``_flash_relpos_fwd_stats_reference`` and ``_flash_relpos_bwd_reference``
+  (the bias materialized, then the biased plain versions).
 
 Every launcher counts its launches in ``<wrapper>.launches``. Shapes follow
-the JAX package: (B, N, H, D) for q/k/v, (1, H, N, M) for the bias, (B, M)
-for the key mask, (B, H, N) fp32 for the logsumexp and δ.
+the JAX package: (B, N, H, D) for q/k/v, (1, H, N, M) for the bias, (H,
+num_buckets) fp32 for the rel-pos table, (B, M) for the key mask, (B, H, N)
+fp32 for the logsumexp and δ.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from mr_blip_tpu_torch.ops import _cuda
 from mr_blip_tpu_torch.ops.attention import xla_attention
+from mr_blip_tpu_torch.ops.relpos import clamped_bucket_table, materialize_relpos_bias
 
 # Largest head dim the forward kernels instantiate (csrc/attention_tile.cuh).
 MAX_HEAD_DIM = 96
@@ -178,14 +192,15 @@ def _flash_bias_bwd_reference(q, k, v, bias, kv_mask, dout, lse, delta):
 
 
 def _bias_operands(q, k, v, bias, kv_mask, *more):
-    """Check the bf16 operands of a biased kernel launch (q, k, v, bias
-    and the (name, tensor) pairs in ``more``); returns the key mask as
-    contiguous int8 (all ones when None)."""
+    """Check the bf16 operands of a flash kernel launch (q, k, v and the
+    (name, tensor) pairs in ``more``; the bias too unless None); returns the
+    key mask as contiguous int8 (all ones when None)."""
     b = q.shape[0]
     m = k.shape[1]
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), *more):
-        _check_cuda_operand(name, t, torch.bfloat16, dev)
+        if t is not None:
+            _check_cuda_operand(name, t, torch.bfloat16, dev)
     if kv_mask is None:
         kv_mask = torch.ones((b, m), dtype=torch.int8, device=dev)
     kv_mask = kv_mask.to(torch.int8).contiguous()
@@ -376,3 +391,234 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bias.launches = 0
+
+
+# ------------------------------ in-kernel rel-pos flash (long-context encoder)
+# What the kernels' shared-memory tables hold (csrc/flash_relpos_backward.cu).
+MAX_RELPOS_BUCKETS = 32
+MAX_RELPOS_DISTANCE = 1023
+
+
+@functools.lru_cache(maxsize=8)
+def _bucket_lut(num_buckets, max_distance, device):
+    """The clamped bucket table the kernels look up, on ``device``."""
+    return clamped_bucket_table(num_buckets, max_distance).to(device).contiguous()
+
+
+def _relpos_bias(table, n, num_buckets, max_distance):
+    """(1, H, N, N) bias from the (H, num_buckets) table, by the bit-exact
+    bucket function itself (not the clamped table)."""
+    pos = torch.arange(n, device=table.device)
+    return materialize_relpos_bias(table.T, pos, pos, True, num_buckets,
+                                   max_distance)
+
+
+def _flash_relpos_fwd_stats_reference(q, k, v, table, kv_mask, num_buckets=32,
+                                      max_distance=128):
+    """Plain version of kernel 9: the bias materialized from the table, then
+    the biased plain forward -> (out in q's dtype, lse (B, H, N))."""
+    bias = _relpos_bias(table.to(_math_dtype(q)), q.shape[1], num_buckets,
+                        max_distance)
+    return _flash_bias_fwd_stats_reference(q, k, v, bias, kv_mask)
+
+
+def _flash_relpos_bwd_reference(q, k, v, table, kv_mask, dout, lse, delta,
+                                num_buckets=32, max_distance=128):
+    """Plain version of kernels 10-12: the biased plain backward over the
+    materialized bias, and dtable[h, u] = Σ ds over every (b, i, j) with
+    bucket(j - i) == u. Returns (dq, dk, dv) in q's dtype and dtable
+    (H, num_buckets) in the math dtype."""
+    n, h = q.shape[1], q.shape[2]
+    bias = _relpos_bias(table.to(_math_dtype(q)), n, num_buckets, max_distance)
+    dq, dk, dv, dbias = _flash_bias_bwd_reference(q, k, v, bias, kv_mask, dout,
+                                                  lse, delta)
+    # The (N, N) bucket of key - query, through the table the kernels use.
+    pos = torch.arange(n, device=q.device)
+    rel = (pos[None, :] - pos[:, None]).clamp(-max_distance, max_distance)
+    buckets = _bucket_lut(num_buckets, max_distance, q.device)[rel + max_distance]
+    dtable = torch.zeros((h, num_buckets), dtype=dbias.dtype, device=q.device)
+    dtable.index_add_(1, buckets.reshape(-1).long(), dbias[0].reshape(h, -1))
+    return dq, dk, dv, dtable
+
+
+def _relpos_operands(q, k, v, table, kv_mask, num_buckets, max_distance, *more):
+    """Check the operands of a rel-pos kernel launch; returns the int8 key
+    mask and the clamped bucket table on the device."""
+    h, d = q.shape[2:]
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("the rel-pos flash kernels are self-attention only: "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if not (0 < num_buckets <= MAX_RELPOS_BUCKETS
+            and 0 < max_distance <= MAX_RELPOS_DISTANCE):
+        raise ValueError(f"num_buckets {num_buckets} / max_distance {max_distance} "
+                         f"unsupported: at most {MAX_RELPOS_BUCKETS} / "
+                         f"{MAX_RELPOS_DISTANCE}")
+    kv_mask = _bias_operands(q, k, v, None, kv_mask, *more)
+    _check_bwd_head_dim(d)
+    if table.shape != (h, num_buckets):
+        raise ValueError(f"table must be ({h}, {num_buckets}), got {tuple(table.shape)}")
+    _check_cuda_operand("table", table, torch.float32, q.device)
+    return kv_mask, _bucket_lut(num_buckets, max_distance, q.device)
+
+
+def flash_relpos_fwd_stats(q, k, v, table, kv_mask=None, num_buckets=32,
+                           max_distance=128):
+    """Kernel 9: self-attention with the rel-pos bias looked up inside the
+    kernel, plus the fp32 (B, H, N) row logsumexp -> (out, lse). Plain
+    version for a CPU tensor."""
+    if not q.is_cuda:
+        return _flash_relpos_fwd_stats_reference(q, k, v, table, kv_mask,
+                                                 num_buckets, max_distance)
+    b, n, h, d = q.shape
+    kv_mask, lut = _relpos_operands(q, k, v, table, kv_mask, num_buckets,
+                                    max_distance)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    err = _cuda.library().mrb_flash_relpos_fwd_stats_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+        lut.data_ptr(), kv_mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, n, h, d, num_buckets, max_distance, float(d ** -0.5),
+        _cuda.stream_ptr(q.device))
+    _cuda.check(err, "mrb_flash_relpos_fwd_stats_bf16")
+    flash_relpos_fwd_stats.launches += 1
+    return out, lse
+
+
+def _relpos_bwd_launch(name, q, k, v, table, kv_mask, dout, lse, delta,
+                       num_buckets, max_distance, outs):
+    b, n, h, d = q.shape
+    kv_mask, lut = _relpos_operands(q, k, v, table, kv_mask, num_buckets,
+                                    max_distance, ("dout", dout))
+    _check_stats(lse, delta, b, h, n, q.device)
+    err = getattr(_cuda.library(), name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+        lut.data_ptr(), kv_mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *[t.data_ptr() for t in outs], b, n, h, d,
+        num_buckets, max_distance, float(d ** -0.5), _cuda.stream_ptr(q.device))
+    _cuda.check(err, name)
+
+
+def flash_relpos_bwd_dq(q, k, v, table, kv_mask, dout, lse, delta,
+                        num_buckets=32, max_distance=128):
+    """Kernel 10: dq (B, N, H, D) in q's dtype, the bias recomputed."""
+    if not q.is_cuda:
+        return _flash_relpos_bwd_reference(q, k, v, table, kv_mask, dout, lse,
+                                           delta, num_buckets, max_distance)[0]
+    dq = torch.empty_like(q)
+    _relpos_bwd_launch("mrb_flash_relpos_bwd_dq_bf16", q, k, v, table, kv_mask,
+                       dout, lse, delta, num_buckets, max_distance, (dq,))
+    flash_relpos_bwd_dq.launches += 1
+    return dq
+
+
+def flash_relpos_bwd_dq_dtable(q, k, v, table, kv_mask, dout, lse, delta,
+                               num_buckets=32, max_distance=128):
+    """Kernel 11: dq and dtable (H, num_buckets) fp32, every sum in a fixed
+    order (it repeats bit for bit)."""
+    if not q.is_cuda:
+        dq, _, _, dtable = _flash_relpos_bwd_reference(
+            q, k, v, table, kv_mask, dout, lse, delta, num_buckets, max_distance)
+        return dq, dtable
+    b, n, h, _ = q.shape
+    dq = torch.empty_like(q)
+    dtable = torch.empty((h, num_buckets), dtype=torch.float32, device=q.device)
+    # One partial sum per (batch row, 64-query tile) block, head and bucket.
+    partial = torch.empty((b * -(-n // 64), h, num_buckets), dtype=torch.float32,
+                          device=q.device)
+    _relpos_bwd_launch("mrb_flash_relpos_bwd_dq_dtable_bf16", q, k, v, table,
+                       kv_mask, dout, lse, delta, num_buckets, max_distance,
+                       (dq, dtable, partial))
+    flash_relpos_bwd_dq_dtable.launches += 1
+    return dq, dtable
+
+
+def flash_relpos_bwd_dkv(q, k, v, table, kv_mask, dout, lse, delta,
+                         num_buckets=32, max_distance=128):
+    """Kernel 12: (dk, dv), (B, N, H, D) each in k's dtype."""
+    if not q.is_cuda:
+        return _flash_relpos_bwd_reference(q, k, v, table, kv_mask, dout, lse,
+                                           delta, num_buckets, max_distance)[1:3]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _relpos_bwd_launch("mrb_flash_relpos_bwd_dkv_bf16", q, k, v, table, kv_mask,
+                       dout, lse, delta, num_buckets, max_distance, (dk, dv))
+    flash_relpos_bwd_dkv.launches += 1
+    return dk, dv
+
+
+_FLASH_RELPOS_OPS = (flash_relpos_fwd_stats, flash_relpos_bwd_dq,
+                     flash_relpos_bwd_dq_dtable, flash_relpos_bwd_dkv)
+for _fn in _FLASH_RELPOS_OPS:
+    _fn.launches = 0
+
+
+class _FlashRelpos(torch.autograd.Function):
+    """The custom VJP of the in-kernel rel-pos flash attention
+    (``_flash_relpos_vjp_fwd`` / ``_bwd`` in JAX). ``fwd`` is
+    ``flash_relpos_fwd_stats``; ``bwd_dq``, ``bwd_dq_dtable`` and ``bwd_dkv``
+    are the backward wrappers (tests pass CPU stand-ins). δ = rowsum(dO∘O) is
+    computed here in fp32. dtable (kernel 11 in place of kernel 10) is
+    computed only when the table needs a gradient, which JAX states with its
+    ``table_grad`` flag."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, table, kv_mask, num_buckets, max_distance, fwd,
+                bwd_dq, bwd_dq_dtable, bwd_dkv):
+        out, lse = fwd(q, k, v, table, kv_mask, num_buckets, max_distance)
+        ctx.save_for_backward(q, k, v, table, kv_mask, out, lse)
+        ctx.buckets = (num_buckets, max_distance)
+        ctx.bwd = (bwd_dq, bwd_dq_dtable, bwd_dkv)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, table, kv_mask, out, lse = ctx.saved_tensors
+        bwd_dq, bwd_dq_dtable, bwd_dkv = ctx.bwd
+        grad = grad.contiguous()
+        ct = _math_dtype(q)
+        delta = torch.einsum("bnhd,bnhd->bhn", grad.to(ct), out.to(ct))
+        delta = delta.to(lse.dtype).contiguous()
+        args = (q, k, v, table, kv_mask, grad, lse, delta, *ctx.buckets)
+        dtable = None
+        if ctx.needs_input_grad[3]:
+            dq, dtable = bwd_dq_dtable(*args)
+            dtable = dtable.to(table.dtype)
+        else:
+            dq = bwd_dq(*args)
+        dk, dv = bwd_dkv(*args)
+        return (dq, dk, dv, dtable) + (None,) * 7
+
+
+def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           table: torch.Tensor,
+                           kv_mask: torch.Tensor | None = None,
+                           num_buckets: int = 32,
+                           max_distance: int = 128) -> torch.Tensor:
+    """softmax(q·kᵀ·D^-½ + table[h, bucket(k_pos - q_pos)], keys with
+    kv_mask == 0 excluded)·v with T5's bidirectional buckets: self-attention
+    in O(N) memory, no (1, H, N, N) bias.
+
+    q, k, v: (B, N, H, D), one length; ``table``: (H, num_buckets), the
+    transpose of the model's (num_buckets, H) parameter, cast to contiguous
+    fp32 here (its gradient flows back through the cast); kv_mask: optional
+    (B, N), nonzero = attend. A table that requires grad gets the true
+    dtable (full finetuning; kernel 11 in place of kernel 10).
+
+    A CUDA call launches kernel 9 and, in its backward, kernels 10 or 11 and
+    12; a CPU call runs their plain versions. A row whose keys are all
+    masked comes out as zeros."""
+    b, n, h, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"self-attention only: k/v shapes {tuple(k.shape)}/"
+                         f"{tuple(v.shape)} must equal q's {tuple(q.shape)}")
+    if table.shape != (h, num_buckets):
+        raise ValueError(f"table must be ({h}, {num_buckets}), got "
+                         f"{tuple(table.shape)}")
+    if kv_mask is not None and kv_mask.shape != (b, n):
+        raise ValueError(f"kv_mask must be ({b}, {n}), got {tuple(kv_mask.shape)}")
+    table = table.float().contiguous()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, table)):
+        return _FlashRelpos.apply(q, k, v, table, kv_mask, num_buckets,
+                                  max_distance, *_FLASH_RELPOS_OPS)
+    return flash_relpos_fwd_stats(q, k, v, table, kv_mask, num_buckets,
+                                  max_distance)[0]

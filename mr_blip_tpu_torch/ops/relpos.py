@@ -33,6 +33,18 @@ def relative_position_bucket(relative_position: torch.Tensor, bidirectional: boo
     return ret + torch.where(is_small, n.to(torch.int32), val_if_large)
 
 
+def clamped_bucket_table(num_buckets: int, max_distance: int) -> torch.Tensor:
+    """The bidirectional bucket of every relative position clamped to
+    [-max_distance, max_distance]: (2 * max_distance + 1,) int32, entry
+    ``c`` for ``rel = c - max_distance``. The bucket function is constant
+    beyond ``max_distance`` on either side, so
+    ``table[clamp(rel, -max_distance, max_distance) + max_distance]`` is the
+    bucket of any ``rel``; the rel-pos flash kernels look their bias up
+    through it and never evaluate the logarithm themselves."""
+    rel = torch.arange(-max_distance, max_distance + 1)
+    return relative_position_bucket(rel, True, num_buckets, max_distance)
+
+
 def materialize_relpos_bias(table: torch.Tensor, q_positions: torch.Tensor,
                             k_positions: torch.Tensor, bidirectional: bool,
                             num_buckets: int, max_distance: int) -> torch.Tensor:

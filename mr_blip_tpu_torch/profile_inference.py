@@ -1,11 +1,14 @@
 """Device profile of one generate batch of the port, stage by stage.
 
-    python3 -m mr_blip_tpu_torch.profile_inference [--int8] [--out output/profile_inference]
+    python3 -m mr_blip_tpu_torch.profile_inference [--int8] [--frames N]
+        [--relpos-in-kernel] [--out output/profile_inference]
 
 Needs one CUDA card. Builds the flagship ``BLIP2_MR`` (EVA ViT-g/14 +
 Q-Former base + Flan-T5-XL at published widths and depths, random weights,
 bf16, beam 5; with ``--int8`` after ``quantize_for_inference()``), runs one
-warm-up batch of 4 videos x 60 uint8 frames, then
+warm-up batch of 4 videos x 60 uint8 frames (``--frames N`` for another
+frame count; ``--relpos-in-kernel`` for the long-context mode, e.g. with
+``--frames 240``), then
 runs each stage of one batch (frames -> Q-Former, T5 encode, decode) once
 unprofiled and once under ``torch.profiler``. Per stage it prints one JSON
 line:
@@ -108,6 +111,11 @@ def main(argv=None) -> None:
     ap.add_argument("--int8", action="store_true",
                     help="profile the int8 inference mode "
                          "(quantize_for_inference) instead of bf16")
+    ap.add_argument("--frames", type=int, default=N_FRAMES,
+                    help="frames per video (default %(default)s)")
+    ap.add_argument("--relpos-in-kernel", action="store_true",
+                    help="the long-context mode: the T5 encoder's rel-pos bias "
+                         "computed inside its flash kernels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_inference: no CUDA device")
@@ -117,10 +125,14 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 
-    model = BLIP2_MR(**FLAGSHIP, device="cuda")
+    model = BLIP2_MR(**FLAGSHIP, device="cuda",
+                     relpos_in_kernel=args.relpos_in_kernel)
     if args.int8:
         model.quantize_for_inference()
-    model.generate(make_samples(BATCH, N_FRAMES, seed=0))  # warm-up
+    model.generate(make_samples(BATCH, args.frames, seed=0))  # warm-up
+    tag = "".join((f"_{args.frames}f" if args.frames != N_FRAMES else "",
+                   "_relpos" if args.relpos_in_kernel else "",
+                   "_int8" if args.int8 else ""))
 
     def profile_stage(name, fn):
         torch.cuda.synchronize()
@@ -133,14 +145,15 @@ def main(argv=None) -> None:
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        trace = out / f"{name}{'_int8' if args.int8 else ''}.json"
+        trace = out / f"{name}{tag}.json"
         prof.export_chrome_trace(str(trace))
-        print(json.dumps({"stage": name, "int8": args.int8, "wall_s": wall, **trace_summary(trace)}),
-              flush=True)
+        print(json.dumps({"stage": name, "int8": args.int8, "frames": args.frames,
+                          "relpos_in_kernel": args.relpos_in_kernel,
+                          "wall_s": wall, **trace_summary(trace)}), flush=True)
         return result
 
     with torch.inference_mode():
-        batch = model.prepare_mr_batch(make_samples(BATCH, N_FRAMES, seed=1))
+        batch = model.prepare_mr_batch(make_samples(BATCH, args.frames, seed=1))
         tensors = model._to_device(batch)
         enc_bias = model._encoder_bias_for(batch)
         frames = profile_stage("frames_to_qformer",
