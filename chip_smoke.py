@@ -53,7 +53,7 @@ is nonzero and the final line is not printed:
    backward for 10-12, and their ``plain_ms`` the chunked plain forward and
    backward together;
 4. generate path: ``BLIP2_MR(...).generate`` at full EVA ViT-g + Q-Former +
-   Flan-T5-XL width with random weights, 3 batches of 4 videos x 60 uint8
+   Flan-T5-XL width with random weights, 2 batches of 4 videos x 60 uint8
    frames; every kernel's launch count must rise by its expected number per
    batch, predictions must parse and beam scores be finite;
 5. kernel path vs plain path: one reduced-depth full-width model, its T5
@@ -83,7 +83,7 @@ is nonzero and the final line is not printed:
    gradient cosine >= 0.99.
 
 8. int8 generate path: the same full-depth, full-width model after
-   ``quantize_for_inference()``, 3 batches of 4 x 60 uint8 frames, beam 5;
+   ``quantize_for_inference()``, 2 batches of 4 x 60 uint8 frames, beam 5;
    per batch the fused attention block (kernel 16) and the GELU MLP (14)
    must launch 39 times each, the W8A8 linear (13) 54 times (6 Q-Former
    cross layers + 2 per T5 encoder layer), the gated MLP (15) 24 times, the
@@ -119,12 +119,62 @@ is nonzero and the final line is not printed:
     table's gradient is compared with the plain path's); T5 encoder rows
     cosine >= 0.999, loss and gradients within phase 7's bars.
 
+13. generate at 364 pixels (the resolution of BLIP-2's finetuned checkpoints
+    and the default of the package's processors): ``BLIP2_MR(img_size=364)``
+    at full depth and width, bf16, 2 batches of 4 x 60 uint8 frames at 364²,
+    beam 5. 677 tokens an image are past the packed-QKV kernel's bound, so
+    per batch kernel 4 (``flash_attention``) must launch 39 times and the
+    packed-QKV kernel never; LayerNorm 110, biased flash 24. Prints seconds
+    per batch, the three stage times and peak memory beside phase 4's. Then
+    the same two batches after ``quantize_for_inference()``: the int8 ViT's
+    split route, per batch kernel 4 39 times, the W8A8 linear 132 (54 as in
+    phase 8 and 2 per ViT block), the GELU MLP 39, the fused attention block
+    never, LayerNorm 32. Then the fp32 parity mode: the depth-2 model with ``compute_dtype="float32"``
+    at 224 pixels generates one batch of 4 x 4 frames (under 256 encoder
+    tokens: the biased flash kernel is bf16 only) with kernel 4 once per ViT
+    block and the packed-QKV kernel never, and its frame features must agree
+    with the CPU's fp32 plain path to 1e-4 of their largest magnitude;
+14. grounded QA at 364 pixels: ``BLIP2_MR(img_size=364,
+    task="qformer_freeze_lora_QA_with_localizer", num_frames_for_answer=60)``
+    (``configs/projects/eval/nextGQA.yaml`` but for ``resample_frames`` and
+    the image size), full depth and width, 2 batches of 4 videos x 60 frames
+    with five-option questions through ``videoQA_generate``; per batch kernel
+    4 must launch 78 times (the localizer's ViT and the answerer's), biased
+    flash 48, LayerNorm 220; every prediction in 0..4, every moment inside
+    its video, the answerer's A-E logits finite, its encoder length the 2,040
+    that phase 3 holds kernel 3 at; prints seconds per batch
+    split into localizer, frame crop and answerer, and peak memory;
+15. 364 pixels and QA, kernel path vs plain path: the depth-2 full-width
+    ``qformer_freeze_lora_QA`` model (weights as in phase 7, both T5 stacks)
+    on 2 x 8 frames at 364², in bf16 on the CPU and on the card: ViT output
+    rows and T5 encoder rows cosine >= 0.999, the answerer's A-E logits
+    cosine >= 0.999 per row; the same after ``quantize_vit()`` (the split
+    int8 route: W8A8 linear, kernel 4, W8A8 linear per block, no fused
+    block); and on the card ``set_attention_backend("xla")`` against
+    ``"auto"`` (no flash launch, ViT rows cosine >= 0.999).
+
+Phase 3 also holds kernel 4 (``flash_attention``) against its plain version:
+(240, 677, H 16, D 88) bf16 through the strided q/k/v views of a packed QKV
+tensor, max |diff| <= 0.02; (240, 257, 16, 88) fp32, max |diff| <= 1e-4 x max
+|plain|; rectangular (4, 300, 32, 64) x 2,049 keys and (2, 1,037, 8, 64), each
+with and without ``causal``, in both types; a call whose gradient is taken
+(the recompute backward against the plain gradient, cosine >= 0.999); float16
+and a head dim of 104 on the card must raise. It is timed at the 364-pixel
+shape beside its plain version, ``scaled_dot_product_attention`` and kernel 2
+on the same packed tensor, and at (240, 257) in bf16 beside kernel 2 again.
+The other kernels of the 364-pixel paths are held at the shapes those paths
+give them: LayerNorm at (162,480, 1,408) (240 x 677 ViT rows), the biased
+flash forward at the answerer's encoder length (4 x 2,040, the last 5 keys
+masked), the W8A8 linear at the two shapes of the split int8 ViT route
+((162,480, 1,408) x 4,224 with LN and bias, x 1,408 with the residual) and
+the W8A8 GELU MLP at (162,480, 1,408, 6,144).
+
 The line before the last is one JSON object with every kernel's numbers
-(launches: kernels 1-3 from phase 4, 5, 6 and 8 from phase 6, 7 from phase
-7's ``qformer_freeze`` run, 13-16 from phase 8, 9 from phase 10's bf16 run,
-10 and 12 from phase 11, 11 from phase 12's ``qformer_freeze`` run; each
-count is taken with the counts set to 0 just before its path runs); the last
-line is {"ok": true, "device": {...}}.
+(launches: kernels 1-3 from phase 4, 4 from phase 13's 364-pixel run, 5, 6
+and 8 from phase 6, 7 from phase 7's ``qformer_freeze`` run, 13-16 from phase
+8, 9 from phase 10's bf16 run, 10 and 12 from phase 11, 11 from phase 12's
+``qformer_freeze`` run; each count is taken with the counts set to 0 just
+before its path runs); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -142,7 +192,7 @@ TOL = 0.02  # max |kernel - plain|, as for the TPU kernels (bf16 outputs)
 LSE_TOL = 1e-3  # max |kernel - plain| of the fp32 row logsumexp
 GRAD_REL_TOL = 0.02  # backward outputs: max |kernel - plain| / max |plain|
 COSINE_MIN = 0.999
-N_FRAMES, BATCH, N_BATCHES = 60, 4, 3
+N_FRAMES, BATCH, N_BATCHES = 60, 4, 2
 REDUCED_DEPTH = 2  # layers per stack in phase 5
 # Per generate batch at the flagship depth: LayerNorm 78 (ViT norm1/norm2 x 39)
 # + 1 (ln_vision) + 31 (Q-Former); packed QKV once per ViT block; biased
@@ -150,7 +200,7 @@ REDUCED_DEPTH = 2  # layers per stack in phase 5
 NO_RELPOS_LAUNCHES = {"flash_relpos_fwd_stats": 0, "flash_relpos_bwd_dq": 0,
                       "flash_relpos_bwd_dq_dtable": 0, "flash_relpos_bwd_dkv": 0}
 EXPECTED_LAUNCHES = {"layer_norm": 110, "qkv_packed_attention": 39,
-                     "flash_bias_attention": 24, "flash_bias_fwd_stats": 0,
+                     "flash_attention": 0, "flash_bias_attention": 24, "flash_bias_fwd_stats": 0,
                      "flash_bias_bwd_dq": 0, "flash_bias_bwd_dq_dbias": 0,
                      "flash_bias_bwd_dkv": 0, "w8a8_linear": 0, "w8a8_mlp": 0,
                      "w8a8_mlp_gated": 0, "w8a8_attn_block": 0, **NO_RELPOS_LAUNCHES}
@@ -161,7 +211,7 @@ INT8_KERNELS = ("w8a8_linear", "w8a8_mlp", "w8a8_mlp_gated", "w8a8_attn_block")
 # fewer), the W8A8 linear for 6 Q-Former cross K/V and 2 per T5 encoder layer,
 # the gated MLP and the biased flash once per T5 encoder layer.
 EXPECTED_INT8_LAUNCHES = {"layer_norm": 32, "qkv_packed_attention": 0,
-                          "flash_bias_attention": 24, "flash_bias_fwd_stats": 0,
+                          "flash_attention": 0, "flash_bias_attention": 24, "flash_bias_fwd_stats": 0,
                           "flash_bias_bwd_dq": 0, "flash_bias_bwd_dq_dbias": 0,
                           "flash_bias_bwd_dkv": 0, "w8a8_linear": 54, "w8a8_mlp": 39,
                           "w8a8_mlp_gated": 24, "w8a8_attn_block": 39,
@@ -174,6 +224,7 @@ ULP_BAR = 2
 INT8_VS_BF16_COSINE_MIN = 0.99
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for bound_ms.
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_HBM_BYTES = 989e12, 1979e12, 3.35e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 # Phase 6, the LoRA train step (published config configs/projects/train/
 # qvh.yaml: task qformer_freeze_lora, init_lr 3e-4, weight_decay 0.05):
 # per micro-batch the forward with statistics, dQ and dK/dV once per T5
@@ -207,6 +258,31 @@ EXPECTED_LONG_TRAIN_LAUNCHES = dict(EXPECTED_LONG_LAUNCHES, flash_relpos_bwd_dq=
 # Phase 12, (task, frames): the CPU plain path takes ~130 s at 1 x 240 frames,
 # so only the LoRA task (the train path of phase 11) runs at the full length.
 LONG_GRAD_TASKS = (("qformer_freeze_lora", 240), ("qformer_freeze", 120))
+# Phases 13-15, 364 pixels: 26 x 26 patches + cls = 677 tokens an image, whose
+# packed QKV (677 x 4,224 x 2 B = 5.7 MB) is past the 4 MiB bound of the
+# packed-QKV kernel and of the fused int8 block, so the ViT's attention is
+# kernel 4 once per block. The QA batch runs the ViT, the Q-Former and a T5
+# encoder twice (localizer, then answerer).
+BIG_IMG, BIG_TOKENS, BIG_BATCHES = 364, 677, 2
+EXPECTED_BIG_LAUNCHES = dict(EXPECTED_LAUNCHES, qkv_packed_attention=0,
+                             flash_attention=39)
+EXPECTED_QA_LAUNCHES = dict(EXPECTED_LAUNCHES, qkv_packed_attention=0,
+                            flash_attention=78, flash_bias_attention=48,
+                            layer_norm=220)
+QA_ANSWER_FRAMES = 60
+# The answerer's encoder length over make_qa_samples: 60 x 32 frame tokens and
+# the 115 tokens of the question with its options, padded to a multiple of 8.
+# Phase 3 holds kernel 3 at this length, and phase 14 must show it.
+QA_ENCODER_TOKENS = QA_ANSWER_FRAMES * 32 + 115
+QA_ENCODER_LENGTH = -(-QA_ENCODER_TOKENS // 8) * 8
+# The int8 model at 364 pixels: the ViT's split route, per block the W8A8 linear
+# twice (qkv with the LN pre-norm, proj with the residual) around kernel 4, and
+# the GELU MLP; the fused attention block never.
+EXPECTED_BIG_INT8_LAUNCHES = dict(EXPECTED_INT8_LAUNCHES, flash_attention=39,
+                                  w8a8_attn_block=0, w8a8_linear=54 + 2 * 39)
+FP32_REL_TOL = 1e-4   # kernel 4 in fp32: max |kernel - plain| / max |plain|
+FP32_FRAMES = 4       # frames a video in the fp32 run: under 256 encoder tokens
+FP32_PATH_REL_TOL = 1e-4
 
 
 def say(*parts):
@@ -277,6 +353,8 @@ def check_kernels(torch, kernels):
     # LayerNorm: weights near 1 keep |y| < 8, where bf16 rounds within 0.016.
     ln = kernels["layer_norm"]
     for rows, d, eps, flagship in ((61680, 1408, 1e-6, True),
+                                   # the ViT's norms at 364 pixels: 240 x 677 rows
+                                   (BATCH * N_FRAMES * BIG_TOKENS, 1408, 1e-6, False),
                                    (1001, 1408, 1e-5, False),
                                    (7680, 768, 1e-12, False)):
         x = randn(rows, d, scale=2.0)
@@ -330,6 +408,10 @@ def check_kernels(torch, kernels):
     for b, n, m, mask_kind, flagship in ((4, 2049, 2049, "tail", False),
                                          (4, 2056, 2056, None, True),
                                          (4, 2040, 2048, "tail", False),
+                                         # the QA answerer's encoder: frames, then
+                                         # the question, padded to a multiple of 8
+                                         (4, QA_ENCODER_LENGTH, QA_ENCODER_LENGTH, "pad",
+                                          False),
                                          (2, 300, 300, None, False),
                                          (2, 300, 300, "row1_all", False)):
         q = randn(b, n, heads, d)
@@ -339,6 +421,9 @@ def check_kernels(torch, kernels):
         if mask_kind == "tail":
             lengths = torch.tensor([m, m - 1, m - 100, 1500], device=dev)
             kv_mask = (torch.arange(m, device=dev)[None] < lengths[:, None]).to(torch.int8)
+        elif mask_kind == "pad":
+            kv_mask = (torch.arange(m, device=dev)[None].expand(b, m)
+                       < QA_ENCODER_TOKENS).to(torch.int8)
         elif mask_kind == "row1_all":
             kv_mask = torch.ones(b, m, dtype=torch.int8, device=dev)
             kv_mask[1] = 0
@@ -385,6 +470,145 @@ def check_kernels(torch, kernels):
 def cosine(torch, got, want):
     return float(torch.nn.functional.cosine_similarity(
         got.float().flatten(), want.float().flatten(), dim=0))
+
+
+def check_flash_kernel(torch, kernels):
+    """Kernel 4 (``flash_attention``: no bias, no key mask, optionally causal)
+    against its plain version, fp32 math from the same inputs: bf16 outputs
+    max |diff| <= 0.02, fp32 outputs <= 1e-4 x max |plain|."""
+    import torch.nn.functional as F
+
+    from mr_blip_tpu_torch.ops import flash_attention as fa
+    from mr_blip_tpu_torch.ops.attention import dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dev = "cuda"
+    entry = kernels["flash_attention"]
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def plain(q, k, v, causal, chunk=60):
+        """The plain version in fp32, ``chunk`` batch rows at a time (its
+        (B, H, N, M) temporaries are 7 GB each at 240 x 16 x 677²)."""
+        return torch.cat([fa._flash_reference(q[i:i + chunk].float(), k[i:i + chunk].float(),
+                                              v[i:i + chunk].float(), causal)
+                          for i in range(0, q.shape[0], chunk)])
+
+    def hold(label, got, want, dtype):
+        torch.cuda.synchronize()
+        err = max_err(torch, got, want)
+        scale = float(want.abs().max())
+        bar = TOL if dtype == torch.bfloat16 else FP32_REL_TOL * scale
+        say(f"flash_attention {label} {str(dtype)[6:]}: max|diff| {err:.3e} "
+            f"(bar {bar:.3e}, max|plain| {scale:.4f})")
+        require(got.dtype == dtype and got.is_contiguous(), f"flash_attention {label}: "
+                f"output {got.dtype}, contiguous {got.is_contiguous()}")
+        require(err <= bar, f"flash_attention {label} {dtype} off by {err} > {bar}")
+        return err
+
+    # The ViT's shapes, through the strided q/k/v views of a packed QKV
+    # tensor: 364 pixels in bf16 (timed), 224 pixels in fp32.
+    heads, hd = 16, 88
+    for b, n, dtype in ((240, BIG_TOKENS, torch.bfloat16), (240, 257, torch.float32),
+                        (240, 257, torch.bfloat16)):
+        qkv = randn(b, n, 3 * heads * hd, dtype=dtype)
+        q, k, v = qkv.view(b, n, 3, heads, hd).unbind(2)
+        require(not q.is_contiguous(), "the q view of the packed tensor is contiguous")
+        before = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v)
+        require(fa.flash_attention.launches == before + 1, "flash_attention counted no launch")
+        want = plain(q, k, v, False)
+        label = f"({b}, {n}, {heads}, {hd}) packed views"
+        err = hold(label, got, want, dtype)
+        flops = 4.0 * b * heads * n * n * hd
+        ms = median_ms(torch, lambda: fa.flash_attention(q, k, v))
+        q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        if dtype == torch.bfloat16 and n == 257:
+            # Kernel 2's own shape (the ViT at 224 pixels): the two kernels'
+            # times side by side, for the choice of one body for both.
+            k2_ms = median_ms(torch, lambda: fa.flash_attention_qkv_packed(qkv, heads))
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            say(f"flash_attention {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                f"TFLOP/s), library {lib_ms:.4f} ms; kernel 2 (qkv_packed_attention) on "
+                f"the same packed tensor: {k2_ms:.4f} ms")
+        elif dtype == torch.bfloat16:
+            entry["max_abs_err"] = err
+            entry["ms"] = ms
+            entry["plain_ms"] = median_ms(torch, lambda: fa._flash_reference(q, k, v),
+                                          iters=3, warmup=1)
+            entry["library_ms"] = lib_ms
+            set_bound(entry, nbytes(qkv, got), bf16_flops=flops)
+            # Kernel 2 takes the same packed tensor (the ViT's gate keeps it
+            # off this shape): its time and error beside kernel 4's.
+            got2 = fa.flash_attention_qkv_packed(qkv, heads)
+            err2 = max_err(torch, got2, want.reshape(b, n, heads * hd))
+            k2_ms = median_ms(torch, lambda: fa.flash_attention_qkv_packed(qkv, heads))
+            say(f"flash_attention {label}:" + timing_line(entry)
+                + f"  ({flops / ms / 1e9:.1f} TFLOP/s); kernel 2 (qkv_packed_attention) on "
+                f"the same packed tensor: {k2_ms:.4f} ms, max|diff| {err2:.5f}")
+            require(err2 <= TOL, f"qkv_packed at {n} tokens off by {err2}")
+            del got2
+        else:
+            by_ops = 1e3 * flops / PEAK_FP32_FLOPS
+            say(f"flash_attention {label} float32: kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), library {lib_ms:.4f} ms, bound "
+                f"{by_ops:.4f} ms (operations, fp32 outside the tensor cores)")
+        del qkv, q, k, v, q4, k4, v4, got, want
+        torch.cuda.empty_cache()
+
+    # Rectangular and causal, ragged lengths, both types.
+    for b, n, m, h, d in ((4, 300, 2049, 32, 64), (2, 1037, 1037, 8, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn(b, n, h, d, dtype=dtype)
+            k, v = randn(b, m, h, d, dtype=dtype), randn(b, m, h, d, dtype=dtype)
+            for causal in (False, True):
+                got = fa.flash_attention(q, k, v, causal=causal)
+                err = hold(f"({b}, {n}x{m}, {h}, {d}) causal {causal}", got,
+                           plain(q, k, v, causal), dtype)
+                if dtype == torch.bfloat16:
+                    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+    # A call whose gradient is taken: the forward launches the kernel, the
+    # backward recomputes the plain version.
+    q, k, v = (randn(2, n, 8, 64, dtype=torch.bfloat16).requires_grad_()
+               for n in (300, 520, 520))
+    dout = randn(2, 300, 8, 64, dtype=torch.bfloat16)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=True)
+    require(fa.flash_attention.launches == before + 1 and out.grad_fn is not None,
+            "flash_attention under autograd: no launch or no graph")
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa._flash_reference(*leaves, True), leaves, dout.float())
+    for name, g, w in zip("qkv", grads, want):
+        cos = cosine(torch, g, w)
+        say(f"flash_attention gradient d{name}: cosine {cos:.6f}, max|diff| "
+            f"{max_err(torch, g, w):.5f}")
+        require(cos >= COSINE_MIN, f"flash_attention d{name}: cosine {cos}")
+
+    # The dispatch: 256 queries and more without bias or mask reach the
+    # kernel, fewer stay plain; a type or head dim it does not take raises.
+    q = randn(2, 256, 4, 64, dtype=torch.bfloat16)
+    before = fa.flash_attention.launches
+    dot_product_attention(q, q, q)
+    dot_product_attention(q[:, :255], q, q)
+    require(fa.flash_attention.launches == before + 1,
+            "dot_product_attention: the flash dispatch is off")
+    for bad, exc_type in ((q.to(torch.float16), TypeError),
+                          (randn(2, 256, 4, 104, dtype=torch.bfloat16), ValueError)):
+        try:
+            dot_product_attention(bad, bad, bad)
+        except exc_type as exc:
+            say(f"{bad.dtype} head dim {bad.shape[-1]} flash attention on the card "
+                f"raises: {exc}")
+        else:
+            raise RuntimeError(f"{bad.dtype} head dim {bad.shape[-1]} flash attention "
+                               "on the card did not raise")
+    require(fa.flash_attention.launches == before + 1,
+            "a refused flash attention counted a launch")
+    torch.cuda.empty_cache()
 
 
 def check_train_kernels(torch, kernels):
@@ -737,6 +961,10 @@ def check_int8_kernels(torch, kernels):
     lin = "w8a8_linear"
     for m, k, n, kind, has_bias, has_res, flagship in (
             (61677, 1408, 1408, None, False, True, False),
+            # the split int8 ViT route at 364 pixels (240 x 677 tokens): qkv
+            # with the LN pre-norm and bias, proj with bias and residual
+            (240 * BIG_TOKENS, 1408, 4224, "ln", True, False, False),
+            (240 * BIG_TOKENS, 1408, 1408, None, True, True, False),
             (61680, 1408, 1536, None, True, False, True),
             (8224, 2048, 6144, "rms", False, False, False),
             (8224, 2048, 2048, None, False, True, False)):
@@ -761,6 +989,7 @@ def check_int8_kernels(torch, kernels):
                   lambda: i8._w8a8_linear_plain(x, wq, sw, bias, nm, res), library,
                   nbytes(x, wq, sw, bias, got), 2.0 * m * k * n)
         del x, wq, got, want, res
+        torch.cuda.empty_cache()
     # A dtype the kernel does not take must raise, not run plain.
     before = i8.w8a8_linear.launches
     try:
@@ -780,7 +1009,8 @@ def check_int8_kernels(torch, kernels):
     b1 = randn(h, scale=0.01, dtype=torch.float32)
     b2 = randn(d, scale=0.01, dtype=torch.float32)
     nm = norm("ln", d)
-    for m, flagship in ((61677, False), (61680, True)):
+    # The last shape is the split int8 ViT route's at 364 pixels (240 x 677 rows).
+    for m, flagship in ((61677, False), (61680, True), (240 * BIG_TOKENS, False)):
         x, r = randn(m, d, scale=0.3), randn(m, d, scale=0.3)
         got = i8.w8a8_mlp(x, w1, s1, b1, w2, s2, b2, norm=nm, residual=r)
         want = i8._w8a8_mlp_plain(x, w1, s1, b1, w2, s2, b2, nm, r, i8.DEFAULT_BLOCK_H)
@@ -793,6 +1023,7 @@ def check_int8_kernels(torch, kernels):
                                              i8.DEFAULT_BLOCK_H),
                   None, nbytes(x, r, w1, w2, got), 4.0 * m * d * h)
         del x, r, got, want
+        torch.cuda.empty_cache()
     del w1, w2
     torch.cuda.empty_cache()
 
@@ -869,8 +1100,9 @@ def flagship_model(device="cuda", **kw):
     return BLIP2_MR(**dict(FLAGSHIP, **kw), device=device)
 
 
-def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False):
-    """The flagship model at full widths, every stack REDUCED_DEPTH deep."""
+def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False, **kw):
+    """The flagship model at full widths, every stack REDUCED_DEPTH deep;
+    ``kw`` overrides entries of the flagship configuration."""
     import dataclasses
 
     from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
@@ -891,14 +1123,15 @@ def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False):
         T5_CONFIGS = {"flan-t5-xl": t5_config}
 
         def __init__(self):
-            super().__init__(**dict(FLAGSHIP, task=task or FLAGSHIP["task"]),
+            super().__init__(**dict(FLAGSHIP, task=task or FLAGSHIP["task"], **kw),
                              init_params=False, device=device,
                              relpos_in_kernel=relpos_in_kernel)
             self.qformer_config = dataclasses.replace(self.qformer_config,
                                                       num_layers=REDUCED_DEPTH)
             self.module = Blip2MRModule(
                 self.vit_config, self.qformer_config, self.t5_config,
-                compute_dtype=self.compute_dtype, device=self.device).eval()
+                compute_dtype=self.compute_dtype, device=self.device,
+                with_answerer=self.is_qa).eval()
             self.module.requires_grad_(False)
             if init_params:
                 self.init_params(FLAGSHIP["seed"])
@@ -906,11 +1139,14 @@ def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False):
     return ReducedDepth()
 
 
-def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None):
+def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None,
+              img_size=224):
     """Phase 4 (bf16) or, with ``int8``, phase 8: the same model after
     ``quantize_for_inference()``. With ``long``, phase 10: LONG_BATCHES
     batches of 4 x LONG_FRAMES frames through the ``relpos_in_kernel`` model
     (``relpos_in_kernel=False`` for its materialized-bias comparison run).
+    With ``img_size=364``, phase 13: BIG_BATCHES batches at 364 pixels, the
+    ViT's attention through kernel 4 (with ``int8`` between two W8A8 linears).
     Returns the launch counts of the run and its summary numbers."""
     from mr_blip_tpu_torch.profile_inference import make_samples
     from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
@@ -924,8 +1160,13 @@ def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None):
     name = ("long " if long else "") + ("int8 path" if int8 else "main path")
     if long and not relpos:
         name += ", materialized bias"
+    if img_size != 224:
+        require(not long, "the 364-pixel runs are at 60 frames")
+        expected = EXPECTED_BIG_INT8_LAUNCHES if int8 else EXPECTED_BIG_LAUNCHES
+        n_batches = BIG_BATCHES
+        name = f"{img_size}-pixel " + ("int8 path" if int8 else "path")
     t0 = time.time()
-    model = flagship_model(relpos_in_kernel=relpos)
+    model = flagship_model(relpos_in_kernel=relpos, img_size=img_size)
     torch.cuda.synchronize()
     say(f"model built with random weights in {time.time() - t0:.1f} s; "
         f"{sum(p.numel() for p in model.module.parameters()) / 1e9:.3f} B params")
@@ -938,7 +1179,7 @@ def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None):
                          if b.dtype == torch.int8)
         say(f"quantize_for_inference in {time.time() - t0:.1f} s; {int8_numel / 1e9:.3f} B "
             f"int8 weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    batches = [make_samples(BATCH, n_frames, seed) for seed in range(n_batches)]
+    batches = [make_samples(BATCH, n_frames, seed, img_size) for seed in range(n_batches)]
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
@@ -994,7 +1235,7 @@ def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None):
     require(not long or enc.shape[1] == LONG_ENCODER_LENGTH,
             f"{name}: encoder length {enc.shape[1]}, kernels 9-12 were held at "
             f"{LONG_ENCODER_LENGTH}")
-    say(f"{name}: B={BATCH} x {n_frames} frames, encoder length "
+    say(f"{name}: B={BATCH} x {n_frames} frames at {img_size}², encoder length "
         f"{enc.shape[1]}; steady {steady:.3f} s/batch (batches 1-{n_batches - 1}), first "
         f"{seconds[0]:.3f} s; stages "
         + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
@@ -1375,6 +1616,235 @@ def int8_kernel_vs_plain_path(torch, wrappers):
             f"int8 vs bf16 cosines {float(enc_q)}, {float(logit_q)}")
 
 
+# ------------------------------------------------------------ phases 13-15
+def fp32_path(torch, wrappers):
+    """The second half of phase 13: the fp32 parity mode on the card. At 224
+    pixels the ViT's fp32 QKV fails the packed-QKV kernel's type gate, so its
+    attention is kernel 4's fp32 instantiation, once per block."""
+    from mr_blip_tpu_torch.profile_inference import make_samples
+    from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
+
+    samples = make_samples(BATCH, FP32_FRAMES, seed=3)
+    gpu = reduced_model("cuda", compute_dtype="float32")
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    handle = gpu.generate_dispatch(samples)
+    out = gpu.generate_collect(handle)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    rose = {name: w.launches for name, w in wrappers.items() if w.launches}
+    for p in out["prediction"]:
+        moment_str_to_list(p)
+    require(bool(torch.isfinite(handle["scores"]).all()), "fp32: beam scores not finite")
+    require(rose.get("flash_attention") == REDUCED_DEPTH
+            and "qkv_packed_attention" not in rose, f"fp32 path: launches {rose}")
+    with torch.inference_mode():
+        tensors = gpu._to_device(gpu.prepare_mr_batch(samples))
+        feats_gpu = gpu.frames_to_t5(tensors).cpu()
+    state = {k: v.cpu() for k, v in gpu.state_dict().items()}
+    del gpu
+    cpu = reduced_model("cpu", init_params=False, compute_dtype="float32")
+    cpu.load_state_dict(state)
+    with torch.inference_mode():
+        feats_cpu = cpu.frames_to_t5(cpu._to_device(cpu.prepare_mr_batch(samples)))
+    err = float((feats_gpu - feats_cpu).abs().max())
+    scale = float(feats_cpu.abs().max())
+    say(f"fp32 path (depth {REDUCED_DEPTH}, full width, {BATCH} x {FP32_FRAMES} frames at "
+        f"224²): generate {seconds:.3f} s, launches {rose}; frame features against the "
+        f"CPU's fp32 plain path: max|diff| {err:.3e} (max|plain| {scale:.4f}, bar "
+        f"{FP32_PATH_REL_TOL:g} x)")
+    require(feats_gpu.dtype == torch.float32, f"fp32 path: features {feats_gpu.dtype}")
+    require(err <= FP32_PATH_REL_TOL * scale, f"fp32 path off by {err}")
+    torch.cuda.empty_cache()
+
+
+def tap_answerer(model):
+    """Keeps, per call of the model's answerer, the A-E logits of its second
+    decoding step (fp32 on the host) and its encoder's output length."""
+    logits, lengths = [], []
+    inner = model._qa_answer_scores
+
+    def tapped(samples):
+        out = inner(samples)
+        logits.append(out[1][1][:, model.answer_ids].float().cpu())
+        return out
+
+    model._qa_answer_scores = tapped
+    model.answerer.encoder.register_forward_hook(
+        lambda mod, args, out: lengths.append(out.shape[1]))
+    return logits, lengths
+
+
+def qa_path(torch, wrappers):
+    """Phase 14: two-stage grounded QA at 364 pixels, full depth and width.
+    Returns the launch counts of the run and its summary numbers."""
+    from mr_blip_tpu_torch.profile_inference import QA_TASK, make_qa_samples
+
+    t0 = time.time()
+    model = flagship_model(img_size=BIG_IMG, task=QA_TASK,
+                           num_frames_for_answer=QA_ANSWER_FRAMES)
+    torch.cuda.synchronize()
+    say(f"QA model built with random weights in {time.time() - t0:.1f} s; "
+        f"{sum(p.numel() for p in model.module.parameters()) / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    batches = [make_qa_samples(BATCH, N_FRAMES, seed, BIG_IMG) for seed in range(BIG_BATCHES)]
+    answer_logits, answerer_lengths = tap_answerer(model)
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    rows = []
+    for i, samples in enumerate(batches):
+        before = {name: w.launches for name, w in wrappers.items()}
+        clock = [time.time()]
+
+        def lap():
+            torch.cuda.synchronize()
+            clock.append(time.time())
+
+        handle = model.videoQA_dispatch(samples)
+        lap()
+        handle = model.videoQA_redecode(handle)
+        lap()
+        frames = handle["frames"]
+        out = model.videoQA_collect(handle)
+        lap()
+        localizer, crop, answerer = (b - a for a, b in zip(clock, clock[1:]))
+        rows.append((clock[-1] - clock[0], localizer, crop, answerer))
+        rose = {name: w.launches - before[name] for name, w in wrappers.items()}
+        moments = out["relevant_moments"][0]
+        say(f"QA batch {i}: {rows[-1][0]:.3f} s (localizer {localizer:.3f}, frame crop "
+            f"{crop:.3f}, answerer {answerer:.3f})  launches "
+            f"{ {k: v for k, v in rose.items() if v} }  predictions {out['output_text']}  "
+            f"moments {moments}  A-E logits of video 0 "
+            f"{[round(float(x), 3) for x in answer_logits[-1][0]]}; answerer's encoder "
+            f"length {answerer_lengths[-1]}")
+        require(len(answer_logits) == i + 1 and answerer_lengths[-1] == QA_ENCODER_LENGTH,
+                f"QA batch {i}: the answerer ran {len(answer_logits) - i} times at encoder "
+                f"length {answerer_lengths[-1]}, kernel 3 was held at {QA_ENCODER_LENGTH}")
+        require(rose == EXPECTED_QA_LAUNCHES, f"QA batch {i}: launches {rose}, "
+                f"expected {EXPECTED_QA_LAUNCHES}")
+        require(len(out["output_text"]) == BATCH
+                and all(p in range(5) for p in out["output_text"]),
+                f"QA predictions {out['output_text']}")
+        require(frames.shape == (BATCH, QA_ANSWER_FRAMES, BIG_IMG, BIG_IMG, 3)
+                and str(frames.dtype) == "uint8", f"answerer frames {frames.shape}")
+        for (start, end), duration in zip(moments, samples["duration"]):
+            require(0 <= start <= end <= duration, f"moment {[start, end]} outside "
+                    f"its video of {duration} s")
+        require(answer_logits[-1].shape == (BATCH, 5)
+                and bool(torch.isfinite(answer_logits[-1]).all()),
+                "answer logits not finite")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steady = rows[1:]
+    summary = {k: statistics.mean(r[j] for r in steady) for j, k in enumerate(
+        ("steady_s", "localizer_s", "crop_s", "answerer_s"))}
+    summary.update(first_s=rows[0][0], peak_gib=peak / 2**30)
+    say(f"QA path: B={BATCH} x {N_FRAMES} frames at {BIG_IMG}², {QA_ANSWER_FRAMES} frames "
+        f"for the answerer; steady {summary['steady_s']:.3f} s/batch (batches "
+        f"1-{len(rows) - 1}: localizer {summary['localizer_s']:.3f}, frame crop "
+        f"{summary['crop_s']:.3f}, answerer {summary['answerer_s']:.3f}), first "
+        f"{rows[0][0]:.3f} s; peak memory {summary['peak_gib']:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def qa_outputs(torch, model, samples, answer_logits):
+    """ViT output rows, the main T5's encoder rows (the localizer's prompt)
+    and the answerer's A-E logits (``answer_logits``: the model's
+    ``tap_answerer`` list), fp32 on the host."""
+    vit_rows = []
+    hook = model.module.visual_encoder.register_forward_hook(
+        lambda mod, args, out: vit_rows.append(out.detach().float().cpu()))
+    enc = encoder_outputs(torch, model, samples)
+    hook.remove()
+    model.videoQA_generate(samples)
+    return vit_rows[0], enc, answer_logits[-1]
+
+
+def qa_kernel_vs_plain_path(torch, wrappers):
+    """Phase 15: the depth-2 QA model at 364 pixels, kernel path (card)
+    against plain path (CPU), float and with the int8 ViT; and the "xla"
+    attention backend against "auto" on the card."""
+    from mr_blip_tpu_torch.ops.attention import set_attention_backend
+    from mr_blip_tpu_torch.profile_inference import make_qa_samples
+
+    frames = 8
+    samples = make_qa_samples(2, frames, seed=7, img_size=BIG_IMG)
+    kw = dict(task="qformer_freeze_lora_QA", img_size=BIG_IMG, num_frames_for_answer=frames)
+    gpu = reduced_model("cuda", **kw)
+    cfg = gpu.t5_config
+    # Both T5 stacks as phase 7 draws them: rel-pos tables at N(0, 1), query
+    # projections at HF T5's init scale.
+    state = gpu.state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for name in state:
+        if name.endswith("encoder.rel_bias.rel_embedding"):
+            state[name] = torch.randn(state[name].shape, generator=gen, device="cuda")
+        elif "t5." in name and name.endswith("attention.q.weight"):
+            state[name] = (torch.randn(state[name].shape, generator=gen, device="cuda")
+                           * (cfg.d_model * cfg.d_kv) ** -0.5)
+    gpu.load_state_dict(state)
+    state = {k: v.cpu() for k, v in state.items()}
+    cpu = reduced_model("cpu", init_params=False, **kw)
+    cpu.load_state_dict(state)
+    gpu_logits, _ = tap_answerer(gpu)
+    cpu_logits, _ = tap_answerer(cpu)
+    cos = torch.nn.functional.cosine_similarity
+
+    def compare(label, got, want, seconds):
+        mins = {}
+        for name, g, w in zip(("ViT rows", "T5 encoder rows", "A-E logits"), got, want):
+            c = cos(g, w, dim=-1)
+            mins[name] = float(c.min())
+            require(mins[name] >= COSINE_MIN, f"{label}: {name} cosine {mins[name]}")
+        say(f"{label} (depth {REDUCED_DEPTH}, full width, 2 x {frames} frames at "
+            f"{BIG_IMG}², {got[0].shape[1]} tokens an image): per-row cosine min "
+            + ", ".join(f"{k} {v:.6f}" for k, v in mins.items())
+            + f"; A-E logits of video 0 {[round(float(x), 3) for x in got[2][0]]} vs "
+            f"{[round(float(x), 3) for x in want[2][0]]}; kernel launches "
+            f"{ {k: w.launches for k, w in wrappers.items() if w.launches} }; CPU run "
+            f"{seconds:.1f} s")
+
+    def run_both(label, expect):
+        for w in wrappers.values():
+            w.launches = 0
+        got = qa_outputs(torch, gpu, samples, gpu_logits)
+        rose = {k: w.launches for k, w in wrappers.items()}
+        require(all(rose[k] == v for k, v in expect.items()), f"{label}: launches {rose}")
+        t0 = time.time()
+        want = qa_outputs(torch, cpu, samples, cpu_logits)
+        compare(label, got, want, time.time() - t0)
+        return got
+
+    # The ViT runs twice (the localizer's prompt, then the answerer).
+    float_out = run_both("364 pixels and QA, kernel path vs plain path",
+                         {"flash_attention": 2 * REDUCED_DEPTH, "qkv_packed_attention": 0,
+                          "flash_bias_attention": 2 * REDUCED_DEPTH})
+    # The "xla" backend on the card against "auto": no flash kernel at all.
+    set_attention_backend("xla")
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        xla_out = qa_outputs(torch, gpu, samples, gpu_logits)
+        flash = {k: w.launches for k, w in wrappers.items()
+                 if k.startswith("flash") and w.launches}
+    finally:
+        set_attention_backend("auto")
+    require(not flash, f"the xla backend launched {flash}")
+    compare('attention backend "auto" vs "xla" on the card', float_out, xla_out, 0.0)
+    # The int8 ViT above the bound: the split route on both sides.
+    gpu.quantize_vit()
+    cpu.quantize_vit()
+    run_both("364 pixels and QA with the int8 ViT, kernel path vs plain path",
+             {"flash_attention": 2 * REDUCED_DEPTH, "w8a8_attn_block": 0,
+              "w8a8_linear": 4 * REDUCED_DEPTH, "w8a8_mlp": 2 * REDUCED_DEPTH})
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- main
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
@@ -1385,6 +1855,7 @@ def kernel_tables():
 
     wrappers = {"layer_norm": fused_layer_norm,
                 "qkv_packed_attention": fa.flash_attention_qkv_packed,
+                "flash_attention": fa.flash_attention,
                 "flash_bias_attention": fa.flash_attention_bias,
                 "flash_bias_fwd_stats": fa.flash_bias_fwd_stats,
                 "flash_bias_bwd_dq": fa.flash_bias_bwd_dq,
@@ -1402,6 +1873,7 @@ def kernel_tables():
     sources = {
         "layer_norm": ("layer_norm.cu", "mr_blip_tpu/ops/layer_norm.py:26"),
         "qkv_packed_attention": ("qkv_packed_attention.cu", f"{fa_src}:1446"),
+        "flash_attention": ("flash_attention.cu", f"{fa_src}:54"),
         "flash_bias_attention": ("flash_bias_attention.cu", f"{fa_src}:195"),
         "flash_bias_fwd_stats": ("flash_bias_attention.cu", f"{fa_src}:421"),
         "flash_bias_bwd_dq": ("flash_bias_backward.cu", f"{fa_src}:507"),
@@ -1459,6 +1931,7 @@ def main():
 
     # phase 3: kernel vs plain
     check_kernels(torch, kernels)
+    check_flash_kernel(torch, kernels)
     check_train_kernels(torch, kernels)
     check_relpos_kernels(torch, kernels)
     check_int8_kernels(torch, kernels)
@@ -1497,9 +1970,29 @@ def main():
     long_train_launches = train_path(torch, wrappers, long=True)
     # phase 12: long context, kernel path vs plain path (kernel 11 under full finetune)
     dtable_launches = gradients_kernel_vs_plain(torch, wrappers, long=True)
+    # phase 13: generate at 364 pixels (kernel 4), then the fp32 parity mode
+    big_launches, big_summary = main_path(torch, wrappers, img_size=BIG_IMG)
+    say(f"generate at 224² (phase 4) vs {BIG_IMG}² (phase 13), seconds: " + ", ".join(
+        f"{k} {bf16_summary[k]:.3f} vs {big_summary[k]:.3f}"
+        for k in ("steady_s", "frames_to_qformer_s", "t5_encode_s", "decode_s"))
+        + f"; peak memory {bf16_summary['peak_gib']:.2f} vs "
+        f"{big_summary['peak_gib']:.2f} GiB")
+    _, big_int8_summary = main_path(torch, wrappers, int8=True, img_size=BIG_IMG)
+    say(f"generate at {BIG_IMG}², bf16 vs int8 (the ViT's split route), seconds: "
+        + ", ".join(f"{k} {big_summary[k]:.3f} vs {big_int8_summary[k]:.3f}"
+                    for k in ("steady_s", "frames_to_qformer_s", "t5_encode_s", "decode_s"))
+        + f"; peak memory {big_summary['peak_gib']:.2f} vs "
+        f"{big_int8_summary['peak_gib']:.2f} GiB")
+    fp32_path(torch, wrappers)
+    # phase 14: two-stage grounded QA at 364 pixels
+    qa_path(torch, wrappers)
+    # phase 15: 364 pixels and QA, kernel path vs plain path
+    qa_kernel_vs_plain_path(torch, wrappers)
 
     for key, entry in kernels.items():
-        if key in INT8_KERNELS:
+        if key == "flash_attention":
+            entry["launches"] = big_launches[key]
+        elif key in INT8_KERNELS:
             entry["launches"] = int8_launches[key]
         elif key in GENERATE_KERNELS:
             entry["launches"] = launches[key]

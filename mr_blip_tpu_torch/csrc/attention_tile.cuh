@@ -1,6 +1,6 @@
 // One 64-query tile of softmax attention for one (image or batch row, head),
-// shared by qkv_packed_attention.cu, flash_bias_attention.cu and
-// flash_relpos_attention.cu.
+// shared by qkv_packed_attention.cu, flash_bias_attention.cu,
+// flash_relpos_attention.cu and flash_attention.cu.
 //
 // Design (first version for Hopper, sm_90a):
 //  * a block of 4 warps owns 64 query rows; each warp owns 16 of them and
@@ -26,7 +26,10 @@
 //  * with RELPOS the additive bias is not read from device memory: the block
 //    keeps bias_by_rel[c] = table[lut[c]] for the 2*maxd + 1 clamped
 //    relative positions in shared memory (in place of the bias tile) and
-//    adds bias_by_rel[clamp(key - query, -maxd, maxd) + maxd].
+//    adds bias_by_rel[clamp(key - query, -maxd, maxd) + maxd];
+//  * with CAUSAL a query attends to the keys at or before its own position
+//    (top-left aligned when n_q != n_k), and the key loop stops at the last
+//    tile that holds such a key for this query tile.
 // K/V loads are not yet overlapped with the math (no cp.async pipeline);
 // wgmma, TMA and warp specialisation are left for later versions.
 #pragma once
@@ -156,7 +159,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int DP, bool RELPOS = false>
+template <int DP, bool RELPOS = false, bool CAUSAL = false>
 __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
   using L = TileLayout<DP>;
   constexpr int LD = L::LD;
@@ -197,7 +200,8 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
 
-  for (int k0 = 0; k0 < a.n_k; k0 += BK) {
+  const int k_end = CAUSAL ? min(a.n_k, q0 + BQ) : a.n_k;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<DP>(sK, a.k, a.k_row, k0, a.n_k, a.d);
     load_tile<DP>(sV, a.v, a.v_row, k0, a.n_k, a.d);
@@ -246,6 +250,9 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
           if (a.bias != nullptr) v += __bfloat162float(sBias[row * BK + col]);
         }
         if (sKeyOk[col] == 0.f) v = -INFINITY;
+        if constexpr (CAUSAL) {
+          if (k0 + col > q0 + row) v = -INFINITY;
+        }
         s[j][e] = v;
         mx[e >> 1] = fmaxf(mx[e >> 1], v);
       }

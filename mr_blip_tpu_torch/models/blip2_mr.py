@@ -10,9 +10,20 @@ tokenization, timestamp formatting and the interleave plan run on the host;
 every tensor op runs in PyTorch on ``device``.
 
 Task-string flags supported here: ``lora`` (LoRA r=8 on every T5 Linear),
-``qformer_freeze``, ``add_duration`` and ``no_task_prompt``. The QA
-two-stage pipeline and the non-interleaved prompt are not ported yet.
+``qformer_freeze``, ``add_duration``, ``no_task_prompt``, ``QA`` (adds the
+answerer T5) and ``with_localizer`` / ``oracle_localizer`` (where the QA
+stage-1 moments come from). The non-interleaved prompt is not ported yet.
 ``train()``/``eval()`` switch every dropout (eval is the default).
+
+Grounded QA: ``videoQA_generate(samples)`` runs the two-stage pipeline, the
+localizer's ``generate`` -> frames cropped to the predicted window ->
+``videoQA_answer`` (the answerer T5 over [frame tokens | question + options],
+the answer read off the A-E logits of the second decoding step);
+``videoQA_dispatch`` / ``videoQA_redecode`` / ``videoQA_collect`` are its
+three steps. ``model(samples)`` under a QA task is the answerer's
+teacher-forced loss (``forward_QA``). Re-decoding the predicted window from
+the video file (``resample_frames=True``) needs the video readers and
+processors, which are not ported: it raises.
 
 int8 inference: ``model.quantize_for_inference().generate(samples)`` converts
 the loaded float weights (W8A8 ViT, Q-Former cross K/V and T5 encoder on the
@@ -38,7 +49,7 @@ import torch
 
 from mr_blip_tpu_torch.models.blip2_mr_module import Blip2MRModule
 from mr_blip_tpu_torch.models.eva_vit import eva_vit_g_config, vit_tiny_config
-from mr_blip_tpu_torch.models.generation import beam_search
+from mr_blip_tpu_torch.models.generation import beam_search, greedy_decode_with_scores
 from mr_blip_tpu_torch.models.prompt_assembly import build_interleave_plan
 from mr_blip_tpu_torch.models.qformer import qformer_base_config, qformer_tiny_config
 from mr_blip_tpu_torch.models.quantize import (
@@ -52,7 +63,11 @@ from mr_blip_tpu_torch.models.t5 import (
     t5_flan_xl_config,
     t5_tiny_config,
 )
-from mr_blip_tpu_torch.text.span_grammar import convert_to_absolute_time, post_process
+from mr_blip_tpu_torch.text.span_grammar import (
+    convert_to_absolute_time,
+    moment_str_to_list,
+    post_process,
+)
 from mr_blip_tpu_torch.text.timestamps import (
     find_annoying_numbers,
     find_annoying_numbers_replacement_dict,
@@ -66,6 +81,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _BIAS_CACHE_ENTRIES = 3
 # Standard deviation of the random weights (``scale`` of init_params_fast).
 _INIT_STD = 0.02
+# EOS is banned for this many steps of the answerer's greedy decode, so that
+# the second step's logits score an answer letter.
+_QA_MIN_NEW_TOKENS = 8
 
 
 def _pad_to(arr: np.ndarray, length: int, axis: int = 1, value=0) -> np.ndarray:
@@ -98,6 +116,8 @@ class BLIP2_MR:
         max_new_tokens: int = 50,
         input_time_format: str = "seconds_integers",
         task: str = "lora",
+        num_frames_for_answer: int = 4,
+        resample_frames: bool = False,
         compute_dtype: str = "bfloat16",
         seed: int = 42,
         init_params: bool = True,
@@ -109,13 +129,25 @@ class BLIP2_MR:
         ``relpos_in_kernel`` is the long-context mode (120/240-frame
         videos): the T5 encoder's rel-pos bias is computed inside its flash
         kernels and no (1, H, L, L) bias is ever built.
+        ``num_frames_for_answer``: frames the QA answerer sees, cropped from
+        the localizer's window (``resample_frames=True``, the re-decode of
+        that window from the video file, is not ported and raises).
         The ViT is frozen (``freeze_vit: True`` in every published config).
         Without a card, the default ``device`` raises: ask for the CPU."""
-        if "only_frames" in task or "QA" in task:
-            raise NotImplementedError(f"task {task!r}: only the interleaved "
-                                      "moment-retrieval generate path is ported")
+        if "only_frames" in task:
+            raise NotImplementedError(f"task {task!r}: the non-interleaved "
+                                      "prompt is not ported")
+        if resample_frames:
+            raise NotImplementedError(
+                "resample_frames=True re-decodes the predicted window from the "
+                "video file: it needs the video readers and processors "
+                "(datasets/, processors/), which are not ported yet")
         self.task = task
         self.use_lora = "lora" in task
+        self.use_localizer = "with_localizer" in task
+        self.use_oracle_localizer = "oracle_localizer" in task
+        self.is_qa = "QA" in task
+        self.num_frames_for_answer = num_frames_for_answer
         self.input_time_format = input_time_format
         self.max_txt_len = max_txt_len
         self.max_new_tokens = max_new_tokens
@@ -133,6 +165,10 @@ class BLIP2_MR:
         annoying, _ = find_annoying_numbers(self.tokenizer, 200)
         self.annoying_numbers_replacement_dict = (
             find_annoying_numbers_replacement_dict(annoying))
+        # Token ids that score A..E at the answerer's second decoding step.
+        self.answer_ids = [
+            self.tokenizer.encode(letter, add_special_tokens=False)[-1]
+            for letter in "ABCDE"]
 
         vit_cfg = self.VIT_CONFIGS[vit_model](img_size=img_size)
         qf_cfg = (qformer_base_config(vit_cfg.embed_dim, num_query_token)
@@ -152,9 +188,11 @@ class BLIP2_MR:
         self.vit_config, self.qformer_config, self.t5_config = vit_cfg, qf_cfg, t5_cfg
         self.module = Blip2MRModule(vit_cfg, qf_cfg, t5_cfg,
                                     compute_dtype=self.compute_dtype,
-                                    device=self.device).eval()
+                                    device=self.device,
+                                    with_answerer=self.is_qa).eval()
         self.module.requires_grad_(False)
-        self._enc_bias_cache: Dict[int, torch.Tensor] = {}
+        # Keyed by the length (the localizer's T5) or ("answerer_t5", length).
+        self._enc_bias_cache: Dict[Any, torch.Tensor] = {}
         if init_params:
             self.init_params(seed)
 
@@ -192,13 +230,16 @@ class BLIP2_MR:
         """Parameter name -> trains, by the JAX package's policy with the
         ViT frozen: in the T5 only ``lora_a``/``lora_b`` train, and
         only under a ``lora`` task; the Q-Former, ``t5_proj`` and
-        ``ln_vision`` train unless the task has ``qformer_freeze``."""
+        ``ln_vision`` train unless the task has ``qformer_freeze``. Under a
+        QA task the loss is the answerer's (``forward_QA``): its T5 takes the
+        place of the main one, which only localizes and stays frozen."""
         qformer_frozen = "qformer_freeze" in self.task
+        trained_t5 = "answerer_t5" if self.is_qa else "t5"
 
         def trains(name: str) -> bool:
             top = name.split(".")[0]
-            if top == "t5":
-                return self.use_lora and "lora_" in name
+            if top in ("t5", "answerer_t5"):
+                return top == trained_t5 and self.use_lora and "lora_" in name
             if top in ("qformer", "t5_proj", "ln_vision"):
                 return not qformer_frozen
             return False
@@ -250,9 +291,12 @@ class BLIP2_MR:
         return self
 
     def _rebuild_t5(self, convert, **flags):
+        """Both T5 stacks of a QA model are converted, as in JAX."""
         self.t5_config = dataclasses.replace(self.t5_config, **flags)
-        self.module.rebuild_submodule(
-            "t5", self.t5_config, convert(self.module.t5.state_dict()))
+        for name in ("t5", "answerer_t5") if self.is_qa else ("t5",):
+            self.module.rebuild_submodule(
+                name, self.t5_config,
+                convert(getattr(self.module, name).state_dict()))
         return self
 
     def quantize_encoder(self):
@@ -345,27 +389,34 @@ class BLIP2_MR:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
-    def _encoder_bias_for(self, batch: Dict[str, Any]) -> torch.Tensor | None:
-        """Per-length cached (1, H, L, L) encoder rel-pos bias in the compute
-        dtype: it depends only on the length and the (frozen) table. None
-        under ``relpos_in_kernel``: the kernels compute the bias."""
+    def _encoder_bias(self, length: int, t5_name: str = "t5") -> torch.Tensor | None:
+        """Per-length cached (1, H, L, L) encoder rel-pos bias of the
+        ``t5_name`` stack in the compute dtype: it depends only on the length
+        and the (frozen) table. None under ``relpos_in_kernel``: the kernels
+        compute the bias. ``length`` is rounded up to a multiple of 8, as
+        the assembled sequence is padded."""
         cfg = self.t5_config
         if cfg.relpos_in_kernel:
             return None
-        length = (batch["int_mask"].shape[1] + batch["end_ids"].shape[1]
-                  + batch["text_ids"].shape[1])
-        length = -(-length // 8) * 8  # assemble right-pads to a multiple of 8
+        length = -(-length // 8) * 8
+        key = length if t5_name == "t5" else (t5_name, length)
         cache = self._enc_bias_cache
-        if length not in cache:
+        if key not in cache:
             if len(cache) >= _BIAS_CACHE_ENTRIES:
                 cache.pop(next(iter(cache)))
-            table = self.module.t5.encoder.rel_bias.rel_embedding
+            table = getattr(self.module, t5_name).encoder.rel_bias.rel_embedding
             with torch.no_grad():
-                cache[length] = materialize_encoder_relpos_bias(
+                cache[key] = materialize_encoder_relpos_bias(
                     table, length, cfg.relative_attention_num_buckets,
                     cfg.relative_attention_max_distance,
                 ).to(self.compute_dtype).contiguous()
-        return cache[length]
+        return cache[key]
+
+    def _encoder_bias_for(self, batch: Dict[str, Any]) -> torch.Tensor | None:
+        """The cached bias for a ``prepare_mr_batch`` batch's length."""
+        return self._encoder_bias(
+            batch["int_mask"].shape[1] + batch["end_ids"].shape[1]
+            + batch["text_ids"].shape[1])
 
     # --------------------------------------------------------- device path
     def frames_to_t5(self, tensors):
@@ -380,18 +431,24 @@ class BLIP2_MR:
             tensors["end_mask"], tensors["text_ids"], tensors["text_mask"])
         return self.module.encode(embeds, attn, position_bias=enc_bias), attn
 
+    def _decode_step_fn(self, t5, enc, attn):
+        """The generation loops' callback over ``t5``'s cached decoder."""
+        cross_kv = t5.decoder.cross_kv(enc)
+
+        def decode_step(cache, tokens, position):
+            logits = t5.decode_step(tokens, position, cache, cross_kv, attn)
+            return logits[:, 0], cache
+
+        return decode_step
+
     def decode(self, enc, attn):
         """Stage 3: beam search over the cached decoder."""
         cfg = self.t5_config
         b = enc.shape[0]
         t5 = self.module.t5
-        cross_kv = t5.decoder.cross_kv(enc)
+        decode_step = self._decode_step_fn(t5, enc, attn)
         cache = t5.decoder.init_cache(b * self.num_beams, self.max_new_tokens,
                                       enc.dtype, enc.device)
-
-        def decode_step(cache, tokens, position):
-            logits = t5.decode_step(tokens, position, cache, cross_kv, attn)
-            return logits[:, 0], cache
 
         return beam_search(
             decode_step, cache, batch_size=b, num_beams=self.num_beams,
@@ -418,7 +475,10 @@ class BLIP2_MR:
 
     # ------------------------------------------------------------- task API
     def forward(self, samples) -> Dict[str, Any]:
-        """``{"loss": scalar tensor}`` on the samples' relevant_windows."""
+        """``{"loss": scalar tensor}``: the span loss on the samples'
+        relevant_windows, or under a QA task the answerer's loss."""
+        if self.is_qa:
+            return self.forward_QA(samples)
         return {"loss": self.loss(self.prepare_mr_batch(samples))}
 
     __call__ = forward
@@ -460,3 +520,188 @@ class BLIP2_MR:
     def generate(self, samples) -> Dict[str, Any]:
         """Span generation: beam search -> decode -> grammar repair."""
         return self.generate_collect(self.generate_dispatch(samples))
+
+    # --------------------------------------------------------- QA two-stage
+    def get_relevant_frames(self, samples, relevant_moments_out, n_frames):
+        """Crop the already-decoded frames to the predicted windows ->
+        (moments, frames). ``[[-1, -1]]`` (no valid span) means the whole
+        video; an end past the duration is cut to it."""
+        durations = np.asarray(samples["duration"], np.float64)
+        relevant_moments = []
+        for i, sample in enumerate(relevant_moments_out):
+            m = moment_str_to_list(sample)
+            if m == [[-1, -1]]:
+                m = [0, float(durations[i])]
+            else:
+                m = m[0]
+            if m[1] > durations[i]:
+                m[1] = round(float(durations[i]))
+            relevant_moments.append(m)
+        frames = self.extract_frames(samples, relevant_moments, n_frames)
+        return relevant_moments, frames
+
+    def extract_frames(self, samples, relevant_moments, n_frames):
+        """``n_frames`` frames of each video between the frames nearest to
+        its moment's start and end: the last one repeated when there are
+        fewer, evenly spaced picks when there are more. uint8 stays uint8
+        (the answerer normalizes on the device by dtype)."""
+        video = np.asarray(samples["video"])
+        if video.dtype != np.uint8:
+            video = video.astype(np.float32)
+        timestamps = np.asarray(samples["timestamps"], np.float64)
+        durations = np.asarray(samples["duration"], np.float64)
+        out = []
+        for i, (start, end) in enumerate(relevant_moments):
+            if start >= end:
+                end = float(durations[i])
+            start_idx = int(np.argmin(np.abs(timestamps[i] - start)))
+            end_idx = int(np.argmin(np.abs(timestamps[i] - end)))
+            frames = video[i, start_idx:end_idx + 1]
+            if frames.shape[0] == 0:
+                raise ValueError("no frames found for the relevant moment "
+                                 f"{[start, end]} of video {i}")
+            if frames.shape[0] < n_frames:
+                pad = np.repeat(frames[-1:], n_frames - frames.shape[0], axis=0)
+                frames = np.concatenate([frames, pad])
+            elif frames.shape[0] > n_frames:
+                idxs = np.linspace(0, frames.shape[0] - 1, n_frames).astype(int)
+                frames = frames[idxs]
+            out.append(frames)
+        return np.stack(out)
+
+    @property
+    def answerer(self):
+        """The T5 that answers: ``answerer_t5`` under a QA task."""
+        return self.module.answerer_t5 if self.is_qa else self.module.t5
+
+    def _qa_tensors(self, samples, with_targets: bool = False):
+        frames = np.asarray(samples["relevant_frames"])
+        if frames.dtype != np.uint8:  # uint8 is normalized on the device
+            frames = frames.astype(np.float32)
+        tok = self.tokenizer
+        enc = tok(list(samples["qa_input"]), truncation=True,
+                  max_length=self.max_txt_len)
+        batch = {"frames": frames, "text_ids": enc.input_ids,
+                 "text_mask": enc.attention_mask}
+        if with_targets:
+            target = tok(list(samples["qa_output"]), truncation=True,
+                         max_length=self.max_txt_len)
+            batch["target_ids"] = target.input_ids
+            batch["target_mask"] = target.attention_mask
+        return self._to_device(batch)
+
+    def _qa_encoder_input(self, tensors):
+        """(embeds, mask, cached encoder bias or None) of the answerer."""
+        name = "answerer_t5" if self.is_qa else "t5"
+        embeds, attn = self.module.qa_encoder_input(
+            self.frames_to_t5(tensors), tensors["text_ids"],
+            tensors["text_mask"], t5=self.answerer)
+        table = self.answerer.encoder.rel_bias.rel_embedding
+        bias = (None if table.requires_grad
+                else self._encoder_bias(embeds.shape[1], name))
+        return embeds, attn, bias
+
+    @torch.inference_mode()
+    def _qa_answer_scores(self, samples):
+        """The answerer's greedy decode over ``samples["relevant_frames"]``
+        and ``samples["qa_input"]`` -> (sequences (B, max_new_tokens), scores
+        (max_new_tokens, B, V) fp32), in eval mode."""
+        tensors = self._qa_tensors(samples)
+        t5 = self.answerer
+        cfg = self.t5_config
+        training = self.module.training
+        self.module.eval()
+        try:
+            embeds, attn, bias = self._qa_encoder_input(tensors)
+            enc = self.module.encode(embeds, attn, position_bias=bias, t5=t5)
+            cache = t5.decoder.init_cache(enc.shape[0], self.max_new_tokens,
+                                          enc.dtype, enc.device)
+            return greedy_decode_with_scores(
+                self._decode_step_fn(t5, enc, attn), cache,
+                batch_size=enc.shape[0], max_length=self.max_new_tokens,
+                min_new_tokens=_QA_MIN_NEW_TOKENS,
+                eos_token_id=cfg.eos_token_id, pad_token_id=cfg.pad_token_id,
+                decoder_start_token_id=cfg.decoder_start_token_id,
+                device=enc.device)
+        finally:
+            self.module.train(training)
+
+    def videoQA_answer(self, samples) -> Dict[str, Any]:
+        """Answerer: the option whose letter scores highest at the second
+        decoding step."""
+        _, scores = self._qa_answer_scores(samples)
+        step1 = scores[1][:, self.answer_ids].cpu().numpy()  # (B, 5)
+        return {
+            "output_text": np.argmax(step1, axis=-1).tolist(),
+            "answer": samples["qa_output"],
+            "qid": samples.get("question_id"),
+            "relevant_moments_gt": samples.get("relevant_windows"),
+        }
+
+    # Three steps, so that an evaluation loop can put the next batch's
+    # localizer on the device before it collects this batch's answer.
+    def videoQA_dispatch(self, samples) -> Dict[str, Any]:
+        """Stage 1: the localizer's generate, enqueued."""
+        samples = dict(samples)
+        if "relevant_windows" not in samples:
+            samples["relevant_windows"] = [[0, 0]]
+        samples["query_id"] = samples["question_id"]
+        handle: Dict[str, Any] = {"samples": samples}
+        if self.use_localizer:
+            handle["loc"] = self.generate_dispatch(samples)
+        return handle
+
+    def videoQA_redecode(self, handle) -> Dict[str, Any]:
+        """The moments (the localizer's, the whole video, or under
+        ``oracle_localizer`` the ground truth's first window) and the frames
+        cropped to them."""
+        samples = handle["samples"]
+        durations = np.asarray(samples["duration"], np.float64)
+        n = self.num_frames_for_answer
+        if self.use_localizer:
+            out_mr = self.generate_collect(handle.pop("loc"))
+            moments, handle["frames"] = self.get_relevant_frames(
+                samples, out_mr["prediction"], n)
+        elif not self.use_oracle_localizer:
+            moments = [[0, float(d)] for d in durations]
+            handle["frames"] = self.extract_frames(samples, moments, n)
+        else:
+            moments = [list(m[0]) for m in np.asarray(samples["relevant_windows"])]
+            handle["frames"] = self.extract_frames(samples, moments, n)
+        handle["moments"] = moments
+        return handle
+
+    def videoQA_collect(self, handle) -> Dict[str, Any]:
+        """Stage 2: the answerer over the cropped frames."""
+        samples = handle["samples"]
+        samples["relevant_frames"] = handle["frames"]
+        out_ans = self.videoQA_answer(samples)
+        out_ans["relevant_moments"] = [handle["moments"]]
+        return out_ans
+
+    def videoQA_generate(self, samples) -> Dict[str, Any]:
+        return self.videoQA_collect(self.videoQA_redecode(
+            self.videoQA_dispatch(samples)))
+
+    def forward_QA(self, samples) -> Dict[str, Any]:
+        """``{"loss"}``: the answerer's teacher-forced loss on
+        ``samples["qa_output"]`` over the frames of the localizer's window
+        (``with_localizer``) or of the whole video."""
+        samples = dict(samples)
+        samples["relevant_windows"] = samples.get("relevant_windows", [[0, 0]])
+        samples["query_id"] = samples["question_id"]
+        n = self.num_frames_for_answer
+        if self.use_localizer:
+            out_mr = self.generate(samples)
+            _, frames = self.get_relevant_frames(samples, out_mr["prediction"], n)
+        else:
+            durations = np.asarray(samples["duration"], np.float64)
+            frames = self.extract_frames(
+                samples, [[0, float(d)] for d in durations], n)
+        samples["relevant_frames"] = frames
+        tensors = self._qa_tensors(samples, with_targets=True)
+        embeds, attn, bias = self._qa_encoder_input(tensors)
+        loss, _ = self.module.loss_from_encoder_input(
+            embeds, attn, tensors["target_ids"], tensors["target_mask"],
+            position_bias=bias, t5=self.answerer)
+        return {"loss": loss}

@@ -5,6 +5,11 @@ Frozen EVA ViT over every frame, fp32 vision LayerNorm, Q-Former (32 query
 tokens per frame), the Q-Former->T5 projection, the interleaved prompt
 gather, and the T5 encoder-decoder. String work happens in the host
 wrapper (:mod:`mr_blip_tpu_torch.models.blip2_mr`).
+
+Under a QA task the module holds a second T5, ``answerer_t5``: the JAX
+package keeps a second parameter tree for the answerer and reads only its
+``t5`` subtree (vision and Q-Former come from the main tree), so here it is
+a second ``T5ForConditionalGeneration`` beside ``t5`` (the localizer's).
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ def _pad_seq_to_sublane(inputs_embeds, attn, mult: int = 8):
 
 class Blip2MRModule(nn.Module):
     def __init__(self, vit_config: ViTConfig, qformer_config: QFormerConfig,
-                 t5_config: T5Config, compute_dtype=torch.bfloat16, device=None):
+                 t5_config: T5Config, compute_dtype=torch.bfloat16, device=None,
+                 with_answerer: bool = False):
         super().__init__()
         self.vit_config = vit_config
         self.qformer_config = qformer_config
@@ -59,14 +65,19 @@ class Blip2MRModule(nn.Module):
         self.qformer = QFormer(qformer_config, **kw)
         self.t5_proj = Dense(qformer_config.hidden_size, t5_config.d_model, **kw)
         self.t5 = T5ForConditionalGeneration(t5_config, **kw)
+        if with_answerer:
+            self.answerer_t5 = T5ForConditionalGeneration(t5_config, **kw)
 
     def rebuild_submodule(self, name: str, config, state_dict) -> None:
-        """Replace ``visual_encoder``, ``qformer`` or ``t5`` by one built from
-        ``config`` (the same config with an int8 flag set) holding
-        ``state_dict`` (the converted weights), frozen and in eval mode."""
+        """Replace ``visual_encoder``, ``qformer``, ``t5`` or ``answerer_t5``
+        by one built from ``config`` (the same config with an int8 flag set)
+        holding ``state_dict`` (the converted weights), frozen and in eval
+        mode."""
         cls, cfg_attr = {"visual_encoder": (EvaViT, "vit_config"),
                          "qformer": (QFormer, "qformer_config"),
-                         "t5": (T5ForConditionalGeneration, "t5_config")}[name]
+                         "t5": (T5ForConditionalGeneration, "t5_config"),
+                         "answerer_t5": (T5ForConditionalGeneration, "t5_config"),
+                         }[name]
         old = getattr(self, name)
         device = next(old.parameters()).device
         new = cls(config, device=device, dtype=self.compute_dtype)
@@ -111,21 +122,34 @@ class Blip2MRModule(nn.Module):
         attn = torch.cat([int_mask, end_mask, text_mask], dim=1)
         return _pad_seq_to_sublane(inputs_embeds, attn)
 
-    def encode(self, inputs_embeds, attn_mask, position_bias=None):
-        return self.t5.encode(inputs_embeds, mask=attn_mask,
-                              position_bias=position_bias)
+    def qa_encoder_input(self, frames_for_t5, text_ids, text_mask, t5=None):
+        """The answerer's layout: [frame tokens | question + options], the
+        text embedded by ``t5`` (default: ``self.t5``)."""
+        embed = (t5 or self.t5).shared
+        text_embs = embed(text_ids).to(frames_for_t5.dtype)
+        frames_mask = torch.ones(frames_for_t5.shape[:2], dtype=text_mask.dtype,
+                                 device=text_mask.device)
+        inputs_embeds = torch.cat([frames_for_t5, text_embs], dim=1)
+        attn = torch.cat([frames_mask, text_mask], dim=1)
+        return _pad_seq_to_sublane(inputs_embeds, attn)
+
+    def encode(self, inputs_embeds, attn_mask, position_bias=None, t5=None):
+        return (t5 or self.t5).encode(inputs_embeds, mask=attn_mask,
+                                      position_bias=position_bias)
 
     def loss_from_encoder_input(self, inputs_embeds, attn_mask, target_ids,
-                                target_mask, position_bias=None):
+                                target_mask, position_bias=None, t5=None):
         """Teacher-forced span LM loss -> (loss, fp32 logits): pad targets
-        become -100 labels, the decoder input is the labels shifted right."""
+        become -100 labels, the decoder input is the labels shifted right.
+        ``t5``: the stack to run (default: ``self.t5``)."""
+        t5 = t5 or self.t5
         cfg = self.t5_config
         labels = torch.where(target_ids == cfg.pad_token_id,
                              torch.full_like(target_ids, -100), target_ids)
         decoder_input_ids = shift_right(labels, cfg.decoder_start_token_id,
                                         cfg.pad_token_id)
-        enc = self.t5.encode(inputs_embeds, mask=attn_mask,
-                             position_bias=position_bias)
-        logits = self.t5.decode(decoder_input_ids, enc, decoder_mask=target_mask,
-                                encoder_mask=attn_mask)
+        enc = t5.encode(inputs_embeds, mask=attn_mask,
+                        position_bias=position_bias)
+        logits = t5.decode(decoder_input_ids, enc, decoder_mask=target_mask,
+                           encoder_mask=attn_mask)
         return cross_entropy_lm_loss(logits, labels, target_mask), logits

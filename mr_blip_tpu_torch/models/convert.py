@@ -16,6 +16,11 @@ with the input axis contiguous, as the W8A8 kernels read it),
 ``kernel_scale`` and the ``bias`` beside them keep their names under their
 ``qkv_packed`` / ``kv_packed`` / Dense parents. A leaf no rule knows raises,
 so every leaf is consumed exactly once.
+
+A QA model has a second tree, ``answerer_params``. The JAX package reads
+only its ``t5`` subtree (vision, Q-Former and projection come from the main
+tree), and so does this converter: that subtree becomes the ``answerer_t5.*``
+entries, and the rest of the second tree is not looked at.
 """
 
 from __future__ import annotations
@@ -65,10 +70,15 @@ def _convert_leaf(path, arr: np.ndarray, quantized_parents=frozenset()):
     raise ValueError(f"no conversion rule for JAX leaf {'/'.join(path)}")
 
 
-def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Convert every leaf of the JAX parameter tree; see the module doc."""
+def state_dict_from_jax(params: Mapping,
+                        answerer_params: Mapping | None = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Convert every leaf of the JAX parameter tree, and of the ``t5`` subtree
+    of ``answerer_params`` when given; see the module doc."""
     out: Dict[str, torch.Tensor] = {}
     leaves = list(_flatten(params))
+    if answerer_params is not None:
+        leaves += list(_flatten({"answerer_t5": answerer_params["t5"]}))
     # Quantized layers: the parents of an int8 kernel_q (never a Dense_0).
     quantized = frozenset(path[:-1] for path, _ in leaves
                           if path[-1] == "kernel_q" and path[-2:-1] != ("Dense_0",))

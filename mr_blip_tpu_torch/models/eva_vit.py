@@ -8,8 +8,9 @@ returned for the Q-Former.
 
 With ``ViTConfig.int8_matmul`` (inference only) every block runs on the W8A8
 kernels of ``ops/int8_matmul.py``: norm1, the qkv product, the attention,
-the proj product and the skip add are one ``w8a8_attn_block``; norm2, the
-tanh-GELU MLP and its skip add one ``w8a8_mlp``. The norms keep their
+the proj product and the skip add are one ``w8a8_attn_block`` (three calls
+above the packed-QKV bound, see ``ViTAttention``); norm2, the tanh-GELU MLP
+and its skip add one ``w8a8_mlp``. The norms keep their
 parameters at ``norm1``/``norm2`` and are computed inside the kernels (eps
 1e-6). The token axis is not padded: ragged row counts are exact in the
 kernels. The blocks emit bf16 whatever the compute dtype. Convert float
@@ -26,9 +27,13 @@ from torch import nn
 from mr_blip_tpu_torch.models.layers import Dense, LayerNormFP32, Mlp, QDenseParams
 from mr_blip_tpu_torch.ops.attention import dot_product_attention
 from mr_blip_tpu_torch.ops.flash_attention import flash_attention_qkv_packed
-from mr_blip_tpu_torch.ops.int8_matmul import w8a8_attn_block, w8a8_mlp
+from mr_blip_tpu_torch.ops.int8_matmul import w8a8_attn_block, w8a8_linear, w8a8_mlp
 
 _INT8_NORM_EPS = 1e-6  # the eps of norm1/norm2, folded into the int8 kernels
+# Largest packed bf16 QKV row block, n * 3 * embed_dim * 2 bytes, that the
+# packed-QKV kernel and the fused int8 attention block take, as in the JAX
+# package: 257 tokens (224 pixels) pass, 677 tokens (364 pixels) do not.
+_PACKED_QKV_MAX_BYTES = 4 * 1024 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +82,11 @@ class Int8Mlp(nn.Module):
         return y.reshape(x.shape)
 
 
+def _packed_kernel_takes(qkv: torch.Tensor) -> bool:
+    """The packed-QKV kernel runs on the card, in bf16."""
+    return qkv.is_cuda and qkv.dtype == torch.bfloat16
+
+
 class ViTAttention(nn.Module):
     def __init__(self, cfg: ViTConfig, device=None, dtype=None):
         super().__init__()
@@ -93,22 +103,41 @@ class ViTAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, norm=None, n_valid: int = 0) -> torch.Tensor:
         """Float: the attention of the (already normed) ``x``. int8: the whole
-        fused block ``x + proj(attn(qkv(LN(x))))`` with ``norm`` the
-        LayerNorm to fold in and keys >= ``n_valid`` masked."""
+        block ``x + proj(attn(qkv(LN(x))))`` with ``norm`` the LayerNorm to
+        fold in and keys >= ``n_valid`` masked.
+
+        Up to ``_PACKED_QKV_MAX_BYTES`` of packed QKV per image the float path
+        takes the packed-QKV kernel (bf16 on the card) and the int8 path the
+        fused block. Above it (677 tokens at 364 pixels), as in the JAX
+        package, the q/k/v views of the packed projection go through
+        ``dot_product_attention``, between two ``w8a8_linear`` calls on the
+        int8 path. The JAX int8 ViT pads 677 tokens to 680 there and so masks
+        the pad keys, which sends its attention to ``xla_attention``; this
+        port pads nothing, so its attention has no mask and reaches
+        ``flash_attention`` on the card: the same function of the 677 real
+        tokens."""
         cfg = self.cfg
         b, n, c = x.shape
+        fits = n * 3 * cfg.embed_dim * 2 <= _PACKED_QKV_MAX_BYTES
         # EVA quirk: bias on q and v only; the k bias is identically zero.
         qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                               self.v_bias])
         if cfg.int8_matmul:
             wq, sw, _ = self.qkv()
             wp, sp, pbias = self.proj()
-            return w8a8_attn_block(x, wq, sw, qkv_bias.float(), wp, sp, pbias,
-                                   norm=norm, num_heads=cfg.num_heads,
-                                   n_valid=n_valid)
-        qkv = self.qkv(x)
-        qkv = qkv + qkv_bias.to(qkv.dtype)
-        if qkv.is_cuda and qkv.dtype == torch.bfloat16:
+            if fits:
+                return w8a8_attn_block(x, wq, sw, qkv_bias.float(), wp, sp, pbias,
+                                       norm=norm, num_heads=cfg.num_heads,
+                                       n_valid=n_valid)
+            if n_valid and n_valid != n:
+                raise NotImplementedError(
+                    "the split int8 attention route takes no padded tokens")
+            qkv = w8a8_linear(x.reshape(b * n, c), wq, sw, qkv_bias.float(),
+                              norm=norm).reshape(b, n, 3 * c)
+        else:
+            qkv = self.qkv(x)
+            qkv = qkv + qkv_bias.to(qkv.dtype)
+        if fits and _packed_kernel_takes(qkv):
             # Packed-QKV kernel: attention straight off the projection output,
             # no q/k/v split or head transpose in device memory.
             out = flash_attention_qkv_packed(qkv, cfg.num_heads)
@@ -116,6 +145,9 @@ class ViTAttention(nn.Module):
             qkv = qkv.reshape(b, n, 3, cfg.num_heads, c // cfg.num_heads)
             out = dot_product_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
             out = out.reshape(b, n, c)
+        if cfg.int8_matmul:
+            return w8a8_linear(out.reshape(b * n, c), wp, sp, pbias,
+                               residual=x.reshape(b * n, c)).reshape(b, n, c)
         return self.proj(out)
 
 

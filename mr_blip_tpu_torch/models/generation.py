@@ -1,5 +1,6 @@
-"""HF-exact beam search for encoder-decoder models (counterpart of
-``beam_search`` and ``expand_to_beams`` in ``mr_blip_tpu/models/generation.py``).
+"""HF-exact beam search and greedy decoding with scores for encoder-decoder
+models (counterpart of ``beam_search``, ``expand_to_beams`` and
+``greedy_decode_with_scores`` in ``mr_blip_tpu/models/generation.py``).
 
 Semantics follow HF beam search as the JAX version does: per-step
 log-softmax accumulation, EOS banned until ``min_new_tokens`` tokens
@@ -129,3 +130,36 @@ def beam_search(decode_step: Callable, init_cache: Any, batch_size: int,
 def expand_to_beams(x: torch.Tensor, num_beams: int) -> torch.Tensor:
     """(B, ...) -> (B*K, ...) by repeating each row K times."""
     return x.repeat_interleave(num_beams, dim=0)
+
+
+def greedy_decode_with_scores(decode_step: Callable, init_cache: Any,
+                              batch_size: int, max_length: int,
+                              min_new_tokens: int = 0, eos_token_id: int = 1,
+                              pad_token_id: int = 0,
+                              decoder_start_token_id: int = 0, device=None):
+    """Greedy decoding that also returns every step's logits.
+
+    Returns (sequences (B, max_length), scores (max_length, B, V) fp32). EOS
+    is banned (its logit set to ``NEG_INF``, in the scores too) until
+    ``min_new_tokens`` tokens precede it; a row that has emitted EOS emits
+    pad from then on. Every one of the ``max_length`` steps runs, as in the
+    JAX version, so that the scores of every step are the model's."""
+    seqs = torch.full((batch_size, max_length + 1), pad_token_id,
+                      dtype=torch.long, device=device)
+    seqs[:, 0] = decoder_start_token_id
+    done = torch.zeros((batch_size,), dtype=torch.bool, device=device)
+    scores = []
+    cache = init_cache
+    for t in range(max_length):
+        logits, cache = decode_step(cache, seqs[:, t:t + 1], t)
+        logits = logits.float()
+        if t < min_new_tokens:
+            logits = logits.clone()
+            logits[:, eos_token_id] = NEG_INF
+        scores.append(logits)
+        next_tok = torch.argmax(logits, dim=-1)
+        next_tok = torch.where(done, torch.full_like(next_tok, pad_token_id),
+                               next_tok)
+        done = done | (next_tok == eos_token_id)
+        seqs[:, t + 1] = next_tok
+    return seqs[:, 1:], torch.stack(scores)

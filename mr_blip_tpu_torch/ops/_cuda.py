@@ -43,6 +43,9 @@ _SIGNATURES = {
     "mrb_layer_norm_bf16": [_P, _P, _P, _P, _L, _I, _F, _P],
     # qkv, out, B, N, H, D, n_valid, scale, stream
     "mrb_qkv_packed_attention_bf16": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, B, N, M, H, D, the batch, row and head strides of q, of k
+    # and of v (elements), causal, is_fp32, scale, stream
+    "mrb_flash_attention": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I] * 2 + [_F, _P],
     # q, k, v, bias, kv_mask, out, B, N, M, H, D, scale, stream
     "mrb_flash_bias_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _F, _P],

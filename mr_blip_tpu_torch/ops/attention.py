@@ -2,9 +2,12 @@
 
 Every attention site funnels through ``dot_product_attention``, which keeps
 the JAX dispatch rules with "on TPU" read as "tensor on CUDA": long
-(>= 256 query) biased self-attention with a key-only mask goes to the
-biased flash kernel; everything else is ``xla_attention`` in plain torch.
-Active attention-weight dropout forces the plain path, as in JAX.
+(>= 256 query) attention with no bias and no mask goes to the flash kernel,
+long biased self-attention with a key-only mask to the biased flash kernel;
+everything else is ``xla_attention`` in plain torch. Active attention-weight
+dropout forces the plain path, as in JAX. ``set_attention_backend`` swaps the
+backend for every site: "auto" (the rules above), "xla" (always plain) or
+"flash" (always ``flash_attention``).
 ``relpos_attention`` is the long-context T5 encoder's core: the rel-pos
 bias comes from the (H, num_buckets) table inside the rel-pos flash kernels
 on the card, and is materialized for ``xla_attention`` elsewhere.
@@ -20,6 +23,15 @@ from mr_blip_tpu_torch.ops.relpos import materialize_relpos_bias
 
 # Below this many query positions the plain version is used.
 _FLASH_MIN_SEQ = 256
+_BACKEND = "auto"
+
+
+def set_attention_backend(name: str) -> None:
+    """Override the attention backend globally: "auto" | "xla" | "flash"."""
+    global _BACKEND
+    if name not in ("auto", "xla", "flash"):
+        raise ValueError(f"attention backend {name!r}: auto, xla or flash")
+    _BACKEND = name
 
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,13 +74,14 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     draws from ``generator``. A bias that requires grad gets its gradient
     on either path.
 
-    The biased flash kernel takes a (1, H, N, M) bias, q_len == k_len and at
-    most a key-only (B, 1, 1, M) mask, as in JAX. Its only type is bf16, so
-    a CUDA call of another dtype that meets these rules raises in the
-    kernel's wrapper rather than running plain. The bias-free, mask-free
-    flash kernel of the JAX package (``_flash_fwd``, kernel 4 of PERF.md's
-    table) is not ported yet: no call on the generate, train or
-    long-context path reaches it, so that case stays plain here.
+    Under the "auto" backend a CUDA call with at least 256 queries goes to
+    ``flash_attention`` when it has neither bias nor mask (q_len != k_len
+    allowed; bf16 or fp32), and to the biased flash kernel when it has a
+    (1, H, N, M) bias, q_len == k_len and at most a key-only (B, 1, 1, M)
+    mask (bf16 only), as in JAX. A CUDA call of a dtype its kernel does not
+    take raises in the kernel's wrapper rather than running plain. The
+    "flash" backend sends every call to ``flash_attention``, which refuses a
+    mask; a bias raises here (the JAX package drops it without a word).
     """
     if dropout_rate > 0.0:
         return xla_attention(q, k, v, bias=bias, mask=mask,
@@ -77,19 +90,31 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask is not None and mask.ndim == 4
         and mask.shape[1] == 1 and mask.shape[2] == 1
     )
-    if (
-        q.is_cuda and q.shape[1] >= _FLASH_MIN_SEQ
-        and bias is not None and bias.shape[0] == 1
-        and q.shape[1] == k.shape[1]
-        and (mask is None or k_only_mask)
-    ):
-        from mr_blip_tpu_torch.ops.flash_attention import flash_attention_bias
+    if _BACKEND == "auto" and q.is_cuda and q.shape[1] >= _FLASH_MIN_SEQ:
+        from mr_blip_tpu_torch.ops.flash_attention import (
+            flash_attention,
+            flash_attention_bias,
+        )
 
-        kv_mask = None
-        if mask is not None:
-            kv_mask = mask[:, 0, 0, :].expand(q.shape[0], k.shape[1])
-        bias = bias.to(q.dtype).expand(1, q.shape[2], q.shape[1], k.shape[1])
-        return flash_attention_bias(q, k, v, bias.contiguous(), kv_mask)
+        if bias is None and mask is None:
+            return flash_attention(q, k, v)
+        if (
+            bias is not None and bias.shape[0] == 1
+            and q.shape[1] == k.shape[1]
+            and (mask is None or k_only_mask)
+        ):
+            kv_mask = None
+            if mask is not None:
+                kv_mask = mask[:, 0, 0, :].expand(q.shape[0], k.shape[1])
+            bias = bias.to(q.dtype).expand(1, q.shape[2], q.shape[1], k.shape[1])
+            return flash_attention_bias(q, k, v, bias.contiguous(), kv_mask)
+    if _BACKEND == "flash":
+        from mr_blip_tpu_torch.ops.flash_attention import flash_attention
+
+        if bias is not None:
+            raise NotImplementedError(
+                "the flash backend takes no bias; use the auto backend")
+        return flash_attention(q, k, v, mask=mask)
     return xla_attention(q, k, v, bias=bias, mask=mask)
 
 
@@ -102,8 +127,9 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention with the T5 bidirectional rel-pos bias derived from a
     (H, num_buckets) table.
 
-    On a CUDA tensor with at least 256 positions, q_len == k_len and no
-    active dropout this goes to ``flash_attention_relpos``, whose kernels
+    On a CUDA tensor with at least 256 positions, q_len == k_len, no active
+    dropout and a backend other than "xla" this goes to
+    ``flash_attention_relpos``, whose kernels
     look the bias up themselves (O(N) memory, no (1, H, N, M) tensor; bf16
     only: another dtype raises there). Otherwise (short sequences, the CPU,
     active attention-weight dropout) the bias is materialized and
@@ -111,8 +137,8 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     table, so the two routes compute one function. ``kv_mask``: optional
     (B, M), nonzero = attend. A table that requires grad gets its gradient
     on either route."""
-    if (q.is_cuda and dropout_rate <= 0.0 and q.shape[1] >= _FLASH_MIN_SEQ
-            and q.shape[1] == k.shape[1]):
+    if (_BACKEND != "xla" and q.is_cuda and dropout_rate <= 0.0
+            and q.shape[1] >= _FLASH_MIN_SEQ and q.shape[1] == k.shape[1]):
         from mr_blip_tpu_torch.ops.flash_attention import flash_attention_relpos
 
         return flash_attention_relpos(q, k, v, table, kv_mask=kv_mask,

@@ -1,10 +1,13 @@
-"""Attention kernels of the generate, train and long-context paths
-(counterpart of ``mr_blip_tpu/ops/flash_attention.py``; every kernel of it
-but the bias-free, mask-free ``flash_attention`` (``_flash_fwd``) is ported).
+"""Attention kernels of the generate, train, long-context and QA paths
+(counterpart of ``mr_blip_tpu/ops/flash_attention.py``; every kernel of it is
+ported).
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 hand-written kernel for a CUDA tensor, or raises:
 
+* ``flash_attention`` (no bias, no key mask, optionally causal; q_len !=
+  k_len allowed; bf16 or fp32) -> ``csrc/flash_attention.cu`` (plain version
+  ``_flash_reference``); backward: the plain version recomputed, as in JAX;
 * ``flash_attention_qkv_packed`` -> ``csrc/qkv_packed_attention.cu``
   (plain version ``_qkv_packed_reference``); backward: the plain version
   recomputed, as in JAX;
@@ -139,6 +142,109 @@ def flash_attention_qkv_packed(qkv: torch.Tensor, num_heads: int,
 
 
 flash_attention_qkv_packed.launches = 0
+
+
+# -------------------------- flash without bias or key mask (ViT at 364 pixels)
+_FLASH_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = False) -> torch.Tensor:
+    """Plain version of ``flash_attention``: ``xla_attention`` with the causal
+    mask q_pos >= k_pos (top-left aligned when q_len != k_len)."""
+    mask = None
+    if causal:
+        q_pos = torch.arange(q.shape[1], device=q.device)
+        k_pos = torch.arange(k.shape[1], device=q.device)
+        mask = (q_pos[:, None] >= k_pos[None, :])[None, None]
+    return xla_attention(q, k, v, mask=mask)
+
+
+def _kernel_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel reads it: innermost stride 1, every other stride
+    and the base address a multiple of 16 bytes (a view of a packed QKV
+    projection is; anything else is copied)."""
+    unit = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % unit for s in t.stride()[:-1]):
+        t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _flash_cuda(q, k, v, causal):
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    if q.dtype not in _FLASH_DTYPES:
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype}, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, expected {q.device}")
+    _check_head_dim(d)
+    if m == 0:
+        raise ValueError("flash_attention needs at least one key")
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    if b == 0 or n == 0:
+        return out
+    q, k, v = (_kernel_view(t) for t in (q, k, v))
+    err = _cuda.library().mrb_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, m, h, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+        int(q.dtype == torch.float32), float(d ** -0.5),
+        _cuda.stream_ptr(q.device))
+    _cuda.check(err, "mrb_flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+class _Flash(torch.autograd.Function):
+    """Forward through ``launch`` (the kernel launcher; tests pass a CPU
+    stand-in), backward through the plain version recomputed, as JAX's
+    ``_flash_vjp_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, launch):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = _flash_reference(q, k, v, ctx.causal)
+        return (*torch.autograd.grad(out, (q, k, v), grad), None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor | None = None,
+                    causal: bool = False) -> torch.Tensor:
+    """softmax(q·kᵀ·D^-½)·v over (B, N, H, D) queries and (B, M, H, D) keys
+    and values, N != M allowed; with ``causal``, query i attends to keys
+    j <= i. Any other mask is not supported: callers with padding masks use
+    ``xla_attention`` (the dispatcher in ``ops/attention.py`` sees to it).
+
+    A CUDA call launches kernel 4 (bf16 or fp32; another dtype or head dim
+    raises); q, k and v may be strided views, e.g. of a packed QKV
+    projection. A CPU call runs the plain version."""
+    if mask is not None:
+        raise NotImplementedError(
+            "flash_attention supports causal masking only; use xla_attention "
+            "for arbitrary masks")
+    b, _, h, d = q.shape
+    m = k.shape[1]
+    if k.shape != (b, m, h, d) or v.shape != (b, m, h, d):
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    causal = bool(causal)
+    if not q.is_cuda:
+        return _flash_reference(q, k, v, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, causal, _flash_cuda)
+    return _flash_cuda(q, k, v, causal)
+
+
+flash_attention.launches = 0
 
 
 # ------------------------------------------------- biased flash (T5 encoder)

@@ -201,6 +201,8 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.models.layers, mr_blip_tpu_torch.ops.layer_norm\n"
         "import mr_blip_tpu_torch.ops.int8_matmul, mr_blip_tpu_torch.models.quantize\n"
         "import mr_blip_tpu_torch.profile_int8_kernels\n"
+        "import mr_blip_tpu_torch.ops.attention, mr_blip_tpu_torch.models.generation\n"
+        "import mr_blip_tpu_torch.models.blip2_mr_module, mr_blip_tpu_torch.models.eva_vit\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu')]\n"
         "assert not bad, bad\n"
