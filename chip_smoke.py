@@ -26,13 +26,17 @@ is nonzero and the final line is not printed:
    must not move a valid row by a bit) and (240, 257, 1,408) <= 0.05; each
    with cosine >= 0.999, and the share of elements more than 2 bf16 ulps off
    printed (a flipped requantization step moves one row); a float32 input on
-   the card must raise. Times by CUDA events, median of 10 launches: the
+   the card must raise. Kernels 3 and 5 in fp32 (the parity mode's CUDA-core
+   body) at 4 x 2,056 and at 4 x 2,049 with a ragged key mask, kernel 3
+   through the dispatch: max |diff| <= 1e-4 x max |plain|, lse <= 1e-3; a
+   float16 call must raise. Times by CUDA events, median of 10 launches: the
    kernel, its plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``: ``F.layer_norm``;
    ``scaled_dot_product_attention``, with the bias as ``attn_mask`` for
    kernels 3 and 5; its autograd backward, dq, dk and dv together, as the
    one number for kernels 6-8; ``torch._int_mm`` between the plain quantize
-   and dequantize passes for kernel 13; none for 14-16). ``bound_ms`` is the
+   and dequantize passes for kernel 13; none for 14-16), each timed line
+   with the ratio kernel / library of the same call. ``bound_ms`` is the
    least time the card could take: the larger of the bytes (inputs once,
    outputs once) over 3.35 TB/s and the operations over the dense peak of
    their type (989 TFLOP/s bf16, 1,979 TOP/s int8; H100 SXM data sheet).
@@ -46,8 +50,9 @@ is nonzero and the final line is not printed:
    dtable max |diff| <= 0.02 x max |plain| and bit-equal between two
    launches; the plain version with the table zeroed must fail the bar; a
    float32 call on the card must raise. Kernel 9 is timed at the generate
-   shape, with kernel 3's time on the same inputs and the materialized 3.8
-   GiB bias beside it, kernels 10-12 at the train shape; their
+   shape, with kernel 3 on the same inputs and the materialized 3.8 GiB bias
+   beside it (held against the same plain output, bar 0.02, and timed),
+   kernels 10-12 at the train shape; their
    ``library_ms`` is ``scaled_dot_product_attention`` with the materialized
    bias as ``attn_mask`` (built outside the timed region), its autograd
    backward for 10-12, and their ``plain_ms`` the chunked plain forward and
@@ -129,11 +134,12 @@ is nonzero and the final line is not printed:
     the same two batches after ``quantize_for_inference()``: the int8 ViT's
     split route, per batch kernel 4 39 times, the W8A8 linear 132 (54 as in
     phase 8 and 2 per ViT block), the GELU MLP 39, the fused attention block
-    never, LayerNorm 32. Then the fp32 parity mode: the depth-2 model with ``compute_dtype="float32"``
-    at 224 pixels generates one batch of 4 x 4 frames (under 256 encoder
-    tokens: the biased flash kernel is bf16 only) with kernel 4 once per ViT
-    block and the packed-QKV kernel never, and its frame features must agree
-    with the CPU's fp32 plain path to 1e-4 of their largest magnitude;
+    never, LayerNorm 32. Then the fp32 parity mode: the depth-2 model with
+    ``compute_dtype="float32"`` at 224 pixels generates one batch of 4 x 60
+    frames (encoder length 2,056) with kernel 4's and kernel 3's fp32
+    instantiations once per ViT block and per encoder layer and no other
+    kernel, and its frame features and T5 encoder rows must agree with the
+    CPU's fp32 plain path to 1e-4 of their largest magnitude;
 14. grounded QA at 364 pixels: ``BLIP2_MR(img_size=364,
     task="qformer_freeze_lora_QA_with_localizer", num_frames_for_answer=60)``
     (``configs/projects/eval/nextGQA.yaml`` but for ``resample_frames`` and
@@ -280,8 +286,8 @@ QA_ENCODER_LENGTH = -(-QA_ENCODER_TOKENS // 8) * 8
 # the GELU MLP; the fused attention block never.
 EXPECTED_BIG_INT8_LAUNCHES = dict(EXPECTED_INT8_LAUNCHES, flash_attention=39,
                                   w8a8_attn_block=0, w8a8_linear=54 + 2 * 39)
-FP32_REL_TOL = 1e-4   # kernel 4 in fp32: max |kernel - plain| / max |plain|
-FP32_FRAMES = 4       # frames a video in the fp32 run: under 256 encoder tokens
+FP32_REL_TOL = 1e-4   # kernels 3-5 in fp32: max |kernel - plain| / max |plain|
+FP32_FRAMES = 60      # frames a video in the fp32 run: encoder length 2,056 (kernel 3)
 FP32_PATH_REL_TOL = 1e-4
 
 
@@ -327,7 +333,8 @@ def nbytes(*tensors):
 def timing_line(entry):
     lib = entry.get("library_ms")
     return (f"  kernel {entry['ms']:.4f} ms  plain {entry['plain_ms']:.4f} ms  library "
-            + (f"{lib:.4f} ms" if lib is not None else "none")
+            + (f"{lib:.4f} ms (kernel / library {entry['ms'] / lib:.2f}x)"
+               if lib is not None else "none")
             + f"  bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
 
 
@@ -448,23 +455,80 @@ def check_kernels(torch, kernels):
         require(err <= TOL, f"flash_bias ({b}, {n}x{m}) mask {mask_kind} off by {err}")
         fb["max_abs_err"] = max(fb.get("max_abs_err", 0.0), err)
 
-    # A CUDA call the dispatch sends to the biased kernel, in a dtype the
-    # kernel does not take, must raise rather than run plain.
+    del q, k, v, bias, qkv, x
+    torch.cuda.empty_cache()
+    check_fp32_bias_kernels(torch, heads, d)
+
+
+def check_fp32_bias_kernels(torch, heads, d):
+    """Kernels 3 and 5 in fp32 (the parity mode, CUDA-core FMAs), kernel 3
+    through the dispatch as the fp32 model reaches it: out within
+    FP32_REL_TOL x max |plain|, lse within LSE_TOL; a dtype neither kernel
+    takes must raise rather than run plain."""
+    import torch.nn.functional as F
+
+    from mr_blip_tpu_torch.ops import flash_attention as fa
     from mr_blip_tpu_torch.ops.attention import dot_product_attention
 
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for b, n, mask_kind in ((4, 2056, None), (4, 2049, "tail")):
+        q, k, v = randn(b, n, heads, d), randn(b, n, heads, d), randn(b, n, heads, d)
+        bias = randn(1, heads, n, n)
+        kv_mask, mask4 = None, None
+        if mask_kind == "tail":
+            lengths = torch.tensor([n, n - 1, n - 100, 1500], device=dev)
+            kv_mask = (torch.arange(n, device=dev)[None] < lengths[:, None]).to(torch.int8)
+            mask4 = (kv_mask != 0)[:, None, None, :]
+        before = fa.flash_attention_bias.launches
+        got3 = dot_product_attention(q, k, v, bias=bias, mask=mask4)
+        require(fa.flash_attention_bias.launches == before + 1,
+                "fp32 biased attention did not launch kernel 3")
+        before = fa.flash_bias_fwd_stats.launches
+        got5, lse5 = fa.flash_bias_fwd_stats(q, k, v, bias, kv_mask)
+        require(fa.flash_bias_fwd_stats.launches == before + 1,
+                "fp32 flash_bias_fwd_stats did not launch kernel 5")
+        torch.cuda.synchronize()
+        want, lse_want = fa._flash_bias_fwd_stats_reference(q, k, v, bias, kv_mask)
+        scale = float(want.abs().max())
+        bar = FP32_REL_TOL * scale
+        err3, err5 = max_err(torch, got3, want), max_err(torch, got5, want)
+        err_lse = max_err(torch, lse5, lse_want)
+        line = (f"flash_bias float32 ({b}, {n}x{n}, {heads}, {d}) mask {mask_kind}: "
+                f"kernel 3 max|diff| {err3:.3e}, kernel 5 {err5:.3e} (bar {bar:.3e}, "
+                f"max|plain| {scale:.4f}), lse {err_lse:.3e}")
+        if mask_kind is None:
+            ms = median_ms(torch, lambda: fa.flash_attention_bias(q, k, v, bias, kv_mask))
+            q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=bias))
+            line += (f"; kernel 3 {ms:.4f} ms, library {lib_ms:.4f} ms (kernel / library "
+                     f"{ms / lib_ms:.2f}x), bound {1e3 * 4.0 * b * heads * n * n * d / PEAK_FP32_FLOPS:.4f} "
+                     f"ms (operations, fp32 outside the tensor cores)")
+        say(line)
+        require(got3.dtype == torch.float32 and got5.dtype == torch.float32,
+                f"fp32 kernels 3/5 returned {got3.dtype}, {got5.dtype}")
+        require(err3 <= bar and err5 <= bar,
+                f"fp32 kernels 3/5 ({b}, {n}) mask {mask_kind} off by {err3}, {err5} > {bar}")
+        require(err_lse <= LSE_TOL, f"fp32 kernel 5 ({b}, {n}): lse off by {err_lse}")
+        del q, k, v, bias, got3, got5, lse5, want, lse_want
+        torch.cuda.empty_cache()
+
+    # A dtype neither kernel takes raises rather than running plain.
     before = fa.flash_attention_bias.launches
-    q32 = randn(2, 300, heads, d, dtype=torch.float32)
-    bias32 = randn(1, heads, 300, 300, dtype=torch.float32)
+    q16 = randn(2, 300, heads, d).to(torch.float16)
     try:
-        dot_product_attention(q32, q32, q32, bias=bias32)
+        dot_product_attention(q16, q16, q16, bias=randn(1, heads, 300, 300).half())
     except TypeError as exc:
-        say(f"float32 biased attention on the card raises: {exc}")
+        say(f"float16 biased attention on the card raises: {exc}")
     else:
-        raise RuntimeError("float32 biased attention on the card ran plain")
+        raise RuntimeError("float16 biased attention on the card ran plain")
     require(fa.flash_attention_bias.launches == before,
-            "float32 biased attention counted a launch")
-    del q, k, v, bias, qkv, x, q32, bias32
-    torch.cuda.empty_cache()
+            "float16 biased attention counted a launch")
 
 
 def cosine(torch, got, want):
@@ -531,7 +595,8 @@ def check_flash_kernel(torch, kernels):
             k2_ms = median_ms(torch, lambda: fa.flash_attention_qkv_packed(qkv, heads))
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             say(f"flash_attention {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-                f"TFLOP/s), library {lib_ms:.4f} ms; kernel 2 (qkv_packed_attention) on "
+                f"TFLOP/s), library {lib_ms:.4f} ms (kernel / library {ms / lib_ms:.2f}x); "
+                f"kernel 2 (qkv_packed_attention) on "
                 f"the same packed tensor: {k2_ms:.4f} ms")
         elif dtype == torch.bfloat16:
             entry["max_abs_err"] = err
@@ -828,7 +893,7 @@ def check_relpos_kernels(torch, kernels):
             require(err_zero > TOL, "the check cannot tell the rel-pos bias from none")
             del zero
         if role in ("train", "generate"):
-            del out_r, dq_r, dk_r, dv_r
+            del dq_r, dk_r, dv_r
             torch.cuda.empty_cache()
             unit = float(b) * heads * n * n * d  # one N x N x D product is 2 of these
             io = nbytes(q, k, v, table, kv_mask)
@@ -847,12 +912,19 @@ def check_relpos_kernels(torch, kernels):
                     entry["library_ms"] = median_ms(
                         torch, lambda: sdpa(qg, kg, vg, attn_mask=bias))
                 set_bound(entry, io + nbytes(out, lse), bf16_flops=4 * unit)
+                # Kernel 3 on the same inputs over the materialized bias,
+                # held against the same plain output.
+                err3 = max_err(torch, fa.flash_attention_bias(q, k, v, bias, kv_mask), out_r)
+                require(err3 <= TOL, f"flash_bias {shape}: out off by {err3}")
+                k3 = kernels["flash_bias_attention"]
+                k3["max_abs_err"] = max(k3.get("max_abs_err", 0.0), err3)
                 k3_ms = median_ms(torch, lambda: fa.flash_attention_bias(
                     q, k, v, bias, kv_mask))
                 say(f"{keys[0]} {shape}:" + timing_line(entry)
                     + f"  ({4 * unit / entry['ms'] / 1e9:.1f} TFLOP/s); kernel 3 "
                     f"(flash_bias_attention) on the same inputs with the materialized "
-                    f"{bias.numel() * 2 / 2**30:.2f} GiB bias: {k3_ms:.4f} ms")
+                    f"{bias.numel() * 2 / 2**30:.2f} GiB bias: {k3_ms:.4f} ms (kernel / "
+                    f"library {k3_ms / entry['library_ms']:.2f}x), max|diff| {err3:.5f}")
             else:
                 fwd_ms = median_ms(torch, lambda: fa.flash_relpos_fwd_stats(
                     q, k, v, table, kv_mask, nb, maxd))
@@ -884,7 +956,7 @@ def check_relpos_kernels(torch, kernels):
                     say(f"{key} {shape}:" + timing_line(entry)
                         + f"  ({flops / entry['ms'] / 1e9:.1f} TFLOP/s)")
             del bias, qg, kg, vg
-        del q, k, v, dout, out, lse, dq10, dq11, dk12, dv12, lse_r, delta
+        del q, k, v, dout, out, lse, out_r, dq10, dq11, dk12, dv12, lse_r, delta
         torch.cuda.empty_cache()
 
     # A CUDA call the dispatch sends to the rel-pos kernels, in a dtype they
@@ -1617,10 +1689,21 @@ def int8_kernel_vs_plain_path(torch, wrappers):
 
 
 # ------------------------------------------------------------ phases 13-15
+def fp32_outputs(torch, model, samples):
+    """Frame features and T5 encoder rows of one batch, fp32 on the host."""
+    with torch.inference_mode():
+        batch = model.prepare_mr_batch(samples)
+        tensors = model._to_device(batch)
+        feats = model.frames_to_t5(tensors)
+        enc, _ = model.encode_t5(tensors, feats, model._encoder_bias_for(batch))
+    return feats.float().cpu(), enc.float().cpu()
+
+
 def fp32_path(torch, wrappers):
     """The second half of phase 13: the fp32 parity mode on the card. At 224
     pixels the ViT's fp32 QKV fails the packed-QKV kernel's type gate, so its
-    attention is kernel 4's fp32 instantiation, once per block."""
+    attention is kernel 4's fp32 instantiation, once per block; the encoder
+    (2,056 tokens at 60 frames) runs kernel 3's, once per layer."""
     from mr_blip_tpu_torch.profile_inference import make_samples
     from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
 
@@ -1637,25 +1720,29 @@ def fp32_path(torch, wrappers):
     for p in out["prediction"]:
         moment_str_to_list(p)
     require(bool(torch.isfinite(handle["scores"]).all()), "fp32: beam scores not finite")
-    require(rose.get("flash_attention") == REDUCED_DEPTH
-            and "qkv_packed_attention" not in rose, f"fp32 path: launches {rose}")
-    with torch.inference_mode():
-        tensors = gpu._to_device(gpu.prepare_mr_batch(samples))
-        feats_gpu = gpu.frames_to_t5(tensors).cpu()
+    require(rose == {"flash_attention": REDUCED_DEPTH, "flash_bias_attention": REDUCED_DEPTH},
+            f"fp32 path: launches {rose}")
+    feats_gpu, enc_gpu = fp32_outputs(torch, gpu, samples)
     state = {k: v.cpu() for k, v in gpu.state_dict().items()}
     del gpu
     cpu = reduced_model("cpu", init_params=False, compute_dtype="float32")
     cpu.load_state_dict(state)
-    with torch.inference_mode():
-        feats_cpu = cpu.frames_to_t5(cpu._to_device(cpu.prepare_mr_batch(samples)))
-    err = float((feats_gpu - feats_cpu).abs().max())
-    scale = float(feats_cpu.abs().max())
+    t0 = time.time()
+    feats_cpu, enc_cpu = fp32_outputs(torch, cpu, samples)
+    cpu_seconds = time.time() - t0
+    errs = []
+    for label, got, want in (("frame features", feats_gpu, feats_cpu),
+                             ("T5 encoder rows", enc_gpu, enc_cpu)):
+        require(got.dtype == torch.float32 and got.shape == want.shape,
+                f"fp32 path: {label} {got.dtype} {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        errs.append(f"{label} max|diff| {err:.3e} (max|plain| {scale:.4f})")
+        require(err <= FP32_PATH_REL_TOL * scale, f"fp32 path: {label} off by {err}")
     say(f"fp32 path (depth {REDUCED_DEPTH}, full width, {BATCH} x {FP32_FRAMES} frames at "
-        f"224²): generate {seconds:.3f} s, launches {rose}; frame features against the "
-        f"CPU's fp32 plain path: max|diff| {err:.3e} (max|plain| {scale:.4f}, bar "
-        f"{FP32_PATH_REL_TOL:g} x)")
-    require(feats_gpu.dtype == torch.float32, f"fp32 path: features {feats_gpu.dtype}")
-    require(err <= FP32_PATH_REL_TOL * scale, f"fp32 path off by {err}")
+        f"224², encoder length {enc_gpu.shape[1]}): generate {seconds:.3f} s, launches "
+        f"{rose}; against the CPU's fp32 plain path ({cpu_seconds:.1f} s): "
+        + ", ".join(errs) + f" (bar {FP32_PATH_REL_TOL:g} x)")
     torch.cuda.empty_cache()
 
 

@@ -1,6 +1,7 @@
 // One 64-query tile of softmax attention for one (image or batch row, head),
-// shared by qkv_packed_attention.cu, flash_bias_attention.cu,
-// flash_relpos_attention.cu and flash_attention.cu.
+// shared by qkv_packed_attention.cu (kernel 2) and flash_relpos_attention.cu
+// (kernel 9); the helpers also serve int8_attn_block.cu. Kernels 3, 4 and 5
+// run on the Hopper tile of attention_tile_sm90.cuh.
 //
 // Design (first version for Hopper, sm_90a):
 //  * a block of 4 warps owns 64 query rows; each warp owns 16 of them and
@@ -26,10 +27,7 @@
 //  * with RELPOS the additive bias is not read from device memory: the block
 //    keeps bias_by_rel[c] = table[lut[c]] for the 2*maxd + 1 clamped
 //    relative positions in shared memory (in place of the bias tile) and
-//    adds bias_by_rel[clamp(key - query, -maxd, maxd) + maxd];
-//  * with CAUSAL a query attends to the keys at or before its own position
-//    (top-left aligned when n_q != n_k), and the key loop stops at the last
-//    tile that holds such a key for this query tile.
+//    adds bias_by_rel[clamp(key - query, -maxd, maxd) + maxd].
 // K/V loads are not yet overlapped with the math (no cp.async pipeline);
 // wgmma, TMA and warp specialisation are left for later versions.
 #pragma once
@@ -67,8 +65,6 @@ struct AttnArgs {
   const bf16* v;
   bf16* o;
   long q_row, k_row, v_row, o_row;  // row strides in elements
-  const bf16* bias;                 // (n_q, n_k) rows of bias_row, or null
-  long bias_row;
   const int8_t* kv_mask;            // (n_k,) 0 = masked, or null
   int n_q, n_k;
   int n_valid_k;                    // keys >= n_valid_k are masked
@@ -159,7 +155,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int DP, bool RELPOS = false, bool CAUSAL = false>
+template <int DP, bool RELPOS = false>
 __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
   using L = TileLayout<DP>;
   constexpr int LD = L::LD;
@@ -168,7 +164,6 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
   bf16* sK = reinterpret_cast<bf16*>(smem + L::k_off);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
-  bf16* sBias = reinterpret_cast<bf16*>(smem + L::bias_off);
   float* sKeyOk = reinterpret_cast<float*>(smem + L::keyok_off);
   float* sBiasByRel = reinterpret_cast<float*>(smem + L::bias_off);
 
@@ -200,8 +195,7 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
 
-  const int k_end = CAUSAL ? min(a.n_k, q0 + BQ) : a.n_k;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  for (int k0 = 0; k0 < a.n_k; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<DP>(sK, a.k, a.k_row, k0, a.n_k, a.d);
     load_tile<DP>(sV, a.v, a.v_row, k0, a.n_k, a.d);
@@ -210,15 +204,6 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
       const bool ok = key < a.n_valid_k &&
                       (a.kv_mask == nullptr || a.kv_mask[key] != 0);
       sKeyOk[j] = ok ? 1.f : 0.f;
-    }
-    if (!RELPOS && a.bias != nullptr) {
-      for (int idx = threadIdx.x; idx < BQ * BK; idx += NTHREADS) {
-        const int qr = q0 + idx / BK;
-        const int key = k0 + idx % BK;
-        sBias[idx] = (qr < a.n_q && key < a.n_k)
-                         ? a.bias[long(qr) * a.bias_row + key]
-                         : __float2bfloat16(0.f);
-      }
     }
     __syncthreads();
 
@@ -246,13 +231,8 @@ __device__ void attention_tile(const AttnArgs& a, int q0, unsigned char* smem) {
         float v = s[j][e] * a.scale;
         if constexpr (RELPOS) {
           v += sBiasByRel[rel_index(k0 + col, q0 + row, a.relpos_maxd)];
-        } else {
-          if (a.bias != nullptr) v += __bfloat162float(sBias[row * BK + col]);
         }
         if (sKeyOk[col] == 0.f) v = -INFINITY;
-        if constexpr (CAUSAL) {
-          if (k0 + col > q0 + row) v = -INFINITY;
-        }
         s[j][e] = v;
         mx[e >> 1] = fmaxf(mx[e >> 1], v);
       }

@@ -1,4 +1,5 @@
-// Flash attention with no bias and no key mask, optionally causal.
+// Flash attention with no bias and no key mask, optionally causal (kernel 4),
+// and the fp32 parity-mode body of the biased kernels 3 and 5.
 //
 // Replaces: mr_blip_tpu/ops/flash_attention.py::_flash_fwd_kernel (the
 // forward of flash_attention: the EVA ViT-g self-attention whenever the
@@ -10,16 +11,22 @@
 // in bf16, above the card's ~295, and the fp32 instantiation runs on the CUDA
 // cores, whose peak is 15 times lower than the tensor cores'.
 //
-// Design: grid (query tile, head, batch row). q, k and v come with their own
-// batch, row and head strides (in elements; the innermost stride is 1), so the
-// q/k/v views of a packed QKV projection go in without a copy; the output is
-// contiguous (B, N, H, D). q_len != k_len is allowed, ragged lengths are exact
-// (rows past the end are zero-filled in shared memory and their keys get
-// -inf; nothing is padded in device memory), and a row with no key to attend
-// to comes out as zeros. With `causal`, query i attends to keys j <= i
-// (top-left aligned), and a query tile stops at the last key tile it can see.
-//  * bf16: the tile of attention_tile.cuh (mma.sync m16n8k16, fp32 online
-//    softmax in registers), as the packed-QKV and biased kernels use it.
+// Design: q, k and v come with their own batch, row and head strides (in
+// elements; the innermost stride is 1), so the q/k/v views of a packed QKV
+// projection go in without a copy; the output is contiguous (B, N, H, D).
+// q_len != k_len is allowed, ragged lengths are exact (rows past the end are
+// zero-filled in shared memory and their keys get -inf; nothing is padded in
+// device memory), and a row with no key to attend to comes out as zeros. With
+// `causal`, query i attends to keys j <= i (top-left aligned), and a query
+// block stops at the last key tile it can see.
+//  * bf16: the Hopper tile of attention_tile_sm90.cuh (warp-specialised
+//    blocks of 128 queries, `wgmma` for both products, K/V brought by TMA
+//    into a ring of 4 stages awaited on mbarriers). D = 88 is two 128-byte
+//    swizzled panels, one TMA box each (64 + 24 columns of the tensor map's
+//    88); the box's columns past 88 are zero-filled, so the K-depth 96 of
+//    q·kᵀ adds nothing. One persistent block per SM walks
+//    the work items (query block, head, image), query block fastest, so the
+//    blocks of one (image, head) run together and share its K/V in L2.
 //  * fp32: a single-pass TF32 product would round the operands to 10 bits, and
 //    fp32 is this model's parity mode, so the products are fp32 FMAs on the
 //    CUDA cores. A block of 128 threads owns 128 query rows, one row a
@@ -28,13 +35,17 @@
 //    through shared memory in tiles of 32 keys, read by every thread of a warp
 //    at the same address (a broadcast, 16 bytes a load, 4 FMAs a load). The
 //    online-softmax state is rescaled once per 16 keys. A warp whose 32 rows
-//    all lie past the end only helps with the loads.
-// Neither instantiation overlaps its loads with its math yet.
+//    all lie past the end only helps with the loads. With a bias (kernels 3
+//    and 5 in fp32) each thread adds its own row's bias to its 16 scores,
+//    keys with a zero key-mask flag get -inf, and the row logsumexp can be
+//    stored; those loads are not overlapped with the math.
 #include <cuda_runtime.h>
 
-#include "attention_tile.cuh"
+#include "attention_tile_sm90.cuh"
 
 namespace mrb {
+
+using sm90::bf16;
 
 // One launch's operands. Strides in elements.
 struct FlashArgs {
@@ -47,54 +58,76 @@ struct FlashArgs {
   long v_b, v_n, v_h;
   int n, m, h, d;
   float scale;
+  // The biased fp32 kernels only: (1, H, N, M) fp32 bias, (B, M) int8 key
+  // mask (0 = masked) and the (B, H, N) row logsumexp out (or null).
+  const float* bias = nullptr;
+  const int8_t* kv_mask = nullptr;
+  float* lse = nullptr;
 };
 
 // ------------------------------------------------------------------- bf16
-template <int DP, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bf16_kernel(FlashArgs f) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.z;
-  const int head = blockIdx.y;
-  AttnArgs a;
-  a.q = static_cast<const bf16*>(f.q) + b * f.q_b + head * f.q_h;
-  a.k = static_cast<const bf16*>(f.k) + b * f.k_b + head * f.k_h;
-  a.v = static_cast<const bf16*>(f.v) + b * f.v_b + head * f.v_h;
-  a.q_row = f.q_n;
-  a.k_row = f.k_n;
-  a.v_row = f.v_n;
-  const long hd = long(f.h) * f.d;
-  a.o = static_cast<bf16*>(f.out) + long(b) * f.n * hd + long(head) * f.d;
-  a.o_row = hd;
-  a.bias = nullptr;
-  a.bias_row = 0;
-  a.kv_mask = nullptr;
-  a.n_q = f.n;
-  a.n_k = f.m;
-  a.n_valid_k = f.m;
-  a.d = f.d;
-  a.scale = f.scale;
-  attention_tile<DP, false, CAUSAL>(a, blockIdx.x * BQ, smem);
-}
+// A work item is (query block of 128, head, image), query block fastest, so
+// the blocks of one (image, head) run together and share its K/V in L2.
+struct Bf16Problem {
+  sm90::Maps maps;
+  bf16* out;
+  int n, m, h, d, n_qt, items;
+  float scale;
+
+  __device__ void at(int item, sm90::Args& a, int& q0) const {
+    const int rest = item / n_qt;
+    a.head = rest % h;
+    a.b = rest / h;
+    q0 = (item % n_qt) * sm90::BQ;
+    const long hd = long(h) * d;
+    a.o = out + long(a.b) * n * hd + long(a.head) * d;
+    a.o_row = hd;
+    a.bias = nullptr;
+    a.bias_row = 0;
+    a.bias_aligned = false;
+    a.kv_mask = nullptr;
+    a.n_q = n;
+    a.n_k = m;
+    a.d = d;
+    a.scale = scale;
+    a.lse = nullptr;
+  }
+};
 
 template <int DP, bool CAUSAL>
-cudaError_t launch_bf16(const FlashArgs& f, int b, cudaStream_t stream) {
-  const size_t bytes = TileLayout<DP>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<DP, CAUSAL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return err;
-  dim3 grid((f.n + BQ - 1) / BQ, f.h, b);
-  flash_bf16_kernel<DP, CAUSAL><<<grid, NTHREADS, bytes, stream>>>(f);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(sm90::NTHREADS, 1)
+flash_bf16_kernel(const __grid_constant__ Bf16Problem p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  sm90::attention_persistent<DP, false, CAUSAL>(p, smem);
 }
 
 template <int DP>
 struct FlashBf16Launch {
   static cudaError_t run(const FlashArgs& f, int b, bool causal,
                          cudaStream_t stream) {
-    return causal ? launch_bf16<DP, true>(f, b, stream)
-                  : launch_bf16<DP, false>(f, b, stream);
+    const long n_qt = (f.n + sm90::BQ - 1) / sm90::BQ;
+    if (long(b) * f.h * n_qt > 0x7fffffffL) return cudaErrorInvalidValue;
+    Bf16Problem p{};
+    cudaError_t err = sm90::encode_qkv(&p.maps.q, f.q, b, f.n, f.h, f.d, f.q_b,
+                                       f.q_n, f.q_h);
+    if (err == cudaSuccess) {
+      err = sm90::encode_qkv(&p.maps.k, f.k, b, f.m, f.h, f.d, f.k_b, f.k_n, f.k_h);
+    }
+    if (err == cudaSuccess) {
+      err = sm90::encode_qkv(&p.maps.v, f.v, b, f.m, f.h, f.d, f.v_b, f.v_n, f.v_h);
+    }
+    if (err != cudaSuccess) return err;
+    p.out = static_cast<bf16*>(f.out);
+    p.n = f.n;
+    p.m = f.m;
+    p.h = f.h;
+    p.d = f.d;
+    p.n_qt = int(n_qt);
+    p.items = int(b * f.h * n_qt);
+    p.scale = f.scale;
+    const size_t bytes = sm90::Layout<DP, false>::alloc;
+    return causal ? sm90::launch(flash_bf16_kernel<DP, true>, bytes, stream, p)
+                  : sm90::launch(flash_bf16_kernel<DP, false>, bytes, stream, p);
   }
 };
 
@@ -113,7 +146,7 @@ struct F32Layout {
   static constexpr size_t bytes = (v_off + size_t(F32_KEYS) * DP) * 4;
 };
 
-template <int DP, bool CAUSAL>
+template <int DP, bool CAUSAL, bool BIAS>
 __global__ void __launch_bounds__(F32_ROWS)
 flash_f32_kernel(FlashArgs f) {
   using L = F32Layout<DP>;
@@ -131,6 +164,14 @@ flash_f32_kernel(FlashArgs f) {
   const float* qp = static_cast<const float*>(f.q) + b * f.q_b + head * f.q_h;
   const float* kp = static_cast<const float*>(f.k) + b * f.k_b + head * f.k_h;
   const float* vp = static_cast<const float*>(f.v) + b * f.v_b + head * f.v_h;
+  // BIAS: this thread's bias row (the last one for rows past the end, which
+  // compute nothing that is stored) and the batch row's key mask.
+  const float* brow = nullptr;
+  const int8_t* mask = nullptr;
+  if constexpr (BIAS) {
+    brow = f.bias + (long(head) * f.n + min(row, f.n - 1)) * f.m;
+    mask = f.kv_mask + long(b) * f.m;
+  }
 
   // The block's q rows, pre-scaled; rows past n and columns past d are zero.
   for (int idx = tid; idx < F32_ROWS * CH; idx += F32_ROWS) {
@@ -198,7 +239,12 @@ flash_f32_kernel(FlashArgs f) {
 #pragma unroll
       for (int j = 0; j < F32_CHUNK; ++j) {
         const int key = k0 + c0 + j;
-        if (key >= f.m || (CAUSAL && key > row)) s[j] = -INFINITY;
+        bool ok = key < f.m && !(CAUSAL && key > row);
+        if constexpr (BIAS) {
+          ok = ok && mask[key] != 0;
+          if (ok) s[j] += brow[key];
+        }
+        if (!ok) s[j] = -INFINITY;
         mx = fmaxf(mx, s[j]);
       }
       const float m_new = fmaxf(m_run, mx);
@@ -243,18 +289,23 @@ flash_f32_kernel(FlashArgs f) {
             o[c] * inv, o[c + 1] * inv, o[c + 2] * inv, o[c + 3] * inv);
       }
     }
+    if (BIAS && f.lse != nullptr) {
+      const float m_safe = isfinite(m_run) ? m_run : 0.f;
+      f.lse[(long(b) * f.h + head) * f.n + row] =
+          m_safe + logf(fmaxf(l_run, 1e-30f));
+    }
   }
 }
 
-template <int DP, bool CAUSAL>
+template <int DP, bool CAUSAL, bool BIAS>
 cudaError_t launch_f32(const FlashArgs& f, int b, cudaStream_t stream) {
   const size_t bytes = F32Layout<DP>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<DP, CAUSAL>,
+      flash_f32_kernel<DP, CAUSAL, BIAS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
   dim3 grid((f.n + F32_ROWS - 1) / F32_ROWS, f.h, b);
-  flash_f32_kernel<DP, CAUSAL><<<grid, F32_ROWS, bytes, stream>>>(f);
+  flash_f32_kernel<DP, CAUSAL, BIAS><<<grid, F32_ROWS, bytes, stream>>>(f);
   return cudaGetLastError();
 }
 
@@ -262,8 +313,15 @@ template <int DP>
 struct FlashF32Launch {
   static cudaError_t run(const FlashArgs& f, int b, bool causal,
                          cudaStream_t stream) {
-    return causal ? launch_f32<DP, true>(f, b, stream)
-                  : launch_f32<DP, false>(f, b, stream);
+    return causal ? launch_f32<DP, true, false>(f, b, stream)
+                  : launch_f32<DP, false, false>(f, b, stream);
+  }
+};
+
+template <int DP>
+struct FlashF32BiasLaunch {
+  static cudaError_t run(const FlashArgs& f, int b, cudaStream_t stream) {
+    return launch_f32<DP, false, true>(f, b, stream);
   }
 };
 
@@ -291,9 +349,53 @@ extern "C" int mrb_flash_attention(const void* q, const void* k, const void* v,
                    k_h, v_b, v_n, v_h, n,   m,   h,   d,    scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_fp32) {
-    return int(mrb::dispatch_head_dim<mrb::FlashF32Launch>(d, f, b, causal != 0,
-                                                           s));
+    return int(mrb::sm90::dispatch_head_dim<mrb::FlashF32Launch>(
+        d, f, b, causal != 0, s));
   }
-  return int(mrb::dispatch_head_dim<mrb::FlashBf16Launch>(d, f, b, causal != 0,
-                                                          s));
+  return int(mrb::sm90::dispatch_head_dim<mrb::FlashBf16Launch>(
+      d, f, b, causal != 0, s));
+}
+
+namespace {
+
+// Kernels 3 and 5 in fp32: q (B, N, H, D), k and v (B, M, H, D) and out
+// contiguous, bias (1, H, N, M) contiguous, kv_mask (B, M) int8, lse
+// (B, H, N) or null.
+int launch_flash_bias_f32(const void* q, const void* k, const void* v,
+                          const void* bias, const void* kv_mask, void* out,
+                          float* lse, int b, int n, int m, int h, int d,
+                          float scale, void* stream) {
+  if (b <= 0 || n <= 0 || m <= 0 || h <= 0 || b > 65535 || h > 65535) {
+    return int(cudaErrorInvalidValue);
+  }
+  const long hd = long(h) * d;
+  mrb::FlashArgs f{q,      k,  v,  out, long(n) * hd, hd, d, long(m) * hd, hd,
+                   d,      long(m) * hd, hd, d, n, m, h, d, scale,
+                   static_cast<const float*>(bias),
+                   static_cast<const int8_t*>(kv_mask), lse};
+  return int(mrb::sm90::dispatch_head_dim<mrb::FlashF32BiasLaunch>(
+      d, f, b, static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+extern "C" int mrb_flash_bias_attention_f32(const void* q, const void* k,
+                                            const void* v, const void* bias,
+                                            const void* kv_mask, void* out,
+                                            int b, int n, int m, int h, int d,
+                                            float scale, void* stream) {
+  return launch_flash_bias_f32(q, k, v, bias, kv_mask, out, nullptr, b, n, m,
+                               h, d, scale, stream);
+}
+
+extern "C" int mrb_flash_bias_fwd_stats_f32(const void* q, const void* k,
+                                            const void* v, const void* bias,
+                                            const void* kv_mask, void* out,
+                                            void* lse, int b, int n, int m,
+                                            int h, int d, float scale,
+                                            void* stream) {
+  if (lse == nullptr) return int(cudaErrorInvalidValue);
+  return launch_flash_bias_f32(q, k, v, bias, kv_mask, out,
+                               static_cast<float*>(lse), b, n, m, h, d, scale,
+                               stream);
 }

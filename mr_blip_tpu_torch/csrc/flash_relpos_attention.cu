@@ -51,8 +51,6 @@ flash_relpos_fwd_kernel(const bf16* q, const bf16* k, const bf16* v,
   a.v = v + off;
   a.o = out + off;
   a.q_row = a.k_row = a.v_row = a.o_row = hd;
-  a.bias = nullptr;
-  a.bias_row = 0;
   a.kv_mask = kv_mask + long(b) * n;
   a.n_q = n;
   a.n_k = n;

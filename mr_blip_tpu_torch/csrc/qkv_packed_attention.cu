@@ -39,8 +39,6 @@ qkv_packed_kernel(const bf16* qkv, bf16* out, int n, int h, int d,
   a.q_row = a.k_row = a.v_row = 3 * hd;
   a.o = out + long(b) * n * hd + long(head) * d;
   a.o_row = hd;
-  a.bias = nullptr;
-  a.bias_row = 0;
   a.kv_mask = nullptr;
   a.n_q = n;
   a.n_k = n;

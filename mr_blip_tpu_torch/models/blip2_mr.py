@@ -228,18 +228,17 @@ class BLIP2_MR:
 
     def trainable_mask(self) -> Dict[str, bool]:
         """Parameter name -> trains, by the JAX package's policy with the
-        ViT frozen: in the T5 only ``lora_a``/``lora_b`` train, and
-        only under a ``lora`` task; the Q-Former, ``t5_proj`` and
-        ``ln_vision`` train unless the task has ``qformer_freeze``. Under a
-        QA task the loss is the answerer's (``forward_QA``): its T5 takes the
-        place of the main one, which only localizes and stays frozen."""
+        ViT frozen, whatever the task: in the main T5 only ``lora_a``/
+        ``lora_b`` train, and only under a ``lora`` task; the Q-Former,
+        ``t5_proj`` and ``ln_vision`` train unless the task has
+        ``qformer_freeze``. A QA model's ``answerer_t5`` never trains: the
+        JAX package keeps its tree out of every train state."""
         qformer_frozen = "qformer_freeze" in self.task
-        trained_t5 = "answerer_t5" if self.is_qa else "t5"
 
         def trains(name: str) -> bool:
             top = name.split(".")[0]
-            if top in ("t5", "answerer_t5"):
-                return top == trained_t5 and self.use_lora and "lora_" in name
+            if top == "t5":
+                return self.use_lora and "lora_" in name
             if top in ("qformer", "t5_proj", "ln_vision"):
                 return not qformer_frozen
             return False

@@ -51,6 +51,9 @@ _SIGNATURES = {
                                       _I, _F, _P],
     # q, k, v, bias, kv_mask, out, lse, B, N, M, H, D, scale, stream
     "mrb_flash_bias_fwd_stats_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # the same two in fp32 (the CUDA-core body of flash_attention.cu)
+    "mrb_flash_bias_attention_f32": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "mrb_flash_bias_fwd_stats_f32": [_P] * 7 + [_I] * 5 + [_F, _P],
     # q, k, v, bias, kv_mask, dout, lse, delta, dq, B, N, M, H, D, scale, stream
     "mrb_flash_bias_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
     # ... as above, then dq, dbias, ...
@@ -81,8 +84,8 @@ _SIGNATURES = {
 }
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -95,14 +98,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` into ``_build/<hash>/libmrblip_kernels.so``
+def build(csrc: Path = CSRC, build_root: Path = BUILD_ROOT) -> Path:
+    """Compile ``csrc/*.cu`` into ``<build_root>/<hash>/libmrblip_kernels.so``
     unless that file exists already; returns its path."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    out_dir = build_root / digest.hexdigest()[:16]
     lib = out_dir / "libmrblip_kernels.so"
     if lib.exists():
         return lib
@@ -112,10 +115,10 @@ def build() -> Path:
     # never leaves a library that looks complete.
     work = Path(tempfile.mkdtemp(dir=out_dir))
     nvcc = _nvcc()
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(csrc.glob("*.cu"))
     compiles = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+            [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(src), "-o",
              str(work / (src.stem + ".o"))],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for src in sources]
@@ -142,15 +145,21 @@ def build() -> Path:
     return lib
 
 
+def load(path: Path, names=None) -> ctypes.CDLL:
+    """Load a built kernel library and bind the C entries ``names`` (all of
+    this package's by default) to their signatures."""
+    lib = ctypes.CDLL(str(path))
+    for name in _SIGNATURES if names is None else names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return load(build())
 
 
 def check(err: int, name: str) -> None:

@@ -78,7 +78,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention`` when it has neither bias nor mask (q_len != k_len
     allowed; bf16 or fp32), and to the biased flash kernel when it has a
     (1, H, N, M) bias, q_len == k_len and at most a key-only (B, 1, 1, M)
-    mask (bf16 only), as in JAX. A CUDA call of a dtype its kernel does not
+    mask (bf16 or fp32), as in JAX. A CUDA call of a dtype its kernel does not
     take raises in the kernel's wrapper rather than running plain. The
     "flash" backend sends every call to ``flash_attention``, which refuses a
     mask; a bias raises here (the JAX package drops it without a word).

@@ -11,12 +11,13 @@ hand-written kernel for a CUDA tensor, or raises:
 * ``flash_attention_qkv_packed`` -> ``csrc/qkv_packed_attention.cu``
   (plain version ``_qkv_packed_reference``); backward: the plain version
   recomputed, as in JAX;
-* ``flash_attention_bias`` -> ``csrc/flash_bias_attention.cu`` when no
-  gradient is needed; otherwise the custom VJP ``_FlashBias``: forward
-  ``flash_bias_fwd_stats`` (same file, with the row logsumexp), backward
-  ``flash_bias_bwd_dq``, or ``flash_bias_bwd_dq_dbias`` when the bias
-  requires grad, then
-  ``flash_bias_bwd_dkv`` (``csrc/flash_bias_backward.cu``). Plain versions:
+* ``flash_attention_bias`` -> ``csrc/flash_bias_attention.cu`` (bf16; fp32:
+  the CUDA-core body of ``csrc/flash_attention.cu``) when no gradient is
+  needed; otherwise the custom VJP ``_FlashBias``: forward
+  ``flash_bias_fwd_stats`` (the same kernels, with the row logsumexp),
+  backward ``flash_bias_bwd_dq``, or ``flash_bias_bwd_dq_dbias`` when the
+  bias requires grad, then ``flash_bias_bwd_dkv``
+  (``csrc/flash_bias_backward.cu``, bf16 only). Plain versions:
   ``_flash_bias_fwd_stats_reference`` (forward, both kernels) and
   ``_flash_bias_bwd_reference``;
 * ``flash_attention_relpos`` (self-attention with the T5 rel-pos bias
@@ -46,7 +47,8 @@ from mr_blip_tpu_torch.ops import _cuda
 from mr_blip_tpu_torch.ops.attention import xla_attention
 from mr_blip_tpu_torch.ops.relpos import clamped_bucket_table, materialize_relpos_bias
 
-# Largest head dim the forward kernels instantiate (csrc/attention_tile.cuh).
+# Largest head dim the forward kernels instantiate (csrc/attention_tile.cuh,
+# csrc/attention_tile_sm90.cuh).
 MAX_HEAD_DIM = 96
 # The only head dim of the statistics and backward kernels (T5 d_kv).
 BWD_HEAD_DIM = 64
@@ -297,8 +299,8 @@ def _flash_bias_bwd_reference(q, k, v, bias, kv_mask, dout, lse, delta):
             ds.sum(dim=0, keepdim=True))
 
 
-def _bias_operands(q, k, v, bias, kv_mask, *more):
-    """Check the bf16 operands of a flash kernel launch (q, k, v and the
+def _bias_operands(q, k, v, bias, kv_mask, *more, dtype=torch.bfloat16):
+    """Check the ``dtype`` operands of a flash kernel launch (q, k, v and the
     (name, tensor) pairs in ``more``; the bias too unless None); returns the
     key mask as contiguous int8 (all ones when None)."""
     b = q.shape[0]
@@ -306,7 +308,7 @@ def _bias_operands(q, k, v, bias, kv_mask, *more):
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), *more):
         if t is not None:
-            _check_cuda_operand(name, t, torch.bfloat16, dev)
+            _check_cuda_operand(name, t, dtype, dev)
     if kv_mask is None:
         kv_mask = torch.ones((b, m), dtype=torch.int8, device=dev)
     kv_mask = kv_mask.to(torch.int8).contiguous()
@@ -321,19 +323,32 @@ def _check_stats(lse, delta, b, h, n, device):
         _check_cuda_operand(name, t, torch.float32, device)
 
 
+# The biased forward kernels' C entries by dtype: bf16 on the Hopper tile,
+# fp32 (the parity mode) on the CUDA cores.
+_FLASH_BIAS_ENTRIES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def _flash_bias_dtype(q):
+    if q.dtype not in _FLASH_BIAS_ENTRIES:
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    return q.dtype
+
+
 def _flash_bias_cuda(q, k, v, bias, kv_mask):
     b, n, h, d = q.shape
     m = k.shape[1]
-    kv_mask = _bias_operands(q, k, v, bias, kv_mask)
+    dtype = _flash_bias_dtype(q)
+    kv_mask = _bias_operands(q, k, v, bias, kv_mask, dtype=dtype)
     _check_head_dim(d)
     out = torch.empty_like(q)
     if b == 0 or n == 0:
         return out
-    err = _cuda.library().mrb_flash_bias_attention_bf16(
+    name = f"mrb_flash_bias_attention_{_FLASH_BIAS_ENTRIES[dtype]}"
+    err = getattr(_cuda.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         kv_mask.data_ptr(), out.data_ptr(), b, n, m, h, d,
         float(d ** -0.5), _cuda.stream_ptr(q.device))
-    _cuda.check(err, "mrb_flash_bias_attention_bf16")
+    _cuda.check(err, name)
     flash_attention_bias.launches += 1
     return out
 
@@ -346,20 +361,22 @@ def _check_bwd_head_dim(d):
 
 def flash_bias_fwd_stats(q, k, v, bias, kv_mask=None):
     """Kernel 5: the biased flash forward plus the fp32 (B, H, N) row
-    logsumexp -> (out, lse). Plain version for a CPU tensor."""
+    logsumexp -> (out, lse); bf16 or fp32. Plain version for a CPU tensor."""
     if not q.is_cuda:
         return _flash_bias_fwd_stats_reference(q, k, v, bias, kv_mask)
     b, n, h, d = q.shape
     m = k.shape[1]
-    kv_mask = _bias_operands(q, k, v, bias, kv_mask)
+    dtype = _flash_bias_dtype(q)
+    kv_mask = _bias_operands(q, k, v, bias, kv_mask, dtype=dtype)
     _check_bwd_head_dim(d)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    err = _cuda.library().mrb_flash_bias_fwd_stats_bf16(
+    name = f"mrb_flash_bias_fwd_stats_{_FLASH_BIAS_ENTRIES[dtype]}"
+    err = getattr(_cuda.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         kv_mask.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n, m, h, d,
         float(d ** -0.5), _cuda.stream_ptr(q.device))
-    _cuda.check(err, "mrb_flash_bias_fwd_stats_bf16")
+    _cuda.check(err, name)
     flash_bias_fwd_stats.launches += 1
     return out, lse
 
@@ -430,7 +447,8 @@ class _FlashBias(torch.autograd.Function):
     computes it in XLA outside its kernels. dbias (kernel 7 in place of
     kernel 6) is computed only when the bias needs a gradient, which JAX
     states with its ``bias_grad`` flag; otherwise the bias gets none (JAX
-    returns zeros, which LoRA training never reads)."""
+    returns zeros, which LoRA training never reads). The backward kernels
+    are bf16 only: an fp32 backward on the card raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, kv_mask, fwd, bwd_dq, bwd_dq_dbias,
@@ -443,6 +461,11 @@ class _FlashBias(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v, bias, kv_mask, out, lse = ctx.saved_tensors
+        if q.is_cuda and q.dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"the biased flash backward kernels 6-8 (flash_bias_bwd_dq, "
+                f"flash_bias_bwd_dq_dbias, flash_bias_bwd_dkv) are bf16 only; "
+                f"their {q.dtype} instantiations are not ported yet")
         bwd_dq, bwd_dq_dbias, bwd_dkv = ctx.bwd
         grad = grad.contiguous()
         ct = _math_dtype(q)
@@ -473,9 +496,10 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     requires grad gets the true dbias (full finetuning; kernel 7 in place
     of kernel 6).
 
-    When nothing needs a gradient, a CUDA call launches kernel 3; when q,
-    k, v or bias needs one, the call goes through ``_FlashBias`` (kernels
-    5-8). A CPU call runs their plain versions. A row whose keys are all
+    When nothing needs a gradient, a CUDA call launches kernel 3 (bf16 or
+    fp32); when q, k, v or bias needs one, the call goes through
+    ``_FlashBias`` (kernels 5-8; its backward is bf16 only). A CPU call runs
+    their plain versions. A row whose keys are all
     masked comes out as zeros, as from the Pallas kernels."""
     b, n, h, d = q.shape
     m = k.shape[1]

@@ -36,6 +36,9 @@ from mr_blip_tpu_torch.runners.train_state import TrainCtx
 
 ATOL = 1e-4
 TASKS = ("lora", "qformer_freeze", "qformer_freeze_lora")
+# QA tasks: the span loss still trains the main T5's LoRA tensors (and the
+# Q-Former unless frozen); the answerer's tree is in no JAX train state.
+QA_TASKS = ("lora_QA_with_localizer", "qformer_freeze_lora_QA_with_localizer")
 TINY = dict(img_size=28, vit_model="tiny", t5_model="tiny", num_beams=1,
             max_new_tokens=4, compute_dtype="float32")
 
@@ -77,11 +80,16 @@ def _no_dropout(model):
 
 def _pair(task="lora", seed=0):
     """JAX and port BLIP2_MR (tiny, fp32, unscanned JAX layout) on the same
-    redrawn weights."""
+    redrawn weights; under a QA task the answerer's tree too."""
     jm = JaxBLIP2_MR(**TINY, task=task, scan_layers=False)
     jm.params = jax.tree.map(jnp.asarray, _redraw(jm.params, seed))
+    answerer = None
+    if jm.is_qa:
+        answerer = _redraw(jm.answerer_params, seed + 1)
+        jm.answerer_params = jax.tree.map(jnp.asarray, answerer)
     port = BLIP2_MR(**TINY, device="cpu", task=task, init_params=False)
-    port.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray, jm.params)))
+    port.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray, jm.params),
+                                             answerer))
     return jm, _no_dropout(port)
 
 
@@ -173,25 +181,32 @@ def test_forward_loss_matches_jax(lora_pair):
     np.testing.assert_allclose(float(got), want, atol=ATOL)
 
 
-@pytest.mark.parametrize("task", TASKS)
+@pytest.mark.parametrize("task", TASKS + QA_TASKS)
 def test_trainable_counts_match_jax(task):
     jm, port = _pair(task)
-    want = trainable_param_count(jm.params, jm.trainable_mask())
-    assert port.trainable_param_count() == want
+    trainable, total = trainable_param_count(jm.params, jm.trainable_mask())
+    if jm.is_qa:  # the port holds the answerer's T5 beside the main tree
+        answerer = jm.answerer_params["t5"]
+        total += trainable_param_count(answerer, jax.tree.map(lambda _: False, answerer))[1]
+    assert port.trainable_param_count() == (trainable, total)
     mask = port.trainable_mask()
-    assert not any(m for n, m in mask.items() if n.startswith("visual_encoder"))
+    assert not any(m for n, m in mask.items()
+                   if n.startswith(("visual_encoder", "answerer_t5")))
     if "lora" in task:
         assert all(("lora_" in n) == m for n, m in mask.items() if n.startswith("t5."))
 
 
-def test_train_step_matches_jax():
+@pytest.mark.parametrize("task", ("lora",) + QA_TASKS)
+def test_train_step_matches_jax(task):
     """One ``TrainCtx.step`` against JAX ``make_train_step`` +
     ``make_optimizer`` (AdamW, weight decay 0.05 on rank >= 2, the trainable
     mask): the same loss, the same post-step weights (to 1e-4 at lr 1e-3:
     Adam's first update is lr·g/(|g| + eps), so a near-zero gradient turns
     float noise into up to ~lr of difference, and a flipped update would
-    be 2e-3), frozen ones untouched."""
-    jm, port = _pair("lora", seed=5)
+    be 2e-3), frozen ones untouched. Under a QA task the step is the span
+    loss through the main T5, as JAX's ``_loss_fn``, and the answerer's T5
+    stays as loaded."""
+    jm, port = _pair(task, seed=5)
     samples = _samples(seed=6)
     mask = jm.trainable_mask()
     tx = make_optimizer(weight_decay=0.05, trainable_mask=mask)
@@ -218,6 +233,8 @@ def test_train_step_matches_jax():
         else:
             assert torch.equal(got[name], before[name]), name
     assert moved == sum(trains.values())
+    for name in got.keys() - want.keys():  # the answerer's tree
+        assert name.startswith("answerer_t5.") and torch.equal(got[name], before[name])
 
 
 def test_grad_accumulation_equals_big_batch():
