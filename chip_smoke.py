@@ -26,10 +26,13 @@ is nonzero and the final line is not printed:
    must not move a valid row by a bit) and (240, 257, 1,408) <= 0.05; each
    with cosine >= 0.999, and the share of elements more than 2 bf16 ulps off
    printed (a flipped requantization step moves one row); a float32 input on
-   the card must raise. Kernels 3 and 5 in fp32 (the parity mode's CUDA-core
-   body) at 4 x 2,056 and at 4 x 2,049 with a ragged key mask, kernel 3
-   through the dispatch: max |diff| <= 1e-4 x max |plain|, lse <= 1e-3; a
-   float16 call must raise. Times by CUDA events, median of 10 launches: the
+   the card must raise. Kernels 3, 5 and 6-8 in fp32 (the parity mode's
+   CUDA-core bodies) at 4 x 2,056, at 4 x 2,049 with a ragged key mask and at
+   2 x 300 with a fully masked batch row, kernel 3 through the dispatch, the
+   backward kernels from the plain forward's lse and δ: out, dq, dk, dv and
+   dbias max |diff| <= 1e-4 x max |plain|, lse <= 1e-3, each timed at 4 x
+   2,056 beside the library's fp32 call; a float16 call to kernel 3 or 6 must
+   raise. Times by CUDA events, median of 10 launches: the
    kernel, its plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``: ``F.layer_norm``;
    ``scaled_dot_product_attention``, with the bias as ``attn_mask`` for
@@ -85,7 +88,11 @@ is nonzero and the final line is not printed:
    ``qformer_freeze`` (the full-finetune backward: the rel-pos table trains
    and kernel 7 launches once per encoder layer), on the card and on the CPU
    in bf16; relative loss difference <= 1e-2 and, per trainable tensor,
-   gradient cosine >= 0.99.
+   gradient cosine >= 0.99. Then the fp32 parity mode
+   (``compute_dtype="float32"``) on both sides for ``qformer_freeze_lora``
+   (kernels 5, 6, 8 in fp32) and ``qformer_freeze`` (5, 7, 8): relative loss
+   difference <= 1e-4 and gradient cosine >= 0.9999, each of the three
+   kernels launched once per encoder layer.
 
 8. int8 generate path: the same full-depth, full-width model after
    ``quantize_for_inference()``, 2 batches of 4 x 60 uint8 frames, beam 5;
@@ -244,6 +251,13 @@ EXPECTED_TRAIN_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_bias_attention=0,
 GRAD_TASKS = ("qformer_freeze_lora", "lora", "qformer_freeze")
 LOSS_REL_TOL = 1e-2
 GRAD_COSINE_MIN = 0.99
+# Phase 7 in the fp32 parity mode: kernels 5, 6, 8 (LoRA) and 5, 7, 8 (the
+# table trains). Both sides compute in fp32 and differ only in the order of
+# their sums (and ex2 against exp), ~1e-6 relative, so the bars are the
+# parity mode's own: loss within 1e-4 relative, gradient cosine >= 0.9999.
+FP32_GRAD_TASKS = ("qformer_freeze_lora", "qformer_freeze")
+FP32_LOSS_REL_TOL = 1e-4
+FP32_GRAD_COSINE_MIN = 0.9999
 RELPOS_TABLE = "t5.encoder.rel_bias.rel_embedding"
 # Phases 10-12, the long-context path (relpos_in_kernel=True): 240 frames a
 # video, ~7,944 encoder tokens. Every launch count is per call, whatever the
@@ -461,10 +475,11 @@ def check_kernels(torch, kernels):
 
 
 def check_fp32_bias_kernels(torch, heads, d):
-    """Kernels 3 and 5 in fp32 (the parity mode, CUDA-core FMAs), kernel 3
-    through the dispatch as the fp32 model reaches it: out within
-    FP32_REL_TOL x max |plain|, lse within LSE_TOL; a dtype neither kernel
-    takes must raise rather than run plain."""
+    """Kernels 3, 5 and 6-8 in fp32 (the parity mode, CUDA-core FMAs), kernel
+    3 through the dispatch as the fp32 model reaches it: out, dq, dk, dv and
+    dbias within FP32_REL_TOL x max |plain|, lse within LSE_TOL (the backward
+    kernels get the plain forward's lse and δ, so each is held alone); a
+    dtype no kernel takes must raise rather than run plain."""
     import torch.nn.functional as F
 
     from mr_blip_tpu_torch.ops import flash_attention as fa
@@ -476,14 +491,17 @@ def check_fp32_bias_kernels(torch, heads, d):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    for b, n, mask_kind in ((4, 2056, None), (4, 2049, "tail")):
+    for b, n, mask_kind in ((4, 2056, None), (4, 2049, "tail"), (2, 300, "row1_all")):
         q, k, v = randn(b, n, heads, d), randn(b, n, heads, d), randn(b, n, heads, d)
+        dout = randn(b, n, heads, d)
         bias = randn(1, heads, n, n)
-        kv_mask, mask4 = None, None
+        kv_mask = torch.ones(b, n, dtype=torch.int8, device=dev)
         if mask_kind == "tail":
             lengths = torch.tensor([n, n - 1, n - 100, 1500], device=dev)
             kv_mask = (torch.arange(n, device=dev)[None] < lengths[:, None]).to(torch.int8)
-            mask4 = (kv_mask != 0)[:, None, None, :]
+        elif mask_kind == "row1_all":
+            kv_mask[1] = 0
+        mask4 = (kv_mask != 0)[:, None, None, :]
         before = fa.flash_attention_bias.launches
         got3 = dot_product_attention(q, k, v, bias=bias, mask=mask4)
         require(fa.flash_attention_bias.launches == before + 1,
@@ -498,7 +516,8 @@ def check_fp32_bias_kernels(torch, heads, d):
         bar = FP32_REL_TOL * scale
         err3, err5 = max_err(torch, got3, want), max_err(torch, got5, want)
         err_lse = max_err(torch, lse5, lse_want)
-        line = (f"flash_bias float32 ({b}, {n}x{n}, {heads}, {d}) mask {mask_kind}: "
+        shape = f"({b}, {n}x{n}, {heads}, {d}) mask {mask_kind}"
+        line = (f"flash_bias float32 {shape}: "
                 f"kernel 3 max|diff| {err3:.3e}, kernel 5 {err5:.3e} (bar {bar:.3e}, "
                 f"max|plain| {scale:.4f}), lse {err_lse:.3e}")
         if mask_kind is None:
@@ -513,22 +532,85 @@ def check_fp32_bias_kernels(torch, heads, d):
         require(got3.dtype == torch.float32 and got5.dtype == torch.float32,
                 f"fp32 kernels 3/5 returned {got3.dtype}, {got5.dtype}")
         require(err3 <= bar and err5 <= bar,
-                f"fp32 kernels 3/5 ({b}, {n}) mask {mask_kind} off by {err3}, {err5} > {bar}")
-        require(err_lse <= LSE_TOL, f"fp32 kernel 5 ({b}, {n}): lse off by {err_lse}")
-        del q, k, v, bias, got3, got5, lse5, want, lse_want
+                f"fp32 kernels 3/5 {shape} off by {err3}, {err5} > {bar}")
+        require(err_lse <= LSE_TOL, f"fp32 kernel 5 {shape}: lse off by {err_lse}")
+        del got3, got5, lse5
+        check_fp32_backward(torch, fa, (q, k, v, bias, kv_mask, dout), want, lse_want,
+                            shape, timed=mask_kind is None)
+        del q, k, v, dout, bias, want, lse_want
         torch.cuda.empty_cache()
 
-    # A dtype neither kernel takes raises rather than running plain.
+    # A dtype no kernel takes raises rather than running plain.
     before = fa.flash_attention_bias.launches
     q16 = randn(2, 300, heads, d).to(torch.float16)
+    bias16 = randn(1, heads, 300, 300).half()
     try:
-        dot_product_attention(q16, q16, q16, bias=randn(1, heads, 300, 300).half())
+        dot_product_attention(q16, q16, q16, bias=bias16)
     except TypeError as exc:
         say(f"float16 biased attention on the card raises: {exc}")
     else:
         raise RuntimeError("float16 biased attention on the card ran plain")
     require(fa.flash_attention_bias.launches == before,
             "float16 biased attention counted a launch")
+    lse16 = torch.zeros(2, heads, 300, device=dev)
+    before = fa.flash_bias_bwd_dq.launches
+    try:
+        fa.flash_bias_bwd_dq(q16, q16, q16, bias16, None, q16, lse16, lse16)
+    except TypeError as exc:
+        say(f"float16 flash_bias_bwd_dq on the card raises: {exc}")
+    else:
+        raise RuntimeError("float16 flash_bias_bwd_dq on the card ran")
+    require(fa.flash_bias_bwd_dq.launches == before,
+            "float16 flash_bias_bwd_dq counted a launch")
+
+
+def check_fp32_backward(torch, fa, inputs, out_ref, lse_ref, shape, timed):
+    """Kernels 6-8 in fp32 against the plain backward on the same inputs
+    (lse and δ from the plain forward): each output within FP32_REL_TOL x
+    max |plain|; at the main shape also timed beside the library's fp32
+    autograd backward."""
+    q, k, v, bias, kv_mask, dout = inputs
+    delta = torch.einsum("bnhd,bnhd->bhn", dout, out_ref).contiguous()
+    args = (q, k, v, bias, kv_mask, dout, lse_ref, delta)
+    want = fa._flash_bias_bwd_reference(*args)
+    counts = {w: w.launches for w in (fa.flash_bias_bwd_dq, fa.flash_bias_bwd_dq_dbias,
+                                      fa.flash_bias_bwd_dkv)}
+    dq6 = fa.flash_bias_bwd_dq(*args)
+    dq7, dbias7 = fa.flash_bias_bwd_dq_dbias(*args)
+    dk8, dv8 = fa.flash_bias_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    require(all(w.launches == c + 1 for w, c in counts.items()),
+            f"fp32 kernels 6-8 {shape}: not each launched once")
+    errs = []
+    for label, got, ref in (("6 dq", dq6, want[0]), ("7 dq", dq7, want[0]),
+                            ("7 dbias", dbias7, want[3]), ("8 dk", dk8, want[1]),
+                            ("8 dv", dv8, want[2])):
+        require(got.dtype == torch.float32, f"fp32 kernel {label} returned {got.dtype}")
+        err = max_err(torch, got, ref)
+        scale = float(ref.abs().max())
+        errs.append(f"{label} {err:.3e} (max|plain| {scale:.4f})")
+        require(err <= FP32_REL_TOL * scale,
+                f"fp32 kernel {label} {shape} off by {err} > {FP32_REL_TOL} x {scale}")
+    line = f"flash_bias backward float32 {shape}: max|diff| " + ", ".join(errs)
+    if timed:
+        ms = {key: median_ms(torch, lambda fn=fn: fn(*args)) for key, fn in (
+            ("6", fa.flash_bias_bwd_dq), ("7", fa.flash_bias_bwd_dq_dbias),
+            ("8", fa.flash_bias_bwd_dkv))}
+        qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
+                                                                   attn_mask=bias)
+        lib_ms = median_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qg, kg, vg), dout.transpose(1, 2), retain_graph=True))
+        b, n, heads, d = q.shape
+        unit = 2.0 * b * heads * n * k.shape[1] * d  # flops of one N x M x D product
+        line += ("; kernel 6 {:.4f} ms, 7 {:.4f} ms, 8 {:.4f} ms, library backward {:.4f} ms "
+                 "(6 + 8 / library {:.2f}x), bound 6 {:.4f} ms, 8 {:.4f} ms (operations, "
+                 "fp32 outside the tensor cores)").format(
+                     ms["6"], ms["7"], ms["8"], lib_ms, (ms["6"] + ms["8"]) / lib_ms,
+                     1e3 * 3 * unit / PEAK_FP32_FLOPS, 1e3 * 4 * unit / PEAK_FP32_FLOPS)
+        del lib_out, qg, kg, vg
+    say(line)
+    del want, dq6, dq7, dbias7, dk8, dv8
 
 
 def cosine(torch, got, want):
@@ -1516,21 +1598,29 @@ def path_gradients(torch, model, batch, task):
     return float(loss.detach()), grads, rows[0]
 
 
-def gradients_kernel_vs_plain(torch, wrappers, long=False):
+def gradients_kernel_vs_plain(torch, wrappers, long=False, fp32=False):
     """Phase 7 or, with ``long``, phase 12: the ``relpos_in_kernel`` model at
     1 x 240 frames, where the encoder's rows are compared too (kernel path
     against plain path, and against the card's own materialized-bias run).
-    Returns the launches of the kernel that emits the table's gradient."""
+    With ``fp32``, phase 7's parity-mode runs: ``compute_dtype="float32"``
+    on both sides (kernels 5-8 in their fp32 instantiations), held to the
+    FP32_* bars. Returns the launches of the kernel that emits the table's
+    gradient."""
     from mr_blip_tpu_torch.profile_inference import make_samples
 
     family = "flash_relpos" if long else "flash_bias"
     fwd, dq, dkv = (f"{family}_{k}" for k in ("fwd_stats", "bwd_dq", "bwd_dkv"))
     dq_table = "flash_relpos_bwd_dq_dtable" if long else "flash_bias_bwd_dq_dbias"
+    dtype_kw = {"compute_dtype": "float32"} if fp32 else {}
+    loss_tol, cosine_min = ((FP32_LOSS_REL_TOL, FP32_GRAD_COSINE_MIN) if fp32
+                            else (LOSS_REL_TOL, GRAD_COSINE_MIN))
+    tasks = (LONG_GRAD_TASKS if long else
+             [(t, 8) for t in (FP32_GRAD_TASKS if fp32 else GRAD_TASKS)])
     dbias_launches = 0
-    for task, frames in (LONG_GRAD_TASKS if long else [(t, 8) for t in GRAD_TASKS]):
+    for task, frames in tasks:
         samples = make_samples(1 if long else 2, frames, seed=7)
         size = f"{1 if long else 2} x {frames}"
-        gpu = reduced_model("cuda", task=task, relpos_in_kernel=long)
+        gpu = reduced_model("cuda", task=task, relpos_in_kernel=long, **dtype_kw)
         cfg = gpu.t5_config
         # The rel-pos table at N(0, 1), as in phase 5. The T5 query
         # projections at HF T5's init scale (d_model * d_kv)^-1/2: at the
@@ -1571,7 +1661,8 @@ def gradients_kernel_vs_plain(torch, wrappers, long=False):
                 f"{float(cos_mat.mean()):.6f}")
             require(float(cos_mat.min()) >= COSINE_MIN,
                     f"in-kernel vs materialized bias: cosine {float(cos_mat.min())}")
-        cpu = reduced_model("cpu", task=task, init_params=False, relpos_in_kernel=long)
+        cpu = reduced_model("cpu", task=task, init_params=False, relpos_in_kernel=long,
+                            **dtype_kw)
         cpu.load_state_dict(state)
         t0 = time.time()
         loss_cpu, g_cpu, enc_cpu = path_gradients(torch, cpu, batch, task)
@@ -1591,14 +1682,14 @@ def gradients_kernel_vs_plain(torch, wrappers, long=False):
         worst = min(cos, key=cos.get)
         rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
         say(f"gradients {task} (depth {REDUCED_DEPTH}, full width, {size} frames"
-            f"{', relpos_in_kernel' if long else ''}): "
+            f"{', relpos_in_kernel' if long else ''}{', float32' if fp32 else ''}): "
             f"loss {loss_gpu:.5f} vs plain {loss_cpu:.5f} (rel {rel:.2e}); "
             f"{len(cos)} trainable tensors compared ({len(g_gpu) - len(cos)} key "
             f"biases left out), cosine min {cos[worst]:.6f} ({worst}), "
             f"mean {statistics.mean(cos.values()):.6f}; launches "
             f"{ {k: v for k, v in rose.items() if v} }; CPU run {seconds:.1f} s")
-        require(rel <= LOSS_REL_TOL, f"{task}: loss rel diff {rel}")
-        require(cos[worst] >= GRAD_COSINE_MIN, f"{task}: {worst} cosine {cos[worst]}")
+        require(rel <= loss_tol, f"{task}: loss rel diff {rel}")
+        require(cos[worst] >= cosine_min, f"{task}: {worst} cosine {cos[worst]}")
         require(rose[fwd] == REDUCED_DEPTH and rose[dkv] == REDUCED_DEPTH,
                 f"{task}: {rose}")
         require(not long or not any(v for k, v in rose.items() if k.startswith("flash_bias")),
@@ -2030,6 +2121,7 @@ def main():
     train_launches = train_path(torch, wrappers)
     # phase 7: kernel path vs plain path, gradients (kernel 7 under full finetune)
     dbias_launches = gradients_kernel_vs_plain(torch, wrappers)
+    gradients_kernel_vs_plain(torch, wrappers, fp32=True)
     # phase 8: the int8 generate path at full width and depth (kernels 13-16)
     int8_launches, int8_summary = main_path(torch, wrappers, int8=True)
     say("generate, bf16 (phase 4) vs int8 (phase 8), seconds: " + ", ".join(

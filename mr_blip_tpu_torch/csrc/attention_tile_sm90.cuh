@@ -183,12 +183,14 @@ inline cudaError_t encode_qkv(CUtensorMap* map, const void* base, int batch,
   return encode_map(map, base, 4, dims, strides, box);
 }
 
-// A contiguous (1, heads, n, m) bias as (m, n, heads); m % 8 == 0.
+// A contiguous (1, heads, n, m) bias as (m, n, heads), boxes of 64 keys x
+// `rows` queries (128 for the forward's tile, 64 for the backward's panels);
+// m % 8 == 0.
 inline cudaError_t encode_bias(CUtensorMap* map, const void* base, int heads,
-                               int n, int m) {
+                               int n, int m, int rows = 128) {
   const cuuint64_t dims[3] = {cuuint64_t(m), cuuint64_t(n), cuuint64_t(heads)};
   const cuuint64_t strides[2] = {cuuint64_t(m) * 2, cuuint64_t(n) * m * 2};
-  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint32_t box[3] = {64, cuuint32_t(rows), 1};
   return encode_map(map, base, 3, dims, strides, box);
 }
 

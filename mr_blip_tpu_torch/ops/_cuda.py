@@ -60,6 +60,10 @@ _SIGNATURES = {
     "mrb_flash_bias_bwd_dq_dbias_bf16": [_P] * 10 + [_I] * 5 + [_F, _P],
     # ... as above, then dk, dv, ...
     "mrb_flash_bias_bwd_dkv_bf16": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # the same three in fp32 (CUDA-core bodies in flash_bias_backward.cu)
+    "mrb_flash_bias_bwd_dq_f32": [_P] * 9 + [_I] * 5 + [_F, _P],
+    "mrb_flash_bias_bwd_dq_dbias_f32": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "mrb_flash_bias_bwd_dkv_f32": [_P] * 10 + [_I] * 5 + [_F, _P],
     # q, k, v, table, lut, kv_mask, out, lse, B, N, H, D, nb, maxd, scale, stream
     "mrb_flash_relpos_fwd_stats_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
     # q, k, v, table, lut, kv_mask, dout, lse, delta, dq, B, N, H, D, nb, maxd,

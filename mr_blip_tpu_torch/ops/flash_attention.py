@@ -17,7 +17,8 @@ hand-written kernel for a CUDA tensor, or raises:
   ``flash_bias_fwd_stats`` (the same kernels, with the row logsumexp),
   backward ``flash_bias_bwd_dq``, or ``flash_bias_bwd_dq_dbias`` when the
   bias requires grad, then ``flash_bias_bwd_dkv``
-  (``csrc/flash_bias_backward.cu``, bf16 only). Plain versions:
+  (``csrc/flash_bias_backward.cu``: bf16 on ``csrc/backward_tile_sm90.cuh``,
+  fp32 on the CUDA cores). Plain versions:
   ``_flash_bias_fwd_stats_reference`` (forward, both kernels) and
   ``_flash_bias_bwd_reference``;
 * ``flash_attention_relpos`` (self-attention with the T5 rel-pos bias
@@ -381,12 +382,16 @@ def flash_bias_fwd_stats(q, k, v, bias, kv_mask=None):
     return out, lse
 
 
-def _bwd_launch(name, q, k, v, bias, kv_mask, dout, lse, delta, outs):
+def _bwd_launch(kernel, q, k, v, bias, kv_mask, dout, lse, delta, outs):
+    """Launch the backward C entry ``mrb_flash_bias_bwd_<kernel>_<dtype>``
+    (bf16 or fp32, by q's dtype) writing into ``outs``."""
     b, n, h, d = q.shape
     m = k.shape[1]
-    kv_mask = _bias_operands(q, k, v, bias, kv_mask, ("dout", dout))
+    dtype = _flash_bias_dtype(q)
+    kv_mask = _bias_operands(q, k, v, bias, kv_mask, ("dout", dout), dtype=dtype)
     _check_bwd_head_dim(d)
     _check_stats(lse, delta, b, h, n, q.device)
+    name = f"mrb_flash_bias_bwd_{kernel}_{_FLASH_BIAS_ENTRIES[dtype]}"
     err = getattr(_cuda.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         kv_mask.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -395,31 +400,46 @@ def _bwd_launch(name, q, k, v, bias, kv_mask, dout, lse, delta, outs):
     _cuda.check(err, name)
 
 
-def flash_bias_bwd_dq(q, k, v, bias, kv_mask, dout, lse, delta):
-    """Kernel 6: dq (B, N, H, D) in q's dtype."""
-    if not q.is_cuda:
-        return _flash_bias_bwd_reference(q, k, v, bias, kv_mask, dout, lse,
-                                         delta)[0]
+def _flash_bias_bwd_dq_cuda(q, k, v, bias, kv_mask, dout, lse, delta):
     dq = torch.empty_like(q)
-    _bwd_launch("mrb_flash_bias_bwd_dq_bf16", q, k, v, bias, kv_mask, dout,
-                lse, delta, (dq,))
+    _bwd_launch("dq", q, k, v, bias, kv_mask, dout, lse, delta, (dq,))
     flash_bias_bwd_dq.launches += 1
     return dq
 
 
+def _flash_bias_bwd_dq_dbias_cuda(q, k, v, bias, kv_mask, dout, lse, delta):
+    dq = torch.empty_like(q)
+    dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch("dq_dbias", q, k, v, bias, kv_mask, dout, lse, delta,
+                (dq, dbias))
+    flash_bias_bwd_dq_dbias.launches += 1
+    return dq, dbias
+
+
+def _flash_bias_bwd_dkv_cuda(q, k, v, bias, kv_mask, dout, lse, delta):
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("dkv", q, k, v, bias, kv_mask, dout, lse, delta, (dk, dv))
+    flash_bias_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bias_bwd_dq(q, k, v, bias, kv_mask, dout, lse, delta):
+    """Kernel 6: dq (B, N, H, D) in q's dtype (bf16 or fp32 on the card)."""
+    if not q.is_cuda:
+        return _flash_bias_bwd_reference(q, k, v, bias, kv_mask, dout, lse,
+                                         delta)[0]
+    return _flash_bias_bwd_dq_cuda(q, k, v, bias, kv_mask, dout, lse, delta)
+
+
 def flash_bias_bwd_dq_dbias(q, k, v, bias, kv_mask, dout, lse, delta):
     """Kernel 7: dq and dbias = Σ_b ds, (1, H, N, M) fp32, summed over the
-    batch in order inside each block (deterministic)."""
+    batch in order by the one block that owns each element (deterministic)."""
     if not q.is_cuda:
         dq, _, _, dbias = _flash_bias_bwd_reference(q, k, v, bias, kv_mask,
                                                     dout, lse, delta)
         return dq, dbias
-    dq = torch.empty_like(q)
-    dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
-    _bwd_launch("mrb_flash_bias_bwd_dq_dbias_bf16", q, k, v, bias, kv_mask,
-                dout, lse, delta, (dq, dbias))
-    flash_bias_bwd_dq_dbias.launches += 1
-    return dq, dbias
+    return _flash_bias_bwd_dq_dbias_cuda(q, k, v, bias, kv_mask, dout, lse,
+                                         delta)
 
 
 def flash_bias_bwd_dkv(q, k, v, bias, kv_mask, dout, lse, delta):
@@ -427,11 +447,7 @@ def flash_bias_bwd_dkv(q, k, v, bias, kv_mask, dout, lse, delta):
     if not q.is_cuda:
         return _flash_bias_bwd_reference(q, k, v, bias, kv_mask, dout, lse,
                                          delta)[1:3]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("mrb_flash_bias_bwd_dkv_bf16", q, k, v, bias, kv_mask, dout,
-                lse, delta, (dk, dv))
-    flash_bias_bwd_dkv.launches += 1
-    return dk, dv
+    return _flash_bias_bwd_dkv_cuda(q, k, v, bias, kv_mask, dout, lse, delta)
 
 
 for _fn in (flash_bias_fwd_stats, flash_bias_bwd_dq, flash_bias_bwd_dq_dbias,
@@ -448,7 +464,7 @@ class _FlashBias(torch.autograd.Function):
     kernel 6) is computed only when the bias needs a gradient, which JAX
     states with its ``bias_grad`` flag; otherwise the bias gets none (JAX
     returns zeros, which LoRA training never reads). The backward kernels
-    are bf16 only: an fp32 backward on the card raises."""
+    take bf16 and fp32; any other dtype on the card raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, kv_mask, fwd, bwd_dq, bwd_dq_dbias,
@@ -461,11 +477,11 @@ class _FlashBias(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v, bias, kv_mask, out, lse = ctx.saved_tensors
-        if q.is_cuda and q.dtype != torch.bfloat16:
+        if q.is_cuda and q.dtype not in _FLASH_BIAS_ENTRIES:
             raise NotImplementedError(
                 f"the biased flash backward kernels 6-8 (flash_bias_bwd_dq, "
-                f"flash_bias_bwd_dq_dbias, flash_bias_bwd_dkv) are bf16 only; "
-                f"their {q.dtype} instantiations are not ported yet")
+                f"flash_bias_bwd_dq_dbias, flash_bias_bwd_dkv) take bfloat16 "
+                f"and float32, not {q.dtype}")
         bwd_dq, bwd_dq_dbias, bwd_dkv = ctx.bwd
         grad = grad.contiguous()
         ct = _math_dtype(q)
@@ -498,7 +514,7 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     When nothing needs a gradient, a CUDA call launches kernel 3 (bf16 or
     fp32); when q, k, v or bias needs one, the call goes through
-    ``_FlashBias`` (kernels 5-8; its backward is bf16 only). A CPU call runs
+    ``_FlashBias`` (kernels 5-8, bf16 or fp32). A CPU call runs
     their plain versions. A row whose keys are all
     masked comes out as zeros, as from the Pallas kernels."""
     b, n, h, d = q.shape

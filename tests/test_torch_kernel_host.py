@@ -3,7 +3,8 @@
 The CUDA sources compile only on the card; what surrounds them here is
 Python that the CPU reaches: the ctypes signatures against the C entries in
 ``csrc/``, the wrappers' choice of C entry by dtype and the arguments they
-pass (through a stand-in library that records the call), the fp32 biased
+pass (through a stand-in library that records the call), the backward
+kernels' C entries by dtype and what they refuse, the fp32 biased
 dispatch (the plain function on a CPU tensor, equal to JAX's), and a module
 that imports with no CUDA toolkit.
 """
@@ -95,6 +96,100 @@ def test_biased_kernel_refuses_what_it_does_not_take(recorder, bad):
     with pytest.raises((TypeError, ValueError)):
         tfa._flash_bias_cuda(q, k, v, bias, None)
     assert not recorder.calls and tfa.flash_attention_bias.launches == before
+
+
+# The backward C entries: name -> (the wrapper's CUDA half, output count).
+_BWD = {"dq": (tfa._flash_bias_bwd_dq_cuda, 1),
+        "dq_dbias": (tfa._flash_bias_bwd_dq_dbias_cuda, 2),
+        "dkv": (tfa._flash_bias_bwd_dkv_cuda, 2)}
+_BWD_WRAPPERS = {"dq": tfa.flash_bias_bwd_dq, "dq_dbias": tfa.flash_bias_bwd_dq_dbias,
+                 "dkv": tfa.flash_bias_bwd_dkv}
+
+
+def _bwd_operands(dtype, b=2, n=264, m=272, h=4, d=64):
+    q, dout = (torch.zeros(b, n, h, d, dtype=dtype) for _ in range(2))
+    k, v = (torch.zeros(b, m, h, d, dtype=dtype) for _ in range(2))
+    bias = torch.zeros(1, h, n, m, dtype=dtype)
+    mask = torch.ones(b, m, dtype=torch.int8)
+    lse, delta = (torch.zeros(b, h, n) for _ in range(2))
+    return [q, k, v, bias, mask, dout, lse, delta]
+
+
+@pytest.mark.parametrize("kernel", sorted(_BWD))
+@pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "bf16"),
+                                          (torch.float32, "f32")])
+def test_backward_kernel_entry_by_dtype(recorder, kernel, dtype, suffix):
+    """Each backward wrapper reaches its C entry of q's dtype with the
+    operands, outputs, (B, N, M, H, D) and the scale where the C signature
+    has them, and counts one launch."""
+    b, n, m, h, d = 2, 264, 272, 4, 64
+    ops = _bwd_operands(dtype, b, n, m, h, d)
+    launch, n_out = _BWD[kernel]
+    before = _BWD_WRAPPERS[kernel].launches
+    outs = launch(*ops)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert _BWD_WRAPPERS[kernel].launches == before + 1
+    (name, args), = recorder.calls
+    assert name == f"mrb_flash_bias_bwd_{kernel}_{suffix}"
+    assert len(args) == len(_cuda._SIGNATURES[name])
+    assert args[:8] == tuple(t.data_ptr() for t in ops)
+    assert args[8:8 + n_out] == tuple(t.data_ptr() for t in outs)
+    assert args[8 + n_out:13 + n_out] == (b, n, m, h, d)
+    assert args[13 + n_out] == pytest.approx(d ** -0.5)
+    shapes = {"dq": [(b, n, h, d)], "dq_dbias": [(b, n, h, d), (1, h, n, m)],
+              "dkv": [(b, m, h, d), (b, m, h, d)]}[kernel]
+    assert [tuple(t.shape) for t in outs] == shapes
+    assert [t.dtype for t in outs] == [dtype] + (
+        [torch.float32] if kernel == "dq_dbias" else [dtype] * (n_out - 1))
+
+
+@pytest.mark.parametrize("bad", ["float16", "bias_dtype", "strided_dout"])
+def test_backward_refuses_what_it_does_not_take(recorder, bad):
+    """A float16 call, a bias of another dtype than q, and a non-contiguous
+    dO raise before any C entry is called, in each backward wrapper."""
+    for kernel, (launch, _) in _BWD.items():
+        ops = _bwd_operands(torch.float16 if bad == "float16" else torch.float32)
+        if bad == "bias_dtype":
+            ops[3] = ops[3].to(torch.bfloat16)
+        elif bad == "strided_dout":
+            ops[5] = ops[5].transpose(1, 2).contiguous().transpose(1, 2)
+            assert not ops[5].is_contiguous()
+        before = _BWD_WRAPPERS[kernel].launches
+        with pytest.raises((TypeError, ValueError)):
+            launch(*ops)
+        assert not recorder.calls and _BWD_WRAPPERS[kernel].launches == before
+
+
+def _flash_bias_backward(dtype, bias_grad):
+    """One _FlashBias forward (the plain version) and backward through the
+    backward wrappers' CUDA halves."""
+    ops = _bwd_operands(dtype, n=264, m=264)
+    q, k, v, bias, mask = ops[:5]
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    bias.requires_grad_(bias_grad)
+    out = tfa._FlashBias.apply(*leaves, bias, mask,
+                               tfa._flash_bias_fwd_stats_reference,
+                               *(launch for launch, _ in _BWD.values()))
+    return torch.autograd.grad(out, leaves + ([bias] if bias_grad else []),
+                               torch.ones_like(out))
+
+
+@pytest.mark.parametrize("bias_grad", [False, True])
+def test_flash_bias_backward_reaches_the_fp32_entries(recorder, bias_grad):
+    """An fp32 backward no longer raises: it reaches kernel 6 (or 7 when the
+    bias needs a gradient) and kernel 8 in their fp32 instantiations."""
+    grads = _flash_bias_backward(torch.float32, bias_grad)
+    dq = "dq_dbias" if bias_grad else "dq"
+    assert [name for name, _ in recorder.calls] == [
+        f"mrb_flash_bias_bwd_{dq}_f32", "mrb_flash_bias_bwd_dkv_f32"]
+    assert all(g.dtype == torch.float32 for g in grads)
+
+
+def test_flash_bias_backward_refuses_float16(recorder):
+    """A float16 backward still raises, before any C entry is called."""
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        _flash_bias_backward(torch.float16, False)
+    assert not recorder.calls
 
 
 def test_kernel4_takes_packed_views_uncopied(recorder):
