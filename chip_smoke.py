@@ -52,7 +52,11 @@ is nonzero and the final line is not printed:
    key masks and a fully masked batch row: the same bars as kernels 5-8,
    dtable max |diff| <= 0.02 x max |plain| and bit-equal between two
    launches; the plain version with the table zeroed must fail the bar; a
-   float32 call on the card must raise. Kernel 9 is timed at the generate
+   float16 call on the card must raise. Kernels 9-12 in fp32 (the parity
+   mode's CUDA-core bodies) at 2 x 1,037, 2 x 257 with a ragged key tail and
+   2 x 300 with a fully masked batch row: out, dq, dk, dv and dtable within
+   1e-4 x max |plain|, lse <= 1e-3, dtable bit-equal between two launches;
+   timed at 1 x 4,008 beside the library's fp32 calls. Kernel 9 is timed at the generate
    shape, with kernel 3 on the same inputs and the materialized 3.8 GiB bias
    beside it (held against the same plain output, bar 0.02, and timed),
    kernels 10-12 at the train shape; their
@@ -63,7 +67,10 @@ is nonzero and the final line is not printed:
 4. generate path: ``BLIP2_MR(...).generate`` at full EVA ViT-g + Q-Former +
    Flan-T5-XL width with random weights, 2 batches of 4 videos x 60 uint8
    frames; every kernel's launch count must rise by its expected number per
-   batch, predictions must parse and beam scores be finite;
+   batch, predictions must parse and beam scores be finite; no more than the
+   model's weights and 1 GiB may be allocated before the batches (so that the
+   peak is the path's own), and each stage prints its peak above its start
+   (as phases 8, 10 and 13 do);
 5. kernel path vs plain path: one reduced-depth full-width model, its T5
    rel-pos table redrawn at N(0, 1) so the bias moves the attention, run in
    bf16 on the CPU (plain versions) and on the card (kernels); the T5
@@ -129,7 +136,11 @@ is nonzero and the final line is not printed:
     run of the same weights) and ``qformer_freeze`` at 1 x 120 frames (the
     rel-pos table trains: kernel 11 launches once per encoder layer and the
     table's gradient is compared with the plain path's); T5 encoder rows
-    cosine >= 0.999, loss and gradients within phase 7's bars.
+    cosine >= 0.999, loss and gradients within phase 7's bars. Then the fp32
+    parity mode on both sides, both tasks at 1 x 60 frames (kernels 9, 10,
+    12 and 9, 11, 12 in fp32): loss within 1e-4 relative, gradient cosine
+    >= 0.9999, as phase 7's fp32 runs; the first fp32 model also generates
+    (kernel 9 in fp32 once per encoder layer, the prediction parses).
 
 13. generate at 364 pixels (the resolution of BLIP-2's finetuned checkpoints
     and the default of the package's processors): ``BLIP2_MR(img_size=364)``
@@ -165,6 +176,11 @@ is nonzero and the final line is not printed:
     int8 route: W8A8 linear, kernel 4, W8A8 linear per block, no fused
     block); and on the card ``set_attention_backend("xla")`` against
     ``"auto"`` (no flash launch, ViT rows cosine >= 0.999).
+
+Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
+(4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
+(7, 50) on its resident path and (8, 330) and (8, 496), the 4 MiB gate's largest length,
+on its streaming path, each line naming the path the shape took.
 
 Phase 3 also holds kernel 4 (``flash_attention``) against its plain version:
 (240, 677, H 16, D 88) bf16 through the strided q/k/v views of a packed QKV
@@ -278,6 +294,9 @@ EXPECTED_LONG_TRAIN_LAUNCHES = dict(EXPECTED_LONG_LAUNCHES, flash_relpos_bwd_dq=
 # Phase 12, (task, frames): the CPU plain path takes ~130 s at 1 x 240 frames,
 # so only the LoRA task (the train path of phase 11) runs at the full length.
 LONG_GRAD_TASKS = (("qformer_freeze_lora", 240), ("qformer_freeze", 120))
+# Phase 12 in the fp32 parity mode (kernels 9, 10, 12 and 9, 11, 12 in fp32):
+# 1 x 60 frames (encoder length 2,056), where the CPU's fp32 runs are short.
+LONG_FP32_GRAD_TASKS = (("qformer_freeze_lora", 60), ("qformer_freeze", 60))
 # Phases 13-15, 364 pixels: 26 x 26 patches + cls = 677 tokens an image, whose
 # packed QKV (677 x 4,224 x 2 B = 5.7 MB) is past the 4 MiB bound of the
 # packed-QKV kernel and of the fused int8 block, so the ViT's attention is
@@ -399,7 +418,16 @@ def check_kernels(torch, kernels):
 
     qk = kernels["qkv_packed_attention"]
     heads, hd = 16, 88
-    for b, n, n_valid, flagship in ((240, 257, 0, True), (4, 264, 257, False)):
+    # 257: the ViT at 224 pixels (resident K/V, a 1-key tail); 264 with 257
+    # valid: the padded layout with large pad values; 194: an odd number of
+    # query tiles an item; 300: resident with a full-width tail; 50 (one query
+    # tile an item: the consumers take items in turns); 330: past the resident
+    # path's 5 key tiles (streaming); 496: the 4 MiB gate's largest length
+    # (streaming).
+    for b, n, n_valid, flagship in ((240, 257, 0, True), (4, 264, 257, False),
+                                    (6, 194, 0, False), (8, 300, 0, False),
+                                    (7, 50, 0, False), (8, 330, 0, False),
+                                    (8, 496, 0, False)):
         qkv = randn(b, n, 3 * heads * hd)
         if n_valid:
             # Large values in the pad rows: wrong masking shows at once.
@@ -408,7 +436,8 @@ def check_kernels(torch, kernels):
         torch.cuda.synchronize()
         want = fa._qkv_packed_reference(qkv.float(), heads, hd, n_valid)
         err = max_err(torch, got, want)
-        line = f"qkv_packed ({b}, {n}, {3 * heads * hd}) n_valid {n_valid}: max|diff| {err:.5f}"
+        line = (f"qkv_packed ({b}, {n}, {3 * heads * hd}) n_valid {n_valid} "
+                f"[{fa.qkv_packed_path(n, n_valid)} path]: max|diff| {err:.5f}")
         if flagship:
             qk["ms"] = median_ms(torch, lambda: fa.flash_attention_qkv_packed(qkv, heads))
             qk["plain_ms"] = median_ms(
@@ -1044,16 +1073,113 @@ def check_relpos_kernels(torch, kernels):
     # A CUDA call the dispatch sends to the rel-pos kernels, in a dtype they
     # do not take, must raise rather than run plain.
     before = fa.flash_relpos_fwd_stats.launches
-    q32 = torch.randn(2, 300, heads, d, generator=gen, device=dev)
+    q16 = torch.randn(2, 300, heads, d, generator=gen, device=dev).half()
     try:
-        relpos_attention(q32, q32, q32, torch.randn(heads, nb, device=dev))
+        relpos_attention(q16, q16, q16, torch.randn(heads, nb, device=dev))
     except TypeError as exc:
-        say(f"float32 rel-pos attention on the card raises: {exc}")
+        say(f"float16 rel-pos attention on the card raises: {exc}")
     else:
-        raise RuntimeError("float32 rel-pos attention on the card ran plain")
+        raise RuntimeError("float16 rel-pos attention on the card ran plain")
     require(fa.flash_relpos_fwd_stats.launches == before,
-            "float32 rel-pos attention counted a launch")
+            "float16 rel-pos attention counted a launch")
+    del q16
     torch.cuda.empty_cache()
+    check_fp32_relpos_kernels(torch, kernels)
+
+
+def check_fp32_relpos_kernels(torch, kernels):
+    """Kernels 9-12 in fp32 (the parity mode's CUDA-core bodies) against
+    their plain versions in fp32 on the same inputs (the backward kernels get
+    the plain forward's lse and δ): out, dq, dk, dv and dtable within
+    FP32_REL_TOL x max |plain|, lse within LSE_TOL, dtable bit-equal between
+    two launches; each kernel reached through its wrapper's fp32 C entry.
+    Timed at 1 x 4,008 (120 frames) beside the library's fp32 calls over the
+    materialized bias."""
+    import torch.nn.functional as F
+
+    from mr_blip_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dev = "cuda"
+    heads, d, nb, maxd = 32, 64, 32, 128
+    wrappers = (fa.flash_relpos_fwd_stats, fa.flash_relpos_bwd_dq,
+                fa.flash_relpos_bwd_dq_dtable, fa.flash_relpos_bwd_dkv)
+    for b, n, mask_kind in ((2, 1037, None), (2, 257, "tail"), (2, 300, "row1_all"),
+                            (1, 4008, None)):
+        q, k, v, dout = (torch.randn(b, n, heads, d, generator=gen, device=dev)
+                         for _ in range(4))
+        table = torch.randn(heads, nb, generator=gen, device=dev)
+        kv_mask = torch.ones(b, n, dtype=torch.int8, device=dev)
+        if mask_kind == "tail":
+            kv_mask[1, n - 30:] = 0
+        elif mask_kind == "row1_all":
+            kv_mask[1] = 0
+        timed = n == 4008
+        shape = f"({b}, {n}, {heads}, {d}) mask {mask_kind}"
+        counts = [w.launches for w in wrappers]
+        out, lse = fa.flash_relpos_fwd_stats(q, k, v, table, kv_mask, nb, maxd)
+        torch.cuda.synchronize()
+        if timed:
+            # Timing only: the kernel's own lse and δ (the other shapes hold
+            # the values).
+            lse_r = lse
+            delta = torch.einsum("bnhd,bnhd->bhn", dout, out).contiguous()
+        else:
+            out_r, lse_r = fa._flash_relpos_fwd_stats_reference(q, k, v, table, kv_mask,
+                                                                nb, maxd)
+            delta = torch.einsum("bnhd,bnhd->bhn", dout, out_r).contiguous()
+        args = (q, k, v, table, kv_mask, dout, lse_r, delta, nb, maxd)
+        dq10 = fa.flash_relpos_bwd_dq(*args)
+        dq11, dtab11 = fa.flash_relpos_bwd_dq_dtable(*args)
+        dtab_again = fa.flash_relpos_bwd_dq_dtable(*args)[1]
+        dk12, dv12 = fa.flash_relpos_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        rose = [w.launches - c for w, c in zip(wrappers, counts)]
+        require(rose == [1, 1, 2, 1], f"fp32 kernels 9-12 {shape}: launches {rose}")
+        require(all(t.dtype == torch.float32 for t in (out, dq10, dq11, dtab11, dk12, dv12)),
+                f"fp32 kernels 9-12 {shape}: not all outputs fp32")
+        require(torch.equal(dtab11, dtab_again),
+                f"fp32 kernel 11 {shape}: dtable differs between two launches")
+        if not timed:
+            dq_r, dk_r, dv_r, dtab_r = fa._flash_relpos_bwd_reference(*args)
+            errs = []
+            for label, got, ref in (("9 out", out, out_r), ("10 dq", dq10, dq_r),
+                                    ("11 dq", dq11, dq_r), ("11 dtable", dtab11, dtab_r),
+                                    ("12 dk", dk12, dk_r), ("12 dv", dv12, dv_r)):
+                err = max_err(torch, got, ref)
+                scale = float(ref.abs().max())
+                errs.append(f"{label} {err:.3e} (max|plain| {scale:.4f})")
+                require(err <= FP32_REL_TOL * scale,
+                        f"fp32 kernel {label} {shape} off by {err} > {FP32_REL_TOL} x {scale}")
+            err_lse = max_err(torch, lse, lse_r)
+            require(err_lse <= LSE_TOL, f"fp32 kernel 9 {shape}: lse off by {err_lse}")
+            say(f"flash_relpos float32 {shape}: max|diff| " + ", ".join(errs)
+                + f", lse {err_lse:.3e}; dtable bit-equal between two launches")
+            del out_r, dq_r, dk_r, dv_r, dtab_r
+        else:
+            ms = {i: median_ms(torch, lambda fn=fn: fn(*args)) for i, fn in (
+                (10, fa.flash_relpos_bwd_dq), (11, fa.flash_relpos_bwd_dq_dtable),
+                (12, fa.flash_relpos_bwd_dkv))}
+            ms[9] = median_ms(torch, lambda: fa.flash_relpos_fwd_stats(
+                q, k, v, table, kv_mask, nb, maxd))
+            bias = fa._relpos_bias(table, n, nb, maxd).contiguous()
+            qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            with torch.no_grad():
+                lib_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qg, kg, vg, attn_mask=bias))
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias)
+            lib_bwd = median_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qg, kg, vg), dout.transpose(1, 2), retain_graph=True))
+            unit = 2.0 * b * heads * n * n * d  # flops of one N x N x D product
+            say(f"flash_relpos float32 {shape}: kernel 9 {ms[9]:.4f} ms (library "
+                f"{lib_fwd:.4f} ms, bound {1e3 * 2 * unit / PEAK_FP32_FLOPS:.4f} ms), "
+                f"10 {ms[10]:.4f} ms, 11 {ms[11]:.4f} ms, 12 {ms[12]:.4f} ms (library "
+                f"backward {lib_bwd:.4f} ms; bound 10 {1e3 * 3 * unit / PEAK_FP32_FLOPS:.4f}, "
+                f"12 {1e3 * 4 * unit / PEAK_FP32_FLOPS:.4f} ms; operations, fp32 outside "
+                f"the tensor cores)")
+            del bias, qg, kg, vg, lib_out
+        del q, k, v, dout, out, lse, lse_r, delta, dq10, dq11, dtab11, dk12, dv12
+        torch.cuda.empty_cache()
 
 
 def ulp_distance(torch, got, want):
@@ -1334,6 +1460,13 @@ def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None,
         say(f"quantize_for_inference in {time.time() - t0:.1f} s; {int8_numel / 1e9:.3f} B "
             f"int8 weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     batches = [make_samples(BATCH, n_frames, seed, img_size) for seed in range(n_batches)]
+    # What is allocated now is the model and nothing an earlier phase left:
+    # the peak below is this path's.
+    resident = torch.cuda.memory_allocated()
+    weights = sum(t.numel() * t.element_size()
+                  for t in (*model.module.parameters(), *model.module.buffers()))
+    require(resident - weights < 2**30, f"{name}: {resident / 2**30:.2f} GiB allocated "
+            f"before the batches, {weights / 2**30:.2f} GiB of them the model's")
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
@@ -1362,28 +1495,36 @@ def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None,
     launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    # Stage split on one more batch, synchronizing between stages.
-    stage = {}
+    # Stage split on one more batch, synchronizing between stages; each
+    # stage's peak allocation above what is allocated when it starts.
+    stage, stage_peak = {}, {}
+
+    def start_stage():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated(), time.time()
+
+    def end_stage(key, started):
+        torch.cuda.synchronize()
+        stage[key] = time.time() - started[1]
+        stage_peak[key[:-2]] = (torch.cuda.max_memory_allocated() - started[0]) / 2**30
+
     with torch.inference_mode():
         batch = model.prepare_mr_batch(batches[1])
         tensors = model._to_device(batch)
         bias = model._encoder_bias_for(batch)
-        torch.cuda.synchronize()
-        t0 = time.time()
+        started = start_stage()
         frames = model.frames_to_t5(tensors)
-        torch.cuda.synchronize()
-        stage["frames_to_qformer_s"] = time.time() - t0
-        t0 = time.time()
+        end_stage("frames_to_qformer_s", started)
+        started = start_stage()
         enc, attn = model.encode_t5(tensors, frames, bias)
-        torch.cuda.synchronize()
-        stage["t5_encode_s"] = time.time() - t0
+        end_stage("t5_encode_s", started)
         steps = []  # decode steps, counted through the model's own step
         step = model.module.t5.decode_step
         model.module.t5.decode_step = lambda *a: steps.append(1) or step(*a)
-        t0 = time.time()
+        started = start_stage()
         model.decode(enc, attn)
-        torch.cuda.synchronize()
-        stage["decode_s"] = time.time() - t0
+        end_stage("decode_s", started)
         del model.module.t5.decode_step
     steady = statistics.mean(seconds[1:])
     require(not long or enc.shape[1] == LONG_ENCODER_LENGTH,
@@ -1394,7 +1535,9 @@ def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None,
         f"{seconds[0]:.3f} s; stages "
         + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
         + f" ({len(steps)} decode steps, {1e3 * stage['decode_s'] / len(steps):.1f} ms "
-        f"each); peak memory {peak / 2**30:.2f} GiB")
+        f"each); peak memory {peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB allocated "
+        "before the batches); stage peaks above their start "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage_peak.items()) + " GiB")
     summary = dict(stage, steady_s=steady, first_s=seconds[0], peak_gib=peak / 2**30,
                    decode_steps=len(steps), encoder_length=enc.shape[1])
     del model, enc, frames
@@ -1573,6 +1716,11 @@ def train_path(torch, wrappers, long=False):
         f"{mean['forward']:.3f}, backward {mean['backward']:.3f}, optimizer "
         f"{mean['optimizer']:.4f} averaged over all), first {rows[0][0]:.3f} s; "
         f"peak memory {peak / 2**30:.2f} GiB")
+    # The timing wrappers close over the model's and the optimizer's bound
+    # methods: reference cycles that kept the model's 7.5 GiB allocated until
+    # the cyclic garbage collector happened to run (phase 13's peak read 20.53
+    # GiB). Unwrap them, so that the model is freed here.
+    del model.loss, ctx.optimizer.step
     del model, ctx, batches, lora, frozen, named, snapshot
     torch.cuda.empty_cache()
     return launches
@@ -1607,6 +1755,7 @@ def gradients_kernel_vs_plain(torch, wrappers, long=False, fp32=False):
     FP32_* bars. Returns the launches of the kernel that emits the table's
     gradient."""
     from mr_blip_tpu_torch.profile_inference import make_samples
+    from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
 
     family = "flash_relpos" if long else "flash_bias"
     fwd, dq, dkv = (f"{family}_{k}" for k in ("fwd_stats", "bwd_dq", "bwd_dkv"))
@@ -1614,8 +1763,10 @@ def gradients_kernel_vs_plain(torch, wrappers, long=False, fp32=False):
     dtype_kw = {"compute_dtype": "float32"} if fp32 else {}
     loss_tol, cosine_min = ((FP32_LOSS_REL_TOL, FP32_GRAD_COSINE_MIN) if fp32
                             else (LOSS_REL_TOL, GRAD_COSINE_MIN))
-    tasks = (LONG_GRAD_TASKS if long else
-             [(t, 8) for t in (FP32_GRAD_TASKS if fp32 else GRAD_TASKS)])
+    if long:
+        tasks = LONG_FP32_GRAD_TASKS if fp32 else LONG_GRAD_TASKS
+    else:
+        tasks = [(t, 8) for t in (FP32_GRAD_TASKS if fp32 else GRAD_TASKS)]
     dbias_launches = 0
     for task, frames in tasks:
         samples = make_samples(1 if long else 2, frames, seed=7)
@@ -1643,6 +1794,18 @@ def gradients_kernel_vs_plain(torch, wrappers, long=False, fp32=False):
         loss_gpu, g_gpu, enc_gpu = path_gradients(torch, gpu, batch, task)
         rose = {name: w.launches for name, w in wrappers.items()}
         require(not (long and gpu._enc_bias_cache), "an encoder bias was materialized")
+        if long and fp32 and task == tasks[0][0]:
+            # The fp32 parity mode generates through kernel 9 too.
+            for w in wrappers.values():
+                w.launches = 0
+            out = gpu.generate(samples)
+            gen_rose = {name: w.launches for name, w in wrappers.items() if w.launches}
+            require(gen_rose.get(fwd) == REDUCED_DEPTH and len(out["prediction"]) == 1,
+                    f"long context float32 generate: launches {gen_rose}")
+            for pred in out["prediction"]:
+                moment_str_to_list(pred)
+            say(f"long context float32 generate (depth {REDUCED_DEPTH}, {size} frames): "
+                f"predictions {out['prediction']}, launches {gen_rose}")
         state = {k: v.cpu() for k, v in gpu.state_dict().items()}
         del gpu
         torch.cuda.empty_cache()
@@ -2149,6 +2312,7 @@ def main():
     long_train_launches = train_path(torch, wrappers, long=True)
     # phase 12: long context, kernel path vs plain path (kernel 11 under full finetune)
     dtable_launches = gradients_kernel_vs_plain(torch, wrappers, long=True)
+    gradients_kernel_vs_plain(torch, wrappers, long=True, fp32=True)
     # phase 13: generate at 364 pixels (kernel 4), then the fp32 parity mode
     big_launches, big_summary = main_path(torch, wrappers, img_size=BIG_IMG)
     say(f"generate at 224² (phase 4) vs {BIG_IMG}² (phase 13), seconds: " + ", ".join(

@@ -1,6 +1,8 @@
 // One 128-query block of softmax attention for one (batch row, head) on
-// Hopper (sm_90a), shared by flash_bias_attention.cu (kernels 3 and 5) and
-// the bf16 path of flash_attention.cu (kernel 4).
+// Hopper (sm_90a), shared by flash_bias_attention.cu (kernels 3 and 5), the
+// bf16 path of flash_attention.cu (kernel 4), flash_relpos_attention.cu
+// (kernel 9) and the streaming path of qkv_packed_attention.cu (kernel 2),
+// whose resident path takes the primitives below.
 //
 // What bounds a flash forward on this card is the tensor cores when they are
 // fed: at D = 64 one 64 x 64 key tile is 2 x 64 x 64 x 64 multiply-adds per
@@ -45,7 +47,14 @@
 //    (M % 8 == 0: every length the port's encoders produce), and element by
 //    element from the producer warpgroup's own loads otherwise (a ragged M
 //    such as 2,049, where a tensor map cannot be made); the consumers read
-//    the same swizzled layout either way.
+//    the same swizzled layout either way;
+//  * the rel-pos mode (kernel 9) reads no bias bytes at all: per work item
+//    the producer warpgroup builds the head's 2*maxd + 1 values
+//    rel[c] = table[lut[c]] (c = clamp(key - query, -maxd, maxd) + maxd)
+//    beside the item's Q slot, and a consumer's 64 x 64 tile whose every
+//    key - query lies past the wrapper's far thresholds (all in the bucket of
+//    -maxd, or all in that of +maxd) adds one scalar; only the tiles near the
+//    diagonal look a value up per score (the TPU kernel's far/near split).
 #pragma once
 
 #include <cuda.h>
@@ -67,26 +76,37 @@ constexpr int BK = 64;                     // keys per tile
 constexpr int NTHREADS = WG_THREADS * (CONSUMERS + 1);
 constexpr int PANEL_BYTES = BK * 128;      // 64 rows of one 128-byte panel
 constexpr float LOG2E = 1.4426950408889634f;
+// Largest rel-pos clamp the rel table beside a Q slot holds.
+constexpr int MAX_REL_DISTANCE = 1023;
+
+// What a tile adds to its scores (the BIAS template argument): nothing
+// (kernels 2 and 4), a bias tile from device memory with the key mask
+// (kernels 3 and 5), or the rel-pos bias looked up with the key mask
+// (kernel 9).
+enum BiasKind : int { kNoBias = 0, kBiasTile = 1, kRelpos = 2 };
 
 // Shared-memory carve-up for a padded head dim DP (64 or 96), from a
 // 1024-byte aligned base (the swizzle repeats every 8 rows of 128 bytes).
-template <int DP, bool BIAS>
+template <int DP, int BIAS>
 struct Layout {
   static_assert(DP == 64 || DP == 96, "head dims 64 and 96 only");
   static constexpr int PANELS = (DP + 63) / 64;
   static constexpr int TILE = PANELS * PANEL_BYTES;
-  static constexpr int BIAS_BYTES = BIAS ? BQ * 128 : 0;  // 128 rows x 64
-  static constexpr int KEYOK_BYTES = BIAS ? BK : 0;
+  static constexpr int BIAS_BYTES = BIAS == kBiasTile ? BQ * 128 : 0;  // 128 rows x 64
+  static constexpr int KEYOK_BYTES = BIAS != kNoBias ? BK : 0;
   static constexpr int k_off = 0;                // within a stage
   static constexpr int v_off = TILE;
   static constexpr int bias_off = 2 * TILE;
   static constexpr int keyok_off = bias_off + BIAS_BYTES;
   static constexpr int STAGE = (keyok_off + KEYOK_BYTES + 1023) / 1024 * 1024;
   // Two slots of the block's 128 query rows (one 64-row tile a consumer):
-  // the next work item's rows load while the current one runs.
+  // the next work item's rows load while the current one runs; in the
+  // rel-pos mode each slot has its item's rel table beside it.
   static constexpr int Q_SLOT = CONSUMERS * TILE;
   static constexpr int q_off = 0;
-  static constexpr int stage_off = 2 * Q_SLOT;
+  static constexpr int REL_SLOT = BIAS == kRelpos ? (2 * MAX_REL_DISTANCE + 2) * 4 : 0;
+  static constexpr int rel_off = 2 * Q_SLOT;
+  static constexpr int stage_off = rel_off + 2 * REL_SLOT;
   // As many ring stages as the 227 KB of a block hold, at most 4.
   static constexpr int SMEM_MAX = 232448 - 1024 - 128;
   static constexpr int STAGES =
@@ -117,6 +137,13 @@ struct Args {
   int n_q, n_k, d;
   float scale;             // D^-1/2
   float* lse;              // (n_q,) natural-log row logsumexp out, or null
+  // kRelpos only: this head's (num_buckets,) table, the bucket of every
+  // clamped relative position (2 * rel_maxd + 1 entries), the clamp, and the
+  // far thresholds: every key - query <= rel_past has the bucket of -maxd,
+  // every key - query >= rel_future that of +maxd.
+  const float* rel_table = nullptr;
+  const int* rel_lut = nullptr;
+  int rel_maxd = 0, rel_past = 0, rel_future = 0;
 };
 
 // The tensor maps of one launch: q, k, v as (d, h, rows, batch) bf16 with the
@@ -197,6 +224,14 @@ inline cudaError_t encode_bias(CUtensorMap* map, const void* base, int heads,
 // ------------------------------------------------------------ primitives
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// This thread's warpgroup, broadcast from lane 0 so that the compiler knows
+// it is warp-uniform: the shared-memory descriptors derived from it are then
+// computed in uniform registers, with no per-thread copy moved into them
+// (R2UR) before each `wgmma`.
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, int(threadIdx.x) / WG_THREADS, 0);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -331,6 +366,18 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// As above for a 64 x 16 tile (m64n16k16): the narrow key tail of kernel 2.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // o (64 x 64) += P·V: P from registers (4 x 32 bits a thread), V from
 // shared memory MN-major (the transpose bit), m64n64k16.
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
@@ -387,9 +434,10 @@ __device__ __forceinline__ int tiles_of(const Args& a, int q0) {
 // consumers: an item's 128 query rows into a free Q slot, then its key tiles
 // into the ring, whose position (`tile`) runs on across items. One thread
 // issues the TMA boxes (K and V: one box a 64-column panel; the bias tile);
-// the warpgroup stores what TMA cannot bring: the 64 key-mask flags and, when
-// its rows are not 16-byte aligned, the bias element by element.
-template <int DP, bool BIAS, bool CAUSAL, class Problem>
+// the warpgroup stores what TMA cannot bring: the 64 key-mask flags, when
+// its rows are not 16-byte aligned the bias element by element, and in the
+// rel-pos mode the item's rel table beside its Q slot.
+template <int DP, int BIAS, bool CAUSAL, class Problem>
 __device__ __forceinline__ void produce(const Problem& p, unsigned char* base,
                                         uint32_t sbase) {
   using L = Layout<DP, BIAS>;
@@ -416,6 +464,16 @@ __device__ __forceinline__ void produce(const Problem& p, unsigned char* base,
         }
       }
     }
+    if constexpr (BIAS == kRelpos) {
+      // rel[c] = table[lut[c]]; the slot's consumers are done with the last
+      // item's table once the slot is empty.
+      mbar_wait(sbase + L::q_empty + slot * 8, ((round / 2) & 1) ^ 1);
+      float* rel = reinterpret_cast<float*>(base + L::rel_off + slot * L::REL_SLOT);
+      for (int c = tid; c <= 2 * a.rel_maxd; c += WG_THREADS) {
+        rel[c] = a.rel_table[a.rel_lut[c]];
+      }
+      mbar_arrive(sbase + L::q_full + slot * 8);  // these stores (release)
+    }
     const int n_tiles = tiles_of<CAUSAL>(a, q0);
     for (int j = 0; j < n_tiles; ++j, ++tile) {
       const int st = tile % L::STAGES;
@@ -424,7 +482,7 @@ __device__ __forceinline__ void produce(const Problem& p, unsigned char* base,
       const int k0 = j * BK;
       const uint32_t stage = sbase + L::stage_off + st * L::STAGE;
       if (leader) {
-        const bool bias_box = BIAS && a.bias_aligned;
+        const bool bias_box = BIAS == kBiasTile && a.bias_aligned;
         mbar_arrive_expect(full, 2 * L::TILE + (bias_box ? L::BIAS_BYTES : 0));
 #pragma unroll
         for (int pn = 0; pn < L::PANELS; ++pn) {
@@ -437,9 +495,9 @@ __device__ __forceinline__ void produce(const Problem& p, unsigned char* base,
           tma_load_3d(stage + L::bias_off, &p.maps.bias, full, k0, q0, a.head);
         }
       }
-      if constexpr (BIAS) {
+      if constexpr (BIAS != kNoBias) {
         unsigned char* gstage = base + L::stage_off + st * L::STAGE;
-        if (!a.bias_aligned) {
+        if (BIAS == kBiasTile && !a.bias_aligned) {
           // Element by element into the swizzled layout TMA would give, a
           // warp on 32 consecutive keys of one row.
           for (int idx = tid; idx < BQ * BK; idx += WG_THREADS) {
@@ -473,31 +531,65 @@ struct RowState {
   float l[2] = {0.f, 0.f};              // running denominator
 };
 
-// s (this thread's 32 scores of a 64 x 64 tile) -> the P fragments of the
-// four 16-key steps, with the bias and masks applied and the row state
-// advanced; `corr` is the factor the output accumulated so far must take.
-// s[4n + 2h + e] is row r0 + 8h, key 8n + 2t + e of the tile.
-template <int DP, bool BIAS, bool CAUSAL>
+// s (this thread's 4 * NCOL scores of a 64 x 8 * NCOL tile: 64 keys, or
+// kernel 2's narrow tail of 16) -> the P fragments of its 16-key steps, with
+// the bias and masks applied and the row state advanced; `corr` is the factor
+// the output accumulated so far must take. s[4n + 2h + e] is row r0 + 8h,
+// key 8n + 2t + e of the tile. `rel` is the item's rel table (kRelpos only).
+template <int DP, int BIAS, bool CAUSAL, int NCOL = 8>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[32], uint32_t (&pa)[4][4], RowState& st, float (&corr)[2],
-    const Args& a, const unsigned char* stage, int k0, int row_wg, int wg,
-    int r0, int t) {
+    float (&s)[NCOL * 4], uint32_t (&pa)[NCOL / 2][4], RowState& st,
+    float (&corr)[2], const Args& a, const unsigned char* stage, int k0,
+    int row_wg, int wg, int r0, int t, const float* rel = nullptr) {
   using L = Layout<DP, BIAS>;
-  const float unit = BIAS ? LOG2E : a.scale * LOG2E;
+  const float unit = BIAS != kNoBias ? LOG2E : a.scale * LOG2E;
   // Masks are needed on a tile with keys past the end (or, causal, past the
   // diagonal of some row); the biased kernels always read the key mask.
-  const bool masked = BIAS || k0 + BK > a.n_k ||
-                      (CAUSAL && k0 + BK - 1 > row_wg);
+  const bool masked = BIAS != kNoBias || k0 + NCOL * 8 > a.n_k ||
+                      (CAUSAL && k0 + NCOL * 8 - 1 > row_wg);
+  // The scores' natural-log logits are s * t_mul + t_add: s is already the
+  // logit (t_mul 1, t_add 0) but on a far rel-pos tile, which adds its one
+  // bias value through the exponent's FFMA and the tile max (t_mul is the
+  // scale > 0, so the max of the raw scores maps to the max of the logits).
+  float t_mul = 1.f, t_add = 0.f;
+  // kRelpos: the tile is far when every key - query of its 64 rows lies at
+  // or past a far threshold (one bucket: one value added to every score),
+  // else near (a lookup per score). The branch is uniform across the
+  // warpgroup, and the far tiles run no index arithmetic at all.
+  if constexpr (BIAS == kRelpos) {
+    const int rel_hi = k0 + NCOL * 8 - 1 - row_wg;
+    const int rel_lo = k0 - (row_wg + BM - 1);
+    if (rel_hi > a.rel_past && rel_lo < a.rel_future) {
+      const int maxd = a.rel_maxd;
+      // key - query of score s[4n + 2h + e]: base + 8n - 8h + e
+      const int base = k0 + 2 * t - (row_wg + r0);
+#pragma unroll
+      for (int n = 0; n < NCOL; ++n) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int rr = base + 8 * n - 8 * h + e;
+            s[4 * n + 2 * h + e] =
+                fmaf(s[4 * n + 2 * h + e], a.scale, rel[min(max(rr, -maxd), maxd) + maxd]);
+          }
+        }
+      }
+    } else {
+      t_mul = a.scale;
+      t_add = rel_hi <= a.rel_past ? rel[0] : rel[2 * a.rel_maxd];
+    }
+  }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < NCOL; ++n) {
     const int col = n * 8 + 2 * t;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
       float v0 = s[4 * n + 2 * h];
       float v1 = s[4 * n + 2 * h + 1];
-      if constexpr (BIAS) {
+      if constexpr (BIAS == kBiasTile) {
         const int r = wg * BM + row;  // 16-byte chunk n of row r, swizzled
         const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(
             stage + L::bias_off + r * 128 + ((n ^ (r & 7)) << 4) + 4 * t);
@@ -506,7 +598,7 @@ __device__ __forceinline__ void softmax_tile(
       }
       if (masked) {
         bool ok0, ok1;
-        if constexpr (BIAS) {
+        if constexpr (BIAS != kNoBias) {
           ok0 = stage[L::keyok_off + col] != 0;
           ok1 = stage[L::keyok_off + col + 1] != 0;
         } else {
@@ -526,20 +618,23 @@ __device__ __forceinline__ void softmax_tile(
     }
   }
   float neg_m[2], psum[2] = {0.f, 0.f};
+  const float s_unit = unit * t_mul;  // exponent per raw score
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float m_new = fmaxf(st.m[h], quad_max(mx[h]));
+    // -inf * t_mul + t_add stays -inf.
+    const float m_new = fmaxf(st.m[h], fmaf(quad_max(mx[h]), t_mul, t_add));
     // A row with no valid key yet keeps m = -inf: exp2 of -inf is 0.
     neg_m[h] = m_new == -INFINITY ? 0.f : -m_new * unit;
     corr[h] = exp2_approx(fmaf(st.m[h], unit, neg_m[h]));
     st.m[h] = m_new;
+    neg_m[h] = fmaf(t_add, unit, neg_m[h]);
   }
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < NCOL; ++n) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float p0 = exp2_approx(fmaf(s[4 * n + 2 * h], unit, neg_m[h]));
-      const float p1 = exp2_approx(fmaf(s[4 * n + 2 * h + 1], unit, neg_m[h]));
+      const float p0 = exp2_approx(fmaf(s[4 * n + 2 * h], s_unit, neg_m[h]));
+      const float p1 = exp2_approx(fmaf(s[4 * n + 2 * h + 1], s_unit, neg_m[h]));
       psum[h] += p0 + p1;
       pa[n / 2][(n % 2) * 2 + h] = pack_bf16x2(p0, p1);
     }
@@ -581,12 +676,12 @@ __device__ __forceinline__ void issue_pv(float (&o)[N], const uint32_t (&pa)[4][
 // probabilities:
 //   issue S(j+1); issue O += P(j)·V(j); wait S(j+1); softmax(j+1) -> P(j+1);
 //   wait O; hand stage j back; O *= corr(j+1).
-template <int DP, bool BIAS, bool CAUSAL, class Problem>
+template <int DP, int BIAS, bool CAUSAL, class Problem>
 __device__ __forceinline__ void consume(const Problem& p, unsigned char* base,
                                         uint32_t sbase) {
   using L = Layout<DP, BIAS>;
   constexpr int ND = DP / 8;         // 8-column blocks of the output
-  const int wg = threadIdx.x / WG_THREADS;
+  const int wg = warpgroup_index();
   const int tid = threadIdx.x % WG_THREADS;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -607,7 +702,12 @@ __device__ __forceinline__ void consume(const Problem& p, unsigned char* base,
   };
 
   float s[32] = {}, corr[2];
-  uint32_t pa[4][4], pa_next[4][4];
+  // The P fragments in ping-pong: the tile whose p·v is in flight reads one
+  // set while the softmax of the next tile writes the other. A copy from
+  // one set to the other lets the register allocator merge them, and then
+  // the softmax would overwrite registers an issued `wgmma` still reads:
+  // ptxas serializes every `wgmma` of the kernel (C7513) to stay correct.
+  uint32_t pa0[4][4], pa1[4][4];
   int tile = 0;  // ring position of the item's first key tile
   int round = 0;
   for (int item = blockIdx.x; item < p.items; item += gridDim.x, ++round) {
@@ -619,6 +719,8 @@ __device__ __forceinline__ void consume(const Problem& p, unsigned char* base,
     const int slot = round % 2;
     mbar_wait(sbase + L::q_full + slot * 8, (round / 2) & 1);
     const uint32_t sq = sbase + L::q_off + slot * L::Q_SLOT + wg * L::TILE;
+    const float* rel =
+        reinterpret_cast<const float*>(base + L::rel_off + slot * L::REL_SLOT);
 
     float o[ND * 4];
 #pragma unroll
@@ -630,26 +732,28 @@ __device__ __forceinline__ void consume(const Problem& p, unsigned char* base,
     issue_qk<DP>(s, sq, stage_addr(tile) + L::k_off);
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_tile<DP, BIAS, CAUSAL>(s, pa, row, corr, a, stage_ptr(tile), 0,
-                                   row_wg, wg, r0, t);
+    softmax_tile<DP, BIAS, CAUSAL>(s, pa0, row, corr, a, stage_ptr(tile), 0,
+                                   row_wg, wg, r0, t, rel);
 
-    for (int j = 0; j + 1 < n_tiles; ++j) {
+    // Tile j's p·v from `pin` beside tile j+1's q·kᵀ, whose probabilities go
+    // to `pout`.
+    auto step = [&](uint32_t (&pin)[4][4], uint32_t (&pout)[4][4], int j) {
       const int i = tile + j;
       wait_full(i + 1);
       // Every register the two products touch is final before they issue.
       fence_regs(o);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) fence_regs(pa[c]);
+      for (int c = 0; c < 4; ++c) fence_regs(pin[c]);
       issue_qk<DP>(s, sq, stage_addr(i + 1) + L::k_off);
-      issue_pv(o, pa, stage_addr(i) + L::v_off);
+      issue_pv(o, pin, stage_addr(i) + L::v_off);
       wgmma_wait<1>();  // q·kᵀ of tile j+1 is done; p·v of tile j may run on
       fence_regs(s);
-      softmax_tile<DP, BIAS, CAUSAL>(s, pa_next, row, corr, a, stage_ptr(i + 1),
-                                     (j + 1) * BK, row_wg, wg, r0, t);
+      softmax_tile<DP, BIAS, CAUSAL>(s, pout, row, corr, a, stage_ptr(i + 1),
+                                     (j + 1) * BK, row_wg, wg, r0, t, rel);
       wgmma_wait<0>();
       fence_regs(o);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) fence_regs(pa[c]);
+      for (int c = 0; c < 4; ++c) fence_regs(pin[c]);
       release(i);
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
@@ -658,22 +762,30 @@ __device__ __forceinline__ void consume(const Problem& p, unsigned char* base,
         o[4 * n + 2] *= corr[1];
         o[4 * n + 3] *= corr[1];
       }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pa[c][e] = pa_next[c][e];
-      }
-    }
+    };
     // The last tile's p·v; then the item's stage and Q slot are free.
-    fence_regs(o);
+    auto last_pv = [&](uint32_t (&pin)[4][4]) {
+      fence_regs(o);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) fence_regs(pa[c]);
-    wgmma_fence();
-    issue_pv(o, pa, stage_addr(tile + n_tiles - 1) + L::v_off);
-    wgmma_wait<0>();
-    fence_regs(o);
+      for (int c = 0; c < 4; ++c) fence_regs(pin[c]);
+      wgmma_fence();
+      issue_pv(o, pin, stage_addr(tile + n_tiles - 1) + L::v_off);
+      wgmma_wait<0>();
+      fence_regs(o);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) fence_regs(pa[c]);
+      for (int c = 0; c < 4; ++c) fence_regs(pin[c]);
+    };
+    int j = 0;
+    for (; j + 2 < n_tiles; j += 2) {
+      step(pa0, pa1, j);
+      step(pa1, pa0, j + 1);
+    }
+    if (j + 1 < n_tiles) {
+      step(pa0, pa1, j);
+      last_pv(pa1);
+    } else {
+      last_pv(pa0);
+    }
     release(tile + n_tiles - 1);
     mbar_arrive(sbase + L::q_empty + slot * 8);
     tile += n_tiles;
@@ -702,11 +814,41 @@ __device__ __forceinline__ void consume(const Problem& p, unsigned char* base,
   }
 }
 
+// The problem of the bias-free kernels (kernel 4 and kernel 2's streaming
+// path): a work item is (query block of 128, head, image), query block
+// fastest, so the blocks of one (image, head) run together and share its K/V
+// in L2; keys [0, m) of n_q = n queries; the output (B, N, H, D) contiguous.
+struct NoBiasProblem {
+  Maps maps;
+  bf16* out;
+  int n, m, h, d, n_qt, items;
+  float scale;
+
+  __device__ void at(int item, Args& a, int& q0) const {
+    const int rest = item / n_qt;
+    a.head = rest % h;
+    a.b = rest / h;
+    q0 = (item % n_qt) * BQ;
+    const long hd = long(h) * d;
+    a.o = out + long(a.b) * n * hd + long(a.head) * d;
+    a.o_row = hd;
+    a.bias = nullptr;
+    a.bias_row = 0;
+    a.bias_aligned = false;
+    a.kv_mask = nullptr;
+    a.n_q = n;
+    a.n_k = m;
+    a.d = d;
+    a.scale = scale;
+    a.lse = nullptr;
+  }
+};
+
 // A persistent block: barrier set-up, then the producer warpgroup and the
 // two consumer warpgroups run apart to the end, over the work items
 // blockIdx.x, blockIdx.x + gridDim.x, ... of `p` (p.items of them;
 // p.at(item, args, q0) names one: a (batch row, head) and 128 query rows).
-template <int DP, bool BIAS, bool CAUSAL, class Problem>
+template <int DP, int BIAS, bool CAUSAL, class Problem>
 __device__ __forceinline__ void attention_persistent(const Problem& p,
                                                      unsigned char* smem_raw) {
   using L = Layout<DP, BIAS>;
@@ -722,7 +864,10 @@ __device__ __forceinline__ void attention_persistent(const Problem& p,
       mbar_init(sbase + L::kv_empty + st * 8, CONSUMERS * WG_THREADS);
     }
     for (int slot = 0; slot < 2; ++slot) {
-      mbar_init(sbase + L::q_full + slot * 8, 1);  // the leader; TMA bytes
+      // the leader and its TMA bytes; in the rel-pos mode also every
+      // producer thread (its rel-table stores)
+      mbar_init(sbase + L::q_full + slot * 8,
+                1 + (BIAS == kRelpos ? WG_THREADS : 0));
       mbar_init(sbase + L::q_empty + slot * 8, CONSUMERS * WG_THREADS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");

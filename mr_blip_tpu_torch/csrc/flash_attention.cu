@@ -1,5 +1,6 @@
 // Flash attention with no bias and no key mask, optionally causal (kernel 4),
-// and the fp32 parity-mode body of the biased kernels 3 and 5.
+// and the fp32 parity-mode body of the biased kernels 3 and 5 and of the
+// rel-pos kernel 9.
 //
 // Replaces: mr_blip_tpu/ops/flash_attention.py::_flash_fwd_kernel (the
 // forward of flash_attention: the EVA ViT-g self-attention whenever the
@@ -38,7 +39,10 @@
 //    all lie past the end only helps with the loads. With a bias (kernels 3
 //    and 5 in fp32) each thread adds its own row's bias to its 16 scores,
 //    keys with a zero key-mask flag get -inf, and the row logsumexp can be
-//    stored; those loads are not overlapped with the math.
+//    stored; those loads are not overlapped with the math. Kernel 9 in fp32
+//    (the rel-pos mode) looks each score's bias up instead, in the block's
+//    table[head][lut[c]] for the 2*maxd + 1 clamped relative positions, built
+//    once in shared memory (c = clamp(key - query, -maxd, maxd) + maxd).
 #include <cuda_runtime.h>
 
 #include "attention_tile_sm90.cuh"
@@ -63,42 +67,18 @@ struct FlashArgs {
   const float* bias = nullptr;
   const int8_t* kv_mask = nullptr;
   float* lse = nullptr;
+  // The rel-pos kernel only: the (H, nb) table, the (2*maxd + 1,) bucket lut.
+  const float* rel_table = nullptr;
+  const int* rel_lut = nullptr;
+  int nb = 0, maxd = 0;
 };
 
 // ------------------------------------------------------------------- bf16
-// A work item is (query block of 128, head, image), query block fastest, so
-// the blocks of one (image, head) run together and share its K/V in L2.
-struct Bf16Problem {
-  sm90::Maps maps;
-  bf16* out;
-  int n, m, h, d, n_qt, items;
-  float scale;
-
-  __device__ void at(int item, sm90::Args& a, int& q0) const {
-    const int rest = item / n_qt;
-    a.head = rest % h;
-    a.b = rest / h;
-    q0 = (item % n_qt) * sm90::BQ;
-    const long hd = long(h) * d;
-    a.o = out + long(a.b) * n * hd + long(a.head) * d;
-    a.o_row = hd;
-    a.bias = nullptr;
-    a.bias_row = 0;
-    a.bias_aligned = false;
-    a.kv_mask = nullptr;
-    a.n_q = n;
-    a.n_k = m;
-    a.d = d;
-    a.scale = scale;
-    a.lse = nullptr;
-  }
-};
-
 template <int DP, bool CAUSAL>
 __global__ void __launch_bounds__(sm90::NTHREADS, 1)
-flash_bf16_kernel(const __grid_constant__ Bf16Problem p) {
+flash_bf16_kernel(const __grid_constant__ sm90::NoBiasProblem p) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  sm90::attention_persistent<DP, false, CAUSAL>(p, smem);
+  sm90::attention_persistent<DP, sm90::kNoBias, CAUSAL>(p, smem);
 }
 
 template <int DP>
@@ -107,7 +87,7 @@ struct FlashBf16Launch {
                          cudaStream_t stream) {
     const long n_qt = (f.n + sm90::BQ - 1) / sm90::BQ;
     if (long(b) * f.h * n_qt > 0x7fffffffL) return cudaErrorInvalidValue;
-    Bf16Problem p{};
+    sm90::NoBiasProblem p{};
     cudaError_t err = sm90::encode_qkv(&p.maps.q, f.q, b, f.n, f.h, f.d, f.q_b,
                                        f.q_n, f.q_h);
     if (err == cudaSuccess) {
@@ -125,7 +105,7 @@ struct FlashBf16Launch {
     p.n_qt = int(n_qt);
     p.items = int(b * f.h * n_qt);
     p.scale = f.scale;
-    const size_t bytes = sm90::Layout<DP, false>::alloc;
+    const size_t bytes = sm90::Layout<DP, sm90::kNoBias>::alloc;
     return causal ? sm90::launch(flash_bf16_kernel<DP, true>, bytes, stream, p)
                   : sm90::launch(flash_bf16_kernel<DP, false>, bytes, stream, p);
   }
@@ -137,23 +117,29 @@ constexpr int F32_KEYS = 32;    // keys per shared-memory tile
 constexpr int F32_CHUNK = 16;   // keys per online-softmax step
 
 // Shared memory: q rows with a stride of DP + 4 floats (the 8 threads of a
-// 16-byte load phase then hit 32 distinct banks), then the K and the V tile.
-template <int DP>
+// 16-byte load phase then hit 32 distinct banks), then the K and the V tile,
+// then (rel-pos mode) the 2*maxd + 1 bias values.
+template <int DP, int BIAS>
 struct F32Layout {
   static constexpr int LQ = DP + 4;
   static constexpr size_t k_off = size_t(F32_ROWS) * LQ;      // in floats
   static constexpr size_t v_off = k_off + size_t(F32_KEYS) * DP;
-  static constexpr size_t bytes = (v_off + size_t(F32_KEYS) * DP) * 4;
+  static constexpr size_t rel_off = v_off + size_t(F32_KEYS) * DP;
+  static constexpr size_t bytes =
+      (rel_off + (BIAS == sm90::kRelpos ? 2 * sm90::MAX_REL_DISTANCE + 1 : 0)) * 4;
 };
 
-template <int DP, bool CAUSAL, bool BIAS>
+// BIAS: sm90::kNoBias (kernel 4), kBiasTile (kernels 3 and 5) or kRelpos
+// (kernel 9); the last two read the key mask and may store the lse.
+template <int DP, bool CAUSAL, int BIAS>
 __global__ void __launch_bounds__(F32_ROWS)
 flash_f32_kernel(FlashArgs f) {
-  using L = F32Layout<DP>;
+  using L = F32Layout<DP, BIAS>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
   float* sK = sQ + L::k_off;
   float* sV = sQ + L::v_off;
+  float* sRel = sQ + L::rel_off;
   constexpr int CH = DP / 4;  // 16-byte chunks per row
 
   const int b = blockIdx.z;
@@ -168,9 +154,15 @@ flash_f32_kernel(FlashArgs f) {
   // compute nothing that is stored) and the batch row's key mask.
   const float* brow = nullptr;
   const int8_t* mask = nullptr;
-  if constexpr (BIAS) {
+  if constexpr (BIAS == sm90::kBiasTile) {
     brow = f.bias + (long(head) * f.n + min(row, f.n - 1)) * f.m;
-    mask = f.kv_mask + long(b) * f.m;
+  }
+  if constexpr (BIAS != sm90::kNoBias) mask = f.kv_mask + long(b) * f.m;
+  if constexpr (BIAS == sm90::kRelpos) {
+    // Read only after the first tile's __syncthreads().
+    for (int c = tid; c <= 2 * f.maxd; c += F32_ROWS) {
+      sRel[c] = f.rel_table[long(head) * f.nb + f.rel_lut[c]];
+    }
   }
 
   // The block's q rows, pre-scaled; rows past n and columns past d are zero.
@@ -240,9 +232,11 @@ flash_f32_kernel(FlashArgs f) {
       for (int j = 0; j < F32_CHUNK; ++j) {
         const int key = k0 + c0 + j;
         bool ok = key < f.m && !(CAUSAL && key > row);
-        if constexpr (BIAS) {
-          ok = ok && mask[key] != 0;
+        if constexpr (BIAS != sm90::kNoBias) ok = ok && mask[key] != 0;
+        if constexpr (BIAS == sm90::kBiasTile) {
           if (ok) s[j] += brow[key];
+        } else if constexpr (BIAS == sm90::kRelpos) {
+          if (ok) s[j] += sRel[min(max(key - row, -f.maxd), f.maxd) + f.maxd];
         }
         if (!ok) s[j] = -INFINITY;
         mx = fmaxf(mx, s[j]);
@@ -289,7 +283,7 @@ flash_f32_kernel(FlashArgs f) {
             o[c] * inv, o[c + 1] * inv, o[c + 2] * inv, o[c + 3] * inv);
       }
     }
-    if (BIAS && f.lse != nullptr) {
+    if (BIAS != sm90::kNoBias && f.lse != nullptr) {
       const float m_safe = isfinite(m_run) ? m_run : 0.f;
       f.lse[(long(b) * f.h + head) * f.n + row] =
           m_safe + logf(fmaxf(l_run, 1e-30f));
@@ -297,9 +291,9 @@ flash_f32_kernel(FlashArgs f) {
   }
 }
 
-template <int DP, bool CAUSAL, bool BIAS>
+template <int DP, bool CAUSAL, int BIAS>
 cudaError_t launch_f32(const FlashArgs& f, int b, cudaStream_t stream) {
-  const size_t bytes = F32Layout<DP>::bytes;
+  const size_t bytes = F32Layout<DP, BIAS>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<DP, CAUSAL, BIAS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -313,15 +307,15 @@ template <int DP>
 struct FlashF32Launch {
   static cudaError_t run(const FlashArgs& f, int b, bool causal,
                          cudaStream_t stream) {
-    return causal ? launch_f32<DP, true, false>(f, b, stream)
-                  : launch_f32<DP, false, false>(f, b, stream);
+    return causal ? launch_f32<DP, true, sm90::kNoBias>(f, b, stream)
+                  : launch_f32<DP, false, sm90::kNoBias>(f, b, stream);
   }
 };
 
 template <int DP>
 struct FlashF32BiasLaunch {
   static cudaError_t run(const FlashArgs& f, int b, cudaStream_t stream) {
-    return launch_f32<DP, false, true>(f, b, stream);
+    return launch_f32<DP, false, sm90::kBiasTile>(f, b, stream);
   }
 };
 
@@ -398,4 +392,31 @@ extern "C" int mrb_flash_bias_fwd_stats_f32(const void* q, const void* k,
   return launch_flash_bias_f32(q, k, v, bias, kv_mask, out,
                                static_cast<float*>(lse), b, n, m, h, d, scale,
                                stream);
+}
+
+// Kernel 9 in fp32: q, k, v (B, N, H, 64) and out contiguous fp32, table
+// (H, nb) fp32, lut (2*maxd + 1,) int32, kv_mask (B, N) int8, lse (B, H, N)
+// fp32. The argument list of mrb_flash_relpos_fwd_stats_bf16; this body
+// looks every score's bias up, so the far thresholds are only checked.
+extern "C" int mrb_flash_relpos_fwd_stats_f32(
+    const void* q, const void* k, const void* v, const void* table,
+    const void* lut, const void* kv_mask, void* out, void* lse, int b, int n,
+    int h, int d, int nb, int maxd, int past, int future, float scale,
+    void* stream) {
+  if (b <= 0 || n <= 0 || h <= 0 || b > 65535 || h > 65535 || d != 64 ||
+      nb <= 0 || maxd <= 0 || maxd > mrb::sm90::MAX_REL_DISTANCE ||
+      past < -maxd || future > maxd || lse == nullptr) {
+    return int(cudaErrorInvalidValue);
+  }
+  const long hd = long(h) * d;
+  mrb::FlashArgs f{q, k, v, out, long(n) * hd, hd, d, long(n) * hd, hd,
+                   d, long(n) * hd, hd, d, n, n, h, d, scale};
+  f.kv_mask = static_cast<const int8_t*>(kv_mask);
+  f.lse = static_cast<float*>(lse);
+  f.rel_table = static_cast<const float*>(table);
+  f.rel_lut = static_cast<const int*>(lut);
+  f.nb = nb;
+  f.maxd = maxd;
+  return int(mrb::launch_f32<64, false, mrb::sm90::kRelpos>(
+      f, b, static_cast<cudaStream_t>(stream)));
 }

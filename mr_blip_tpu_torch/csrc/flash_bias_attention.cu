@@ -75,13 +75,13 @@ template <int DP>
 __global__ void __launch_bounds__(sm90::NTHREADS, 1)
 flash_bias_kernel(const __grid_constant__ BiasProblem p) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  sm90::attention_persistent<DP, true, false>(p, smem);
+  sm90::attention_persistent<DP, sm90::kBiasTile, false>(p, smem);
 }
 
 template <int DP>
 struct FlashBiasLaunch {
   static cudaError_t run(const BiasProblem& p, cudaStream_t stream) {
-    return sm90::launch(flash_bias_kernel<DP>, sm90::Layout<DP, true>::alloc,
+    return sm90::launch(flash_bias_kernel<DP>, sm90::Layout<DP, sm90::kBiasTile>::alloc,
                         stream, p);
   }
 };

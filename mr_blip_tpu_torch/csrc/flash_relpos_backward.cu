@@ -1,6 +1,6 @@
 // Backward of the flash self-attention with the T5 relative-position bias
 // computed inside the kernel (long-context T5 encoder, relpos_in_kernel),
-// head dim 64, bf16. No (1, H, N, N) bias or dbias exists anywhere.
+// head dim 64, bf16 and fp32. No (1, H, N, N) bias or dbias exists anywhere.
 //
 // Replaces, in mr_blip_tpu/ops/flash_attention.py:
 //  * _flash_relpos_bwd_dq_kernel (pallas_call :1366)      -> relpos_bwd_dq_kernel<false>;
@@ -46,8 +46,14 @@
 // zero-filled in shared memory, keys past the end or masked get p = 0, and
 // query rows past the end get lse = +inf, so their p and ds are 0 and they
 // add nothing to dtable. No cp.async pipeline, wgmma or TMA yet.
+//
+// fp32 (the parity mode): the CUDA-core bodies of backward_f32.cuh that
+// serve kernels 6-8 in fp32, with the bias looked up the same way (blocks of
+// 128 owned rows; dtable through the same per-thread bins, per-block
+// partials and second pass in block order).
 #include <cuda_runtime.h>
 
+#include "backward_f32.cuh"
 #include "backward_tile.cuh"
 
 namespace mrb {
@@ -400,4 +406,74 @@ extern "C" int mrb_flash_relpos_bwd_dkv_bf16(
   a.dv = static_cast<mrb::bf16*>(dv);
   return int(mrb::launch(mrb::relpos_bwd_dkv_kernel, mrb::SMEM_BYTES, a,
                          static_cast<cudaStream_t>(stream)));
+}
+
+namespace {
+
+// The fp32 entries' operands (kernels 10-12 in the parity mode).
+mrb::bwd32::Args f32_args(const void* q, const void* k, const void* v,
+                          const void* table, const void* lut, const void* kv_mask,
+                          const void* dout, const void* lse, const void* delta,
+                          int b, int n, int h, int nb, int maxd, float scale) {
+  mrb::bwd32::Args f{static_cast<const float*>(q),    static_cast<const float*>(k),
+                     static_cast<const float*>(v),    nullptr,
+                     static_cast<const float*>(dout), static_cast<const float*>(lse),
+                     static_cast<const float*>(delta), static_cast<const int8_t*>(kv_mask),
+                     nullptr, nullptr, nullptr, nullptr, b, n, n, h, scale};
+  f.table = static_cast<const float*>(table);
+  f.lut = static_cast<const int*>(lut);
+  f.nb = nb;
+  f.maxd = maxd;
+  return f;
+}
+
+}  // namespace
+
+// The same three in fp32, with the same argument lists; dq + dtable's
+// `partial` holds B * ceil(N / 128) * H * nb floats (the bf16 entry's
+// workspace is larger and serves).
+extern "C" int mrb_flash_relpos_bwd_dq_f32(
+    const void* q, const void* k, const void* v, const void* table,
+    const void* lut, const void* kv_mask, const void* dout, const void* lse,
+    const void* delta, void* dq, int b, int n, int h, int d, int nb, int maxd,
+    float scale, void* stream) {
+  if (mrb::bad_shape(b, n, h, d, nb, maxd)) return int(cudaErrorInvalidValue);
+  mrb::bwd32::Args f = f32_args(q, k, v, table, lut, kv_mask, dout, lse, delta, b,
+                                n, h, nb, maxd, scale);
+  f.dq = static_cast<float*>(dq);
+  return int(mrb::bwd32::launch<true, false>(false, f,
+                                             static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int mrb_flash_relpos_bwd_dq_dtable_f32(
+    const void* q, const void* k, const void* v, const void* table,
+    const void* lut, const void* kv_mask, const void* dout, const void* lse,
+    const void* delta, void* dq, void* dtable, void* partial, int b, int n,
+    int h, int d, int nb, int maxd, float scale, void* stream) {
+  if (mrb::bad_shape(b, n, h, d, nb, maxd)) return int(cudaErrorInvalidValue);
+  mrb::bwd32::Args f = f32_args(q, k, v, table, lut, kv_mask, dout, lse, delta, b,
+                                n, h, nb, maxd, scale);
+  f.dq = static_cast<float*>(dq);
+  f.partial = static_cast<float*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = mrb::bwd32::launch<true, true>(false, f, s);
+  if (err != cudaSuccess) return int(err);
+  const long n_blocks = long(b) * mrb::bwd32::blocks(n);
+  mrb::relpos_dtable_reduce_kernel<<<h, mrb::MAX_BUCKETS, 0, s>>>(
+      f.partial, static_cast<float*>(dtable), n_blocks, h, nb);
+  return int(cudaGetLastError());
+}
+
+extern "C" int mrb_flash_relpos_bwd_dkv_f32(
+    const void* q, const void* k, const void* v, const void* table,
+    const void* lut, const void* kv_mask, const void* dout, const void* lse,
+    const void* delta, void* dk, void* dv, int b, int n, int h, int d, int nb,
+    int maxd, float scale, void* stream) {
+  if (mrb::bad_shape(b, n, h, d, nb, maxd)) return int(cudaErrorInvalidValue);
+  mrb::bwd32::Args f = f32_args(q, k, v, table, lut, kv_mask, dout, lse, delta, b,
+                                n, h, nb, maxd, scale);
+  f.dk = static_cast<float*>(dk);
+  f.dv = static_cast<float*>(dv);
+  return int(mrb::bwd32::launch<true, false>(true, f,
+                                             static_cast<cudaStream_t>(stream)));
 }

@@ -1,51 +1,393 @@
 // Self-attention straight off the packed (B, N, 3*H*D) QKV projection.
 //
-// Replaces: mr_blip_tpu/ops/flash_attention.py::_qkv_packed_kernel (the
-// EVA ViT-g self-attention: 240 images x 257 tokens, H=16, D=88, bf16).
+// Replaces: mr_blip_tpu/ops/flash_attention.py::_qkv_packed_kernel
+// (pallas_call :1506; the EVA ViT-g self-attention at 224 pixels: 240
+// images x 257 tokens, H=16, D=88, bf16; the ViT's 4 MiB gate sends it
+// N <= 496 only).
 //
-// Bound on this card: the math (4*N*N*D flops per image and head: 89 GFLOP
-// per ViT layer at 240 images) against ~0.5 GB of q/k/v read and written;
-// at N=257 the whole key range is 5 tiles of 64, so the kernel is
-// compute-bound. This version reaches ~46 TFLOP/s (H100 SXM, 700 W): the
-// fp32 softmax on the CUDA cores and the unpipelined K/V tile loads sit
-// between the tensor-core products.
+// Bound on this card: the bytes. Per image and head 4*N*N*D flops (89 GFLOP
+// a ViT layer at 240 x 257, 0.09 ms at the bf16 peak) against the packed
+// tensor read once and the output written once (0.69 GB, 0.21 ms at 3.35
+// TB/s). At N=257 the query and key ranges are 4 tiles of 64 and one row:
+// padded to whole tiles, 46% of the products are waste.
 //
-// Design: grid (query tile, head, image); each block reads its head's q, k
-// and v columns straight from the packed row (stride 3*H*D) with 16-byte
-// loads, pads D=88 to 96 in shared memory only, and writes its output at
-// column h*D of the (B, N, H*D) result, so neither the q/k/v split nor a
-// head transpose is ever copied in device memory. Keys >= n_valid are
-// masked (-inf), as the Pallas kernel's n_valid does. The tile itself is
-// attention_tile.cuh.
+// Design: the Hopper tile of attention_tile_sm90.cuh (`wgmma` for both
+// products, TMA with the 128-byte swizzle, one producer and two consumer
+// warpgroups, persistent blocks). The q, k and v tensor maps are strided
+// views of the packed row (row stride 3*H*D, image stride N*3*H*D, head
+// stride D, base offsets 0, H*D and 2*H*D); the K/V maps' row extent is
+// n_valid, so TMA zero-fills the keys past it and the tile masks them: the
+// Pallas kernel's n_valid with no key-flag array. The output goes to column
+// h*D of the (B, N, H*D) result; nothing is split, transposed or padded in
+// device memory. Two paths, chosen by the shape:
+//  * resident (ceil(n_valid / 64) <= 5 key tiles: every length the ViT at
+//    224 pixels gives): a work item is one (image, head). Its K and V (up to
+//    320 rows, 160 KB at D = 88 -> 96) are loaded by TMA once into shared
+//    memory and stay there while the item's query tiles of 64 rows go
+//    through, the two consumer warpgroups
+//    taking the block's query tiles in turns across items (so a 5-tile item
+//    costs no idle warpgroup). The K/V of an item are read from L2 once, not
+//    once per 128 queries, and the producer loads the next item's key tile t
+//    as soon as both consumers are done with this item's tile t. A key tail
+//    of at most 16 keys (1 at N = 257) takes an m64n16 product for q·kᵀ and
+//    one 16-deep step of p·v, in place of a full 64-key tile. The query
+//    tail (1 row at N = 257) still costs a 64-row pass;
+//  * streaming (longer n_valid): kernel 4's persistent loop, work items
+//    (query block of 128, head, image), K/V through a ring of 4 stages.
 #include <cuda_runtime.h>
 
-#include "attention_tile.cuh"
+#include "attention_tile_sm90.cuh"
 
 namespace mrb {
 
+using sm90::bf16;
+using sm90::BK;
+using sm90::BM;
+using sm90::CONSUMERS;
+using sm90::PANEL_BYTES;
+using sm90::WG_THREADS;
+
+namespace {
+
+constexpr int KV_TILES = 5;  // the most key tiles the resident path holds
+
+// ------------------------------------------------------------- streaming
+// Kernel 4's problem with keys [0, n_valid).
 template <int DP>
-__global__ void __launch_bounds__(NTHREADS)
-qkv_packed_kernel(const bf16* qkv, bf16* out, int n, int h, int d,
-                  int n_valid, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.z;
-  const int head = blockIdx.y;
+__global__ void __launch_bounds__(sm90::NTHREADS, 1)
+qkv_stream_kernel(const __grid_constant__ sm90::NoBiasProblem p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  sm90::attention_persistent<DP, sm90::kNoBias, false>(p, smem);
+}
+
+// -------------------------------------------------------------- resident
+// One launch: a work item is (image, head), head fastest, so the blocks
+// that run together read neighbouring heads of the same packed rows.
+struct ResidentProblem {
+  sm90::Maps maps;
+  bf16* out;
+  int n, n_valid, h, d, items;
+  int passes;      // query tiles of 64 an item
+  int key_tiles;   // key tiles of 64 an item (<= KV_TILES)
+  bool narrow;     // the last key tile holds <= 16 keys
+  float scale;
+};
+
+// Shared memory from a 1024-byte aligned base: the item's K tiles and V
+// tiles, then two Q slots a consumer; mbarriers K/V full[KV_TILES], K/V
+// empty[KV_TILES], Q full[consumer][slot], Q empty[consumer][slot].
+template <int DP>
+struct ResidentLayout {
+  using L = sm90::Layout<DP, sm90::kNoBias>;
+  static constexpr int TILE = L::TILE;
+  static constexpr int k_off = 0;
+  static constexpr int v_off = KV_TILES * TILE;
+  static constexpr int q_off = 2 * KV_TILES * TILE;
+  static constexpr int bar_off = q_off + 2 * CONSUMERS * TILE;
+  static constexpr int kv_full = bar_off;
+  static constexpr int kv_empty = kv_full + KV_TILES * 8;
+  static constexpr int q_full = kv_empty + KV_TILES * 8;
+  static constexpr int q_empty = q_full + 2 * CONSUMERS * 8;
+  static constexpr int bytes = q_empty + 2 * CONSUMERS * 8;
+  static constexpr int alloc = bytes + 1024;
+  static_assert(alloc <= 232448, "the resident K/V do not fit a block");
+};
+
+// Pass g of the block's sequence (its items' query tiles in order) belongs to
+// consumer g % 2; the producer and both consumers walk the same sequence.
+
+// The producer's leader thread: per item the Q tiles of its first two
+// passes, then its K/V tiles (each once both consumers are done with the
+// last item's), then the Q tiles of the other passes. A Q tile waits for its
+// consumer's slot to free, which the same consumer's pass two before does:
+// for the first two passes a pass of the last item (whose K/V are in), for
+// the others one of this item (whose K/V were issued before): no cycle.
+template <int DP>
+__device__ __forceinline__ void produce_resident(const ResidentProblem& p,
+                                                 uint32_t sbase) {
+  using RL = ResidentLayout<DP>;
+  constexpr int PANELS = RL::L::PANELS;
+  int mine0 = 0, mine1 = 0;  // Q tiles issued to consumers 0 and 1
+  int g0 = 0;                // the item's first pass
+  int round = 0;
+  auto load_q = [&](int b, int head, int lp) {
+    const int w = (g0 + lp) % CONSUMERS;
+    const int mine = w == 0 ? mine0 : mine1;
+    const int slot = mine % 2;
+    const uint32_t full = sbase + RL::q_full + (w * 2 + slot) * 8;
+    sm90::mbar_wait(sbase + RL::q_empty + (w * 2 + slot) * 8, ((mine / 2) & 1) ^ 1);
+    sm90::mbar_arrive_expect(full, RL::TILE);
+    const uint32_t dst = sbase + RL::q_off + (w * 2 + slot) * RL::TILE;
+#pragma unroll
+    for (int pn = 0; pn < PANELS; ++pn) {
+      sm90::tma_load_4d(dst + pn * PANEL_BYTES, &p.maps.q, full, pn * 64, head,
+                        lp * BM, b);
+    }
+    if (w == 0) {
+      ++mine0;
+    } else {
+      ++mine1;
+    }
+  };
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x, ++round) {
+    const int head = item % p.h;
+    const int b = item / p.h;
+    const int early = p.passes < 2 ? p.passes : 2;
+    for (int lp = 0; lp < early; ++lp) load_q(b, head, lp);
+    for (int j = 0; j < p.key_tiles; ++j) {
+      const uint32_t full = sbase + RL::kv_full + j * 8;
+      sm90::mbar_wait(sbase + RL::kv_empty + j * 8, (round & 1) ^ 1);
+      sm90::mbar_arrive_expect(full, 2 * RL::TILE);
+#pragma unroll
+      for (int pn = 0; pn < PANELS; ++pn) {
+        sm90::tma_load_4d(sbase + RL::k_off + j * RL::TILE + pn * PANEL_BYTES,
+                          &p.maps.k, full, pn * 64, head, j * BK, b);
+        sm90::tma_load_4d(sbase + RL::v_off + j * RL::TILE + pn * PANEL_BYTES,
+                          &p.maps.v, full, pn * 64, head, j * BK, b);
+      }
+    }
+    for (int lp = early; lp < p.passes; ++lp) load_q(b, head, lp);
+    g0 += p.passes;
+  }
+}
+
+// One consumer warpgroup: its passes, each the online softmax of 64 query
+// rows over the item's resident key tiles, software-pipelined as in
+// sm90::consume (q·kᵀ of tile j+1 and p·v of tile j on the tensor cores
+// while the scores of tile j+1 turn into probabilities). In its last pass of
+// an item the warpgroup hands each key tile back once its p·v is done.
+template <int DP>
+__device__ __forceinline__ void consume_resident(const ResidentProblem& p,
+                                                 uint32_t sbase) {
+  using RL = ResidentLayout<DP>;
+  constexpr int ND = DP / 8;
+  const int wg = sm90::warpgroup_index();
+  const int tid = threadIdx.x % WG_THREADS;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int t = lane % 4;
+  const int r0 = warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+  const int T = p.key_tiles;
+  const int n_full = p.narrow ? T - 1 : T;  // 64-key tiles; then the tail
+  auto k_addr = [&](int j) { return sbase + RL::k_off + j * RL::TILE; };
+  auto v_addr = [&](int j) { return sbase + RL::v_off + j * RL::TILE; };
+  auto release = [&](int j) { sm90::mbar_arrive(sbase + RL::kv_empty + j * 8); };
+
+  float s[32] = {}, s16[8] = {}, corr[2];
+  // P fragments in ping-pong, as in sm90::consume (no copy between the set
+  // an issued p·v reads and the set the next softmax writes).
+  uint32_t pa0[4][4], pa1[4][4], pa16[1][4];
+  int mine = 0;  // passes done by this warpgroup
+  int g0 = 0;
+  int round = 0;
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x, ++round) {
+    const int head = item % p.h;
+    const int b = item / p.h;
+    const int first = g0 + ((g0 % CONSUMERS) != wg ? 1 : 0);
+    if (first >= g0 + p.passes) {
+      // No pass here: hand the tiles back once they are in, so that this
+      // warpgroup's next wait on a full barrier is for the next item's phase.
+      for (int j = 0; j < T; ++j) {
+        sm90::mbar_wait(sbase + RL::kv_full + j * 8, round & 1);
+        release(j);
+      }
+      g0 += p.passes;
+      continue;
+    }
+    sm90::Args a;
+    a.b = b;
+    a.head = head;
+    const long hd = long(p.h) * p.d;
+    a.o = p.out + long(b) * p.n * hd + long(head) * p.d;
+    a.o_row = hd;
+    a.bias = nullptr;
+    a.bias_row = 0;
+    a.bias_aligned = false;
+    a.kv_mask = nullptr;
+    a.n_q = p.n;
+    a.n_k = p.n_valid;
+    a.d = p.d;
+    a.scale = p.scale;
+    a.lse = nullptr;
+    for (int g = first; g < g0 + p.passes; g += CONSUMERS, ++mine) {
+      const bool last = g + CONSUMERS >= g0 + p.passes;
+      const int slot = mine % 2;
+      sm90::mbar_wait(sbase + RL::q_full + (wg * 2 + slot) * 8, (mine / 2) & 1);
+      const uint32_t sq = sbase + RL::q_off + (wg * 2 + slot) * RL::TILE;
+      const int row_q = (g - g0) * BM;  // the pass's first query row
+      auto wait_kv = [&](int j) {
+        sm90::mbar_wait(sbase + RL::kv_full + j * 8, round & 1);
+      };
+      float o[ND * 4];
+#pragma unroll
+      for (int i = 0; i < ND * 4; ++i) o[i] = 0.f;
+      sm90::RowState row;
+      auto rescale = [&]() {
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          o[4 * n] *= corr[0];
+          o[4 * n + 1] *= corr[0];
+          o[4 * n + 2] *= corr[1];
+          o[4 * n + 3] *= corr[1];
+        }
+      };
+
+      // Prologue: the probabilities of tile 0 (a full tile: narrow needs
+      // T >= 2).
+      wait_kv(0);
+      sm90::issue_qk<DP>(s, sq, k_addr(0));
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      sm90::softmax_tile<DP, sm90::kNoBias, false>(s, pa0, row, corr, a, nullptr, 0,
+                                                   row_q, 0, r0, t);
+      // Full tile j's p·v from `pin` beside full tile j+1's q·kᵀ.
+      auto step = [&](uint32_t (&pin)[4][4], uint32_t (&pout)[4][4], int j) {
+        wait_kv(j + 1);
+        sm90::fence_regs(o);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sm90::fence_regs(pin[c]);
+        sm90::issue_qk<DP>(s, sq, k_addr(j + 1));
+        sm90::issue_pv(o, pin, v_addr(j));
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(s);
+        sm90::softmax_tile<DP, sm90::kNoBias, false>(s, pout, row, corr, a, nullptr,
+                                                     (j + 1) * BK, row_q, 0, r0, t);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(o);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sm90::fence_regs(pin[c]);
+        if (last) release(j);
+        rescale();
+      };
+      // The last full tile's p·v from `pin`, and the tail.
+      auto finish = [&](uint32_t (&pin)[4][4]) {
+        if (p.narrow) {
+          // The tail's 16 keys: q·kᵀ as m64n16 beside the last full tile's
+          // p·v.
+          const int jt = T - 1;
+          wait_kv(jt);
+          sm90::fence_regs(o);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sm90::fence_regs(pin[c]);
+          sm90::fence_regs(s16);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const uint32_t off = (kk / 4) * PANEL_BYTES + (kk % 4) * 32;
+            sm90::wgmma_ss_n16(s16, sm90::make_desc(sq + off, PANEL_BYTES),
+                               sm90::make_desc(k_addr(jt) + off, PANEL_BYTES), kk > 0);
+          }
+          sm90::wgmma_commit();
+          sm90::issue_pv(o, pin, v_addr(jt - 1));
+          sm90::wgmma_wait<1>();
+          sm90::fence_regs(s16);
+          sm90::softmax_tile<DP, sm90::kNoBias, false, 2>(s16, pa16, row, corr, a,
+                                                          nullptr, jt * BK, row_q, 0,
+                                                          r0, t);
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(o);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sm90::fence_regs(pin[c]);
+          if (last) release(jt - 1);
+          rescale();
+          // p·v over the tail's first 16 V rows (the probabilities past
+          // n_valid are 0).
+          sm90::fence_regs(o);
+          sm90::fence_regs(pa16[0]);
+          sm90::wgmma_fence();
+          sm90::wgmma_rs(o, pa16[0], sm90::make_desc(v_addr(jt), PANEL_BYTES));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(o);
+          sm90::fence_regs(pa16[0]);
+          if (last) release(jt);
+        } else {
+          sm90::fence_regs(o);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sm90::fence_regs(pin[c]);
+          sm90::wgmma_fence();
+          sm90::issue_pv(o, pin, v_addr(T - 1));
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(o);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sm90::fence_regs(pin[c]);
+          if (last) release(T - 1);
+        }
+      };
+      int j = 0;
+      for (; j + 2 < n_full; j += 2) {
+        step(pa0, pa1, j);
+        step(pa1, pa0, j + 1);
+      }
+      if (j + 1 < n_full) {
+        step(pa0, pa1, j);
+        finish(pa1);
+      } else {
+        finish(pa0);
+      }
+      sm90::mbar_arrive(sbase + RL::q_empty + (wg * 2 + slot) * 8);
+
+      // o[4n + 2h + e] is row r0 + 8h, column 8n + 2t + e.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qr = row_q + r0 + 8 * h;
+        if (qr >= p.n) continue;
+        const float inv = 1.f / fmaxf(row.l[h], 1e-30f);
+        bf16* orow = a.o + long(qr) * a.o_row;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          const int col = n * 8 + 2 * t;
+          if (col < p.d) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(o[4 * n + 2 * h] * inv, o[4 * n + 2 * h + 1] * inv);
+          }
+        }
+      }
+    }
+    g0 += p.passes;
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(sm90::NTHREADS, 1)
+qkv_resident_kernel(const __grid_constant__ ResidentProblem p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  using RL = ResidentLayout<DP>;
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < KV_TILES; ++j) {
+      sm90::mbar_init(sbase + RL::kv_full + j * 8, 1);  // the leader; TMA bytes
+      sm90::mbar_init(sbase + RL::kv_empty + j * 8, CONSUMERS * WG_THREADS);
+    }
+    for (int i = 0; i < 2 * CONSUMERS; ++i) {
+      sm90::mbar_init(sbase + RL::q_full + i * 8, 1);
+      sm90::mbar_init(sbase + RL::q_empty + i * 8, WG_THREADS);  // its consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= CONSUMERS * WG_THREADS) {
+    if (threadIdx.x == CONSUMERS * WG_THREADS) produce_resident<DP>(p, sbase);
+  } else {
+    consume_resident<DP>(p, sbase);
+  }
+}
+
+// The three tensor maps over the packed row: q with n rows, k and v with
+// n_valid rows (TMA zero-fills the keys past n_valid).
+cudaError_t encode_packed(sm90::Maps& maps, const bf16* qkv, int b, int n,
+                          int n_valid, int h, int d) {
   const long hd = long(h) * d;
-  const bf16* base = qkv + long(b) * n * 3 * hd + long(head) * d;
-  AttnArgs a;
-  a.q = base;
-  a.k = base + hd;
-  a.v = base + 2 * hd;
-  a.q_row = a.k_row = a.v_row = 3 * hd;
-  a.o = out + long(b) * n * hd + long(head) * d;
-  a.o_row = hd;
-  a.kv_mask = nullptr;
-  a.n_q = n;
-  a.n_k = n;
-  a.n_valid_k = n_valid;
-  a.d = d;
-  a.scale = scale;
-  attention_tile<DP>(a, blockIdx.x * BQ, smem);
+  const long row = 3 * hd;
+  cudaError_t err = sm90::encode_qkv(&maps.q, qkv, b, n, h, d, n * row, row, d);
+  if (err == cudaSuccess) {
+    err = sm90::encode_qkv(&maps.k, qkv + hd, b, n_valid, h, d, n * row, row, d);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::encode_qkv(&maps.v, qkv + 2 * hd, b, n_valid, h, d, n * row, row, d);
+  }
+  return err;
 }
 
 template <int DP>
@@ -53,29 +395,60 @@ struct QkvLaunch {
   static cudaError_t run(const bf16* qkv, bf16* out, int b, int n, int h,
                          int d, int n_valid, float scale,
                          cudaStream_t stream) {
-    const size_t bytes = TileLayout<DP>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        qkv_packed_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(bytes));
+    const int key_tiles = (n_valid + BK - 1) / BK;
+    if (key_tiles <= KV_TILES) {
+      ResidentProblem p{};
+      cudaError_t err = encode_packed(p.maps, qkv, b, n, n_valid, h, d);
+      if (err != cudaSuccess) return err;
+      p.out = out;
+      p.n = n;
+      p.n_valid = n_valid;
+      p.h = h;
+      p.d = d;
+      p.items = b * h;
+      p.passes = (n + BM - 1) / BM;
+      p.key_tiles = key_tiles;
+      p.narrow = key_tiles >= 2 && n_valid - (key_tiles - 1) * BK <= 16;
+      p.scale = scale;
+      return sm90::launch(qkv_resident_kernel<DP>, ResidentLayout<DP>::alloc, stream, p);
+    }
+    const long n_qt = (n + sm90::BQ - 1) / sm90::BQ;
+    if (long(b) * h * n_qt > 0x7fffffffL) return cudaErrorInvalidValue;
+    sm90::NoBiasProblem p{};
+    cudaError_t err = encode_packed(p.maps, qkv, b, n, n_valid, h, d);
     if (err != cudaSuccess) return err;
-    dim3 grid((n + BQ - 1) / BQ, h, b);
-    qkv_packed_kernel<DP><<<grid, NTHREADS, bytes, stream>>>(
-        qkv, out, n, h, d, n_valid, scale);
-    return cudaGetLastError();
+    p.out = out;
+    p.n = n;
+    p.m = n_valid;
+    p.h = h;
+    p.d = d;
+    p.n_qt = int(n_qt);
+    p.items = int(long(b) * h * n_qt);
+    p.scale = scale;
+    return sm90::launch(qkv_stream_kernel<DP>, sm90::Layout<DP, sm90::kNoBias>::alloc,
+                        stream, p);
   }
 };
 
+}  // namespace
+
 }  // namespace mrb
 
+// out (B, N, H*D) bf16 from the packed qkv (B, N, 3*H*D) bf16 (16-byte
+// aligned; D a multiple of 8 up to 96); keys >= n_valid are masked
+// (n_valid <= 0 or >= N: none). The path is a function of the shape alone:
+// resident when ceil(n_valid / 64) <= 5, else streaming (mirrored on the host
+// by ops/flash_attention.py::qkv_packed_path).
 extern "C" int mrb_qkv_packed_attention_bf16(const void* qkv, void* out,
                                              int b, int n, int h, int d,
                                              int n_valid, float scale,
                                              void* stream) {
-  if (b <= 0 || n <= 0 || h <= 0 || b > 65535 || h > 65535) {
+  if (b <= 0 || n <= 0 || h <= 0 || b > 65535 || h > 65535 ||
+      long(b) * h > 0x7fffffffL) {
     return int(cudaErrorInvalidValue);
   }
   const int nv = (n_valid > 0 && n_valid < n) ? n_valid : n;
-  return int(mrb::dispatch_head_dim<mrb::QkvLaunch>(
+  return int(mrb::sm90::dispatch_head_dim<mrb::QkvLaunch>(
       d, static_cast<const mrb::bf16*>(qkv), static_cast<mrb::bf16*>(out), b,
       n, h, d, nv, scale, static_cast<cudaStream_t>(stream)));
 }

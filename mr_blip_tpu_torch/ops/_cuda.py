@@ -64,8 +64,11 @@ _SIGNATURES = {
     "mrb_flash_bias_bwd_dq_f32": [_P] * 9 + [_I] * 5 + [_F, _P],
     "mrb_flash_bias_bwd_dq_dbias_f32": [_P] * 10 + [_I] * 5 + [_F, _P],
     "mrb_flash_bias_bwd_dkv_f32": [_P] * 10 + [_I] * 5 + [_F, _P],
-    # q, k, v, table, lut, kv_mask, out, lse, B, N, H, D, nb, maxd, scale, stream
-    "mrb_flash_relpos_fwd_stats_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # q, k, v, table, lut, kv_mask, out, lse, B, N, H, D, nb, maxd, the far
+    # thresholds past and future, scale, stream
+    "mrb_flash_relpos_fwd_stats_bf16": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # the same in fp32 (the CUDA-core body of flash_attention.cu)
+    "mrb_flash_relpos_fwd_stats_f32": [_P] * 8 + [_I] * 8 + [_F, _P],
     # q, k, v, table, lut, kv_mask, dout, lse, delta, dq, B, N, H, D, nb, maxd,
     # scale, stream
     "mrb_flash_relpos_bwd_dq_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
@@ -73,6 +76,10 @@ _SIGNATURES = {
     "mrb_flash_relpos_bwd_dq_dtable_bf16": [_P] * 12 + [_I] * 6 + [_F, _P],
     # ... as above, then dk, dv, ...
     "mrb_flash_relpos_bwd_dkv_bf16": [_P] * 11 + [_I] * 6 + [_F, _P],
+    # the same three in fp32 (the CUDA-core bodies of backward_f32.cuh)
+    "mrb_flash_relpos_bwd_dq_f32": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "mrb_flash_relpos_bwd_dq_dtable_f32": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "mrb_flash_relpos_bwd_dkv_f32": [_P] * 11 + [_I] * 6 + [_F, _P],
     # x, ls, lb, norm_kind, eps, wq, sw, bias, residual, out, xq, sa, M, K, N,
     # stream
     "mrb_w8a8_linear": [_P] * 3 + [_I, _F] + [_P] * 7 + [_I] * 3 + [_P],
@@ -149,13 +156,15 @@ def build(csrc: Path = CSRC, build_root: Path = BUILD_ROOT) -> Path:
     return lib
 
 
-def load(path: Path, names=None) -> ctypes.CDLL:
+def load(path: Path, names=None, signatures=None) -> ctypes.CDLL:
     """Load a built kernel library and bind the C entries ``names`` (all of
-    this package's by default) to their signatures."""
+    this package's by default) to ``signatures`` (this package's by default;
+    another checkout's library takes that checkout's)."""
+    signatures = _SIGNATURES if signatures is None else signatures
     lib = ctypes.CDLL(str(path))
-    for name in _SIGNATURES if names is None else names:
+    for name in signatures if names is None else names:
         fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
+        fn.argtypes = signatures[name]
         fn.restype = ctypes.c_int
     return lib
 

@@ -131,7 +131,7 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropout and a backend other than "xla" this goes to
     ``flash_attention_relpos``, whose kernels
     look the bias up themselves (O(N) memory, no (1, H, N, M) tensor; bf16
-    only: another dtype raises there). Otherwise (short sequences, the CPU,
+    or fp32: another dtype raises there). Otherwise (short sequences, the CPU,
     active attention-weight dropout) the bias is materialized and
     ``xla_attention`` runs, as in JAX: the same bucket function and the same
     table, so the two routes compute one function. ``kv_mask``: optional

@@ -9,8 +9,10 @@ hand-written kernel for a CUDA tensor, or raises:
   k_len allowed; bf16 or fp32) -> ``csrc/flash_attention.cu`` (plain version
   ``_flash_reference``); backward: the plain version recomputed, as in JAX;
 * ``flash_attention_qkv_packed`` -> ``csrc/qkv_packed_attention.cu``
-  (plain version ``_qkv_packed_reference``); backward: the plain version
-  recomputed, as in JAX;
+  (the Hopper tile: K/V resident in shared memory per (image, head) up to 5
+  key tiles, streamed above, ``qkv_packed_path``; plain version
+  ``_qkv_packed_reference``); backward: the plain version recomputed, as in
+  JAX;
 * ``flash_attention_bias`` -> ``csrc/flash_bias_attention.cu`` (bf16; fp32:
   the CUDA-core body of ``csrc/flash_attention.cu``) when no gradient is
   needed; otherwise the custom VJP ``_FlashBias``: forward
@@ -28,7 +30,9 @@ hand-written kernel for a CUDA tensor, or raises:
   gradient is needed, through ``_FlashRelpos``, whose backward is
   ``flash_relpos_bwd_dq``, or ``flash_relpos_bwd_dq_dtable`` when the table
   requires grad, then ``flash_relpos_bwd_dkv``
-  (``csrc/flash_relpos_backward.cu``). Plain versions:
+  (``csrc/flash_relpos_backward.cu``); bf16 or fp32 (the CUDA-core bodies
+  of ``csrc/flash_attention.cu`` and ``csrc/backward_f32.cuh``). Plain
+  versions:
   ``_flash_relpos_fwd_stats_reference`` and ``_flash_relpos_bwd_reference``
   (the bias materialized, then the biased plain versions).
 
@@ -122,6 +126,19 @@ class _QkvPacked(torch.autograd.Function):
             out = _qkv_packed_reference(qkv, *ctx.args)
         (dqkv,) = torch.autograd.grad(out, qkv, grad)
         return dqkv, None, None, None, None
+
+
+# The most key tiles of 64 the packed-QKV kernel keeps resident in shared
+# memory (csrc/qkv_packed_attention.cu, KV_TILES).
+QKV_RESIDENT_KEY_TILES = 5
+
+
+def qkv_packed_path(n: int, n_valid: int = 0) -> str:
+    """Which path of the packed-QKV kernel a shape takes, as the C entry
+    decides it: "resident" (the K/V of an (image, head) held in shared
+    memory) up to 5 key tiles of 64 valid keys, "streaming" above."""
+    valid = n_valid if 0 < n_valid < n else n
+    return "resident" if -(-valid // 64) <= QKV_RESIDENT_KEY_TILES else "streaming"
 
 
 def flash_attention_qkv_packed(qkv: torch.Tensor, num_heads: int,
@@ -551,6 +568,24 @@ def _bucket_lut(num_buckets, max_distance, device):
     return clamped_bucket_table(num_buckets, max_distance).to(device).contiguous()
 
 
+@functools.lru_cache(maxsize=8)
+def relpos_far_thresholds(num_buckets: int, max_distance: int) -> tuple[int, int]:
+    """(past, future) of the clamped bucket table: every key - query <=
+    past has the bucket of -max_distance, every key - query >= future that
+    of +max_distance (the table is constant beyond the clamp, and the log
+    buckets reach their last value before it). Kernel 9 adds one value to a
+    tile whose relative positions all lie at or past one of them."""
+    lut = clamped_bucket_table(num_buckets, max_distance).tolist()
+    c = 0
+    while c < 2 * max_distance and lut[c + 1] == lut[0]:
+        c += 1
+    past = c - max_distance
+    c = 2 * max_distance
+    while c > 0 and lut[c - 1] == lut[-1]:
+        c -= 1
+    return past, c - max_distance
+
+
 def _relpos_bias(table, n, num_buckets, max_distance):
     """(1, H, N, N) bias from the (H, num_buckets) table, by the bit-exact
     bucket function itself (not the clamped table)."""
@@ -588,8 +623,9 @@ def _flash_relpos_bwd_reference(q, k, v, table, kv_mask, dout, lse, delta,
 
 
 def _relpos_operands(q, k, v, table, kv_mask, num_buckets, max_distance, *more):
-    """Check the operands of a rel-pos kernel launch; returns the int8 key
-    mask and the clamped bucket table on the device."""
+    """Check the operands of a rel-pos kernel launch (bf16 or fp32 by q's
+    dtype; the table always fp32); returns the int8 key mask and the clamped
+    bucket table on the device."""
     h, d = q.shape[2:]
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("the rel-pos flash kernels are self-attention only: "
@@ -599,7 +635,7 @@ def _relpos_operands(q, k, v, table, kv_mask, num_buckets, max_distance, *more):
         raise ValueError(f"num_buckets {num_buckets} / max_distance {max_distance} "
                          f"unsupported: at most {MAX_RELPOS_BUCKETS} / "
                          f"{MAX_RELPOS_DISTANCE}")
-    kv_mask = _bias_operands(q, k, v, None, kv_mask, *more)
+    kv_mask = _bias_operands(q, k, v, None, kv_mask, *more, dtype=_flash_bias_dtype(q))
     _check_bwd_head_dim(d)
     if table.shape != (h, num_buckets):
         raise ValueError(f"table must be ({h}, {num_buckets}), got {tuple(table.shape)}")
@@ -610,32 +646,43 @@ def _relpos_operands(q, k, v, table, kv_mask, num_buckets, max_distance, *more):
 def flash_relpos_fwd_stats(q, k, v, table, kv_mask=None, num_buckets=32,
                            max_distance=128):
     """Kernel 9: self-attention with the rel-pos bias looked up inside the
-    kernel, plus the fp32 (B, H, N) row logsumexp -> (out, lse). Plain
-    version for a CPU tensor."""
+    kernel, plus the fp32 (B, H, N) row logsumexp -> (out, lse); bf16 or
+    fp32. Plain version for a CPU tensor."""
     if not q.is_cuda:
         return _flash_relpos_fwd_stats_reference(q, k, v, table, kv_mask,
                                                  num_buckets, max_distance)
+    return _flash_relpos_fwd_stats_cuda(q, k, v, table, kv_mask, num_buckets,
+                                        max_distance)
+
+
+def _flash_relpos_fwd_stats_cuda(q, k, v, table, kv_mask, num_buckets,
+                                 max_distance):
     b, n, h, d = q.shape
     kv_mask, lut = _relpos_operands(q, k, v, table, kv_mask, num_buckets,
                                     max_distance)
+    past, future = relpos_far_thresholds(num_buckets, max_distance)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    err = _cuda.library().mrb_flash_relpos_fwd_stats_bf16(
+    name = f"mrb_flash_relpos_fwd_stats_{_FLASH_BIAS_ENTRIES[q.dtype]}"
+    err = getattr(_cuda.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
         lut.data_ptr(), kv_mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, n, h, d, num_buckets, max_distance, float(d ** -0.5),
+        b, n, h, d, num_buckets, max_distance, past, future, float(d ** -0.5),
         _cuda.stream_ptr(q.device))
-    _cuda.check(err, "mrb_flash_relpos_fwd_stats_bf16")
+    _cuda.check(err, name)
     flash_relpos_fwd_stats.launches += 1
     return out, lse
 
 
-def _relpos_bwd_launch(name, q, k, v, table, kv_mask, dout, lse, delta,
+def _relpos_bwd_launch(kernel, q, k, v, table, kv_mask, dout, lse, delta,
                        num_buckets, max_distance, outs):
+    """Launch ``mrb_flash_relpos_bwd_<kernel>_<dtype>`` (bf16 or fp32, by
+    q's dtype) writing into ``outs``."""
     b, n, h, d = q.shape
     kv_mask, lut = _relpos_operands(q, k, v, table, kv_mask, num_buckets,
                                     max_distance, ("dout", dout))
     _check_stats(lse, delta, b, h, n, q.device)
+    name = f"mrb_flash_relpos_bwd_{kernel}_{_FLASH_BIAS_ENTRIES[q.dtype]}"
     err = getattr(_cuda.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
         lut.data_ptr(), kv_mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -650,9 +697,15 @@ def flash_relpos_bwd_dq(q, k, v, table, kv_mask, dout, lse, delta,
     if not q.is_cuda:
         return _flash_relpos_bwd_reference(q, k, v, table, kv_mask, dout, lse,
                                            delta, num_buckets, max_distance)[0]
+    return _flash_relpos_bwd_dq_cuda(q, k, v, table, kv_mask, dout, lse, delta,
+                                     num_buckets, max_distance)
+
+
+def _flash_relpos_bwd_dq_cuda(q, k, v, table, kv_mask, dout, lse, delta,
+                              num_buckets, max_distance):
     dq = torch.empty_like(q)
-    _relpos_bwd_launch("mrb_flash_relpos_bwd_dq_bf16", q, k, v, table, kv_mask,
-                       dout, lse, delta, num_buckets, max_distance, (dq,))
+    _relpos_bwd_launch("dq", q, k, v, table, kv_mask, dout, lse, delta,
+                       num_buckets, max_distance, (dq,))
     flash_relpos_bwd_dq.launches += 1
     return dq
 
@@ -665,15 +718,21 @@ def flash_relpos_bwd_dq_dtable(q, k, v, table, kv_mask, dout, lse, delta,
         dq, _, _, dtable = _flash_relpos_bwd_reference(
             q, k, v, table, kv_mask, dout, lse, delta, num_buckets, max_distance)
         return dq, dtable
+    return _flash_relpos_bwd_dq_dtable_cuda(q, k, v, table, kv_mask, dout, lse,
+                                            delta, num_buckets, max_distance)
+
+
+def _flash_relpos_bwd_dq_dtable_cuda(q, k, v, table, kv_mask, dout, lse, delta,
+                                     num_buckets, max_distance):
     b, n, h, _ = q.shape
     dq = torch.empty_like(q)
     dtable = torch.empty((h, num_buckets), dtype=torch.float32, device=q.device)
-    # One partial sum per (batch row, 64-query tile) block, head and bucket.
+    # One partial sum per (batch row, query block) block, head and bucket:
+    # blocks of 64 queries in bf16, 128 in fp32.
     partial = torch.empty((b * -(-n // 64), h, num_buckets), dtype=torch.float32,
                           device=q.device)
-    _relpos_bwd_launch("mrb_flash_relpos_bwd_dq_dtable_bf16", q, k, v, table,
-                       kv_mask, dout, lse, delta, num_buckets, max_distance,
-                       (dq, dtable, partial))
+    _relpos_bwd_launch("dq_dtable", q, k, v, table, kv_mask, dout, lse, delta,
+                       num_buckets, max_distance, (dq, dtable, partial))
     flash_relpos_bwd_dq_dtable.launches += 1
     return dq, dtable
 
@@ -684,9 +743,15 @@ def flash_relpos_bwd_dkv(q, k, v, table, kv_mask, dout, lse, delta,
     if not q.is_cuda:
         return _flash_relpos_bwd_reference(q, k, v, table, kv_mask, dout, lse,
                                            delta, num_buckets, max_distance)[1:3]
+    return _flash_relpos_bwd_dkv_cuda(q, k, v, table, kv_mask, dout, lse, delta,
+                                      num_buckets, max_distance)
+
+
+def _flash_relpos_bwd_dkv_cuda(q, k, v, table, kv_mask, dout, lse, delta,
+                               num_buckets, max_distance):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _relpos_bwd_launch("mrb_flash_relpos_bwd_dkv_bf16", q, k, v, table, kv_mask,
-                       dout, lse, delta, num_buckets, max_distance, (dk, dv))
+    _relpos_bwd_launch("dkv", q, k, v, table, kv_mask, dout, lse, delta,
+                       num_buckets, max_distance, (dk, dv))
     flash_relpos_bwd_dkv.launches += 1
     return dk, dv
 
@@ -704,7 +769,8 @@ class _FlashRelpos(torch.autograd.Function):
     are the backward wrappers (tests pass CPU stand-ins). δ = rowsum(dO∘O) is
     computed here in fp32. dtable (kernel 11 in place of kernel 10) is
     computed only when the table needs a gradient, which JAX states with its
-    ``table_grad`` flag."""
+    ``table_grad`` flag. The kernels take bf16 and fp32; any other dtype on
+    the card raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, table, kv_mask, num_buckets, max_distance, fwd,
@@ -718,6 +784,10 @@ class _FlashRelpos(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v, table, kv_mask, out, lse = ctx.saved_tensors
+        if q.is_cuda and q.dtype not in _FLASH_BIAS_ENTRIES:
+            raise NotImplementedError(
+                f"the rel-pos flash backward kernels 10-12 take bfloat16 and "
+                f"float32, not {q.dtype}")
         bwd_dq, bwd_dq_dtable, bwd_dkv = ctx.bwd
         grad = grad.contiguous()
         ct = _math_dtype(q)

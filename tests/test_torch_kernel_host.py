@@ -240,3 +240,115 @@ def test_flash_module_imports_without_a_toolkit(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == str(tfa.MAX_HEAD_DIM)
+
+
+# ------------------------------------------------- kernel 2 (packed QKV, ViT)
+def test_kernel2_wrapper_passes_the_same_arguments(recorder):
+    """The packed-QKV wrapper reaches its C entry with the packed tensor, the
+    (B, N, H*D) output, (B, N, H, D), n_valid and the scale, as before the
+    kernel moved to the Hopper tile, and counts one launch."""
+    b, n, h, d, n_valid = 3, 264, 4, 88, 257
+    qkv = torch.zeros(b, n, 3 * h * d, dtype=torch.bfloat16)
+    before = tfa.flash_attention_qkv_packed.launches
+    out = tfa._qkv_packed_cuda(qkv, h, d, n_valid)
+    assert tfa.flash_attention_qkv_packed.launches == before + 1
+    (name, args), = recorder.calls
+    assert name == "mrb_qkv_packed_attention_bf16"
+    assert len(args) == len(_cuda._SIGNATURES[name])
+    assert args[:7] == (qkv.data_ptr(), out.data_ptr(), b, n, h, d, n_valid)
+    assert args[7] == pytest.approx(d ** -0.5) and args[8] == 0
+    assert out.shape == (b, n, h * d) and out.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("n,n_valid,path", [
+    (257, 0, "resident"), (264, 257, "resident"), (50, 0, "resident"),
+    (320, 0, "resident"), (330, 320, "resident"), (321, 0, "streaming"),
+    (496, 0, "streaming"), (677, 0, "streaming")])
+def test_kernel2_path_by_shape(n, n_valid, path):
+    """The host's mirror of the C entry's choice: K/V resident up to as many
+    key tiles of valid keys as the source's KV_TILES, streamed above."""
+    src = (_cuda.CSRC / "qkv_packed_attention.cu").read_text()
+    tiles = int(re.search(r"constexpr int KV_TILES = (\d+);", src).group(1))
+    assert tiles == tfa.QKV_RESIDENT_KEY_TILES
+    assert tfa.qkv_packed_path(n, n_valid) == path
+
+
+# --------------------------------------- kernels 9-12 (in-kernel rel-pos bias)
+# name -> (the wrapper's CUDA half, the wrapper, output count)
+_RELPOS = {"fwd_stats": (tfa._flash_relpos_fwd_stats_cuda, tfa.flash_relpos_fwd_stats, 2),
+           "bwd_dq": (tfa._flash_relpos_bwd_dq_cuda, tfa.flash_relpos_bwd_dq, 1),
+           "bwd_dq_dtable": (tfa._flash_relpos_bwd_dq_dtable_cuda,
+                             tfa.flash_relpos_bwd_dq_dtable, 3),
+           "bwd_dkv": (tfa._flash_relpos_bwd_dkv_cuda, tfa.flash_relpos_bwd_dkv, 2)}
+_NB, _MAXD = 32, 128
+
+
+def _relpos_operands(kernel, dtype, b=2, n=300, h=4, d=64):
+    q, k, v, dout = (torch.zeros(b, n, h, d, dtype=dtype) for _ in range(4))
+    table = torch.zeros(h, _NB)
+    mask = torch.ones(b, n, dtype=torch.int8)
+    if kernel == "fwd_stats":
+        return [q, k, v, table, mask, _NB, _MAXD]
+    lse, delta = (torch.zeros(b, h, n) for _ in range(2))
+    return [q, k, v, table, mask, dout, lse, delta, _NB, _MAXD]
+
+
+@pytest.mark.parametrize("kernel", sorted(_RELPOS))
+@pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "bf16"),
+                                          (torch.float32, "f32")])
+def test_relpos_kernel_entry_by_dtype(recorder, kernel, dtype, suffix):
+    """Kernel 9 and the three rel-pos backward wrappers reach the C entry of
+    q's dtype with its full argument list (kernel 9: the far thresholds the
+    wrapper computes from the bucket table) and count one launch."""
+    b, n, h, d = 2, 300, 4, 64
+    ops = _relpos_operands(kernel, dtype, b, n, h, d)
+    launch, wrapper, n_out = _RELPOS[kernel]
+    before = wrapper.launches
+    launch(*ops)
+    assert wrapper.launches == before + 1
+    (name, args), = recorder.calls
+    assert name == f"mrb_flash_{'relpos_' + kernel}_{suffix}"
+    assert len(args) == len(_cuda._SIGNATURES[name])
+    n_in = 6 if kernel == "fwd_stats" else 9
+    assert args[:4] == tuple(t.data_ptr() for t in ops[:4])
+    shapes = args[n_in + n_out:]
+    assert shapes[:6] == (b, n, h, d, _NB, _MAXD)
+    if kernel == "fwd_stats":
+        assert shapes[6:8] == tfa.relpos_far_thresholds(_NB, _MAXD)
+    assert shapes[-2] == pytest.approx(d ** -0.5) and shapes[-1] == 0
+
+
+@pytest.mark.parametrize("kernel", sorted(_RELPOS))
+def test_relpos_kernels_refuse_float16(recorder, kernel):
+    launch, wrapper, _ = _RELPOS[kernel]
+    before = wrapper.launches
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        launch(*_relpos_operands(kernel, torch.float16))
+    assert not recorder.calls and wrapper.launches == before
+
+
+@pytest.mark.parametrize("table_grad", [False, True])
+def test_flash_relpos_backward_reaches_the_fp32_entries(recorder, table_grad):
+    """An fp32 backward through ``_FlashRelpos`` reaches kernel 10 (11 when
+    the table trains) and kernel 12 in their fp32 instantiations; float16
+    raises before any C entry."""
+    q, k, v, table, mask = _relpos_operands("fwd_stats", torch.float32, n=264)[:5]
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    table.requires_grad_(table_grad)
+    fwd = tfa._flash_relpos_fwd_stats_reference
+    out = tfa._FlashRelpos.apply(*leaves, table, mask, _NB, _MAXD, fwd,
+                                 tfa._flash_relpos_bwd_dq_cuda,
+                                 tfa._flash_relpos_bwd_dq_dtable_cuda,
+                                 tfa._flash_relpos_bwd_dkv_cuda)
+    grads = torch.autograd.grad(out, leaves + ([table] if table_grad else []),
+                                torch.ones_like(out))
+    dq = "dq_dtable" if table_grad else "dq"
+    assert [name for name, _ in recorder.calls] == [
+        f"mrb_flash_relpos_bwd_{dq}_f32", "mrb_flash_relpos_bwd_dkv_f32"]
+    assert all(g.dtype == torch.float32 for g in grads)
+    q16, k16, v16 = (t.detach().half() for t in (q, k, v))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfa._flash_relpos_bwd_dq_cuda(q16, k16, v16, table.detach(), mask, q16,
+                                      torch.zeros(2, 4, 264), torch.zeros(2, 4, 264),
+                                      _NB, _MAXD)
+    assert len(recorder.calls) == 2

@@ -29,6 +29,7 @@ from mr_blip_tpu.models import quantize as jquant
 from mr_blip_tpu.models import t5 as jt5
 from mr_blip_tpu.models.blip2_mr import BLIP2_MR as JaxBLIP2_MR
 from mr_blip_tpu.ops import flash_attention as jfa
+from mr_blip_tpu.ops.attention import relpos_attention as jattn_relpos
 from mr_blip_tpu.ops.attention import xla_attention as jax_xla_attention
 from mr_blip_tpu.ops.relpos import materialize_relpos_bias as jax_relpos_bias
 from mr_blip_tpu.ops.relpos import relative_position_bucket as jax_bucket
@@ -93,6 +94,79 @@ def test_clamped_bucket_table_equals_jax_bucket(num_buckets, max_distance):
     got = lut[_t(rel).clamp(-max_distance, max_distance) + max_distance].numpy()
     np.testing.assert_array_equal(got, want)
     assert got.min() >= 0 and got.max() == num_buckets - 1
+
+
+# --------------------------------------------- kernel 9's far/near split
+def _tile_class(q0, k0, thresholds, rows=64, keys=64):
+    """Kernel 9's class of a consumer's tile of ``rows`` queries from q0 and
+    ``keys`` keys from k0, as ``softmax_tile`` (csrc/attention_tile_sm90.cuh)
+    decides it from the wrapper's thresholds: "past" or "future" (one bias
+    value for the whole tile) or "near" (a lookup per score)."""
+    past, future = thresholds
+    if k0 + keys - 1 - q0 <= past:
+        return "past"
+    if k0 - (q0 + rows - 1) >= future:
+        return "future"
+    return "near"
+
+
+@pytest.mark.parametrize("n", [257, 300, 1037, 2049, 8000])
+@pytest.mark.parametrize("num_buckets,max_distance", [(32, 128), (16, 32)])
+def test_relpos_far_tiles_hold_one_bucket(n, num_buckets, max_distance):
+    """Every 64-row x 64-key tile that kernel 9 classes far (from the far
+    thresholds its wrapper computes) holds one JAX bucket over all its valid
+    (query, key) pairs, the bucket of its side; every tile with two buckets
+    is classed near; at 8,000 a row of tiles has at most 7 near ones."""
+    thresholds = tfa.relpos_far_thresholds(num_buckets, max_distance)
+    rel = np.arange(-(n - 1), n)
+    bucket = np.asarray(jax_bucket(jnp.asarray(rel), bidirectional=True,
+                                   num_buckets=num_buckets, max_distance=max_distance))
+    far_past, far_future = bucket[0], bucket[-1]  # rel -(n-1) and n-1
+    lut = clamped_bucket_table(num_buckets, max_distance).numpy()
+    assert (lut[0], lut[-1]) == (far_past, far_future)
+    most_near = 0
+    for q0 in range(0, n, 64):
+        near = 0
+        for k0 in range(0, n, 64):
+            # the valid pairs' key - query: one contiguous range
+            lo = k0 - min(q0 + 63, n - 1)
+            hi = min(k0 + 63, n - 1) - q0
+            seen = set(bucket[lo + n - 1:hi + n].tolist())
+            kind = _tile_class(q0, k0, thresholds)
+            if kind == "near":
+                near += 1
+            else:
+                assert seen == {far_past if kind == "past" else far_future}, (q0, k0)
+            if len(seen) > 1:
+                assert kind == "near", (q0, k0)
+        most_near = max(most_near, near)
+    if n == 8000 and num_buckets == 32:
+        assert most_near <= 7
+
+
+def test_relpos_far_thresholds_of_the_t5_buckets():
+    """At T5's 32 buckets and max distance 128 the last log bucket starts at
+    a distance of 91 on either side, so a tile is far from 91 + 126 = 217
+    positions off the diagonal rather than 128 + 126."""
+    assert tfa.relpos_far_thresholds(32, 128) == (-91, 91)
+
+
+@pytest.mark.parametrize("n", [256, 300])
+def test_fp32_relpos_attention_matches_jax(n):
+    """fp32 (the parity mode) on the CPU: the dispatch's plain route and the
+    custom VJP's (kernel 9's plain version) against JAX's relpos_attention in
+    fp32 on the same inputs, to 1e-4."""
+    q, k, v, table, mask = _relpos_inputs(n, 21, h=4, d=64)
+    want = np.asarray(jattn_relpos(*(jnp.asarray(a) for a in (q, k, v, table)),
+                                   kv_mask=jnp.asarray(mask), num_buckets=NB,
+                                   max_distance=MAXD))
+    got = tattn.relpos_attention(_t(q), _t(k), _t(v), _t(table), kv_mask=_t(mask),
+                                 num_buckets=NB, max_distance=MAXD)
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    got_vjp = tfa.flash_attention_relpos(*leaves, _t(table), _t(mask), NB, MAXD)
+    assert got.dtype == got_vjp.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    np.testing.assert_allclose(got_vjp.detach().numpy(), want, atol=ATOL)
 
 
 # ------------------------------------- plain versions against the JAX kernels
