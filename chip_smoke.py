@@ -48,8 +48,9 @@ is nonzero and the final line is not printed:
    materialized from the table) at the long-context shapes (1 and 4 x 8,000
    x H 32, the train micro-batch's and the generate batch's; the plain
    versions run there one batch row and 8 heads at a time), at 4 x 4,008
-   (120 frames) and at 2,049, 1,037, 300, 257 (near tiles only), with ragged
-   key masks and a fully masked batch row: the same bars as kernels 5-8,
+   (120 frames) and at 2,049, 1,037, 300, 257 (near tiles only), 100 and
+   40 (a backward work item's second 64-row half partly or wholly past the
+   end), with ragged key masks and a fully masked batch row: the same bars as kernels 5-8,
    dtable max |diff| <= 0.02 x max |plain| and bit-equal between two
    launches; the plain version with the table zeroed must fail the bar; a
    float16 call on the card must raise. Kernels 9-12 in fp32 (the parity
@@ -952,7 +953,9 @@ def check_relpos_kernels(torch, kernels):
     # "train": the train micro-batch's shape (1 video x 240 frames), timed
     # for kernels 10-12; "generate": the generate batch's shape (4 x 240
     # frames), timed for kernel 9; 4,008 is 4 x 120 frames; 257 has near
-    # tiles only (every |key - query| < 256).
+    # tiles only (every |key - query| < 256); at 40 the second consumer of
+    # a backward kernel's one 128-row work item owns no row, and 100 ends
+    # inside its second 64-row half.
     for b, n, mask_kind, role in ((1, LONG_ENCODER_LENGTH, None, "train"),
                                   (4, LONG_ENCODER_LENGTH, None, "generate"),
                                   (4, 4008, "tail", None),
@@ -960,7 +963,9 @@ def check_relpos_kernels(torch, kernels):
                                   (2, 1037, None, None),
                                   (2, 300, None, None),
                                   (2, 257, "tail", None),
-                                  (2, 300, "row1_all", None)):
+                                  (2, 300, "row1_all", None),
+                                  (2, 40, "tail", None),
+                                  (2, 100, None, None)):
         q, k, v, dout = (randn(b, n, heads, d) for _ in range(4))
         table = torch.randn(heads, nb, generator=gen, device=dev)
         kv_mask = torch.ones(b, n, dtype=torch.int8, device=dev)

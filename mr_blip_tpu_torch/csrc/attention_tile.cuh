@@ -1,16 +1,12 @@
-// The mma.sync helpers of the first Hopper tiles (sm_90a), shared by
-// int8_attn_block.cu (kernel 16, its two-pass attention) and, through
-// backward_tile.cuh, flash_relpos_backward.cu (the bf16 kernels 10-12):
-//  * TileLayout: 64-row tiles with the head dim zero-padded to a multiple of
-//    16 (DP) in shared memory only (D = 88 -> 96), rows padded by 8 elements
-//    so that fragment loads hit 32 distinct banks; load_tile fills one from
-//    device memory in the caller's layout and row stride, zero-filling the
-//    rows past the end;
+// The mma.sync helpers of the first Hopper tiles (sm_90a), left to
+// int8_attn_block.cu (kernel 16, its two-pass attention):
+//  * TileLayout: 64-row Q, K and V tiles with the head dim zero-padded to a
+//    multiple of 16 (DP) in shared memory only (D = 88 -> 96), rows padded by
+//    8 elements so that fragment loads hit 32 distinct banks; load_tile fills
+//    one from device memory in the caller's layout and row stride,
+//    zero-filling the rows past the end;
 //  * mma_16816 (mma.sync m16n8k16, bf16 in, fp32 accumulate) and the
-//    fragment helpers (pack_bf16, load_u32, quad_max, quad_sum);
-//  * the rel-pos lookup of kernels 10-12: bias_by_rel[c] = table[lut[c]] for
-//    the 2*maxd + 1 clamped relative positions, indexed by
-//    clamp(key - query, -maxd, maxd) + maxd.
+//    fragment helpers (pack_bf16, load_u32, quad_max, quad_sum).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,27 +30,8 @@ struct TileLayout {
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = q_off + size_t(BQ) * LD * 2;
   static constexpr size_t v_off = k_off + size_t(BK) * LD * 2;
-  static constexpr size_t bias_off = v_off + size_t(BK) * LD * 2;
-  static constexpr size_t keyok_off = bias_off + size_t(BQ) * BK * 2;
-  static constexpr size_t bytes = keyok_off + size_t(BK) * 4;
+  static constexpr size_t bytes = v_off + size_t(BK) * LD * 2;
 };
-
-// Largest clamp the shared bias_by_rel array of kernels 10-12 holds (2,048
-// floats).
-constexpr int MAX_RELPOS_DISTANCE = 1023;
-
-// bias_by_rel[c] = table[lut[c]] for c in [0, 2 * maxd], by the whole block.
-__device__ __forceinline__ void load_bias_by_rel(float* dst, const float* table,
-                                                 const int* lut, int maxd) {
-  for (int c = threadIdx.x; c <= 2 * maxd; c += blockDim.x) {
-    dst[c] = table[lut[c]];
-  }
-}
-
-// Index of key - query into bias_by_rel (or the bucket lut).
-__device__ __forceinline__ int rel_index(int key, int query, int maxd) {
-  return min(max(key - query, -maxd), maxd) + maxd;
-}
 
 // Copy rows [row0, row0 + 64) x [0, d) of a bf16 matrix into a (64, DP)
 // shared tile, 16 bytes per thread per step; rows past n_rows and columns

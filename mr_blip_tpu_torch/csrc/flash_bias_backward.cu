@@ -57,7 +57,7 @@ template <bool DKV, bool DBIAS>
 __global__ void __launch_bounds__(sm90::NTHREADS, 1)
 flash_bias_bwd_kernel(const __grid_constant__ sm90bwd::Problem p) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  sm90bwd::backward_persistent<DKV, DBIAS>(p, smem);
+  sm90bwd::backward_persistent<DKV, sm90::kBiasTile, DBIAS>(p, smem);
 }
 
 enum class Pass { kDq, kDqDbias, kDkv };
@@ -115,7 +115,7 @@ int launch_bf16(Pass pass, const Operands& o, cudaStream_t stream) {
   p.items = int(items);
   p.subs = pass == Pass::kDqDbias ? b : 1;
   p.scale = o.scale;
-  const size_t bytes = sm90bwd::Layout::alloc;
+  const size_t bytes = sm90bwd::Layout<sm90::kBiasTile, false>::alloc;  // all three
   switch (pass) {
     case Pass::kDq:
       return int(sm90::launch(flash_bias_bwd_kernel<false, false>, bytes, stream, p));

@@ -70,13 +70,15 @@ _SIGNATURES = {
     # the same in fp32 (the CUDA-core body of flash_attention.cu)
     "mrb_flash_relpos_fwd_stats_f32": [_P] * 8 + [_I] * 8 + [_F, _P],
     # q, k, v, table, lut, kv_mask, dout, lse, delta, dq, B, N, H, D, nb, maxd,
-    # scale, stream
-    "mrb_flash_relpos_bwd_dq_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
+    # the far thresholds past and future, scale, stream
+    "mrb_flash_relpos_bwd_dq_bf16": [_P] * 10 + [_I] * 8 + [_F, _P],
     # ... as above, then dq, dtable, partial (workspace), ...
-    "mrb_flash_relpos_bwd_dq_dtable_bf16": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "mrb_flash_relpos_bwd_dq_dtable_bf16": [_P] * 12 + [_I] * 8 + [_F, _P],
     # ... as above, then dk, dv, ...
-    "mrb_flash_relpos_bwd_dkv_bf16": [_P] * 11 + [_I] * 6 + [_F, _P],
-    # the same three in fp32 (the CUDA-core bodies of backward_f32.cuh)
+    "mrb_flash_relpos_bwd_dkv_bf16": [_P] * 11 + [_I] * 8 + [_F, _P],
+    # the same three in fp32 (the CUDA-core bodies of backward_f32.cuh),
+    # without the far thresholds: q, ..., outputs, B, N, H, D, nb, maxd,
+    # scale, stream
     "mrb_flash_relpos_bwd_dq_f32": [_P] * 10 + [_I] * 6 + [_F, _P],
     "mrb_flash_relpos_bwd_dq_dtable_f32": [_P] * 12 + [_I] * 6 + [_F, _P],
     "mrb_flash_relpos_bwd_dkv_f32": [_P] * 11 + [_I] * 6 + [_F, _P],

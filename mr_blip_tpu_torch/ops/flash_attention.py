@@ -557,7 +557,8 @@ flash_attention_bias.launches = 0
 
 
 # ------------------------------ in-kernel rel-pos flash (long-context encoder)
-# What the kernels' shared-memory tables hold (csrc/flash_relpos_backward.cu).
+# What the kernels' shared-memory tables hold (csrc/backward_tile_sm90.cuh,
+# csrc/backward_f32.cuh, csrc/attention_tile_sm90.cuh).
 MAX_RELPOS_BUCKETS = 32
 MAX_RELPOS_DISTANCE = 1023
 
@@ -677,17 +678,21 @@ def _flash_relpos_fwd_stats_cuda(q, k, v, table, kv_mask, num_buckets,
 def _relpos_bwd_launch(kernel, q, k, v, table, kv_mask, dout, lse, delta,
                        num_buckets, max_distance, outs):
     """Launch ``mrb_flash_relpos_bwd_<kernel>_<dtype>`` (bf16 or fp32, by
-    q's dtype) writing into ``outs``."""
+    q's dtype) writing into ``outs``; the bf16 entries also take the far
+    thresholds (their far/near tile split)."""
     b, n, h, d = q.shape
     kv_mask, lut = _relpos_operands(q, k, v, table, kv_mask, num_buckets,
                                     max_distance, ("dout", dout))
     _check_stats(lse, delta, b, h, n, q.device)
-    name = f"mrb_flash_relpos_bwd_{kernel}_{_FLASH_BIAS_ENTRIES[q.dtype]}"
+    suffix = _FLASH_BIAS_ENTRIES[q.dtype]
+    far = relpos_far_thresholds(num_buckets, max_distance) if suffix == "bf16" else ()
+    name = f"mrb_flash_relpos_bwd_{kernel}_{suffix}"
     err = getattr(_cuda.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
         lut.data_ptr(), kv_mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *[t.data_ptr() for t in outs], b, n, h, d,
-        num_buckets, max_distance, float(d ** -0.5), _cuda.stream_ptr(q.device))
+        num_buckets, max_distance, *far, float(d ** -0.5),
+        _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
 
 
@@ -722,15 +727,21 @@ def flash_relpos_bwd_dq_dtable(q, k, v, table, kv_mask, dout, lse, delta,
                                             delta, num_buckets, max_distance)
 
 
+def relpos_dtable_partials(b: int, n: int) -> int:
+    """Row count of kernel 11's partial-sum workspace (rows of (H, nb)) at
+    batch ``b`` and length ``n``: the bf16 kernel writes one per 64-row half
+    of every 128-query block of every batch row, zeros for a half past N
+    (the fp32 kernel one per 128-query block)."""
+    return b * 2 * -(-n // 128)
+
+
 def _flash_relpos_bwd_dq_dtable_cuda(q, k, v, table, kv_mask, dout, lse, delta,
                                      num_buckets, max_distance):
     b, n, h, _ = q.shape
     dq = torch.empty_like(q)
     dtable = torch.empty((h, num_buckets), dtype=torch.float32, device=q.device)
-    # One partial sum per (batch row, query block) block, head and bucket:
-    # blocks of 64 queries in bf16, 128 in fp32.
-    partial = torch.empty((b * -(-n // 64), h, num_buckets), dtype=torch.float32,
-                          device=q.device)
+    partial = torch.empty((relpos_dtable_partials(b, n), h, num_buckets),
+                          dtype=torch.float32, device=q.device)
     _relpos_bwd_launch("dq_dtable", q, k, v, table, kv_mask, dout, lse, delta,
                        num_buckets, max_distance, (dq, dtable, partial))
     flash_relpos_bwd_dq_dtable.launches += 1

@@ -1,4 +1,4 @@
-"""Kernels 2-9 of this checkout beside another checkout's, one card.
+"""Kernels 2-12 of this checkout beside another checkout's, one card.
 
     python3 -m mr_blip_tpu_torch.profile_flash_kernels --other DIR
 
@@ -11,10 +11,12 @@ the same inputs in turns (other, this, this, other) through the same C entries
 ``mrb_flash_bias_fwd_stats_bf16``, ``mrb_flash_attention``,
 ``mrb_flash_relpos_fwd_stats_bf16``, and the backward's
 ``mrb_flash_bias_bwd_dq_bf16``, ``mrb_flash_bias_bwd_dq_dbias_bf16``,
-``mrb_flash_bias_bwd_dkv_bf16``; each library bound with its own checkout's
+``mrb_flash_bias_bwd_dkv_bf16``, and the rel-pos backward's
+``mrb_flash_relpos_bwd_dq_bf16``, ``mrb_flash_relpos_bwd_dq_dtable_bf16``,
+``mrb_flash_relpos_bwd_dkv_bf16``; each library bound with its own checkout's
 C signatures, read from that checkout's ``ops/_cuda.py``), with one PyTorch
 call on the same inputs beside them: ``scaled_dot_product_attention`` for the
-forwards (over the materialized bias for kernel 9), its autograd backward
+forwards (over the materialized bias for kernels 9-12), its autograd backward
 (dq, dk and dv in one call) for the backward kernels. The fp32 entries of the
 backward kernels 6-8 are timed as the bf16 ones, those of the rel-pos kernels
 9-12 for this checkout alone, in turns (this, this), beside the fp32 library
@@ -26,7 +28,9 @@ kernel 4 at 240 x 677 through the views of a packed QKV projection, and at
 240 x 257; kernels 3 and 5 at 4 x 2,056 x H 32 x D 64 with the bias, kernel 3
 also at 4 x 8,000 over the materialized 3.8 GiB bias; kernel 9 at 4 and 1 x
 8,000 x H 32 x D 64; kernels 6-8 at 4 x 2,056 x H 32 x D 64 with the bias,
-lse and δ from the plain forward; the fp32 rel-pos kernels at 1 x 4,008).
+lse and δ from the plain forward; kernels 10-12 in bf16 at 1 x 8,000 and
+4 x 4,008, lse and δ from this checkout's kernel 9; the fp32 rel-pos kernels
+at 1 x 4,008).
 Before timing, each kernel's outputs on each shape are held against the
 other build's (max |diff| printed). Prints the card's name and power limit,
 then one JSON line per kernel and shape; needs a CUDA card and nvcc.
@@ -48,12 +52,14 @@ from mr_blip_tpu_torch.ops import _cuda
 from mr_blip_tpu_torch.ops import flash_attention as fa
 
 BWD = ("dq", "dq_dbias", "dkv")
+RELPOS_BWD = ("dq", "dq_dtable", "dkv")
 ENTRIES = ("mrb_qkv_packed_attention_bf16", "mrb_flash_bias_attention_bf16",
            "mrb_flash_bias_fwd_stats_bf16", "mrb_flash_attention",
            "mrb_flash_relpos_fwd_stats_bf16",
-           *(f"mrb_flash_bias_bwd_{k}_{t}" for k in BWD for t in ("bf16", "f32")))
+           *(f"mrb_flash_bias_bwd_{k}_{t}" for k in BWD for t in ("bf16", "f32")),
+           *(f"mrb_flash_relpos_bwd_{k}_bf16" for k in RELPOS_BWD))
 THIS_ONLY = ("mrb_flash_relpos_fwd_stats_f32",
-             *(f"mrb_flash_relpos_bwd_{k}_f32" for k in ("dq", "dq_dtable", "dkv")))
+             *(f"mrb_flash_relpos_bwd_{k}_f32" for k in RELPOS_BWD))
 NB, MAXD = 32, 128  # T5's rel-pos buckets
 
 
@@ -155,6 +161,7 @@ def cases(gen):
         del q, k, v, bias, out, lse, k3, k5, lib_call
 
     yield from relpos_cases(gen)
+    yield from relpos_backward_cases(gen)
     yield from backward_cases(gen, torch.bfloat16)
     yield from backward_cases(gen, torch.float32)
     yield from relpos_fp32_cases(gen)
@@ -192,6 +199,57 @@ def relpos_cases(gen, h=32, d=64):
                lambda q4=q4, k4_=k4_, v4=v4, bias=bias:
                F.scaled_dot_product_attention(q4, k4_, v4, attn_mask=bias), False)
         del q, k, v, table, mask, out, lse, bias, q4, k4_, v4, k9
+
+
+def relpos_backward_cases(gen, h=32, d=64):
+    """Kernels 10, 11 and 12 in bf16 at the long-context train shape (1 x
+    8,000) and at 4 x 4,008 (120 frames), the lse from this checkout's
+    kernel 9 and δ from its output, beside the library's autograd backward
+    over the materialized bias. The parent's C entries may lack the far
+    thresholds: the launch passes them only where the library's signature
+    has them (two ints more than the fp32 entry of the same kernel)."""
+    dev = "cuda"
+    stream = torch.cuda.current_stream().cuda_stream
+    past, future = fa.relpos_far_thresholds(NB, MAXD)
+    lut = fa._bucket_lut(NB, MAXD, torch.device(dev))
+    for b, n in ((1, 8000), (4, 4008)):
+        q, k, v, dout = (torch.randn((b, n, h, d), generator=gen, device=dev)
+                         .to(torch.bfloat16) for _ in range(4))
+        table = torch.randn(h, NB, generator=gen, device=dev)
+        mask = torch.ones(b, n, dtype=torch.int8, device=dev)
+        out, lse = fa.flash_relpos_fwd_stats(q, k, v, table, mask, NB, MAXD)
+        delta = torch.einsum("bnhd,bnhd->bhn", dout.float(), out.float()).contiguous()
+        bias = fa._relpos_bias(table, n, NB, MAXD).to(torch.bfloat16).contiguous()
+        qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias)
+        dout4 = dout.transpose(1, 2)
+
+        def library_call(lib_out=lib_out, qg=qg, kg=kg, vg=vg, dout4=dout4):
+            return torch.autograd.grad(lib_out, (qg, kg, vg), dout4, retain_graph=True)
+
+        ins = [t.data_ptr() for t in (q, k, v, table, lut, mask, dout, lse, delta)]
+        outs = {"dq": (torch.empty_like(q),),
+                "dq_dtable": (torch.empty_like(q), torch.empty(h, NB, device=dev),
+                              torch.empty(fa.relpos_dtable_partials(b, n), h, NB,
+                                          device=dev)),
+                "dkv": (torch.empty_like(k), torch.empty_like(v))}
+        unit = 2.0 * b * h * n * n * d  # one N x N x D product
+        for kernel, number, products in zip(RELPOS_BWD, (10, 11, 12), (3, 3, 4)):
+            name = f"mrb_flash_relpos_bwd_{kernel}_bf16"
+            n_args = len(_cuda._SIGNATURES[f"mrb_flash_relpos_bwd_{kernel}_f32"])
+
+            def launch(lib, name=name, res=outs[kernel], n_args=n_args, b=b, n=n,
+                       ins=ins):
+                fn = getattr(lib, name)
+                far = (past, future) if len(fn.argtypes) == n_args + 2 else ()
+                _check(fn(*ins, *[t.data_ptr() for t in res], b, n, h, d, NB, MAXD,
+                          *far, d ** -0.5, stream), name)
+                return res[:2]  # dq_dtable: (dq, dtable), not the workspace
+
+            yield (f"kernel {number} bf16 ({b}, {n}, {h}, {d})", products * unit, launch,
+                   library_call, False)
+        del q, k, v, dout, table, mask, out, lse, delta, bias, qg, kg, vg, lib_out
+        del dout4, ins, outs, library_call
 
 
 def relpos_fp32_cases(gen, b=1, n=4008, h=32, d=64):

@@ -318,6 +318,55 @@ def test_relpos_kernel_entry_by_dtype(recorder, kernel, dtype, suffix):
     assert shapes[-2] == pytest.approx(d ** -0.5) and shapes[-1] == 0
 
 
+@pytest.mark.parametrize("kernel", ["bwd_dq", "bwd_dq_dtable", "bwd_dkv"])
+@pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "bf16"),
+                                          (torch.float32, "f32")])
+def test_relpos_backward_far_thresholds_by_dtype(recorder, kernel, dtype, suffix):
+    """The bf16 rel-pos backward entries (kernels 10-12 on the Hopper
+    backward tile, with its far/near tile split) receive the far thresholds
+    the wrapper computes from the bucket table, as past and future after nb
+    and maxd; the fp32 entries' argument lists have none."""
+    ops = _relpos_operands(kernel, dtype)
+    launch, _, n_out = _RELPOS[kernel]
+    launch(*ops)
+    (name, args), = recorder.calls
+    shapes = args[9 + n_out:]
+    assert shapes[:6] == tuple(ops[0].shape) + (_NB, _MAXD)
+    if suffix == "bf16":
+        assert shapes[6:8] == tfa.relpos_far_thresholds(_NB, _MAXD) == (-91, 91)
+        assert len(shapes) == 10
+    else:
+        assert len(shapes) == 8
+
+
+@pytest.mark.parametrize("n", [1, 40, 64, 65, 257, 8000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_relpos_dtable_workspace_holds_every_partial(recorder, monkeypatch, n, dtype):
+    """The workspace kernel 11's wrapper hands its C entry holds every partial
+    sum the entry documents it writes: in bf16 one per (batch row, 64-row
+    half of each 128-query block, head, bucket), the halves past N included
+    (at N <= 64 a block's second half owns no row and writes zeros); in fp32
+    one per (batch row, 128-query block, head, bucket)."""
+    b, h = 2, 2
+    made = {}
+    real_empty = torch.empty
+
+    def empty(*args, **kw):
+        t = real_empty(*args, **kw)
+        made[t.data_ptr()] = t
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    ops = _relpos_operands("bwd_dq_dtable", dtype, b=b, n=n, h=h)
+    tfa._flash_relpos_bwd_dq_dtable_cuda(*ops)
+    (name, args), = recorder.calls
+    partial = made[args[11]]  # after the 9 operands, dq and dtable
+    blocks = -(-n // 128)
+    writes = b * (2 * blocks if dtype == torch.bfloat16 else blocks) * h * _NB
+    assert partial.dtype == torch.float32 and partial.is_contiguous()
+    assert partial.numel() >= writes
+
+
 @pytest.mark.parametrize("kernel", sorted(_RELPOS))
 def test_relpos_kernels_refuse_float16(recorder, kernel):
     launch, wrapper, _ = _RELPOS[kernel]

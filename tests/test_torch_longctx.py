@@ -100,8 +100,10 @@ def test_clamped_bucket_table_equals_jax_bucket(num_buckets, max_distance):
 def _tile_class(q0, k0, thresholds, rows=64, keys=64):
     """Kernel 9's class of a consumer's tile of ``rows`` queries from q0 and
     ``keys`` keys from k0, as ``softmax_tile`` (csrc/attention_tile_sm90.cuh)
-    decides it from the wrapper's thresholds: "past" or "future" (one bias
-    value for the whole tile) or "near" (a lookup per score)."""
+    and the dQ pass of kernels 10-11 (``ds_of_tile_rel``,
+    csrc/backward_tile_sm90.cuh) decide it from the wrapper's thresholds:
+    "past" or "future" (one bias value for the whole tile) or "near" (a
+    lookup per score)."""
     past, future = thresholds
     if k0 + keys - 1 - q0 <= past:
         return "past"
@@ -110,13 +112,29 @@ def _tile_class(q0, k0, thresholds, rows=64, keys=64):
     return "near"
 
 
+def _tile_class_dkv(kw, t0, thresholds, keys=64, queries=64):
+    """Kernel 12's class of a consumer's tile of ``keys`` owned keys from kw
+    by ``queries`` streamed queries from t0, as ``pds_of_tile_rel``
+    (csrc/backward_tile_sm90.cuh) decides it: key - query spans
+    [kw - (t0 + queries - 1), kw + keys - 1 - t0]."""
+    past, future = thresholds
+    if kw + keys - 1 - t0 <= past:
+        return "past"
+    if kw - (t0 + queries - 1) >= future:
+        return "future"
+    return "near"
+
+
+@pytest.mark.parametrize("orientation", ["dq", "dkv"])
 @pytest.mark.parametrize("n", [257, 300, 1037, 2049, 8000])
 @pytest.mark.parametrize("num_buckets,max_distance", [(32, 128), (16, 32)])
-def test_relpos_far_tiles_hold_one_bucket(n, num_buckets, max_distance):
-    """Every 64-row x 64-key tile that kernel 9 classes far (from the far
-    thresholds its wrapper computes) holds one JAX bucket over all its valid
-    (query, key) pairs, the bucket of its side; every tile with two buckets
-    is classed near; at 8,000 a row of tiles has at most 7 near ones."""
+def test_relpos_far_tiles_hold_one_bucket(n, num_buckets, max_distance, orientation):
+    """Every 64 x 64 tile that a kernel classes far (from the far thresholds
+    its wrapper computes) holds one JAX bucket over all its valid (query,
+    key) pairs, the bucket of its side; every tile with two buckets is
+    classed near; at 8,000 a row of tiles has at most 7 near ones. "dq":
+    owned queries, streamed keys (kernel 9 and the dQ pass of kernels 10-11);
+    "dkv": owned keys, streamed queries (the dK/dV pass of kernel 12)."""
     thresholds = tfa.relpos_far_thresholds(num_buckets, max_distance)
     rel = np.arange(-(n - 1), n)
     bucket = np.asarray(jax_bucket(jnp.asarray(rel), bidirectional=True,
@@ -125,14 +143,16 @@ def test_relpos_far_tiles_hold_one_bucket(n, num_buckets, max_distance):
     lut = clamped_bucket_table(num_buckets, max_distance).numpy()
     assert (lut[0], lut[-1]) == (far_past, far_future)
     most_near = 0
-    for q0 in range(0, n, 64):
+    for r0 in range(0, n, 64):  # the consumer's owned rows
         near = 0
-        for k0 in range(0, n, 64):
+        for c0 in range(0, n, 64):  # the streamed tile
+            q0, k0 = (r0, c0) if orientation == "dq" else (c0, r0)
             # the valid pairs' key - query: one contiguous range
             lo = k0 - min(q0 + 63, n - 1)
             hi = min(k0 + 63, n - 1) - q0
             seen = set(bucket[lo + n - 1:hi + n].tolist())
-            kind = _tile_class(q0, k0, thresholds)
+            kind = (_tile_class(q0, k0, thresholds) if orientation == "dq"
+                    else _tile_class_dkv(k0, q0, thresholds))
             if kind == "near":
                 near += 1
             else:
