@@ -252,6 +252,10 @@ INT8_TOL = {"w8a8_linear": 0.35, "w8a8_mlp": 0.4, "w8a8_mlp_gated": 0.4,
             "w8a8_attn_block": 0.05}
 ULP_BAR = 2
 INT8_VS_BF16_COSINE_MIN = 0.99
+# Phase 13's int8 peak when kernel 14 kept its fp32 hidden in a workspace
+# (M x H x 4 bytes; NVIDIA H100 80GB HBM3, 700 W), printed beside the peak
+# of the run.
+INT8_BIG_PEAK_FP32_HIDDEN_GIB = 10.61
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for bound_ms.
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_HBM_BYTES = 989e12, 1979e12, 3.35e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
@@ -2269,9 +2273,12 @@ def main():
     lib = _cuda.build()
     _cuda.library()
     say(f"kernels built and loaded in {time.time() - t0:.1f} s: {lib.relative_to(ROOT)}")
-    for line in (lib.parent / "ptxas.log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
+    log = (lib.parent / "ptxas.log").read_text().splitlines()
+    for line in log:
+        if "Used" in line or "spill" in line or "C75" in line:
             say("  ptxas:", line.strip())
+    say(f"  ptxas: {sum('C75' in line for line in log)} C75xx lines (serialized or "
+        "drained wgmma)")
 
     wrappers, kernels = kernel_tables()
 
@@ -2330,7 +2337,8 @@ def main():
         + ", ".join(f"{k} {big_summary[k]:.3f} vs {big_int8_summary[k]:.3f}"
                     for k in ("steady_s", "frames_to_qformer_s", "t5_encode_s", "decode_s"))
         + f"; peak memory {big_summary['peak_gib']:.2f} vs "
-        f"{big_int8_summary['peak_gib']:.2f} GiB")
+        f"{big_int8_summary['peak_gib']:.2f} GiB (int8 with kernel 14's fp32 hidden "
+        f"workspace: {INT8_BIG_PEAK_FP32_HIDDEN_GIB} GiB)")
     fp32_path(torch, wrappers)
     # phase 14: two-stage grounded QA at 364 pixels
     qa_path(torch, wrappers)

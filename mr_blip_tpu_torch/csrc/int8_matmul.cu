@@ -13,24 +13,27 @@
 // tensor cores' int8 rate at every main-path shape; the bytes of x, the
 // weights and the output are 3 to 10 times cheaper.
 //
-// Design: each C entry runs the device kernels of int8_tile.cuh in a row on
-// the caller's stream, with the intermediates in a workspace the caller
-// allocates:
+// Design: each C entry runs device kernels in a row on the caller's stream,
+// with the intermediates in a workspace the caller allocates:
 //  * linear: norm_quant_rows -> int8_gemm (bias + residual -> bf16);
-//  * MLP: norm_quant_rows -> int8_gemm fc1 (bias -> tanh-GELU -> fp32 hidden)
-//    -> requant_chunks -> int8_gemm fc2 over the hidden chunks (each chunk's
-//    int32 sum scaled by its own row scale into an fp32 sum; bias + residual
-//    -> bf16);
-//  * gated MLP: as the MLP with two first products: wi_0 writes gelu(g) as
-//    fp32, wi_1 multiplies its dequantized product into it.
+//  * MLP (int8_tile_sm90.cuh): norm_quant_rows -> fc1_requant (`wgmma` on a
+//    TMA ring, persistent clusters of blocks; bias -> tanh-GELU -> the (row,
+//    chunk) maxima exchanged in the cluster -> int8 hidden and its scales)
+//    -> fc2 (`wgmma` over the hidden chunks, each chunk's int32 sum scaled by
+//    its own row scale into an fp32 sum; bias + residual -> bf16). The fp32
+//    hidden never reaches device memory;
+//  * gated MLP: norm_quant_rows -> int8_gemm wi_0 (gelu(g) as an fp32 hidden)
+//    -> int8_gemm wi_1 (its dequantized product multiplied in) ->
+//    requant_chunks -> int8_gemm wo over the hidden chunks.
 // The hidden chunk width (`block_h`) is part of the function: every (row,
 // chunk) has its own requantization scale, and the row maximum of a chunk
-// must be known before any of it is quantized. So the fp32 hidden makes one
-// round trip through device memory (M x H x 4 bytes written, read once by
-// requant_chunks; the second product reads M x H int8). On the TPU it stays
-// in VMEM; keeping it on chip here needs a block that owns whole chunks of a
-// few rows, which is left for a later version.
+// must be known before any of it is quantized. The MLP's fc1 covers a chunk
+// with one cluster of blocks (the wrapper's plan: ops/int8_matmul.py::
+// _mlp_plan); the gated MLP still makes the round trip of its fp32 hidden
+// through device memory (M x H x 4 bytes written, read once by
+// requant_chunks).
 #include "int8_tile.cuh"
+#include "int8_tile_sm90.cuh"
 
 namespace mrb {
 
@@ -123,38 +126,42 @@ extern "C" int mrb_w8a8_linear(const void* x, const void* ls, const void* lb,
 }
 
 // fc1: w1 (H, D) int8, s1, b1 (H); fc2: w2 (D, H) int8, s2, b2 (D). Hidden
-// chunks of block_h columns. Workspace: xq (M, D) int8, sa (M), h32 (M, H)
-// fp32, hq (M, H) int8, sh (M, H / block_h) fp32.
+// chunks of block_h columns, each covered by a cluster of fc1_cluster fc1
+// blocks of 192 columns (192 x fc1_cluster == block_h). Workspace: xq (M, D)
+// int8, sa (M), hq (M, H) int8, sh (M, H / block_h) fp32.
 extern "C" int mrb_w8a8_mlp(const void* x, const void* ls, const void* lb,
                             int norm_kind, float eps, const void* w1,
                             const void* s1, const void* b1, const void* w2,
                             const void* s2, const void* b2,
                             const void* residual, void* out, void* xq, void* sa,
-                            void* h32, void* hq, void* sh, int m, int d,
-                            int hdim, int block_h, void* stream) {
+                            void* hq, void* sh, int m, int d, int hdim,
+                            int block_h, int fc1_cluster, void* stream) {
   using namespace mrb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Stage in{static_cast<const bf16*>(x), static_cast<const float*>(ls),
                  static_cast<const float*>(lb), norm_kind, eps,
                  static_cast<int8_t*>(xq), static_cast<float*>(sa), m, d};
   MRB_TRY(quantize_input(in, st));
-  GemmArgs fc1{in.xq, in.sa, static_cast<const int8_t*>(w1),
-               static_cast<const float*>(s1), static_cast<const float*>(b1),
-               nullptr, h32, m, hdim, d, d};
-  MRB_TRY((launch_int8_gemm<EPI_GELU_F32, false>(fc1, st)));
-  MRB_TRY(launch_requant_chunks(static_cast<const float*>(h32),
-                                static_cast<int8_t*>(hq),
-                                static_cast<float*>(sh), m, hdim, block_h, st));
-  GemmArgs fc2{static_cast<const int8_t*>(hq), static_cast<const float*>(sh),
-               static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
-               static_cast<const float*>(b2),
-               static_cast<const bf16*>(residual), out, m, d, hdim, block_h};
-  MRB_TRY((launch_int8_gemm<EPI_BF16, true>(fc2, st)));
+  MRB_TRY(i8sm90::launch_mlp_products(
+      in.xq, in.sa, static_cast<const int8_t*>(w1), static_cast<const float*>(s1),
+      static_cast<const float*>(b1), static_cast<const int8_t*>(w2),
+      static_cast<const float*>(s2), static_cast<const float*>(b2),
+      static_cast<const bf16*>(residual), static_cast<bf16*>(out),
+      static_cast<int8_t*>(hq), static_cast<float*>(sh), m, d, hdim, block_h,
+      fc1_cluster, st));
   return 0;
 }
 
+// How many clusters of fc1_cluster fc1 blocks the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *active: 0 for a size it cannot
+// co-schedule.
+extern "C" int mrb_w8a8_mlp_active_clusters(int fc1_cluster, void* active) {
+  return int(mrb::i8sm90::fc1_active_clusters(fc1_cluster, static_cast<int*>(active)));
+}
+
 // wi_0, wi_1: (H, D) int8 with s0, s1 (H); wo (D, H) int8 with so (D); no
-// bias. Workspace as mrb_w8a8_mlp.
+// bias. Workspace: xq (M, D) int8, sa (M), h32 (M, H) fp32, hq (M, H) int8,
+// sh (M, H / block_h) fp32.
 extern "C" int mrb_w8a8_mlp_gated(const void* x, const void* ls, const void* lb,
                                   int norm_kind, float eps, const void* w0,
                                   const void* s0, const void* w1,

@@ -1,10 +1,11 @@
 // Building blocks of the W8A8 kernels (int8_matmul.cu, int8_attn_block.cu):
 // the per-row quantization pass and the int8 tensor-core GEMM with its fused
-// epilogues.
+// epilogues. The GELU MLP (kernel 14) takes only the quantization pass from
+// here: its products run on the `wgmma` tile of int8_tile_sm90.cuh.
 //
-// Design (first version for Hopper, sm_90a). Every W8A8 function is a short
-// chain of these device kernels behind one C entry, with the int8 operands
-// and their fp32 scales in a workspace that the caller allocates:
+// Design (first version for Hopper, sm_90a). Every other W8A8 function is a
+// short chain of these device kernels behind one C entry, with the int8
+// operands and their fp32 scales in a workspace that the caller allocates:
 //  * norm_quant_rows: one warp per row keeps the row in shared memory as
 //    fp32, applies the optional LayerNorm / RMSNorm with fp32 statistics,
 //    finds max |x| and writes the row as int8 with its scale;
@@ -21,7 +22,8 @@
 //    Epilogues: bias + residual -> bf16; bias -> tanh-GELU -> fp32; multiply
 //    into an fp32 matrix (the gate of a gated MLP);
 //  * requant_chunks (int8_matmul.cu): one warp per (row, hidden chunk) reads
-//    the fp32 hidden activation and writes it as int8 with the chunk's scale.
+//    the gated MLP's fp32 hidden activation and writes it as int8 with the
+//    chunk's scale.
 // The arithmetic that feeds a rounding to int8 uses the _rn intrinsics, so
 // the compiler cannot contract it into fused multiply-adds: the plain
 // PyTorch versions round after every operation, and a changed last bit

@@ -1,0 +1,723 @@
+// The Hopper (sm_90a) int8 tile of the W8A8 GELU MLP (kernel 14,
+// int8_matmul.cu::mrb_w8a8_mlp): fc1 with the hidden activation's
+// requantization in its epilogue, and fc2 over the hidden chunks. Built on
+// the primitives of attention_tile_sm90.cuh (TMA, mbarriers, `wgmma`
+// descriptors), included, not copied.
+//
+// What bounds the MLP on this card: the int8 operations, 2 M D H in each
+// product (1.067 TOP at 61,680 x 1,408 x 6,144), at 1,979 TOP/s only
+// through `wgmma`; the tiles that reach each SM's shared memory come to K
+// (1/128 + 1/TN) bytes an output element, and fc1's epilogue is ~45
+// instructions an element (tanhf, __fdiv_rn), about as long on the card as
+// its products at the peak. The first version
+// (int8_tile.cuh) ran `mma.sync` m16n8k32 fed by a 2-stage cp.async ring,
+// and the hidden made a full fp32 round trip through device memory (M H 4
+// bytes written by fc1, read by a requantizing pass). Here:
+//
+//  * a block is consumer warpgroups of 64 rows each (three in fc1: a
+//    192-row tile, setmaxnreg 160/24; two in fc2, whose fp32 sums take the
+//    registers: 128 rows, 232/40) and a producer warpgroup, whose registers
+//    go to the consumers; one of its threads keeps a ring of STAGES stages
+//    in flight with TMA, 128 bytes of K a stage (the activation tile and
+//    the weight tile, TN rows; both K-major, so `wgmma.mma_async
+//    m64nTNk32.s32.s8.s8` reads both from shared memory). A row of a stage
+//    is 128 bytes in the 128-byte swizzle: the byte layout of a bf16 tile
+//    of 64 columns, so the tensor maps are the bf16 maps of
+//    attention_tile_sm90.cuh over the int8 matrices seen as bf16 pairs, and
+//    the descriptors step 32 bytes per k32 step as the bf16 tile steps per
+//    k16 step;
+//  * fc1's blocks that share a row tile and a hidden chunk of block_h = 192
+//    x cluster columns form a thread-block cluster. The epilogue (12 warps),
+//    in registers: dequantize (acc * (sa[m] * s1[h])), add b1, tanh-GELU, in
+//    the order and roundings of int8_tile.cuh; each row's |max| over the
+//    block's 192 columns; each block writes its 192 partial maxima into
+//    every block's shared memory (distributed shared memory,
+//    `st.shared::cluster`), and after one cluster barrier every block has
+//    the chunk's row maxima (max is exact in any order: the scale equals the
+//    plain version's). Each block then quantizes its registers and writes
+//    int8 hq through a shared staging tile, 16 bytes a thread-step; the
+//    cluster's first block writes the (row, chunk) scale sh. The fp32 hidden
+//    never reaches device memory;
+//  * fc1 is persistent: a cluster walks (row tile, chunk) items, and its
+//    producers load the next item's first stages while the consumers run
+//    the epilogue (the cluster barrier of an item is passed by the producer
+//    after those loads), so the epilogue overlaps the loads. The maxima are
+//    double-buffered by item parity;
+//  * fc2 runs K in the hidden chunks: at each chunk's end (after
+//    wgmma_wait<0>) the int32 sums fold into an fp32 sum as
+//    acc * (sh[m, chunk] * s2[d]), in chunk order; the epilogue adds b2 and
+//    the residual and rounds once to bf16.
+// Rows past M are zero-filled by TMA and never stored. Measured and left
+// out (PERF.md): multicasting the activation tile across the cluster (its
+// cluster-scope barriers and remote arrives cost more than it saved),
+// 96-column fc1 tiles at two blocks an SM (more bytes an output element),
+// deeper rings (no gain), fc1's GELU run from a shared-memory copy of the
+// tile between the next item's `wgmma` issue and wait (slower), and fc1 on
+// two consumer warpgroups (slower than three).
+#pragma once
+
+#include "attention_tile_sm90.cuh"
+#include "int8_tile.cuh"
+
+namespace mrb {
+namespace i8sm90 {
+
+using sm90::make_desc;
+using sm90::mbar_arrive;
+using sm90::mbar_arrive_expect;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::quad_max;
+using sm90::smem_u32;
+using sm90::wgmma_commit;
+using sm90::wgmma_fence;
+using sm90::wgmma_wait;
+
+constexpr int KT = 128;                 // bytes of K a stage
+constexpr int FC1_TN = 192;             // fc1 columns a block
+constexpr int FC2_TN = 176;             // fc2 columns a block (1,408 = 8 x 176)
+constexpr int MAX_CLUSTER = 8;
+
+// A block: WGS consumer warpgroups of 64 rows each beside a producer
+// warpgroup, and the registers a thread keeps after setmaxnreg.
+template <int WGS>
+struct Block {
+  static constexpr int BM = 64 * WGS;  // rows of a block tile
+  static constexpr int CONSUMER_THREADS = 128 * WGS;
+  static constexpr int THREADS = CONSUMER_THREADS + 128;
+  static constexpr int A_BYTES = BM * KT;
+  static constexpr int PRODUCER_REGS = WGS == 2 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = WGS == 2 ? 232 : 160;
+  static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMER_THREADS <= 65536,
+                "registers of an SM");
+};
+// fc1: three consumer warpgroups (192 rows: fewer weight bytes an output
+// element, 12 warps for the epilogue); fc2 two (its fp32 sums need the
+// registers).
+using Fc1Block = Block<3>;
+using Fc2Block = Block<2>;
+
+// Shared memory from a 1024-byte aligned base: the ring (each stage the
+// activation tile, then the weight tile), the barriers, and for fc1 the
+// cluster's row maxima (two sets, by item parity) and the int8 staging tile.
+template <int TN, int STAGES_, bool FC1, class B>
+struct Layout {
+  using Blk = B;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int STAGE = B::A_BYTES + TN * KT;  // a multiple of 1024
+  static constexpr int full_off = STAGES * STAGE;
+  static constexpr int empty_off = full_off + STAGES * 8;
+  static constexpr int red_off = empty_off + STAGES * 8;
+  static constexpr int RED_SET = MAX_CLUSTER * B::BM * 4;
+  static constexpr int out_off = red_off + (FC1 ? 2 * RED_SET : 0);
+  static constexpr int OUT_STRIDE = TN + 16;  // staged hq row: no bank conflict
+  static constexpr int bytes = out_off + (FC1 ? B::BM * OUT_STRIDE : 0);
+  static constexpr int alloc = bytes + 1024;  // room to align the base
+  static_assert(alloc <= 232448, "shared memory of a block");
+};
+
+using Fc1Layout = Layout<FC1_TN, 3, true, Fc1Block>;
+template <int TN>
+using Fc2Layout = Layout<TN, 4, false, Fc2Block>;
+
+struct Fc1Args {
+  CUtensorMap map_a;  // xq (M, D) as bf16 pairs, boxes of 64 x 128
+  CUtensorMap map_b;  // w1 (H, D) as bf16 pairs, boxes of 64 x 192
+  const float* sa;    // (M)
+  const float* s1;    // (H)
+  const float* b1;    // (H)
+  int8_t* hq;         // (M, H) out
+  float* sh;          // (M, H / block_h) out
+  int m, d, hdim, n_seg;
+  int items;          // row tiles x chunks
+};
+
+struct Fc2Args {
+  CUtensorMap map_a;  // hq (M, H) as bf16 pairs, boxes of 64 x 128
+  CUtensorMap map_b;  // w2 (D, H) as bf16 pairs, boxes of 64 x TN
+  const float* sh;    // (M, n_seg)
+  const float* s2;    // (D)
+  const float* b2;    // (D) or null
+  const bf16* residual;  // (M, D) or null
+  bf16* out;             // (M, D)
+  int m, d, hdim, n_seg, seg_tiles;
+};
+
+// ------------------------------------------------------ cluster primitives
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster; orders the shared-memory
+// writes before it (local and remote) before the reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of the same shared-memory location in block `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_f32(uint32_t cluster_addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(cluster_addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------------ wgmma
+// d (64 x 176, int32) (+)= A·Bᵀ, both int8 and K-major in shared memory
+// (m64n176k32); `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_s8_n176(int (&d)[88], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %90, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n176k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87"
+      "}, %88, %89, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 192, int32) (+)= A·Bᵀ, both int8 and K-major in shared memory
+// (m64n192k32); `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_s8_n192(int (&d)[96], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int TN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[TN / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  static_assert(TN == 176 || TN == 192, "instantiated widths");
+  if constexpr (TN == 176) wgmma_s8_n176(d, da, db, accumulate);
+  if constexpr (TN == 192) wgmma_s8_n192(d, da, db, accumulate);
+}
+
+// ---------------------------------------------------------------- the ring
+// Stage g of a block's sequence of K tiles (it runs on across fc1's items)
+// lives in slot g % STAGES, in its (g / STAGES)-th round.
+template <class L>
+__device__ __forceinline__ void init_ring(uint32_t sbase) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(sbase + L::full_off + s * 8, 1);  // the producer; then the TMA bytes
+      mbar_init(sbase + L::empty_off + s * 8, L::Blk::CONSUMER_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// Load stage g: wait until its slot is free, expect its bytes, load the
+// activation tile (rows m0..) and the weight tile (rows n0..) of K tile kt.
+template <class L>
+__device__ __forceinline__ void load_stage(const CUtensorMap* map_a,
+                                           const CUtensorMap* map_b, uint32_t sbase,
+                                           int g, int kt, int m0, int n0) {
+  const int s = g % L::STAGES;
+  const uint32_t full = sbase + L::full_off + s * 8;
+  mbar_wait(sbase + L::empty_off + s * 8, ((g / L::STAGES) & 1) ^ 1);
+  mbar_arrive_expect(full, L::STAGE);
+  const uint32_t stage = sbase + s * L::STAGE;
+  tma_load_2d(stage, map_a, full, kt * 64, m0);
+  tma_load_2d(stage + L::Blk::A_BYTES, map_b, full, kt * 64, n0);
+}
+
+// A consumer warpgroup's products over k_tiles K tiles from stage g0 on:
+// acc = the int32 sums of its 64 rows x TN columns. One group of four k32
+// steps a stage stays in flight while the next stage's is issued; a stage
+// goes back to the producer when its group is done. K runs in segments of
+// seg_tiles stages (seg_tiles divides k_tiles); at each segment's end the
+// group is drained and `fold(segment)` reads acc (the next segment's first
+// step overwrites it). Nothing in the inner loop writes acc but the
+// products: a register write there (even fence_regs in a branch) makes
+// ptxas drain every group at the loop's back-edge (C7517), and a divergent
+// branch near `wgmma` makes it serialize them all (C7518).
+template <int TN, class L, class Fold>
+__device__ __forceinline__ void consume(int (&acc)[TN / 2], uint32_t sbase, int wg,
+                                        int g0, int k_tiles, int seg_tiles, Fold fold) {
+  auto release = [&](int g) { mbar_arrive(sbase + L::empty_off + (g % L::STAGES) * 8); };
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0;
+  fence_regs(acc);
+  for (int seg = 0; seg * seg_tiles < k_tiles; ++seg) {
+    const int k0 = seg * seg_tiles;
+    for (int j = 0; j < seg_tiles; ++j) {
+      const int g = g0 + k0 + j;
+      const int s = g % L::STAGES;
+      mbar_wait(sbase + L::full_off + s * 8, (g / L::STAGES) & 1);
+      const uint32_t a = sbase + s * L::STAGE + wg * 64 * KT;
+      const uint32_t b = sbase + s * L::STAGE + L::Blk::A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KT / 32; ++ks) {
+        wgmma_s8<TN>(acc, make_desc(a + ks * 32, 0), make_desc(b + ks * 32, 0),
+                     j > 0 || ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (j > 0) release(g - 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(g0 + k0 + seg_tiles - 1);
+    fold(seg);
+  }
+}
+
+// -------------------------------------------------------------------- fc1
+// hq (M, H) int8 and sh (M, H / block_h) = the requantized
+// gelu(xq (M, D) · w1ᵀ * (sa * s1) + b1). Item i of a cluster is row tile
+// i / n_chunks and hidden chunk i % n_chunks; block `rank` of the cluster
+// owns the chunk's columns 192 rank... The consumers' part of one item:
+// products, epilogue, the cluster's exchange of row maxima, int8 out.
+// The q-th item of this block's cluster; what the item needs is derived from
+// q, the launch and the special registers, not kept live across the loop:
+// 160 registers a consumer thread hold the 96 accumulators and then the 96
+// GELU values, with little to spare.
+__device__ __forceinline__ void fc1_item(const Fc1Args& p, unsigned char* base,
+                                         uint32_t sbase, int q) {
+  using L = Fc1Layout;
+  constexpr int TN = FC1_TN;
+  constexpr int BM = L::Blk::BM;
+  constexpr int CONSUMER_THREADS = L::Blk::CONSUMER_THREADS;
+  uint32_t cluster_dim;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(cluster_dim));
+  const int cluster = int(cluster_dim);
+  const uint32_t rank = cluster_rank();
+  const int item = blockIdx.x / cluster + q * (gridDim.x / cluster);
+  const int k_tiles = (p.d + KT - 1) / KT;
+  const int g0 = q * k_tiles, parity = q & 1;
+  const int m0 = (item / p.n_seg) * BM;
+  const int chunk = item % p.n_seg;
+  const int n0 = chunk * FC1_TN * cluster + int(rank) * FC1_TN;
+  const int wg = sm90::warpgroup_index();
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rl = wg * 64 + warp * 16 + g;  // this thread's rows: rl, rl + 8
+  const int row_a = m0 + rl, row_b = row_a + 8;
+  int acc[TN / 2];
+  consume<TN, L>(acc, sbase, wg, g0, k_tiles, k_tiles, [](int) {});
+
+  // acc[4j + 2h + e] is row rl + 8h, column n0 + 8j + 2t + e.
+  const float sa_a = row_a < p.m ? p.sa[row_a] : 0.f;
+  const float sa_b = row_b < p.m ? p.sa[row_b] : 0.f;
+  float h[TN / 2];
+  float max_a = 0.f, max_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    const float2 sc = *reinterpret_cast<const float2*>(p.s1 + col);
+    const float2 bc = *reinterpret_cast<const float2*>(p.b1 + col);
+    const float sw[2] = {sc.x, sc.y}, bw[2] = {bc.x, bc.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float sa = e < 2 ? sa_a : sa_b;
+      const float v = gelu_tanh(__fadd_rn(
+          __fmul_rn(float(acc[4 * j + e]), __fmul_rn(sa, sw[e & 1])), bw[e & 1]));
+      h[4 * j + e] = v;
+      if (e < 2) {
+        max_a = fmaxf(max_a, fabsf(v));
+      } else {
+        max_b = fmaxf(max_b, fabsf(v));
+      }
+    }
+  }
+  max_a = quad_max(max_a);
+  max_b = quad_max(max_b);
+  const uint32_t red = sbase + L::red_off + parity * L::RED_SET;
+  if (t == 0) {
+    for (int c = 0; c < cluster; ++c) {
+      st_cluster_f32(map_rank(red + (rank * BM + rl) * 4, uint32_t(c)), max_a);
+      st_cluster_f32(map_rank(red + (rank * BM + rl + 8) * 4, uint32_t(c)), max_b);
+    }
+  }
+  cluster_sync();
+  const float* maxima =
+      reinterpret_cast<const float*>(base + L::red_off + parity * L::RED_SET);
+  float chunk_a = 0.f, chunk_b = 0.f;
+  for (int c = 0; c < cluster; ++c) {
+    chunk_a = fmaxf(chunk_a, maxima[c * BM + rl]);
+    chunk_b = fmaxf(chunk_b, maxima[c * BM + rl + 8]);
+  }
+  const float s_a = quant_scale(chunk_a), s_b = quant_scale(chunk_b);
+  if (rank == 0 && t == 0) {
+    if (row_a < p.m) p.sh[long(row_a) * p.n_seg + chunk] = s_a;
+    if (row_b < p.m) p.sh[long(row_b) * p.n_seg + chunk] = s_b;
+  }
+
+  // Quantize into the staging tile, then 16 bytes a thread-step out. The
+  // last item's copy-out is done before this one's writes: the cluster
+  // barrier above comes after it in every consumer thread.
+  int8_t* stage = reinterpret_cast<int8_t*>(base + L::out_off);
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float s = hh == 0 ? s_a : s_b;
+      char2 q;
+      q.x = (signed char)quant_value(h[4 * j + 2 * hh], s);
+      q.y = (signed char)quant_value(h[4 * j + 2 * hh + 1], s);
+      *reinterpret_cast<char2*>(stage + (rl + 8 * hh) * L::OUT_STRIDE + 8 * j + 2 * t) = q;
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_THREADS) : "memory");
+  constexpr int CHUNKS = TN / 16;
+  for (int idx = threadIdx.x; idx < BM * CHUNKS; idx += CONSUMER_THREADS) {
+    const int r = idx / CHUNKS, c = idx % CHUNKS;
+    if (m0 + r < p.m) {
+      *reinterpret_cast<uint4*>(p.hq + long(m0 + r) * p.hdim + n0 + 16 * c) =
+          *reinterpret_cast<const uint4*>(stage + r * L::OUT_STRIDE + 16 * c);
+    }
+  }
+}
+
+// A persistent block: barrier set-up, then the producer warpgroup and the
+// consumer warpgroups apart (one if-else, so that setmaxnreg takes effect),
+// over the items cluster id, + number of clusters, ... Every thread passes
+// one cluster barrier an item: the consumers in the epilogue, the producer
+// after loading the next item's first stages (or at the end).
+__global__ void __launch_bounds__(Fc1Block::THREADS, 1)
+fc1_requant_kernel(const __grid_constant__ Fc1Args p) {
+  using L = Fc1Layout;
+  using B = Fc1Block;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  unsigned char* base = smem_raw + (sbase - raw);
+  uint32_t cluster_dim;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(cluster_dim));
+  const int cluster = int(cluster_dim);
+  const uint32_t rank = cluster_rank();
+  const int first = blockIdx.x / cluster, stride = gridDim.x / cluster;
+  const int n_chunks = p.n_seg;
+  const int k_tiles = (p.d + KT - 1) / KT;
+  init_ring<L>(sbase);
+  cluster_sync();  // barriers ready before any peer writes this block's maxima
+  if (sm90::warpgroup_index() == B::CONSUMER_THREADS / 128) {
+    setmaxnreg_dec<B::PRODUCER_REGS>();
+    const bool leader = threadIdx.x == B::CONSUMER_THREADS;
+    const int ahead = k_tiles < L::STAGES ? k_tiles : L::STAGES;
+    int g = 0;
+    bool owed = false;  // the last item's cluster barrier is still to pass
+    for (int item = first; item < p.items; item += stride) {
+      const int m0 = (item / n_chunks) * B::BM;
+      const int n0 = (item % n_chunks) * FC1_TN * cluster + int(rank) * FC1_TN;
+      for (int kt = 0; kt < k_tiles; ++kt, ++g) {
+        if (owed && kt == ahead) {
+          __syncwarp();
+          cluster_sync();
+          owed = false;
+        }
+        if (leader) load_stage<L>(&p.map_a, &p.map_b, sbase, g, kt, m0, n0);
+      }
+      if (owed) {
+        __syncwarp();
+        cluster_sync();
+      }
+      owed = true;
+    }
+    if (owed) {
+      __syncwarp();
+      cluster_sync();
+    }
+  } else {
+    setmaxnreg_inc<B::CONSUMER_REGS>();
+    const int n_items = (p.items - first + stride - 1) / stride;
+    for (int q = 0; q < n_items; ++q) fc1_item(p, base, sbase, q);
+  }
+}
+
+// -------------------------------------------------------------------- fc2
+// out (M, D) bf16 = sum over chunks of hq · w2ᵀ * (sh * s2), + b2 +
+// residual; block (x, y) owns rows 128 y and columns TN x.
+template <int TN, class L>
+__device__ __forceinline__ void fc2_consume(const Fc2Args& p, uint32_t sbase, int m0,
+                                            int n0, int k_tiles) {
+  const int wg = sm90::warpgroup_index();
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_a = m0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
+  int acc[TN / 2];
+  float accf[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) accf[i] = 0.f;
+  consume<TN, L>(acc, sbase, wg, 0, k_tiles, p.seg_tiles, [&](int seg) {
+    const float sh_a = row_a < p.m ? p.sh[long(row_a) * p.n_seg + seg] : 0.f;
+    const float sh_b = row_b < p.m ? p.sh[long(row_b) * p.n_seg + seg] : 0.f;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      const float2 sc = col < p.d ? *reinterpret_cast<const float2*>(p.s2 + col)
+                                  : make_float2(0.f, 0.f);
+      const float sw[2] = {sc.x, sc.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = __fmul_rn(e < 2 ? sh_a : sh_b, sw[e & 1]);
+        accf[4 * j + e] = __fadd_rn(accf[4 * j + e], __fmul_rn(float(acc[4 * j + e]), s));
+      }
+    }
+  });
+
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    if (col >= p.d) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = hh == 0 ? row_a : row_b;
+      if (row >= p.m) continue;
+      float v0 = accf[4 * j + 2 * hh], v1 = accf[4 * j + 2 * hh + 1];
+      if (p.b2 != nullptr) {
+        v0 = __fadd_rn(v0, p.b2[col]);
+        v1 = __fadd_rn(v1, p.b2[col + 1]);
+      }
+      const long at = long(row) * p.d + col;
+      if (p.residual != nullptr) {
+        const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(p.residual + at);
+        v0 = __fadd_rn(v0, __bfloat162float(r.x));
+        v1 = __fadd_rn(v1, __bfloat162float(r.y));
+      }
+      *reinterpret_cast<__nv_bfloat162*>(p.out + at) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+template <int TN>
+__global__ void __launch_bounds__(Fc2Block::THREADS, 1)
+fc2_kernel(const __grid_constant__ Fc2Args p) {
+  using L = Fc2Layout<TN>;
+  using B = Fc2Block;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  const int m0 = blockIdx.y * B::BM;
+  const int n0 = blockIdx.x * TN;
+  const int k_tiles = (p.hdim + KT - 1) / KT;
+  init_ring<L>(sbase);
+  __syncthreads();
+  if (sm90::warpgroup_index() == B::CONSUMER_THREADS / 128) {
+    setmaxnreg_dec<B::PRODUCER_REGS>();
+    if (threadIdx.x == B::CONSUMER_THREADS) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        load_stage<L>(&p.map_a, &p.map_b, sbase, kt, kt, m0, n0);
+      }
+    }
+  } else {
+    setmaxnreg_inc<B::CONSUMER_REGS>();
+    fc2_consume<TN, L>(p, sbase, m0, n0, k_tiles);
+  }
+}
+
+// ------------------------------------------------------------- launchers
+// In a launcher: return the first step's error code, if any.
+#define I8_TRY(expr)                           \
+  do {                                         \
+    const cudaError_t err_ = (expr);           \
+    if (err_ != cudaSuccess) return err_;      \
+  } while (0)
+
+// An int8 (rows, k) matrix, k % 16 == 0, as a bf16 tensor map of boxes of
+// 64 pairs (128 bytes) x `box_rows` rows.
+inline cudaError_t encode_int8(CUtensorMap* map, const void* base, int rows, int k,
+                               int box_rows) {
+  const cuuint64_t dims[2] = {cuuint64_t(k / 2), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(k)};
+  const cuuint32_t box[2] = {64, cuuint32_t(box_rows)};
+  return sm90::encode_map(map, base, 2, dims, strides, box);
+}
+
+// fc1's launch in clusters of `cluster` blocks, after opting in to its
+// shared memory.
+inline cudaError_t fc1_config(int cluster, cudaLaunchConfig_t* cfg,
+                              cudaLaunchAttribute* attr) {
+  I8_TRY(cudaFuncSetAttribute(fc1_requant_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Fc1Layout::alloc));
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(unsigned(cluster));
+  cfg->blockDim = dim3(Fc1Block::THREADS);
+  cfg->dynamicSmemBytes = size_t(Fc1Layout::alloc);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = unsigned(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// *active: the clusters of `cluster` fc1 blocks the card holds at once
+// (cudaOccupancyMaxActiveClusters), 0 for a size it cannot co-schedule;
+// asked once per size and process (one card a process).
+inline cudaError_t fc1_active_clusters(int cluster, int* active) {
+  static int known[MAX_CLUSTER + 1] = {};  // 0: not asked yet
+  *active = 0;
+  if (cluster < 1 || cluster > MAX_CLUSTER) return cudaSuccess;
+  if (known[cluster] == 0) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    int n = 0;
+    I8_TRY(fc1_config(cluster, &cfg, &attr));
+    I8_TRY(cudaOccupancyMaxActiveClusters(&n, fc1_requant_kernel, &cfg));
+    known[cluster] = n > 0 ? n : -1;
+  }
+  *active = known[cluster] > 0 ? known[cluster] : 0;
+  return cudaSuccess;
+}
+
+// fc1 then fc2 of the MLP on xq/sa (from norm_quant_rows), through hq/sh.
+// fc1 covers a chunk of block_h = 192 x fc1_cluster columns with one
+// cluster; fc2 runs column tiles of FC2_TN (a partial last tile masked).
+inline cudaError_t launch_mlp_products(const int8_t* xq, const float* sa,
+                                       const int8_t* w1, const float* s1,
+                                       const float* b1, const int8_t* w2,
+                                       const float* s2, const float* b2,
+                                       const bf16* residual, bf16* out,
+                                       int8_t* hq, float* sh, int m, int d,
+                                       int hdim, int block_h, int fc1_cluster,
+                                       cudaStream_t stream) {
+  if (m <= 0 || d <= 0 || d % 16 != 0 || block_h <= 0 || hdim % block_h != 0 ||
+      block_h != FC1_TN * fc1_cluster || fc1_cluster < 1 ||
+      fc1_cluster > MAX_CLUSTER) {
+    return cudaErrorInvalidValue;
+  }
+  const int n_seg = hdim / block_h;
+  const long row_tiles = (long(m) + Fc2Block::BM - 1) / Fc2Block::BM;
+  const long fc1_items = (long(m) + Fc1Block::BM - 1) / Fc1Block::BM * n_seg;
+  if (fc1_items > 0x7fffffffL || row_tiles > 65535 ||
+      (n_seg > 1 && block_h % KT != 0)) {
+    return cudaErrorInvalidValue;
+  }
+
+  Fc1Args a1{};
+  I8_TRY(encode_int8(&a1.map_a, xq, m, d, Fc1Block::BM));
+  I8_TRY(encode_int8(&a1.map_b, w1, hdim, d, FC1_TN));
+  a1.sa = sa;
+  a1.s1 = s1;
+  a1.b1 = b1;
+  a1.hq = hq;
+  a1.sh = sh;
+  a1.m = m;
+  a1.d = d;
+  a1.hdim = hdim;
+  a1.n_seg = n_seg;
+  a1.items = int(fc1_items);
+  int active = 0;
+  I8_TRY(fc1_active_clusters(fc1_cluster, &active));
+  if (active == 0) return cudaErrorLaunchOutOfResources;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  I8_TRY(fc1_config(fc1_cluster, &cfg, &attr));
+  const int clusters = active < a1.items ? active : a1.items;
+  cfg.gridDim = dim3(unsigned(clusters * fc1_cluster));
+  cfg.stream = stream;
+  I8_TRY(cudaLaunchKernelEx(&cfg, fc1_requant_kernel, a1));
+  I8_TRY(cudaGetLastError());
+
+  Fc2Args a2{};
+  I8_TRY(encode_int8(&a2.map_a, hq, m, hdim, Fc2Block::BM));
+  I8_TRY(encode_int8(&a2.map_b, w2, d, hdim, FC2_TN));
+  a2.sh = sh;
+  a2.s2 = s2;
+  a2.b2 = b2;
+  a2.residual = residual;
+  a2.out = out;
+  a2.m = m;
+  a2.d = d;
+  a2.hdim = hdim;
+  a2.n_seg = n_seg;
+  a2.seg_tiles = n_seg > 1 ? block_h / KT : (hdim + KT - 1) / KT;
+  const dim3 grid2{unsigned((d + FC2_TN - 1) / FC2_TN), unsigned(row_tiles)};
+  I8_TRY(cudaFuncSetAttribute(fc2_kernel<FC2_TN>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Fc2Layout<FC2_TN>::alloc));
+  fc2_kernel<FC2_TN><<<grid2, Fc2Block::THREADS, Fc2Layout<FC2_TN>::alloc, stream>>>(a2);
+  return cudaGetLastError();
+}
+
+#undef I8_TRY
+
+}  // namespace i8sm90
+}  // namespace mrb

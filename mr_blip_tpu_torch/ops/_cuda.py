@@ -39,8 +39,8 @@ _F = ctypes.c_float
 
 # C signatures: name -> argtypes (every entry returns a cudaError_t as int).
 _SIGNATURES = {
-    # x, weight, bias, out, rows, d, eps, stream
-    "mrb_layer_norm_bf16": [_P, _P, _P, _P, _L, _I, _F, _P],
+    # x, weight, bias, out, rows, d, eps, kernel, stream
+    "mrb_layer_norm_bf16": [_P, _P, _P, _P, _L, _I, _F, _I, _P],
     # qkv, out, B, N, H, D, n_valid, scale, stream
     "mrb_qkv_packed_attention_bf16": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, out, B, N, M, H, D, the batch, row and head strides of q, of k
@@ -86,8 +86,10 @@ _SIGNATURES = {
     # stream
     "mrb_w8a8_linear": [_P] * 3 + [_I, _F] + [_P] * 7 + [_I] * 3 + [_P],
     # x, ls, lb, norm_kind, eps, w1, s1, b1, w2, s2, b2, residual, out, xq, sa,
-    # h32, hq, sh, M, D, H, block_h, stream
-    "mrb_w8a8_mlp": [_P] * 3 + [_I, _F] + [_P] * 13 + [_I] * 4 + [_P],
+    # hq, sh, M, D, H, block_h, fc1 cluster, stream
+    "mrb_w8a8_mlp": [_P] * 3 + [_I, _F] + [_P] * 12 + [_I] * 5 + [_P],
+    # fc1 cluster, int* active clusters out
+    "mrb_w8a8_mlp_active_clusters": [_I, _P],
     # x, ls, lb, norm_kind, eps, w0, s0, w1, s1, wo, so, residual, out, xq, sa,
     # h32, hq, sh, M, D, H, block_h, stream
     "mrb_w8a8_mlp_gated": [_P] * 3 + [_I, _F] + [_P] * 13 + [_I] * 4 + [_P],

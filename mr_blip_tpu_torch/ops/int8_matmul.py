@@ -8,7 +8,10 @@ products accumulate in int32 and are dequantized as ``acc * (s_act * s_w)``;
 bias and residual are added in fp32 and the result is rounded to bf16 once.
 The MLPs requantize their hidden activation per (row, chunk of ``block_h``
 columns), so the chunk width chosen by ``_pick_block`` is part of the
-function. GELU is the tanh approximation.
+function. GELU is the tanh approximation. On the card the GELU MLP's first
+product covers a chunk with one thread-block cluster (``_mlp_plan``) and
+requantizes in its epilogue, so its workspace holds no fp32 hidden; the
+gated MLP's still does (``_gated_mlp_workspace``).
 
 Four public wrappers, each with the JAX signature: ``w8a8_linear``,
 ``w8a8_mlp``, ``w8a8_mlp_gated`` and ``w8a8_attn_block``. A CPU tensor takes
@@ -290,12 +293,43 @@ w8a8_linear.launches = 0
 
 
 # ------------------------------------------------------------------- mlps
+# fc1 of the GELU MLP (csrc/int8_tile_sm90.cuh) runs blocks of 192 columns,
+# and one cluster of them covers a hidden chunk.
+FC1_TILE = 192
+MAX_FC1_CLUSTER = 8  # the portable cluster size
+
+
+def _mlp_plan(hdim: int, block_h: int) -> tuple[int, int]:
+    """(fc1 tile, fc1 cluster) of the GELU MLP's kernels: fc1's epilogue
+    needs a chunk's row maxima, so the blocks of one cluster cover one hidden
+    chunk together (tile x cluster == block_h). A chunk width that no
+    cluster of 192-column tiles covers raises."""
+    if block_h <= 0 or hdim % block_h:
+        raise ValueError(f"hidden width {hdim} is not a whole number of chunks of "
+                         f"{block_h}")
+    cluster, rest = divmod(block_h, FC1_TILE)
+    if rest or not 1 <= cluster <= MAX_FC1_CLUSTER:
+        raise ValueError(f"a hidden chunk of {block_h} columns is not 1 to "
+                         f"{MAX_FC1_CLUSTER} fc1 tiles of {FC1_TILE}")
+    if hdim // block_h > 1 and block_h % 128:
+        raise ValueError(f"hidden chunks of {block_h} columns are not whole 128-column "
+                         "K tiles of fc2")
+    return FC1_TILE, cluster
+
+
 def _mlp_workspace(m, d, hdim, num_h, dev):
+    """xq, sa, hq, sh of the GELU MLP: the fp32 hidden stays on chip."""
     return (torch.empty((m, d), dtype=torch.int8, device=dev),
             torch.empty((m,), dtype=torch.float32, device=dev),
-            torch.empty((m, hdim), dtype=torch.float32, device=dev),
             torch.empty((m, hdim), dtype=torch.int8, device=dev),
             torch.empty((m, num_h), dtype=torch.float32, device=dev))
+
+
+def _gated_mlp_workspace(m, d, hdim, num_h, dev):
+    """xq, sa, h32, hq, sh of the gated MLP, whose fp32 hidden goes through
+    device memory."""
+    xq, sa, hq, sh = _mlp_workspace(m, d, hdim, num_h, dev)
+    return xq, sa, torch.empty((m, hdim), dtype=torch.float32, device=dev), hq, sh
 
 
 def _w8a8_mlp_cuda(x, w1q, s1, b1, w2q, s2, b2, norm, residual, block_h):
@@ -304,6 +338,7 @@ def _w8a8_mlp_cuda(x, w1q, s1, b1, w2q, s2, b2, norm, residual, block_h):
     dev = x.device
     block_h = _pick_block(hdim, block_h)
     _check_chunks(hdim, block_h)
+    _, cluster = _mlp_plan(hdim, block_h)
     kind, ls, lb, eps = _norm_parts(norm, d)
     _check_act("x", x, m, d, dev)
     _check_weight("w1q", w1q, d, hdim, dev)
@@ -321,7 +356,7 @@ def _w8a8_mlp_cuda(x, w1q, s1, b1, w2q, s2, b2, norm, residual, block_h):
         x.data_ptr(), _ptr(ls), _ptr(lb), _NORM_KINDS[kind], eps,
         w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
         s2.data_ptr(), b2.data_ptr(), _ptr(residual), out.data_ptr(),
-        *[t.data_ptr() for t in ws], m, d, hdim, block_h, _cuda.stream_ptr(dev))
+        *[t.data_ptr() for t in ws], m, d, hdim, block_h, cluster, _cuda.stream_ptr(dev))
     _cuda.check(err, "mrb_w8a8_mlp")
     w8a8_mlp.launches += 1
     return out
@@ -361,7 +396,7 @@ def _w8a8_mlp_gated_cuda(x, w0q, s0, w1q, s1, woq, so, norm, residual, block_h):
     out = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     if m == 0:
         return out
-    ws = _mlp_workspace(m, d, hdim, hdim // block_h, dev)
+    ws = _gated_mlp_workspace(m, d, hdim, hdim // block_h, dev)
     err = _cuda.library().mrb_w8a8_mlp_gated(
         x.data_ptr(), _ptr(ls), _ptr(lb), _NORM_KINDS[kind], eps,
         w0q.data_ptr(), s0.data_ptr(), w1q.data_ptr(), s1.data_ptr(),

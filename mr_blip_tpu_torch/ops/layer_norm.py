@@ -3,6 +3,9 @@
 ``fused_layer_norm`` is the wrapper: a CPU tensor takes the plain version
 ``_ln_reference``; a CUDA tensor launches the hand-written kernel
 ``csrc/layer_norm.cu`` (bf16 in and out, fp32 weight and bias) or raises.
+``_ln_plan`` names the kernel by width and alignment: the register-resident
+kernels of the widths 1,408 and 768, the generic 16-byte kernel, the scalar
+kernel.
 When a gradient is needed the launch goes through ``_FusedLayerNorm``, whose
 backward is the plain version recomputed, as the JAX custom VJP's is.
 """
@@ -26,6 +29,24 @@ def _ln_reference(x2d: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x2d.dtype)
 
 
+# C kernel ids of csrc/layer_norm.cu.
+_LN_KERNELS = {"row1408": 0, "row768": 1, "vec8": 2, "scalar": 3}
+
+
+def _ln_plan(d: int, x_ptr: int, out_ptr: int, weight_ptr: int, bias_ptr: int) -> str:
+    """The kernel for a row width and the tensors' addresses: the register
+    kernel of the width when everything is 16-byte aligned, the generic
+    16-byte kernel for other widths that are a multiple of 8 with aligned
+    rows, the scalar kernel otherwise."""
+    rows_aligned = x_ptr % 16 == 0 and out_ptr % 16 == 0
+    params_aligned = weight_ptr % 16 == 0 and bias_ptr % 16 == 0
+    if f"row{d}" in _LN_KERNELS and rows_aligned and params_aligned:
+        return f"row{d}"
+    if d % 8 == 0 and rows_aligned:
+        return "vec8"
+    return "scalar"
+
+
 def _layer_norm_cuda(x2d, weight, bias, eps):
     """The kernel launcher: checks, allocates, launches, counts."""
     rows, d = x2d.shape
@@ -44,10 +65,12 @@ def _layer_norm_cuda(x2d, weight, bias, eps):
     out = torch.empty_like(x2d)
     if rows == 0:
         return out
+    kernel = _ln_plan(d, x2d.data_ptr(), out.data_ptr(), weight.data_ptr(),
+                      bias.data_ptr())
     lib = _cuda.library()
     err = lib.mrb_layer_norm_bf16(
         x2d.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        rows, d, float(eps), _cuda.stream_ptr(x2d.device))
+        rows, d, float(eps), _LN_KERNELS[kernel], _cuda.stream_ptr(x2d.device))
     _cuda.check(err, "mrb_layer_norm_bf16")
     fused_layer_norm.launches += 1
     return out

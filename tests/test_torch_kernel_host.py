@@ -1,12 +1,14 @@
-"""The host side of the hand-written flash kernels, on the CPU.
+"""The host side of the hand-written kernels, on the CPU.
 
 The CUDA sources compile only on the card; what surrounds them here is
 Python that the CPU reaches: the ctypes signatures against the C entries in
 ``csrc/``, the wrappers' choice of C entry by dtype and the arguments they
 pass (through a stand-in library that records the call), the backward
 kernels' C entries by dtype and what they refuse, the fp32 biased
-dispatch (the plain function on a CPU tensor, equal to JAX's), and a module
-that imports with no CUDA toolkit.
+dispatch (the plain function on a CPU tensor, equal to JAX's), a module
+that imports with no CUDA toolkit, LayerNorm's kernel by width and
+alignment, and the W8A8 GELU MLP's workspace (no fp32 hidden) and cluster
+plan.
 """
 
 import os
@@ -22,6 +24,8 @@ import torch
 from mr_blip_tpu.ops import attention as jattn
 from mr_blip_tpu_torch.ops import _cuda
 from mr_blip_tpu_torch.ops import flash_attention as tfa
+from mr_blip_tpu_torch.ops import int8_matmul as tint8
+from mr_blip_tpu_torch.ops import layer_norm as tln
 from mr_blip_tpu_torch.ops.attention import dot_product_attention
 
 _ENTRY = re.compile(r'extern "C" int (mrb_\w+)\(([^)]*)\)', re.S)
@@ -401,3 +405,140 @@ def test_flash_relpos_backward_reaches_the_fp32_entries(recorder, table_grad):
                                       torch.zeros(2, 4, 264), torch.zeros(2, 4, 264),
                                       _NB, _MAXD)
     assert len(recorder.calls) == 2
+
+
+# ------------------------------------------------------------- LayerNorm
+def _ln_operands(rows, d, x_offset=0, weight_offset=0):
+    """bf16 x (rows, d) and fp32 weight and bias, each starting `offset`
+    elements into its buffer (an offset of 1 leaves it off 16-byte
+    alignment)."""
+    x = torch.zeros(rows * d + x_offset, dtype=torch.bfloat16)[x_offset:].view(rows, d)
+    w, b = (torch.zeros(d + weight_offset)[weight_offset:] for _ in range(2))
+    return x, w, b
+
+
+@pytest.mark.parametrize("d,x_offset,weight_offset,kernel", [
+    (1408, 0, 0, "row1408"), (768, 0, 0, "row768"), (1024, 0, 0, "vec8"),
+    (100, 0, 0, "scalar"), (1408, 0, 1, "vec8"), (1408, 1, 0, "scalar"),
+    (768, 1, 1, "scalar")])
+def test_layer_norm_kernel_by_width(recorder, d, x_offset, weight_offset, kernel):
+    """The register kernels take their own width with every operand 16-byte
+    aligned; another width that is a multiple of 8, or unaligned weights,
+    the generic 16-byte kernel; unaligned rows or an odd width the scalar
+    one. One launch, counted, with the kernel's id."""
+    rows = 37
+    x, w, b = _ln_operands(rows, d, x_offset, weight_offset)
+    before = tln.fused_layer_norm.launches
+    out = tln._layer_norm_cuda(x, w, b, 1e-6)
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert tln.fused_layer_norm.launches == before + 1
+    (name, args), = recorder.calls
+    assert name == "mrb_layer_norm_bf16"
+    assert len(args) == len(_cuda._SIGNATURES[name])
+    assert args[4:6] == (rows, d) and args[7] == tln._LN_KERNELS[kernel]
+
+
+@pytest.mark.parametrize("bad", ["float32", "strided", "weight_dtype", "weight_shape"])
+def test_layer_norm_kernel_refuses_what_it_does_not_take(recorder, bad):
+    x, w, b = _ln_operands(16, 768)
+    if bad == "float32":
+        x = x.float()
+    elif bad == "strided":
+        x = torch.zeros(16, 2 * 768, dtype=torch.bfloat16)[:, :768]
+    elif bad == "weight_dtype":
+        w = w.to(torch.bfloat16)
+    else:
+        b = torch.zeros(767)
+    before = tln.fused_layer_norm.launches
+    with pytest.raises((TypeError, ValueError)):
+        tln._layer_norm_cuda(x, w, b, 1e-12)
+    assert not recorder.calls and tln.fused_layer_norm.launches == before
+
+
+# ---------------------------------------------------- the W8A8 GELU MLP
+def _mlp_operands(m, d, h):
+    x, r = (torch.zeros(m, d, dtype=torch.bfloat16) for _ in range(2))
+    w1 = tint8.k_major(torch.zeros(d, h, dtype=torch.int8))
+    w2 = tint8.k_major(torch.zeros(h, d, dtype=torch.int8))
+    s1, b1, s2, b2 = torch.ones(h), torch.zeros(h), torch.ones(d), torch.zeros(d)
+    norm = ("ln", torch.ones(d), torch.zeros(d), 1e-6)
+    return x, r, (w1, s1, b1, w2, s2, b2), norm
+
+
+def _spy(monkeypatch, module, name):
+    """Record what ``module.name`` returns."""
+    made = []
+    real = getattr(module, name)
+
+    def spy(*args):
+        made.append(real(*args))
+        return made[-1]
+
+    monkeypatch.setattr(module, name, spy)
+    return made
+
+
+@pytest.mark.parametrize("m", [1, 300])
+def test_w8a8_mlp_workspace_holds_no_fp32_hidden(recorder, monkeypatch, m):
+    """Kernel 14's workspace is xq (M, D) int8, sa (M), hq (M, H) int8 and sh
+    (M, H / block_h) fp32, passed in that order, then the shape and fc1's
+    cluster size: fc1 requantizes its hidden in its epilogue."""
+    d, h = 1408, 6144
+    made = _spy(monkeypatch, tint8, "_mlp_workspace")
+    x, r, weights, norm = _mlp_operands(m, d, h)
+    before = tint8.w8a8_mlp.launches
+    out = tint8._w8a8_mlp_cuda(x, *weights, norm, r, tint8.DEFAULT_BLOCK_H)
+    assert out.shape == (m, d) and tint8.w8a8_mlp.launches == before + 1
+    (name, args), = recorder.calls
+    assert name == "mrb_w8a8_mlp" and len(args) == len(_cuda._SIGNATURES[name])
+    (ws,) = made
+    assert [(t.dtype, tuple(t.shape)) for t in ws] == [
+        (torch.int8, (m, d)), (torch.float32, (m,)), (torch.int8, (m, h)),
+        (torch.float32, (m, h // 1536))]
+    assert list(args[13:17]) == [t.data_ptr() for t in ws]
+    assert args[17:22] == (m, d, h, 1536, 8)
+    assert tint8._mlp_plan(h, 1536) == (192, 8)
+
+
+def test_gated_mlp_keeps_its_fp32_hidden(recorder, monkeypatch):
+    m, d, h = 19, 64, 256
+    made = _spy(monkeypatch, tint8, "_gated_mlp_workspace")
+    x = torch.zeros(m, d, dtype=torch.bfloat16)
+    w, s = tint8.k_major(torch.zeros(d, h, dtype=torch.int8)), torch.ones(h)
+    wo = tint8.k_major(torch.zeros(h, d, dtype=torch.int8))
+    tint8._w8a8_mlp_gated_cuda(x, w, s, w, s, wo, torch.ones(d), None, None, 128)
+    (name, args), = recorder.calls
+    assert name == "mrb_w8a8_mlp_gated" and len(args) == len(_cuda._SIGNATURES[name])
+    (ws,) = made
+    assert [(t.dtype, tuple(t.shape)) for t in ws] == [
+        (torch.int8, (m, d)), (torch.float32, (m,)), (torch.float32, (m, h)),
+        (torch.int8, (m, h)), (torch.float32, (m, 2))]
+    assert list(args[13:18]) == [t.data_ptr() for t in ws]
+
+
+@pytest.mark.parametrize("hdim,block_h", [(6144, 1536), (1536, 1536), (3072, 768),
+                                          (192, 192), (768, 384)])
+def test_mlp_plan_covers_every_chunk_once(hdim, block_h):
+    """fc1's clusters of 192-column blocks cover each hidden column once,
+    every cluster inside one chunk and within the portable cluster size."""
+    tile, cluster = tint8._mlp_plan(hdim, block_h)
+    assert tile == tint8.FC1_TILE and 1 <= cluster <= tint8.MAX_FC1_CLUSTER
+    assert tile * cluster == block_h
+    columns = [chunk * block_h + rank * tile + c for chunk in range(hdim // block_h)
+               for rank in range(cluster) for c in range(tile)]
+    assert sorted(columns) == list(range(hdim))
+
+
+@pytest.mark.parametrize("hdim,block_h", [(384, 128), (640, 640), (6144, 1000),
+                                          (3072, 3072), (1152, 576), (384, 192)])
+def test_mlp_plan_raises_for_a_chunk_it_cannot_cover(recorder, hdim, block_h):
+    """A chunk that is not 1 to 8 tiles of 192 (or whose chunks are not whole
+    128-column K tiles of fc2) raises, on the card too, with no launch."""
+    with pytest.raises(ValueError):
+        tint8._mlp_plan(hdim, block_h)
+    if hdim % block_h == 0 and block_h % 128 == 0:
+        x, r, weights, norm = _mlp_operands(4, 64, hdim)
+        before = tint8.w8a8_mlp.launches
+        with pytest.raises(ValueError):
+            tint8._w8a8_mlp_cuda(x, *weights, norm, r, block_h)
+        assert not recorder.calls and tint8.w8a8_mlp.launches == before
