@@ -18,12 +18,16 @@ is nonzero and the final line is not printed:
    (kernels 6-8) max |diff| <= 0.02 x max |plain| and cosine >= 0.999. The
    four W8A8 kernels (13-16) against their plain versions (the same integer
    arithmetic, products exact in fp64): linear at (61,677, 1,408)^2 with a
-   residual and at its three main-path shapes (Q-Former cross K/V with bias,
-   T5 qkv with the RMS pre-norm, T5 o with the residual), max |diff| <= 0.35;
-   GELU MLP (61,677, 1,408, 6,144) with LN and residual <= 0.4; gated MLP
-   (8,191, 2,048, 5,120) and its main-path shape <= 0.4; attention block
+   residual, at its main-path shapes (Q-Former cross K/V with bias, T5 qkv
+   with the RMS pre-norm, T5 o with the residual, the 364-pixel ViT's qkv
+   and proj) and at the tiny configs' widths (32 x 96, 64 x 64), max |diff|
+   <= 0.35; GELU MLP (61,677, 1,408, 6,144) with LN and residual, and the
+   chunk widths of its chain route (D 128 and H 384 in chunks of 128, D 576
+   and H 1,152 with chunk 576, the tiny ViT's D 32 and H 64) <= 0.4; gated
+   MLP (8,191, 2,048, 5,120) and its main-path shape <= 0.4; attention block
    (6, 264, 1,408) with n_valid 257 and large garbage in the pad rows (which
-   must not move a valid row by a bit) and (240, 257, 1,408) <= 0.05; each
+   must not move a valid row by a bit), (240, 257, 1,408) and (2, 400,
+   1,408) (past the resident K/V: the first version's attention) <= 0.05; each
    with cosine >= 0.999, and the share of elements more than 2 bf16 ulps off
    printed (a flipped requantization step moves one row); a float32 input on
    the card must raise. Kernels 3, 5 and 6-8 in fp32 (the parity mode's
@@ -1256,7 +1260,10 @@ def check_int8_kernels(torch, kernels):
             (240 * BIG_TOKENS, 1408, 1408, None, True, True, False),
             (61680, 1408, 1536, None, True, False, True),
             (8224, 2048, 6144, "rms", False, False, False),
-            (8224, 2048, 2048, None, False, True, False)):
+            (8224, 2048, 2048, None, False, True, False),
+            # the tiny configs' widths: one ragged column tile, K past its end
+            (4099, 32, 96, "ln", True, False, False),
+            (300, 64, 64, None, False, True, False)):
         x = randn(m, k, scale=0.3)
         wq, sw = qw(k, n)
         bias = randn(n, scale=0.05, dtype=torch.float32) if has_bias else None
@@ -1264,7 +1271,8 @@ def check_int8_kernels(torch, kernels):
         nm = norm(kind, k)
         got = i8.w8a8_linear(x, wq, sw, bias, norm=nm, residual=res)
         want = i8._w8a8_linear_plain(x, wq, sw, bias, nm, res)
-        label = f"({m}, {k}) x ({k}, {n}) norm {kind} bias {has_bias} residual {has_res}"
+        label = (f"({m}, {k}) x ({k}, {n}) norm {kind} bias {has_bias} residual {has_res}, "
+                 "column tiles {} x {}".format(*i8._linear_plan(n)))
         hold(lin, label, got, want)
         if flagship:
             def library():
@@ -1314,6 +1322,23 @@ def check_int8_kernels(torch, kernels):
         del x, r, got, want
         torch.cuda.empty_cache()
     del w1, w2
+    torch.cuda.empty_cache()
+    # The chunk widths no fc1 cluster covers take the chain route; D 576 and
+    # H 1,152 with chunk 576 run chunks of 384 on the clusters.
+    for m, d, h, block_h in ((4096, 128, 384, 128), (4096, 576, 1152, 576),
+                             (4096, 32, 64, i8.DEFAULT_BLOCK_H)):
+        w1, s1 = qw(d, h)
+        w2, s2 = qw(h, d)
+        b1 = randn(h, scale=0.01, dtype=torch.float32)
+        b2 = randn(d, scale=0.01, dtype=torch.float32)
+        nm = norm("ln", d)
+        x, r = randn(m, d, scale=0.3), randn(m, d, scale=0.3)
+        got = i8.w8a8_mlp(x, w1, s1, b1, w2, s2, b2, norm=nm, residual=r, block_h=block_h)
+        want = i8._w8a8_mlp_plain(x, w1, s1, b1, w2, s2, b2, nm, r, block_h)
+        chunk = i8._pick_block(h, block_h)
+        hold(mlp, f"({m}, {d}, {h}) chunk {chunk}, {i8._mlp_route(h, chunk)} route", got,
+             want)
+        del x, r, got, want, w1, w2
     torch.cuda.empty_cache()
 
     # Kernel 15: the T5 encoder FFN, 8 hidden chunks of 640.
@@ -1377,6 +1402,9 @@ def check_int8_kernels(torch, kernels):
     timed(blk, label, lambda: block(x, 0), lambda: block_plain(x, 0), None,
           nbytes(x, got, wqkv, wp), 2.0 * b * n * c * 4 * c,
           bf16_flops=4.0 * b * n * n * c)
+    # Past the resident K/V (5 key tiles): the first version's attention.
+    x = randn(2, 400, c, scale=0.5)
+    hold(blk, "(2, 400, 1408), 7 key tiles", block(x, 0), block_plain(x, 0))
     del x, got
     torch.cuda.empty_cache()
 

@@ -2,7 +2,8 @@
 // Hopper (sm_90a), shared by flash_bias_attention.cu (kernels 3 and 5), the
 // bf16 path of flash_attention.cu (kernel 4), flash_relpos_attention.cu
 // (kernel 9) and the streaming path of qkv_packed_attention.cu (kernel 2),
-// whose resident path takes the primitives below.
+// whose resident path (its work item and producer below) takes the
+// primitives, as kernel 16's attention (int8_attn_block.cu) does.
 //
 // What bounds a flash forward on this card is the tensor cores when they are
 // fed: at D = 64 one 64 x 64 key tile is 2 x 64 x 64 x 64 multiply-adds per
@@ -878,6 +879,137 @@ __device__ __forceinline__ void attention_persistent(const Problem& p,
   } else {
     consume<DP, BIAS, CAUSAL>(p, base, sbase);
   }
+}
+
+// ------------------------------------------------------- resident K/V
+// The resident path of kernel 2 (qkv_packed_attention.cu), whose work item
+// and producer kernel 16's attention (int8_attn_block.cu) takes too: a work
+// item is one (image, head) of packed (B, N, 3*H*D) rows, its K and V are
+// loaded by TMA once and stay in shared memory while its query tiles of 64
+// rows go through the two consumer warpgroups in turns.
+constexpr int KV_TILES = 5;  // the most key tiles the resident path holds
+
+// One launch: a work item is (image, head), head fastest, so the blocks
+// that run together read neighbouring heads of the same packed rows.
+struct ResidentProblem {
+  Maps maps;
+  bf16* out;
+  int n, n_valid, h, d, items;
+  int passes;      // query tiles of 64 an item
+  int key_tiles;   // key tiles of 64 an item (<= KV_TILES)
+  bool narrow;     // the last key tile holds <= 16 keys
+  float scale;
+};
+
+// Shared memory from a 1024-byte aligned base: the item's K tiles and V
+// tiles, then two Q slots a consumer; mbarriers K/V full[KV_TILES], K/V
+// empty[KV_TILES], Q full[consumer][slot], Q empty[consumer][slot].
+template <int DP>
+struct ResidentLayout {
+  using L = Layout<DP, kNoBias>;
+  static constexpr int TILE = L::TILE;
+  static constexpr int k_off = 0;
+  static constexpr int v_off = KV_TILES * TILE;
+  static constexpr int q_off = 2 * KV_TILES * TILE;
+  static constexpr int bar_off = q_off + 2 * CONSUMERS * TILE;
+  static constexpr int kv_full = bar_off;
+  static constexpr int kv_empty = kv_full + KV_TILES * 8;
+  static constexpr int q_full = kv_empty + KV_TILES * 8;
+  static constexpr int q_empty = q_full + 2 * CONSUMERS * 8;
+  static constexpr int bytes = q_empty + 2 * CONSUMERS * 8;
+  static constexpr int alloc = bytes + 1024;
+  static_assert(alloc <= 232448, "the resident K/V do not fit a block");
+};
+
+// Pass g of the block's sequence (its items' query tiles in order) belongs to
+// consumer g % 2; the producer and both consumers walk the same sequence.
+
+// The producer's leader thread: per item the Q tiles of its first two
+// passes, then its K/V tiles (each once both consumers are done with the
+// last item's), then the Q tiles of the other passes. A Q tile waits for its
+// consumer's slot to free, which the same consumer's pass two before does:
+// for the first two passes a pass of the last item (whose K/V are in), for
+// the others one of this item (whose K/V were issued before): no cycle.
+template <int DP>
+__device__ __forceinline__ void produce_resident(const ResidentProblem& p,
+                                                 uint32_t sbase) {
+  using RL = ResidentLayout<DP>;
+  constexpr int PANELS = RL::L::PANELS;
+  int mine0 = 0, mine1 = 0;  // Q tiles issued to consumers 0 and 1
+  int g0 = 0;                // the item's first pass
+  int round = 0;
+  auto load_q = [&](int b, int head, int lp) {
+    const int w = (g0 + lp) % CONSUMERS;
+    const int mine = w == 0 ? mine0 : mine1;
+    const int slot = mine % 2;
+    const uint32_t full = sbase + RL::q_full + (w * 2 + slot) * 8;
+    mbar_wait(sbase + RL::q_empty + (w * 2 + slot) * 8, ((mine / 2) & 1) ^ 1);
+    mbar_arrive_expect(full, RL::TILE);
+    const uint32_t dst = sbase + RL::q_off + (w * 2 + slot) * RL::TILE;
+#pragma unroll
+    for (int pn = 0; pn < PANELS; ++pn) {
+      tma_load_4d(dst + pn * PANEL_BYTES, &p.maps.q, full, pn * 64, head, lp * BM, b);
+    }
+    if (w == 0) {
+      ++mine0;
+    } else {
+      ++mine1;
+    }
+  };
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x, ++round) {
+    const int head = item % p.h;
+    const int b = item / p.h;
+    const int early = p.passes < 2 ? p.passes : 2;
+    for (int lp = 0; lp < early; ++lp) load_q(b, head, lp);
+    for (int j = 0; j < p.key_tiles; ++j) {
+      const uint32_t full = sbase + RL::kv_full + j * 8;
+      mbar_wait(sbase + RL::kv_empty + j * 8, (round & 1) ^ 1);
+      mbar_arrive_expect(full, 2 * RL::TILE);
+#pragma unroll
+      for (int pn = 0; pn < PANELS; ++pn) {
+        tma_load_4d(sbase + RL::k_off + j * RL::TILE + pn * PANEL_BYTES, &p.maps.k,
+                    full, pn * 64, head, j * BK, b);
+        tma_load_4d(sbase + RL::v_off + j * RL::TILE + pn * PANEL_BYTES, &p.maps.v,
+                    full, pn * 64, head, j * BK, b);
+      }
+    }
+    for (int lp = early; lp < p.passes; ++lp) load_q(b, head, lp);
+    g0 += p.passes;
+  }
+}
+
+// The barriers of a resident block (thread 0, before the block's first
+// __syncthreads).
+template <int DP>
+__device__ __forceinline__ void init_resident(uint32_t sbase) {
+  using RL = ResidentLayout<DP>;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < KV_TILES; ++j) {
+      mbar_init(sbase + RL::kv_full + j * 8, 1);  // the leader; TMA bytes
+      mbar_init(sbase + RL::kv_empty + j * 8, CONSUMERS * WG_THREADS);
+    }
+    for (int i = 0; i < 2 * CONSUMERS; ++i) {
+      mbar_init(sbase + RL::q_full + i * 8, 1);
+      mbar_init(sbase + RL::q_empty + i * 8, WG_THREADS);  // its consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// The three tensor maps over the packed row: q with n rows, k and v with
+// n_valid rows (TMA zero-fills the keys past n_valid).
+inline cudaError_t encode_packed(Maps& maps, const bf16* qkv, int b, int n,
+                                 int n_valid, int h, int d) {
+  const long hd = long(h) * d;
+  const long row = 3 * hd;
+  cudaError_t err = encode_qkv(&maps.q, qkv, b, n, h, d, n * row, row, d);
+  if (err == cudaSuccess) {
+    err = encode_qkv(&maps.k, qkv + hd, b, n_valid, h, d, n * row, row, d);
+  }
+  if (err == cudaSuccess) {
+    err = encode_qkv(&maps.v, qkv + 2 * hd, b, n_valid, h, d, n * row, row, d);
+  }
+  return err;
 }
 
 // Instantiate `Launch<DP>` for the smallest padded head dim that holds d.

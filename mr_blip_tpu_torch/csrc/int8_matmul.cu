@@ -4,8 +4,10 @@
 //
 // Replaces: mr_blip_tpu/ops/int8_matmul.py::_linear_kernel (Q-Former cross
 // K/V (61,680 x 1,408 x 1,536), T5 encoder qkv (8,224 x 2,048 x 6,144, RMS
-// pre-norm) and o (8,224 x 2,048 x 2,048, residual)), ::_mlp_kernel (EVA
-// ViT-g MLP, 61,680 x 1,408 x 6,144 x 1,408, LN pre-norm, residual) and
+// pre-norm) and o (8,224 x 2,048 x 2,048, residual), and at 364 pixels the
+// ViT's split route: qkv (162,480 x 1,408 x 4,224, LN pre-norm, bias) and
+// proj (162,480 x 1,408 x 1,408, bias, residual)), ::_mlp_kernel (EVA ViT-g
+// MLP, 61,680 x 1,408 x 6,144 x 1,408, LN pre-norm, residual) and
 // ::_gated_mlp_kernel (T5 encoder FFN, 8,224 x 2,048 x 5,120 x 2,048, RMS
 // pre-norm, residual).
 //
@@ -14,24 +16,30 @@
 // weights and the output are 3 to 10 times cheaper.
 //
 // Design: each C entry runs device kernels in a row on the caller's stream,
-// with the intermediates in a workspace the caller allocates:
-//  * linear: norm_quant_rows -> int8_gemm (bias + residual -> bf16);
-//  * MLP (int8_tile_sm90.cuh): norm_quant_rows -> fc1_requant (`wgmma` on a
-//    TMA ring, persistent clusters of blocks; bias -> tanh-GELU -> the (row,
-//    chunk) maxima exchanged in the cluster -> int8 hidden and its scales)
-//    -> fc2 (`wgmma` over the hidden chunks, each chunk's int32 sum scaled by
-//    its own row scale into an fp32 sum; bias + residual -> bf16). The fp32
-//    hidden never reaches device memory;
-//  * gated MLP: norm_quant_rows -> int8_gemm wi_0 (gelu(g) as an fp32 hidden)
-//    -> int8_gemm wi_1 (its dequantized product multiplied in) ->
-//    requant_chunks -> int8_gemm wo over the hidden chunks.
+// with the intermediates in a workspace the caller allocates. Each starts
+// with norm_quant_rows (int8_tile.cuh: the pre-norm and the per-row int8,
+// the row in registers at the widths of the paths). Then:
+//  * linear: the GEMM tile of int8_tile_sm90.cuh (`wgmma` on a TMA ring,
+//    persistent blocks; bias + residual -> bf16), column tiles of the
+//    wrapper's plan (ops/int8_matmul.py::_linear_plan);
+//  * MLP (int8_tile_sm90.cuh): fc1_requant (`wgmma`, persistent clusters of
+//    blocks; bias -> tanh-GELU -> the (row, chunk) maxima exchanged in the
+//    cluster -> int8 hidden and its scales) -> the GEMM tile over the hidden
+//    chunks, each chunk's int32 sum scaled by its own row scale into an fp32
+//    sum; bias + residual -> bf16. The fp32 hidden never reaches device
+//    memory. A chunk width that no cluster of 192-column fc1 tiles covers
+//    (the tiny configs' hidden of 64, chunks of 128 or 640) takes the chain
+//    route, mrb_w8a8_mlp_chain: int8_gemm (bias, gelu -> an fp32 hidden) ->
+//    requant_chunks -> int8_gemm over the hidden chunks. The wrapper names
+//    the route by the shape (ops/int8_matmul.py::_mlp_route);
+//  * gated MLP: int8_gemm wi_0 (gelu(g) as an fp32 hidden) -> int8_gemm
+//    wi_1 (its dequantized product multiplied in) -> requant_chunks ->
+//    int8_gemm wo over the hidden chunks.
 // The hidden chunk width (`block_h`) is part of the function: every (row,
 // chunk) has its own requantization scale, and the row maximum of a chunk
-// must be known before any of it is quantized. The MLP's fc1 covers a chunk
-// with one cluster of blocks (the wrapper's plan: ops/int8_matmul.py::
-// _mlp_plan); the gated MLP still makes the round trip of its fp32 hidden
-// through device memory (M x H x 4 bytes written, read once by
-// requant_chunks).
+// must be known before any of it is quantized. The chain routes make the
+// round trip of their fp32 hidden through device memory (M x H x 4 bytes
+// written, read once by requant_chunks).
 #include "int8_tile.cuh"
 #include "int8_tile_sm90.cuh"
 
@@ -106,22 +114,22 @@ static cudaError_t quantize_input(const Stage& s, cudaStream_t stream) {
 // x (M, K) bf16; ls, lb (K) fp32 or null; norm_kind 0 none, 1 LayerNorm,
 // 2 RMSNorm; wq (N, K) int8 (K contiguous); sw (N), bias (N) fp32 or null;
 // residual (M, N) bf16 or null; out (M, N) bf16; workspace xq (M, K) int8,
-// sa (M) fp32.
+// sa (M) fp32; tn: the GEMM tile's column width (192 or 176).
 extern "C" int mrb_w8a8_linear(const void* x, const void* ls, const void* lb,
                                int norm_kind, float eps, const void* wq,
                                const void* sw, const void* bias,
                                const void* residual, void* out, void* xq,
-                               void* sa, int m, int k, int n, void* stream) {
+                               void* sa, int m, int k, int n, int tn, void* stream) {
   using namespace mrb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Stage in{static_cast<const bf16*>(x), static_cast<const float*>(ls),
                  static_cast<const float*>(lb), norm_kind, eps,
                  static_cast<int8_t*>(xq), static_cast<float*>(sa), m, k};
   MRB_TRY(quantize_input(in, st));
-  GemmArgs g{in.xq, in.sa, static_cast<const int8_t*>(wq),
-             static_cast<const float*>(sw), static_cast<const float*>(bias),
-             static_cast<const bf16*>(residual), out, m, n, k, k};
-  MRB_TRY((launch_int8_gemm<EPI_BF16, false>(g, st)));
+  MRB_TRY(i8sm90::launch_gemm_tile(
+      in.xq, in.sa, static_cast<const int8_t*>(wq), static_cast<const float*>(sw),
+      static_cast<const float*>(bias), static_cast<const bf16*>(residual),
+      static_cast<bf16*>(out), m, n, k, k, tn, st));
   return 0;
 }
 
@@ -149,6 +157,37 @@ extern "C" int mrb_w8a8_mlp(const void* x, const void* ls, const void* lb,
       static_cast<const bf16*>(residual), static_cast<bf16*>(out),
       static_cast<int8_t*>(hq), static_cast<float*>(sh), m, d, hdim, block_h,
       fc1_cluster, st));
+  return 0;
+}
+
+// The GELU MLP's chain route, for a chunk width no fc1 cluster covers:
+// arguments as mrb_w8a8_mlp's but the cluster; workspace xq (M, D) int8, sa
+// (M), h32 (M, H) fp32, hq (M, H) int8, sh (M, H / block_h) fp32.
+extern "C" int mrb_w8a8_mlp_chain(const void* x, const void* ls, const void* lb,
+                                  int norm_kind, float eps, const void* w1,
+                                  const void* s1, const void* b1, const void* w2,
+                                  const void* s2, const void* b2,
+                                  const void* residual, void* out, void* xq,
+                                  void* sa, void* h32, void* hq, void* sh, int m,
+                                  int d, int hdim, int block_h, void* stream) {
+  using namespace mrb;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Stage in{static_cast<const bf16*>(x), static_cast<const float*>(ls),
+                 static_cast<const float*>(lb), norm_kind, eps,
+                 static_cast<int8_t*>(xq), static_cast<float*>(sa), m, d};
+  MRB_TRY(quantize_input(in, st));
+  GemmArgs up{in.xq, in.sa, static_cast<const int8_t*>(w1),
+              static_cast<const float*>(s1), static_cast<const float*>(b1), nullptr,
+              h32, m, hdim, d, d};
+  MRB_TRY((launch_int8_gemm<EPI_GELU_F32, false>(up, st)));
+  MRB_TRY(launch_requant_chunks(static_cast<const float*>(h32),
+                                static_cast<int8_t*>(hq),
+                                static_cast<float*>(sh), m, hdim, block_h, st));
+  GemmArgs down{static_cast<const int8_t*>(hq), static_cast<const float*>(sh),
+                static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
+                static_cast<const float*>(b2), static_cast<const bf16*>(residual), out,
+                m, d, hdim, block_h};
+  MRB_TRY((launch_int8_gemm<EPI_BF16, true>(down, st)));
   return 0;
 }
 

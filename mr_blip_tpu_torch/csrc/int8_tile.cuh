@@ -1,14 +1,23 @@
 // Building blocks of the W8A8 kernels (int8_matmul.cu, int8_attn_block.cu):
-// the per-row quantization pass and the int8 tensor-core GEMM with its fused
-// epilogues. The GELU MLP (kernel 14) takes only the quantization pass from
-// here: its products run on the `wgmma` tile of int8_tile_sm90.cuh.
+// the per-row quantization pass, which starts every W8A8 kernel, and the
+// `mma.sync` int8 GEMM with its fused epilogues, which the gated MLP (kernel
+// 15) and the GELU MLP's chain route (kernel 14 at chunk widths no fc1
+// cluster covers) run. Kernel 13, kernel 16 and kernel 14's main route run
+// their products on the `wgmma` tile of int8_tile_sm90.cuh.
 //
-// Design (first version for Hopper, sm_90a). Every other W8A8 function is a
-// short chain of these device kernels behind one C entry, with the int8
-// operands and their fp32 scales in a workspace that the caller allocates:
-//  * norm_quant_rows: one warp per row keeps the row in shared memory as
-//    fp32, applies the optional LayerNorm / RMSNorm with fp32 statistics,
-//    finds max |x| and writes the row as int8 with its scale;
+//  * norm_quant_rows applies the optional LayerNorm / RMSNorm with fp32
+//    statistics, finds max |x| and writes the row as int8 with its scale.
+//    What bounds it is the bytes: 2 read and 1 written an element (261 MB,
+//    0.078 ms at 3.35 TB/s, at 61,680 x 1,408). At the widths of the paths
+//    (1,408 and 2,048) a warp holds its row in registers: every 16-byte load
+//    of the row is issued before the first reduction, ls and lb come as
+//    float4, and the int8 row and its scale are written once. The sums keep
+//    the order of the first version (one warp a row through shared memory,
+//    kept for other widths): a lane adds its 16-byte chunks lane, lane + 32,
+//    ... element by element, and LayerNorm's centred squares run over the
+//    elements lane, lane + 32, ..., which a warp reads back from its row
+//    staged in shared memory as bf16. So the scale and the int8 row are
+//    bit-equal to the first version's;
 //  * int8_gemm: C = A (M, K) x B (N, K)ᵀ, both int8 with K contiguous, on the
 //    tensor cores as mma.sync m16n8k32 s8 x s8 -> s32. A block of 8 warps
 //    owns a 128 x 128 tile (warp tile 64 x 32; 64 x 128 and 32 x 32 with K
@@ -22,15 +31,14 @@
 //    Epilogues: bias + residual -> bf16; bias -> tanh-GELU -> fp32; multiply
 //    into an fp32 matrix (the gate of a gated MLP);
 //  * requant_chunks (int8_matmul.cu): one warp per (row, hidden chunk) reads
-//    the gated MLP's fp32 hidden activation and writes it as int8 with the
-//    chunk's scale.
+//    an fp32 hidden activation and writes it as int8 with the chunk's scale.
 // The arithmetic that feeds a rounding to int8 uses the _rn intrinsics, so
 // the compiler cannot contract it into fused multiply-adds: the plain
 // PyTorch versions round after every operation, and a changed last bit
 // flips a quantized value.
 // Ragged M is exact with no padded copy: rows past M are zero-filled in
 // shared memory and never stored. K must be a multiple of 16 (one cp.async
-// chunk), N of 2. wgmma, TMA and a persistent schedule are left for later.
+// chunk), N of 2.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,7 +92,8 @@ __device__ __forceinline__ float warp_max(float v) {
 constexpr int QR_WARPS = 4;
 enum NormKind { NORM_NONE = 0, NORM_LN = 1, NORM_RMS = 2 };
 
-// x (M, K) bf16 -> q (M, K) int8, scale (M) fp32. K % 8 == 0.
+// The first version, for any width: x (M, K) bf16 -> q (M, K) int8, scale
+// (M) fp32, one warp a row through shared memory as fp32. K % 8 == 0.
 template <int NORM>
 __global__ void __launch_bounds__(QR_WARPS * 32)
 norm_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ls,
@@ -146,11 +155,179 @@ norm_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ls,
   }
 }
 
+// The widths of the paths: one warp a row, held in registers (16-byte chunk
+// c of the row at lane c % 32). LayerNorm stages the row in shared memory as
+// bf16 for its centred squares, which the first version sums element by
+// element over lane, lane + 32, ...
+constexpr int NQ_WARPS = 8;
+
+__device__ __forceinline__ void unpack_bf16x8(const uint4& raw, float (&f)[8]) {
+  const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(e[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
+// quant_value(x, scale) with the row's rcp = __frcp_rn(scale): the quotient
+// x / scale correctly rounded (as __fdiv_rn gives it) by one Markstein step
+// from the correctly rounded reciprocal (q = x rcp is within an ulp, x - q
+// scale is exact in the FMA, q + (x - q scale) rcp rounds to x / scale),
+// with no special-case check: |x / scale| <= 127 never overflows, and a
+// quotient below fp32's normal range rounds to 0 either way.
+__device__ __forceinline__ int quant_value_rcp(float x, float scale, float rcp) {
+  const float q = __fmul_rn(x, rcp);
+  const float r = rintf(__fmaf_rn(__fmaf_rn(-q, scale, x), rcp, q));
+  return int(fminf(fmaxf(r, -127.0f), 127.0f));
+}
+
+template <int NORM, int K>
+__global__ void __launch_bounds__(NQ_WARPS * 32)
+norm_quant_rows_reg_kernel(const bf16* __restrict__ x, const float* __restrict__ ls,
+                           const float* __restrict__ lb, float eps,
+                           int8_t* __restrict__ q, float* __restrict__ scale, int m) {
+  constexpr int CHUNKS = K / 8;
+  constexpr int PER_LANE = (CHUNKS + 31) / 32;
+  constexpr int STAGED = NORM == NORM_LN ? K : 8;
+  __shared__ __align__(16) bf16 staged[NQ_WARPS][STAGED];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long row = long(blockIdx.x) * NQ_WARPS + warp;
+  if (row >= m) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * K);
+  uint4 raw[PER_LANE];
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    const int c = lane + 32 * i;
+    raw[i] = c < CHUNKS ? __ldcs(xr + c) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float y[PER_LANE][8];
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    unpack_bf16x8(raw[i], y[i]);
+    if (lane + 32 * i < CHUNKS) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sum += (NORM == NORM_RMS) ? __fmul_rn(y[i][e], y[i][e]) : y[i][e];
+      }
+    }
+  }
+  if (NORM != NORM_NONE) {
+    float mu = 0.f, rstd;
+    if (NORM == NORM_LN) {
+      mu = __fdiv_rn(warp_sum(sum), float(K));
+      uint4* st = reinterpret_cast<uint4*>(staged[warp]);
+#pragma unroll
+      for (int i = 0; i < PER_LANE; ++i) {
+        if (lane + 32 * i < CHUNKS) st[lane + 32 * i] = raw[i];
+      }
+      __syncwarp();
+      float sq = 0.f;
+#pragma unroll 4
+      for (int c = lane; c < K; c += 32) {
+        const float d = __fsub_rn(__bfloat162float(staged[warp][c]), mu);
+        sq += __fmul_rn(d, d);
+      }
+      rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq), float(K)), eps));
+    } else {
+      rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sum), float(K)), eps));
+    }
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) {
+      const int c = lane + 32 * i;
+      if (c < CHUNKS) {
+        const float4* l4 = reinterpret_cast<const float4*>(ls) + 2 * c;
+        const float4 la = __ldg(l4), lc = __ldg(l4 + 1);
+        const float w[8] = {la.x, la.y, la.z, la.w, lc.x, lc.y, lc.z, lc.w};
+        float b[8] = {};
+        if (NORM == NORM_LN) {
+          const float4* b4 = reinterpret_cast<const float4*>(lb) + 2 * c;
+          const float4 ba = __ldg(b4), bc = __ldg(b4 + 1);
+          const float bb[8] = {ba.x, ba.y, ba.z, ba.w, bc.x, bc.y, bc.z, bc.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) b[e] = bb[e];
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          y[i][e] = NORM == NORM_LN
+                        ? __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(y[i][e], mu), rstd), w[e]),
+                                    b[e])
+                        : __fmul_rn(__fmul_rn(y[i][e], rstd), w[e]);
+        }
+      }
+    }
+  }
+  float max_abs = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    if (lane + 32 * i < CHUNKS) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) max_abs = fmaxf(max_abs, fabsf(y[i][e]));
+    }
+  }
+  const float s = quant_scale(warp_max(max_abs));
+  const float rcp = __frcp_rn(s);
+  if (lane == 0) scale[row] = s;
+  uint2* qr = reinterpret_cast<uint2*>(q + row * K);
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    const int c = lane + 32 * i;
+    if (c < CHUNKS) {
+      union { int8_t b[8]; uint2 u; } pack;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) pack.b[e] = int8_t(quant_value_rcp(y[i][e], s, rcp));
+      qr[c] = pack.u;
+    }
+  }
+}
+
+__host__ __device__ inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int K>
+inline cudaError_t launch_norm_quant_reg(const bf16* x, const float* ls,
+                                         const float* lb, int norm_kind, float eps,
+                                         int8_t* q, float* scale, int m,
+                                         cudaStream_t stream) {
+  const dim3 grid((m + NQ_WARPS - 1) / NQ_WARPS);
+  if (norm_kind == NORM_LN) {
+    norm_quant_rows_reg_kernel<NORM_LN, K><<<grid, NQ_WARPS * 32, 0, stream>>>(
+        x, ls, lb, eps, q, scale, m);
+  } else if (norm_kind == NORM_RMS) {
+    norm_quant_rows_reg_kernel<NORM_RMS, K><<<grid, NQ_WARPS * 32, 0, stream>>>(
+        x, ls, lb, eps, q, scale, m);
+  } else {
+    norm_quant_rows_reg_kernel<NORM_NONE, K><<<grid, NQ_WARPS * 32, 0, stream>>>(
+        x, ls, lb, eps, q, scale, m);
+  }
+  return cudaGetLastError();
+}
+
+// The register kernel at the widths of the paths (with 16-byte aligned x,
+// q and norm parameters), the first version's kernel at any other width.
 inline cudaError_t launch_norm_quant_rows(const bf16* x, const float* ls,
                                           const float* lb, int norm_kind,
                                           float eps, int8_t* q, float* scale,
                                           int m, int k, cudaStream_t stream) {
   if (m <= 0 || k <= 0 || k % 8 != 0) return cudaErrorInvalidValue;
+  if (norm_kind != NORM_NONE && norm_kind != NORM_LN && norm_kind != NORM_RMS) {
+    return cudaErrorInvalidValue;
+  }
+  if (norm_kind != NORM_NONE && (ls == nullptr || (norm_kind == NORM_LN && lb == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  const bool aligned = aligned16(x) && aligned16(q) &&
+                       (norm_kind == NORM_NONE || aligned16(ls)) &&
+                       (norm_kind != NORM_LN || aligned16(lb));
+  if (aligned && k == 1408) {
+    return launch_norm_quant_reg<1408>(x, ls, lb, norm_kind, eps, q, scale, m, stream);
+  }
+  if (aligned && k == 2048) {
+    return launch_norm_quant_reg<2048>(x, ls, lb, norm_kind, eps, q, scale, m, stream);
+  }
   const size_t bytes = size_t(QR_WARPS) * k * sizeof(float);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   const dim3 grid((m + QR_WARPS - 1) / QR_WARPS);
@@ -163,15 +340,11 @@ inline cudaError_t launch_norm_quant_rows(const bf16* x, const float* ls,
   norm_quant_rows_kernel<NORM><<<grid, QR_WARPS * 32, bytes, stream>>>(        \
       x, ls, lb, eps, q, scale, m, k)
   if (norm_kind == NORM_LN) {
-    if (ls == nullptr || lb == nullptr) return cudaErrorInvalidValue;
     MRB_LAUNCH_QR(NORM_LN);
   } else if (norm_kind == NORM_RMS) {
-    if (ls == nullptr) return cudaErrorInvalidValue;
     MRB_LAUNCH_QR(NORM_RMS);
-  } else if (norm_kind == NORM_NONE) {
-    MRB_LAUNCH_QR(NORM_NONE);
   } else {
-    return cudaErrorInvalidValue;
+    MRB_LAUNCH_QR(NORM_NONE);
   }
 #undef MRB_LAUNCH_QR
   return cudaGetLastError();

@@ -1,31 +1,35 @@
-// The Hopper (sm_90a) int8 tile of the W8A8 GELU MLP (kernel 14,
-// int8_matmul.cu::mrb_w8a8_mlp): fc1 with the hidden activation's
-// requantization in its epilogue, and fc2 over the hidden chunks. Built on
-// the primitives of attention_tile_sm90.cuh (TMA, mbarriers, `wgmma`
-// descriptors), included, not copied.
+// The Hopper (sm_90a) int8 tiles of the W8A8 kernels: fc1 of the GELU MLP
+// (kernel 14, int8_matmul.cu::mrb_w8a8_mlp) with the hidden activation's
+// requantization in its epilogue, and the GEMM tile that runs kernel 14's
+// fc2 over the hidden chunks, the W8A8 linear (kernel 13,
+// mrb_w8a8_linear) and both products of the fused attention block (kernel
+// 16, int8_attn_block.cu). Built on the primitives of
+// attention_tile_sm90.cuh (TMA, mbarriers, `wgmma` descriptors), included,
+// not copied.
 //
-// What bounds the MLP on this card: the int8 operations, 2 M D H in each
-// product (1.067 TOP at 61,680 x 1,408 x 6,144), at 1,979 TOP/s only
-// through `wgmma`; the tiles that reach each SM's shared memory come to K
-// (1/128 + 1/TN) bytes an output element, and fc1's epilogue is ~45
-// instructions an element (tanhf, __fdiv_rn), about as long on the card as
-// its products at the peak. The first version
-// (int8_tile.cuh) ran `mma.sync` m16n8k32 fed by a 2-stage cp.async ring,
-// and the hidden made a full fp32 round trip through device memory (M H 4
-// bytes written by fc1, read by a requantizing pass). Here:
+// What bounds them on this card: the int8 operations, 2 M K N a product
+// (1.067 TOP in the MLP at 61,680 x 1,408 x 6,144, 0.267 in the linear at
+// 61,680 x 1,408 x 1,536), at 1,979 TOP/s only through `wgmma`; the tiles
+// that reach each SM's shared memory come to K (1/BM + 1/TN) bytes an
+// output element, and fc1's epilogue is ~45 instructions an element (tanhf,
+// __fdiv_rn), about as long on the card as its products at the peak. The
+// first version (int8_tile.cuh) ran `mma.sync` m16n8k32 fed by a 2-stage
+// cp.async ring, at 11-18% of the int8 peak. Here:
 //
-//  * a block is consumer warpgroups of 64 rows each (three in fc1: a
-//    192-row tile, setmaxnreg 160/24; two in fc2, whose fp32 sums take the
-//    registers: 128 rows, 232/40) and a producer warpgroup, whose registers
-//    go to the consumers; one of its threads keeps a ring of STAGES stages
-//    in flight with TMA, 128 bytes of K a stage (the activation tile and
-//    the weight tile, TN rows; both K-major, so `wgmma.mma_async
-//    m64nTNk32.s32.s8.s8` reads both from shared memory). A row of a stage
-//    is 128 bytes in the 128-byte swizzle: the byte layout of a bf16 tile
-//    of 64 columns, so the tensor maps are the bf16 maps of
-//    attention_tile_sm90.cuh over the int8 matrices seen as bf16 pairs, and
-//    the descriptors step 32 bytes per k32 step as the bf16 tile steps per
-//    k16 step;
+//  * a block is consumer warpgroups of 64 rows each (three in fc1 and in the
+//    unsegmented GEMM: a 192-row tile, setmaxnreg 160/24; two in the
+//    segmented GEMM (fc2), whose fp32 sums take the registers: 128 rows,
+//    232/40) and a producer warpgroup, whose registers go to the consumers;
+//    one of its threads keeps a ring of STAGES stages in flight with TMA,
+//    128 bytes of K a stage (the activation tile and the weight tile, TN
+//    rows; both K-major, so `wgmma.mma_async m64nTNk32.s32.s8.s8` reads both
+//    from shared memory). A row of a stage is 128 bytes in the 128-byte
+//    swizzle: the byte layout of a bf16 tile of 64 columns, so the tensor
+//    maps are the bf16 maps of attention_tile_sm90.cuh over the int8
+//    matrices seen as bf16 pairs, and the descriptors step 32 bytes per k32
+//    step as the bf16 tile steps per k16 step. TMA zero-fills rows past M,
+//    weight rows past N and K past its end, so every shape with K % 16 == 0
+//    and N % 8 == 0 runs on the tile;
 //  * fc1's blocks that share a row tile and a hidden chunk of block_h = 192
 //    x cluster columns form a thread-block cluster. The epilogue (12 warps),
 //    in registers: dequantize (acc * (sa[m] * s1[h])), add b1, tanh-GELU, in
@@ -38,22 +42,36 @@
 //    int8 hq through a shared staging tile, 16 bytes a thread-step; the
 //    cluster's first block writes the (row, chunk) scale sh. The fp32 hidden
 //    never reaches device memory;
-//  * fc1 is persistent: a cluster walks (row tile, chunk) items, and its
-//    producers load the next item's first stages while the consumers run
-//    the epilogue (the cluster barrier of an item is passed by the producer
-//    after those loads), so the epilogue overlaps the loads. The maxima are
-//    double-buffered by item parity;
-//  * fc2 runs K in the hidden chunks: at each chunk's end (after
-//    wgmma_wait<0>) the int32 sums fold into an fp32 sum as
-//    acc * (sh[m, chunk] * s2[d]), in chunk order; the epilogue adds b2 and
-//    the residual and rounds once to bf16.
-// Rows past M are zero-filled by TMA and never stored. Measured and left
-// out (PERF.md): multicasting the activation tile across the cluster (its
-// cluster-scope barriers and remote arrives cost more than it saved),
-// 96-column fc1 tiles at two blocks an SM (more bytes an output element),
-// deeper rings (no gain), fc1's GELU run from a shared-memory copy of the
-// tile between the next item's `wgmma` issue and wait (slower), and fc1 on
-// two consumer warpgroups (slower than three).
+//  * both kernels are persistent: a block (fc1: a cluster) walks its items,
+//    and its producer loads the next item's first stages while the
+//    consumers run the epilogue, so the epilogue overlaps the loads. fc1's
+//    cluster barrier of an item is passed by the producer after those
+//    loads, and its maxima are double-buffered by item parity;
+//  * the GEMM tile's items are (row tile, column tile), column fastest, so
+//    the blocks that run together share their activation rows in L2; the
+//    column tile is 192 or 176 wide (ops/int8_matmul.py::_linear_plan: 192
+//    where it divides N, else 176 where that does, else 192 with a ragged
+//    last tile that is zero-filled and not stored). Unsegmented, the
+//    epilogue dequantizes acc * (sa[m] * sb[n]), adds the bias and the
+//    residual and rounds once to bf16, in the order and roundings of
+//    int8_tile.cuh's int8_gemm: the output is bit-equal to the first
+//    version's. Segmented (fc2), K runs in the hidden chunks: at each
+//    chunk's end (after wgmma_wait<0>) the int32 sums fold into an fp32 sum
+//    as acc * (sh[m, chunk] * s2[d]), in chunk order, before the same
+//    epilogue.
+// Measured and left out (PERF.md): multicasting the activation tile across
+// fc1's cluster (its cluster-scope barriers and remote arrives cost more
+// than it saved), 96-column fc1 tiles at two blocks an SM (more bytes an
+// output element), deeper rings (no gain), fc1's GELU run from a
+// shared-memory copy of the tile between the next item's `wgmma` issue and
+// wait (slower), and fc1 on two consumer warpgroups (slower than three).
+// For the unsegmented GEMM: 128-row items (slower than 192), a ring of 3 or
+// 2 stages (equal; slower), its item's scales, bias and residual staged in
+// shared memory by the producer warpgroup (1-6% faster, not worth the
+// barriers), and a ping-pong schedule, each consumer warpgroup on its own
+// 128-row item so that one's epilogue runs beside the other's products (no
+// faster; slower with a residual). At the 700 W limit the card runs these
+// products at its power limit (PERF.md).
 #pragma once
 
 #include "attention_tile_sm90.cuh"
@@ -77,6 +95,7 @@ constexpr int KT = 128;                 // bytes of K a stage
 constexpr int FC1_TN = 192;             // fc1 columns a block
 constexpr int FC2_TN = 176;             // fc2 columns a block (1,408 = 8 x 176)
 constexpr int MAX_CLUSTER = 8;
+constexpr int GEMM_STAGES = 4;
 
 // A block: WGS consumer warpgroups of 64 rows each beside a producer
 // warpgroup, and the registers a thread keeps after setmaxnreg.
@@ -91,11 +110,20 @@ struct Block {
   static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMER_THREADS <= 65536,
                 "registers of an SM");
 };
-// fc1: three consumer warpgroups (192 rows: fewer weight bytes an output
-// element, 12 warps for the epilogue); fc2 two (its fp32 sums need the
-// registers).
+// fc1 and the unsegmented GEMM: three consumer warpgroups (192 rows: fewer
+// weight bytes an output element, 12 warps for fc1's epilogue); the
+// segmented GEMM (fc2) two (its fp32 sums need the registers).
 using Fc1Block = Block<3>;
-using Fc2Block = Block<2>;
+template <bool SEG>
+struct GemmBlockOf {
+  using type = Block<3>;
+};
+template <>
+struct GemmBlockOf<true> {
+  using type = Block<2>;
+};
+template <bool SEG>
+using GemmBlock = typename GemmBlockOf<SEG>::type;
 
 // Shared memory from a 1024-byte aligned base: the ring (each stage the
 // activation tile, then the weight tile), the barriers, and for fc1 the
@@ -117,8 +145,8 @@ struct Layout {
 };
 
 using Fc1Layout = Layout<FC1_TN, 3, true, Fc1Block>;
-template <int TN>
-using Fc2Layout = Layout<TN, 4, false, Fc2Block>;
+template <int TN, bool SEG>
+using GemmLayout = Layout<TN, GEMM_STAGES, false, GemmBlock<SEG>>;
 
 struct Fc1Args {
   CUtensorMap map_a;  // xq (M, D) as bf16 pairs, boxes of 64 x 128
@@ -132,15 +160,18 @@ struct Fc1Args {
   int items;          // row tiles x chunks
 };
 
-struct Fc2Args {
-  CUtensorMap map_a;  // hq (M, H) as bf16 pairs, boxes of 64 x 128
-  CUtensorMap map_b;  // w2 (D, H) as bf16 pairs, boxes of 64 x TN
-  const float* sh;    // (M, n_seg)
-  const float* s2;    // (D)
-  const float* b2;    // (D) or null
-  const bf16* residual;  // (M, D) or null
-  bf16* out;             // (M, D)
-  int m, d, hdim, n_seg, seg_tiles;
+// out (M, N) = A (M, K) · Bᵀ dequantized, + bias + residual: kernel 14's
+// fc2 (A = hq, B = w2, sa = sh), kernel 13 and kernel 16's products.
+struct GemmTileArgs {
+  CUtensorMap map_a;     // A (M, K) as bf16 pairs, boxes of 64 x BM
+  CUtensorMap map_b;     // B (N, K) as bf16 pairs, boxes of 64 x TN
+  const float* sa;       // (M, n_seg): a row scale per K segment
+  const float* sb;       // (N)
+  const float* bias;     // (N) or null
+  const bf16* residual;  // (M, N) or null
+  bf16* out;             // (M, N)
+  int m, n, k, n_seg, seg_tiles;
+  int col_tiles, items;  // column tiles; row tiles x column tiles
 };
 
 // ------------------------------------------------------ cluster primitives
@@ -456,8 +487,9 @@ __device__ __forceinline__ void fc1_item(const Fc1Args& p, unsigned char* base,
 // consumer warpgroups apart (one if-else, so that setmaxnreg takes effect),
 // over the items cluster id, + number of clusters, ... Every thread passes
 // one cluster barrier an item: the consumers in the epilogue, the producer
-// after loading the next item's first stages (or at the end).
-__global__ void __launch_bounds__(Fc1Block::THREADS, 1)
+// after loading the next item's first stages (or at the end). Internal
+// linkage, as the launchers that name it: two sources include this header.
+static __global__ void __launch_bounds__(Fc1Block::THREADS, 1)
 fc1_requant_kernel(const __grid_constant__ Fc1Args p) {
   using L = Fc1Layout;
   using B = Fc1Block;
@@ -508,85 +540,137 @@ fc1_requant_kernel(const __grid_constant__ Fc1Args p) {
   }
 }
 
-// -------------------------------------------------------------------- fc2
-// out (M, D) bf16 = sum over chunks of hq · w2ᵀ * (sh * s2), + b2 +
-// residual; block (x, y) owns rows 128 y and columns TN x.
-template <int TN, class L>
-__device__ __forceinline__ void fc2_consume(const Fc2Args& p, uint32_t sbase, int m0,
-                                            int n0, int k_tiles) {
+// ------------------------------------------------------------- GEMM tile
+// The consumers' part of one item: the 64-row slices of out rows m0.. and
+// columns n0 .. n0 + TN of this block's warpgroups.
+template <int TN, bool SEG, class L>
+__device__ __forceinline__ void gemm_item(const GemmTileArgs& p, uint32_t sbase, int m0,
+                                          int n0, int g0, int k_tiles) {
   const int wg = sm90::warpgroup_index();
   const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int row_a = m0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
   int acc[TN / 2];
-  float accf[TN / 2];
+  float accf[SEG ? TN / 2 : 1];
+  if constexpr (SEG) {
 #pragma unroll
-  for (int i = 0; i < TN / 2; ++i) accf[i] = 0.f;
-  consume<TN, L>(acc, sbase, wg, 0, k_tiles, p.seg_tiles, [&](int seg) {
-    const float sh_a = row_a < p.m ? p.sh[long(row_a) * p.n_seg + seg] : 0.f;
-    const float sh_b = row_b < p.m ? p.sh[long(row_b) * p.n_seg + seg] : 0.f;
+    for (int i = 0; i < TN / 2; ++i) accf[i] = 0.f;
+  }
+  consume<TN, L>(acc, sbase, wg, g0, k_tiles, SEG ? p.seg_tiles : k_tiles, [&](int seg) {
+    if constexpr (SEG) {
+      const float sh_a = row_a < p.m ? p.sa[long(row_a) * p.n_seg + seg] : 0.f;
+      const float sh_b = row_b < p.m ? p.sa[long(row_b) * p.n_seg + seg] : 0.f;
 #pragma unroll
-    for (int j = 0; j < TN / 8; ++j) {
-      const int col = n0 + 8 * j + 2 * t;
-      const float2 sc = col < p.d ? *reinterpret_cast<const float2*>(p.s2 + col)
-                                  : make_float2(0.f, 0.f);
-      const float sw[2] = {sc.x, sc.y};
+      for (int j = 0; j < TN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        const float2 sc = col < p.n ? *reinterpret_cast<const float2*>(p.sb + col)
+                                    : make_float2(0.f, 0.f);
+        const float sw[2] = {sc.x, sc.y};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float s = __fmul_rn(e < 2 ? sh_a : sh_b, sw[e & 1]);
-        accf[4 * j + e] = __fadd_rn(accf[4 * j + e], __fmul_rn(float(acc[4 * j + e]), s));
+        for (int e = 0; e < 4; ++e) {
+          const float s = __fmul_rn(e < 2 ? sh_a : sh_b, sw[e & 1]);
+          accf[4 * j + e] = __fadd_rn(accf[4 * j + e], __fmul_rn(float(acc[4 * j + e]), s));
+        }
       }
     }
   });
 
+  // acc[4j + 2h + e] is row row_a + 8h, column n0 + 8j + 2t + e. The
+  // epilogue runs in groups of JB column blocks: a group's scales, bias and
+  // residual are all loaded before its first store (a load after a store to
+  // device memory waits for it: the compiler cannot tell them apart).
+  constexpr int JB = 6;
+  const float sa_a = !SEG && row_a < p.m ? p.sa[row_a] : 0.f;
+  const float sa_b = !SEG && row_b < p.m ? p.sa[row_b] : 0.f;
 #pragma unroll
-  for (int j = 0; j < TN / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * t;
-    if (col >= p.d) continue;
+  for (int j0 = 0; j0 < TN / 8; j0 += JB) {
+    float2 sw[JB], bias[JB];
+    __nv_bfloat162 res[JB][2];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = hh == 0 ? row_a : row_b;
-      if (row >= p.m) continue;
-      float v0 = accf[4 * j + 2 * hh], v1 = accf[4 * j + 2 * hh + 1];
-      if (p.b2 != nullptr) {
-        v0 = __fadd_rn(v0, p.b2[col]);
-        v1 = __fadd_rn(v1, p.b2[col + 1]);
+    for (int jj = 0; jj < JB && j0 + jj < TN / 8; ++jj) {
+      const int col = n0 + 8 * (j0 + jj) + 2 * t;
+      const bool in = col < p.n;
+      // Scalar loads: the vectors need only 4-byte alignment.
+      sw[jj] = !SEG && in ? make_float2(p.sb[col], p.sb[col + 1]) : make_float2(0.f, 0.f);
+      bias[jj] = p.bias != nullptr && in ? make_float2(p.bias[col], p.bias[col + 1])
+                                         : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = hh == 0 ? row_a : row_b;
+        res[jj][hh] = __floats2bfloat162_rn(0.f, 0.f);
+        if (p.residual != nullptr && in && row < p.m) {
+          res[jj][hh] = __ldg(reinterpret_cast<const __nv_bfloat162*>(
+              p.residual + long(row) * p.n + col));
+        }
       }
-      const long at = long(row) * p.d + col;
-      if (p.residual != nullptr) {
-        const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(p.residual + at);
-        v0 = __fadd_rn(v0, __bfloat162float(r.x));
-        v1 = __fadd_rn(v1, __bfloat162float(r.y));
+    }
+#pragma unroll
+    for (int jj = 0; jj < JB && j0 + jj < TN / 8; ++jj) {
+      const int j = j0 + jj;
+      const int col = n0 + 8 * j + 2 * t;
+      if (col >= p.n) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = hh == 0 ? row_a : row_b;
+        if (row >= p.m) continue;
+        float v0, v1;
+        if constexpr (SEG) {
+          v0 = accf[4 * j + 2 * hh];
+          v1 = accf[4 * j + 2 * hh + 1];
+        } else {
+          const float sa = hh == 0 ? sa_a : sa_b;
+          v0 = __fmul_rn(float(acc[4 * j + 2 * hh]), __fmul_rn(sa, sw[jj].x));
+          v1 = __fmul_rn(float(acc[4 * j + 2 * hh + 1]), __fmul_rn(sa, sw[jj].y));
+        }
+        if (p.bias != nullptr) {
+          v0 = __fadd_rn(v0, bias[jj].x);
+          v1 = __fadd_rn(v1, bias[jj].y);
+        }
+        if (p.residual != nullptr) {
+          v0 = __fadd_rn(v0, __low2float(res[jj][hh]));
+          v1 = __fadd_rn(v1, __high2float(res[jj][hh]));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(p.out + long(row) * p.n + col) =
+            __floats2bfloat162_rn(v0, v1);
       }
-      *reinterpret_cast<__nv_bfloat162*>(p.out + at) = __floats2bfloat162_rn(v0, v1);
     }
   }
 }
 
-template <int TN>
-__global__ void __launch_bounds__(Fc2Block::THREADS, 1)
-fc2_kernel(const __grid_constant__ Fc2Args p) {
-  using L = Fc2Layout<TN>;
-  using B = Fc2Block;
+// A persistent block over the items blockIdx.x, + gridDim.x, ...: the
+// producer's leader runs the ring on across them, the consumers take them in
+// the same order.
+template <int TN, bool SEG>
+__global__ void __launch_bounds__(GemmBlock<SEG>::THREADS, 1)
+gemm_tile_kernel(const __grid_constant__ GemmTileArgs p) {
+  using L = GemmLayout<TN, SEG>;
+  using B = GemmBlock<SEG>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sbase = (raw + 1023) & ~1023u;
-  const int m0 = blockIdx.y * B::BM;
-  const int n0 = blockIdx.x * TN;
-  const int k_tiles = (p.hdim + KT - 1) / KT;
+  const int k_tiles = (p.k + KT - 1) / KT;
   init_ring<L>(sbase);
   __syncthreads();
   if (sm90::warpgroup_index() == B::CONSUMER_THREADS / 128) {
     setmaxnreg_dec<B::PRODUCER_REGS>();
     if (threadIdx.x == B::CONSUMER_THREADS) {
-      for (int kt = 0; kt < k_tiles; ++kt) {
-        load_stage<L>(&p.map_a, &p.map_b, sbase, kt, kt, m0, n0);
+      int g = 0;
+      for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+        const int m0 = (item / p.col_tiles) * B::BM;
+        const int n0 = (item % p.col_tiles) * TN;
+        for (int kt = 0; kt < k_tiles; ++kt, ++g) {
+          load_stage<L>(&p.map_a, &p.map_b, sbase, g, kt, m0, n0);
+        }
       }
     }
   } else {
     setmaxnreg_inc<B::CONSUMER_REGS>();
-    fc2_consume<TN, L>(p, sbase, m0, n0, k_tiles);
+    int g0 = 0;
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x, g0 += k_tiles) {
+      gemm_item<TN, SEG, L>(p, sbase, (item / p.col_tiles) * B::BM,
+                            (item % p.col_tiles) * TN, g0, k_tiles);
+    }
   }
 }
 
@@ -610,7 +694,7 @@ inline cudaError_t encode_int8(CUtensorMap* map, const void* base, int rows, int
 
 // fc1's launch in clusters of `cluster` blocks, after opting in to its
 // shared memory.
-inline cudaError_t fc1_config(int cluster, cudaLaunchConfig_t* cfg,
+static inline cudaError_t fc1_config(int cluster, cudaLaunchConfig_t* cfg,
                               cudaLaunchAttribute* attr) {
   I8_TRY(cudaFuncSetAttribute(fc1_requant_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -631,7 +715,7 @@ inline cudaError_t fc1_config(int cluster, cudaLaunchConfig_t* cfg,
 // *active: the clusters of `cluster` fc1 blocks the card holds at once
 // (cudaOccupancyMaxActiveClusters), 0 for a size it cannot co-schedule;
 // asked once per size and process (one card a process).
-inline cudaError_t fc1_active_clusters(int cluster, int* active) {
+static inline cudaError_t fc1_active_clusters(int cluster, int* active) {
   static int known[MAX_CLUSTER + 1] = {};  // 0: not asked yet
   *active = 0;
   if (cluster < 1 || cluster > MAX_CLUSTER) return cudaSuccess;
@@ -647,10 +731,72 @@ inline cudaError_t fc1_active_clusters(int cluster, int* active) {
   return cudaSuccess;
 }
 
+inline cudaError_t sm_count(int* sms) {
+  static int known = 0;
+  if (known == 0) {
+    int dev = 0;
+    I8_TRY(cudaGetDevice(&dev));
+    I8_TRY(cudaDeviceGetAttribute(&known, cudaDevAttrMultiProcessorCount, dev));
+  }
+  *sms = known;
+  return cudaSuccess;
+}
+
+template <int TN, bool SEG>
+inline cudaError_t launch_gemm_items(GemmTileArgs& p, cudaStream_t stream) {
+  using B = GemmBlock<SEG>;
+  constexpr int alloc = GemmLayout<TN, SEG>::alloc;
+  const long row_tiles = (long(p.m) + B::BM - 1) / B::BM;
+  p.col_tiles = (p.n + TN - 1) / TN;
+  if (row_tiles * p.col_tiles > 0x7fffffffL) return cudaErrorInvalidValue;
+  p.items = int(row_tiles * p.col_tiles);
+  int sms = 0;
+  I8_TRY(sm_count(&sms));
+  I8_TRY(cudaFuncSetAttribute(gemm_tile_kernel<TN, SEG>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, alloc));
+  const int grid = p.items < sms ? p.items : sms;
+  gemm_tile_kernel<TN, SEG><<<grid, B::THREADS, alloc, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// out (M, N) bf16 = a (M, K) int8 · b (N, K)ᵀ int8 * (sa * sb), + bias +
+// residual, on the GEMM tile with column tiles of tn (192 or 176). With
+// seg_k < K, K runs in segments of seg_k (a multiple of 128), each with its
+// own row scale: sa is (M, K / seg_k) (kernel 14's fc2, tn 176).
+inline cudaError_t launch_gemm_tile(const int8_t* a, const float* sa, const int8_t* b,
+                                    const float* sb, const float* bias,
+                                    const bf16* residual, bf16* out, int m, int n, int k,
+                                    int seg_k, int tn, cudaStream_t stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k % 16 != 0 || n % 8 != 0 || seg_k <= 0 ||
+      k % seg_k != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const bool seg = seg_k != k;
+  if (seg && (seg_k % KT != 0 || tn != FC2_TN)) return cudaErrorInvalidValue;
+  GemmTileArgs p{};
+  I8_TRY(encode_int8(&p.map_a, a, m, k, seg ? GemmBlock<true>::BM : GemmBlock<false>::BM));
+  I8_TRY(encode_int8(&p.map_b, b, n, k, tn));
+  p.sa = sa;
+  p.sb = sb;
+  p.bias = bias;
+  p.residual = residual;
+  p.out = out;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.n_seg = k / seg_k;
+  p.seg_tiles = seg_k / KT;
+  if (seg) return launch_gemm_items<FC2_TN, true>(p, stream);
+  if (tn == 192) return launch_gemm_items<192, false>(p, stream);
+  if (tn == 176) return launch_gemm_items<176, false>(p, stream);
+  return cudaErrorInvalidValue;
+}
+
 // fc1 then fc2 of the MLP on xq/sa (from norm_quant_rows), through hq/sh.
 // fc1 covers a chunk of block_h = 192 x fc1_cluster columns with one
-// cluster; fc2 runs column tiles of FC2_TN (a partial last tile masked).
-inline cudaError_t launch_mlp_products(const int8_t* xq, const float* sa,
+// cluster; fc2 is the GEMM tile over the chunks, column tiles of FC2_TN (a
+// partial last tile masked).
+static inline cudaError_t launch_mlp_products(const int8_t* xq, const float* sa,
                                        const int8_t* w1, const float* s1,
                                        const float* b1, const int8_t* w2,
                                        const float* s2, const float* b2,
@@ -664,10 +810,8 @@ inline cudaError_t launch_mlp_products(const int8_t* xq, const float* sa,
     return cudaErrorInvalidValue;
   }
   const int n_seg = hdim / block_h;
-  const long row_tiles = (long(m) + Fc2Block::BM - 1) / Fc2Block::BM;
   const long fc1_items = (long(m) + Fc1Block::BM - 1) / Fc1Block::BM * n_seg;
-  if (fc1_items > 0x7fffffffL || row_tiles > 65535 ||
-      (n_seg > 1 && block_h % KT != 0)) {
+  if (fc1_items > 0x7fffffffL || (n_seg > 1 && block_h % KT != 0)) {
     return cudaErrorInvalidValue;
   }
 
@@ -696,25 +840,8 @@ inline cudaError_t launch_mlp_products(const int8_t* xq, const float* sa,
   I8_TRY(cudaLaunchKernelEx(&cfg, fc1_requant_kernel, a1));
   I8_TRY(cudaGetLastError());
 
-  Fc2Args a2{};
-  I8_TRY(encode_int8(&a2.map_a, hq, m, hdim, Fc2Block::BM));
-  I8_TRY(encode_int8(&a2.map_b, w2, d, hdim, FC2_TN));
-  a2.sh = sh;
-  a2.s2 = s2;
-  a2.b2 = b2;
-  a2.residual = residual;
-  a2.out = out;
-  a2.m = m;
-  a2.d = d;
-  a2.hdim = hdim;
-  a2.n_seg = n_seg;
-  a2.seg_tiles = n_seg > 1 ? block_h / KT : (hdim + KT - 1) / KT;
-  const dim3 grid2{unsigned((d + FC2_TN - 1) / FC2_TN), unsigned(row_tiles)};
-  I8_TRY(cudaFuncSetAttribute(fc2_kernel<FC2_TN>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Fc2Layout<FC2_TN>::alloc));
-  fc2_kernel<FC2_TN><<<grid2, Fc2Block::THREADS, Fc2Layout<FC2_TN>::alloc, stream>>>(a2);
-  return cudaGetLastError();
+  return launch_gemm_tile(hq, sh, w2, s2, b2, residual, out, m, d, hdim,
+                          n_seg > 1 ? block_h : hdim, FC2_TN, stream);
 }
 
 #undef I8_TRY

@@ -49,8 +49,6 @@ using sm90::WG_THREADS;
 
 namespace {
 
-constexpr int KV_TILES = 5;  // the most key tiles the resident path holds
-
 // ------------------------------------------------------------- streaming
 // Kernel 4's problem with keys [0, n_valid).
 template <int DP>
@@ -60,106 +58,15 @@ qkv_stream_kernel(const __grid_constant__ sm90::NoBiasProblem p) {
   sm90::attention_persistent<DP, sm90::kNoBias, false>(p, smem);
 }
 
-// -------------------------------------------------------------- resident
-// One launch: a work item is (image, head), head fastest, so the blocks
-// that run together read neighbouring heads of the same packed rows.
-struct ResidentProblem {
-  sm90::Maps maps;
-  bf16* out;
-  int n, n_valid, h, d, items;
-  int passes;      // query tiles of 64 an item
-  int key_tiles;   // key tiles of 64 an item (<= KV_TILES)
-  bool narrow;     // the last key tile holds <= 16 keys
-  float scale;
-};
-
-// Shared memory from a 1024-byte aligned base: the item's K tiles and V
-// tiles, then two Q slots a consumer; mbarriers K/V full[KV_TILES], K/V
-// empty[KV_TILES], Q full[consumer][slot], Q empty[consumer][slot].
-template <int DP>
-struct ResidentLayout {
-  using L = sm90::Layout<DP, sm90::kNoBias>;
-  static constexpr int TILE = L::TILE;
-  static constexpr int k_off = 0;
-  static constexpr int v_off = KV_TILES * TILE;
-  static constexpr int q_off = 2 * KV_TILES * TILE;
-  static constexpr int bar_off = q_off + 2 * CONSUMERS * TILE;
-  static constexpr int kv_full = bar_off;
-  static constexpr int kv_empty = kv_full + KV_TILES * 8;
-  static constexpr int q_full = kv_empty + KV_TILES * 8;
-  static constexpr int q_empty = q_full + 2 * CONSUMERS * 8;
-  static constexpr int bytes = q_empty + 2 * CONSUMERS * 8;
-  static constexpr int alloc = bytes + 1024;
-  static_assert(alloc <= 232448, "the resident K/V do not fit a block");
-};
-
-// Pass g of the block's sequence (its items' query tiles in order) belongs to
-// consumer g % 2; the producer and both consumers walk the same sequence.
-
-// The producer's leader thread: per item the Q tiles of its first two
-// passes, then its K/V tiles (each once both consumers are done with the
-// last item's), then the Q tiles of the other passes. A Q tile waits for its
-// consumer's slot to free, which the same consumer's pass two before does:
-// for the first two passes a pass of the last item (whose K/V are in), for
-// the others one of this item (whose K/V were issued before): no cycle.
-template <int DP>
-__device__ __forceinline__ void produce_resident(const ResidentProblem& p,
-                                                 uint32_t sbase) {
-  using RL = ResidentLayout<DP>;
-  constexpr int PANELS = RL::L::PANELS;
-  int mine0 = 0, mine1 = 0;  // Q tiles issued to consumers 0 and 1
-  int g0 = 0;                // the item's first pass
-  int round = 0;
-  auto load_q = [&](int b, int head, int lp) {
-    const int w = (g0 + lp) % CONSUMERS;
-    const int mine = w == 0 ? mine0 : mine1;
-    const int slot = mine % 2;
-    const uint32_t full = sbase + RL::q_full + (w * 2 + slot) * 8;
-    sm90::mbar_wait(sbase + RL::q_empty + (w * 2 + slot) * 8, ((mine / 2) & 1) ^ 1);
-    sm90::mbar_arrive_expect(full, RL::TILE);
-    const uint32_t dst = sbase + RL::q_off + (w * 2 + slot) * RL::TILE;
-#pragma unroll
-    for (int pn = 0; pn < PANELS; ++pn) {
-      sm90::tma_load_4d(dst + pn * PANEL_BYTES, &p.maps.q, full, pn * 64, head,
-                        lp * BM, b);
-    }
-    if (w == 0) {
-      ++mine0;
-    } else {
-      ++mine1;
-    }
-  };
-  for (int item = blockIdx.x; item < p.items; item += gridDim.x, ++round) {
-    const int head = item % p.h;
-    const int b = item / p.h;
-    const int early = p.passes < 2 ? p.passes : 2;
-    for (int lp = 0; lp < early; ++lp) load_q(b, head, lp);
-    for (int j = 0; j < p.key_tiles; ++j) {
-      const uint32_t full = sbase + RL::kv_full + j * 8;
-      sm90::mbar_wait(sbase + RL::kv_empty + j * 8, (round & 1) ^ 1);
-      sm90::mbar_arrive_expect(full, 2 * RL::TILE);
-#pragma unroll
-      for (int pn = 0; pn < PANELS; ++pn) {
-        sm90::tma_load_4d(sbase + RL::k_off + j * RL::TILE + pn * PANEL_BYTES,
-                          &p.maps.k, full, pn * 64, head, j * BK, b);
-        sm90::tma_load_4d(sbase + RL::v_off + j * RL::TILE + pn * PANEL_BYTES,
-                          &p.maps.v, full, pn * 64, head, j * BK, b);
-      }
-    }
-    for (int lp = early; lp < p.passes; ++lp) load_q(b, head, lp);
-    g0 += p.passes;
-  }
-}
-
 // One consumer warpgroup: its passes, each the online softmax of 64 query
 // rows over the item's resident key tiles, software-pipelined as in
 // sm90::consume (q·kᵀ of tile j+1 and p·v of tile j on the tensor cores
 // while the scores of tile j+1 turn into probabilities). In its last pass of
 // an item the warpgroup hands each key tile back once its p·v is done.
 template <int DP>
-__device__ __forceinline__ void consume_resident(const ResidentProblem& p,
+__device__ __forceinline__ void consume_resident(const sm90::ResidentProblem& p,
                                                  uint32_t sbase) {
-  using RL = ResidentLayout<DP>;
+  using RL = sm90::ResidentLayout<DP>;
   constexpr int ND = DP / 8;
   const int wg = sm90::warpgroup_index();
   const int tid = threadIdx.x % WG_THREADS;
@@ -350,44 +257,17 @@ __device__ __forceinline__ void consume_resident(const ResidentProblem& p,
 
 template <int DP>
 __global__ void __launch_bounds__(sm90::NTHREADS, 1)
-qkv_resident_kernel(const __grid_constant__ ResidentProblem p) {
+qkv_resident_kernel(const __grid_constant__ sm90::ResidentProblem p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  using RL = ResidentLayout<DP>;
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t sbase = (raw + 1023) & ~1023u;
-  if (threadIdx.x == 0) {
-    for (int j = 0; j < KV_TILES; ++j) {
-      sm90::mbar_init(sbase + RL::kv_full + j * 8, 1);  // the leader; TMA bytes
-      sm90::mbar_init(sbase + RL::kv_empty + j * 8, CONSUMERS * WG_THREADS);
-    }
-    for (int i = 0; i < 2 * CONSUMERS; ++i) {
-      sm90::mbar_init(sbase + RL::q_full + i * 8, 1);
-      sm90::mbar_init(sbase + RL::q_empty + i * 8, WG_THREADS);  // its consumer
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  sm90::init_resident<DP>(sbase);
   __syncthreads();
   if (threadIdx.x >= CONSUMERS * WG_THREADS) {
-    if (threadIdx.x == CONSUMERS * WG_THREADS) produce_resident<DP>(p, sbase);
+    if (threadIdx.x == CONSUMERS * WG_THREADS) sm90::produce_resident<DP>(p, sbase);
   } else {
     consume_resident<DP>(p, sbase);
   }
-}
-
-// The three tensor maps over the packed row: q with n rows, k and v with
-// n_valid rows (TMA zero-fills the keys past n_valid).
-cudaError_t encode_packed(sm90::Maps& maps, const bf16* qkv, int b, int n,
-                          int n_valid, int h, int d) {
-  const long hd = long(h) * d;
-  const long row = 3 * hd;
-  cudaError_t err = sm90::encode_qkv(&maps.q, qkv, b, n, h, d, n * row, row, d);
-  if (err == cudaSuccess) {
-    err = sm90::encode_qkv(&maps.k, qkv + hd, b, n_valid, h, d, n * row, row, d);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::encode_qkv(&maps.v, qkv + 2 * hd, b, n_valid, h, d, n * row, row, d);
-  }
-  return err;
 }
 
 template <int DP>
@@ -396,9 +276,9 @@ struct QkvLaunch {
                          int d, int n_valid, float scale,
                          cudaStream_t stream) {
     const int key_tiles = (n_valid + BK - 1) / BK;
-    if (key_tiles <= KV_TILES) {
-      ResidentProblem p{};
-      cudaError_t err = encode_packed(p.maps, qkv, b, n, n_valid, h, d);
+    if (key_tiles <= sm90::KV_TILES) {
+      sm90::ResidentProblem p{};
+      cudaError_t err = sm90::encode_packed(p.maps, qkv, b, n, n_valid, h, d);
       if (err != cudaSuccess) return err;
       p.out = out;
       p.n = n;
@@ -410,12 +290,13 @@ struct QkvLaunch {
       p.key_tiles = key_tiles;
       p.narrow = key_tiles >= 2 && n_valid - (key_tiles - 1) * BK <= 16;
       p.scale = scale;
-      return sm90::launch(qkv_resident_kernel<DP>, ResidentLayout<DP>::alloc, stream, p);
+      return sm90::launch(qkv_resident_kernel<DP>, sm90::ResidentLayout<DP>::alloc,
+                          stream, p);
     }
     const long n_qt = (n + sm90::BQ - 1) / sm90::BQ;
     if (long(b) * h * n_qt > 0x7fffffffL) return cudaErrorInvalidValue;
     sm90::NoBiasProblem p{};
-    cudaError_t err = encode_packed(p.maps, qkv, b, n, n_valid, h, d);
+    cudaError_t err = sm90::encode_packed(p.maps, qkv, b, n, n_valid, h, d);
     if (err != cudaSuccess) return err;
     p.out = out;
     p.n = n;

@@ -83,19 +83,23 @@ _SIGNATURES = {
     "mrb_flash_relpos_bwd_dq_dtable_f32": [_P] * 12 + [_I] * 6 + [_F, _P],
     "mrb_flash_relpos_bwd_dkv_f32": [_P] * 11 + [_I] * 6 + [_F, _P],
     # x, ls, lb, norm_kind, eps, wq, sw, bias, residual, out, xq, sa, M, K, N,
-    # stream
-    "mrb_w8a8_linear": [_P] * 3 + [_I, _F] + [_P] * 7 + [_I] * 3 + [_P],
+    # column tile, stream
+    "mrb_w8a8_linear": [_P] * 3 + [_I, _F] + [_P] * 7 + [_I] * 4 + [_P],
     # x, ls, lb, norm_kind, eps, w1, s1, b1, w2, s2, b2, residual, out, xq, sa,
     # hq, sh, M, D, H, block_h, fc1 cluster, stream
     "mrb_w8a8_mlp": [_P] * 3 + [_I, _F] + [_P] * 12 + [_I] * 5 + [_P],
+    # the chain route: x, ls, lb, norm_kind, eps, w1, s1, b1, w2, s2, b2,
+    # residual, out, xq, sa, h32, hq, sh, M, D, H, block_h, stream
+    "mrb_w8a8_mlp_chain": [_P] * 3 + [_I, _F] + [_P] * 13 + [_I] * 4 + [_P],
     # fc1 cluster, int* active clusters out
     "mrb_w8a8_mlp_active_clusters": [_I, _P],
     # x, ls, lb, norm_kind, eps, w0, s0, w1, s1, wo, so, residual, out, xq, sa,
     # h32, hq, sh, M, D, H, block_h, stream
     "mrb_w8a8_mlp_gated": [_P] * 3 + [_I, _F] + [_P] * 13 + [_I] * 4 + [_P],
     # x, ls, lb, eps, wqkv, sqkv, qkv_bias, wproj, sproj, proj_bias, out, xq,
-    # sa, qkv, attn, B, N, C, heads, n_valid, q_scale, stream
-    "mrb_w8a8_attn_block": [_P] * 3 + [_F] + [_P] * 11 + [_I] * 5 + [_F, _P],
+    # sa, qkv, attn, B, N, C, heads, n_valid, q_scale, the column tiles of
+    # qkv and proj, stream
+    "mrb_w8a8_attn_block": [_P] * 3 + [_F] + [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
 }
 
 

@@ -129,7 +129,7 @@ class _QkvPacked(torch.autograd.Function):
 
 
 # The most key tiles of 64 the packed-QKV kernel keeps resident in shared
-# memory (csrc/qkv_packed_attention.cu, KV_TILES).
+# memory (csrc/attention_tile_sm90.cuh, KV_TILES).
 QKV_RESIDENT_KEY_TILES = 5
 
 

@@ -10,8 +10,11 @@ The MLPs requantize their hidden activation per (row, chunk of ``block_h``
 columns), so the chunk width chosen by ``_pick_block`` is part of the
 function. GELU is the tanh approximation. On the card the GELU MLP's first
 product covers a chunk with one thread-block cluster (``_mlp_plan``) and
-requantizes in its epilogue, so its workspace holds no fp32 hidden; the
-gated MLP's still does (``_gated_mlp_workspace``).
+requantizes in its epilogue, so its workspace holds no fp32 hidden; a chunk
+width that no cluster covers takes the chain route (``_mlp_route``), whose
+workspace does, as the gated MLP's (``_gated_mlp_workspace``). The linear and
+the attention block's two products run on the GEMM tile, whose column tiles
+``_linear_plan`` names.
 
 Four public wrappers, each with the JAX signature: ``w8a8_linear``,
 ``w8a8_mlp``, ``w8a8_mlp_gated`` and ``w8a8_attn_block``. A CPU tensor takes
@@ -252,6 +255,20 @@ def _check_chunks(hdim, block_h):
 
 
 # ---------------------------------------------------------------- linear
+# Column widths of the GEMM tile (csrc/int8_tile_sm90.cuh): wgmma m64n192
+# and m64n176.
+LINEAR_TILES = (192, 176)
+
+
+def _linear_plan(n: int) -> tuple[int, int]:
+    """(column tile, column tiles) of the GEMM tile for N output columns:
+    192 where it divides N, else 176 where that does (1,408 = 8 x 176), else
+    192 with a ragged last tile (2,048; the tiny configs' widths), which the
+    kernel zero-fills and does not store."""
+    tn = next((t for t in LINEAR_TILES if n % t == 0), LINEAR_TILES[0])
+    return tn, -(-n // tn)
+
+
 def _w8a8_linear_cuda(x, wq, sw, bias, norm, residual):
     m, k = x.shape
     n = wq.shape[1]
@@ -271,7 +288,7 @@ def _w8a8_linear_cuda(x, wq, sw, bias, norm, residual):
     err = _cuda.library().mrb_w8a8_linear(
         x.data_ptr(), _ptr(ls), _ptr(lb), _NORM_KINDS[kind], eps, wq.data_ptr(),
         sw.data_ptr(), _ptr(bias), _ptr(residual), out.data_ptr(), xq.data_ptr(),
-        sa.data_ptr(), m, k, n, _cuda.stream_ptr(dev))
+        sa.data_ptr(), m, k, n, _linear_plan(n)[0], _cuda.stream_ptr(dev))
     _cuda.check(err, "mrb_w8a8_linear")
     w8a8_linear.launches += 1
     return out
@@ -299,22 +316,38 @@ FC1_TILE = 192
 MAX_FC1_CLUSTER = 8  # the portable cluster size
 
 
+def _fc1_cluster(hdim: int, block_h: int) -> int:
+    """How many 192-column fc1 tiles cover a hidden chunk of ``block_h``
+    columns as one cluster (1 to 8, with chunks that are whole 128-column K
+    tiles of fc2 when there are several), or 0 when none do."""
+    cluster, rest = divmod(block_h, FC1_TILE)
+    if rest or not 1 <= cluster <= MAX_FC1_CLUSTER or (hdim // block_h > 1 and block_h % 128):
+        return 0
+    return cluster
+
+
 def _mlp_plan(hdim: int, block_h: int) -> tuple[int, int]:
-    """(fc1 tile, fc1 cluster) of the GELU MLP's kernels: fc1's epilogue
+    """(fc1 tile, fc1 cluster) of the GELU MLP's tile route: fc1's epilogue
     needs a chunk's row maxima, so the blocks of one cluster cover one hidden
     chunk together (tile x cluster == block_h). A chunk width that no
-    cluster of 192-column tiles covers raises."""
+    cluster covers raises (the wrapper sends it to the chain route)."""
     if block_h <= 0 or hdim % block_h:
         raise ValueError(f"hidden width {hdim} is not a whole number of chunks of "
                          f"{block_h}")
-    cluster, rest = divmod(block_h, FC1_TILE)
-    if rest or not 1 <= cluster <= MAX_FC1_CLUSTER:
-        raise ValueError(f"a hidden chunk of {block_h} columns is not 1 to "
-                         f"{MAX_FC1_CLUSTER} fc1 tiles of {FC1_TILE}")
-    if hdim // block_h > 1 and block_h % 128:
-        raise ValueError(f"hidden chunks of {block_h} columns are not whole 128-column "
-                         "K tiles of fc2")
+    cluster = _fc1_cluster(hdim, block_h)
+    if not cluster:
+        raise ValueError(f"hidden chunks of {block_h} columns are not covered by 1 to "
+                         f"{MAX_FC1_CLUSTER} fc1 tiles of {FC1_TILE} (as whole "
+                         "128-column K tiles of fc2)")
     return FC1_TILE, cluster
+
+
+def _mlp_route(hdim: int, block_h: int) -> str:
+    """The GELU MLP's route on the card for chunks of ``block_h`` columns
+    (after ``_pick_block``), chosen by the shape before any launch: "tile"
+    where a cluster of fc1 tiles covers a chunk (``_mlp_plan``), else
+    "chain" (``mrb_w8a8_mlp_chain``: the fp32 hidden through device memory)."""
+    return "tile" if _fc1_cluster(hdim, block_h) else "chain"
 
 
 def _mlp_workspace(m, d, hdim, num_h, dev):
@@ -326,8 +359,8 @@ def _mlp_workspace(m, d, hdim, num_h, dev):
 
 
 def _gated_mlp_workspace(m, d, hdim, num_h, dev):
-    """xq, sa, h32, hq, sh of the gated MLP, whose fp32 hidden goes through
-    device memory."""
+    """xq, sa, h32, hq, sh of the gated MLP and of the GELU MLP's chain
+    route, whose fp32 hidden goes through device memory."""
     xq, sa, hq, sh = _mlp_workspace(m, d, hdim, num_h, dev)
     return xq, sa, torch.empty((m, hdim), dtype=torch.float32, device=dev), hq, sh
 
@@ -338,7 +371,7 @@ def _w8a8_mlp_cuda(x, w1q, s1, b1, w2q, s2, b2, norm, residual, block_h):
     dev = x.device
     block_h = _pick_block(hdim, block_h)
     _check_chunks(hdim, block_h)
-    _, cluster = _mlp_plan(hdim, block_h)
+    route = _mlp_route(hdim, block_h)
     kind, ls, lb, eps = _norm_parts(norm, d)
     _check_act("x", x, m, d, dev)
     _check_weight("w1q", w1q, d, hdim, dev)
@@ -351,13 +384,18 @@ def _w8a8_mlp_cuda(x, w1q, s1, b1, w2q, s2, b2, norm, residual, block_h):
     out = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     if m == 0:
         return out
-    ws = _mlp_workspace(m, d, hdim, hdim // block_h, dev)
-    err = _cuda.library().mrb_w8a8_mlp(
-        x.data_ptr(), _ptr(ls), _ptr(lb), _NORM_KINDS[kind], eps,
-        w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
-        s2.data_ptr(), b2.data_ptr(), _ptr(residual), out.data_ptr(),
-        *[t.data_ptr() for t in ws], m, d, hdim, block_h, cluster, _cuda.stream_ptr(dev))
-    _cuda.check(err, "mrb_w8a8_mlp")
+    args = (x.data_ptr(), _ptr(ls), _ptr(lb), _NORM_KINDS[kind], eps,
+            w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
+            s2.data_ptr(), b2.data_ptr(), _ptr(residual), out.data_ptr())
+    if route == "tile":
+        ws = _mlp_workspace(m, d, hdim, hdim // block_h, dev)
+        name, tail = "mrb_w8a8_mlp", (block_h, _mlp_plan(hdim, block_h)[1])
+    else:
+        ws = _gated_mlp_workspace(m, d, hdim, hdim // block_h, dev)
+        name, tail = "mrb_w8a8_mlp_chain", (block_h,)
+    err = getattr(_cuda.library(), name)(
+        *args, *[t.data_ptr() for t in ws], m, d, hdim, *tail, _cuda.stream_ptr(dev))
+    _cuda.check(err, name)
     w8a8_mlp.launches += 1
     return out
 
@@ -423,6 +461,16 @@ w8a8_mlp_gated.launches = 0
 
 
 # ---------------------------------------------------- fused ViT attention
+def _attn_block_workspace(rows, c, dev):
+    """xq, sa, qkv and attn of the fused block: the int8 activation and its
+    row scales (both quantize passes), the packed bf16 qkv rows that the
+    attention reads, the bf16 attention output."""
+    return (torch.empty((rows, c), dtype=torch.int8, device=dev),
+            torch.empty((rows,), dtype=torch.float32, device=dev),
+            torch.empty((rows, 3 * c), dtype=torch.bfloat16, device=dev),
+            torch.empty((rows, c), dtype=torch.bfloat16, device=dev))
+
+
 def _w8a8_attn_block_cuda(x, wqkv, sqkv, qkv_bias, wproj, sproj, proj_bias,
                           ls, lb, eps, num_heads, n_valid):
     b, n, c = x.shape
@@ -443,18 +491,14 @@ def _w8a8_attn_block_cuda(x, wqkv, sqkv, qkv_bias, wproj, sproj, proj_bias,
     out = torch.empty_like(x)
     if b == 0 or n == 0:
         return out
-    rows = b * n
-    xq = torch.empty((rows, c), dtype=torch.int8, device=dev)
-    sa = torch.empty((rows,), dtype=torch.float32, device=dev)
-    qkv = torch.empty((rows, 3 * c), dtype=torch.bfloat16, device=dev)
-    attn = torch.empty((rows, c), dtype=torch.bfloat16, device=dev)
+    ws = _attn_block_workspace(b * n, c, dev)
     q_scale = float(torch.tensor(hd ** -0.5, dtype=torch.bfloat16))
     err = _cuda.library().mrb_w8a8_attn_block(
         x.data_ptr(), ls.data_ptr(), lb.data_ptr(), float(eps), wqkv.data_ptr(),
         sqkv.data_ptr(), qkv_bias.data_ptr(), wproj.data_ptr(), sproj.data_ptr(),
-        proj_bias.data_ptr(), out.data_ptr(), xq.data_ptr(), sa.data_ptr(),
-        qkv.data_ptr(), attn.data_ptr(), b, n, c, num_heads, int(n_valid), q_scale,
-        _cuda.stream_ptr(dev))
+        proj_bias.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in ws],
+        b, n, c, num_heads, int(n_valid), q_scale,
+        _linear_plan(3 * c)[0], _linear_plan(c)[0], _cuda.stream_ptr(dev))
     _cuda.check(err, "mrb_w8a8_attn_block")
     w8a8_attn_block.launches += 1
     return out

@@ -11,27 +11,35 @@ line each for:
   products reach;
 * how many clusters of kernel 14's fc1 blocks the card holds at once, by
   cluster size (``cudaOccupancyMaxActiveClusters``);
-* the device kernels inside one ``w8a8_mlp``, one ``w8a8_mlp_gated`` and one
-  ``w8a8_attn_block`` call (``torch.profiler``): the quantization passes,
-  kernel 14's fc1 (with the requantizing epilogue) and fc2, the other int8
-  GEMMs by epilogue, kernel 15's requantization pass and the attention phase;
+* the device kernels inside one ``w8a8_mlp``, one ``w8a8_mlp_gated``, one
+  ``w8a8_attn_block`` and one ``w8a8_linear`` call (``torch.profiler``): the
+  quantization passes, kernel 14's fc1 (with the requantizing epilogue) and
+  fc2, the GEMM tile's products, kernel 15's int8 GEMMs by epilogue and its
+  requantization pass, and the attention phase;
 * the bf16 products the int8 GEMMs replace, as PyTorch runs them (cuBLAS):
-  a yardstick only, the port never takes it for an int8 layer.
+  a yardstick only, the port never takes it for an int8 layer;
+* the SM clock and the power the card draws (``nvidia-smi``, every 100 ms)
+  while it runs the W8A8 linear at the ViT qkv shape for 3 s, then the bf16
+  product of the same shape: how far the power limit holds the products.
 
 Random inputs and weights from a seed; nothing is checked here
 (``chip_smoke.py`` holds each kernel against its plain version).
 
 With ``--other DIR`` (another checkout's ``mr_blip_tpu_torch``, for example
 the parent commit unpacked with ``git archive`` into a git-ignored directory)
-it times kernel 1 (LayerNorm) and kernel 14 (``w8a8_mlp``) of both builds
+it times kernel 1 (LayerNorm), kernel 13 (``w8a8_linear``, at the six
+main-path shapes of ``chip_smoke.py``'s phase 3), kernel 14 (``w8a8_mlp``)
+and kernel 16 (``w8a8_attn_block`` at (240, 257, 1,408)) of both builds
 instead, side by side in one process: each library is built from its own
 ``csrc`` and bound with its own checkout's C signatures (read from its
 ``ops/_cuda.py``), and launched on the same inputs in turns other, this,
 this, other (CUDA events, median of 10 each; a kernel's number is the mean
-of its turns), at the shapes of ``chip_smoke.py``'s phase 3; each output is
-held against the other build's first (max |diff| and whether they are
-equal). Then ``torch.profiler`` names the device kernels inside one call of
-each build's ``w8a8_mlp``. One JSON line per shape and build.
+of its turns); each output is held against the other build's first (max
+|diff| and whether they are equal). Then ``torch.profiler`` names the device
+kernels inside one call of each build's ``w8a8_linear`` (the Q-Former
+shape), ``w8a8_mlp`` and ``w8a8_attn_block``: the quantize passes, the
+products (with their int8 TOP/s) and the attention. One JSON line per shape
+and build.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import json
 import runpy
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -80,6 +89,34 @@ def _device_kernels(fn):
     return [[e.key[:60], e.count, e.device_time_total / 1e3]
             for e in sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
             if e.device_time_total > 0]
+
+
+def _under_load(fn, seconds=3.0):
+    """ms a call of ``fn`` run back to back for ``seconds``, and the SM clock
+    (MHz) and power draw (W) sampled meanwhile: medians and ranges."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0, calls = time.time(), 0
+    start.record()
+    while time.time() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        calls += 20
+        torch.cuda.synchronize()
+    end.record()
+    end.synchronize()
+    smi.terminate()
+    rows = [[float(v) for v in line.split(",")] for line in smi.communicate()[0].splitlines()
+            if line.strip()]
+    rows = rows[3:-2] or rows  # the samples taken while the loop ran
+    clocks, watts = [r[0] for r in rows], [r[1] for r in rows]
+    return {"ms": start.elapsed_time(end) / calls, "calls": calls,
+            "clocks_sm_mhz": [statistics.median(clocks), min(clocks), max(clocks)],
+            "power_draw_w": [statistics.median(watts), min(watts), max(watts)]}
 
 
 def _check(err, name):
@@ -131,9 +168,64 @@ def _mlp_launcher(lib, n_args, x, weights, norm, residual, out):
     return launch
 
 
+def _linear_launcher(lib, n_args, x, wq, sw, bias, norm, residual, out):
+    """``w8a8_linear`` through a build's C entry: this checkout's takes the
+    GEMM tile's column width (``_linear_plan``), an older one none."""
+    stream = torch.cuda.current_stream().cuda_stream
+    m, k = x.shape
+    n = wq.shape[1]
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sa = torch.empty((m,), dtype=torch.float32, device=x.device)
+    extra = []
+    if n_args == len(_cuda._SIGNATURES["mrb_w8a8_linear"]):
+        extra = [i8._linear_plan(n)[0]]
+    kind, ls, lb, eps = norm if norm is not None else (None, None, None, 0.0)
+
+    def launch():
+        _check(lib.mrb_w8a8_linear(
+            x.data_ptr(), i8._ptr(ls), i8._ptr(lb), i8._NORM_KINDS[kind], eps,
+            wq.data_ptr(), sw.data_ptr(), i8._ptr(bias), i8._ptr(residual), out.data_ptr(),
+            xq.data_ptr(), sa.data_ptr(), m, k, n, *extra, stream), "mrb_w8a8_linear")
+        return out
+    return launch
+
+
+def _attn_block_launcher(lib, n_args, x, weights, norm, heads, out):
+    """``w8a8_attn_block`` through a build's C entry: this checkout's takes
+    the column widths of its two products, an older one none."""
+    stream = torch.cuda.current_stream().cuda_stream
+    b, n, c = x.shape
+    ws = i8._attn_block_workspace(b * n, c, x.device)
+    extra = []
+    if n_args == len(_cuda._SIGNATURES["mrb_w8a8_attn_block"]):
+        extra = [i8._linear_plan(3 * c)[0], i8._linear_plan(c)[0]]
+    _, ls, lb, eps = norm
+    q_scale = float(torch.tensor((c // heads) ** -0.5, dtype=torch.bfloat16))
+
+    def launch():
+        _check(lib.mrb_w8a8_attn_block(
+            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), eps,
+            *[t.data_ptr() for t in weights], out.data_ptr(),
+            *[t.data_ptr() for t in ws], b, n, c, heads, 0, q_scale, *extra, stream),
+            "mrb_w8a8_attn_block")
+        return out
+    return launch
+
+
+def _with_rates(kernels, int8_ops):
+    """[name, launches, ms, int8 TOP/s] for the products (int8_ops: the
+    operations of each product kernel, by a part of its name)."""
+    rows = []
+    for name, count, ms in kernels:
+        ops = next((v for key, v in int8_ops.items() if key in name), None)
+        rows.append([name, count, ms] + ([ops * count / ms / 1e9] if ops else []))
+    return rows
+
+
 def compare_with(other: Path) -> None:
-    """Kernels 1 and 14 of this build beside another checkout's."""
-    entries = ("mrb_layer_norm_bf16", "mrb_w8a8_mlp")
+    """Kernels 1, 13, 14 and 16 of this build beside another checkout's."""
+    entries = ("mrb_layer_norm_bf16", "mrb_w8a8_linear", "mrb_w8a8_mlp",
+               "mrb_w8a8_attn_block")
     other_pkg = other.resolve() / "mr_blip_tpu_torch"
     other_sigs = runpy.run_path(str(other_pkg / "ops" / "_cuda.py"))["_SIGNATURES"]
     builds = {
@@ -181,6 +273,77 @@ def compare_with(other: Path) -> None:
                           "device": device}), flush=True)
         del x, outs, launchers
         torch.cuda.empty_cache()
+
+    def vec(n, scale=0.05, offset=0.0):
+        return randn(n, scale=scale, dtype=torch.float32) + offset
+
+    def norm_of(kind, k):
+        if kind is None:
+            return None
+        return (kind, vec(k, offset=1.0), vec(k) if kind == "ln" else None, 1e-6)
+
+    # Kernel 13 at the six main-path shapes of chip_smoke.py's phase 3.
+    for m, k, n, kind, has_bias, has_res in (
+            (61677, 1408, 1408, None, False, True),
+            (240 * 677, 1408, 4224, "ln", True, False),
+            (240 * 677, 1408, 1408, None, True, True),
+            (61680, 1408, 1536, None, True, False),
+            (8224, 2048, 6144, "rms", False, False),
+            (8224, 2048, 2048, None, False, True)):
+        x = randn(m, k, scale=0.3)
+        wq, sw = qw(k, n)
+        bias = vec(n) if has_bias else None
+        res = randn(m, n, scale=0.3) if has_res else None
+        nm = norm_of(kind, k)
+        outs = {name: torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+                for name in builds}
+        launchers = {name: _linear_launcher(lib, len(sigs["mrb_w8a8_linear"]), x, wq, sw,
+                                            bias, nm, res, outs[name])
+                     for name, (lib, sigs) in builds.items()}
+        ms, times, diff, equal = turns(launchers)
+        ops = 2.0 * m * k * n
+        label = f"w8a8_linear ({m}, {k}) x {n} norm {kind} bias {has_bias} residual {has_res}"
+        print(json.dumps({"kernel": label, "this_ms": ms["this"], "other_ms": ms["other"],
+                          "turns": times, "this_int8_top_s": ops / ms["this"] / 1e9,
+                          "other_int8_top_s": ops / ms["other"] / 1e9,
+                          "max_abs_diff_this_vs_other": diff, "equal": equal,
+                          "device": device}), flush=True)
+        if (m, n) == (61680, 1536):
+            for name in ("other", "this"):
+                print(json.dumps({"inside": f"{label}, {name}", "device_kernels_ms": _with_rates(
+                    _device_kernels(launchers[name]), {"gemm": ops})}), flush=True)
+        del x, wq, res, outs, launchers
+        torch.cuda.empty_cache()
+
+    # Kernel 16 at (240, 257, 1,408).
+    b, n, c, heads = 240, 257, _VIT_D, 16
+    wqkv, sqkv = qw(c, 3 * c)
+    wp, sp = qw(c, c)
+    weights = (wqkv, sqkv, vec(3 * c), wp, sp, vec(c))
+    nm = norm_of("ln", c)
+    x = randn(b, n, c, scale=0.5)
+    outs = {name: torch.empty_like(x) for name in builds}
+    launchers = {name: _attn_block_launcher(lib, len(sigs["mrb_w8a8_attn_block"]), x,
+                                            weights, nm, heads, outs[name])
+                 for name, (lib, sigs) in builds.items()}
+    ms, times, diff, equal = turns(launchers)
+    ops = 2.0 * b * n * c * 4 * c
+    label = f"w8a8_attn_block ({b}, {n}, {c})"
+    print(json.dumps({"kernel": label, "this_ms": ms["this"], "other_ms": ms["other"],
+                      "turns": times, "this_int8_top_s": ops / ms["this"] / 1e9,
+                      "max_abs_diff_this_vs_other": diff, "equal": equal,
+                      "device": device}), flush=True)
+    rows = b * n
+    for name in ("other", "this"):
+        # The qkv and proj products of this build are two instances of the
+        # GEMM tile (192 and 176 columns); the other's one int8_gemm twice.
+        print(json.dumps({"inside": f"{label}, {name}", "device_kernels_ms": _with_rates(
+            _device_kernels(launchers[name]),
+            {"gemm_tile_kernel<192": 2.0 * rows * c * 3 * c,
+             "gemm_tile_kernel<176": 2.0 * rows * c * c,
+             "int8_gemm": 2.0 * rows * c * 2 * c})}), flush=True)
+    del x, outs, launchers, wqkv, wp
+    torch.cuda.empty_cache()
 
     d, h = _VIT_D, _VIT_H
     w1, s1 = qw(d, h)
@@ -277,6 +440,8 @@ def main(argv=None) -> None:
     cases = [
         ("w8a8_linear Q-Former K/V (61680, 1408) x 1536, bias",
          lambda: i8.w8a8_linear(x, w_kv, s_kv, b_kv), 2.0 * m * d * 1536),
+        ("w8a8_linear ViT qkv (61680, 1408) x 4224, LN, bias",
+         lambda: i8.w8a8_linear(x, a_qkv, sa_qkv, a_qb, norm=ln), 2.0 * m * d * 3 * d),
         ("w8a8_linear T5 qkv (8224, 2048) x 6144, RMS",
          lambda: i8.w8a8_linear(x2, w_qkv, s_qkv, norm=rms), 2.0 * m2 * d2 * 3 * d2),
         ("w8a8_linear T5 o (8224, 2048) x 2048, residual",
@@ -294,6 +459,8 @@ def main(argv=None) -> None:
                      ("w8a8_attn_block", block)):
         print(json.dumps({"inside": name, "device_kernels_ms": _device_kernels(fn)}),
               flush=True)
+    print(json.dumps({"inside": "w8a8_linear Q-Former K/V", "device_kernels_ms": _with_rates(
+        _device_kernels(cases[0][1]), {"gemm": cases[0][2]})}), flush=True)
 
     for name, a, k, n in (("ViT fc1", x, d, h), ("ViT qkv", x, d, 3 * d),
                           ("T5 wi_0", x2, d2, ff)):
@@ -301,6 +468,12 @@ def main(argv=None) -> None:
         ms = _median_ms(lambda: a @ w)
         print(json.dumps({"bf16_product": f"{name} ({a.shape[0]}, {k}) x {n}", "ms": ms,
                           "tflop_s": 2.0 * a.shape[0] * k * n / ms / 1e9}), flush=True)
+
+    w = randn(d, 3 * d, scale=0.02)
+    for name, fn in (("w8a8_linear ViT qkv (61680, 1408) x 4224", lambda: i8.w8a8_linear(
+                         x, a_qkv, sa_qkv, a_qb)),
+                     ("bf16 x @ w (61680, 1408) x 4224", lambda: x @ w)):
+        print(json.dumps({"under_load": name, **_under_load(fn)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,9 @@ pass (through a stand-in library that records the call), the backward
 kernels' C entries by dtype and what they refuse, the fp32 biased
 dispatch (the plain function on a CPU tensor, equal to JAX's), a module
 that imports with no CUDA toolkit, LayerNorm's kernel by width and
-alignment, and the W8A8 GELU MLP's workspace (no fp32 hidden) and cluster
-plan.
+alignment, the W8A8 GELU MLP's workspace (no fp32 hidden), cluster plan and
+route by chunk width, the W8A8 linear's column plan and the shapes it
+launches, and the attention block's workspace and head dims.
 """
 
 import os
@@ -271,7 +272,7 @@ def test_kernel2_wrapper_passes_the_same_arguments(recorder):
 def test_kernel2_path_by_shape(n, n_valid, path):
     """The host's mirror of the C entry's choice: K/V resident up to as many
     key tiles of valid keys as the source's KV_TILES, streamed above."""
-    src = (_cuda.CSRC / "qkv_packed_attention.cu").read_text()
+    src = (_cuda.CSRC / "attention_tile_sm90.cuh").read_text()
     tiles = int(re.search(r"constexpr int KV_TILES = (\d+);", src).group(1))
     assert tiles == tfa.QKV_RESIDENT_KEY_TILES
     assert tfa.qkv_packed_path(n, n_valid) == path
@@ -529,16 +530,136 @@ def test_mlp_plan_covers_every_chunk_once(hdim, block_h):
     assert sorted(columns) == list(range(hdim))
 
 
-@pytest.mark.parametrize("hdim,block_h", [(384, 128), (640, 640), (6144, 1000),
-                                          (3072, 3072), (1152, 576), (384, 192)])
-def test_mlp_plan_raises_for_a_chunk_it_cannot_cover(recorder, hdim, block_h):
+@pytest.mark.parametrize("hdim,block_h,chunk,route", [
+    (384, 128, 128, "chain"), (640, 640, 640, "chain"), (6144, 1000, 768, "tile"),
+    (3072, 3072, 3072, "chain"), (1152, 576, 384, "tile"), (384, 192, 128, "chain")])
+def test_mlp_plan_raises_for_a_chunk_it_cannot_cover(recorder, hdim, block_h, chunk, route):
     """A chunk that is not 1 to 8 tiles of 192 (or whose chunks are not whole
-    128-column K tiles of fc2) raises, on the card too, with no launch."""
+    128-column K tiles of fc2) has no cluster plan. The JAX kernel computes
+    every one of these widths (after ``_pick_block``), and so does the card:
+    the chunk ``_pick_block`` gives runs fc1's clusters where they cover it,
+    else the chain route, with no raise."""
     with pytest.raises(ValueError):
         tint8._mlp_plan(hdim, block_h)
-    if hdim % block_h == 0 and block_h % 128 == 0:
-        x, r, weights, norm = _mlp_operands(4, 64, hdim)
-        before = tint8.w8a8_mlp.launches
-        with pytest.raises(ValueError):
-            tint8._w8a8_mlp_cuda(x, *weights, norm, r, block_h)
-        assert not recorder.calls and tint8.w8a8_mlp.launches == before
+    assert tint8._pick_block(hdim, block_h) == chunk
+    assert tint8._mlp_route(hdim, chunk) == route
+    m, d = 4, 64
+    x, r, weights, norm = _mlp_operands(m, d, hdim)
+    before = tint8.w8a8_mlp.launches
+    out = tint8._w8a8_mlp_cuda(x, *weights, norm, r, block_h)
+    assert out.shape == (m, d) and tint8.w8a8_mlp.launches == before + 1
+    (name, args), = recorder.calls
+    assert len(args) == len(_cuda._SIGNATURES[name])
+    if route == "tile":
+        assert name == "mrb_w8a8_mlp"
+        assert args[17:22] == (m, d, hdim, chunk, tint8._mlp_plan(hdim, chunk)[1])
+    else:
+        assert name == "mrb_w8a8_mlp_chain" and args[18:22] == (m, d, hdim, chunk)
+
+
+@pytest.mark.parametrize("m,d,h,block_h", [(300, 32, 64, 1536), (19, 128, 384, 128),
+                                           (5, 1408, 3072, 3072)])
+def test_w8a8_mlp_chain_route_keeps_its_fp32_hidden(recorder, monkeypatch, m, d, h, block_h):
+    """The chain route's workspace is xq (M, D) int8, sa (M), h32 (M, H) fp32,
+    hq (M, H) int8 and sh (M, H / chunk), passed in that order, then the
+    shape and the chunk width (the tiny ViT's hidden of 64 is one chunk)."""
+    made = _spy(monkeypatch, tint8, "_gated_mlp_workspace")
+    x, r, weights, norm = _mlp_operands(m, d, h)
+    tint8._w8a8_mlp_cuda(x, *weights, norm, r, block_h)
+    (name, args), = recorder.calls
+    chunk = tint8._pick_block(h, block_h)
+    assert name == "mrb_w8a8_mlp_chain" and len(args) == len(_cuda._SIGNATURES[name])
+    (ws,) = made
+    assert [(t.dtype, tuple(t.shape)) for t in ws] == [
+        (torch.int8, (m, d)), (torch.float32, (m,)), (torch.float32, (m, h)),
+        (torch.int8, (m, h)), (torch.float32, (m, h // chunk))]
+    assert list(args[13:18]) == [t.data_ptr() for t in ws]
+    assert args[18:22] == (m, d, h, chunk)
+
+
+# ------------------------------------------------------- the W8A8 linear
+@pytest.mark.parametrize("n,tn", [(1408, 176), (1536, 192), (2048, 192), (4224, 192),
+                                  (6144, 192), (96, 192), (64, 192)])
+def test_linear_plan_covers_every_column_once(n, tn):
+    """The GEMM tile's column tiles cover [0, N) once: every tile but a
+    ragged last one whole, that one cut at N."""
+    width, tiles = tint8._linear_plan(n)
+    assert width == tn and width in tint8.LINEAR_TILES
+    columns = [c for i in range(tiles) for c in range(i * width, (i + 1) * width) if c < n]
+    assert columns == list(range(n)) and (tiles - 1) * width < n
+
+
+def _linear_operands(m, k, n, kind, has_bias, has_residual):
+    x = torch.zeros(m, k, dtype=torch.bfloat16)
+    wq = tint8.k_major(torch.zeros(k, n, dtype=torch.int8))
+    bias = torch.zeros(n) if has_bias else None
+    res = torch.zeros(m, n, dtype=torch.bfloat16) if has_residual else None
+    norm = None if kind is None else (kind, torch.ones(k), torch.zeros(k) if kind == "ln"
+                                      else None, 1e-6)
+    return x, wq, torch.ones(n), bias, norm, res
+
+
+@pytest.mark.parametrize("m,k,n,kind,has_bias,has_residual", [
+    (61680, 1408, 1536, None, True, False), (8224, 2048, 6144, "rms", False, False),
+    (8224, 2048, 2048, None, False, True), (3, 1408, 4224, "ln", True, False),
+    (7, 32, 96, "ln", True, False), (5, 64, 64, None, False, True), (1, 16, 8, None, True, True)])
+def test_w8a8_linear_launches_every_shape_it_took(recorder, m, k, n, kind, has_bias,
+                                                  has_residual):
+    """Every (K, N) with K % 16 == 0 and N % 8 == 0 launches the one C entry,
+    the tiny configs' widths too, with the column tile of ``_linear_plan``."""
+    x, wq, sw, bias, norm, res = _linear_operands(m, k, n, kind, has_bias, has_residual)
+    before = tint8.w8a8_linear.launches
+    out = tint8._w8a8_linear_cuda(x, wq, sw, bias, norm, res)
+    assert out.shape == (m, n) and tint8.w8a8_linear.launches == before + 1
+    (name, args), = recorder.calls
+    assert name == "mrb_w8a8_linear" and len(args) == len(_cuda._SIGNATURES[name])
+    assert args[3] == {None: 0, "ln": 1, "rms": 2}[kind]
+    assert args[12:16] == (m, k, n, tint8._linear_plan(n)[0])
+    assert (args[7] is None) == (bias is None) and (args[8] is None) == (res is None)
+
+
+# ---------------------------------------------- the W8A8 attention block
+@pytest.mark.parametrize("b,n,c,heads,n_valid", [(2, 264, 1408, 16, 257), (3, 257, 1408, 16, 0),
+                                                 (1, 9, 64, 8, 0), (2, 17, 96, 1, 16),
+                                                 (1, 400, 1408, 16, 0)])
+def test_w8a8_attn_block_passes_its_workspace(recorder, monkeypatch, b, n, c, heads, n_valid):
+    """Kernel 16's workspace is xq (B N, C) int8, sa (B N), qkv (B N, 3C)
+    bf16 and attn (B N, C) bf16, in that order; then the shape, bf16(D^-1/2)
+    and the GEMM tile's column widths of qkv and proj. Head dims 8 to 96
+    (multiples of 8) launch."""
+    made = _spy(monkeypatch, tint8, "_attn_block_workspace")
+    x = torch.zeros(b, n, c, dtype=torch.bfloat16)
+    wqkv = tint8.k_major(torch.zeros(c, 3 * c, dtype=torch.int8))
+    wproj = tint8.k_major(torch.zeros(c, c, dtype=torch.int8))
+    ones = torch.ones
+    before = tint8.w8a8_attn_block.launches
+    out = tint8._w8a8_attn_block_cuda(x, wqkv, ones(3 * c), ones(3 * c), wproj, ones(c),
+                                      ones(c), ones(c), ones(c), 1e-6, heads, n_valid)
+    assert out.shape == x.shape and tint8.w8a8_attn_block.launches == before + 1
+    (name, args), = recorder.calls
+    assert name == "mrb_w8a8_attn_block" and len(args) == len(_cuda._SIGNATURES[name])
+    (ws,) = made
+    rows = b * n
+    assert [(t.dtype, tuple(t.shape)) for t in ws] == [
+        (torch.int8, (rows, c)), (torch.float32, (rows,)), (torch.bfloat16, (rows, 3 * c)),
+        (torch.bfloat16, (rows, c))]
+    assert list(args[11:15]) == [t.data_ptr() for t in ws]
+    hd = c // heads
+    assert args[15:20] == (b, n, c, heads, n_valid)
+    assert args[20] == float(torch.tensor(hd ** -0.5, dtype=torch.bfloat16))
+    assert args[21:23] == (tint8._linear_plan(3 * c)[0], tint8._linear_plan(c)[0])
+
+
+@pytest.mark.parametrize("c,heads", [(64, 16), (208, 2), (1408, 11)])
+def test_w8a8_attn_block_refuses_head_dims_it_does_not_take(recorder, c, heads):
+    """Head dims that are not a multiple of 8 up to 96 raise before any
+    launch (4, 104, 128)."""
+    x = torch.zeros(1, 9, c, dtype=torch.bfloat16)
+    wqkv = tint8.k_major(torch.zeros(c, 3 * c, dtype=torch.int8))
+    wproj = tint8.k_major(torch.zeros(c, c, dtype=torch.int8))
+    ones = torch.ones
+    before = tint8.w8a8_attn_block.launches
+    with pytest.raises(ValueError):
+        tint8._w8a8_attn_block_cuda(x, wqkv, ones(3 * c), ones(3 * c), wproj, ones(c),
+                                    ones(c), ones(c), ones(c), 1e-6, heads, 0)
+    assert not recorder.calls and tint8.w8a8_attn_block.launches == before
