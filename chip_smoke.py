@@ -24,7 +24,10 @@ is nonzero and the final line is not printed:
    <= 0.35; GELU MLP (61,677, 1,408, 6,144) with LN and residual, and the
    chunk widths of its chain route (D 128 and H 384 in chunks of 128, D 576
    and H 1,152 with chunk 576, the tiny ViT's D 32 and H 64) <= 0.4; gated
-   MLP (8,191, 2,048, 5,120) and its main-path shape <= 0.4; attention block
+   MLP (8,191, 2,048, 5,120), its main-path shape (8,224 rows, RMS,
+   residual) and the long-context batch's 32,000 rows on its tile route,
+   and the chunk widths of its chain route (D 512 and H 2,048 in chunks of
+   512, the tiny T5's D 64 and H 256 in chunks of 128) <= 0.4; attention block
    (6, 264, 1,408) with n_valid 257 and large garbage in the pad rows (which
    must not move a valid row by a bit), (240, 257, 1,408) and (2, 400,
    1,408) (past the resident K/V: the first version's attention) <= 0.05; each
@@ -1341,31 +1344,42 @@ def check_int8_kernels(torch, kernels):
         del x, r, got, want, w1, w2
     torch.cuda.empty_cache()
 
-    # Kernel 15: the T5 encoder FFN, 8 hidden chunks of 640.
+    # Kernel 15: the T5 encoder FFN, 8 hidden chunks of 640 (the tile route),
+    # at the int8 generate batch's 8,224 rows (timed), a ragged count and the
+    # long-context batch's 4 x 8,000 rows; then the chain route's chunk
+    # widths (Flan-T5-base's H 2,048 in chunks of 512, the tiny T5's D 64
+    # and H 256 in chunks of 128).
     gated = "w8a8_mlp_gated"
-    d, h = 2048, 5120
-    w0, s0 = qw(d, h)
-    w1, s1 = qw(d, h)
-    wo, so = qw(h, d)
-    for m, kind, has_res, flagship in ((8191, None, False, False),
-                                       (8224, "rms", True, True)):
-        x = randn(m, d, scale=0.3)
-        r = x if has_res else None
-        nm = norm(kind, d)
-        got = i8.w8a8_mlp_gated(x, w0, s0, w1, s1, wo, so, norm=nm, residual=r)
-        want = i8._w8a8_mlp_gated_plain(x, w0, s0, w1, s1, wo, so, nm, r,
-                                        i8.DEFAULT_GATED_BLOCK_H)
-        label = f"({m}, {d}, {h}) norm {kind} residual {has_res}"
-        hold(gated, label, got, want)
-        if flagship:
-            timed(gated, label,
-                  lambda: i8.w8a8_mlp_gated(x, w0, s0, w1, s1, wo, so, norm=nm,
-                                            residual=r),
-                  lambda: i8._w8a8_mlp_gated_plain(x, w0, s0, w1, s1, wo, so, nm, r,
-                                                   i8.DEFAULT_GATED_BLOCK_H),
-                  None, nbytes(x, r, w0, w1, wo, got), 6.0 * m * d * h)
-        del x, r, got, want
-    del w0, w1, wo
+    xl = i8.DEFAULT_GATED_BLOCK_H
+    for d, h, shapes in ((2048, 5120, ((8191, xl, None, False, False),
+                                       (8224, xl, "rms", True, True),
+                                       (32000, xl, "rms", True, False))),
+                         (512, 2048, ((4096, xl, "rms", True, False),)),
+                         (64, 256, ((4096, 128, "rms", True, False),))):
+        w0, s0 = qw(d, h)
+        w1, s1 = qw(d, h)
+        wo, so = qw(h, d)
+        for m, block_h, kind, has_res, flagship in shapes:
+            x = randn(m, d, scale=0.3)
+            r = x if has_res else None
+            nm = norm(kind, d)
+            got = i8.w8a8_mlp_gated(x, w0, s0, w1, s1, wo, so, norm=nm, residual=r,
+                                    block_h=block_h)
+            want = i8._w8a8_mlp_gated_plain(x, w0, s0, w1, s1, wo, so, nm, r, block_h)
+            chunk = i8._pick_block(h, block_h)
+            label = (f"({m}, {d}, {h}) norm {kind} residual {has_res}, chunk {chunk}, "
+                     f"{i8._mlp_route(h, chunk, i8.GATED_TILE)} route")
+            hold(gated, label, got, want)
+            if flagship:
+                timed(gated, label,
+                      lambda: i8.w8a8_mlp_gated(x, w0, s0, w1, s1, wo, so, norm=nm,
+                                                residual=r),
+                      lambda: i8._w8a8_mlp_gated_plain(x, w0, s0, w1, s1, wo, so, nm, r,
+                                                       block_h),
+                      None, nbytes(x, r, w0, w1, wo, got), 6.0 * m * d * h)
+            del x, r, got, want
+            torch.cuda.empty_cache()
+        del w0, w1, wo
     torch.cuda.empty_cache()
 
     # Kernel 16: the padded shape of the TPU check (garbage in the pad rows

@@ -23,23 +23,30 @@
 //    persistent blocks; bias + residual -> bf16), column tiles of the
 //    wrapper's plan (ops/int8_matmul.py::_linear_plan);
 //  * MLP (int8_tile_sm90.cuh): fc1_requant (`wgmma`, persistent clusters of
-//    blocks; bias -> tanh-GELU -> the (row, chunk) maxima exchanged in the
-//    cluster -> int8 hidden and its scales) -> the GEMM tile over the hidden
-//    chunks, each chunk's int32 sum scaled by its own row scale into an fp32
-//    sum; bias + residual -> bf16. The fp32 hidden never reaches device
-//    memory. A chunk width that no cluster of 192-column fc1 tiles covers
-//    (the tiny configs' hidden of 64, chunks of 128 or 640) takes the chain
-//    route, mrb_w8a8_mlp_chain: int8_gemm (bias, gelu -> an fp32 hidden) ->
-//    requant_chunks -> int8_gemm over the hidden chunks. The wrapper names
-//    the route by the shape (ops/int8_matmul.py::_mlp_route);
-//  * gated MLP: int8_gemm wi_0 (gelu(g) as an fp32 hidden) -> int8_gemm
-//    wi_1 (its dequantized product multiplied in) -> requant_chunks ->
-//    int8_gemm wo over the hidden chunks.
-// The hidden chunk width (`block_h`) is part of the function: every (row,
-// chunk) has its own requantization scale, and the row maximum of a chunk
-// must be known before any of it is quantized. The chain routes make the
-// round trip of their fp32 hidden through device memory (M x H x 4 bytes
-// written, read once by requant_chunks).
+//    192-column blocks; bias -> tanh-GELU -> the (row, chunk) maxima
+//    exchanged in the cluster -> int8 hidden and its scales) -> the GEMM
+//    tile over the hidden chunks, each chunk's int32 sum scaled by its own
+//    row scale into an fp32 sum; bias + residual -> bf16. The fp32 hidden
+//    never reaches device memory. A chunk width that no cluster of fc1
+//    tiles covers (the tiny configs' hidden of 64, chunks of 128 or 640)
+//    takes the chain route, mrb_w8a8_mlp_chain: int8_gemm (bias, gelu -> an
+//    fp32 hidden) -> requant_chunks -> int8_gemm over the hidden chunks;
+//  * gated MLP, the same two tiles: fc1_requant's gated kind (clusters of
+//    80-column blocks; one `wgmma` product covers 80 columns of wi_0 and the
+//    same 80 of wi_1; gelu(gate) * up -> the cluster's maxima -> int8
+//    hidden and its scales) -> wo on the GEMM tile over the hidden chunks;
+//    residual -> bf16. A chunk width that no cluster of 80-column blocks
+//    covers (the tiny T5's chunks of 64 to 256, Flan-T5-base's 512) takes
+//    the chain route, mrb_w8a8_mlp_gated_chain: int8_gemm wi_0 (gelu(g) as
+//    an fp32 hidden) -> int8_gemm wi_1 (its dequantized product multiplied
+//    in) -> requant_chunks -> int8_gemm wo over the hidden chunks.
+// The wrapper names each MLP's route by the shape
+// (ops/int8_matmul.py::_mlp_route). The hidden chunk width (`block_h`) is
+// part of the function: every (row, chunk) has its own requantization
+// scale, and the row maximum of a chunk must be known before any of it is
+// quantized. The chain routes make the round trip of their fp32 hidden
+// through device memory (M x H x 4 bytes written, read once by
+// requant_chunks); both routes give the same output bit for bit.
 #include "int8_tile.cuh"
 #include "int8_tile_sm90.cuh"
 
@@ -150,9 +157,9 @@ extern "C" int mrb_w8a8_mlp(const void* x, const void* ls, const void* lb,
                  static_cast<const float*>(lb), norm_kind, eps,
                  static_cast<int8_t*>(xq), static_cast<float*>(sa), m, d};
   MRB_TRY(quantize_input(in, st));
-  MRB_TRY(i8sm90::launch_mlp_products(
+  MRB_TRY(i8sm90::launch_mlp_products<false>(
       in.xq, in.sa, static_cast<const int8_t*>(w1), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<const int8_t*>(w2),
+      static_cast<const float*>(b1), nullptr, nullptr, static_cast<const int8_t*>(w2),
       static_cast<const float*>(s2), static_cast<const float*>(b2),
       static_cast<const bf16*>(residual), static_cast<bf16*>(out),
       static_cast<int8_t*>(hq), static_cast<float*>(sh), m, d, hdim, block_h,
@@ -191,24 +198,57 @@ extern "C" int mrb_w8a8_mlp_chain(const void* x, const void* ls, const void* lb,
   return 0;
 }
 
-// How many clusters of fc1_cluster fc1 blocks the card holds at once
+// How many clusters of `cluster` fc1 blocks the card holds at once
 // (cudaOccupancyMaxActiveClusters), into *active: 0 for a size it cannot
-// co-schedule.
-extern "C" int mrb_w8a8_mlp_active_clusters(int fc1_cluster, void* active) {
-  return int(mrb::i8sm90::fc1_active_clusters(fc1_cluster, static_cast<int*>(active)));
+// co-schedule. gated 0: the GELU MLP's fc1, 1: the gated MLP's.
+extern "C" int mrb_w8a8_mlp_active_clusters(int cluster, int gated, void* active) {
+  using namespace mrb::i8sm90;
+  int* n = static_cast<int*>(active);
+  return int(gated ? fc1_active_clusters<true>(cluster, n)
+                   : fc1_active_clusters<false>(cluster, n));
 }
 
 // wi_0, wi_1: (H, D) int8 with s0, s1 (H); wo (D, H) int8 with so (D); no
-// bias. Workspace: xq (M, D) int8, sa (M), h32 (M, H) fp32, hq (M, H) int8,
-// sh (M, H / block_h) fp32.
+// bias. Hidden chunks of block_h columns, each covered by a cluster of
+// `cluster` gated fc1 blocks of 80 columns (80 x cluster == block_h).
+// Workspace: xq (M, D) int8, sa (M), hq (M, H) int8, sh (M, H / block_h)
+// fp32.
 extern "C" int mrb_w8a8_mlp_gated(const void* x, const void* ls, const void* lb,
                                   int norm_kind, float eps, const void* w0,
                                   const void* s0, const void* w1,
                                   const void* s1, const void* wo,
                                   const void* so, const void* residual,
-                                  void* out, void* xq, void* sa, void* h32,
-                                  void* hq, void* sh, int m, int d, int hdim,
-                                  int block_h, void* stream) {
+                                  void* out, void* xq, void* sa, void* hq, void* sh,
+                                  int m, int d, int hdim, int block_h, int cluster,
+                                  void* stream) {
+  using namespace mrb;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Stage in{static_cast<const bf16*>(x), static_cast<const float*>(ls),
+                 static_cast<const float*>(lb), norm_kind, eps,
+                 static_cast<int8_t*>(xq), static_cast<float*>(sa), m, d};
+  MRB_TRY(quantize_input(in, st));
+  MRB_TRY(i8sm90::launch_mlp_products<true>(
+      in.xq, in.sa, static_cast<const int8_t*>(w0), static_cast<const float*>(s0),
+      nullptr, static_cast<const int8_t*>(w1), static_cast<const float*>(s1),
+      static_cast<const int8_t*>(wo), static_cast<const float*>(so), nullptr,
+      static_cast<const bf16*>(residual), static_cast<bf16*>(out),
+      static_cast<int8_t*>(hq), static_cast<float*>(sh), m, d, hdim, block_h, cluster,
+      st));
+  return 0;
+}
+
+// The gated MLP's chain route, for a chunk width no cluster of gated fc1
+// blocks covers: arguments as mrb_w8a8_mlp_gated's but the cluster;
+// workspace xq (M, D) int8, sa (M), h32 (M, H) fp32, hq (M, H) int8, sh (M,
+// H / block_h) fp32.
+extern "C" int mrb_w8a8_mlp_gated_chain(const void* x, const void* ls, const void* lb,
+                                        int norm_kind, float eps, const void* w0,
+                                        const void* s0, const void* w1,
+                                        const void* s1, const void* wo,
+                                        const void* so, const void* residual,
+                                        void* out, void* xq, void* sa, void* h32,
+                                        void* hq, void* sh, int m, int d, int hdim,
+                                        int block_h, void* stream) {
   using namespace mrb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Stage in{static_cast<const bf16*>(x), static_cast<const float*>(ls),

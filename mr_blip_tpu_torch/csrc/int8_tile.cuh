@@ -1,9 +1,9 @@
 // Building blocks of the W8A8 kernels (int8_matmul.cu, int8_attn_block.cu):
 // the per-row quantization pass, which starts every W8A8 kernel, and the
-// `mma.sync` int8 GEMM with its fused epilogues, which the gated MLP (kernel
-// 15) and the GELU MLP's chain route (kernel 14 at chunk widths no fc1
-// cluster covers) run. Kernel 13, kernel 16 and kernel 14's main route run
-// their products on the `wgmma` tile of int8_tile_sm90.cuh.
+// `mma.sync` int8 GEMM with its fused epilogues, which the MLPs' chain
+// routes (kernels 14 and 15 at chunk widths no fc1 cluster covers) run.
+// Kernel 13, kernel 16 and the MLPs' main routes run their products on the
+// `wgmma` tiles of int8_tile_sm90.cuh.
 //
 //  * norm_quant_rows applies the optional LayerNorm / RMSNorm with fp32
 //    statistics, finds max |x| and writes the row as int8 with its scale.

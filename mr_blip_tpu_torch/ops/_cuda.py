@@ -91,11 +91,14 @@ _SIGNATURES = {
     # the chain route: x, ls, lb, norm_kind, eps, w1, s1, b1, w2, s2, b2,
     # residual, out, xq, sa, h32, hq, sh, M, D, H, block_h, stream
     "mrb_w8a8_mlp_chain": [_P] * 3 + [_I, _F] + [_P] * 13 + [_I] * 4 + [_P],
-    # fc1 cluster, int* active clusters out
-    "mrb_w8a8_mlp_active_clusters": [_I, _P],
+    # fc1 cluster, gated (0 or 1), int* active clusters out
+    "mrb_w8a8_mlp_active_clusters": [_I, _I, _P],
     # x, ls, lb, norm_kind, eps, w0, s0, w1, s1, wo, so, residual, out, xq, sa,
-    # h32, hq, sh, M, D, H, block_h, stream
-    "mrb_w8a8_mlp_gated": [_P] * 3 + [_I, _F] + [_P] * 13 + [_I] * 4 + [_P],
+    # hq, sh, M, D, H, block_h, gated fc1 cluster, stream
+    "mrb_w8a8_mlp_gated": [_P] * 3 + [_I, _F] + [_P] * 12 + [_I] * 5 + [_P],
+    # the chain route: x, ls, lb, norm_kind, eps, w0, s0, w1, s1, wo, so,
+    # residual, out, xq, sa, h32, hq, sh, M, D, H, block_h, stream
+    "mrb_w8a8_mlp_gated_chain": [_P] * 3 + [_I, _F] + [_P] * 13 + [_I] * 4 + [_P],
     # x, ls, lb, eps, wqkv, sqkv, qkv_bias, wproj, sproj, proj_bias, out, xq,
     # sa, qkv, attn, B, N, C, heads, n_valid, q_scale, the column tiles of
     # qkv and proj, stream

@@ -8,12 +8,13 @@ products accumulate in int32 and are dequantized as ``acc * (s_act * s_w)``;
 bias and residual are added in fp32 and the result is rounded to bf16 once.
 The MLPs requantize their hidden activation per (row, chunk of ``block_h``
 columns), so the chunk width chosen by ``_pick_block`` is part of the
-function. GELU is the tanh approximation. On the card the GELU MLP's first
-product covers a chunk with one thread-block cluster (``_mlp_plan``) and
-requantizes in its epilogue, so its workspace holds no fp32 hidden; a chunk
-width that no cluster covers takes the chain route (``_mlp_route``), whose
-workspace does, as the gated MLP's (``_gated_mlp_workspace``). The linear and
-the attention block's two products run on the GEMM tile, whose column tiles
+function. GELU is the tanh approximation. On the card the first product of
+either MLP (the gated MLP's gate and up together) covers a chunk with one
+thread-block cluster (``_mlp_plan``) and requantizes in its epilogue, so its
+workspace holds no fp32 hidden; a chunk width that no cluster covers takes
+the chain route (``_mlp_route``), whose workspace does
+(``_chain_workspace``). The linear, the MLPs' second products and the
+attention block's two products run on the GEMM tile, whose column tiles
 ``_linear_plan`` names.
 
 Four public wrappers, each with the JAX signature: ``w8a8_linear``,
@@ -310,59 +311,81 @@ w8a8_linear.launches = 0
 
 
 # ------------------------------------------------------------------- mlps
-# fc1 of the GELU MLP (csrc/int8_tile_sm90.cuh) runs blocks of 192 columns,
-# and one cluster of them covers a hidden chunk.
+# The requantizing fc1 tiles (csrc/int8_tile_sm90.cuh) run blocks of 192
+# hidden columns (the GELU MLP) or of 80 (the gated MLP: the gate's and the
+# up projection's 80 columns in one product), and one cluster of them covers
+# a hidden chunk.
 FC1_TILE = 192
+GATED_TILE = 80
 MAX_FC1_CLUSTER = 8  # the portable cluster size
 
 
-def _fc1_cluster(hdim: int, block_h: int) -> int:
-    """How many 192-column fc1 tiles cover a hidden chunk of ``block_h``
-    columns as one cluster (1 to 8, with chunks that are whole 128-column K
-    tiles of fc2 when there are several), or 0 when none do."""
-    cluster, rest = divmod(block_h, FC1_TILE)
+def _fc1_cluster(hdim: int, block_h: int, tile: int = FC1_TILE) -> int:
+    """How many fc1 tiles of ``tile`` columns cover a hidden chunk of
+    ``block_h`` columns as one cluster (1 to 8, with chunks that are whole
+    128-column K tiles of fc2 when there are several), or 0 when none do."""
+    cluster, rest = divmod(block_h, tile)
     if rest or not 1 <= cluster <= MAX_FC1_CLUSTER or (hdim // block_h > 1 and block_h % 128):
         return 0
     return cluster
 
 
-def _mlp_plan(hdim: int, block_h: int) -> tuple[int, int]:
-    """(fc1 tile, fc1 cluster) of the GELU MLP's tile route: fc1's epilogue
-    needs a chunk's row maxima, so the blocks of one cluster cover one hidden
+def _mlp_plan(hdim: int, block_h: int, tile: int = FC1_TILE) -> tuple[int, int]:
+    """(fc1 tile, fc1 cluster) of an MLP's tile route: fc1's epilogue needs
+    a chunk's row maxima, so the blocks of one cluster cover one hidden
     chunk together (tile x cluster == block_h). A chunk width that no
     cluster covers raises (the wrapper sends it to the chain route)."""
     if block_h <= 0 or hdim % block_h:
         raise ValueError(f"hidden width {hdim} is not a whole number of chunks of "
                          f"{block_h}")
-    cluster = _fc1_cluster(hdim, block_h)
+    cluster = _fc1_cluster(hdim, block_h, tile)
     if not cluster:
         raise ValueError(f"hidden chunks of {block_h} columns are not covered by 1 to "
-                         f"{MAX_FC1_CLUSTER} fc1 tiles of {FC1_TILE} (as whole "
+                         f"{MAX_FC1_CLUSTER} fc1 tiles of {tile} (as whole "
                          "128-column K tiles of fc2)")
-    return FC1_TILE, cluster
+    return tile, cluster
 
 
-def _mlp_route(hdim: int, block_h: int) -> str:
-    """The GELU MLP's route on the card for chunks of ``block_h`` columns
-    (after ``_pick_block``), chosen by the shape before any launch: "tile"
-    where a cluster of fc1 tiles covers a chunk (``_mlp_plan``), else
-    "chain" (``mrb_w8a8_mlp_chain``: the fp32 hidden through device memory)."""
-    return "tile" if _fc1_cluster(hdim, block_h) else "chain"
+def _mlp_route(hdim: int, block_h: int, tile: int = FC1_TILE) -> str:
+    """An MLP's route on the card for chunks of ``block_h`` columns (after
+    ``_pick_block``), chosen by the shape before any launch: "tile" where a
+    cluster of fc1 tiles of ``tile`` columns covers a chunk (``_mlp_plan``),
+    else "chain" (the ``_chain`` C entry: the fp32 hidden through device
+    memory)."""
+    return "tile" if _fc1_cluster(hdim, block_h, tile) else "chain"
 
 
 def _mlp_workspace(m, d, hdim, num_h, dev):
-    """xq, sa, hq, sh of the GELU MLP: the fp32 hidden stays on chip."""
+    """xq, sa, hq, sh of an MLP's tile route: the fp32 hidden stays on chip."""
     return (torch.empty((m, d), dtype=torch.int8, device=dev),
             torch.empty((m,), dtype=torch.float32, device=dev),
             torch.empty((m, hdim), dtype=torch.int8, device=dev),
             torch.empty((m, num_h), dtype=torch.float32, device=dev))
 
 
-def _gated_mlp_workspace(m, d, hdim, num_h, dev):
-    """xq, sa, h32, hq, sh of the gated MLP and of the GELU MLP's chain
-    route, whose fp32 hidden goes through device memory."""
+def _chain_workspace(m, d, hdim, num_h, dev):
+    """xq, sa, h32, hq, sh of an MLP's chain route, whose fp32 hidden goes
+    through device memory."""
     xq, sa, hq, sh = _mlp_workspace(m, d, hdim, num_h, dev)
     return xq, sa, torch.empty((m, hdim), dtype=torch.float32, device=dev), hq, sh
+
+
+def _launch_mlp(entry, tile, args, m, d, hdim, block_h, dev):
+    """Call an MLP's C entry on its route (``_mlp_route`` for fc1 tiles of
+    ``tile`` columns): ``entry`` with the workspace of xq, sa, hq and sh,
+    then the shape, the chunk width and the cluster size; or
+    ``entry + "_chain"`` with the fp32 hidden's workspace and no cluster.
+    ``args``: the arguments before the workspace."""
+    num_h = hdim // block_h
+    cluster = _fc1_cluster(hdim, block_h, tile)
+    if cluster:
+        ws, tail = _mlp_workspace(m, d, hdim, num_h, dev), (block_h, cluster)
+    else:
+        entry = entry + "_chain"
+        ws, tail = _chain_workspace(m, d, hdim, num_h, dev), (block_h,)
+    err = getattr(_cuda.library(), entry)(
+        *args, *[t.data_ptr() for t in ws], m, d, hdim, *tail, _cuda.stream_ptr(dev))
+    _cuda.check(err, entry)
 
 
 def _w8a8_mlp_cuda(x, w1q, s1, b1, w2q, s2, b2, norm, residual, block_h):
@@ -371,7 +394,6 @@ def _w8a8_mlp_cuda(x, w1q, s1, b1, w2q, s2, b2, norm, residual, block_h):
     dev = x.device
     block_h = _pick_block(hdim, block_h)
     _check_chunks(hdim, block_h)
-    route = _mlp_route(hdim, block_h)
     kind, ls, lb, eps = _norm_parts(norm, d)
     _check_act("x", x, m, d, dev)
     _check_weight("w1q", w1q, d, hdim, dev)
@@ -387,15 +409,7 @@ def _w8a8_mlp_cuda(x, w1q, s1, b1, w2q, s2, b2, norm, residual, block_h):
     args = (x.data_ptr(), _ptr(ls), _ptr(lb), _NORM_KINDS[kind], eps,
             w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
             s2.data_ptr(), b2.data_ptr(), _ptr(residual), out.data_ptr())
-    if route == "tile":
-        ws = _mlp_workspace(m, d, hdim, hdim // block_h, dev)
-        name, tail = "mrb_w8a8_mlp", (block_h, _mlp_plan(hdim, block_h)[1])
-    else:
-        ws = _gated_mlp_workspace(m, d, hdim, hdim // block_h, dev)
-        name, tail = "mrb_w8a8_mlp_chain", (block_h,)
-    err = getattr(_cuda.library(), name)(
-        *args, *[t.data_ptr() for t in ws], m, d, hdim, *tail, _cuda.stream_ptr(dev))
-    _cuda.check(err, name)
+    _launch_mlp("mrb_w8a8_mlp", FC1_TILE, args, m, d, hdim, block_h, dev)
     w8a8_mlp.launches += 1
     return out
 
@@ -434,13 +448,10 @@ def _w8a8_mlp_gated_cuda(x, w0q, s0, w1q, s1, woq, so, norm, residual, block_h):
     out = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     if m == 0:
         return out
-    ws = _gated_mlp_workspace(m, d, hdim, hdim // block_h, dev)
-    err = _cuda.library().mrb_w8a8_mlp_gated(
-        x.data_ptr(), _ptr(ls), _ptr(lb), _NORM_KINDS[kind], eps,
-        w0q.data_ptr(), s0.data_ptr(), w1q.data_ptr(), s1.data_ptr(),
-        woq.data_ptr(), so.data_ptr(), _ptr(residual), out.data_ptr(),
-        *[t.data_ptr() for t in ws], m, d, hdim, block_h, _cuda.stream_ptr(dev))
-    _cuda.check(err, "mrb_w8a8_mlp_gated")
+    args = (x.data_ptr(), _ptr(ls), _ptr(lb), _NORM_KINDS[kind], eps,
+            w0q.data_ptr(), s0.data_ptr(), w1q.data_ptr(), s1.data_ptr(),
+            woq.data_ptr(), so.data_ptr(), _ptr(residual), out.data_ptr())
+    _launch_mlp("mrb_w8a8_mlp_gated", GATED_TILE, args, m, d, hdim, block_h, dev)
     w8a8_mlp_gated.launches += 1
     return out
 

@@ -9,13 +9,13 @@ line each for:
 * every W8A8 wrapper at each shape the int8 generate batch of 4 x 60 frames
   gives it (CUDA events, median of 10 launches), with the int8 TOP/s its
   products reach;
-* how many clusters of kernel 14's fc1 blocks the card holds at once, by
-  cluster size (``cudaOccupancyMaxActiveClusters``);
+* how many clusters of kernel 14's and kernel 15's fc1 blocks the card
+  holds at once, by cluster size (``cudaOccupancyMaxActiveClusters``);
 * the device kernels inside one ``w8a8_mlp``, one ``w8a8_mlp_gated``, one
   ``w8a8_attn_block`` and one ``w8a8_linear`` call (``torch.profiler``): the
-  quantization passes, kernel 14's fc1 (with the requantizing epilogue) and
-  fc2, the GEMM tile's products, kernel 15's int8 GEMMs by epilogue and its
-  requantization pass, and the attention phase;
+  quantization passes, the MLPs' fc1 tiles (with the requantizing epilogue)
+  and their second products on the GEMM tile, the GEMM tile's products and
+  the attention phase;
 * the bf16 products the int8 GEMMs replace, as PyTorch runs them (cuBLAS):
   a yardstick only, the port never takes it for an int8 layer;
 * the SM clock and the power the card draws (``nvidia-smi``, every 100 ms)
@@ -28,18 +28,24 @@ Random inputs and weights from a seed; nothing is checked here
 With ``--other DIR`` (another checkout's ``mr_blip_tpu_torch``, for example
 the parent commit unpacked with ``git archive`` into a git-ignored directory)
 it times kernel 1 (LayerNorm), kernel 13 (``w8a8_linear``, at the six
-main-path shapes of ``chip_smoke.py``'s phase 3), kernel 14 (``w8a8_mlp``)
-and kernel 16 (``w8a8_attn_block`` at (240, 257, 1,408)) of both builds
-instead, side by side in one process: each library is built from its own
+main-path shapes of ``chip_smoke.py``'s phase 3), kernel 14 (``w8a8_mlp``),
+kernel 15 (``w8a8_mlp_gated`` at 8,224 and 32,000 rows: the int8 generate
+batch's and the long-context batch's) and kernel 16 (``w8a8_attn_block`` at
+(240, 257, 1,408)) of both builds instead, side by side in one process:
+each library is built from its own
 ``csrc`` and bound with its own checkout's C signatures (read from its
 ``ops/_cuda.py``), and launched on the same inputs in turns other, this,
 this, other (CUDA events, median of 10 each; a kernel's number is the mean
 of its turns); each output is held against the other build's first (max
 |diff| and whether they are equal). Then ``torch.profiler`` names the device
 kernels inside one call of each build's ``w8a8_linear`` (the Q-Former
-shape), ``w8a8_mlp`` and ``w8a8_attn_block``: the quantize passes, the
-products (with their int8 TOP/s) and the attention. One JSON line per shape
-and build.
+shape), ``w8a8_mlp``, ``w8a8_mlp_gated`` (at 8,224 rows) and
+``w8a8_attn_block``: the quantize passes, the products (with their int8
+TOP/s) and the attention. One JSON line per shape and build. As a
+yardstick for kernel 15's products alone, ``torch._int_mm`` at its two
+product shapes: (M, 2,048) x (2,048, 10,240) (gate and up together) and
+(M, 640) x (640, 2,048) eight times (wo, a hidden chunk a call); the port
+never calls it.
 """
 
 from __future__ import annotations
@@ -168,6 +174,33 @@ def _mlp_launcher(lib, n_args, x, weights, norm, residual, out):
     return launch
 
 
+def _gated_launcher(lib, sigs, x, weights, norm, residual, out):
+    """``w8a8_mlp_gated`` through a build's C entry: where the build has a
+    chain entry beside it (this checkout's), ``mrb_w8a8_mlp_gated`` is the
+    tile route and takes xq, sa, hq, sh and the gated fc1's cluster size;
+    in an older build it is the chain and takes an fp32 hidden (h32)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    m, d = x.shape
+    hdim = weights[0].shape[1]
+    block_h = i8._pick_block(hdim, i8.DEFAULT_GATED_BLOCK_H)
+    xq, sa, hq, sh = i8._mlp_workspace(m, d, hdim, hdim // block_h, x.device)
+    if "mrb_w8a8_mlp_gated_chain" in sigs:
+        tail = [xq, sa, hq, sh], [i8._mlp_plan(hdim, block_h, i8.GATED_TILE)[1]]
+    else:
+        h32 = torch.empty((m, hdim), dtype=torch.float32, device=x.device)
+        tail = [xq, sa, h32, hq, sh], []
+    _, ls, _, eps = norm
+
+    def launch():
+        _check(lib.mrb_w8a8_mlp_gated(
+            x.data_ptr(), ls.data_ptr(), None, 2, eps,
+            *[t.data_ptr() for t in weights], residual.data_ptr(), out.data_ptr(),
+            *[t.data_ptr() for t in tail[0]], m, d, hdim, block_h, *tail[1], stream),
+            "mrb_w8a8_mlp_gated")
+        return out
+    return launch
+
+
 def _linear_launcher(lib, n_args, x, wq, sw, bias, norm, residual, out):
     """``w8a8_linear`` through a build's C entry: this checkout's takes the
     GEMM tile's column width (``_linear_plan``), an older one none."""
@@ -223,9 +256,9 @@ def _with_rates(kernels, int8_ops):
 
 
 def compare_with(other: Path) -> None:
-    """Kernels 1, 13, 14 and 16 of this build beside another checkout's."""
+    """Kernels 1, 13, 14, 15 and 16 of this build beside another checkout's."""
     entries = ("mrb_layer_norm_bf16", "mrb_w8a8_linear", "mrb_w8a8_mlp",
-               "mrb_w8a8_attn_block")
+               "mrb_w8a8_mlp_gated", "mrb_w8a8_attn_block")
     other_pkg = other.resolve() / "mr_blip_tpu_torch"
     other_sigs = runpy.run_path(str(other_pkg / "ops" / "_cuda.py"))["_SIGNATURES"]
     builds = {
@@ -345,6 +378,61 @@ def compare_with(other: Path) -> None:
     del x, outs, launchers, wqkv, wp
     torch.cuda.empty_cache()
 
+    # Kernel 15 at the int8 generate batch's and the long-context batch's
+    # rows, RMS pre-norm, the input as the residual (the T5 encoder's FFN).
+    d, h = _T5_D, _T5_FF
+    g0, t0 = qw(d, h)
+    g1, t1 = qw(d, h)
+    go, to = qw(h, d)
+    weights = (g0, t0, g1, t1, go, to)
+    nm = norm_of("rms", d)
+    for m in (_T5_ROWS, 4 * 8000):
+        x = randn(m, d, scale=0.3)
+        outs = {name: torch.empty_like(x) for name in builds}
+        launchers = {name: _gated_launcher(lib, sigs, x, weights, nm, x, outs[name])
+                     for name, (lib, sigs) in builds.items()}
+        ms, times, diff, equal = turns(launchers)
+        ops = 6.0 * m * d * h
+        label = f"w8a8_mlp_gated ({m}, {d}, {h}) RMS residual"
+        print(json.dumps({"kernel": label, "this_ms": ms["this"], "other_ms": ms["other"],
+                          "turns": times, "this_int8_top_s": ops / ms["this"] / 1e9,
+                          "other_int8_top_s": ops / ms["other"] / 1e9,
+                          "max_abs_diff_this_vs_other": diff, "equal": equal,
+                          "device": device}), flush=True)
+        if m == _T5_ROWS:
+            for name in ("other", "this"):
+                # This build: the gate/up tile (fc1_requant_kernel<true>) and
+                # wo on the segmented GEMM tile; the other's first version:
+                # int8_gemm by epilogue (1 gate, 2 up, 0 wo) and
+                # requant_chunks.
+                print(json.dumps({"inside": f"{label}, {name}", "device_kernels_ms": _with_rates(
+                    _device_kernels(launchers[name]),
+                    {"fc1_requant_kernel<true>": 4.0 * m * d * h,
+                     "gemm_tile_kernel<176, true>": 2.0 * m * h * d,
+                     "int8_gemm_kernel<1,": 2.0 * m * d * h,
+                     "int8_gemm_kernel<2,": 2.0 * m * d * h,
+                     "int8_gemm_kernel<0,": 2.0 * m * h * d})}), flush=True)
+        # The products alone through torch._int_mm: gate and up as one
+        # (M, D) x (D, 2H) product, wo as H / 640 products over the chunks.
+        xq = torch.randint(-127, 128, (m, d), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        hq = torch.randint(-127, 128, (m, 640), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        w_gu, w_o = i8.k_major(torch.cat([g0, g1], dim=1)), i8.k_major(go[:640])
+        n_chunks = h // 640
+        for part, fn, part_ops in (
+                ("gate and up", lambda: torch._int_mm(xq, w_gu), 4.0 * m * d * h),
+                ("wo", lambda: [torch._int_mm(hq, w_o) for _ in range(n_chunks)],
+                 2.0 * m * h * d)):
+            part_ms = _median_ms(fn)
+            print(json.dumps({"int_mm_yardstick": f"{label}: {part}", "ms": part_ms,
+                              "int8_top_s": part_ops / part_ms / 1e9,
+                              "device": device}), flush=True)
+        del x, outs, launchers, xq, hq, w_gu, w_o
+        torch.cuda.empty_cache()
+    del g0, g1, go, weights
+    torch.cuda.empty_cache()
+
     d, h = _VIT_D, _VIT_H
     w1, s1 = qw(d, h)
     w2, s2 = qw(h, d)
@@ -388,12 +476,14 @@ def main(argv=None) -> None:
         compare_with(args.other)
         return
     lib = _cuda.library()
-    for cluster in (8, 4, 2, 1):
-        active = ctypes.c_int(0)
-        _check(lib.mrb_w8a8_mlp_active_clusters(cluster, ctypes.addressof(active)),
-               "mrb_w8a8_mlp_active_clusters")
-        print(json.dumps({"fc1_cluster": cluster, "active_clusters": active.value}),
-              flush=True)
+    for gated in (0, 1):
+        for cluster in (8, 4, 2, 1):
+            active = ctypes.c_int(0)
+            _check(lib.mrb_w8a8_mlp_active_clusters(cluster, gated,
+                                                    ctypes.addressof(active)),
+                   "mrb_w8a8_mlp_active_clusters")
+            print(json.dumps({"fc1": "gated" if gated else "gelu", "fc1_cluster": cluster,
+                              "active_clusters": active.value}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):

@@ -7,9 +7,10 @@ pass (through a stand-in library that records the call), the backward
 kernels' C entries by dtype and what they refuse, the fp32 biased
 dispatch (the plain function on a CPU tensor, equal to JAX's), a module
 that imports with no CUDA toolkit, LayerNorm's kernel by width and
-alignment, the W8A8 GELU MLP's workspace (no fp32 hidden), cluster plan and
-route by chunk width, the W8A8 linear's column plan and the shapes it
-launches, and the attention block's workspace and head dims.
+alignment, the W8A8 GELU and gated MLPs' workspaces (no fp32 hidden on
+the tile route), cluster plans and routes by chunk width, the W8A8 linear's
+column plan and the shapes it launches, and the attention block's workspace
+and head dims.
 """
 
 import os
@@ -501,20 +502,92 @@ def test_w8a8_mlp_workspace_holds_no_fp32_hidden(recorder, monkeypatch, m):
     assert tint8._mlp_plan(h, 1536) == (192, 8)
 
 
+def _gated_operands(m, d, h):
+    x, r = (torch.zeros(m, d, dtype=torch.bfloat16) for _ in range(2))
+    w0, w1 = (tint8.k_major(torch.zeros(d, h, dtype=torch.int8)) for _ in range(2))
+    wo = tint8.k_major(torch.zeros(h, d, dtype=torch.int8))
+    weights = (w0, torch.ones(h), w1, torch.ones(h), wo, torch.ones(d))
+    return x, r, weights, ("rms", torch.ones(d), None, 1e-6)
+
+
 def test_gated_mlp_keeps_its_fp32_hidden(recorder, monkeypatch):
+    """The chain route (the tiny T5's hidden of 256 in chunks of 128, which
+    no cluster of 80-column gated fc1 tiles covers) keeps its fp32 hidden:
+    xq, sa, h32, hq, sh, passed in that order to the chain's C entry."""
     m, d, h = 19, 64, 256
-    made = _spy(monkeypatch, tint8, "_gated_mlp_workspace")
+    made = _spy(monkeypatch, tint8, "_chain_workspace")
     x = torch.zeros(m, d, dtype=torch.bfloat16)
     w, s = tint8.k_major(torch.zeros(d, h, dtype=torch.int8)), torch.ones(h)
     wo = tint8.k_major(torch.zeros(h, d, dtype=torch.int8))
     tint8._w8a8_mlp_gated_cuda(x, w, s, w, s, wo, torch.ones(d), None, None, 128)
     (name, args), = recorder.calls
-    assert name == "mrb_w8a8_mlp_gated" and len(args) == len(_cuda._SIGNATURES[name])
+    assert name == "mrb_w8a8_mlp_gated_chain" and len(args) == len(_cuda._SIGNATURES[name])
     (ws,) = made
     assert [(t.dtype, tuple(t.shape)) for t in ws] == [
         (torch.int8, (m, d)), (torch.float32, (m,)), (torch.float32, (m, h)),
         (torch.int8, (m, h)), (torch.float32, (m, 2))]
     assert list(args[13:18]) == [t.data_ptr() for t in ws]
+
+
+@pytest.mark.parametrize("m", [19, 300])
+def test_w8a8_mlp_gated_workspace_holds_no_fp32_hidden(recorder, monkeypatch, m):
+    """Kernel 15 at Flan-T5-XL's widths: its workspace is xq (M, D) int8, sa
+    (M), hq (M, H) int8 and sh (M, H / 640) fp32, passed in that order, then
+    the shape, the chunk width and the gated fc1's cluster size: gate and up
+    requantize in the epilogue of their one product."""
+    d, h = 2048, 5120
+    made = _spy(monkeypatch, tint8, "_mlp_workspace")
+    x, r, weights, norm = _gated_operands(m, d, h)
+    before = tint8.w8a8_mlp_gated.launches
+    out = tint8._w8a8_mlp_gated_cuda(x, *weights, norm, r, tint8.DEFAULT_GATED_BLOCK_H)
+    assert out.shape == (m, d) and tint8.w8a8_mlp_gated.launches == before + 1
+    (name, args), = recorder.calls
+    assert name == "mrb_w8a8_mlp_gated" and len(args) == len(_cuda._SIGNATURES[name])
+    (ws,) = made
+    assert [(t.dtype, tuple(t.shape)) for t in ws] == [
+        (torch.int8, (m, d)), (torch.float32, (m,)), (torch.int8, (m, h)),
+        (torch.float32, (m, h // 640))]
+    assert list(args[13:17]) == [t.data_ptr() for t in ws]
+    assert args[17:22] == (m, d, h, 640, 8)
+    assert tint8._mlp_plan(h, 640, tint8.GATED_TILE) == (80, 8)
+
+
+@pytest.mark.parametrize("hdim,block_h", [(5120, 640), (10240, 640), (640, 640)])
+def test_gated_mlp_plan_covers_every_chunk_once(hdim, block_h):
+    """The gated fc1's clusters of 80-column blocks (Flan-T5-XL's and -XXL's
+    chunks of 640, and one chunk of 640) cover each hidden column once,
+    every cluster inside one chunk and within the portable cluster size."""
+    tile, cluster = tint8._mlp_plan(hdim, block_h, tint8.GATED_TILE)
+    assert tile == tint8.GATED_TILE and 1 <= cluster <= tint8.MAX_FC1_CLUSTER
+    assert tile * cluster == block_h
+    columns = [chunk * block_h + rank * tile + c for chunk in range(hdim // block_h)
+               for rank in range(cluster) for c in range(tile)]
+    assert sorted(columns) == list(range(hdim))
+
+
+@pytest.mark.parametrize("hdim,block_h,chunk,route", [
+    (5120, 640, 640, "tile"), (10240, 640, 640, "tile"), (640, 640, 640, "tile"),
+    (256, 128, 128, "chain"), (2048, 640, 512, "chain"), (64, 640, 64, "chain")])
+def test_gated_mlp_route_by_shape(recorder, hdim, block_h, chunk, route):
+    """The gated MLP's route is chosen by the chunk ``_pick_block`` gives,
+    before any launch and with no raise for any width the first version
+    took: 640-column chunks on the tile (a cluster of 8 gated fc1 blocks),
+    the tiny T5's chunks of 128 and 64, and Flan-T5-base's 512, on the
+    chain."""
+    assert tint8._pick_block(hdim, block_h) == chunk
+    assert tint8._mlp_route(hdim, chunk, tint8.GATED_TILE) == route
+    m, d = 4, 64
+    x, r, weights, norm = _gated_operands(m, d, hdim)
+    before = tint8.w8a8_mlp_gated.launches
+    out = tint8._w8a8_mlp_gated_cuda(x, *weights, norm, r, block_h)
+    assert out.shape == (m, d) and tint8.w8a8_mlp_gated.launches == before + 1
+    (name, args), = recorder.calls
+    assert len(args) == len(_cuda._SIGNATURES[name])
+    if route == "tile":
+        assert name == "mrb_w8a8_mlp_gated"
+        assert args[17:22] == (m, d, hdim, chunk, chunk // tint8.GATED_TILE)
+    else:
+        assert name == "mrb_w8a8_mlp_gated_chain" and args[18:22] == (m, d, hdim, chunk)
 
 
 @pytest.mark.parametrize("hdim,block_h", [(6144, 1536), (1536, 1536), (3072, 768),
@@ -563,7 +636,7 @@ def test_w8a8_mlp_chain_route_keeps_its_fp32_hidden(recorder, monkeypatch, m, d,
     """The chain route's workspace is xq (M, D) int8, sa (M), h32 (M, H) fp32,
     hq (M, H) int8 and sh (M, H / chunk), passed in that order, then the
     shape and the chunk width (the tiny ViT's hidden of 64 is one chunk)."""
-    made = _spy(monkeypatch, tint8, "_gated_mlp_workspace")
+    made = _spy(monkeypatch, tint8, "_chain_workspace")
     x, r, weights, norm = _mlp_operands(m, d, h)
     tint8._w8a8_mlp_cuda(x, *weights, norm, r, block_h)
     (name, args), = recorder.calls
