@@ -184,6 +184,20 @@ is nonzero and the final line is not printed:
     int8 route: W8A8 linear, kernel 4, W8A8 linear per block, no fused
     block); and on the card ``set_attention_backend("xla")`` against
     ``"auto"`` (no flash launch, ViT rows cosine >= 0.999).
+16. the evaluation entry point: ``mr_blip_tpu_torch.evaluate.main`` on
+    ``configs/projects/eval/qvh.yaml`` (read by the port's own YAML reader:
+    EVA ViT-g, Flan-T5-XL, bf16, 60 frames, beam 5, batch 4, uint8 frames),
+    over a synthetic test split of 8 queries on 150 s videos at 10 fps
+    (``datasets/synthetic.py``), with ``videos.storage=synthetic``,
+    ``model.load_finetuned=False`` (random weights from ``from_config``) and a
+    temporary ``run.output_dir``; each of its 2 batches must reach the model
+    with its frames already on the card and launch kernels 1 / 2 / 3 110 / 39 /
+    24 times (no other kernel), its result rows must equal ``model.generate``
+    on the same loader batches from the same model, string for string, and
+    its metrics dict must hold the six keys with ``total`` 8. Prints seconds
+    and frames/s per batch, the time before the first batch, peak memory and
+    the metrics (random weights: every span is ``[[-1, -1]]``, so the scores
+    are no quality number).
 
 Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
 (4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
@@ -207,7 +221,8 @@ masked), the W8A8 linear at the two shapes of the split int8 ViT route
 the W8A8 GELU MLP at (162,480, 1,408, 6,144).
 
 The line before the last is one JSON object with every kernel's numbers
-(launches: kernels 1-3 from phase 4, 4 from phase 13's 364-pixel run, 5, 6
+(launches: kernels 1-3 from phase 4 (phase 16 prints its own beside
+them), 4 from phase 13's 364-pixel run, 5, 6
 and 8 from phase 6, 7 from phase 7's ``qformer_freeze`` run, 13-16 from phase
 8, 9 from phase 10's bf16 run, 10 and 12 from phase 11, 11 from phase 12's
 ``qformer_freeze`` run; each count is taken with the counts set to 0 just
@@ -216,6 +231,7 @@ before its path runs); the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -334,6 +350,10 @@ EXPECTED_BIG_INT8_LAUNCHES = dict(EXPECTED_INT8_LAUNCHES, flash_attention=39,
 FP32_REL_TOL = 1e-4   # kernels 3-5 in fp32: max |kernel - plain| / max |plain|
 FP32_FRAMES = 60      # frames a video in the fp32 run: encoder length 2,056 (kernel 3)
 FP32_PATH_REL_TOL = 1e-4
+# Phase 16, the evaluation entry point on configs/projects/eval/qvh.yaml: 8
+# synthetic queries over 150 s videos at 10 fps (the length of QVHighlights
+# clips), two batches of its batch size 4.
+EVAL_QUERIES, EVAL_VIDEO_FRAMES, EVAL_FPS = 8, 1500, 10.0
 
 
 def say(*parts):
@@ -2238,6 +2258,134 @@ def qa_kernel_vs_plain_path(torch, wrappers):
 
 
 # --------------------------------------------------------------------- main
+# -------------------------------------------------------------- phase 16
+def evaluation_entry_point(torch, wrappers, card):
+    """Phase 16: ``python -m mr_blip_tpu_torch.evaluate`` on
+    ``configs/projects/eval/qvh.yaml`` (EVA ViT-g, Flan-T5-XL, bf16, 60
+    frames, beam 5, batch 4, uint8 frames: the repo's YAML read by the port's
+    own reader), called in this process on EVAL_QUERIES synthetic queries
+    over 150 s videos, its model built by ``BLIP2_MR.from_config`` with random
+    weights (no checkpoint is in the repo). Each ``generate_dispatch`` of the
+    pipelined evaluation must launch what phase 4's batches launch, on frames
+    the loader already put on the card; the result rows must equal, string
+    for string, ``model.generate`` on the same loader batches and the same
+    model; the metrics dict is printed. Returns the launch counts of the run
+    and its summary numbers."""
+    import tempfile
+
+    from mr_blip_tpu_torch import evaluate
+    from mr_blip_tpu_torch.datasets.synthetic import make_mr_annotations
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.tasks.moment_retrieval import MomentRetrievalTask
+
+    calls = []  # per dispatch: (model, samples, launches, start, decode steps)
+    collect_ends = []
+    dispatch, collect = BLIP2_MR.generate_dispatch, BLIP2_MR.generate_collect
+
+    def tapped_dispatch(model, samples):
+        start = time.time()
+        require(isinstance(samples["video"], torch.Tensor) and samples["video"].is_cuda,
+                "evaluation: the loader did not put the frames on the card")
+        before = {name: w.launches for name, w in wrappers.items()}
+        steps = []  # decode steps, counted through the model's own step
+        step = model.module.t5.decode_step
+        model.module.t5.decode_step = lambda *a: steps.append(1) or step(*a)
+        try:
+            handle = dispatch(model, samples)
+        finally:
+            del model.module.t5.decode_step
+        calls.append((model, samples, {name: w.launches - before[name]
+                                       for name, w in wrappers.items()}, start, len(steps)))
+        return handle
+
+    def tapped_collect(model, handle):
+        out = collect(model, handle)
+        collect_ends.append(time.time())
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_mr_annotations(tmp, n_train=0, n_val=0, n_test=EVAL_QUERIES,
+                                    n_video_frames=EVAL_VIDEO_FRAMES, fps=EVAL_FPS)
+        out_dir = Path(tmp) / "out"
+        argv = ["--cfg-path", str(ROOT / "configs/projects/eval/qvh.yaml"), "--options",
+                *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
+                  for split, path in paths.items()),
+                "datasets.qvh.build_info.videos.storage=synthetic",
+                "model.load_finetuned=False", f"run.output_dir={out_dir}"]
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()  # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        BLIP2_MR.generate_dispatch, BLIP2_MR.generate_collect = tapped_dispatch, tapped_collect
+        t0 = time.time()
+        try:
+            logs = evaluate.main(argv)
+        finally:
+            BLIP2_MR.generate_dispatch, BLIP2_MR.generate_collect = dispatch, collect
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        (result_file,) = out_dir.glob("*/result/test_epochbest.json")
+        rows = json.loads(result_file.read_text())
+
+    n_batches = -(-EVAL_QUERIES // BATCH)
+    require(len(calls) == n_batches and len(collect_ends) == n_batches,
+            f"evaluation: {len(calls)} dispatches, {len(collect_ends)} collects, "
+            f"expected {n_batches}")
+    model = calls[0][0]
+    require(all(c[0] is model for c in calls), "evaluation: more than one model")
+    require(model.num_beams == 5 and model.compute_dtype == torch.bfloat16
+            and model.vit_config.depth == 39 and model.t5_config.num_layers == 24
+            and model.t5_config.d_model == 2048 and model.task == "qformer_freeze_lora",
+            "evaluation: the model is not qvh.yaml's")
+    # A batch's time runs from its dispatch to the next one's (the loop also
+    # collects the batch before); the last one's to the end of its collect.
+    starts = [c[3] for c in calls]
+    seconds = [b - a for a, b in zip(starts, starts[1:] + [collect_ends[-1]])]
+    for i, (_, samples, rose, _, steps) in enumerate(calls):
+        frames = tuple(samples["video"].shape)
+        say(f"evaluation batch {i}: {seconds[i]:.3f} s, {frames[0] * frames[1] / seconds[i]:.1f} "
+            f"frames/s, {steps} decode steps, frames {frames} {samples['video'].dtype} on the "
+            f"card  launches { {k: v for k, v in rose.items() if v} }")
+        require(rose == EXPECTED_LAUNCHES, f"evaluation batch {i}: launches {rose}, "
+                f"expected {EXPECTED_LAUNCHES}")
+        require(frames == (BATCH, N_FRAMES, 224, 224, 3), f"evaluation frames {frames}")
+    # The same batches through model.generate, outside the evaluation loop.
+    want = []
+    for _, samples, _, _, _ in calls:
+        want += MomentRetrievalTask._rows_from_outputs(model.generate(samples))
+    want = json.loads(json.dumps(want, default=float))
+    require(rows == want, f"evaluation rows differ from model.generate: {rows} vs {want}")
+    metrics = json.loads(json.dumps(logs["test"], default=float))
+    require(set(metrics) == {"agg_metrics", "r1", "mAP", "mIoU", "invalid_predictions",
+                             "total"} and metrics["total"] == EVAL_QUERIES,
+            f"evaluation metrics {metrics}")
+    require(len(rows) == EVAL_QUERIES and all(
+        set(r) == {"qid", "raw_prediction", "prediction", "target", "duration"}
+        and r["duration"] == EVAL_VIDEO_FRAMES / EVAL_FPS for r in rows),
+        "evaluation rows malformed")
+    say(f"evaluation rows (equal to model.generate on the same batches, string for "
+        f"string): {[(r['qid'], r['prediction'], r['target']) for r in rows]}")
+    say(f"evaluation metrics (random weights: every span [[-1, -1]], so no quality "
+        f"number): {json.dumps(metrics)}")
+    steady = statistics.mean(seconds[1:])
+    say(f"evaluation entry point (configs/projects/eval/qvh.yaml, {EVAL_QUERIES} queries over "
+        f"{EVAL_VIDEO_FRAMES / EVAL_FPS:.0f} s videos, B={BATCH} x {N_FRAMES} frames): "
+        f"steady {steady:.3f} s/batch ({BATCH * N_FRAMES / steady:.1f} frames/s; batches "
+        f"1-{n_batches - 1}), first {seconds[0]:.3f} s; before the first batch "
+        f"{starts[0] - t0:.3f} s (config, datasets, from_config, first loader batch); "
+        f"main() {wall:.3f} s; peak memory {(peak - resident) / 2**30:.2f} GiB above the "
+        f"{resident / 2**30:.2f} GiB earlier phases held; {card}")
+    del model, calls
+    torch.cuda.empty_cache()
+    return launches, dict(steady_s=steady, first_s=seconds[0], wall_s=wall,
+                          peak_gib=(peak - resident) / 2**30)
+
+
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
     the ``kernels`` line (source in the port, TPU kernel replaced)."""
@@ -2386,6 +2534,13 @@ def main():
     qa_path(torch, wrappers)
     # phase 15: 364 pixels and QA, kernel path vs plain path
     qa_kernel_vs_plain_path(torch, wrappers)
+    # phase 16: the evaluation entry point on configs/projects/eval/qvh.yaml
+    eval_launches, eval_summary = evaluation_entry_point(torch, wrappers, smi)
+    say(f"generate batch (phase 4) vs evaluation batch (phase 16), seconds: steady "
+        f"{bf16_summary['steady_s']:.3f} vs {eval_summary['steady_s']:.3f}, first "
+        f"{bf16_summary['first_s']:.3f} vs {eval_summary['first_s']:.3f}; peak memory "
+        f"{bf16_summary['peak_gib']:.2f} vs {eval_summary['peak_gib']:.2f} GiB; evaluation "
+        f"launches of kernels 1-3 { {k: eval_launches[k] for k in GENERATE_KERNELS} }")
 
     for key, entry in kernels.items():
         if key == "flash_attention":

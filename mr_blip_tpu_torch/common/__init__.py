@@ -1,2 +1,3 @@
-"""Framework-neutral helpers copied from the JAX package (learning-rate
-schedules)."""
+"""Registry, config (with a YAML reader of its own), run-config validator,
+process helpers over ``torch.distributed``, logging, paths and the LR
+schedules: the port's counterparts of ``mr_blip_tpu/common/``."""

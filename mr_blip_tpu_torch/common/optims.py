@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import math
 
+from mr_blip_tpu_torch.common.registry import registry
+
 
 def cosine_lr(epoch, max_epoch, init_lr, min_lr):
     return (init_lr - min_lr) * 0.5 * (1.0 + math.cos(math.pi * epoch / max_epoch)) + min_lr
@@ -25,6 +27,7 @@ def step_lr(epoch, init_lr, min_lr, decay_rate):
     return max(min_lr, init_lr * (decay_rate**epoch))
 
 
+@registry.register_lr_scheduler("linear_warmup_cosine_lr")
 class LinearWarmupCosineLRScheduler:
     """Linear warmup for ``warmup_steps`` global steps, then per-epoch cosine.
 
@@ -70,6 +73,7 @@ class LinearWarmupCosineLRScheduler:
     step = __call__
 
 
+@registry.register_lr_scheduler("linear_warmup_step_lr")
 class LinearWarmupStepLRScheduler:
     """Linear warmup inside epoch 0, then exponential decay per epoch."""
 
@@ -108,6 +112,7 @@ class LinearWarmupStepLRScheduler:
     step = __call__
 
 
+@registry.register_lr_scheduler("constant_lr")
 class ConstantLRScheduler:
     def __init__(self, init_lr, **kwargs):
         self.init_lr = init_lr

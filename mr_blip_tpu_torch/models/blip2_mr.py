@@ -22,8 +22,8 @@ the answer read off the A-E logits of the second decoding step);
 ``videoQA_dispatch`` / ``videoQA_redecode`` / ``videoQA_collect`` are its
 three steps. ``model(samples)`` under a QA task is the answerer's
 teacher-forced loss (``forward_QA``). Re-decoding the predicted window from
-the video file (``resample_frames=True``) needs the video readers and
-processors, which are not ported: it raises.
+the video file (``resample_frames=True``) needs the FFmpeg video reader,
+which is not ported: it raises.
 
 int8 inference: ``model.quantize_for_inference().generate(samples)`` converts
 the loaded float weights (W8A8 ViT, Q-Former cross K/V and T5 encoder on the
@@ -37,16 +37,25 @@ or cached.
 
 The model lives on ``device``, the card by default; pass ``device="cpu"``
 to run the kernels' plain versions on the host.
+
+Registered as ``blip2_mr``: ``BLIP2_MR.from_config(cfg)`` builds it from the
+``model:`` section of a project config (``configs/projects/eval/qvh.yaml``
+layered over ``configs/models/blip2/*.yaml``), loads its checkpoints and
+quantizes it, as the JAX package's ``from_config`` does; the keys whose
+setting the port cannot compute yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from mr_blip_tpu_torch.common.registry import registry
+from mr_blip_tpu_torch.models.base import BaseModel
 from mr_blip_tpu_torch.models.blip2_mr_module import Blip2MRModule
 from mr_blip_tpu_torch.models.eva_vit import eva_vit_g_config, vit_tiny_config
 from mr_blip_tpu_torch.models.generation import beam_search, greedy_decode_with_scores
@@ -61,6 +70,7 @@ from mr_blip_tpu_torch.models.quantize import (
 from mr_blip_tpu_torch.models.t5 import (
     materialize_encoder_relpos_bias,
     t5_flan_xl_config,
+    t5_flan_xxl_config,
     t5_tiny_config,
 )
 from mr_blip_tpu_torch.text.span_grammar import (
@@ -99,9 +109,16 @@ def _bucket(n: int, multiple: int = 16) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
-class BLIP2_MR:
+@registry.register_model("blip2_mr")
+class BLIP2_MR(BaseModel):
+    PRETRAINED_MODEL_CONFIG_DICT = {
+        "pretrain_flant5xl": "configs/models/blip2/blip2_pretrain_flant5xl.yaml",
+        "pretrain_flant5xxl": "configs/models/blip2/blip2_pretrain_flant5xxl.yaml",
+        "tiny": "configs/models/blip2/blip2_tiny.yaml",
+    }
     VIT_CONFIGS = {"eva_vit_g": eva_vit_g_config, "tiny": vit_tiny_config}
-    T5_CONFIGS = {"flan-t5-xl": t5_flan_xl_config, "tiny": t5_tiny_config}
+    T5_CONFIGS = {"flan-t5-xl": t5_flan_xl_config, "flan-t5-xxl": t5_flan_xxl_config,
+                  "tiny": t5_tiny_config}
 
     def __init__(
         self,
@@ -140,8 +157,9 @@ class BLIP2_MR:
         if resample_frames:
             raise NotImplementedError(
                 "resample_frames=True re-decodes the predicted window from the "
-                "video file: it needs the video readers and processors "
-                "(datasets/, processors/), which are not ported yet")
+                "video file: it needs the video readers and processors of video "
+                "files (the FFmpeg reader), which are not ported yet (ROADMAP "
+                "Queue 1 item 4)")
         self.task = task
         self.use_lora = "lora" in task
         self.use_localizer = "with_localizer" in task
@@ -326,6 +344,116 @@ class BLIP2_MR:
         return (self.quantize_vit().quantize_qformer().quantize_encoder()
                 .quantize_for_decode())
 
+    # --------------------------------------------------------------- config
+    # ``from_config`` keys (those ``mr_blip_tpu/models/blip2_mr.py::from_config``
+    # reads) whose settings the port cannot compute yet: key -> (the settings
+    # it can compute, what is missing and its ROADMAP Queue 1 item).
+    UNSUPPORTED_CONFIG = {
+        "interleave_data": ((True,), "the non-interleaved prompt", 6),
+        "frame_token_aggregation": ((False, None), "frame-token aggregation", 6),
+        "freeze_vit": ((True,), "the unfrozen-ViT train path", 1),
+        "fast_gelu": ((False,), "the tanh-GELU ViT", 6),
+        "use_grad_checkpoint": ((False,), "gradient checkpointing", 1),
+        "sequence_parallel": ((False,), "sequence-parallel frames", 8),
+        "resample_frames": ((False,), "re-decoding the predicted window from the "
+                            "video file", 4),
+        "int8_base": ((False,), "the int8 T5 base under LoRA training", 5),
+    }
+    # Read and without effect in the port: layouts of the TPU program
+    # (scan_layers, remat_policy); the ViT's stochastic depth, which a frozen
+    # ViT never samples; the seed of the JAX package's zero init.
+    IGNORED_CONFIG = ("scan_layers", "remat_policy", "drop_path_rate", "seed")
+    # The keys it computes (``arch`` and ``model_type`` are the Config's).
+    SUPPORTED_CONFIG = (
+        "arch", "model_type", "image_size", "vit_model", "t5_model",
+        "tokenizer_path", "num_query_token", "num_beams", "min_len",
+        "min_new_tokens", "max_len", "max_new_tokens", "input_time_format", "task",
+        "num_frames_for_answer", "relpos_in_kernel", "compute_dtype", "vocab_size",
+        "params_dtype", "pretrained", "finetuned", "load_finetuned",
+        "int8_inference", "int8_decode", "int8_vit", "int8_qformer", "int8_encoder")
+
+    @classmethod
+    def from_config(cls, cfg, device="cuda"):
+        """The model of a config's ``model:`` section on ``device``: the keys
+        the JAX package's ``from_config`` reads, with its defaults; random
+        weights from the constructor's seed unless ``params_dtype`` is set
+        (then zeros, ones for 1-D tensors, and the checkpoint must cover every
+        tensor; the tensors keep the port's storage dtypes); then
+        ``pretrained`` and, under ``load_finetuned``, ``finetuned`` loaded
+        non-strict (a missing file logs a warning); then the int8
+        conversions in the JAX order. A key the port cannot compute raises
+        ``NotImplementedError``; a key ``from_config`` does not read is
+        logged."""
+        for key, (computable, what, item) in cls.UNSUPPORTED_CONFIG.items():
+            if key in cfg and cfg[key] not in computable:
+                raise NotImplementedError(
+                    f"model.{key}={cfg[key]!r}: {what} is not ported yet "
+                    f"(ROADMAP Queue 1 item {item})")
+        unread = sorted(set(cfg) - set(cls.UNSUPPORTED_CONFIG)
+                        - set(cls.IGNORED_CONFIG) - set(cls.SUPPORTED_CONFIG))
+        if unread:
+            logging.warning("BLIP2_MR.from_config does not read model.%s",
+                            ", model.".join(unread))
+        ignored = [k for k in cls.IGNORED_CONFIG if cfg.get(k) is not None]
+        if ignored:
+            logging.info("BLIP2_MR.from_config: model.%s read, no effect in the port",
+                         ", model.".join(ignored))
+        params_dtype = cfg.get("params_dtype")
+        if params_dtype not in (None, "bfloat16", "float32"):
+            raise ValueError(f"model.params_dtype={params_dtype!r}")
+        model = cls(
+            img_size=cfg.get("image_size", 224),
+            vit_model=cfg.get("vit_model", "eva_vit_g"),
+            t5_model=cfg.get("t5_model", "flan-t5-xl"),
+            tokenizer_path=cfg.get("tokenizer_path"),
+            num_query_token=cfg.get("num_query_token", 32),
+            num_beams=cfg.get("num_beams", 5),
+            min_new_tokens=cfg.get("min_len", cfg.get("min_new_tokens", 0)),
+            max_txt_len=cfg.get("max_len", 200),
+            max_new_tokens=cfg.get("max_new_tokens", 50),
+            input_time_format=cfg.get("input_time_format", "seconds_integers"),
+            task=cfg.get("task", "qformer_freeze_lora"),
+            num_frames_for_answer=cfg.get("num_frames_for_answer", 4),
+            relpos_in_kernel=cfg.get("relpos_in_kernel", False),
+            compute_dtype=cfg.get("compute_dtype", "bfloat16"),
+            init_params=params_dtype is None,
+            vocab_size=cfg.get("vocab_size"),
+            device=device,
+        )
+        if params_dtype is not None:
+            logging.info("params_dtype=%s: zero init; checkpoint load must cover "
+                         "every tensor", params_dtype)
+            with torch.no_grad():
+                for p in model.module.parameters():
+                    p.fill_(1.0 if p.ndim == 1 else 0.0)
+        finetuned = cfg.get("finetuned")
+        pretrained = cfg.get("pretrained")
+        for path, kind in ((pretrained, "pretrained"),
+                           (finetuned if cfg.get("load_finetuned", False) else None,
+                            "finetuned")):
+            if not path:
+                continue
+            try:
+                model.load_state_dict(
+                    cls.load_params_nonstrict(model.state_dict(), path))
+                logging.info("loaded %s weights from %s", kind, path)
+            except FileNotFoundError:
+                logging.warning("%s checkpoint %s not found", kind, path)
+        # Quantize after the float checkpoints are loaded (the converters
+        # read float weights).
+        if cfg.get("int8_inference", False):
+            model.quantize_for_inference()
+        else:
+            if cfg.get("int8_decode", False):
+                model.quantize_for_decode()
+            if cfg.get("int8_vit", False):
+                model.quantize_vit()
+            if cfg.get("int8_qformer", False):
+                model.quantize_qformer()
+            if cfg.get("int8_encoder", False):
+                model.quantize_encoder()
+        return model
+
     def train(self, mode: bool = True):
         """Train mode turns every dropout on; ``eval()`` off."""
         self.module.train(mode)
@@ -340,9 +468,14 @@ class BLIP2_MR:
         """Strings + sampling metadata -> padded numpy arrays + gather plan;
         with ``need_targets`` and ``relevant_windows`` in the samples, also
         the target ids and mask, padded to a multiple of 8."""
-        video = np.asarray(samples["video"])
-        if video.dtype != np.uint8:
-            video = video.astype(np.float32)
+        video = samples["video"]
+        if isinstance(video, torch.Tensor):  # frames the loader put on the card
+            if video.dtype != torch.uint8:
+                video = video.float()
+        else:
+            video = np.asarray(video)
+            if video.dtype != np.uint8:
+                video = video.astype(np.float32)
         timestamps = np.asarray(samples["timestamps"], np.float64)
         durations = np.asarray(samples["duration"], np.float64)
         video_prompt_end = list(samples["video_prompt_end"])
@@ -385,7 +518,10 @@ class BLIP2_MR:
         return batch
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        """numpy arrays copied to ``device``; a tensor already there (the
+        frames a ``PrefetchLoader`` copied ahead) is taken as it is."""
+        return {k: (v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(v))).to(self.device)
                 for k, v in batch.items()}
 
     def _encoder_bias(self, length: int, t5_name: str = "t5") -> torch.Tensor | None:

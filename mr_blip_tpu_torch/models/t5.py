@@ -88,6 +88,10 @@ def t5_flan_xl_config(**kw) -> T5Config:
     return T5Config(**kw)
 
 
+def t5_flan_xxl_config(**kw) -> T5Config:
+    return T5Config(d_model=4096, d_ff=10240, num_heads=64, **kw)
+
+
 def t5_tiny_config(**kw) -> T5Config:
     defaults = dict(vocab_size=256, d_model=32, d_kv=8, d_ff=64, num_layers=2,
                     num_decoder_layers=2, num_heads=4, dropout_rate=0.0)

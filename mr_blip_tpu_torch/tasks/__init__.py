@@ -1,0 +1,18 @@
+"""Tasks. Importing registers the task classes; setup_task resolves by name
+(the port's counterpart of ``mr_blip_tpu/tasks/__init__.py``: the
+moment-retrieval task; the QA, TAL and zoo tasks are not ported yet)."""
+
+from mr_blip_tpu_torch.common.registry import registry
+from mr_blip_tpu_torch.tasks.base_task import BaseTask
+from mr_blip_tpu_torch.tasks.moment_retrieval import MomentRetrievalTask
+
+
+def setup_task(cfg):
+    assert "task" in cfg.run_cfg, "Task name must be provided."
+    task_name = cfg.run_cfg.task
+    task_cls = registry.get_task_class(task_name)
+    assert task_cls is not None, f"unknown task {task_name!r}"
+    return task_cls.setup_task(cfg=cfg)
+
+
+__all__ = ["BaseTask", "MomentRetrievalTask", "setup_task"]

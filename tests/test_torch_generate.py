@@ -191,6 +191,8 @@ def test_span_grammar_copy_matches():
 
 # --------------------------------------------------------- import rules
 def test_port_imports_no_jax_or_triton():
+    """Nor pyyaml or scikit-learn, which the card's machine lacks: a config
+    is read and every module of the evaluation entry point imported."""
     code = (
         "import sys\n"
         "import mr_blip_tpu_torch\n"
@@ -203,8 +205,19 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.profile_int8_kernels\n"
         "import mr_blip_tpu_torch.ops.attention, mr_blip_tpu_torch.models.generation\n"
         "import mr_blip_tpu_torch.models.blip2_mr_module, mr_blip_tpu_torch.models.eva_vit\n"
+        "import mr_blip_tpu_torch.evaluate, mr_blip_tpu_torch.models.base\n"
+        "import mr_blip_tpu_torch.common.config, mr_blip_tpu_torch.common.config_validator\n"
+        "import mr_blip_tpu_torch.common.dist, mr_blip_tpu_torch.common.logger\n"
+        "import mr_blip_tpu_torch.common.utils, mr_blip_tpu_torch.common.yaml_subset\n"
+        "import mr_blip_tpu_torch.datasets.builders, mr_blip_tpu_torch.datasets.loader\n"
+        "import mr_blip_tpu_torch.datasets.synthetic, mr_blip_tpu_torch.datasets.video_reader\n"
+        "import mr_blip_tpu_torch.metrics, mr_blip_tpu_torch.metrics.simple\n"
+        "import mr_blip_tpu_torch.processors, mr_blip_tpu_torch.tasks\n"
+        "import mr_blip_tpu_torch.runners.runner_base\n"
+        "from mr_blip_tpu_torch.common.config import Config\n"
+        "Config(cfg_path='configs/projects/eval/qvh.yaml')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu', 'yaml', 'sklearn')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
