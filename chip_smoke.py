@@ -198,6 +198,26 @@ is nonzero and the final line is not printed:
     and frames/s per batch, the time before the first batch, peak memory and
     the metrics (random weights: every span is ``[[-1, -1]]``, so the scores
     are no quality number).
+17. the train entry point: ``mr_blip_tpu_torch.train.main`` on
+    ``configs/projects/train/qvh.yaml`` as published (EVA ViT-g and Q-Former
+    frozen, Flan-T5-XL with LoRA r=8, ``use_grad_checkpoint``, micro-batches
+    of 1 x 60 frames, ``accum_grad_iters`` 8, ``linear_warmup_cosine_lr``,
+    random weights) but for synthetic annotations (16 train queries, 2 val, 2
+    test, 150 s videos at 10 fps), ``run.max_epoch=2`` and a temporary output
+    directory: every micro-batch must launch kernel 5 48 times (the forward
+    and each encoder block's recompute), 6 and 8 24, LayerNorm 110, packed QKV
+    39, kernels 3 and 7 never, and every val/test generate 110 / 39 / 24;
+    every loss finite; after the run every trainable tensor moved and every
+    frozen one bit-equal. Then one 1 x 60 micro-batch of that model with
+    checkpointing on and off on the same dropout masks (loss within 1e-6
+    relative, LoRA gradients cosine >= 0.9999 and max |diff| <= 1e-3 x max
+    |g|, each one's peak memory printed); a second ``main()`` (10 train
+    queries) SIGTERMed from a thread of this process after 9 micro-batches
+    must exit 143 with a ``resume_state.pth`` of ``epoch_complete`` False, and
+    a third, resuming from it, must load the weights, AdamW state, counters
+    and partial gradients bit for bit, log ``(epoch 0)``, re-run the epoch
+    and exit 0. Prints seconds per micro-batch and per update, peak memory,
+    and the resume state's bytes and write and load seconds.
 
 Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
 (4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
@@ -225,8 +245,9 @@ The line before the last is one JSON object with every kernel's numbers
 them), 4 from phase 13's 364-pixel run, 5, 6
 and 8 from phase 6, 7 from phase 7's ``qformer_freeze`` run, 13-16 from phase
 8, 9 from phase 10's bf16 run, 10 and 12 from phase 11, 11 from phase 12's
-``qformer_freeze`` run; each count is taken with the counts set to 0 just
-before its path runs); the last line is {"ok": true, "device": {...}}.
+``qformer_freeze`` run; ``train_entry_launches`` from phase 17's first run;
+each count is taken with the counts set to 0 just before its path runs); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -354,6 +375,21 @@ FP32_PATH_REL_TOL = 1e-4
 # synthetic queries over 150 s videos at 10 fps (the length of QVHighlights
 # clips), two batches of its batch size 4.
 EVAL_QUERIES, EVAL_VIDEO_FRAMES, EVAL_FPS = 8, 1500, 10.0
+# Phase 17, the train entry point on configs/projects/train/qvh.yaml (batches
+# of 1 x 60 frames, accum_grad_iters 8, use_grad_checkpoint): 16 synthetic
+# train queries (2 updates an epoch), 2 val and 2 test, 2 epochs.
+TRAIN_QUERIES, TRAIN_EVAL_QUERIES, TRAIN_EPOCHS, TRAIN_ACCUM = 16, 2, 2, 8
+# The preempted and the resumed run read annotations of their own, 10 train
+# queries, 1 val and 1 test; the first is stopped after 9 micro-batches: one
+# update and 1 micro-batch into the second window (not a multiple of 8).
+PREEMPT_TRAIN_QUERIES, PREEMPT_AFTER = 10, 9
+# Per micro-batch under use_grad_checkpoint: kernel 5 once per encoder layer
+# in the forward and once more in the layer's recompute, kernels 6 and 8 once
+# per encoder layer in the backward, kernels 3 and 7 never; the frozen ViT,
+# ln_vision and Q-Former (no grad, never recomputed) as in phase 6.
+EXPECTED_REMAT_TRAIN_LAUNCHES = dict(EXPECTED_TRAIN_LAUNCHES, flash_bias_fwd_stats=48)
+# Checkpointing on against off, one micro-batch, the same dropout masks.
+REMAT_LOSS_REL_TOL, REMAT_GRAD_COSINE_MIN, REMAT_GRAD_REL_TOL = 1e-6, 0.9999, 1e-3
 
 
 def say(*parts):
@@ -2386,6 +2422,343 @@ def evaluation_entry_point(torch, wrappers, card):
                           peak_gib=(peak - resident) / 2**30)
 
 
+# -------------------------------------------------------------- phase 17
+def train_entry_point(torch, wrappers, card):
+    """Phase 17: ``python -m mr_blip_tpu_torch.train`` on
+    ``configs/projects/train/qvh.yaml`` (EVA ViT-g and Q-Former frozen,
+    Flan-T5-XL with LoRA r=8, use_grad_checkpoint, micro-batches of 1 x 60
+    frames, accum_grad_iters 8, linear_warmup_cosine_lr as published), called
+    in this process three times over synthetic annotations: a run of
+    TRAIN_EPOCHS epochs over TRAIN_QUERIES train queries (every micro-batch's and every val/test generate's
+    launches as predicted, every loss finite, every trainable tensor moved and
+    every frozen one bit-equal after it); then one micro-batch of its model
+    with checkpointing on and off on the same dropout masks; a run SIGTERMed
+    from a thread of this process after PREEMPT_AFTER micro-batches of one
+    epoch over PREEMPT_TRAIN_QUERIES (exit 143, a resume state of the
+    unfinished epoch); a run resuming from it (the
+    loaded weights, AdamW state, counters and partial gradients bit-equal to
+    those saved, the epoch re-run, exit 0). Returns the first run's launch
+    counts."""
+    import logging
+    import os
+    import signal
+    import tempfile
+    import threading
+
+    from mr_blip_tpu_torch import train
+    from mr_blip_tpu_torch.datasets.synthetic import make_mr_annotations
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.models.layers import set_dropout_generator
+    from mr_blip_tpu_torch.profile_inference import make_samples
+    from mr_blip_tpu_torch.runners.runner_base import RunnerBase
+    from mr_blip_tpu_torch.runners.train_state import TrainCtx
+
+    phase_start = time.time()
+    models, steps, generates, messages = [], [], [], []
+    built, saved, loaded = {}, {}, {}
+    stop_after = [None]
+
+    def counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def rose(before):
+        return {name: w.launches - before[name] for name, w in wrappers.items()}
+
+    from_config = BLIP2_MR.from_config.__func__
+    step, dispatch = TrainCtx.step, BLIP2_MR.generate_dispatch
+    write_resume, load_checkpoint = RunnerBase._write_resume_state, RunnerBase.load_checkpoint
+
+    def tapped_from_config(cls, cfg, device="cuda"):
+        model = from_config(cls, cfg, device=device)
+        models.append(model)
+        if not built:  # the first run's weights as built
+            mask = model.trainable_mask()
+            named = model.module.named_parameters()
+            built["trainable"], frozen = {}, []
+            for n, p in named:
+                if mask[n]:
+                    built["trainable"][n] = p.detach().float().clone()
+                else:
+                    frozen.append(p)
+            built["frozen"] = checksums(torch, frozen)
+        return model
+
+    def tapped_step(ctx, batch):
+        before = counts()
+        torch.cuda.synchronize()
+        start = time.time()
+        loss = step(ctx, batch)
+        torch.cuda.synchronize()
+        steps.append((rose(before), time.time() - start, loss, ctx.updates))
+        if len(steps) == stop_after[0]:  # SIGTERM from another thread
+            thread = threading.Thread(target=os.kill, args=(os.getpid(), signal.SIGTERM))
+            thread.start()
+            thread.join()
+        return loss
+
+    def tapped_dispatch(model, samples):
+        require(isinstance(samples["video"], torch.Tensor) and samples["video"].is_cuda,
+                "train entry point: an evaluation batch's frames are not on the card")
+        before = counts()
+        handle = dispatch(model, samples)
+        generates.append(rose(before))
+        return handle
+
+    def state_snapshot(runner):
+        """Bit checksums of every weight; exact host copies of the train
+        state (small: the LoRA tensors, their gradients and moments)."""
+        ctx = runner.train_ctx.state_dict()
+
+        def copy(t):
+            return None if t is None else t.to("cpu", copy=True)
+
+        return {"weights": checksums(torch, list(runner.model.state_dict().values())),
+                "params": {n: copy(t) for n, t in ctx["params"].items()},
+                "grads": {n: copy(g) for n, g in ctx["grads"].items()},
+                "moments": {(i, k): copy(v) for i, st in ctx["optimizer"]["state"].items()
+                            for k, v in st.items()},
+                "counters": (ctx["calls"], ctx["updates"])}
+
+    def tapped_write_resume(runner, cur_epoch, epoch_complete=True):
+        saved.update(state_snapshot(runner))
+        torch.cuda.synchronize()
+        start = time.time()
+        path = write_resume(runner, cur_epoch, epoch_complete)
+        saved["write_s"] = time.time() - start
+        saved["bytes"] = os.path.getsize(path)
+        return path
+
+    def tapped_load_checkpoint(runner, path):
+        start = time.time()
+        load_checkpoint(runner, path)
+        torch.cuda.synchronize()
+        loaded["load_s"] = time.time() - start
+        loaded.update(state_snapshot(runner))
+        loaded["start_epoch"] = runner.start_epoch
+
+    class Messages(logging.Filter):  # survives setup_logger's basicConfig(force=True)
+        def filter(self, record):
+            messages.append(record.getMessage())
+            return True
+
+    taps = ((BLIP2_MR, "from_config", classmethod(tapped_from_config)),
+            (TrainCtx, "step", tapped_step),
+            (BLIP2_MR, "generate_dispatch", tapped_dispatch),
+            (RunnerBase, "_write_resume_state", tapped_write_resume),
+            (RunnerBase, "load_checkpoint", tapped_load_checkpoint))
+    originals = [(cls, name, cls.__dict__[name]) for cls, name, _ in taps]
+    log_filter = Messages()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_paths = make_mr_annotations(
+            f"{tmp}/run", n_train=TRAIN_QUERIES, n_val=TRAIN_EVAL_QUERIES,
+            n_test=TRAIN_EVAL_QUERIES, n_video_frames=EVAL_VIDEO_FRAMES, fps=EVAL_FPS)
+        preempt_paths = make_mr_annotations(
+            f"{tmp}/preempt", n_train=PREEMPT_TRAIN_QUERIES, n_val=1, n_test=1,
+            n_video_frames=EVAL_VIDEO_FRAMES, fps=EVAL_FPS)
+
+        def argv(out, paths, *options):
+            return ["--cfg-path", str(ROOT / "configs/projects/train/qvh.yaml"), "--options",
+                    *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
+                      for split, path in paths.items()),
+                    "datasets.qvh.build_info.videos.storage=synthetic",
+                    f"run.output_dir={Path(tmp) / out}", *options]
+
+        for cls, name, tap in taps:
+            setattr(cls, name, tap)
+        logging.getLogger().addFilter(log_filter)
+        try:
+            # --- the run
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            resident = torch.cuda.memory_allocated()  # what earlier phases still hold
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.time()
+            logs = train.main(argv("train", run_paths, f"run.max_epoch={TRAIN_EPOCHS}"))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated()
+            run_steps, run_generates = list(steps), list(generates)
+            (model,) = models
+            remat = remat_on_off(torch, model, built, set_dropout_generator, make_samples)
+
+            # --- the preempted run and the resumed run (one epoch each)
+            del model
+            models.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            steps.clear()
+            stop_after[0] = PREEMPT_AFTER
+            code = None
+            t0 = time.time()
+            try:
+                train.main(argv("preempt", preempt_paths, "run.max_epoch=1"))
+            except SystemExit as e:
+                code = e.code
+            preempt_wall = time.time() - t0
+            stop_after[0] = None
+            require(code == 143, f"preempted run: exit code {code}, expected 143")
+            require(len(steps) == PREEMPT_AFTER, f"preempted run: {len(steps)} micro-batches, "
+                    f"expected {PREEMPT_AFTER}")
+            (resume_path,) = (Path(tmp) / "preempt").glob("*/resume_state.pth")
+            state = torch.load(resume_path, map_location="cpu", mmap=True, weights_only=True)
+            require(state["epoch"] == 0 and state["epoch_complete"] is False,
+                    f"resume state: epoch {state['epoch']}, epoch_complete "
+                    f"{state['epoch_complete']}")
+            del state
+            models.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            steps.clear()
+            messages.clear()
+            t0 = time.time()
+            resume_logs = train.main(argv("resume", preempt_paths, "run.max_epoch=1",
+                                          f"run.resume_ckpt_path={resume_path}"))
+            resume_wall = time.time() - t0
+        finally:
+            logging.getLogger().removeFilter(log_filter)
+            for cls, name, original in originals:
+                setattr(cls, name, original)
+            models.clear()
+
+    # The run: launches per micro-batch and per generate, losses, weights.
+    n_steps = TRAIN_EPOCHS * TRAIN_QUERIES
+    require(len(run_steps) == n_steps, f"train entry point: {len(run_steps)} micro-batches, "
+            f"expected {n_steps}")
+    for i, (r, _, loss, _) in enumerate(run_steps):
+        require(r == EXPECTED_REMAT_TRAIN_LAUNCHES, f"train entry point micro-batch {i}: "
+                f"launches {r}, expected {EXPECTED_REMAT_TRAIN_LAUNCHES}")
+        require(math.isfinite(loss), f"train entry point micro-batch {i}: loss {loss}")
+    require(run_steps[-1][3] == n_steps // TRAIN_ACCUM,
+            f"train entry point: {run_steps[-1][3]} updates")
+    n_generates = (TRAIN_EPOCHS + 1) * TRAIN_EVAL_QUERIES  # val each epoch, then test
+    require(len(run_generates) == n_generates, f"train entry point: {len(run_generates)} "
+            f"generate batches, expected {n_generates}")
+    for i, r in enumerate(run_generates):
+        require(r == EXPECTED_LAUNCHES, f"train entry point generate {i}: launches {r}, "
+                f"expected {EXPECTED_LAUNCHES}")
+    metrics = json.loads(json.dumps(logs["test"], default=float))
+    require(metrics["total"] == TRAIN_EVAL_QUERIES, f"train entry point metrics {metrics}")
+    # The resumed run: state bit-equal to the saved one, the epoch re-run.
+    require(loaded["start_epoch"] == 0, f"resumed run: start epoch {loaded['start_epoch']}")
+    require(any("Resume checkpoint loaded" in m and "(epoch 0)" in m for m in messages),
+            "resumed run: no 'Resume checkpoint loaded ... (epoch 0)' in its log")
+    require(loaded["weights"] == saved["weights"], "resumed run: weights differ from the saved")
+    require(loaded["counters"] == saved["counters"] == (PREEMPT_AFTER, PREEMPT_AFTER // TRAIN_ACCUM),
+            f"resumed run: calls, updates {loaded['counters']} (saved {saved['counters']})")
+    for key in ("params", "grads", "moments"):
+        require(saved[key].keys() == loaded[key].keys(), f"resumed run: {key} names differ")
+        for name, want in saved[key].items():
+            got = loaded[key][name]
+            require(want is not None and torch.equal(got, want),
+                    f"resumed run: {key} {name} differs from the saved (or is missing)")
+    require(len(steps) == PREEMPT_TRAIN_QUERIES and steps[-1][3] == (
+        PREEMPT_AFTER + PREEMPT_TRAIN_QUERIES) // TRAIN_ACCUM,
+        f"resumed run: {len(steps)} micro-batches, {steps[-1][3]} updates")
+    require(json.loads(json.dumps(resume_logs["test"], default=float))["total"] == 1,
+            f"resumed run: test logs {resume_logs}")
+
+    seconds = [r[1] for r in run_steps]
+    windows = [sum(seconds[i:i + TRAIN_ACCUM]) for i in range(0, n_steps, TRAIN_ACCUM)]
+    steady = statistics.median(seconds[1:])
+    say(f"train entry point (configs/projects/train/qvh.yaml, {TRAIN_QUERIES} queries x "
+        f"{TRAIN_EPOCHS} epochs, B=1 x {N_FRAMES} frames, accum_grad_iters {TRAIN_ACCUM}, "
+        f"use_grad_checkpoint): every micro-batch launched "
+        f"{ {k: v for k, v in EXPECTED_REMAT_TRAIN_LAUNCHES.items() if v} } and every val/test "
+        f"generate { {k: v for k, v in EXPECTED_LAUNCHES.items() if v} }; "
+        f"losses {[round(r[2], 4) for r in run_steps]}; every trainable tensor moved, every "
+        f"frozen one bit-equal; test metrics (random weights) {json.dumps(metrics)}")
+    say(f"train entry point seconds: micro-batch steady {steady:.3f} (median of 1-{n_steps - 1}; "
+        f"mean {statistics.mean(seconds[1:]):.3f}, first {seconds[0]:.3f}); update "
+        f"{statistics.mean(windows[1:]):.3f} (mean of windows 1-{len(windows) - 1} of "
+        f"{TRAIN_ACCUM} micro-batches; first {windows[0]:.3f}); main() {wall:.3f}; peak memory "
+        f"{(peak - resident) / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB earlier phases "
+        f"held; {card}")
+    say(f"train entry point checkpointing: one 1 x {N_FRAMES} micro-batch, dropout on, the same "
+        f"masks: loss on {remat['loss'][True]:.7f} off {remat['loss'][False]:.7f} (rel diff "
+        f"{remat['loss_rel']:.2e}); LoRA gradients cosine min {remat['cos']:.7f}, max |diff| / "
+        f"max |g| {remat['rel']:.2e}; peak memory on {remat['peak'][True]:.2f} GiB, off "
+        f"{remat['peak'][False]:.2f} GiB; seconds on {remat['s'][True]:.3f}, off "
+        f"{remat['s'][False]:.3f}; {card}")
+    say(f"train entry point preemption: SIGTERM after {PREEMPT_AFTER} micro-batches -> exit 143 "
+        f"({preempt_wall:.3f} s); resume_state.pth {saved['bytes']:,} bytes written in "
+        f"{saved['write_s']:.3f} s ({saved['bytes'] / saved['write_s'] / 1e9:.2f} GB/s), loaded in "
+        f"{loaded['load_s']:.3f} s; weights, AdamW state, counters {saved['counters']} and "
+        f"partial gradients bit-equal after the load; the resumed run re-ran epoch 0 "
+        f"({len(steps)} micro-batches, {resume_wall:.3f} s) and exited 0; phase "
+        f"{time.time() - phase_start:.1f} s; {card}")
+    return launches
+
+
+def remat_on_off(torch, model, built, set_dropout_generator, make_samples):
+    """One micro-batch of the trained model with ``use_grad_checkpoint`` on
+    and off (the T5 stacks' ``use_remat``), in train mode on the same
+    generator seed: the loss within REMAT_LOSS_REL_TOL relative, every LoRA
+    gradient within the cosine and max-|diff| bars. Also checks, before it,
+    that the train-entry run moved every trainable tensor and left every
+    frozen one bit-equal (``built``: the model as built)."""
+    named = dict(model.module.named_parameters())
+    trainable = {n: p for n, p in named.items() if p.requires_grad}
+    require(trainable.keys() == built["trainable"].keys(), "the trainable set changed")
+    same = [n for n, p in trainable.items() if torch.equal(p.detach(), built["trainable"][n])]
+    require(not same, f"train entry point: {len(same)} trainable tensors never moved, "
+            f"e.g. {same[:3]}")
+    frozen = [p for n, p in named.items() if n not in trainable]
+    require(checksums(torch, frozen) == built["frozen"], "train entry point: a frozen "
+            "tensor changed")
+    require(model.t5_config.use_remat and model.module.t5.encoder.use_remat,
+            "qvh.yaml's model does not checkpoint its T5 blocks")
+    batch = model.prepare_mr_batch(make_samples(1, N_FRAMES, seed=17))
+    t5 = model.module.t5
+    gen = torch.Generator(device=model.device)
+    set_dropout_generator(model.module, gen)
+    model.train()
+    out = {"loss": {}, "grads": {}, "peak": {}, "s": {}}
+    for remat in (True, False):
+        t5.encoder.use_remat = t5.decoder.use_remat = remat
+        for p in trainable.values():
+            p.grad = None
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen.manual_seed(1234)
+        start = time.time()
+        loss = model.loss(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        out["s"][remat] = time.time() - start
+        out["peak"][remat] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        out["loss"][remat] = float(loss.detach())
+        out["grads"][remat] = {n: p.grad.detach().float().clone() for n, p in trainable.items()}
+    t5.encoder.use_remat = t5.decoder.use_remat = True
+    for p in trainable.values():
+        p.grad = None
+    on, off = out["loss"][True], out["loss"][False]
+    out["loss_rel"] = abs(on - off) / abs(off)
+    cos, rel = [], []
+    for n, g in out["grads"][False].items():
+        got = out["grads"][True][n]
+        require(bool(torch.isfinite(got).all()) and float(g.abs().max()) > 0,
+                f"checkpointing: gradient of {n} not finite or zero")
+        cos.append(cosine(torch, got, g))
+        rel.append(float((got - g).abs().max()) / float(g.abs().max()))
+    out["cos"], out["rel"] = min(cos), max(rel)
+    require(math.isfinite(on) and out["loss_rel"] <= REMAT_LOSS_REL_TOL,
+            f"checkpointing on/off: loss {on} vs {off}")
+    require(out["cos"] >= REMAT_GRAD_COSINE_MIN and out["rel"] <= REMAT_GRAD_REL_TOL,
+            f"checkpointing on/off: LoRA gradient cosine {out['cos']}, max |diff| / max |g| "
+            f"{out['rel']}")
+    del out["grads"]
+    return out
+
+
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
     the ``kernels`` line (source in the port, TPU kernel replaced)."""
@@ -2541,6 +2914,8 @@ def main():
         f"{bf16_summary['first_s']:.3f} vs {eval_summary['first_s']:.3f}; peak memory "
         f"{bf16_summary['peak_gib']:.2f} vs {eval_summary['peak_gib']:.2f} GiB; evaluation "
         f"launches of kernels 1-3 { {k: eval_launches[k] for k in GENERATE_KERNELS} }")
+    # phase 17: the train entry point on configs/projects/train/qvh.yaml
+    train_entry_launches = train_entry_point(torch, wrappers, smi)
 
     for key, entry in kernels.items():
         if key == "flash_attention":
@@ -2559,11 +2934,12 @@ def main():
             entry["launches"] = long_train_launches[key]
         else:
             entry["launches"] = train_launches[key]
+        entry["train_entry_launches"] = train_entry_launches[key]
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")}
+                               "library_ms", "train_entry_launches")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -9,9 +9,10 @@ The hand-written Hopper kernels live in ``csrc/``; ``ops/_cuda.py`` builds
 them with ``nvcc`` on first use and binds them with ``ctypes``.
 
 Importing the package registers the port's models, tasks, dataset
-builders, processors, LR schedulers and runner in its own registry
+builders, processors, LR schedulers and runners in its own registry
 (``common/registry.py``), as importing the JAX package registers its own;
-``python -m mr_blip_tpu_torch.evaluate`` is the evaluation entry point.
+``python -m mr_blip_tpu_torch.train`` and ``python -m
+mr_blip_tpu_torch.evaluate`` are the entry points.
 """
 
 __version__ = "0.1.0"
@@ -27,4 +28,4 @@ from mr_blip_tpu_torch import processors as _processors  # noqa: E402
 from mr_blip_tpu_torch.models import blip2_mr as _blip2_mr  # noqa: E402
 from mr_blip_tpu_torch.datasets import builders as _builders  # noqa: E402
 from mr_blip_tpu_torch import tasks as _tasks  # noqa: E402
-from mr_blip_tpu_torch.runners import runner_base as _runner_base  # noqa: E402
+from mr_blip_tpu_torch import runners as _runners  # noqa: E402

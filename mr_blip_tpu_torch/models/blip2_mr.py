@@ -141,11 +141,14 @@ class BLIP2_MR(BaseModel):
         vocab_size: int | None = None,
         device: str | torch.device = "cuda",
         relpos_in_kernel: bool = False,
+        use_grad_checkpoint: bool = False,
     ):
         """``init_params`` draws random weights on ``device`` from ``seed``.
         ``relpos_in_kernel`` is the long-context mode (120/240-frame
         videos): the T5 encoder's rel-pos bias is computed inside its flash
         kernels and no (1, H, L, L) bias is ever built.
+        ``use_grad_checkpoint`` recomputes every T5 block in the backward
+        (``T5Config.use_remat``) instead of keeping its activations.
         ``num_frames_for_answer``: frames the QA answerer sees, cropped from
         the localizer's window (``resample_frames=True``, the re-decode of
         that window from the video file, is not ported and raises).
@@ -193,7 +196,8 @@ class BLIP2_MR(BaseModel):
                   if vit_model == "eva_vit_g"
                   else qformer_tiny_config(vit_cfg.embed_dim))
         t5_kw = dict(lora_rank=8 if self.use_lora else 0,
-                     relpos_in_kernel=relpos_in_kernel)
+                     relpos_in_kernel=relpos_in_kernel,
+                     use_remat=use_grad_checkpoint)
         if vocab_size is not None:
             t5_kw["vocab_size"] = int(vocab_size)
         elif tokenizer_path is None:
@@ -353,7 +357,6 @@ class BLIP2_MR(BaseModel):
         "frame_token_aggregation": ((False, None), "frame-token aggregation", 6),
         "freeze_vit": ((True,), "the unfrozen-ViT train path", 1),
         "fast_gelu": ((False,), "the tanh-GELU ViT", 6),
-        "use_grad_checkpoint": ((False,), "gradient checkpointing", 1),
         "sequence_parallel": ((False,), "sequence-parallel frames", 8),
         "resample_frames": ((False,), "re-decoding the predicted window from the "
                             "video file", 4),
@@ -370,7 +373,8 @@ class BLIP2_MR(BaseModel):
         "min_new_tokens", "max_len", "max_new_tokens", "input_time_format", "task",
         "num_frames_for_answer", "relpos_in_kernel", "compute_dtype", "vocab_size",
         "params_dtype", "pretrained", "finetuned", "load_finetuned",
-        "int8_inference", "int8_decode", "int8_vit", "int8_qformer", "int8_encoder")
+        "int8_inference", "int8_decode", "int8_vit", "int8_qformer", "int8_encoder",
+        "use_grad_checkpoint")
 
     @classmethod
     def from_config(cls, cfg, device="cuda"):
@@ -415,6 +419,7 @@ class BLIP2_MR(BaseModel):
             task=cfg.get("task", "qformer_freeze_lora"),
             num_frames_for_answer=cfg.get("num_frames_for_answer", 4),
             relpos_in_kernel=cfg.get("relpos_in_kernel", False),
+            use_grad_checkpoint=cfg.get("use_grad_checkpoint", False),
             compute_dtype=cfg.get("compute_dtype", "bfloat16"),
             init_params=params_dtype is None,
             vocab_size=cfg.get("vocab_size"),
@@ -540,7 +545,9 @@ class BLIP2_MR(BaseModel):
             if len(cache) >= _BIAS_CACHE_ENTRIES:
                 cache.pop(next(iter(cache)))
             table = getattr(self.module, t5_name).encoder.rel_bias.rel_embedding
-            with torch.no_grad():
+            # Never an inference tensor, though generate fills the cache
+            # under inference mode: a train step saves it for its backward.
+            with torch.inference_mode(False), torch.no_grad():
                 cache[key] = materialize_encoder_relpos_bias(
                     table, length, cfg.relative_attention_num_buckets,
                     cfg.relative_attention_max_distance,

@@ -14,14 +14,18 @@ layout for the modules that hand it to the W8A8 kernels of
 
 Dropout draws its keep masks from an explicit ``torch.Generator``, set on
 every dropout module of a tree by ``set_dropout_generator``; it is active
-in train mode only.
+in train mode only. ``remat`` runs a block under gradient checkpointing with
+those generators replayed in the recompute.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mr_blip_tpu_torch.ops.layer_norm import _ln_reference, fused_layer_norm
 
@@ -69,6 +73,41 @@ def set_dropout_generator(root: nn.Module, generator: torch.Generator | None):
     for module in root.modules():
         if isinstance(module, Dropout):
             module.generator = generator
+
+
+def remat(module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` under ``torch.utils.checkpoint`` (non-
+    reentrant): its activations are dropped after the forward and recomputed
+    in the backward (JAX: ``nn.remat``). ``checkpoint`` restores only the
+    default CPU and CUDA generators before the recompute, so the generators
+    the module's dropouts draw from are saved at entry, set back to that
+    state for the recompute, and returned to where they stood after it: the
+    recompute draws the forward's masks, and the gradients are those of the
+    forward."""
+    generators = list({id(m.generator): m.generator for m in module.modules()
+                       if isinstance(m, Dropout) and m.generator is not None
+                       and m.active_rate > 0.0}.values())
+    saved = []
+
+    @contextlib.contextmanager
+    def forward_context():
+        saved[:] = [g.get_state() for g in generators]
+        yield
+
+    @contextlib.contextmanager
+    def recompute_context():
+        current = [g.get_state() for g in generators]
+        for g, state in zip(generators, saved):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(generators, current):
+                g.set_state(state)
+
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=lambda: (forward_context(), recompute_context()),
+                      **kwargs)
 
 
 def _int8_weight_buffers(module: nn.Module, in_features: int, out_features: int,

@@ -16,6 +16,9 @@ Training uses the teacher-forced, uncached decoder (``decode``), with
 dropout at the JAX package's places in train mode: the encoder and decoder
 inputs and final outputs, every residual branch, the FFN hidden state and
 the LoRA inputs (attention weights too with ``attn_weight_dropout``).
+``use_remat`` checkpoints every block of the uncached forward (the
+``encoder`` / ``decoder`` modules' ``use_remat``), as the JAX package wraps
+them in ``nn.remat``.
 When the encoder's rel-pos table trains, its bias is computed in the graph
 and the biased flash kernel's backward emits dbias for it.
 
@@ -43,7 +46,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mr_blip_tpu_torch.models.layers import Dense, Dropout, QDenseParams, RMSNormFP32
+from mr_blip_tpu_torch.models.layers import (
+    Dense,
+    Dropout,
+    QDenseParams,
+    RMSNormFP32,
+    remat,
+)
 from mr_blip_tpu_torch.ops.attention import dot_product_attention, relpos_attention
 from mr_blip_tpu_torch.ops.int8_matmul import div_exact, w8a8_linear, w8a8_mlp_gated
 from mr_blip_tpu_torch.ops.relpos import materialize_relpos_bias
@@ -71,6 +80,10 @@ class T5Config:
     # HF T5 also drops the attention weights in training; off by default in
     # the JAX package (it forces the plain attention path).
     attn_weight_dropout: bool = False
+    # Gradient checkpointing: every encoder and decoder block of the uncached
+    # forward keeps only its input and recomputes the rest in the backward
+    # (``layers.remat``); the cached decode step never.
+    use_remat: bool = False
     # Inference only. Weight-only int8 decoder blocks and LM head:
     int8_decode: bool = False
     # the decode-time cross-attention K/V cache int8, quantized when it is
@@ -352,6 +365,10 @@ class T5Block(nn.Module):
         return x + self.ff(self.ff_norm(x))
 
 
+def _call(module, *args, **kwargs):
+    return module(*args, **kwargs)
+
+
 class T5Encoder(nn.Module):
     def __init__(self, cfg: T5Config, device=None, dtype=None):
         super().__init__()
@@ -364,6 +381,7 @@ class T5Encoder(nn.Module):
         self.final_norm = RMSNormFP32(cfg.d_model, cfg.layer_norm_epsilon,
                                       device=device)
         self.dropout = Dropout(cfg.dropout_rate)
+        self.use_remat = cfg.use_remat
 
     def forward(self, inputs_embeds, mask=None, position_bias=None):
         """``position_bias`` handed in: used as it is. None: under
@@ -385,8 +403,9 @@ class T5Encoder(nn.Module):
             position_bias = position_bias.to(dtype)
         attn_mask = None if mask is None else mask.bool()[:, None, None, :]
         x = self.dropout(inputs_embeds.to(dtype))
+        call = remat if self.use_remat and torch.is_grad_enabled() else _call
         for blk in self.block:
-            x = blk(x, attn_mask, position_bias, relpos_table=relpos_table)
+            x = call(blk, x, attn_mask, position_bias, relpos_table=relpos_table)
         return self.dropout(self.final_norm(x))
 
 
@@ -401,6 +420,7 @@ class T5Decoder(nn.Module):
         self.final_norm = RMSNormFP32(cfg.d_model, cfg.layer_norm_epsilon,
                                       device=device)
         self.dropout = Dropout(cfg.dropout_rate)
+        self.use_remat = cfg.use_remat
 
     def forward(self, inputs_embeds, encoder_states, decoder_mask=None,
                 encoder_mask=None):
@@ -418,8 +438,9 @@ class T5Decoder(nn.Module):
         cross_mask = (None if encoder_mask is None
                       else encoder_mask.bool()[:, None, None, :])
         x = self.dropout(inputs_embeds.to(dtype))
+        call = remat if self.use_remat and torch.is_grad_enabled() else _call
         for blk in self.block:
-            x = blk(x, self_mask, position_bias, encoder_states, cross_mask)
+            x = call(blk, x, self_mask, position_bias, encoder_states, cross_mask)
         return self.dropout(self.final_norm(x))
 
     def cross_kv(self, encoder_states):

@@ -16,10 +16,17 @@ The JAX package's semantics, in PyTorch:
   from (run seed, call index) at every call, as JAX folds the step into
   its key; a NaN loss raises before the update (``base_task.py`` guard).
 * Trainable parameters are fp32 master weights (``BLIP2_MR.set_trainable``).
+* ``state_dict`` / ``load_state_dict`` carry what a resume needs: the fp32
+  masters, the AdamW moments and step, the call and update counters (the
+  call index seeds the dropout stream) and the gradients accumulated so far
+  in the current window (JAX: ``optax.MultiSteps``' ``acc_grads``), so that
+  a resume between two micro-batches of one window takes the next step the
+  uninterrupted run takes.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Iterable, Optional
 
 import torch
@@ -66,7 +73,9 @@ class TrainCtx:
             raise ValueError(f"accum_grad_iters={accum_grad_iters} < 1")
         self.model = model
         model.set_trainable()
-        self.params = [p for p in model.module.parameters() if p.requires_grad]
+        self.named_params = {n: p for n, p in model.module.named_parameters()
+                             if p.requires_grad}
+        self.params = list(self.named_params.values())
         self.optimizer = make_optimizer(model.module.named_parameters(),
                                         weight_decay, beta1, beta2, eps)
         self.accum_grad_iters = accum_grad_iters
@@ -80,6 +89,40 @@ class TrainCtx:
 
     def set_lr(self, lr: float):
         self._lr = float(lr)
+
+    def state_dict(self) -> dict:
+        """The trainable fp32 masters, their accumulated gradients (None
+        where a window has not started), the AdamW state and the counters;
+        tensors as they are (on the model's device)."""
+        return {
+            "params": {n: p.detach() for n, p in self.named_params.items()},
+            "grads": {n: None if p.grad is None else p.grad.detach()
+                      for n, p in self.named_params.items()},
+            "optimizer": self.optimizer.state_dict(),
+            "calls": self.calls,
+            "updates": self.updates,
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        """Copy ``state_dict()``'s values in (any device, e.g. a file mapped
+        to host memory); a trainable tensor missing from it raises."""
+        params, grads = state["params"], state["grads"]
+        missing = sorted(set(self.named_params) - set(params))
+        if missing:
+            raise KeyError(f"train state lacks {len(missing)} trainable tensors, "
+                           f"e.g. {missing[:3]}")
+        for name, p in self.named_params.items():
+            p.copy_(params[name])
+            grad = grads.get(name)
+            p.grad = None if grad is None else grad.to(p.device, p.dtype, copy=True)
+        # A copy: the optimizer keeps tensors already on its device and dtype
+        # as they are, and must not share them with the caller's state.
+        self.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
+        self.calls = int(state["calls"])
+        self.updates = int(state["updates"])
+        if self.model.module.t5.encoder.rel_bias.rel_embedding.requires_grad:
+            self.model.clear_bias_cache()
 
     @property
     def lr(self) -> float:

@@ -1,7 +1,13 @@
-"""BaseTask: model/dataset construction, evaluation and result files (the
-port's counterpart of ``mr_blip_tpu/tasks/base_task.py``, reference
-``lavis/tasks/base_task.py:24-288``). The train loop is not ported yet
-(ROADMAP Queue 1 item 1).
+"""BaseTask: model/dataset construction, the training loop, evaluation and
+result files (the port's counterpart of ``mr_blip_tpu/tasks/base_task.py``,
+reference ``lavis/tasks/base_task.py:24-288``).
+
+The runner owns the ``TrainCtx`` (AdamW, accumulation, the dropout stream,
+the NaN guard); the task drives iteration order, the lr per (inner epoch,
+step), the meters and the tracker's ``train/loss`` / ``train/lr``, and
+checks the preemption guard at every step boundary.
+``MRBLIP_PROFILE_STEPS=n`` records steps 1..n of epoch 0 with
+``torch.profiler`` (a Chrome trace under ``<output_dir>/profile``).
 """
 
 from __future__ import annotations
@@ -10,8 +16,11 @@ import json
 import logging
 import os
 
+import torch
+
 from mr_blip_tpu_torch.common import dist as dist_utils
-from mr_blip_tpu_torch.common.logger import MetricLogger
+from mr_blip_tpu_torch.common import preempt, tracking
+from mr_blip_tpu_torch.common.logger import MetricLogger, SmoothedValue
 from mr_blip_tpu_torch.common.registry import registry
 
 
@@ -44,6 +53,12 @@ class BaseTask:
             datasets[name] = builder.build_datasets()
         return datasets
 
+    # ------------------------------------------------------------- training
+    def train_step(self, train_ctx, samples):
+        """One micro-batch through ``TrainCtx.step``; returns the loss (host
+        float)."""
+        return train_ctx.step(train_ctx.model.prepare_mr_batch(samples))
+
     def valid_step(self, model, samples):
         raise NotImplementedError
 
@@ -67,6 +82,85 @@ class BaseTask:
             results.extend(self.valid_step(model=model, samples=samples))
         dist_utils.barrier()
         return results
+
+    def train_epoch(self, epoch, model, data_loader, train_ctx, lr_scheduler,
+                    log_freq=50, accum_grad_iters=1):
+        return self._train_inner_loop(
+            epoch=epoch, iters_per_epoch=len(data_loader), model=model,
+            data_loader=data_loader, train_ctx=train_ctx,
+            lr_scheduler=lr_scheduler, log_freq=log_freq,
+            accum_grad_iters=accum_grad_iters)
+
+    def train_iters(self, epoch, start_iters, iters_per_inner_epoch, model,
+                    data_loader, train_ctx, lr_scheduler, log_freq=50,
+                    accum_grad_iters=1):
+        return self._train_inner_loop(
+            epoch=epoch, start_iters=start_iters,
+            iters_per_epoch=iters_per_inner_epoch, model=model,
+            data_loader=data_loader, train_ctx=train_ctx,
+            lr_scheduler=lr_scheduler, log_freq=log_freq,
+            accum_grad_iters=accum_grad_iters)
+
+    def _train_inner_loop(self, epoch, iters_per_epoch, model, data_loader,
+                          train_ctx, lr_scheduler, start_iters=None, log_freq=50,
+                          accum_grad_iters=1):
+        """The training hot loop (reference base_task.py:157-248). Gradient
+        accumulation over ``accum_grad_iters`` micro-batches is the
+        ``TrainCtx``'s own."""
+        if not hasattr(data_loader, "__next__"):
+            data_loader = iter(data_loader)
+
+        metric_logger = MetricLogger(delimiter="  ")
+        metric_logger.add_meter("lr", SmoothedValue(window_size=50, fmt="{value:.6f}"))
+        metric_logger.add_meter("loss", SmoothedValue(window_size=50, fmt="{value:.4f}"))
+
+        if start_iters is None:
+            inner_epoch = epoch
+            header = f"Train: data epoch: [{inner_epoch}]"
+        else:
+            inner_epoch = start_iters // iters_per_epoch
+            header = f"Train: data epoch: [{epoch}]; inner epoch [{inner_epoch}]"
+
+        tracker = tracking.get()
+        profile_steps = int(os.environ.get("MRBLIP_PROFILE_STEPS", 0))
+        profiler = None
+
+        for i in metric_logger.log_every(range(iters_per_epoch), log_freq, header):
+            if i >= iters_per_epoch:
+                break
+            if profile_steps and epoch == 0 and i == 1:
+                profiler = _start_profile()
+            samples = dict(next(data_loader))
+            samples.update(
+                {"epoch": inner_epoch, "num_iters_per_epoch": iters_per_epoch,
+                 "iters": i})
+
+            lr = lr_scheduler.step(cur_epoch=inner_epoch, cur_step=i)
+            train_ctx.set_lr(lr)
+            loss = self.train_step(train_ctx, samples)  # NaN raises in the step
+            metric_logger.update(loss=float(loss))
+
+            # Preemption (SIGTERM) check at the step boundary: the weights,
+            # moments and accumulated gradients are whole-step consistent
+            # here; the runner turns the raise into a resume state.
+            guard = preempt.get_guard()
+            if guard is not None and guard.should_stop(i):
+                raise preempt.TrainingPreempted(inner_epoch, i)
+            metric_logger.update(lr=float(lr))
+            if tracker is not None:
+                tracker.log({"train/loss": float(loss), "train/lr": float(lr)})
+            if profiler is not None and i == profile_steps:
+                _stop_profile(profiler)
+                profiler = None
+        if profiler is not None:
+            _stop_profile(profiler)
+
+        metric_logger.synchronize_between_processes()
+        logging.info("Averaged stats: " + str(metric_logger.global_avg()))
+        return {
+            k: "{:.3f}".format(meter.global_avg)
+            for k, meter in metric_logger.meters.items()
+        }
 
     # --------------------------------------------------------------- results
     @staticmethod
@@ -106,3 +200,23 @@ class BaseTask:
 
         dist_utils.barrier()
         return final_result_file
+
+
+def _start_profile():
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profile(profiler):
+    """Stop ``profiler`` and write its Chrome trace under
+    ``<output_dir>/profile``."""
+    profiler.stop()
+    out = os.path.join(registry.get_path("output_dir") or ".", "profile")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"trace_rank{dist_utils.get_rank()}.json")
+    profiler.export_chrome_trace(path)
+    logging.info("profile of the train steps written to %s", path)

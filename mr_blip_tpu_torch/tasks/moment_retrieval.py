@@ -1,6 +1,6 @@
-"""Moment-retrieval task: span generation eval + R1/mAP/mIoU reporting (the
-port's counterpart of ``mr_blip_tpu/tasks/moment_retrieval.py``; its
-train step waits for the train loop, ROADMAP Queue 1 item 1).
+"""Moment-retrieval task: the train step with its periodic sample table, span
+generation eval + R1/mAP/mIoU reporting (the port's counterpart of
+``mr_blip_tpu/tasks/moment_retrieval.py``).
 
 Matches the reference ``lavis/tasks/moment_retrieval.py:28-257``: valid_step
 collects {qid, raw_prediction, prediction, target, duration}; after
@@ -14,6 +14,7 @@ import json
 import logging
 
 from mr_blip_tpu_torch.common import dist as dist_utils
+from mr_blip_tpu_torch.common import tracking
 from mr_blip_tpu_torch.common.logger import MetricLogger
 from mr_blip_tpu_torch.common.registry import registry
 from mr_blip_tpu_torch.metrics.moment_retrieval import eval_submission
@@ -32,6 +33,29 @@ class MomentRetrievalTask(BaseTask):
     def setup_task(cls, cfg=None, **kwargs):
         run_cfg = cfg.run_cfg if cfg is not None else {}
         return cls(log_samples_every_n=run_cfg.get("log_samples_every_n", 3000))
+
+    def train_step(self, train_ctx, samples):
+        loss = super().train_step(train_ctx, samples)
+        # Periodic sample table (reference logs frames/query/pred/answer to
+        # W&B every N iters, blip2_mr.py:546-567).
+        i = samples.get("iters", 0)
+        if self.log_samples_every_n and i and i % self.log_samples_every_n == 0:
+            tracker = tracking.get()
+            if tracker is not None:
+                out = train_ctx.model.generate(samples)
+                rows = [
+                    [str(q), rp, p, str(a), float(d)]
+                    for q, rp, p, a, d in zip(
+                        out["qid"], out["raw_prediction"], out["prediction"],
+                        out["answer"], out["duration"],
+                    )
+                ]
+                tracker.log_table(
+                    "Samples_during_training",
+                    ["qid", "pred", "processed_pred", "answer", "duration"],
+                    rows,
+                )
+        return loss
 
     def evaluation(self, model, data_loader, **kwargs):
         """One-deep pipelined eval: batch i+1's host prep (tokenization,

@@ -70,7 +70,7 @@ def _model_cfg(path, options=()):
 PORT_KEYS = ("img_size", "vit_model", "t5_model", "tokenizer_path", "num_query_token",
              "num_beams", "min_new_tokens", "max_txt_len", "max_new_tokens",
              "input_time_format", "task", "num_frames_for_answer", "relpos_in_kernel",
-             "compute_dtype", "init_params", "vocab_size")
+             "compute_dtype", "init_params", "vocab_size", "use_grad_checkpoint")
 
 
 @pytest.mark.parametrize("path,options", [
@@ -86,6 +86,7 @@ PORT_KEYS = ("img_size", "vit_model", "t5_model", "tokenizer_path", "num_query_t
       "model.tokenizer_path=mock", "model.scan_layers=False",
       "model.remat_policy=dots_kernels", "model.drop_path_rate=0.1")),
     ("configs/projects/train/tiny_synthetic.yaml", ("model.min_len=5", "model.min_new_tokens=3")),
+    ("configs/projects/train/qvh.yaml", ()),
 ])
 def test_from_config_constructor_values_equal_jax(path, options):
     cfg, jcfg = _model_cfg(path, options)
@@ -98,7 +99,7 @@ def test_from_config_constructor_values_equal_jax(path, options):
 
 @pytest.mark.parametrize("key,value,item", [
     ("interleave_data", False, 6), ("frame_token_aggregation", "mean", 6),
-    ("freeze_vit", False, 1), ("fast_gelu", True, 6), ("use_grad_checkpoint", True, 1),
+    ("freeze_vit", False, 1), ("fast_gelu", True, 6),
     ("sequence_parallel", True, 8), ("resample_frames", True, 4), ("int8_base", True, 5),
 ])
 def test_from_config_unsupported_settings_raise(key, value, item):
@@ -108,7 +109,40 @@ def test_from_config_unsupported_settings_raise(key, value, item):
         BLIP2_MR.from_config(cfg, device="cpu")
     assert set(BLIP2_MR.UNSUPPORTED_CONFIG) == {
         "interleave_data", "frame_token_aggregation", "freeze_vit", "fast_gelu",
-        "use_grad_checkpoint", "sequence_parallel", "resample_frames", "int8_base"}
+        "sequence_parallel", "resample_frames", "int8_base"}
+
+
+@pytest.mark.parametrize("path", ["configs/projects/train/qvh.yaml",
+                                  "configs/projects/train/tiny_synthetic.yaml"])
+def test_from_config_grad_checkpoint_equals_jax(path, monkeypatch):
+    """``use_grad_checkpoint`` reaches the constructor as the JAX one's does
+    (qvh.yaml sets it; the JAX default is False) and checkpoints every T5
+    block of a train step (``T5Config.use_remat``)."""
+    for value in (True, False, None):
+        options = () if value is None else (f"model.use_grad_checkpoint={value}",)
+        cfg, jcfg = _model_cfg(path, options)
+        got = _constructor_kwargs(BLIP2_MR, cfg, device="cpu")["use_grad_checkpoint"]
+        want = _constructor_kwargs(JaxBLIP2_MR, jcfg)["use_grad_checkpoint"]
+        assert got == want == (value if value is not None else "qvh" in path)
+    assert "use_grad_checkpoint" in BLIP2_MR.SUPPORTED_CONFIG
+    cfg, _ = _model_cfg("configs/projects/train/tiny_synthetic.yaml",
+                        ("model.use_grad_checkpoint=True",))
+    model = BLIP2_MR.from_config(cfg, device="cpu")
+    assert model.t5_config.use_remat and model.module.t5.encoder.use_remat
+    calls = []
+    real = tt5.remat
+    monkeypatch.setattr(tt5, "remat", lambda *a, **k: calls.append(a[0]) or real(*a, **k))
+    model.set_trainable()
+    rng = np.random.default_rng(0)
+    samples = {
+        "video": rng.integers(0, 256, (1, 4, 28, 28, 3), dtype=np.uint8),
+        "timestamps": np.linspace(0, 20.0, 4, endpoint=False)[None],
+        "duration": np.array([20.0]), "query_id": ["a"],
+        "video_prompt_end": ["<extra_id_0>"], "query_prompt": ["Query: a cat\n"],
+        "task_prompt": ["Relevant windows: "], "relevant_windows": ["[[0, 10]]"]}
+    model(samples)["loss"].backward()
+    t5 = model.module.t5
+    assert calls == [*t5.encoder.block, *t5.decoder.block]
 
 
 def test_from_config_reads_every_key_the_jax_one_reads(caplog):
@@ -315,13 +349,28 @@ def test_evaluate_without_a_card_raises(tmp_path):
                        *_split_options(tmp_path / "synth", tmp_path / "out")])
 
 
-def test_runner_reload_of_best_checkpoint_raises(tmp_path):
+def test_runner_reload_of_best_checkpoint_raises(tmp_path, caplog):
+    """Once raising (the runner's checkpoints were not ported), the reload of
+    the best checkpoint now restores its trainable tensors; without a best
+    checkpoint it warns and keeps the weights."""
+    sd, _ = _tiny_checkpoint(tmp_path)
     cfg = Config(cfg_path=TINY, options=[f"run.output_dir={tmp_path}", "run.device=cpu"])
+    model = BLIP2_MR.from_config(cfg.model_cfg, device="cpu")
     runner_cls = registry.get_runner_class("runner_base")
-    runner = runner_cls(cfg=cfg, job_id="j", task=None, model=None,
+    runner = runner_cls(cfg=cfg, job_id="j", task=None, model=model,
                         datasets={"qvh": {"test": []}})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        runner.eval_epoch("test", "best", skip_reload=False)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with caplog.at_level(logging.WARNING):
+        runner._reload_best_model()
+    assert "no best checkpoint" in caplog.text
+    assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+    lora = {k: v for k, v in sd.items() if "lora_" in k}
+    torch.save({"model": lora, "config": cfg.to_dict(), "epoch": 0},
+               runner.output_dir / "checkpoint_best.pth")
+    runner._reload_best_model()
+    got = model.state_dict()
+    assert all(torch.equal(got[k], lora[k]) for k in lora)
+    assert all(torch.equal(got[k], before[k]) for k in got if k not in lora)
     runner.log_stats({"agg_metrics": 1.5}, "test")
     assert json.loads((tmp_path / "j" / "log.txt").read_text()) == {"test_agg_metrics": 1.5}
     assert isinstance(cfg.run_cfg, ConfigDict)

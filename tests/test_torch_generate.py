@@ -191,8 +191,9 @@ def test_span_grammar_copy_matches():
 
 # --------------------------------------------------------- import rules
 def test_port_imports_no_jax_or_triton():
-    """Nor pyyaml or scikit-learn, which the card's machine lacks: a config
-    is read and every module of the evaluation entry point imported."""
+    """Nor pyyaml or scikit-learn, which the card's machine lacks: the
+    configs are read and every module of the evaluation and train entry
+    points imported."""
     code = (
         "import sys\n"
         "import mr_blip_tpu_torch\n"
@@ -214,8 +215,11 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.metrics, mr_blip_tpu_torch.metrics.simple\n"
         "import mr_blip_tpu_torch.processors, mr_blip_tpu_torch.tasks\n"
         "import mr_blip_tpu_torch.runners.runner_base\n"
+        "import mr_blip_tpu_torch.train, mr_blip_tpu_torch.runners.runner_iter\n"
+        "import mr_blip_tpu_torch.common.preempt, mr_blip_tpu_torch.common.tracking\n"
         "from mr_blip_tpu_torch.common.config import Config\n"
         "Config(cfg_path='configs/projects/eval/qvh.yaml')\n"
+        "Config(cfg_path='configs/projects/train/qvh.yaml')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu', 'yaml', 'sklearn')]\n"
         "assert not bad, bad\n"
