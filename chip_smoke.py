@@ -140,8 +140,8 @@ is nonzero and the final line is not printed:
 12. long context, kernel path vs plain path: the depth-2 full-width
     ``relpos_in_kernel`` model (weights as in phase 7), one forward and
     backward on the card and on the CPU in bf16: ``qformer_freeze_lora`` at
-    1 x 240 frames (also against the card's own ``relpos_in_kernel=False``
-    run of the same weights) and ``qformer_freeze`` at 1 x 120 frames (the
+    1 x 120 frames (also against the card's own ``relpos_in_kernel=False``
+    run of the same weights) and ``qformer_freeze`` at 1 x 60 frames (the
     rel-pos table trains: kernel 11 launches once per encoder layer and the
     table's gradient is compared with the plain path's); T5 encoder rows
     cosine >= 0.999, loss and gradients within phase 7's bars. Then the fp32
@@ -169,16 +169,18 @@ is nonzero and the final line is not printed:
 14. grounded QA at 364 pixels: ``BLIP2_MR(img_size=364,
     task="qformer_freeze_lora_QA_with_localizer", num_frames_for_answer=60)``
     (``configs/projects/eval/nextGQA.yaml`` but for ``resample_frames`` and
-    the image size), full depth and width, 2 batches of 4 videos x 60 frames
-    with five-option questions through ``videoQA_generate``; per batch kernel
-    4 must launch 78 times (the localizer's ViT and the answerer's), biased
-    flash 48, LayerNorm 220; every prediction in 0..4, every moment inside
-    its video, the answerer's A-E logits finite, its encoder length the 2,040
-    that phase 3 holds kernel 3 at; prints seconds per batch
-    split into localizer, frame crop and answerer, and peak memory;
+    the image size), full depth and width, 1 batch of 4 videos x 60 frames
+    with five-option questions through ``videoQA_generate`` (a first batch
+    took what a second one did); kernel 4 must launch 78 times (the
+    localizer's ViT and the answerer's), biased flash 48, LayerNorm 220;
+    every prediction in 0..4, every moment inside its video, the answerer's
+    A-E logits finite, its encoder length the 2,040 that phase 3 holds kernel
+    3 at; prints its seconds split into localizer, frame crop and answerer,
+    and peak memory; then the batch's frames put on the card are cropped
+    there (a CUDA tensor out, equal to the host crop), both crops timed;
 15. 364 pixels and QA, kernel path vs plain path: the depth-2 full-width
     ``qformer_freeze_lora_QA`` model (weights as in phase 7, both T5 stacks)
-    on 2 x 8 frames at 364², in bf16 on the CPU and on the card: ViT output
+    on 1 x 8 frames at 364², in bf16 on the CPU and on the card: ViT output
     rows and T5 encoder rows cosine >= 0.999, the answerer's A-E logits
     cosine >= 0.999 per row; the same after ``quantize_vit()`` (the split
     int8 route: W8A8 linear, kernel 4, W8A8 linear per block, no fused
@@ -218,6 +220,25 @@ is nonzero and the final line is not printed:
     and partial gradients bit for bit, log ``(epoch 0)``, re-run the epoch
     and exit 0. Prints seconds per micro-batch and per update, peak memory,
     and the resume state's bytes and write and load seconds.
+18. the grounded-QA evaluation entry point: ``mr_blip_tpu_torch.evaluate.main``
+    on ``configs/projects/eval/nextGQA.yaml`` as published (task ``videogqa``,
+    ``qformer_freeze_lora_QA_with_localizer``: EVA ViT-g, Q-Former, Flan-T5-XL
+    localizer and answerer at full width and depth, bf16, 60 frames at 224²,
+    ``num_frames_for_answer`` 60, ``resample_frames: True``, beam 5, batch 1,
+    8 loader threads) but for a synthetic split of QA_QUESTIONS five-option
+    grounded questions over 40 s ``synthetic://`` videos (NExT-QA's length),
+    ``model.load_finetuned=False`` (random weights) and a temporary output
+    directory. Per question the localizer's generate and the answerer must
+    launch kernels 1 / 2 / 3 220 / 78 / 48 times together (phase 16's
+    110 / 39 / 24 twice) and no other kernel; the rows must equal, field for
+    field, a serial ``videoQA_generate`` of the same loader batches on the
+    same model; on random weights every span is ``[[-1, -1]]``, so every
+    row's moment must be ``[0, round(duration)]`` and the frames handed to
+    the answerer must equal, bit for bit, the reader's own decode of the 60
+    uniform picks inside that window; the metrics must carry Acc@GQA, mIoP,
+    TIoP@0.3/0.5, mIoU, TIoU@0.3/0.5, ``agg_metrics`` and ``total``. Prints
+    seconds per question (steady, pipelined), the localizer / re-decode /
+    answerer split of the serial run, and peak memory beside the card.
 
 Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
 (4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
@@ -238,14 +259,17 @@ give them: LayerNorm at (162,480, 1,408) (240 x 677 ViT rows), the biased
 flash forward at the answerer's encoder length (4 x 2,040, the last 5 keys
 masked), the W8A8 linear at the two shapes of the split int8 ViT route
 ((162,480, 1,408) x 4,224 with LN and bias, x 1,408 with the residual) and
-the W8A8 GELU MLP at (162,480, 1,408, 6,144).
+the W8A8 GELU MLP at (162,480, 1,408, 6,144). The biased flash forward is also
+held at phase 18's encoder lengths, batch 1: 2,088 (the localizer) and 2,024
+(the answerer, its last 5 keys masked).
 
 The line before the last is one JSON object with every kernel's numbers
-(launches: kernels 1-3 from phase 4 (phase 16 prints its own beside
-them), 4 from phase 13's 364-pixel run, 5, 6
+(launches: kernels 1-3 from phase 4 (phases 16 and 18 print their own
+beside them), 4 from phase 13's 364-pixel run, 5, 6
 and 8 from phase 6, 7 from phase 7's ``qformer_freeze`` run, 13-16 from phase
 8, 9 from phase 10's bf16 run, 10 and 12 from phase 11, 11 from phase 12's
-``qformer_freeze`` run; ``train_entry_launches`` from phase 17's first run;
+``qformer_freeze`` run; ``train_entry_launches`` from phase 17's first run,
+``qa_entry_launches`` from phase 18's pipelined run (all its questions);
 each count is taken with the counts set to 0 just before its path runs); the
 last line is {"ok": true, "device": {...}}.
 """
@@ -340,9 +364,12 @@ EXPECTED_LONG_INT8_LAUNCHES = dict(EXPECTED_INT8_LAUNCHES, flash_bias_attention=
                                    flash_relpos_fwd_stats=24)
 EXPECTED_LONG_TRAIN_LAUNCHES = dict(EXPECTED_LONG_LAUNCHES, flash_relpos_bwd_dq=24,
                                     flash_relpos_bwd_dkv=24)
-# Phase 12, (task, frames): the CPU plain path takes ~130 s at 1 x 240 frames,
-# so only the LoRA task (the train path of phase 11) runs at the full length.
-LONG_GRAD_TASKS = (("qformer_freeze_lora", 240), ("qformer_freeze", 120))
+# Phase 12, (task, frames): the CPU plain path took 154 s at 1 x 240 frames
+# and 72 s at 1 x 120 (bf16 on the card machine's 8 cores), most of a
+# 900 s script, so the LoRA task runs at half the full length (encoder
+# length 4,040) and the table-training task at 60 frames. Phase 3 holds
+# kernels 9-12 at the full 8,000 tokens.
+LONG_GRAD_TASKS = (("qformer_freeze_lora", 120), ("qformer_freeze", 60))
 # Phase 12 in the fp32 parity mode (kernels 9, 10, 12 and 9, 11, 12 in fp32):
 # 1 x 60 frames (encoder length 2,056), where the CPU's fp32 runs are short.
 LONG_FP32_GRAD_TASKS = (("qformer_freeze_lora", 60), ("qformer_freeze", 60))
@@ -390,6 +417,20 @@ PREEMPT_TRAIN_QUERIES, PREEMPT_AFTER = 10, 9
 EXPECTED_REMAT_TRAIN_LAUNCHES = dict(EXPECTED_TRAIN_LAUNCHES, flash_bias_fwd_stats=48)
 # Checkpointing on against off, one micro-batch, the same dropout masks.
 REMAT_LOSS_REL_TOL, REMAT_GRAD_COSINE_MIN, REMAT_GRAD_REL_TOL = 1e-6, 0.9999, 1e-3
+# Phase 18, the grounded-QA entry point on configs/projects/eval/nextGQA.yaml
+# (batch 1): QA_QUESTIONS synthetic questions over 40 s videos at 10 fps
+# (NExT-QA's length). Per question the localizer's generate launches what a
+# phase-4 batch launches, and the answerer the same again: its ViT, ln_vision
+# and Q-Former over the 60 re-decoded frames, its T5 encoder's 24 layers.
+QA_QUESTIONS, QA_VIDEO_FRAMES, QA_FPS = 6, 400, 10.0
+# Its encoder lengths (the interleaved prompt of one 60-frame video; 60 x 32
+# frame tokens and the question with its options, padded to a multiple of 8):
+# phase 3 holds kernel 3 at both, and phase 18 must show them.
+QA_ENTRY_LOCALIZER_LENGTH, QA_ENTRY_ANSWERER_LENGTH = 2088, 2024
+EXPECTED_QA_ENTRY_LAUNCHES = dict(EXPECTED_LAUNCHES, layer_norm=220,
+                                  qkv_packed_attention=78, flash_bias_attention=48)
+QA_METRIC_KEYS = ("Acc@GQA", "mIoP", "TIoP@0.3", "TIoP@0.5", "mIoU", "TIoU@0.3",
+                  "TIoU@0.5", "agg_metrics", "total")
 
 
 def say(*parts):
@@ -530,6 +571,13 @@ def check_kernels(torch, kernels):
                                          # the question, padded to a multiple of 8
                                          (4, QA_ENCODER_LENGTH, QA_ENCODER_LENGTH, "pad",
                                           False),
+                                         # phase 18's localizer and answerer
+                                         # encoders (batch 1; the answerer's
+                                         # last keys are padding)
+                                         (1, QA_ENTRY_LOCALIZER_LENGTH,
+                                          QA_ENTRY_LOCALIZER_LENGTH, None, False),
+                                         (1, QA_ENTRY_ANSWERER_LENGTH,
+                                          QA_ENTRY_ANSWERER_LENGTH, "entry_pad", False),
                                          (2, 300, 300, None, False),
                                          (2, 300, 300, "row1_all", False)):
         q = randn(b, n, heads, d)
@@ -542,6 +590,8 @@ def check_kernels(torch, kernels):
         elif mask_kind == "pad":
             kv_mask = (torch.arange(m, device=dev)[None].expand(b, m)
                        < QA_ENCODER_TOKENS).to(torch.int8)
+        elif mask_kind == "entry_pad":
+            kv_mask = (torch.arange(m, device=dev)[None].expand(b, m) < m - 5).to(torch.int8)
         elif mask_kind == "row1_all":
             kv_mask = torch.ones(b, m, dtype=torch.int8, device=dev)
             kv_mask[1] = 0
@@ -1855,7 +1905,7 @@ def path_gradients(torch, model, batch, task):
 
 def gradients_kernel_vs_plain(torch, wrappers, long=False, fp32=False):
     """Phase 7 or, with ``long``, phase 12: the ``relpos_in_kernel`` model at
-    1 x 240 frames, where the encoder's rows are compared too (kernel path
+    LONG_GRAD_TASKS' lengths, where the encoder's rows are compared too (kernel path
     against plain path, and against the card's own materialized-bias run).
     With ``fp32``, phase 7's parity-mode runs: ``compute_dtype="float32"``
     on both sides (kernels 5-8 in their fp32 instantiations), held to the
@@ -1916,7 +1966,7 @@ def gradients_kernel_vs_plain(torch, wrappers, long=False, fp32=False):
         state = {k: v.cpu() for k, v in gpu.state_dict().items()}
         del gpu
         torch.cuda.empty_cache()
-        if long and frames == LONG_FRAMES:
+        if long and not fp32 and task == tasks[0][0]:
             # The card's own materialized-bias run of the same weights
             # (kernel 5 over the (1, H, L, L) bias).
             mat = reduced_model("cuda", task=task, init_params=False)
@@ -2136,7 +2186,7 @@ def qa_path(torch, wrappers):
     say(f"QA model built with random weights in {time.time() - t0:.1f} s; "
         f"{sum(p.numel() for p in model.module.parameters()) / 1e9:.3f} B params, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    batches = [make_qa_samples(BATCH, N_FRAMES, seed, BIG_IMG) for seed in range(BIG_BATCHES)]
+    batches = [make_qa_samples(BATCH, N_FRAMES, 0, BIG_IMG)]
     answer_logits, answerer_lengths = tap_answerer(model)
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
@@ -2185,15 +2235,27 @@ def qa_path(torch, wrappers):
                 "answer logits not finite")
     launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
-    steady = rows[1:]
-    summary = {k: statistics.mean(r[j] for r in steady) for j, k in enumerate(
-        ("steady_s", "localizer_s", "crop_s", "answerer_s"))}
-    summary.update(first_s=rows[0][0], peak_gib=peak / 2**30)
+    # Frames a loader put on the card are cropped there, with no copy back.
+    on_card = dict(samples, video=torch.from_numpy(samples["video"]).cuda())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    card_frames = model.extract_frames(on_card, moments, QA_ANSWER_FRAMES)
+    torch.cuda.synchronize()
+    card_crop_s = time.time() - t0
+    t0 = time.time()
+    host_frames = model.extract_frames(samples, moments, QA_ANSWER_FRAMES)
+    host_crop_s = time.time() - t0
+    require(card_frames.is_cuda and torch.equal(card_frames.cpu(), torch.from_numpy(host_frames)),
+            "the crop of frames on the card differs from the host crop")
+    say(f"QA crop of the batch's frames: on the card {card_crop_s:.4f} s "
+        f"(a CUDA tensor out), on the host {host_crop_s:.4f} s, equal")
+    del on_card, card_frames
+    summary = dict(zip(("batch_s", "localizer_s", "crop_s", "answerer_s"), rows[0]),
+                   peak_gib=peak / 2**30)
     say(f"QA path: B={BATCH} x {N_FRAMES} frames at {BIG_IMG}², {QA_ANSWER_FRAMES} frames "
-        f"for the answerer; steady {summary['steady_s']:.3f} s/batch (batches "
-        f"1-{len(rows) - 1}: localizer {summary['localizer_s']:.3f}, frame crop "
-        f"{summary['crop_s']:.3f}, answerer {summary['answerer_s']:.3f}), first "
-        f"{rows[0][0]:.3f} s; peak memory {summary['peak_gib']:.2f} GiB")
+        f"for the answerer; {summary['batch_s']:.3f} s/batch (one batch: localizer "
+        f"{summary['localizer_s']:.3f}, frame crop {summary['crop_s']:.3f}, answerer "
+        f"{summary['answerer_s']:.3f}); peak memory {summary['peak_gib']:.2f} GiB")
     del model
     torch.cuda.empty_cache()
     return launches, summary
@@ -2219,8 +2281,9 @@ def qa_kernel_vs_plain_path(torch, wrappers):
     from mr_blip_tpu_torch.ops.attention import set_attention_backend
     from mr_blip_tpu_torch.profile_inference import make_qa_samples
 
-    frames = 8
-    samples = make_qa_samples(2, frames, seed=7, img_size=BIG_IMG)
+    # One video: the CPU's bf16 runs of the two stages took 68 s at 2 x 8.
+    batch, frames = 1, 8
+    samples = make_qa_samples(batch, frames, seed=7, img_size=BIG_IMG)
     kw = dict(task="qformer_freeze_lora_QA", img_size=BIG_IMG, num_frames_for_answer=frames)
     gpu = reduced_model("cuda", **kw)
     cfg = gpu.t5_config
@@ -2248,7 +2311,7 @@ def qa_kernel_vs_plain_path(torch, wrappers):
             c = cos(g, w, dim=-1)
             mins[name] = float(c.min())
             require(mins[name] >= COSINE_MIN, f"{label}: {name} cosine {mins[name]}")
-        say(f"{label} (depth {REDUCED_DEPTH}, full width, 2 x {frames} frames at "
+        say(f"{label} (depth {REDUCED_DEPTH}, full width, {batch} x {frames} frames at "
             f"{BIG_IMG}², {got[0].shape[1]} tokens an image): per-row cosine min "
             + ", ".join(f"{k} {v:.6f}" for k, v in mins.items())
             + f"; A-E logits of video 0 {[round(float(x), 3) for x in got[2][0]]} vs "
@@ -2759,6 +2822,185 @@ def remat_on_off(torch, model, built, set_dropout_generator, make_samples):
     return out
 
 
+# -------------------------------------------------------------- phase 18
+def qa_entry_point(torch, wrappers, card):
+    """Phase 18: ``python -m mr_blip_tpu_torch.evaluate`` on
+    ``configs/projects/eval/nextGQA.yaml`` as published (the grounded-QA
+    model at full width and depth, ``resample_frames: True``, batch 1, 8
+    loader threads), called in this process on QA_QUESTIONS synthetic
+    questions over 40 s ``synthetic://`` videos, its model built by
+    ``BLIP2_MR.from_config`` with random weights. Each question's localizer
+    and answerer must launch EXPECTED_QA_ENTRY_LAUNCHES together; the rows
+    must equal a serial ``videoQA_generate`` of the same loader batches on the
+    same model, field for field; every moment must be the whole video (random
+    weights: every span ``[[-1, -1]]``) and the answerer's frames the reader's
+    own decode of that window. Returns the launch counts of the run and its
+    summary numbers."""
+    import tempfile
+
+    import numpy as np
+
+    from mr_blip_tpu_torch import evaluate
+    from mr_blip_tpu_torch.datasets.sampling import sample_frame_indices
+    from mr_blip_tpu_torch.datasets.synthetic import make_qa_annotations
+    from mr_blip_tpu_torch.datasets.video_reader import VideoReader
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.tasks.vqa import VideoGQA
+
+    questions = []  # per dispatch: [model, samples, localizer launches, start]
+    answers = []  # per collect: (answerer's frames, answerer launches, end)
+    dispatch, collect = BLIP2_MR.videoQA_dispatch, BLIP2_MR.videoQA_collect
+
+    def counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def rose(before):
+        return {name: w.launches - before[name] for name, w in wrappers.items()}
+
+    def tapped_dispatch(model, samples):
+        start = time.time()
+        require(isinstance(samples["video"], torch.Tensor) and samples["video"].is_cuda,
+                "QA evaluation: the loader did not put the frames on the card")
+        before = counts()
+        handle = dispatch(model, samples)
+        questions.append((model, samples, rose(before), start))
+        return handle
+
+    def tapped_collect(model, handle):
+        before = counts()
+        out = collect(model, handle)
+        answers.append((handle["frames"], rose(before), time.time()))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_qa_annotations(tmp, n_train=1, n_val=1, n_test=QA_QUESTIONS,
+                                    n_video_frames=QA_VIDEO_FRAMES, fps=QA_FPS)
+        out_dir = Path(tmp) / "out"
+        argv = ["--cfg-path", str(ROOT / "configs/projects/eval/nextGQA.yaml"), "--options",
+                *(f"datasets.nextgqa.build_info.annotations.{split}.storage={path}"
+                  for split, path in paths.items()),
+                "datasets.nextgqa.build_info.videos.storage=synthetic",
+                "model.load_finetuned=False", f"run.output_dir={out_dir}"]
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()  # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        BLIP2_MR.videoQA_dispatch, BLIP2_MR.videoQA_collect = tapped_dispatch, tapped_collect
+        t0 = time.time()
+        try:
+            logs = evaluate.main(argv)
+        finally:
+            BLIP2_MR.videoQA_dispatch, BLIP2_MR.videoQA_collect = dispatch, collect
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        (result_file,) = out_dir.glob("*/result/test_epochbest.json")
+        rows = json.loads(result_file.read_text())
+
+    require(len(questions) == len(answers) == QA_QUESTIONS,
+            f"QA evaluation: {len(questions)} dispatches, {len(answers)} collects, "
+            f"expected {QA_QUESTIONS} (batch 1)")
+    model = questions[0][0]
+    require(all(q[0] is model for q in questions), "QA evaluation: more than one model")
+    require(model.task == "qformer_freeze_lora_QA_with_localizer" and model.resample_frames
+            and model.num_frames_for_answer == 60 and model.num_beams == 5
+            and model.compute_dtype == torch.bfloat16 and model.img_size == 224
+            and model.vit_config.depth == 39 and model.t5_config.num_layers == 24
+            and model.t5_config.d_model == 2048, "QA evaluation: the model is not nextGQA.yaml's")
+    # A question's time runs from its dispatch to the next one's: its
+    # localizer and the answerer of the question before. The last one's runs
+    # to its answer, so it holds two answerers and stays out of the steady
+    # mean.
+    starts = [q[3] for q in questions]
+    seconds = [b - a for a, b in zip(starts, starts[1:] + [answers[-1][2]])]
+    per_question = []
+    for i, ((_, samples, loc, _), (frames, ans, _)) in enumerate(zip(questions, answers)):
+        both = {k: loc[k] + ans[k] for k in loc}
+        per_question.append(both)
+        duration = float(samples["duration"][0])
+        say(f"QA question {i}: {seconds[i]:.3f} s  launches localizer "
+            f"{ {k: v for k, v in loc.items() if v} } + answerer "
+            f"{ {k: v for k, v in ans.items() if v} }")
+        require(both == EXPECTED_QA_ENTRY_LAUNCHES, f"QA question {i}: launches {both}, "
+                f"predicted {EXPECTED_QA_ENTRY_LAUNCHES}")
+        require(tuple(samples["video"].shape) == (1, N_FRAMES, 224, 224, 3),
+                f"QA question {i}: frames {tuple(samples['video'].shape)}")
+        # The answerer's frames: the reader's own decode of the 60 uniform
+        # picks inside [0, round(duration)], the window of a [[-1, -1]] span.
+        vr = VideoReader(samples["video_path"][0], width=224, height=224)
+        idx = sample_frame_indices(vlen=len(vr), fps=vr.get_avg_fps(), n_frms=60,
+                                   sampling="uniform", clip_proposal=[0, round(duration)])
+        want = vr.get_batch(idx)
+        vr.close()
+        require(frames.shape == (1, 60, 224, 224, 3) and frames.dtype == np.uint8
+                and np.array_equal(frames[0], want),
+                f"QA question {i}: the answerer's frames are not the window's re-decode")
+    # The same loader batches through a serial videoQA_generate, its stages
+    # synchronized and timed: localizer, re-decode, answerer.
+    task, serial, stages, lengths = VideoGQA(), [], [], {"localizer": [], "answerer": []}
+    hooks = [getattr(model.module, name).encoder.register_forward_hook(
+        lambda mod, args, out, key=key: lengths[key].append(out.shape[1]))
+        for name, key in (("t5", "localizer"), ("answerer_t5", "answerer"))]
+    for _, samples, _, _ in questions:
+        torch.cuda.synchronize()
+        clock = [time.time()]
+        handle = model.videoQA_dispatch(samples)
+        torch.cuda.synchronize()
+        clock.append(time.time())
+        handle = model.videoQA_redecode(handle)
+        handle["frames"] = model.collect_window_redecodes(handle.pop("pending"))
+        clock.append(time.time())
+        out = model.videoQA_collect(handle)
+        torch.cuda.synchronize()
+        clock.append(time.time())
+        stages.append([b - a for a, b in zip(clock, clock[1:])])
+        serial += task._rows_from_outputs(out, handle["samples"])
+    for hook in hooks:
+        hook.remove()
+    require(set(lengths["localizer"]) == {QA_ENTRY_LOCALIZER_LENGTH}
+            and set(lengths["answerer"]) == {QA_ENTRY_ANSWERER_LENGTH},
+            f"QA encoder lengths {lengths}: phase 3 held kernel 3 at "
+            f"{QA_ENTRY_LOCALIZER_LENGTH} and {QA_ENTRY_ANSWERER_LENGTH}")
+    serial = json.loads(json.dumps(serial))
+    require(rows == serial, f"QA rows differ from a serial videoQA_generate: {rows} vs {serial}")
+    for r in rows:
+        require(r["relevant_moments"] == [[0, round(r["duration"])]]
+                and r["duration"] == QA_VIDEO_FRAMES / QA_FPS and r["prediction"] in range(5),
+                f"QA row {r}")
+    metrics = json.loads(json.dumps(logs["test"]))
+    require(all(k in metrics for k in QA_METRIC_KEYS) and metrics["total"] == QA_QUESTIONS,
+            f"QA metrics {metrics}")
+    say(f"QA rows (equal to a serial videoQA_generate, field for field): "
+        f"{[(r['qid'], r['prediction'], r['target'], r['relevant_moments']) for r in rows]}")
+    say(f"QA metrics (random weights: every span [[-1, -1]], so no quality number): "
+        f"{json.dumps(metrics)}")
+    steady = statistics.mean(seconds[1:-1])
+    split = [statistics.mean(s[j] for s in stages[1:]) for j in range(3)]
+    say(f"QA entry point (configs/projects/eval/nextGQA.yaml, resample_frames, "
+        f"{QA_QUESTIONS} questions over {QA_VIDEO_FRAMES / QA_FPS:.0f} s videos, 1 x {N_FRAMES} "
+        f"frames, 60 re-decoded for the answerer): steady {steady:.3f} s/question "
+        f"(pipelined, questions 1-{QA_QUESTIONS - 2}), first {seconds[0]:.3f} s, last "
+        f"{seconds[-1]:.3f} s (its localizer and two answerers); serial "
+        f"localizer {split[0]:.3f} / re-decode {split[1]:.3f} / answerer {split[2]:.3f} s "
+        f"(questions 1-{QA_QUESTIONS - 1}); launches per question (localizer + answerer) "
+        f"{ {k: v for k, v in per_question[0].items() if v} } predicted "
+        f"{ {k: v for k, v in EXPECTED_QA_ENTRY_LAUNCHES.items() if v} }; encoder lengths "
+        f"localizer {sorted(set(lengths['localizer']))}, answerer "
+        f"{sorted(set(lengths['answerer']))}; before the first "
+        f"question {starts[0] - t0:.3f} s; main() {wall:.3f} s; peak memory "
+        f"{(peak - resident) / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB earlier "
+        f"phases held; {card}")
+    del model, questions, answers
+    torch.cuda.empty_cache()
+    return launches, dict(steady_s=steady, first_s=seconds[0], wall_s=wall,
+                          localizer_s=split[0], redecode_s=split[1], answerer_s=split[2],
+                          peak_gib=(peak - resident) / 2**30)
+
+
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
     the ``kernels`` line (source in the port, TPU kernel replaced)."""
@@ -2844,22 +3086,34 @@ def main():
         "drained wgmma)")
 
     wrappers, kernels = kernel_tables()
+    marks = [start]
 
+    def done(phases):
+        """Prints the seconds the phases just run took."""
+        marks.append(time.time())
+        say(f"phase {phases}: {marks[-1] - marks[-2]:.1f} s (at {marks[-1] - start:.1f} s)")
+
+    done("1-2")
     # phase 3: kernel vs plain
     check_kernels(torch, kernels)
     check_flash_kernel(torch, kernels)
     check_train_kernels(torch, kernels)
     check_relpos_kernels(torch, kernels)
     check_int8_kernels(torch, kernels)
+    done(3)
     # phase 4: the generate path at full width (kernels 1-3)
     launches, bf16_summary = main_path(torch, wrappers)
+    done(4)
     # phase 5: kernel path vs plain path, encoder outputs
     kernel_vs_plain_path(torch, wrappers)
+    done(5)
     # phase 6: the LoRA train path at full width (kernels 5, 6, 8)
     train_launches = train_path(torch, wrappers)
+    done(6)
     # phase 7: kernel path vs plain path, gradients (kernel 7 under full finetune)
     dbias_launches = gradients_kernel_vs_plain(torch, wrappers)
     gradients_kernel_vs_plain(torch, wrappers, fp32=True)
+    done(7)
     # phase 8: the int8 generate path at full width and depth (kernels 13-16)
     int8_launches, int8_summary = main_path(torch, wrappers, int8=True)
     say("generate, bf16 (phase 4) vs int8 (phase 8), seconds: " + ", ".join(
@@ -2867,8 +3121,10 @@ def main():
         for k in ("steady_s", "frames_to_qformer_s", "t5_encode_s", "decode_s"))
         + f"; peak memory {bf16_summary['peak_gib']:.2f} vs "
         f"{int8_summary['peak_gib']:.2f} GiB")
+    done(8)
     # phase 9: int8 kernel path vs int8 plain path, and int8 vs bf16
     int8_kernel_vs_plain_path(torch, wrappers)
+    done(9)
     # phase 10: long-context generate at full depth and width (kernel 9), bf16
     # and int8, and one materialized-bias run of the same batches beside them
     long_launches, long_summary = main_path(torch, wrappers, long=True)
@@ -2883,11 +3139,14 @@ def main():
         + "; peak memory " + " / ".join(
             f"{x['peak_gib']:.2f}" for x in (long_summary, long_int8_summary,
                                              long_mat_summary)) + " GiB")
+    done(10)
     # phase 11: the long-context LoRA train step (kernels 9, 10, 12)
     long_train_launches = train_path(torch, wrappers, long=True)
+    done(11)
     # phase 12: long context, kernel path vs plain path (kernel 11 under full finetune)
     dtable_launches = gradients_kernel_vs_plain(torch, wrappers, long=True)
     gradients_kernel_vs_plain(torch, wrappers, long=True, fp32=True)
+    done(12)
     # phase 13: generate at 364 pixels (kernel 4), then the fp32 parity mode
     big_launches, big_summary = main_path(torch, wrappers, img_size=BIG_IMG)
     say(f"generate at 224² (phase 4) vs {BIG_IMG}² (phase 13), seconds: " + ", ".join(
@@ -2903,10 +3162,13 @@ def main():
         f"{big_int8_summary['peak_gib']:.2f} GiB (int8 with kernel 14's fp32 hidden "
         f"workspace: {INT8_BIG_PEAK_FP32_HIDDEN_GIB} GiB)")
     fp32_path(torch, wrappers)
+    done(13)
     # phase 14: two-stage grounded QA at 364 pixels
     qa_path(torch, wrappers)
+    done(14)
     # phase 15: 364 pixels and QA, kernel path vs plain path
     qa_kernel_vs_plain_path(torch, wrappers)
+    done(15)
     # phase 16: the evaluation entry point on configs/projects/eval/qvh.yaml
     eval_launches, eval_summary = evaluation_entry_point(torch, wrappers, smi)
     say(f"generate batch (phase 4) vs evaluation batch (phase 16), seconds: steady "
@@ -2914,8 +3176,13 @@ def main():
         f"{bf16_summary['first_s']:.3f} vs {eval_summary['first_s']:.3f}; peak memory "
         f"{bf16_summary['peak_gib']:.2f} vs {eval_summary['peak_gib']:.2f} GiB; evaluation "
         f"launches of kernels 1-3 { {k: eval_launches[k] for k in GENERATE_KERNELS} }")
+    done(16)
     # phase 17: the train entry point on configs/projects/train/qvh.yaml
     train_entry_launches = train_entry_point(torch, wrappers, smi)
+    done(17)
+    # phase 18: the grounded-QA evaluation entry point on configs/projects/eval/nextGQA.yaml
+    qa_entry_launches, _ = qa_entry_point(torch, wrappers, smi)
+    done(18)
 
     for key, entry in kernels.items():
         if key == "flash_attention":
@@ -2935,11 +3202,12 @@ def main():
         else:
             entry["launches"] = train_launches[key]
         entry["train_entry_launches"] = train_entry_launches[key]
+        entry["qa_entry_launches"] = qa_entry_launches[key]
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "train_entry_launches")}
+                               "library_ms", "train_entry_launches", "qa_entry_launches")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

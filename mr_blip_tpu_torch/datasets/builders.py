@@ -1,10 +1,11 @@
 """Dataset builders: YAML build_info -> per-split dataset objects (the port's
-counterpart of ``mr_blip_tpu/datasets/builders.py``: the base builder and
-the moment-retrieval builders; the TAL and QA builders are not ported yet).
+counterpart of ``mr_blip_tpu/datasets/builders.py``: the base builder, the
+moment-retrieval, MR-questions and MC-VideoQA builders; the TAL builder
+waits for its dataset).
 
 Mirrors the reference builder layer
 (``lavis/datasets/builders/base_dataset_builder.py:23-226`` +
-``moment_retrieval_builder.py``): builders are
+``moment_retrieval_builder.py`` + ``video_qa_builder.py``): builders are
 registered by dataset name, resolve a default config YAML, construct
 train/eval processors from the config, and instantiate one dataset per
 split from ``build_info.annotations.<split>.storage`` and
@@ -20,7 +21,11 @@ import warnings
 from mr_blip_tpu_torch.common import utils
 from mr_blip_tpu_torch.common.config import load_yaml
 from mr_blip_tpu_torch.common.registry import registry
-from mr_blip_tpu_torch.datasets.mr_datasets import MomentRetrievalDataset
+from mr_blip_tpu_torch.datasets.mr_datasets import (
+    MCVideoQADataset,
+    MomentRetrievalDataset,
+    MomentRetrievalQuestionsDataset,
+)
 from mr_blip_tpu_torch.processors.text_processors import BaseProcessor
 
 
@@ -120,9 +125,28 @@ class MomentRetrievalBuilder(BaseDatasetBuilder):
     eval_dataset_cls = MomentRetrievalDataset
 
 
+class MomentRetrievalQuestionsBuilder(BaseDatasetBuilder):
+    train_dataset_cls = MomentRetrievalQuestionsDataset
+    eval_dataset_cls = MomentRetrievalQuestionsDataset
+
+
+class MCVideoQABuilder(BaseDatasetBuilder):
+    train_dataset_cls = MCVideoQADataset
+    eval_dataset_cls = MCVideoQADataset
+
+
 def _mr_builder(name, config="default"):
     @registry.register_builder(name)
     class _Builder(MomentRetrievalBuilder):
+        DATASET_CONFIG_DICT = {"default": f"configs/datasets/{name}/defaults.yaml"}
+
+    _Builder.__name__ = f"{name}_builder"
+    return _Builder
+
+
+def _qa_builder(name):
+    @registry.register_builder(name)
+    class _Builder(MCVideoQABuilder):
         DATASET_CONFIG_DICT = {"default": f"configs/datasets/{name}/defaults.yaml"}
 
     _Builder.__name__ = f"{name}_builder"
@@ -139,3 +163,23 @@ ANetBuilder = _mr_builder("anet")
 TACoSBuilder = _mr_builder("tacos")
 TACoSRelativeIntegerBuilder = _mr_builder("tacos-relative_integer")
 MixedBuilder = _mr_builder("mixed")
+
+
+@registry.register_builder("qvhQ")
+class QVHQBuilder(MomentRetrievalQuestionsBuilder):
+    DATASET_CONFIG_DICT = {"default": "configs/datasets/qvhQ/defaults.yaml"}
+
+
+# Multiple-choice VideoQA (reference video_qa_builder.py:62-110)
+NextQABuilder = _qa_builder("nextqa")
+NextGQABuilder = _qa_builder("nextgqa")
+STARBuilder = _qa_builder("star")
+TVQABuilder = _qa_builder("tvqa")
+How2QABuilder = _qa_builder("how2qa")
+VLEPBuilder = _qa_builder("vlep")
+
+
+# SeViLA-style QVH VideoQA view (reference video_qa_builder.py:104-110)
+@registry.register_builder("qvh_sevilla")
+class QVHSevillaBuilder(MCVideoQABuilder):
+    DATASET_CONFIG_DICT = {"default": "configs/datasets/qvh/defaults.yaml"}

@@ -1,5 +1,6 @@
-"""Moment-retrieval metrics (numpy, host side)."""
+"""Moment-retrieval and grounded-QA metrics (numpy, host side)."""
 
+from mr_blip_tpu_torch.metrics.grounded_qa import eval_ground, get_tIoU
 from mr_blip_tpu_torch.metrics.moment_retrieval import (
     compute_mr_ap,
     compute_mr_r1,
@@ -28,4 +29,6 @@ __all__ = [
     "eval_moment_retrieval",
     "eval_highlight",
     "eval_submission",
+    "get_tIoU",
+    "eval_ground",
 ]

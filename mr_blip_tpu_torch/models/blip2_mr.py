@@ -21,9 +21,12 @@ localizer's ``generate`` -> frames cropped to the predicted window ->
 the answer read off the A-E logits of the second decoding step);
 ``videoQA_dispatch`` / ``videoQA_redecode`` / ``videoQA_collect`` are its
 three steps. ``model(samples)`` under a QA task is the answerer's
-teacher-forced loss (``forward_QA``). Re-decoding the predicted window from
-the video file (``resample_frames=True``) needs the FFmpeg video reader,
-which is not ported: it raises.
+teacher-forced loss (``forward_QA``). With ``resample_frames=True`` (the
+published NExT-GQA and NExT-QA eval configs) the answerer's frames are not
+cropped from the localizer's frames but re-decoded from the video file,
+``num_frames_for_answer`` of them sampled uniformly inside the predicted
+window (``submit_window_redecodes``: every window of a batch submitted to the
+reader's decode pool before any is awaited).
 
 int8 inference: ``model.quantize_for_inference().generate(samples)`` converts
 the loaded float weights (W8A8 ViT, Q-Former cross K/V and T5 encoder on the
@@ -105,6 +108,20 @@ def _pad_to(arr: np.ndarray, length: int, axis: int = 1, value=0) -> np.ndarray:
     return np.pad(arr, widths, constant_values=value)
 
 
+def _moments_from_strings(strings, durations, whole_end):
+    """The localizer's moment strings -> one [start, end] each: ``[[-1,
+    -1]]`` (no valid span) becomes ``[0, whole_end(duration)]``, and an end
+    past the duration is cut to ``round(duration)``."""
+    moments = []
+    for string, duration in zip(strings, np.asarray(durations, np.float64)):
+        m = moment_str_to_list(string)
+        m = [0, whole_end(float(duration))] if m == [[-1, -1]] else m[0]
+        if m[1] > duration:
+            m[1] = round(float(duration))
+        moments.append(m)
+    return moments
+
+
 def _bucket(n: int, multiple: int = 16) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
@@ -150,25 +167,20 @@ class BLIP2_MR(BaseModel):
         ``use_grad_checkpoint`` recomputes every T5 block in the backward
         (``T5Config.use_remat``) instead of keeping its activations.
         ``num_frames_for_answer``: frames the QA answerer sees, cropped from
-        the localizer's window (``resample_frames=True``, the re-decode of
-        that window from the video file, is not ported and raises).
+        the localizer's window, or with ``resample_frames=True`` re-decoded
+        from the video file inside that window (``samples["video_path"]``).
         The ViT is frozen (``freeze_vit: True`` in every published config).
         Without a card, the default ``device`` raises: ask for the CPU."""
         if "only_frames" in task:
             raise NotImplementedError(f"task {task!r}: the non-interleaved "
                                       "prompt is not ported")
-        if resample_frames:
-            raise NotImplementedError(
-                "resample_frames=True re-decodes the predicted window from the "
-                "video file: it needs the video readers and processors of video "
-                "files (the FFmpeg reader), which are not ported yet (ROADMAP "
-                "Queue 1 item 4)")
         self.task = task
         self.use_lora = "lora" in task
         self.use_localizer = "with_localizer" in task
         self.use_oracle_localizer = "oracle_localizer" in task
         self.is_qa = "QA" in task
         self.num_frames_for_answer = num_frames_for_answer
+        self.resample_frames = resample_frames
         self.input_time_format = input_time_format
         self.max_txt_len = max_txt_len
         self.max_new_tokens = max_new_tokens
@@ -358,8 +370,6 @@ class BLIP2_MR(BaseModel):
         "freeze_vit": ((True,), "the unfrozen-ViT train path", 1),
         "fast_gelu": ((False,), "the tanh-GELU ViT", 6),
         "sequence_parallel": ((False,), "sequence-parallel frames", 8),
-        "resample_frames": ((False,), "re-decoding the predicted window from the "
-                            "video file", 4),
         "int8_base": ((False,), "the int8 T5 base under LoRA training", 5),
     }
     # Read and without effect in the port: layouts of the TPU program
@@ -371,8 +381,8 @@ class BLIP2_MR(BaseModel):
         "arch", "model_type", "image_size", "vit_model", "t5_model",
         "tokenizer_path", "num_query_token", "num_beams", "min_len",
         "min_new_tokens", "max_len", "max_new_tokens", "input_time_format", "task",
-        "num_frames_for_answer", "relpos_in_kernel", "compute_dtype", "vocab_size",
-        "params_dtype", "pretrained", "finetuned", "load_finetuned",
+        "num_frames_for_answer", "resample_frames", "relpos_in_kernel", "compute_dtype",
+        "vocab_size", "params_dtype", "pretrained", "finetuned", "load_finetuned",
         "int8_inference", "int8_decode", "int8_vit", "int8_qformer", "int8_encoder",
         "use_grad_checkpoint")
 
@@ -418,6 +428,7 @@ class BLIP2_MR(BaseModel):
             input_time_format=cfg.get("input_time_format", "seconds_integers"),
             task=cfg.get("task", "qformer_freeze_lora"),
             num_frames_for_answer=cfg.get("num_frames_for_answer", 4),
+            resample_frames=cfg.get("resample_frames", False),
             relpos_in_kernel=cfg.get("relpos_in_kernel", False),
             use_grad_checkpoint=cfg.get("use_grad_checkpoint", False),
             compute_dtype=cfg.get("compute_dtype", "bfloat16"),
@@ -668,17 +679,8 @@ class BLIP2_MR(BaseModel):
         """Crop the already-decoded frames to the predicted windows ->
         (moments, frames). ``[[-1, -1]]`` (no valid span) means the whole
         video; an end past the duration is cut to it."""
-        durations = np.asarray(samples["duration"], np.float64)
-        relevant_moments = []
-        for i, sample in enumerate(relevant_moments_out):
-            m = moment_str_to_list(sample)
-            if m == [[-1, -1]]:
-                m = [0, float(durations[i])]
-            else:
-                m = m[0]
-            if m[1] > durations[i]:
-                m[1] = round(float(durations[i]))
-            relevant_moments.append(m)
+        relevant_moments = _moments_from_strings(
+            relevant_moments_out, samples["duration"], float)
         frames = self.extract_frames(samples, relevant_moments, n_frames)
         return relevant_moments, frames
 
@@ -686,10 +688,18 @@ class BLIP2_MR(BaseModel):
         """``n_frames`` frames of each video between the frames nearest to
         its moment's start and end: the last one repeated when there are
         fewer, evenly spaced picks when there are more. uint8 stays uint8
-        (the answerer normalizes on the device by dtype)."""
-        video = np.asarray(samples["video"])
-        if video.dtype != np.uint8:
-            video = video.astype(np.float32)
+        (the answerer normalizes on the device by dtype). Frames a loader put
+        on the device are cropped there and stay there."""
+        video = samples["video"]
+        if isinstance(video, torch.Tensor):
+            if video.dtype != torch.uint8:
+                video = video.float()
+            stack = torch.stack
+        else:
+            video = np.asarray(video)
+            if video.dtype != np.uint8:
+                video = video.astype(np.float32)
+            stack = np.stack
         timestamps = np.asarray(samples["timestamps"], np.float64)
         durations = np.asarray(samples["duration"], np.float64)
         out = []
@@ -698,18 +708,68 @@ class BLIP2_MR(BaseModel):
                 end = float(durations[i])
             start_idx = int(np.argmin(np.abs(timestamps[i] - start)))
             end_idx = int(np.argmin(np.abs(timestamps[i] - end)))
-            frames = video[i, start_idx:end_idx + 1]
-            if frames.shape[0] == 0:
+            count = end_idx + 1 - start_idx
+            if count <= 0:
                 raise ValueError("no frames found for the relevant moment "
                                  f"{[start, end]} of video {i}")
-            if frames.shape[0] < n_frames:
-                pad = np.repeat(frames[-1:], n_frames - frames.shape[0], axis=0)
-                frames = np.concatenate([frames, pad])
-            elif frames.shape[0] > n_frames:
-                idxs = np.linspace(0, frames.shape[0] - 1, n_frames).astype(int)
-                frames = frames[idxs]
-            out.append(frames)
-        return np.stack(out)
+            if count < n_frames:
+                idxs = np.minimum(np.arange(n_frames), count - 1)
+            else:
+                idxs = np.linspace(0, count - 1, n_frames).astype(int)
+            out.append(video[i, (start_idx + idxs).tolist()])
+        return stack(out)
+
+    def submit_window_redecodes(self, samples, relevant_moments, n_frames):
+        """Submit every sample's predicted-window re-decode to the video
+        reader's decode pool, without waiting -> (moments, pending);
+        ``collect_window_redecodes(pending)`` waits for the frames. The
+        moments are the localizer's strings (``[[-1, -1]]``, no valid span,
+        becomes ``[0, round(duration)]``; an end past the duration is cut to
+        ``round(duration)``) or windows as they are (the oracle's). A window
+        with ``start >= end`` ends at the duration. Each window's
+        ``n_frames`` frames are the eval processor's uniform picks inside it
+        (``clip_proposal``), decoded at ``img_size`` x ``img_size`` and kept
+        uint8 (the answerer normalizes on the device)."""
+        from mr_blip_tpu_torch.datasets.sampling import sample_frame_indices
+        from mr_blip_tpu_torch.datasets.video_reader import VideoReader
+        from mr_blip_tpu_torch.processors.video_processors import BlipVideoEvalProcessor
+
+        durations = np.asarray(samples["duration"], np.float64)
+        if relevant_moments and isinstance(relevant_moments[0], str):
+            moments = _moments_from_strings(relevant_moments, durations, round)
+        else:
+            moments = [list(m) for m in relevant_moments]
+
+        processor = BlipVideoEvalProcessor(
+            image_size=self.img_size, n_frms=n_frames, normalize=False)
+        readers, tickets = [], []
+        for i, (start, end) in enumerate(moments):
+            if start >= end:
+                end = float(durations[i])
+            vr = VideoReader(samples["video_path"][i],
+                             width=self.img_size, height=self.img_size)
+            indices = sample_frame_indices(
+                vlen=len(vr), fps=vr.get_avg_fps(), n_frms=n_frames,
+                sampling="uniform", clip_proposal=[start, end])
+            readers.append(vr)
+            tickets.append(vr.get_batch_async(indices))
+        return moments, (readers, tickets, processor)
+
+    def collect_window_redecodes(self, pending):
+        """Wait for ``submit_window_redecodes``' frames -> (B, n, H, W, 3)."""
+        readers, tickets, processor = pending
+        frames = []
+        for vr, ticket in zip(readers, tickets):
+            frames.append(processor._finish(ticket.result()))
+            vr.close()
+        return np.stack(frames)
+
+    def get_relevant_frames_resampled(self, samples, relevant_moments, n_frames):
+        """Re-decode each predicted window from its video file
+        (blip2_mr.py:1167-1230) -> (moments, frames)."""
+        moments, pending = self.submit_window_redecodes(
+            samples, relevant_moments, n_frames)
+        return moments, self.collect_window_redecodes(pending)
 
     @property
     def answerer(self):
@@ -717,9 +777,14 @@ class BLIP2_MR(BaseModel):
         return self.module.answerer_t5 if self.is_qa else self.module.t5
 
     def _qa_tensors(self, samples, with_targets: bool = False):
-        frames = np.asarray(samples["relevant_frames"])
-        if frames.dtype != np.uint8:  # uint8 is normalized on the device
-            frames = frames.astype(np.float32)
+        frames = samples["relevant_frames"]  # uint8 is normalized on the device
+        if isinstance(frames, torch.Tensor):
+            if frames.dtype != torch.uint8:
+                frames = frames.float()
+        else:
+            frames = np.asarray(frames)
+            if frames.dtype != np.uint8:
+                frames = frames.astype(np.float32)
         tok = self.tokenizer
         enc = tok(list(samples["qa_input"]), truncation=True,
                   max_length=self.max_txt_len)
@@ -796,27 +861,40 @@ class BLIP2_MR(BaseModel):
     def videoQA_redecode(self, handle) -> Dict[str, Any]:
         """The moments (the localizer's, the whole video, or under
         ``oracle_localizer`` the ground truth's first window) and the frames
-        cropped to them."""
+        cropped to them; under ``resample_frames`` the localizer's and the
+        oracle's windows are submitted for re-decoding instead, and
+        ``handle["pending"]`` holds them until ``videoQA_collect``."""
         samples = handle["samples"]
         durations = np.asarray(samples["duration"], np.float64)
         n = self.num_frames_for_answer
         if self.use_localizer:
             out_mr = self.generate_collect(handle.pop("loc"))
-            moments, handle["frames"] = self.get_relevant_frames(
-                samples, out_mr["prediction"], n)
+            if self.resample_frames:
+                moments, handle["pending"] = self.submit_window_redecodes(
+                    samples, out_mr["prediction"], n)
+            else:
+                moments, handle["frames"] = self.get_relevant_frames(
+                    samples, out_mr["prediction"], n)
         elif not self.use_oracle_localizer:
             moments = [[0, float(d)] for d in durations]
             handle["frames"] = self.extract_frames(samples, moments, n)
         else:
             moments = [list(m[0]) for m in np.asarray(samples["relevant_windows"])]
-            handle["frames"] = self.extract_frames(samples, moments, n)
+            if self.resample_frames:
+                moments, handle["pending"] = self.submit_window_redecodes(
+                    samples, moments, n)
+            else:
+                handle["frames"] = self.extract_frames(samples, moments, n)
         handle["moments"] = moments
         return handle
 
     def videoQA_collect(self, handle) -> Dict[str, Any]:
-        """Stage 2: the answerer over the cropped frames."""
+        """Stage 2: the answerer over the cropped or re-decoded frames."""
         samples = handle["samples"]
-        samples["relevant_frames"] = handle["frames"]
+        frames = handle.get("frames")
+        if frames is None:
+            frames = handle["frames"] = self.collect_window_redecodes(handle["pending"])
+        samples["relevant_frames"] = frames
         out_ans = self.videoQA_answer(samples)
         out_ans["relevant_moments"] = [handle["moments"]]
         return out_ans

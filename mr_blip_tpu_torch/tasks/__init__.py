@@ -1,10 +1,12 @@
 """Tasks. Importing registers the task classes; setup_task resolves by name
 (the port's counterpart of ``mr_blip_tpu/tasks/__init__.py``: the
-moment-retrieval task; the QA, TAL and zoo tasks are not ported yet)."""
+moment-retrieval task and the Mr. BLIP QA tasks videoqa, videogqa and
+frameqa; the TAL and zoo tasks are not ported yet)."""
 
 from mr_blip_tpu_torch.common.registry import registry
 from mr_blip_tpu_torch.tasks.base_task import BaseTask
 from mr_blip_tpu_torch.tasks.moment_retrieval import MomentRetrievalTask
+from mr_blip_tpu_torch.tasks.vqa import FrameQA, VideoGQA, VideoQA
 
 
 def setup_task(cfg):
@@ -15,4 +17,5 @@ def setup_task(cfg):
     return task_cls.setup_task(cfg=cfg)
 
 
-__all__ = ["BaseTask", "MomentRetrievalTask", "setup_task"]
+__all__ = ["BaseTask", "MomentRetrievalTask", "VideoQA", "VideoGQA", "FrameQA",
+           "setup_task"]

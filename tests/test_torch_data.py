@@ -65,9 +65,15 @@ def test_synthetic_video_equals_jax():
                  JaxSyntheticVideo(40, 48, 64, fps=5.0, seed=3).get_window(1.0, 2.5))
 
 
-def test_file_videos_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="FFmpeg reader"):
-        VideoReader("/data/videos/clip.mp4")
+def test_file_videos_raise_not_implemented(tmp_path):
+    """Once refused (the reader served synthetic:// only), a file URI now goes
+    to the FFmpeg reader: a missing file raises ``IOError``, or where FFmpeg is
+    absent ``FFmpegUnavailable``; never ``NotImplementedError``
+    (tests/test_torch_video_reader.py holds the reader)."""
+    from mr_blip_tpu_torch.native.build import FFmpegUnavailable
+
+    with pytest.raises((IOError, FFmpegUnavailable)):
+        VideoReader(str(tmp_path / "clip.mp4"))
 
 
 @pytest.mark.parametrize("sampling", ["uniform", "random", "headtail"])

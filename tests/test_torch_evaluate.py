@@ -69,7 +69,8 @@ def _model_cfg(path, options=()):
 
 PORT_KEYS = ("img_size", "vit_model", "t5_model", "tokenizer_path", "num_query_token",
              "num_beams", "min_new_tokens", "max_txt_len", "max_new_tokens",
-             "input_time_format", "task", "num_frames_for_answer", "relpos_in_kernel",
+             "input_time_format", "task", "num_frames_for_answer", "resample_frames",
+             "relpos_in_kernel",
              "compute_dtype", "init_params", "vocab_size", "use_grad_checkpoint")
 
 
@@ -87,6 +88,8 @@ PORT_KEYS = ("img_size", "vit_model", "t5_model", "tokenizer_path", "num_query_t
       "model.remat_policy=dots_kernels", "model.drop_path_rate=0.1")),
     ("configs/projects/train/tiny_synthetic.yaml", ("model.min_len=5", "model.min_new_tokens=3")),
     ("configs/projects/train/qvh.yaml", ()),
+    ("configs/projects/eval/nextGQA.yaml", ()),
+    ("configs/projects/eval/nextQA.yaml", ()),
 ])
 def test_from_config_constructor_values_equal_jax(path, options):
     cfg, jcfg = _model_cfg(path, options)
@@ -100,7 +103,7 @@ def test_from_config_constructor_values_equal_jax(path, options):
 @pytest.mark.parametrize("key,value,item", [
     ("interleave_data", False, 6), ("frame_token_aggregation", "mean", 6),
     ("freeze_vit", False, 1), ("fast_gelu", True, 6),
-    ("sequence_parallel", True, 8), ("resample_frames", True, 4), ("int8_base", True, 5),
+    ("sequence_parallel", True, 8), ("int8_base", True, 5),
 ])
 def test_from_config_unsupported_settings_raise(key, value, item):
     cfg, _ = _model_cfg("configs/projects/train/tiny_synthetic.yaml")
@@ -109,7 +112,28 @@ def test_from_config_unsupported_settings_raise(key, value, item):
         BLIP2_MR.from_config(cfg, device="cpu")
     assert set(BLIP2_MR.UNSUPPORTED_CONFIG) == {
         "interleave_data", "frame_token_aggregation", "freeze_vit", "fast_gelu",
-        "sequence_parallel", "resample_frames", "int8_base"}
+        "sequence_parallel", "int8_base"}
+
+
+@pytest.mark.parametrize("path", ["configs/projects/eval/nextGQA.yaml",
+                                  "configs/projects/eval/nextQA.yaml"])
+def test_from_config_builds_the_published_qa_configs(path):
+    """``resample_frames: True`` (both published grounded-QA eval configs)
+    reaches the constructor as the JAX one's does, and the model builds: at
+    the published widths up to the constructor, at the tiny widths for real."""
+    cfg, jcfg = _model_cfg(path)
+    got = _constructor_kwargs(BLIP2_MR, cfg, device="cpu")
+    want = _constructor_kwargs(JaxBLIP2_MR, jcfg)
+    assert got["resample_frames"] is want["resample_frames"] is True
+    assert got["task"] == want["task"] == "qformer_freeze_lora_QA_with_localizer"
+    assert got["num_frames_for_answer"] == want["num_frames_for_answer"] == 60
+    assert "resample_frames" in BLIP2_MR.SUPPORTED_CONFIG
+    cfg, _ = _model_cfg(path, ("model.vit_model=tiny", "model.t5_model=tiny",
+                               "model.image_size=28", "model.compute_dtype=float32",
+                               "model.load_finetuned=False"))
+    model = BLIP2_MR.from_config(cfg, device="cpu")
+    assert model.resample_frames and model.use_localizer and model.is_qa
+    assert model.num_frames_for_answer == 60
 
 
 @pytest.mark.parametrize("path", ["configs/projects/train/qvh.yaml",

@@ -193,7 +193,8 @@ def test_span_grammar_copy_matches():
 def test_port_imports_no_jax_or_triton():
     """Nor pyyaml or scikit-learn, which the card's machine lacks: the
     configs are read and every module of the evaluation and train entry
-    points imported."""
+    points imported, the grounded-QA tasks, metrics, datasets and video
+    reader with them."""
     code = (
         "import sys\n"
         "import mr_blip_tpu_torch\n"
@@ -217,9 +218,15 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.runners.runner_base\n"
         "import mr_blip_tpu_torch.train, mr_blip_tpu_torch.runners.runner_iter\n"
         "import mr_blip_tpu_torch.common.preempt, mr_blip_tpu_torch.common.tracking\n"
+        "import mr_blip_tpu_torch.tasks.vqa, mr_blip_tpu_torch.metrics.grounded_qa\n"
+        "import mr_blip_tpu_torch.native.build, mr_blip_tpu_torch.datasets.mr_datasets\n"
         "from mr_blip_tpu_torch.common.config import Config\n"
         "Config(cfg_path='configs/projects/eval/qvh.yaml')\n"
         "Config(cfg_path='configs/projects/train/qvh.yaml')\n"
+        "Config(cfg_path='configs/projects/eval/nextGQA.yaml')\n"
+        "Config(cfg_path='configs/projects/eval/nextQA.yaml')\n"
+        "from mr_blip_tpu_torch.datasets.video_reader import VideoReader\n"
+        "VideoReader('synthetic://8x16x16').get_batch_async([0, 1]).result()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu', 'yaml', 'sklearn')]\n"
         "assert not bad, bad\n"

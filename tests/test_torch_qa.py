@@ -448,8 +448,13 @@ def test_relevant_frames_match_jax(qa_weights, moments, n_frames, video_dtype):
     assert got_f.dtype == want_f.dtype == np.dtype(video_dtype)
     assert got_f.shape == (3, n_frames, 28, 28, 3)
     np.testing.assert_array_equal(got_f, want_f)
-    np.testing.assert_array_equal(port.extract_frames(samples, want_m, n_frames),
-                                  jm.extract_frames(samples, want_m, n_frames))
+    want_crop = jm.extract_frames(samples, want_m, n_frames)
+    np.testing.assert_array_equal(port.extract_frames(samples, want_m, n_frames), want_crop)
+    # Frames a loader put on the device are cropped as a tensor, where they lie.
+    on_device = port.extract_frames(
+        dict(samples, video=torch.from_numpy(samples["video"])), want_m, n_frames)
+    assert isinstance(on_device, torch.Tensor)
+    np.testing.assert_array_equal(on_device.numpy(), want_crop)
 
 
 @pytest.mark.parametrize("video_dtype,b,seed", [("uint8", 3, 0), ("float32", 2, 1)])
@@ -550,10 +555,39 @@ def test_mr_generate_of_a_qa_model_is_the_localizer_s(qa_weights):
     assert got["prediction"] == want["prediction"]
 
 
-def test_resample_frames_raises():
-    with pytest.raises(NotImplementedError, match="video readers and processors"):
-        BLIP2_MR(**TINY, task=QA_TASKS[0], resample_frames=True, init_params=False,
-                 device="cpu")
+@pytest.mark.parametrize("task", [QA_TASKS[0], QA_TASKS[2]])
+def test_resample_frames_redecodes_as_jax(qa_weights, task):
+    """``resample_frames=True`` (once refused by the constructor): the
+    answerer's frames are re-decoded from ``video_path`` inside the
+    localizer's (or the oracle's) window, with the JAX package's moments,
+    frames and answers."""
+    jm, port = _pair(qa_weights, task, resample_frames=True)
+    assert port.resample_frames and jm.resample_frames
+    samples = dict(_qa_samples(seed=6), video_path=[
+        f"synthetic://{int(d * 2)}x40x48@2.0#{i}" for i, d in enumerate((20.0, 30.0, 41.0))])
+    handle = port.videoQA_redecode(port.videoQA_dispatch(samples))
+    assert "pending" in handle
+    moments = handle["moments"]
+    want_m, want_f = jm.get_relevant_frames_resampled(samples, moments, 2)
+    got = port.videoQA_collect(handle)
+    assert handle["frames"].dtype == np.uint8 and handle["frames"].shape == (3, 2, 28, 28, 3)
+    np.testing.assert_array_equal(handle["frames"], want_f)
+    want = jm.videoQA_generate(samples)
+    assert got["output_text"] == want["output_text"]
+    assert [[float(x) for x in m] for m in got["relevant_moments"][0]] == [
+        [float(x) for x in m] for m in want["relevant_moments"][0]]
+
+
+def test_qa_crop_takes_frames_already_on_the_device(qa_weights):
+    """Frames a PrefetchLoader put on the device (a tensor) give the answers
+    and moments numpy frames give, when the answerer's frames are cropped
+    from them (no ``resample_frames``)."""
+    _, port = _pair(qa_weights, QA_TASKS[0])
+    samples = _qa_samples(seed=7)
+    want = port.videoQA_generate(samples)
+    got = port.videoQA_generate(dict(samples, video=torch.from_numpy(samples["video"])))
+    assert got["output_text"] == want["output_text"]
+    assert got["relevant_moments"] == want["relevant_moments"]
 
 
 def test_qa_model_quantizes_both_t5_stacks(qa_weights):
