@@ -98,7 +98,8 @@ is nonzero and the final line is not printed:
    the trainable parameter count;
 7. gradients, kernel path vs plain path: the depth-2 full-width model (rel-pos
    table at N(0, 1), T5 query projections at HF T5's init scale), dropouts
-   off, one forward and backward each for ``qformer_freeze_lora``, ``lora``
+   off, one forward and backward of 1 x 8 frames each for
+   ``qformer_freeze_lora``, ``lora``
    (the Q-Former trains: the LayerNorm backward runs on the card) and
    ``qformer_freeze`` (the full-finetune backward: the rel-pos table trains
    and kernel 7 launches once per encoder layer), on the card and on the CPU
@@ -140,7 +141,7 @@ is nonzero and the final line is not printed:
 12. long context, kernel path vs plain path: the depth-2 full-width
     ``relpos_in_kernel`` model (weights as in phase 7), one forward and
     backward on the card and on the CPU in bf16: ``qformer_freeze_lora`` at
-    1 x 120 frames (also against the card's own ``relpos_in_kernel=False``
+    1 x 60 frames (also against the card's own ``relpos_in_kernel=False``
     run of the same weights) and ``qformer_freeze`` at 1 x 60 frames (the
     rel-pos table trains: kernel 11 launches once per encoder layer and the
     table's gradient is compared with the plain path's); T5 encoder rows
@@ -199,12 +200,19 @@ is nonzero and the final line is not printed:
     its metrics dict must hold the six keys with ``total`` 8. Prints seconds
     and frames/s per batch, the time before the first batch, peak memory and
     the metrics (random weights: every span is ``[[-1, -1]]``, so the scores
-    are no quality number).
+    are no quality number). Then temporal action localization on the same
+    model: ``evaluate.main`` on ``configs/projects/eval/anet_TAL.yaml``
+    (task ``temporal_action_localization``, the ``anet_TAL`` builder; its
+    model section asks ``from_config`` for what qvh.yaml's does, checked on the
+    constructor's arguments) over one batch of 4 synthetic 120 s videos
+    (ActivityNet's length; every other query empty, as in TAL): launches
+    110 / 39 / 24, rows equal to a serial ``model.generate``, the metrics the
+    JAX task's seven keys, and the warning for the missing classes file.
 17. the train entry point: ``mr_blip_tpu_torch.train.main`` on
     ``configs/projects/train/qvh.yaml`` as published (EVA ViT-g and Q-Former
     frozen, Flan-T5-XL with LoRA r=8, ``use_grad_checkpoint``, micro-batches
     of 1 x 60 frames, ``accum_grad_iters`` 8, ``linear_warmup_cosine_lr``,
-    random weights) but for synthetic annotations (16 train queries, 2 val, 2
+    random weights) but for synthetic annotations (8 train queries, 2 val, 2
     test, 150 s videos at 10 fps), ``run.max_epoch=2`` and a temporary output
     directory: every micro-batch must launch kernel 5 48 times (the forward
     and each encoder block's recompute), 6 and 8 24, LayerNorm 110, packed QKV
@@ -239,6 +247,24 @@ is nonzero and the final line is not printed:
     TIoP@0.3/0.5, mIoU, TIoU@0.3/0.5, ``agg_metrics`` and ``total``. Prints
     seconds per question (steady, pipelined), the localizer / re-decode /
     answerer split of the serial run, and peak memory beside the card.
+19. the OPT variant's evaluation entry point: ``mr_blip_tpu_torch.evaluate.main``
+    on ``configs/projects/eval/opt_charades.yaml`` (``blip2_opt_mr``: EVA
+    ViT-g, Q-Former and OPT-2.7b at full width and depth (32 layers, d 2,560,
+    32 heads, FFN 10,240), bf16, greedy, ``min_len`` 5, batch 1; vocabulary
+    of the fallback tokenizer, random weights) over OPT_QUESTIONS synthetic
+    queries on 30 s videos (Charades-STA's length), one model built for the
+    phase. At the published 60 frames the prompt passes OPT's 2,048
+    positions: the run must raise the model's ``ValueError``. The frame count
+    is cut to the largest whose prompt and 50 new tokens fit (printed; it
+    must be OPT_FRAMES, whose prefill rows phase 3 holds kernel 1 at); each
+    question must launch LayerNorm 110 (ViT, ln_vision, Q-Former) + 65 for
+    the prefill + 65 per decode step, packed QKV 39, no other kernel; rows
+    equal a serial ``model.generate`` of the same loader batches. Prints
+    seconds per question (steady) and peak memory. Then one LoRA micro-batch
+    of ``TrainCtx.step`` on that model (finite loss, every LoRA gradient
+    finite and nonzero, LayerNorm 175 and packed QKV 39 launches), and the
+    depth-2 model at full width on 1 x 8 frames against the CPU's plain path
+    (the OPT's logits over the prompt, cosine >= 0.999 row by row).
 
 Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
 (4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
@@ -261,7 +287,12 @@ masked), the W8A8 linear at the two shapes of the split int8 ViT route
 ((162,480, 1,408) x 4,224 with LN and bias, x 1,408 with the residual) and
 the W8A8 GELU MLP at (162,480, 1,408, 6,144). The biased flash forward is also
 held at phase 18's encoder lengths, batch 1: 2,088 (the localizer) and 2,024
-(the answerer, its last 5 keys masked).
+(the answerer, its last 5 keys masked). LayerNorm is also held at phase 19's
+OPT shapes, width 2,560 through its generic 16-byte kernel: the prefill's
+1,988 rows and a decode step's single row, each timed beside ``F.layer_norm``
+and its bound, and, since an event pair around so short a call times the
+host's launch, also as device time (``graph_ms``: 20 launches captured in a
+CUDA graph and replayed).
 
 The line before the last is one JSON object with every kernel's numbers
 (launches: kernels 1-3 from phase 4 (phases 16 and 18 print their own
@@ -270,6 +301,7 @@ and 8 from phase 6, 7 from phase 7's ``qformer_freeze`` run, 13-16 from phase
 8, 9 from phase 10's bf16 run, 10 and 12 from phase 11, 11 from phase 12's
 ``qformer_freeze`` run; ``train_entry_launches`` from phase 17's first run,
 ``qa_entry_launches`` from phase 18's pipelined run (all its questions);
+``opt_entry_launches`` from phase 19's evaluation (all its questions);
 each count is taken with the counts set to 0 just before its path runs); the
 last line is {"ok": true, "device": {...}}.
 """
@@ -338,6 +370,9 @@ EXPECTED_TRAIN_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_bias_attention=0,
                                flash_bias_bwd_dkv=24)
 # Phase 7: kernel path vs plain path gradients, per task.
 GRAD_TASKS = ("qformer_freeze_lora", "lora", "qformer_freeze")
+# One video of 8 frames a run (2 videos before: the CPU's runs were most of
+# the phase's time).
+GRAD_FRAMES = 8
 LOSS_REL_TOL = 1e-2
 GRAD_COSINE_MIN = 0.99
 # Phase 7 in the fp32 parity mode: kernels 5, 6, 8 (LoRA) and 5, 7, 8 (the
@@ -364,12 +399,11 @@ EXPECTED_LONG_INT8_LAUNCHES = dict(EXPECTED_INT8_LAUNCHES, flash_bias_attention=
                                    flash_relpos_fwd_stats=24)
 EXPECTED_LONG_TRAIN_LAUNCHES = dict(EXPECTED_LONG_LAUNCHES, flash_relpos_bwd_dq=24,
                                     flash_relpos_bwd_dkv=24)
-# Phase 12, (task, frames): the CPU plain path took 154 s at 1 x 240 frames
-# and 72 s at 1 x 120 (bf16 on the card machine's 8 cores), most of a
-# 900 s script, so the LoRA task runs at half the full length (encoder
-# length 4,040) and the table-training task at 60 frames. Phase 3 holds
-# kernels 9-12 at the full 8,000 tokens.
-LONG_GRAD_TASKS = (("qformer_freeze_lora", 120), ("qformer_freeze", 60))
+# Phase 12, (task, frames): the CPU plain path took 154 s at 1 x 240 frames,
+# 72 s (later 47.7 s) at 1 x 120 and 30.5 s at 1 x 60 (bf16 on the card
+# machine's 8 cores), most of a 900 s script, so both tasks run at 60 frames
+# (encoder length 2,056). Phase 3 holds kernels 9-12 at the full 8,000 tokens.
+LONG_GRAD_TASKS = (("qformer_freeze_lora", 60), ("qformer_freeze", 60))
 # Phase 12 in the fp32 parity mode (kernels 9, 10, 12 and 9, 11, 12 in fp32):
 # 1 x 60 frames (encoder length 2,056), where the CPU's fp32 runs are short.
 LONG_FP32_GRAD_TASKS = (("qformer_freeze_lora", 60), ("qformer_freeze", 60))
@@ -403,9 +437,9 @@ FP32_PATH_REL_TOL = 1e-4
 # clips), two batches of its batch size 4.
 EVAL_QUERIES, EVAL_VIDEO_FRAMES, EVAL_FPS = 8, 1500, 10.0
 # Phase 17, the train entry point on configs/projects/train/qvh.yaml (batches
-# of 1 x 60 frames, accum_grad_iters 8, use_grad_checkpoint): 16 synthetic
-# train queries (2 updates an epoch), 2 val and 2 test, 2 epochs.
-TRAIN_QUERIES, TRAIN_EVAL_QUERIES, TRAIN_EPOCHS, TRAIN_ACCUM = 16, 2, 2, 8
+# of 1 x 60 frames, accum_grad_iters 8, use_grad_checkpoint): 8 synthetic
+# train queries (1 update an epoch), 2 val and 2 test, 2 epochs.
+TRAIN_QUERIES, TRAIN_EVAL_QUERIES, TRAIN_EPOCHS, TRAIN_ACCUM = 8, 2, 2, 8
 # The preempted and the resumed run read annotations of their own, 10 train
 # queries, 1 val and 1 test; the first is stopped after 9 micro-batches: one
 # update and 1 micro-batch into the second window (not a multiple of 8).
@@ -431,6 +465,26 @@ EXPECTED_QA_ENTRY_LAUNCHES = dict(EXPECTED_LAUNCHES, layer_norm=220,
                                   qkv_packed_attention=78, flash_bias_attention=48)
 QA_METRIC_KEYS = ("Acc@GQA", "mIoP", "TIoP@0.3", "TIoP@0.5", "mIoU", "TIoU@0.3",
                   "TIoU@0.5", "agg_metrics", "total")
+# Phase 16's TAL batch, configs/projects/eval/anet_TAL.yaml (its model section
+# is qvh.yaml's, so phase 16's model serves it): one batch of 4 synthetic
+# videos of 120 s at 10 fps (ActivityNet's length).
+TAL_QUERIES, TAL_VIDEO_FRAMES = 4, 1200
+TAL_METRIC_KEYS = ("agg_metrics", "r1", "mAP", "mIoU", "invalid_predictions",
+                   "class_label_mismatch", "total")
+# Phase 19, configs/projects/eval/opt_charades.yaml (OPT-2.7b, greedy, batch
+# 1): OPT_QUESTIONS synthetic queries over 30 s videos at 10 fps
+# (Charades-STA's length). At the published 60 frames the prompt (122
+# timestamp tokens, 1,920 frame tokens, the end token and 48 text tokens:
+# 2,091 with the fallback tokenizer) passes OPT's 2,048 positions and the
+# model must refuse it; the phase then takes the largest frame count whose
+# prompt and 50 new tokens fit, found at run time: OPT_FRAMES (prompt 1,989,
+# last position 2,037). The prefill writes the prompt but its last token:
+# OPT_PREFILL_ROWS rows, where phase 3 holds kernel 1 at the OPT's width.
+OPT_WIDTH, OPT_QUESTIONS, OPT_VIDEO_FRAMES, OPT_FPS = 2560, 4, 300, 10.0
+OPT_FRAMES, OPT_PREFILL_ROWS = 57, 1988
+# Per pass of the OPT decoder (the prefill, each decode step, the train
+# forward): 2 LayerNorms a layer over 32 layers and the final norm.
+OPT_LN_PER_PASS = 2 * 32 + 1
 
 
 def say(*parts):
@@ -456,6 +510,22 @@ def median_ms(torch, fn, iters=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps=20):
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA graph,
+    the graph's replay timed by ``median_ms``, divided by ``reps``. For a
+    call so short that the event pair around it measures the host's launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return median_ms(torch, graph.replay) / reps
 
 
 def set_bound(entry, nbytes, bf16_flops=0.0, int8_ops=0.0):
@@ -491,7 +561,7 @@ def check_kernels(torch, kernels):
     import torch.nn.functional as F
 
     from mr_blip_tpu_torch.ops import flash_attention as fa
-    from mr_blip_tpu_torch.ops.layer_norm import _ln_reference, fused_layer_norm
+    from mr_blip_tpu_torch.ops.layer_norm import _ln_plan, _ln_reference, fused_layer_norm
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -524,6 +594,36 @@ def check_kernels(torch, kernels):
         say(line)
         require(err <= TOL, f"layer_norm ({rows}, {d}) off by {err}")
         ln["max_abs_err"] = max(ln.get("max_abs_err", 0.0), err)
+    # The OPT-2.7b decoder's norms (phase 19): the prefill's rows and a
+    # decode step's single row at width 2,560, through the generic 16-byte
+    # kernel (no register kernel has this width); each timed.
+    for rows in (OPT_PREFILL_ROWS, 1):
+        d, eps = OPT_WIDTH, 1e-5
+        x = randn(rows, d, scale=2.0)
+        w = randn(d, scale=0.1, dtype=torch.float32) + 1.0
+        b = randn(d, scale=0.1, dtype=torch.float32)
+        got = fused_layer_norm(x, w, b, eps)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, _ln_reference(x.float(), w, b, eps))
+        timed = {"ms": median_ms(torch, lambda: fused_layer_norm(x, w, b, eps)),
+                 "plain_ms": median_ms(torch, lambda: _ln_reference(x, w, b, eps))}
+        w16, b16 = w.to(x.dtype), b.to(x.dtype)
+        timed["library_ms"] = median_ms(torch, lambda: F.layer_norm(x, (d,), w16, b16, eps))
+        set_bound(timed, nbytes(x, got, w, b))
+        plan = _ln_plan(d, x.data_ptr(), got.data_ptr(), w.data_ptr(), b.data_ptr())
+        before = fused_layer_norm.launches
+        timed["device_ms"] = graph_ms(torch, lambda: fused_layer_norm(x, w, b, eps))
+        timed["library_device_ms"] = graph_ms(
+            torch, lambda: F.layer_norm(x, (d,), w16, b16, eps))
+        fused_layer_norm.launches = before
+        say(f"layer_norm ({rows}, {d}) eps {eps:g} [OPT, {plan} kernel]: max|diff| "
+            f"{err:.5f}" + timing_line(timed) + f"; device time (CUDA graph of 20 "
+            f"launches) kernel {timed['device_ms']:.4f} ms, library "
+            f"{timed['library_device_ms']:.4f} ms")
+        require(plan == "vec8", f"layer_norm at width {d}: the {plan} kernel")
+        require(err <= TOL, f"layer_norm ({rows}, {d}) off by {err}")
+        ln["max_abs_err"] = max(ln["max_abs_err"], err)
+        ln[f"opt_{'prefill' if rows > 1 else 'step'}"] = timed
 
     qk = kernels["qkv_packed_attention"]
     heads, hd = 16, 88
@@ -1923,11 +2023,11 @@ def gradients_kernel_vs_plain(torch, wrappers, long=False, fp32=False):
     if long:
         tasks = LONG_FP32_GRAD_TASKS if fp32 else LONG_GRAD_TASKS
     else:
-        tasks = [(t, 8) for t in (FP32_GRAD_TASKS if fp32 else GRAD_TASKS)]
+        tasks = [(t, GRAD_FRAMES) for t in (FP32_GRAD_TASKS if fp32 else GRAD_TASKS)]
     dbias_launches = 0
     for task, frames in tasks:
-        samples = make_samples(1 if long else 2, frames, seed=7)
-        size = f"{1 if long else 2} x {frames}"
+        samples = make_samples(1, frames, seed=7)
+        size = f"1 x {frames}"
         gpu = reduced_model("cuda", task=task, relpos_in_kernel=long, **dtype_kw)
         cfg = gpu.t5_config
         # The rel-pos table at N(0, 1), as in phase 5. The T5 query
@@ -2471,6 +2571,7 @@ def evaluation_entry_point(torch, wrappers, card):
         f"string): {[(r['qid'], r['prediction'], r['target']) for r in rows]}")
     say(f"evaluation metrics (random weights: every span [[-1, -1]], so no quality "
         f"number): {json.dumps(metrics)}")
+    tal_entry_point(torch, wrappers, model, calls, tapped_dispatch)
     steady = statistics.mean(seconds[1:])
     say(f"evaluation entry point (configs/projects/eval/qvh.yaml, {EVAL_QUERIES} queries over "
         f"{EVAL_VIDEO_FRAMES / EVAL_FPS:.0f} s videos, B={BATCH} x {N_FRAMES} frames): "
@@ -2483,6 +2584,100 @@ def evaluation_entry_point(torch, wrappers, card):
     torch.cuda.empty_cache()
     return launches, dict(steady_s=steady, first_s=seconds[0], wall_s=wall,
                           peak_gib=(peak - resident) / 2**30)
+
+
+def tal_entry_point(torch, wrappers, model, calls, tapped_dispatch):
+    """Phase 16's TAL batch: ``mr_blip_tpu_torch.evaluate.main`` on
+    ``configs/projects/eval/anet_TAL.yaml`` (task
+    ``temporal_action_localization``, the ``anet_TAL`` builder) over one batch
+    of TAL_QUERIES synthetic videos of 120 s. Its model section asks
+    ``from_config`` for what qvh.yaml's does (checked on the constructor's
+    arguments), so phase 16's ``model`` serves it; its classes file does not
+    exist, so the task logs a warning and validates no label. The batch must
+    launch phase 4's kernels, its rows equal a serial ``model.generate`` of
+    the same loader batch, and its metrics carry the JAX package's keys."""
+    import logging
+    import tempfile
+
+    from mr_blip_tpu_torch import evaluate
+    from mr_blip_tpu_torch.common.config import Config
+    from mr_blip_tpu_torch.datasets.synthetic import make_tal_annotations
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.tasks.temporal_action_localization import TALTask
+
+    class Stop(Exception):
+        pass
+
+    def constructor_kwargs(path):
+        seen = {}
+
+        def probe_init(self, **kwargs):
+            seen.update(kwargs)
+            raise Stop
+
+        try:
+            type("Probe", (BLIP2_MR,), {"__init__": probe_init}).from_config(
+                Config(cfg_path=str(ROOT / path)).model_cfg)
+        except Stop:
+            return seen
+
+    tal_kw = constructor_kwargs("configs/projects/eval/anet_TAL.yaml")
+    require(tal_kw == constructor_kwargs("configs/projects/eval/qvh.yaml"),
+            f"TAL: anet_TAL.yaml asks for another model than qvh.yaml: {tal_kw}")
+    messages = []
+
+    class Messages(logging.Filter):  # survives setup_logger's basicConfig(force=True)
+        def filter(self, record):
+            messages.append(record.getMessage())
+            return True
+
+    dispatch = BLIP2_MR.generate_dispatch
+    from_config = BLIP2_MR.__dict__["from_config"]
+    calls.clear()
+    log_filter = Messages()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_tal_annotations(tmp, n_train=0, n_val=0, n_test=TAL_QUERIES,
+                                     n_video_frames=TAL_VIDEO_FRAMES, fps=EVAL_FPS)
+        argv = ["--cfg-path", str(ROOT / "configs/projects/eval/anet_TAL.yaml"), "--options",
+                *(f"datasets.anet_TAL.build_info.annotations.{split}.storage={path}"
+                  for split, path in paths.items()),
+                "datasets.anet_TAL.build_info.videos.storage=synthetic",
+                f"run.output_dir={Path(tmp) / 'out'}"]
+        BLIP2_MR.from_config = classmethod(lambda cls, cfg, device="cuda": model)
+        BLIP2_MR.generate_dispatch = tapped_dispatch
+        logging.getLogger().addFilter(log_filter)
+        t0 = time.time()
+        try:
+            logs = evaluate.main(argv)
+        finally:
+            logging.getLogger().removeFilter(log_filter)
+            BLIP2_MR.from_config, BLIP2_MR.generate_dispatch = from_config, dispatch
+        wall = time.time() - t0
+        (result_file,) = (Path(tmp) / "out").glob("*/result/test_epochbest.json")
+        rows = json.loads(result_file.read_text())
+    require(len(calls) == 1, f"TAL: {len(calls)} batches, expected 1")
+    _, samples, rose, _, steps = calls[0]
+    require(rose == EXPECTED_LAUNCHES, f"TAL batch: launches {rose}, expected "
+            f"{EXPECTED_LAUNCHES}")
+    require(tuple(samples["video"].shape) == (BATCH, N_FRAMES, 224, 224, 3)
+            and samples["video"].is_cuda, f"TAL frames {tuple(samples['video'].shape)}")
+    require(all(p == "" or p.startswith("Query: ") for p in samples["query_prompt"])
+            and "" in samples["query_prompt"]
+            and all("action class" in p for p in samples["task_prompt"]),
+            "TAL: the batch does not carry the TAL prompts")
+    want = json.loads(json.dumps(TALTask().valid_step(model, samples), default=float))
+    require(rows == want, f"TAL rows differ from model.generate: {rows} vs {want}")
+    metrics = json.loads(json.dumps(logs["test"], default=float))
+    require(set(metrics) == set(TAL_METRIC_KEYS) and metrics["total"] == TAL_QUERIES,
+            f"TAL metrics {metrics}")
+    require(any("classes file" in m and "not found" in m for m in messages),
+            "TAL: no warning for the missing classes file")
+    say(f"TAL batch (configs/projects/eval/anet_TAL.yaml on phase 16's model, {TAL_QUERIES} "
+        f"videos of {TAL_VIDEO_FRAMES / EVAL_FPS:.0f} s, 1 x {BATCH} x {N_FRAMES} frames): "
+        f"{steps} decode steps, launches { {k: v for k, v in rose.items() if v} }; rows equal "
+        f"to model.generate: {[(r['qid'], r['prediction'], r['target']) for r in rows]}; "
+        f"classes file missing -> warning, no label validation; metrics (random weights) "
+        f"{json.dumps(metrics)}; main() {wall:.3f} s")
 
 
 # -------------------------------------------------------------- phase 17
@@ -3001,6 +3196,296 @@ def qa_entry_point(torch, wrappers, card):
                           peak_gib=(peak - resident) / 2**30)
 
 
+# -------------------------------------------------------------- phase 19
+def opt_prompt_length(model, sample):
+    """The OPT prompt's length for one dataset item: the timestamp prompt,
+    the frame tokens, the end token and the bucketed query + task prompt."""
+    from mr_blip_tpu_torch.datasets.base_dataset import default_collate
+
+    batch = model.prepare_opt_batch(default_collate([sample]), need_targets=False)
+    return (batch["vid_ids"].shape[1] + batch["frames"].shape[1] * model.module.tokens_per_frame
+            + batch["end_ids"].shape[1] + batch["text_ids"].shape[1])
+
+
+def opt_entry_point(torch, wrappers, card):
+    """Phase 19: ``python -m mr_blip_tpu_torch.evaluate`` on
+    ``configs/projects/eval/opt_charades.yaml`` (``blip2_opt_mr``: EVA ViT-g,
+    Q-Former, OPT-2.7b at full width and depth, bf16, greedy, ``min_len`` 5,
+    batch 1), called in this process on OPT_QUESTIONS synthetic queries over
+    30 s videos, its model built once by ``BLIP2_MR_OPT.from_config`` with
+    random weights and the fallback tokenizer's vocabulary. At the published
+    60 frames the prompt passes OPT's 2,048 positions and the run must raise
+    the model's ``ValueError``; the frame count is then cut to the largest
+    whose prompt and ``max_new_tokens`` fit (printed; OPT_FRAMES), and every
+    question must launch LayerNorm 110 + 65 x (1 + decode steps) and packed
+    QKV 39 times and no other kernel, its rows equal a serial
+    ``model.generate`` of the same loader batches. Then one LoRA micro-batch
+    of ``TrainCtx.step`` on that model (finite loss, every LoRA gradient
+    finite and nonzero) and the depth-2 kernel path against the CPU's plain
+    path. Returns the launch counts of the evaluation and its summary."""
+    import tempfile
+
+    from mr_blip_tpu_torch import evaluate, tasks
+    from mr_blip_tpu_torch.common.config import Config
+    from mr_blip_tpu_torch.datasets.synthetic import make_mr_annotations
+    from mr_blip_tpu_torch.models.blip2_mr_opt import BLIP2_MR_OPT
+    from mr_blip_tpu_torch.runners.train_state import TrainCtx
+    from mr_blip_tpu_torch.tasks.moment_retrieval import MomentRetrievalTask
+
+    cfg_path = ROOT / "configs/projects/eval/opt_charades.yaml"
+    built = []  # the model and the config section it was built from
+    calls, collect_ends = [], []
+    from_config = BLIP2_MR_OPT.__dict__["from_config"]
+    dispatch, collect = BLIP2_MR_OPT.generate_dispatch, BLIP2_MR_OPT.generate_collect
+
+    def built_once(cls, cfg, device="cuda"):
+        if not built:
+            t0 = time.time()
+            built.append((from_config.__func__(cls, cfg, device=device), dict(cfg),
+                          time.time() - t0))
+        require(dict(cfg) == built[0][1], "phase 19: a second run asks for another model")
+        return built[0][0]
+
+    def tapped_dispatch(model, samples):
+        start = time.time()
+        require(isinstance(samples["video"], torch.Tensor) and samples["video"].is_cuda,
+                "OPT evaluation: the loader did not put the frames on the card")
+        before = {name: w.launches for name, w in wrappers.items()}
+        steps = []
+        step = model.module.decode_step
+        model.module.decode_step = lambda *a: steps.append(1) or step(*a)
+        try:
+            handle = dispatch(model, samples)
+        finally:
+            del model.module.decode_step
+        calls.append((samples, {name: w.launches - before[name]
+                                for name, w in wrappers.items()}, start, len(steps)))
+        return handle
+
+    def tapped_collect(model, handle):
+        out = collect(model, handle)
+        collect_ends.append(time.time())
+        return out
+
+    def argv(tmp, paths, n_frms):
+        return ["--cfg-path", str(cfg_path), "--options",
+                *(f"datasets.charades_sta.build_info.annotations.{split}.storage={path}"
+                  for split, path in paths.items()),
+                "datasets.charades_sta.build_info.videos.storage=synthetic",
+                f"datasets.charades_sta.vis_processor.eval.n_frms={n_frms}",
+                f"run.output_dir={Path(tmp) / f'out{n_frms}'}"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_mr_annotations(tmp, n_train=0, n_val=OPT_QUESTIONS, n_test=0,
+                                    n_video_frames=OPT_VIDEO_FRAMES, fps=OPT_FPS)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()  # what earlier phases still hold
+        BLIP2_MR_OPT.from_config = classmethod(built_once)
+        BLIP2_MR_OPT.generate_dispatch = tapped_dispatch
+        BLIP2_MR_OPT.generate_collect = tapped_collect
+        try:
+            # The published 60 frames: the model must refuse the prompt.
+            t0 = time.time()
+            refusal = None
+            try:
+                evaluate.main(argv(tmp, paths, 60))
+            except ValueError as err:
+                refusal = str(err)
+            gc.collect()  # closes the interrupted loaders
+            refusal_s = time.time() - t0
+            require(refusal is not None and "max_position_embeddings" in refusal
+                    and "2048" in refusal, f"OPT at 60 frames: no position refusal ({refusal})")
+            model, _, build_s = built[0]
+            cfg = model.opt_config
+            require(model.num_beams == 1 and model.min_new_tokens == 5
+                    and model.compute_dtype == torch.bfloat16 and model.vit_config.depth == 39
+                    and (cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.ffn_dim)
+                    == (32, OPT_WIDTH, 32, 10240) and model.task == "qformer_freeze_lora"
+                    and cfg.vocab_size == model.tokenizer.vocab_size,
+                    "OPT evaluation: the model is not opt_charades.yaml's")
+            # The largest frame count whose positions (the prefill's P - 1,
+            # then max_new_tokens steps) stay below max_position_embeddings.
+            lengths = {}
+            for n in range(60, 0, -1):
+                run_cfg = Config(cfg_path=str(cfg_path), options=argv(tmp, paths, n)[3:])
+                data = tasks.setup_task(run_cfg).build_datasets(run_cfg)["charades_sta"]["val"]
+                lengths[n] = max(opt_prompt_length(model, data[i]) for i in range(len(data)))
+                if lengths[n] + model.max_new_tokens - 1 <= cfg.max_position_embeddings:
+                    frames = n
+                    break
+            say(f"OPT evaluation: prompt {lengths[60]} tokens at the published 60 frames "
+                f"(+{model.max_new_tokens} new tokens) passes the {cfg.max_position_embeddings} "
+                f"positions -> ValueError in {refusal_s:.1f} s ({refusal}); "
+                f"frames cut to {frames} (prompt {lengths[frames]}, last position "
+                f"{lengths[frames] + model.max_new_tokens - 2}; prompts by frames "
+                f"{lengths}); model built in {build_s:.1f} s")
+            require(frames == OPT_FRAMES and lengths[frames] - 1 == OPT_PREFILL_ROWS,
+                    f"OPT evaluation: {frames} frames, prefill {lengths[frames] - 1} rows; "
+                    f"phase 3 holds kernel 1 at {OPT_PREFILL_ROWS}")
+
+            # The evaluation at that frame count.
+            calls.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.time()
+            logs = evaluate.main(argv(tmp, paths, frames))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {name: w.launches for name, w in wrappers.items()}
+            peak = torch.cuda.max_memory_allocated()
+            (result_file,) = (Path(tmp) / f"out{frames}").glob("*/result/val_epochbest.json")
+            rows = json.loads(result_file.read_text())
+        finally:
+            BLIP2_MR_OPT.from_config = from_config
+            BLIP2_MR_OPT.generate_dispatch, BLIP2_MR_OPT.generate_collect = dispatch, collect
+
+    require(len(calls) == OPT_QUESTIONS and len(collect_ends) == OPT_QUESTIONS,
+            f"OPT evaluation: {len(calls)} dispatches, {len(collect_ends)} collects")
+    starts = [c[2] for c in calls]
+    seconds = [b - a for a, b in zip(starts, starts[1:] + [collect_ends[-1]])]
+    for i, (samples, rose, _, steps) in enumerate(calls):
+        shape = tuple(samples["video"].shape)
+        expected = dict(EXPECTED_LAUNCHES, flash_bias_attention=0,
+                        layer_norm=110 + OPT_LN_PER_PASS * (1 + steps))
+        say(f"OPT question {i}: {seconds[i]:.3f} s, {steps} decode steps, frames {shape}  "
+            f"launches { {k: v for k, v in rose.items() if v} } (predicted "
+            f"{ {k: v for k, v in expected.items() if v} })")
+        require(rose == expected, f"OPT question {i}: launches {rose}, expected {expected}")
+        require(shape == (1, frames, 224, 224, 3), f"OPT question {i}: frames {shape}")
+    want = []
+    for samples, _, _, _ in calls:
+        want += MomentRetrievalTask._rows_from_outputs(model.generate(samples))
+    want = json.loads(json.dumps(want, default=float))
+    require(rows == want, f"OPT evaluation rows differ from model.generate: {rows} vs {want}")
+    metrics = json.loads(json.dumps(logs["val"], default=float))
+    require(set(metrics) == {"agg_metrics", "r1", "mAP", "mIoU", "invalid_predictions",
+                             "total"} and metrics["total"] == OPT_QUESTIONS,
+            f"OPT evaluation metrics {metrics}")
+    steady = statistics.mean(seconds[1:])
+    say(f"OPT evaluation rows (equal to model.generate): "
+        f"{[(r['qid'], r['raw_prediction'], r['prediction']) for r in rows]}; metrics "
+        f"(random weights) {json.dumps(metrics)}")
+    say(f"OPT evaluation entry point (configs/projects/eval/opt_charades.yaml, OPT-2.7b, "
+        f"{OPT_QUESTIONS} queries over {OPT_VIDEO_FRAMES / OPT_FPS:.0f} s videos, 1 x {frames} "
+        f"frames, greedy): steady {steady:.3f} s/question (questions 1-{OPT_QUESTIONS - 1}), "
+        f"first {seconds[0]:.3f} s; main() {wall:.3f} s; peak memory "
+        f"{(peak - resident) / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB earlier "
+        f"phases held; {card}")
+
+    # One LoRA micro-batch on the same model (dropouts on, no update).
+    samples = dict(calls[0][0])
+    ctx = TrainCtx(model, accum_grad_iters=2)
+    ctx.set_lr(3e-4)
+    batch = model.prepare_mr_batch(samples)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    loss = ctx.step(batch)
+    torch.cuda.synchronize()
+    step_s = time.time() - t0
+    rose = {name: w.launches for name, w in wrappers.items() if w.launches}
+    lora = {n: p for n, p in model.module.named_parameters() if p.requires_grad}
+    require(math.isfinite(loss), f"OPT LoRA step: loss {loss}")
+    require(lora and all(n.startswith("opt.") and "lora_" in n for n in lora)
+            and all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                    for p in lora.values())
+            and all(float(p.grad.abs().max()) > 0 for n, p in lora.items()
+                    if "lora_a" in n or "lora_b" in n),
+            "OPT LoRA step: a LoRA gradient is missing, not finite or zero")
+    expected = {"layer_norm": 110 + OPT_LN_PER_PASS, "qkv_packed_attention": 39}
+    require(rose == expected, f"OPT LoRA step: launches {rose}, expected {expected}")
+    say(f"OPT LoRA micro-batch (TrainCtx.step, 1 x {frames} frames, sequence "
+        f"{batch['vid_ids'].shape[1] + frames * 32 + 1 + batch['text_ids'].shape[1] + batch['answer_ids'].shape[1]}"
+        f" tokens): loss {loss:.4f}, {len(lora)} LoRA tensors with finite nonzero gradients, "
+        f"{sum(p.numel() for p in lora.values()):,} parameters train; {step_s:.3f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {rose}; {card}")
+    del model, ctx, lora, built[:], calls[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_kernel_vs_plain_path(torch, wrappers)
+    return launches, dict(steady_s=steady, first_s=seconds[0], wall_s=wall,
+                          peak_gib=(peak - resident) / 2**30, frames=frames)
+
+
+def reduced_opt_model(device, init_params=True):
+    """The OPT variant at full widths, ViT, Q-Former and OPT REDUCED_DEPTH
+    deep, opt_charades.yaml's settings."""
+    import dataclasses
+
+    from mr_blip_tpu_torch.models.blip2_mr_opt import BLIP2_MR_OPT, Blip2OPTModule
+    from mr_blip_tpu_torch.models.eva_vit import eva_vit_g_config
+    from mr_blip_tpu_torch.models.opt import opt_2_7b_config
+
+    class ReducedDepth(BLIP2_MR_OPT):
+        VIT_CONFIGS = {"eva_vit_g": lambda **kw: dataclasses.replace(
+            eva_vit_g_config(**kw), depth=REDUCED_DEPTH)}
+        OPT_CONFIGS = {"opt-2.7b": lambda **kw: dataclasses.replace(
+            opt_2_7b_config(**kw), num_layers=REDUCED_DEPTH)}
+
+        def __init__(self):
+            super().__init__(task="qformer_freeze_lora", num_beams=1, min_new_tokens=5,
+                             init_params=False, device=device)
+            self.qformer_config = dataclasses.replace(self.qformer_config,
+                                                      num_layers=REDUCED_DEPTH)
+            self.module = Blip2OPTModule(self.vit_config, self.qformer_config,
+                                         self.opt_config, compute_dtype=self.compute_dtype,
+                                         device=self.device).eval()
+            self.module.requires_grad_(False)
+            if init_params:
+                self.init_params(0)
+
+    return ReducedDepth()
+
+
+def opt_logits(torch, model, samples):
+    """The OPT's logits over the assembled prompt, fp32 on the host."""
+    with torch.inference_mode():
+        tensors = model._to_device(model.prepare_opt_batch(samples, need_targets=False))
+        embeds, mask = model.module.prefill(tensors["frames"],
+                                            *(tensors[k] for k in model._PROMPT_KEYS))
+        return model.module.opt(embeds, attention_mask=mask).float().cpu()
+
+
+def opt_kernel_vs_plain_path(torch, wrappers):
+    """The depth-2 OPT model at full width on 1 x 8 frames, bf16, on the card
+    (kernels 1 and 2) and on the CPU (their plain versions): the logits of
+    every prompt row must agree, cosine >= 0.999."""
+    from mr_blip_tpu_torch.models.layers import LayerNormFP32
+    from mr_blip_tpu_torch.profile_inference import make_samples
+
+    samples = make_samples(1, 8, seed=7)
+    gpu = reduced_opt_model("cuda")
+    for w in wrappers.values():
+        w.launches = 0
+    got = opt_logits(torch, gpu, samples)
+    rose = {name: w.launches for name, w in wrappers.items() if w.launches}
+    # Every LayerNorm of the model runs once (the ViT has no final norm).
+    norms = sum(isinstance(m, LayerNormFP32) for m in gpu.module.modules())
+    require(rose == {"layer_norm": norms, "qkv_packed_attention": REDUCED_DEPTH},
+            f"reduced OPT model: launches {rose}, {norms} LayerNorms")
+    state = {k: v.cpu() for k, v in gpu.state_dict().items()}
+    del gpu
+    torch.cuda.empty_cache()
+    cpu = reduced_opt_model("cpu", init_params=False)
+    cpu.load_state_dict(state)
+    t0 = time.time()
+    want = opt_logits(torch, cpu, samples)
+    seconds = time.time() - t0
+    cos = torch.nn.functional.cosine_similarity(got[0], want[0], dim=-1)
+    say(f"OPT kernel path vs plain path (depth {REDUCED_DEPTH}, full width, 1 x 8 frames, "
+        f"{got.shape[1]} prompt rows, vocabulary {got.shape[2]}): logits per-row cosine min "
+        f"{float(cos.min()):.6f} mean {float(cos.mean()):.6f}; launches {rose}; CPU run "
+        f"{seconds:.1f} s")
+    require(bool(torch.isfinite(got).all()), "OPT kernel path: logits not finite")
+    require(float(cos.min()) >= COSINE_MIN, f"OPT logits cosine {float(cos.min())}")
+
+
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
     the ``kernels`` line (source in the port, TPU kernel replaced)."""
@@ -3183,6 +3668,10 @@ def main():
     # phase 18: the grounded-QA evaluation entry point on configs/projects/eval/nextGQA.yaml
     qa_entry_launches, _ = qa_entry_point(torch, wrappers, smi)
     done(18)
+    # phase 19: the OPT variant's evaluation entry point on
+    # configs/projects/eval/opt_charades.yaml, a LoRA step, depth 2 vs plain
+    opt_entry_launches, _ = opt_entry_point(torch, wrappers, smi)
+    done(19)
 
     for key, entry in kernels.items():
         if key == "flash_attention":
@@ -3203,11 +3692,13 @@ def main():
             entry["launches"] = train_launches[key]
         entry["train_entry_launches"] = train_entry_launches[key]
         entry["qa_entry_launches"] = qa_entry_launches[key]
+        entry["opt_entry_launches"] = opt_entry_launches[key]
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "train_entry_launches", "qa_entry_launches")}
+                               "library_ms", "train_entry_launches", "qa_entry_launches",
+                               "opt_entry_launches")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

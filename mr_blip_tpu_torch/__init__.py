@@ -26,6 +26,7 @@ _setup_library_paths()
 from mr_blip_tpu_torch.common import optims as _optims  # noqa: E402  (registers)
 from mr_blip_tpu_torch import processors as _processors  # noqa: E402
 from mr_blip_tpu_torch.models import blip2_mr as _blip2_mr  # noqa: E402
+from mr_blip_tpu_torch.models import blip2_mr_opt as _blip2_mr_opt  # noqa: E402
 from mr_blip_tpu_torch.datasets import builders as _builders  # noqa: E402
 from mr_blip_tpu_torch import tasks as _tasks  # noqa: E402
 from mr_blip_tpu_torch import runners as _runners  # noqa: E402

@@ -5,7 +5,7 @@ A world of one process initializes no process group, as the JAX package
 does with one process, whatever ``run.distributed`` says; every helper then
 degrades to the single-process answer. More than one process
 (``WORLD_SIZE`` > 1) is not ported yet: multi-process evaluation and
-training over NCCL are ROADMAP Queue 1 item 8.
+training over NCCL are ROADMAP Queue 1, "Parallelism".
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ def init_distributed_mode(run_cfg=None) -> bool:
     if world > 1:
         raise NotImplementedError(
             f"WORLD_SIZE={world}: multi-process evaluation and training over "
-            "torch.distributed are not ported yet (ROADMAP Queue 1 item 8)")
+            "torch.distributed are not ported yet (ROADMAP Queue 1, "
+            "\"Parallelism\")")
     logging.info("single process: no process group")
     return False
 

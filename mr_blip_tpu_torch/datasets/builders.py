@@ -1,7 +1,7 @@
 """Dataset builders: YAML build_info -> per-split dataset objects (the port's
 counterpart of ``mr_blip_tpu/datasets/builders.py``: the base builder, the
-moment-retrieval, MR-questions and MC-VideoQA builders; the TAL builder
-waits for its dataset).
+moment-retrieval, MR-questions, temporal action localization and MC-VideoQA
+builders).
 
 Mirrors the reference builder layer
 (``lavis/datasets/builders/base_dataset_builder.py:23-226`` +
@@ -25,6 +25,7 @@ from mr_blip_tpu_torch.datasets.mr_datasets import (
     MCVideoQADataset,
     MomentRetrievalDataset,
     MomentRetrievalQuestionsDataset,
+    TemporalActionLocalizationDataset,
 )
 from mr_blip_tpu_torch.processors.text_processors import BaseProcessor
 
@@ -168,6 +169,16 @@ MixedBuilder = _mr_builder("mixed")
 @registry.register_builder("qvhQ")
 class QVHQBuilder(MomentRetrievalQuestionsBuilder):
     DATASET_CONFIG_DICT = {"default": "configs/datasets/qvhQ/defaults.yaml"}
+
+
+# Temporal action localization (reference
+# temporal_action_localization_builder.py:26-29; the reference points at a
+# configs/datasets/anet_TAL/defaults.yaml it never ships — this repo has it).
+@registry.register_builder("anet_TAL")
+class ANetTALBuilder(BaseDatasetBuilder):
+    train_dataset_cls = TemporalActionLocalizationDataset
+    eval_dataset_cls = TemporalActionLocalizationDataset
+    DATASET_CONFIG_DICT = {"default": "configs/datasets/anet_TAL/defaults.yaml"}
 
 
 # Multiple-choice VideoQA (reference video_qa_builder.py:62-110)

@@ -1,5 +1,5 @@
-"""Moment-retrieval, MR-questions (qvhQ) and MC-VideoQA datasets (the port's
-copy of ``mr_blip_tpu/datasets/mr_datasets.py`` but for its TAL dataset).
+"""Moment-retrieval, temporal action localization, MR-questions (qvhQ) and
+MC-VideoQA datasets (the port's copy of ``mr_blip_tpu/datasets/mr_datasets.py``).
 
 Sample dict contracts match the reference datasets
 (``lavis/datasets/datasets/moment_retrieval_dataset.py:8-126`` and
@@ -68,6 +68,49 @@ class MomentRetrievalDataset(BaseDataset):
             "video_prompt_end": "<extra_id_0>",
             "query_prompt": "Query: " + query + "\n",
             "task_prompt": TASK_PROMPT,
+            "relevant_windows": relevant_windows,
+        }
+
+
+TAL_TASK_PROMPT = (
+    "Given the video, temporally locate the actions and predict the action "
+    "class.\nRelevant windows: "
+)
+
+
+class TemporalActionLocalizationDataset(BaseDataset):
+    """ANet temporal action localization (spans + class labels as text).
+
+    Mirrors the reference ``temporal_action_localization_dataset.py:18-84``:
+    same sample dict as MR but with the TAL task prompt, and an empty query
+    yields an empty ``query_prompt`` (the real TAL setting evaluates with
+    the query prompt when one exists).
+    """
+
+    def __getitem__(self, index):
+        ann = self.annotation[index]
+
+        clip = None
+        if "start" in ann:
+            clip = [float(ann["start"]), float(ann["end"])]
+
+        video_path = _video_path(self.vis_root, ann["video"])
+        frms, indices, fps = self.vis_processor(video_path, clip_proposal=clip)
+        query = ann["query"]
+        relevant_windows = str(ann["relevant_windows"])
+
+        timestamps = np.asarray(
+            [round(float(idx / fps), 2) for idx in indices], np.float64
+        )
+
+        return {
+            "video": _as_model_frames(frms),
+            "duration": float(ann["duration"]),
+            "query_id": ann["qid"],
+            "timestamps": timestamps,
+            "video_prompt_end": "<extra_id_0>",
+            "query_prompt": "Query: " + query + "\n" if query else "",
+            "task_prompt": TAL_TASK_PROMPT,
             "relevant_windows": relevant_windows,
         }
 

@@ -1,6 +1,5 @@
 """Synthetic dataset generation for smoke tests and benchmarks (the port's
-copy of ``mr_blip_tpu/datasets/synthetic.py`` but for its TAL generator,
-which waits for the TAL dataset).
+copy of ``mr_blip_tpu/datasets/synthetic.py``).
 
 Creates annotation JSONs in the unified MR schema
 ({qid, video, duration, query|question+options, relevant_windows}) whose
@@ -43,6 +42,49 @@ def make_mr_annotations(
             "duration": duration,
             "query": f"action number {qid} happening",
             "relevant_windows": [[s, e]],
+        }
+
+    paths = {}
+    offset = 0
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        anns = [record(offset + i) for i in range(n)]
+        offset += n
+        path = os.path.join(out_dir, f"{split}.json")
+        with open(path, "w") as f:
+            json.dump(anns, f)
+        paths[split] = path
+    return paths
+
+
+def make_tal_annotations(
+    out_dir: str,
+    n_train: int = 8,
+    n_val: int = 4,
+    n_test: int = 4,
+    n_video_frames: int = 60,
+    fps: float = 10.0,
+    height: int = 96,
+    width: int = 128,
+    seed: int = 0,
+):
+    """TAL schema: relevant_windows entries are [start, end, "label"]
+    (reference temporal_action_localization_dataset.py + tal_eval parsing);
+    ``query`` may be empty (the real TAL setting)."""
+    rng = random.Random(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    labels = ["Surfing", "Cooking", "Archery"]
+
+    def record(qid):
+        duration = n_video_frames / fps
+        s = round(rng.uniform(0, duration * 0.6), 1)
+        e = round(min(duration, s + rng.uniform(0.5, duration * 0.4)), 1)
+        label = rng.choice(labels)
+        return {
+            "qid": f"v{qid}",
+            "video": f"synthetic://{n_video_frames}x{height}x{width}@{fps}#{qid}",
+            "duration": duration,
+            "query": "" if qid % 2 else f"a person {label.lower()}",
+            "relevant_windows": [[s, e, label]],
         }
 
     paths = {}

@@ -1,4 +1,4 @@
-"""Moment-retrieval and grounded-QA metrics (numpy, host side)."""
+"""Moment-retrieval, detection and grounded-QA metrics (numpy, host side)."""
 
 from mr_blip_tpu_torch.metrics.grounded_qa import eval_ground, get_tIoU
 from mr_blip_tpu_torch.metrics.moment_retrieval import (
@@ -11,6 +11,7 @@ from mr_blip_tpu_torch.metrics.moment_retrieval import (
 from mr_blip_tpu_torch.metrics.span_ops import (
     average_precision_detection,
     binary_average_precision,
+    compute_topkx_recall_detection,
     interpolated_precision_recall,
     precision_recall_curve,
     temporal_iou_cross,
@@ -23,6 +24,7 @@ __all__ = [
     "interpolated_precision_recall",
     "average_precision_detection",
     "binary_average_precision",
+    "compute_topkx_recall_detection",
     "precision_recall_curve",
     "compute_mr_ap",
     "compute_mr_r1",

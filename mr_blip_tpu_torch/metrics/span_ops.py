@@ -203,3 +203,47 @@ def binary_average_precision(
         return np.mean(precision_11)
     indices = np.where(np.diff(recall))
     return np.mean(precision[indices])
+
+
+def compute_topkx_recall_detection(
+    ground_truth: list,
+    prediction: list,
+    tiou_thresholds: np.ndarray = IOU_THDS_DEFAULT,
+    top_k=(1, 5),
+) -> np.ndarray:
+    """Top-kx recall for one class (reference ``tal_eval.py:405-471``).
+
+    For each video, the top (k * n_gt) scored predictions are matched
+    against that video's GT segments; a GT counts as recalled at a
+    threshold if any of those predictions reaches the tIoU. Returns
+    (len(tiou_thresholds), len(top_k)).
+    """
+    if not prediction:
+        return np.zeros((len(tiou_thresholds), len(top_k)))
+
+    gt_by_vid: dict = {}
+    for g in ground_truth:
+        gt_by_vid.setdefault(g["video-id"], []).append([g["t-start"], g["t-end"]])
+    pred_by_vid: dict = {}
+    for p in prediction:
+        pred_by_vid.setdefault(p["video-id"], []).append(
+            (float(p.get("score", 1.0)), [p["t-start"], p["t-end"]])
+        )
+
+    tp = np.zeros((len(tiou_thresholds), len(top_k)))
+    n_gts = 0
+    for vid, gts in gt_by_vid.items():
+        n_gts += len(gts)
+        preds = pred_by_vid.get(vid)
+        if not preds:
+            continue
+        scores = np.array([s for s, _ in preds])
+        order = scores.argsort()[::-1][: max(top_k) * len(gts)]
+        pred_arr = np.array([preds[i][1] for i in order], float)
+        gt_arr = np.array(gts, float)
+        tiou = temporal_iou_cross(pred_arr, gt_arr)[0]  # (n_pred, n_gt)
+        for tidx, thr in enumerate(tiou_thresholds):
+            for kidx, k in enumerate(top_k):
+                hits = (tiou[: k * len(gts)] >= thr).sum(axis=0) > 0
+                tp[tidx, kidx] += hits.sum()
+    return tp / max(n_gts, 1)

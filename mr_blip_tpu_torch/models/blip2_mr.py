@@ -174,39 +174,15 @@ class BLIP2_MR(BaseModel):
         if "only_frames" in task:
             raise NotImplementedError(f"task {task!r}: the non-interleaved "
                                       "prompt is not ported")
-        self.task = task
-        self.use_lora = "lora" in task
-        self.use_localizer = "with_localizer" in task
-        self.use_oracle_localizer = "oracle_localizer" in task
-        self.is_qa = "QA" in task
+        self._init_host(
+            img_size=img_size, vit_model=vit_model, tokenizer_path=tokenizer_path,
+            num_query_token=num_query_token, num_beams=num_beams,
+            min_new_tokens=min_new_tokens, max_txt_len=max_txt_len,
+            max_new_tokens=max_new_tokens, input_time_format=input_time_format,
+            task=task, compute_dtype=compute_dtype, device=device)
         self.num_frames_for_answer = num_frames_for_answer
         self.resample_frames = resample_frames
-        self.input_time_format = input_time_format
-        self.max_txt_len = max_txt_len
-        self.max_new_tokens = max_new_tokens
-        self.min_new_tokens = min_new_tokens
-        self.num_beams = num_beams
-        self.img_size = img_size
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"BLIP2_MR(device={str(device)!r}): no CUDA device; pass "
-                "device='cpu' to run on the host")
-        self.compute_dtype = _DTYPES[compute_dtype]
-
-        self.tokenizer = load_tokenizer(tokenizer_path)
-        annoying, _ = find_annoying_numbers(self.tokenizer, 200)
-        self.annoying_numbers_replacement_dict = (
-            find_annoying_numbers_replacement_dict(annoying))
-        # Token ids that score A..E at the answerer's second decoding step.
-        self.answer_ids = [
-            self.tokenizer.encode(letter, add_special_tokens=False)[-1]
-            for letter in "ABCDE"]
-
-        vit_cfg = self.VIT_CONFIGS[vit_model](img_size=img_size)
-        qf_cfg = (qformer_base_config(vit_cfg.embed_dim, num_query_token)
-                  if vit_model == "eva_vit_g"
-                  else qformer_tiny_config(vit_cfg.embed_dim))
+        vit_cfg, qf_cfg = self.vit_config, self.qformer_config
         t5_kw = dict(lora_rank=8 if self.use_lora else 0,
                      relpos_in_kernel=relpos_in_kernel,
                      use_remat=use_grad_checkpoint)
@@ -219,16 +195,54 @@ class BLIP2_MR(BaseModel):
             padded = -(-self.tokenizer.vocab_size // 128) * 128
             t5_kw["vocab_size"] = max(default_vocab, padded)
         t5_cfg = self.T5_CONFIGS[t5_model](**t5_kw)
-        self.vit_config, self.qformer_config, self.t5_config = vit_cfg, qf_cfg, t5_cfg
+        self.t5_config = t5_cfg
         self.module = Blip2MRModule(vit_cfg, qf_cfg, t5_cfg,
                                     compute_dtype=self.compute_dtype,
                                     device=self.device,
                                     with_answerer=self.is_qa).eval()
         self.module.requires_grad_(False)
-        # Keyed by the length (the localizer's T5) or ("answerer_t5", length).
-        self._enc_bias_cache: Dict[Any, torch.Tensor] = {}
         if init_params:
             self.init_params(seed)
+
+    def _init_host(self, img_size, vit_model, tokenizer_path, num_query_token,
+                   num_beams, min_new_tokens, max_txt_len, max_new_tokens,
+                   input_time_format, task, compute_dtype, device):
+        """The settings, tokenizer and vision configs that every variant
+        shares; the language model and ``module`` are the variant's."""
+        self.task = task
+        self.use_lora = "lora" in task
+        self.use_localizer = "with_localizer" in task
+        self.use_oracle_localizer = "oracle_localizer" in task
+        self.is_qa = "QA" in task
+        self.input_time_format = input_time_format
+        self.max_txt_len = max_txt_len
+        self.max_new_tokens = max_new_tokens
+        self.min_new_tokens = min_new_tokens
+        self.num_beams = num_beams
+        self.img_size = img_size
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__}(device={str(device)!r}): no CUDA "
+                "device; pass device='cpu' to run on the host")
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+        self.tokenizer = load_tokenizer(tokenizer_path)
+        annoying, _ = find_annoying_numbers(self.tokenizer, 200)
+        self.annoying_numbers_replacement_dict = (
+            find_annoying_numbers_replacement_dict(annoying))
+        # Token ids that score A..E at the answerer's second decoding step.
+        self.answer_ids = [
+            self.tokenizer.encode(letter, add_special_tokens=False)[-1]
+            for letter in "ABCDE"]
+
+        vit_cfg = self.VIT_CONFIGS[vit_model](img_size=img_size)
+        self.vit_config = vit_cfg
+        self.qformer_config = (qformer_base_config(vit_cfg.embed_dim, num_query_token)
+                               if vit_model == "eva_vit_g"
+                               else qformer_tiny_config(vit_cfg.embed_dim))
+        # Keyed by the length (the localizer's T5) or ("answerer_t5", length).
+        self._enc_bias_cache: Dict[Any, torch.Tensor] = {}
 
     # ------------------------------------------------------------ weights
     @torch.no_grad()
@@ -259,6 +273,12 @@ class BLIP2_MR(BaseModel):
     def clear_bias_cache(self):
         """Drop the cached encoder biases (after the rel-pos table changed)."""
         self._enc_bias_cache.clear()
+
+    def trains_cached_bias(self) -> bool:
+        """Whether a train step changes a tensor that ``_enc_bias_cache``
+        was computed from (the T5 encoder's rel-pos table), so that an
+        update must clear the cache."""
+        return self.module.t5.encoder.rel_bias.rel_embedding.requires_grad
 
     def trainable_mask(self) -> Dict[str, bool]:
         """Parameter name -> trains, by the JAX package's policy with the
@@ -363,14 +383,19 @@ class BLIP2_MR(BaseModel):
     # --------------------------------------------------------------- config
     # ``from_config`` keys (those ``mr_blip_tpu/models/blip2_mr.py::from_config``
     # reads) whose settings the port cannot compute yet: key -> (the settings
-    # it can compute, what is missing and its ROADMAP Queue 1 item).
+    # it can compute, what is missing and the title of its ROADMAP Queue 1
+    # item).
     UNSUPPORTED_CONFIG = {
-        "interleave_data": ((True,), "the non-interleaved prompt", 6),
-        "frame_token_aggregation": ((False, None), "frame-token aggregation", 6),
-        "freeze_vit": ((True,), "the unfrozen-ViT train path", 1),
-        "fast_gelu": ((False,), "the tanh-GELU ViT", 6),
-        "sequence_parallel": ((False,), "sequence-parallel frames", 8),
-        "int8_base": ((False,), "the int8 T5 base under LoRA training", 5),
+        "interleave_data": ((True,), "the non-interleaved prompt",
+                            "Variants of BLIP2_MR"),
+        "frame_token_aggregation": ((False, None), "frame-token aggregation",
+                                    "Variants of BLIP2_MR"),
+        "freeze_vit": ((True,), "the unfrozen-ViT train path",
+                       "The unfrozen-ViT train path"),
+        "fast_gelu": ((False,), "the tanh-GELU ViT", "Variants of BLIP2_MR"),
+        "sequence_parallel": ((False,), "sequence-parallel frames", "Parallelism"),
+        "int8_base": ((False,), "the int8 T5 base under LoRA training",
+                      "The rest of int8"),
     }
     # Read and without effect in the port: layouts of the TPU program
     # (scan_layers, remat_policy); the ViT's stochastic depth, which a frozen
@@ -402,7 +427,7 @@ class BLIP2_MR(BaseModel):
             if key in cfg and cfg[key] not in computable:
                 raise NotImplementedError(
                     f"model.{key}={cfg[key]!r}: {what} is not ported yet "
-                    f"(ROADMAP Queue 1 item {item})")
+                    f"(ROADMAP Queue 1, \"{item}\")")
         unread = sorted(set(cfg) - set(cls.UNSUPPORTED_CONFIG)
                         - set(cls.IGNORED_CONFIG) - set(cls.SUPPORTED_CONFIG))
         if unread:

@@ -35,6 +35,17 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
+def clip_normalize(frames: torch.Tensor, dtype) -> torch.Tensor:
+    """uint8 frames -> CLIP-normalized in ``dtype`` on their device, as the
+    JAX package does on device; float frames (already normalized by the
+    processor) are returned as they are."""
+    if frames.dtype != torch.uint8:
+        return frames
+    mean = torch.tensor(CLIP_MEAN, dtype=dtype, device=frames.device) * 255.0
+    std = torch.tensor(CLIP_STD, dtype=dtype, device=frames.device) * 255.0
+    return (frames.to(dtype) - mean) / std
+
+
 def _pad_seq_to_sublane(inputs_embeds, attn, mult: int = 8):
     """Right-pad the assembled encoder sequence to a multiple of ``mult``.
 
@@ -97,11 +108,7 @@ class Blip2MRModule(nn.Module):
         JAX package does on device. The ViT is frozen and runs without
         building a graph (the JAX package's stop-gradient on its output)."""
         b, t = frames.shape[:2]
-        cdt = self.compute_dtype
-        if frames.dtype == torch.uint8:
-            mean = torch.tensor(CLIP_MEAN, dtype=cdt, device=frames.device) * 255.0
-            std = torch.tensor(CLIP_STD, dtype=cdt, device=frames.device) * 255.0
-            frames = (frames.to(cdt) - mean) / std
+        frames = clip_normalize(frames, self.compute_dtype)
         flat = frames.reshape((b * t,) + frames.shape[2:])
         with torch.no_grad():
             image_embeds = self.visual_encoder(flat)

@@ -1,16 +1,18 @@
 """JAX package parameters -> the port's ``state_dict``.
 
-Input: the nested parameter dict of ``mr_blip_tpu``'s ``BLIP2_MR`` as numpy
-arrays, in the unscanned layout (``blocks_{i}`` / ``block_{i}`` subtrees;
-convert a scanned tree with ``mr_blip_tpu.models.scan_utils.
-unstack_blip2_mr_params`` first). Output: a flat ``{name: tensor}`` dict
-that ``Blip2MRModule.load_state_dict(..., strict=True)`` takes.
+Input: the nested parameter dict of ``mr_blip_tpu``'s ``BLIP2_MR`` (or
+``BLIP2_MR_OPT``) as numpy arrays, in the unscanned layout (``blocks_{i}``
+/ ``block_{i}`` subtrees; convert a scanned tree with
+``mr_blip_tpu.models.scan_utils.unstack_blip2_mr_params`` first). Output: a flat ``{name: tensor}`` dict
+that ``Blip2MRModule.load_state_dict(..., strict=True)`` (or
+``Blip2OPTModule``'s) takes.
 
 Rules: flax ``Dense_0/kernel`` (in, out) becomes ``weight`` (out, in);
 ``LayerNorm_0/{scale,bias}`` and RMSNorm ``scale`` become
 ``weight``/``bias``; the patch conv goes HWIO -> OIHW; ``shared/embedding``
-becomes ``shared.weight``; numbered children ``blocks_3`` become
-``blocks.3``. Every other leaf keeps its name. A tree the JAX package has
+becomes ``shared.weight`` (OPT's ``embed_tokens`` / ``embed_positions``
+likewise); numbered children ``blocks_3`` become ``blocks.3``, and OPT's
+``opt/layer_3`` becomes ``opt.layers.3``. Every other leaf keeps its name. A tree the JAX package has
 already quantized converts too: ``kernel_q`` (int8, (in, out), stored here
 with the input axis contiguous, as the W8A8 kernels read it),
 ``kernel_scale`` and the ``bias`` beside them keep their names under their
@@ -61,7 +63,8 @@ def _convert_leaf(path, arr: np.ndarray, quantized_parents=frozenset()):
     elif parents and parents[-1] == "patch_embed" and leaf in ("kernel", "bias"):
         return parents + ["weight" if leaf == "kernel" else "bias"], (
             arr.transpose(3, 2, 0, 1) if leaf == "kernel" else arr)
-    elif parents and parents[-1] == "shared" and leaf == "embedding":
+    elif parents and parents[-1] in ("shared", "embed_tokens", "embed_positions") \
+            and leaf == "embedding":
         return parents + ["weight"], arr
     elif leaf == "scale":  # RMSNormFP32
         return parents + ["weight"], arr
@@ -88,6 +91,8 @@ def state_dict_from_jax(params: Mapping,
         for name in names:
             m = _NUMBERED.match(name)
             parts.extend(m.groups() if m else (name,))
+        if parts[0] == "opt" and parts[1] == "layer":  # OPT's ModuleList
+            parts[1] = "layers"
         key = ".".join(parts)
         if key in out:
             raise ValueError(f"two JAX leaves map to {key}")

@@ -49,15 +49,18 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def beam_search(decode_step: Callable, init_cache: Any, batch_size: int,
                 num_beams: int = 5, max_length: int = 50,
                 min_new_tokens: int = 0, eos_token_id: int = 1,
-                pad_token_id: int = 0, decoder_start_token_id: int = 0,
+                pad_token_id: int = 0, decoder_start_token_id=0,
                 length_penalty: float = 1.0, device=None):
     """Returns (sequences (B, max_length), scores (B,)) for the best beam.
 
-    ``init_cache`` holds batch*num_beams rows."""
+    ``init_cache`` holds batch*num_beams rows. ``decoder_start_token_id``:
+    one id, or a (B,) tensor of one per row (a causal LM seeds each row
+    with its last prompt token)."""
     b, k = batch_size, num_beams
     alive_seqs = torch.full((b, k, max_length + 1), pad_token_id,
                             dtype=torch.long, device=device)
-    alive_seqs[:, :, 0] = decoder_start_token_id
+    alive_seqs[:, :, 0] = torch.as_tensor(
+        decoder_start_token_id, dtype=torch.long, device=device).reshape(-1, 1)
     # Only beam 0 is live initially (all beams start identical).
     alive_log_probs = torch.tensor([0.0] + [NEG_INF] * (k - 1),
                                    device=device).repeat(b, 1)

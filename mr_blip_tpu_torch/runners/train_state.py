@@ -61,8 +61,8 @@ def clip_by_global_norm(params, max_norm: float):
 
 
 class TrainCtx:
-    """The train step of a ``BLIP2_MR``: ``set_lr(lr)`` then
-    ``step(batch) -> float loss`` per micro-batch, ``batch`` from
+    """The train step of a ``BLIP2_MR`` or ``BLIP2_MR_OPT``: ``set_lr(lr)``
+    then ``step(batch) -> float loss`` per micro-batch, ``batch`` from
     ``model.prepare_mr_batch(samples)``."""
 
     def __init__(self, model, weight_decay: float = 0.05, beta1: float = 0.9,
@@ -121,7 +121,7 @@ class TrainCtx:
         self.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
         self.calls = int(state["calls"])
         self.updates = int(state["updates"])
-        if self.model.module.t5.encoder.rel_bias.rel_embedding.requires_grad:
+        if self.model.trains_cached_bias():
             self.model.clear_bias_cache()
 
     @property
@@ -149,6 +149,6 @@ class TrainCtx:
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             self.updates += 1
-            if self.model.module.t5.encoder.rel_bias.rel_embedding.requires_grad:
+            if self.model.trains_cached_bias():
                 self.model.clear_bias_cache()
         return value

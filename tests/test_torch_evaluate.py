@@ -101,14 +101,16 @@ def test_from_config_constructor_values_equal_jax(path, options):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("interleave_data", False, 6), ("frame_token_aggregation", "mean", 6),
-    ("freeze_vit", False, 1), ("fast_gelu", True, 6),
-    ("sequence_parallel", True, 8), ("int8_base", True, 5),
+    ("interleave_data", False, "Variants of BLIP2_MR"),
+    ("frame_token_aggregation", "mean", "Variants of BLIP2_MR"),
+    ("freeze_vit", False, "The unfrozen-ViT train path"),
+    ("fast_gelu", True, "Variants of BLIP2_MR"),
+    ("sequence_parallel", True, "Parallelism"), ("int8_base", True, "The rest of int8"),
 ])
 def test_from_config_unsupported_settings_raise(key, value, item):
     cfg, _ = _model_cfg("configs/projects/train/tiny_synthetic.yaml")
     cfg[key] = value
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+    with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
         BLIP2_MR.from_config(cfg, device="cpu")
     assert set(BLIP2_MR.UNSUPPORTED_CONFIG) == {
         "interleave_data", "frame_token_aggregation", "freeze_vit", "fast_gelu",

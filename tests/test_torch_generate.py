@@ -193,8 +193,8 @@ def test_span_grammar_copy_matches():
 def test_port_imports_no_jax_or_triton():
     """Nor pyyaml or scikit-learn, which the card's machine lacks: the
     configs are read and every module of the evaluation and train entry
-    points imported, the grounded-QA tasks, metrics, datasets and video
-    reader with them."""
+    points imported, the grounded-QA and TAL tasks, the OPT variant,
+    metrics, datasets and video reader with them."""
     code = (
         "import sys\n"
         "import mr_blip_tpu_torch\n"
@@ -220,7 +220,12 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.common.preempt, mr_blip_tpu_torch.common.tracking\n"
         "import mr_blip_tpu_torch.tasks.vqa, mr_blip_tpu_torch.metrics.grounded_qa\n"
         "import mr_blip_tpu_torch.native.build, mr_blip_tpu_torch.datasets.mr_datasets\n"
+        "import mr_blip_tpu_torch.models.opt, mr_blip_tpu_torch.models.blip2_mr_opt\n"
+        "import mr_blip_tpu_torch.tasks.temporal_action_localization\n"
+        "import mr_blip_tpu_torch.metrics.span_ops\n"
         "from mr_blip_tpu_torch.common.config import Config\n"
+        "Config(cfg_path='configs/projects/eval/anet_TAL.yaml')\n"
+        "Config(cfg_path='configs/projects/eval/opt_charades.yaml')\n"
         "Config(cfg_path='configs/projects/eval/qvh.yaml')\n"
         "Config(cfg_path='configs/projects/train/qvh.yaml')\n"
         "Config(cfg_path='configs/projects/eval/nextGQA.yaml')\n"
