@@ -141,15 +141,17 @@ is nonzero and the final line is not printed:
 12. long context, kernel path vs plain path: the depth-2 full-width
     ``relpos_in_kernel`` model (weights as in phase 7), one forward and
     backward on the card and on the CPU in bf16: ``qformer_freeze_lora`` at
-    1 x 60 frames (also against the card's own ``relpos_in_kernel=False``
-    run of the same weights) and ``qformer_freeze`` at 1 x 60 frames (the
+    1 x 40 frames (also against the card's own ``relpos_in_kernel=False``
+    run of the same weights) and ``qformer_freeze`` at 1 x 40 frames (the
     rel-pos table trains: kernel 11 launches once per encoder layer and the
     table's gradient is compared with the plain path's); T5 encoder rows
     cosine >= 0.999, loss and gradients within phase 7's bars. Then the fp32
-    parity mode on both sides, both tasks at 1 x 60 frames (kernels 9, 10,
-    12 and 9, 11, 12 in fp32): loss within 1e-4 relative, gradient cosine
-    >= 0.9999, as phase 7's fp32 runs; the first fp32 model also generates
-    (kernel 9 in fp32 once per encoder layer, the prediction parses).
+    parity mode on both sides, both tasks on a short clip of 1 x 8 frames
+    (kernels 9, 10, 12 and 9, 11, 12 in fp32 on the model path; phase 3
+    holds them in fp32 at 8,000 tokens): loss within 1e-4 relative, gradient
+    cosine >= 0.9999, as phase 7's fp32 runs; the first fp32 model also
+    generates (kernel 9 in fp32 once per encoder layer, the prediction
+    parses).
 
 13. generate at 364 pixels (the resolution of BLIP-2's finetuned checkpoints
     and the default of the package's processors): ``BLIP2_MR(img_size=364)``
@@ -212,7 +214,7 @@ is nonzero and the final line is not printed:
     ``configs/projects/train/qvh.yaml`` as published (EVA ViT-g and Q-Former
     frozen, Flan-T5-XL with LoRA r=8, ``use_grad_checkpoint``, micro-batches
     of 1 x 60 frames, ``accum_grad_iters`` 8, ``linear_warmup_cosine_lr``,
-    random weights) but for synthetic annotations (8 train queries, 2 val, 2
+    random weights) but for synthetic annotations (8 train queries, 1 val, 1
     test, 150 s videos at 10 fps), ``run.max_epoch=2`` and a temporary output
     directory: every micro-batch must launch kernel 5 48 times (the forward
     and each encoder block's recompute), 6 and 8 24, LayerNorm 110, packed QKV
@@ -221,13 +223,10 @@ is nonzero and the final line is not printed:
     frozen one bit-equal. Then one 1 x 60 micro-batch of that model with
     checkpointing on and off on the same dropout masks (loss within 1e-6
     relative, LoRA gradients cosine >= 0.9999 and max |diff| <= 1e-3 x max
-    |g|, each one's peak memory printed); a second ``main()`` (10 train
-    queries) SIGTERMed from a thread of this process after 9 micro-batches
-    must exit 143 with a ``resume_state.pth`` of ``epoch_complete`` False, and
-    a third, resuming from it, must load the weights, AdamW state, counters
-    and partial gradients bit for bit, log ``(epoch 0)``, re-run the epoch
-    and exit 0. Prints seconds per micro-batch and per update, peak memory,
-    and the resume state's bytes and write and load seconds.
+    |g|, each one's peak memory printed). Prints seconds per micro-batch and
+    per update and peak memory.
+    (A run SIGTERMed mid-window and its bit-equal resume run in phase 21,
+    on the QLoRA model.)
 18. the grounded-QA evaluation entry point: ``mr_blip_tpu_torch.evaluate.main``
     on ``configs/projects/eval/nextGQA.yaml`` as published (task ``videogqa``,
     ``qformer_freeze_lora_QA_with_localizer``: EVA ViT-g, Q-Former, Flan-T5-XL
@@ -265,6 +264,44 @@ is nonzero and the final line is not printed:
     finite and nonzero, LayerNorm 175 and packed QKV 39 launches), and the
     depth-2 model at full width on 1 x 8 frames against the CPU's plain path
     (the OPT's logits over the prompt, cosine >= 0.999 row by row).
+20. online serving: ``models.load_model("blip2_mr", "pretrain_flant5xl")``
+    on the card (EVA ViT-g, Q-Former, Flan-T5-XL, bf16, beam 5, weights
+    redrawn from seed 0) behind a ``MomentRetrievalServer`` (max_batch 4,
+    buckets 1/2/4, two decode workers), ``warmup(60)``; (a) four frame
+    requests from one thread form one batch whose rows equal
+    ``model.generate`` on the same four rows; (b) three requests form one
+    batch padded to 4 whose rows equal ``generate`` on the padded rows' first
+    three; (c) 16 ``synthetic://`` requests of 150 s (QVHighlights' length)
+    from 8 client threads through ``serve.make_httpd`` on 127.0.0.1: every
+    reply 200 and a span list. Every dispatched batch, warmup and reference
+    generates included, launches kernels 1 / 2 / 3 110 / 39 / 24 times.
+    Prints batches, occupancy, requests/s, latency p50/p95/p99, seconds per
+    batch under load beside phase 4's and peak memory. Then ``python -m
+    mr_blip_tpu_torch.serve --model-type pretrain_flant5xl --n-frms 60 --port
+    0`` as a process: four requests answered, SIGTERM, exit 0 with its stats
+    line.
+21. QLoRA-style training: ``mr_blip_tpu_torch.train.main`` on
+    ``configs/projects/train/qvh.yaml`` with ``model.int8_base=True
+    model.int8_vit=True`` (the T5 base weight-only int8 under the LoRA
+    deltas, the ViT on the W8A8 kernels; random weights) over 10 synthetic
+    train queries, one val and one test, micro-batches of 1 x 60 frames
+    under ``use_grad_checkpoint``, 8 to an update. A first run is SIGTERMed
+    from a thread of this process after 9 micro-batches (one update and one
+    micro-batch into the next window): it must exit 143 with a
+    ``resume_state.pth`` of ``epoch_complete`` False; a second, resuming from
+    it, must load the weights (every ``kernel_q`` among them), AdamW state,
+    counters and partial gradients bit for bit, log ``(epoch 0)``, re-run the
+    epoch and exit 0. Per micro-batch of both runs LayerNorm 32, kernels 16
+    and 14 39 each, 5 48, 6 and 8 24, nothing else; the val/test generates
+    32 / 39 / 39 / 24 (kernels 1 / 16 / 14 / 3); every T5 ``kernel_q``
+    bit-equal after the update and after the resumed run, every LoRA tensor
+    moved, every loss finite; one more forward with checkpointing off saves
+    no float tensor of an int8 weight's shape for the backward. Prints
+    seconds per micro-batch and per update and peak memory beside phase
+    17's, and the resume state's bytes and write and load seconds. Then the
+    depth-2 model (``int8_base`` and the int8 ViT, weights as phase 7 draws
+    them) on the card against the CPU's plain path in bf16: loss within 1e-2
+    relative, every LoRA gradient's cosine >= 0.99.
 
 Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
 (4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
@@ -302,7 +339,9 @@ and 8 from phase 6, 7 from phase 7's ``qformer_freeze`` run, 13-16 from phase
 ``qformer_freeze`` run; ``train_entry_launches`` from phase 17's first run,
 ``qa_entry_launches`` from phase 18's pipelined run (all its questions);
 ``opt_entry_launches`` from phase 19's evaluation (all its questions);
-each count is taken with the counts set to 0 just before its path runs); the
+``serve_launches`` from phase 20's server batches, warmup and reference
+generates; ``qlora_launches`` from phase 21's two runs (their micro-batches
+and the resumed run's generates); each count is taken with the counts set to 0 just before its path runs); the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -400,13 +439,16 @@ EXPECTED_LONG_INT8_LAUNCHES = dict(EXPECTED_INT8_LAUNCHES, flash_bias_attention=
 EXPECTED_LONG_TRAIN_LAUNCHES = dict(EXPECTED_LONG_LAUNCHES, flash_relpos_bwd_dq=24,
                                     flash_relpos_bwd_dkv=24)
 # Phase 12, (task, frames): the CPU plain path took 154 s at 1 x 240 frames,
-# 72 s (later 47.7 s) at 1 x 120 and 30.5 s at 1 x 60 (bf16 on the card
-# machine's 8 cores), most of a 900 s script, so both tasks run at 60 frames
-# (encoder length 2,056). Phase 3 holds kernels 9-12 at the full 8,000 tokens.
-LONG_GRAD_TASKS = (("qformer_freeze_lora", 60), ("qformer_freeze", 60))
-# Phase 12 in the fp32 parity mode (kernels 9, 10, 12 and 9, 11, 12 in fp32):
-# 1 x 60 frames (encoder length 2,056), where the CPU's fp32 runs are short.
-LONG_FP32_GRAD_TASKS = (("qformer_freeze_lora", 60), ("qformer_freeze", 60))
+# 72 s (later 47.7 s) at 1 x 120 and 20.9-30.5 s at 1 x 60 (bf16 on the card
+# machine's 8 cores), the largest CPU share of the script, so both tasks run
+# at 40 frames (the encoder length is printed). Phase 3 holds kernels 9-12 at
+# the full 8,000 tokens.
+LONG_GRAD_TASKS = (("qformer_freeze_lora", 40), ("qformer_freeze", 40))
+# Phase 12 in the fp32 parity mode (kernels 9, 10, 12 and 9, 11, 12 in fp32)
+# on a short clip, where the CPU's fp32 runs take about a second (at 1 x 60
+# frames they took 8-14 s each).
+LONG_FP32_GRAD_TASKS = (("qformer_freeze_lora", GRAD_FRAMES),
+                        ("qformer_freeze", GRAD_FRAMES))
 # Phases 13-15, 364 pixels: 26 x 26 patches + cls = 677 tokens an image, whose
 # packed QKV (677 x 4,224 x 2 B = 5.7 MB) is past the 4 MiB bound of the
 # packed-QKV kernel and of the fused int8 block, so the ViT's attention is
@@ -438,12 +480,8 @@ FP32_PATH_REL_TOL = 1e-4
 EVAL_QUERIES, EVAL_VIDEO_FRAMES, EVAL_FPS = 8, 1500, 10.0
 # Phase 17, the train entry point on configs/projects/train/qvh.yaml (batches
 # of 1 x 60 frames, accum_grad_iters 8, use_grad_checkpoint): 8 synthetic
-# train queries (1 update an epoch), 2 val and 2 test, 2 epochs.
-TRAIN_QUERIES, TRAIN_EVAL_QUERIES, TRAIN_EPOCHS, TRAIN_ACCUM = 8, 2, 2, 8
-# The preempted and the resumed run read annotations of their own, 10 train
-# queries, 1 val and 1 test; the first is stopped after 9 micro-batches: one
-# update and 1 micro-batch into the second window (not a multiple of 8).
-PREEMPT_TRAIN_QUERIES, PREEMPT_AFTER = 10, 9
+# train queries (1 update an epoch), 1 val and 1 test, 2 epochs.
+TRAIN_QUERIES, TRAIN_EVAL_QUERIES, TRAIN_EPOCHS, TRAIN_ACCUM = 8, 1, 2, 8
 # Per micro-batch under use_grad_checkpoint: kernel 5 once per encoder layer
 # in the forward and once more in the layer's recompute, kernels 6 and 8 once
 # per encoder layer in the backward, kernels 3 and 7 never; the frozen ViT,
@@ -456,7 +494,9 @@ REMAT_LOSS_REL_TOL, REMAT_GRAD_COSINE_MIN, REMAT_GRAD_REL_TOL = 1e-6, 0.9999, 1e
 # (NExT-QA's length). Per question the localizer's generate launches what a
 # phase-4 batch launches, and the answerer the same again: its ViT, ln_vision
 # and Q-Former over the 60 re-decoded frames, its T5 encoder's 24 layers.
-QA_QUESTIONS, QA_VIDEO_FRAMES, QA_FPS = 6, 400, 10.0
+# Three questions (six before phases 20 and 21 were added): one steady
+# pipelined question between the first and the last.
+QA_QUESTIONS, QA_VIDEO_FRAMES, QA_FPS = 3, 400, 10.0
 # Its encoder lengths (the interleaved prompt of one 60-frame video; 60 x 32
 # frame tokens and the question with its options, padded to a multiple of 8):
 # phase 3 holds kernel 3 at both, and phase 18 must show them.
@@ -485,6 +525,28 @@ OPT_FRAMES, OPT_PREFILL_ROWS = 57, 1988
 # Per pass of the OPT decoder (the prefill, each decode step, the train
 # forward): 2 LayerNorms a layer over 32 layers and the final norm.
 OPT_LN_PER_PASS = 2 * 32 + 1
+# Phase 20, online serving: (a) and (b) on a server whose ragged batches wait
+# SERVE_FORM_WAIT_MS (so that (b)'s three requests form one batch); (c)
+# SERVE_REQUESTS synthetic:// requests of 150 s from SERVE_CLIENTS client
+# threads through the HTTP server, max_wait serve.py's default.
+SERVE_FORM_WAIT_MS, SERVE_WAIT_MS = 5000, 50
+SERVE_REQUESTS, SERVE_CLIENTS = 16, 8
+SERVE_PROCESS_TIMEOUT_S = 300
+# Phase 21, QLoRA-style training on configs/projects/train/qvh.yaml with
+# model.int8_base and model.int8_vit: micro-batches of 1 x 60 frames, 8 to an
+# update. Per micro-batch the T5 encoder's kernels as phase 17's (kernel 5 in the forward
+# and the recompute, 6 and 8 in the backward); the ViT's blocks on the fused
+# W8A8 attention block (16) and GELU MLP (14), their pre-norms inside them:
+# LayerNorm 32 (ln_vision and the Q-Former), packed QKV never. Its val and
+# test generates: phase 8's ViT and phase 4's T5 encoder. The first run is
+# SIGTERMed after QLORA_PREEMPT_AFTER micro-batches (one update and one
+# micro-batch into the second window, not a multiple of 8); a second run
+# resumes it and re-runs the epoch.
+QLORA_QUERIES, QLORA_PREEMPT_AFTER = 10, 9
+INT8_VIT_LAUNCHES = dict(layer_norm=32, qkv_packed_attention=0, w8a8_mlp=39,
+                         w8a8_attn_block=39)
+EXPECTED_QLORA_LAUNCHES = dict(EXPECTED_REMAT_TRAIN_LAUNCHES, **INT8_VIT_LAUNCHES)
+EXPECTED_QLORA_GENERATE_LAUNCHES = dict(EXPECTED_LAUNCHES, **INT8_VIT_LAUNCHES)
 
 
 def say(*parts):
@@ -1860,8 +1922,8 @@ def checksums(torch, tensors):
     at least one of them."""
     out = []
     for t in tensors:
-        bits = t.detach().contiguous().view(-1).view(torch.int16 if t.element_size() == 2
-                                                   else torch.int32).long()
+        bits = t.detach().contiguous().view(-1).view(
+            {1: torch.int8, 2: torch.int16}.get(t.element_size(), torch.int32)).long()
         weights = torch.arange(bits.numel(), device=bits.device) % 7919 + 1
         out.append((int(bits.sum()), int((bits * weights).sum())))
     return out
@@ -2686,35 +2748,26 @@ def train_entry_point(torch, wrappers, card):
     ``configs/projects/train/qvh.yaml`` (EVA ViT-g and Q-Former frozen,
     Flan-T5-XL with LoRA r=8, use_grad_checkpoint, micro-batches of 1 x 60
     frames, accum_grad_iters 8, linear_warmup_cosine_lr as published), called
-    in this process three times over synthetic annotations: a run of
-    TRAIN_EPOCHS epochs over TRAIN_QUERIES train queries (every micro-batch's and every val/test generate's
-    launches as predicted, every loss finite, every trainable tensor moved and
-    every frozen one bit-equal after it); then one micro-batch of its model
-    with checkpointing on and off on the same dropout masks; a run SIGTERMed
-    from a thread of this process after PREEMPT_AFTER micro-batches of one
-    epoch over PREEMPT_TRAIN_QUERIES (exit 143, a resume state of the
-    unfinished epoch); a run resuming from it (the
-    loaded weights, AdamW state, counters and partial gradients bit-equal to
-    those saved, the epoch re-run, exit 0). Returns the first run's launch
-    counts."""
-    import logging
-    import os
-    import signal
+    in this process over synthetic annotations: a run of TRAIN_EPOCHS epochs
+    over TRAIN_QUERIES train queries (every micro-batch's and every val/test
+    generate's launches as predicted, every loss finite, every trainable
+    tensor moved and every frozen one bit-equal after it); then one
+    micro-batch of its model with
+    checkpointing on and off on the same dropout masks. (The preempted run
+    and its resume run in phase 21, on the QLoRA model.) Returns the run's
+    launch counts and its summary numbers."""
     import tempfile
-    import threading
 
     from mr_blip_tpu_torch import train
     from mr_blip_tpu_torch.datasets.synthetic import make_mr_annotations
     from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
     from mr_blip_tpu_torch.models.layers import set_dropout_generator
     from mr_blip_tpu_torch.profile_inference import make_samples
-    from mr_blip_tpu_torch.runners.runner_base import RunnerBase
     from mr_blip_tpu_torch.runners.train_state import TrainCtx
 
     phase_start = time.time()
-    models, steps, generates, messages = [], [], [], []
-    built, saved, loaded = {}, {}, {}
-    stop_after = [None]
+    models, steps, generates = [], [], []
+    built = {}
 
     def counts():
         return {name: w.launches for name, w in wrappers.items()}
@@ -2724,21 +2777,18 @@ def train_entry_point(torch, wrappers, card):
 
     from_config = BLIP2_MR.from_config.__func__
     step, dispatch = TrainCtx.step, BLIP2_MR.generate_dispatch
-    write_resume, load_checkpoint = RunnerBase._write_resume_state, RunnerBase.load_checkpoint
 
     def tapped_from_config(cls, cfg, device="cuda"):
         model = from_config(cls, cfg, device=device)
         models.append(model)
-        if not built:  # the first run's weights as built
-            mask = model.trainable_mask()
-            named = model.module.named_parameters()
-            built["trainable"], frozen = {}, []
-            for n, p in named:
-                if mask[n]:
-                    built["trainable"][n] = p.detach().float().clone()
-                else:
-                    frozen.append(p)
-            built["frozen"] = checksums(torch, frozen)
+        mask = model.trainable_mask()
+        built["trainable"], frozen = {}, []
+        for n, p in model.module.named_parameters():
+            if mask[n]:
+                built["trainable"][n] = p.detach().float().clone()
+            else:
+                frozen.append(p)
+        built["frozen"] = checksums(torch, frozen)
         return model
 
     def tapped_step(ctx, batch):
@@ -2748,10 +2798,6 @@ def train_entry_point(torch, wrappers, card):
         loss = step(ctx, batch)
         torch.cuda.synchronize()
         steps.append((rose(before), time.time() - start, loss, ctx.updates))
-        if len(steps) == stop_after[0]:  # SIGTERM from another thread
-            thread = threading.Thread(target=os.kill, args=(os.getpid(), signal.SIGTERM))
-            thread.start()
-            thread.join()
         return loss
 
     def tapped_dispatch(model, samples):
@@ -2762,70 +2808,22 @@ def train_entry_point(torch, wrappers, card):
         generates.append(rose(before))
         return handle
 
-    def state_snapshot(runner):
-        """Bit checksums of every weight; exact host copies of the train
-        state (small: the LoRA tensors, their gradients and moments)."""
-        ctx = runner.train_ctx.state_dict()
-
-        def copy(t):
-            return None if t is None else t.to("cpu", copy=True)
-
-        return {"weights": checksums(torch, list(runner.model.state_dict().values())),
-                "params": {n: copy(t) for n, t in ctx["params"].items()},
-                "grads": {n: copy(g) for n, g in ctx["grads"].items()},
-                "moments": {(i, k): copy(v) for i, st in ctx["optimizer"]["state"].items()
-                            for k, v in st.items()},
-                "counters": (ctx["calls"], ctx["updates"])}
-
-    def tapped_write_resume(runner, cur_epoch, epoch_complete=True):
-        saved.update(state_snapshot(runner))
-        torch.cuda.synchronize()
-        start = time.time()
-        path = write_resume(runner, cur_epoch, epoch_complete)
-        saved["write_s"] = time.time() - start
-        saved["bytes"] = os.path.getsize(path)
-        return path
-
-    def tapped_load_checkpoint(runner, path):
-        start = time.time()
-        load_checkpoint(runner, path)
-        torch.cuda.synchronize()
-        loaded["load_s"] = time.time() - start
-        loaded.update(state_snapshot(runner))
-        loaded["start_epoch"] = runner.start_epoch
-
-    class Messages(logging.Filter):  # survives setup_logger's basicConfig(force=True)
-        def filter(self, record):
-            messages.append(record.getMessage())
-            return True
-
     taps = ((BLIP2_MR, "from_config", classmethod(tapped_from_config)),
             (TrainCtx, "step", tapped_step),
-            (BLIP2_MR, "generate_dispatch", tapped_dispatch),
-            (RunnerBase, "_write_resume_state", tapped_write_resume),
-            (RunnerBase, "load_checkpoint", tapped_load_checkpoint))
+            (BLIP2_MR, "generate_dispatch", tapped_dispatch))
     originals = [(cls, name, cls.__dict__[name]) for cls, name, _ in taps]
-    log_filter = Messages()
     with tempfile.TemporaryDirectory() as tmp:
         run_paths = make_mr_annotations(
             f"{tmp}/run", n_train=TRAIN_QUERIES, n_val=TRAIN_EVAL_QUERIES,
             n_test=TRAIN_EVAL_QUERIES, n_video_frames=EVAL_VIDEO_FRAMES, fps=EVAL_FPS)
-        preempt_paths = make_mr_annotations(
-            f"{tmp}/preempt", n_train=PREEMPT_TRAIN_QUERIES, n_val=1, n_test=1,
-            n_video_frames=EVAL_VIDEO_FRAMES, fps=EVAL_FPS)
-
-        def argv(out, paths, *options):
-            return ["--cfg-path", str(ROOT / "configs/projects/train/qvh.yaml"), "--options",
-                    *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
-                      for split, path in paths.items()),
-                    "datasets.qvh.build_info.videos.storage=synthetic",
-                    f"run.output_dir={Path(tmp) / out}", *options]
-
+        argv = ["--cfg-path", str(ROOT / "configs/projects/train/qvh.yaml"), "--options",
+                *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
+                  for split, path in run_paths.items()),
+                "datasets.qvh.build_info.videos.storage=synthetic",
+                f"run.output_dir={Path(tmp) / 'train'}", f"run.max_epoch={TRAIN_EPOCHS}"]
         for cls, name, tap in taps:
             setattr(cls, name, tap)
-        logging.getLogger().addFilter(log_filter)
         try:
-            # --- the run
             gc.collect()
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -2834,94 +2832,40 @@ def train_entry_point(torch, wrappers, card):
             for w in wrappers.values():
                 w.launches = 0
             t0 = time.time()
-            logs = train.main(argv("train", run_paths, f"run.max_epoch={TRAIN_EPOCHS}"))
+            logs = train.main(argv)
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = counts()
             peak = torch.cuda.max_memory_allocated()
-            run_steps, run_generates = list(steps), list(generates)
-            (model,) = models
-            remat = remat_on_off(torch, model, built, set_dropout_generator, make_samples)
-
-            # --- the preempted run and the resumed run (one epoch each)
-            del model
-            models.clear()
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            steps.clear()
-            stop_after[0] = PREEMPT_AFTER
-            code = None
-            t0 = time.time()
-            try:
-                train.main(argv("preempt", preempt_paths, "run.max_epoch=1"))
-            except SystemExit as e:
-                code = e.code
-            preempt_wall = time.time() - t0
-            stop_after[0] = None
-            require(code == 143, f"preempted run: exit code {code}, expected 143")
-            require(len(steps) == PREEMPT_AFTER, f"preempted run: {len(steps)} micro-batches, "
-                    f"expected {PREEMPT_AFTER}")
-            (resume_path,) = (Path(tmp) / "preempt").glob("*/resume_state.pth")
-            state = torch.load(resume_path, map_location="cpu", mmap=True, weights_only=True)
-            require(state["epoch"] == 0 and state["epoch_complete"] is False,
-                    f"resume state: epoch {state['epoch']}, epoch_complete "
-                    f"{state['epoch_complete']}")
-            del state
-            models.clear()
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            steps.clear()
-            messages.clear()
-            t0 = time.time()
-            resume_logs = train.main(argv("resume", preempt_paths, "run.max_epoch=1",
-                                          f"run.resume_ckpt_path={resume_path}"))
-            resume_wall = time.time() - t0
         finally:
-            logging.getLogger().removeFilter(log_filter)
             for cls, name, original in originals:
                 setattr(cls, name, original)
-            models.clear()
+    (model,) = models
+    remat = remat_on_off(torch, model, built, set_dropout_generator, make_samples)
+    del model
+    models.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # The run: launches per micro-batch and per generate, losses, weights.
     n_steps = TRAIN_EPOCHS * TRAIN_QUERIES
-    require(len(run_steps) == n_steps, f"train entry point: {len(run_steps)} micro-batches, "
+    require(len(steps) == n_steps, f"train entry point: {len(steps)} micro-batches, "
             f"expected {n_steps}")
-    for i, (r, _, loss, _) in enumerate(run_steps):
+    for i, (r, _, loss, _) in enumerate(steps):
         require(r == EXPECTED_REMAT_TRAIN_LAUNCHES, f"train entry point micro-batch {i}: "
                 f"launches {r}, expected {EXPECTED_REMAT_TRAIN_LAUNCHES}")
         require(math.isfinite(loss), f"train entry point micro-batch {i}: loss {loss}")
-    require(run_steps[-1][3] == n_steps // TRAIN_ACCUM,
-            f"train entry point: {run_steps[-1][3]} updates")
+    require(steps[-1][3] == n_steps // TRAIN_ACCUM, f"train entry point: {steps[-1][3]} updates")
     n_generates = (TRAIN_EPOCHS + 1) * TRAIN_EVAL_QUERIES  # val each epoch, then test
-    require(len(run_generates) == n_generates, f"train entry point: {len(run_generates)} "
+    require(len(generates) == n_generates, f"train entry point: {len(generates)} "
             f"generate batches, expected {n_generates}")
-    for i, r in enumerate(run_generates):
+    for i, r in enumerate(generates):
         require(r == EXPECTED_LAUNCHES, f"train entry point generate {i}: launches {r}, "
                 f"expected {EXPECTED_LAUNCHES}")
     metrics = json.loads(json.dumps(logs["test"], default=float))
     require(metrics["total"] == TRAIN_EVAL_QUERIES, f"train entry point metrics {metrics}")
-    # The resumed run: state bit-equal to the saved one, the epoch re-run.
-    require(loaded["start_epoch"] == 0, f"resumed run: start epoch {loaded['start_epoch']}")
-    require(any("Resume checkpoint loaded" in m and "(epoch 0)" in m for m in messages),
-            "resumed run: no 'Resume checkpoint loaded ... (epoch 0)' in its log")
-    require(loaded["weights"] == saved["weights"], "resumed run: weights differ from the saved")
-    require(loaded["counters"] == saved["counters"] == (PREEMPT_AFTER, PREEMPT_AFTER // TRAIN_ACCUM),
-            f"resumed run: calls, updates {loaded['counters']} (saved {saved['counters']})")
-    for key in ("params", "grads", "moments"):
-        require(saved[key].keys() == loaded[key].keys(), f"resumed run: {key} names differ")
-        for name, want in saved[key].items():
-            got = loaded[key][name]
-            require(want is not None and torch.equal(got, want),
-                    f"resumed run: {key} {name} differs from the saved (or is missing)")
-    require(len(steps) == PREEMPT_TRAIN_QUERIES and steps[-1][3] == (
-        PREEMPT_AFTER + PREEMPT_TRAIN_QUERIES) // TRAIN_ACCUM,
-        f"resumed run: {len(steps)} micro-batches, {steps[-1][3]} updates")
-    require(json.loads(json.dumps(resume_logs["test"], default=float))["total"] == 1,
-            f"resumed run: test logs {resume_logs}")
 
-    seconds = [r[1] for r in run_steps]
+    seconds = [r[1] for r in steps]
     windows = [sum(seconds[i:i + TRAIN_ACCUM]) for i in range(0, n_steps, TRAIN_ACCUM)]
     steady = statistics.median(seconds[1:])
     say(f"train entry point (configs/projects/train/qvh.yaml, {TRAIN_QUERIES} queries x "
@@ -2929,7 +2873,7 @@ def train_entry_point(torch, wrappers, card):
         f"use_grad_checkpoint): every micro-batch launched "
         f"{ {k: v for k, v in EXPECTED_REMAT_TRAIN_LAUNCHES.items() if v} } and every val/test "
         f"generate { {k: v for k, v in EXPECTED_LAUNCHES.items() if v} }; "
-        f"losses {[round(r[2], 4) for r in run_steps]}; every trainable tensor moved, every "
+        f"losses {[round(r[2], 4) for r in steps]}; every trainable tensor moved, every "
         f"frozen one bit-equal; test metrics (random weights) {json.dumps(metrics)}")
     say(f"train entry point seconds: micro-batch steady {steady:.3f} (median of 1-{n_steps - 1}; "
         f"mean {statistics.mean(seconds[1:]):.3f}, first {seconds[0]:.3f}); update "
@@ -2942,15 +2886,9 @@ def train_entry_point(torch, wrappers, card):
         f"{remat['loss_rel']:.2e}); LoRA gradients cosine min {remat['cos']:.7f}, max |diff| / "
         f"max |g| {remat['rel']:.2e}; peak memory on {remat['peak'][True]:.2f} GiB, off "
         f"{remat['peak'][False]:.2f} GiB; seconds on {remat['s'][True]:.3f}, off "
-        f"{remat['s'][False]:.3f}; {card}")
-    say(f"train entry point preemption: SIGTERM after {PREEMPT_AFTER} micro-batches -> exit 143 "
-        f"({preempt_wall:.3f} s); resume_state.pth {saved['bytes']:,} bytes written in "
-        f"{saved['write_s']:.3f} s ({saved['bytes'] / saved['write_s'] / 1e9:.2f} GB/s), loaded in "
-        f"{loaded['load_s']:.3f} s; weights, AdamW state, counters {saved['counters']} and "
-        f"partial gradients bit-equal after the load; the resumed run re-ran epoch 0 "
-        f"({len(steps)} micro-batches, {resume_wall:.3f} s) and exited 0; phase "
-        f"{time.time() - phase_start:.1f} s; {card}")
-    return launches
+        f"{remat['s'][False]:.3f}; phase {time.time() - phase_start:.1f} s; {card}")
+    return launches, dict(steady_s=steady, update_s=statistics.mean(windows[1:]),
+                          peak_gib=(peak - resident) / 2**30)
 
 
 def remat_on_off(torch, model, built, set_dropout_generator, make_samples):
@@ -3486,6 +3424,576 @@ def opt_kernel_vs_plain_path(torch, wrappers):
     require(float(cos.min()) >= COSINE_MIN, f"OPT logits cosine {float(cos.min())}")
 
 
+# -------------------------------------------------------------- phase 20
+def serving_rows(reqs, videos):
+    """The rows the server dispatches for ``reqs``, as ``generate`` samples;
+    ``videos``: their frames as submitted (the server replaces a request's
+    frames by the copy it staged on the card)."""
+    import numpy as np
+
+    from mr_blip_tpu_torch.datasets.mr_datasets import TASK_PROMPT
+
+    return {
+        "video": np.stack(videos),
+        "timestamps": np.stack([np.linspace(0.0, r.duration, len(v), endpoint=False)
+                                for r, v in zip(reqs, videos)]),
+        "duration": np.asarray([r.duration for r in reqs]),
+        "query_id": [r.qid for r in reqs],
+        "video_prompt_end": ["<extra_id_0>"] * len(reqs),
+        "query_prompt": ["Query: " + r.query + "\n" for r in reqs],
+        "task_prompt": [TASK_PROMPT] * len(reqs),
+    }
+
+
+def serving_entry_point(torch, wrappers, card, main_summary):
+    """Phase 20: online serving at full width. ``load_model("blip2_mr",
+    "pretrain_flant5xl")`` on the card (EVA ViT-g, Q-Former, Flan-T5-XL, bf16,
+    beam 5; weights redrawn from seed 0), a ``MomentRetrievalServer``
+    (max_batch 4, buckets 1/2/4, two decode workers) warmed at 60 frames,
+    then (a) four frame requests from one thread: one batch, rows equal to
+    ``model.generate`` on the same four rows; (b) three requests: one batch
+    padded to 4, rows equal to ``generate`` on the padded rows' first three;
+    (c) SERVE_REQUESTS ``synthetic://`` requests of QVHighlights' 150 s from
+    SERVE_CLIENTS client threads through ``make_httpd`` on 127.0.0.1: every
+    reply 200 and spans. Every dispatched batch, warmup included, launches
+    kernels 1-3 110 / 39 / 24 times. Then the model is freed and ``python -m
+    mr_blip_tpu_torch.serve`` runs as a process: four requests, SIGTERM, exit
+    0 with its stats line. Returns the launch counts of (a)-(c) and its
+    summary numbers."""
+    import os
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mr_blip_tpu_torch.models import load_model
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.processors.video_processors import BlipVideoEvalProcessor
+    from mr_blip_tpu_torch.serve import make_httpd
+    from mr_blip_tpu_torch.serving import MomentRetrievalServer, MRRequest
+    from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
+
+    batches = []  # per dispatch: (thread name, rows, launches, seconds)
+    dispatch = BLIP2_MR.generate_dispatch
+
+    def tapped_dispatch(model, samples):
+        before = {name: w.launches for name, w in wrappers.items()}
+        torch.cuda.synchronize()
+        start = time.time()
+        handle = dispatch(model, samples)
+        torch.cuda.synchronize()
+        batches.append((threading.current_thread().name, len(samples["query_id"]),
+                        {name: w.launches - before[name] for name, w in wrappers.items()},
+                        time.time() - start))
+        return handle
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.time()
+    model = load_model("blip2_mr", "pretrain_flant5xl")
+    model.init_params(0)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    require(model.num_beams == 5 and model.compute_dtype == torch.bfloat16
+            and model.vit_config.depth == 39 and model.t5_config.num_layers == 24
+            and model.device.type == "cuda", "serving: not the pretrain_flant5xl model")
+    proc = BlipVideoEvalProcessor(image_size=224, n_frms=N_FRAMES, normalize=False)
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    BLIP2_MR.generate_dispatch = tapped_dispatch
+    try:
+        srv = MomentRetrievalServer(model, vis_processor=proc, max_batch=BATCH,
+                                    max_wait_ms=SERVE_FORM_WAIT_MS, batch_buckets=[1, 2, 4],
+                                    decode_workers=2)
+        warmup_s = srv.warmup(N_FRAMES)
+        require(len(batches) == 3, f"serving warmup: {len(batches)} batches")
+        samples = make_serving_samples(BATCH, seed=20)
+        # (a) four frame requests from one thread: one full batch
+        reqs = [MRRequest(query=f"a person is doing something {i}", duration=150.0,
+                          video=samples[i], qid=f"a{i}") for i in range(BATCH)]
+        got_a = [f.result(timeout=600) for f in [srv.submit(r) for r in reqs]]
+        want = model.generate(serving_rows(reqs, samples))
+        require([g["raw_prediction"] for g in got_a] == want["raw_prediction"]
+                and [g["prediction"] for g in got_a] == want["prediction"],
+                f"serving (a): rows differ from model.generate: {got_a} vs {want}")
+        # (b) three requests: one batch padded to 4 by repeating the last row
+        reqs = [MRRequest(query=r.query, duration=r.duration, video=v, qid=r.qid)
+                for r, v in zip(reqs[:3], samples)]
+        got_b = [f.result(timeout=600) for f in [srv.submit(r) for r in reqs]]
+        want = model.generate(serving_rows(reqs + [reqs[-1]], samples[:3] + samples[2:3]))
+        require([g["raw_prediction"] for g in got_b] == want["raw_prediction"][:3],
+                f"serving (b): rows differ from generate on the padded rows: {got_b} vs {want}")
+        srv.close(timeout=600)
+        st = srv.stats()
+        server_batches = [b for b in batches if b[0] == "mrserve-device"]
+        require(st.batches == 2 and [b[1] for b in server_batches] == [4, 4]
+                and abs(st.mean_batch_occupancy - 7 / 8) < 1e-12 and st.completed == 7,
+                f"serving (a), (b): {st}, batches {[b[1] for b in server_batches]}")
+        # (c) HTTP under closed-loop load from SERVE_CLIENTS threads
+        first_c = len(batches)
+        srv = MomentRetrievalServer(model, vis_processor=proc, max_batch=BATCH,
+                                    max_wait_ms=SERVE_WAIT_MS, batch_buckets=[1, 2, 4],
+                                    decode_workers=2)
+        httpd = make_httpd(srv, host="127.0.0.1", port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/moment_retrieval"
+
+        def post(i):
+            body = json.dumps({"query": f"a person is doing something {i}", "duration": 150.0,
+                               "video_path": f"synthetic://{EVAL_VIDEO_FRAMES}x96x128@"
+                                             f"{EVAL_FPS}#{i}", "qid": f"c{i}"}).encode()
+            req = urllib.request.Request(url, data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read())
+
+        t_load = time.time()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            replies = list(pool.map(post, range(SERVE_REQUESTS)))
+        load_s = time.time() - t_load
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close(timeout=600)
+        st_c = srv.stats()
+    finally:
+        BLIP2_MR.generate_dispatch = dispatch
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for code, out in replies:
+        require(code == 200, f"serving (c): reply {code} {out}")
+        moment_str_to_list(out["prediction"])
+    require(sorted(out["qid"] for _, out in replies) == sorted(f"c{i}" for i in
+                                                               range(SERVE_REQUESTS)),
+            "serving (c): replies do not match the requests")
+    for i, (_, rows, rose, _) in enumerate(batches):
+        require(rose == EXPECTED_LAUNCHES, f"serving batch {i} ({rows} rows): launches "
+                f"{rose}, expected {EXPECTED_LAUNCHES}")
+    loaded = [b for b in batches[first_c:]]
+    require(st_c.completed == SERVE_REQUESTS and st_c.failed == 0
+            and st_c.batches == len(loaded), f"serving (c): {st_c}")
+    per_batch = statistics.mean(b[3] for b in loaded)
+    say(f"serving (phase 20; pretrain_flant5xl via load_model, B<={BATCH} x {N_FRAMES} frames, "
+        f"buckets 1/2/4): model built in {build_s:.1f} s, warmup of 3 buckets {warmup_s:.1f} s; "
+        f"(a) 4 requests -> 1 batch, rows equal to model.generate; (b) 3 requests -> 1 batch "
+        f"padded to 4, rows equal to generate on the padded rows; every batch launched "
+        f"{ {k: v for k, v in EXPECTED_LAUNCHES.items() if v} } ({len(batches)} dispatches "
+        f"with warmup and the reference generates)")
+    say(f"serving under load (c) ({SERVE_REQUESTS} synthetic:// requests of "
+        f"{EVAL_VIDEO_FRAMES / EVAL_FPS:.0f} s from {SERVE_CLIENTS} client threads over HTTP, "
+        f"max_wait {SERVE_WAIT_MS} ms): batches {st_c.batches} of rows "
+        f"{[b[1] for b in loaded]}, occupancy {st_c.mean_batch_occupancy:.3f}, "
+        f"{st_c.throughput_rps:.3f} requests/s ({SERVE_REQUESTS / load_s:.3f} over the "
+        f"clients' {load_s:.3f} s), latency p50 {st_c.latency_p50_s:.3f} p95 "
+        f"{st_c.latency_p95_s:.3f} p99 {st_c.latency_p99_s:.3f} s; seconds per batch under "
+        f"load {per_batch:.3f} (each {[round(b[3], 3) for b in loaded]}) vs phase 4's steady "
+        f"{main_summary['steady_s']:.3f}; peak memory {(peak - resident) / 2**30:.2f} GiB "
+        f"above the {resident / 2**30:.2f} GiB earlier phases held; {card}")
+    summary = dict(batches=st_c.batches, occupancy=st_c.mean_batch_occupancy,
+                   rps=st_c.throughput_rps, p50_s=st_c.latency_p50_s,
+                   p95_s=st_c.latency_p95_s, p99_s=st_c.latency_p99_s,
+                   batch_s=per_batch, peak_gib=(peak - resident) / 2**30)
+    del model, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # python -m mr_blip_tpu_torch.serve as a process: four requests, SIGTERM.
+    t0 = time.time()
+    errors = tempfile.TemporaryFile(mode="w+")  # its log, read if it fails
+    server = subprocess.Popen(
+        [sys.executable, "-m", "mr_blip_tpu_torch.serve", "--model-type", "pretrain_flant5xl",
+         "--n-frms", str(N_FRAMES), "--port", "0"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=errors, text=True)
+    killer = threading.Timer(SERVE_PROCESS_TIMEOUT_S, server.kill)
+    killer.start()
+
+    def log_tail():
+        errors.seek(0)
+        return errors.read()[-2000:]
+
+    try:
+        line = server.stdout.readline()
+        require(line.startswith("serving on"), f"serve: no 'serving on' line ({line!r}): "
+                f"{log_tail()}")
+        ready_s = time.time() - t0
+        url = f"http://127.0.0.1:{int(line.strip().rsplit(':', 1)[1])}/v1/moment_retrieval"
+        with ThreadPoolExecutor(4) as pool:
+            replies = list(pool.map(post, range(4)))
+        require(all(code == 200 for code, _ in replies), f"serve: replies {replies}")
+        server.send_signal(signal.SIGTERM)
+        out, _ = server.communicate(timeout=SERVE_PROCESS_TIMEOUT_S)
+    finally:
+        killer.cancel()
+        if server.poll() is None:
+            os.kill(server.pid, signal.SIGKILL)
+            server.communicate()
+    require(server.returncode == 0, f"serve: exit {server.returncode}: {log_tail()}")
+    errors.close()
+    stats = json.loads(out.strip().splitlines()[-1])
+    require(stats["completed"] == 4 and stats["failed"] == 0 and stats["queued"] == 0,
+            f"serve: stats {stats}")
+    say(f"python -m mr_blip_tpu_torch.serve: serving {ready_s:.1f} s after start; 4 requests "
+        f"answered (batches {stats['batches']}, occupancy "
+        f"{stats['mean_batch_occupancy']:.3f}); SIGTERM -> exit 0 after draining, stats line "
+        f"{json.dumps(stats)}; {time.time() - t0:.1f} s in all")
+    return launches, summary
+
+
+def make_serving_samples(n, seed):
+    """``n`` videos of N_FRAMES random uint8 frames at 224²."""
+    from mr_blip_tpu_torch.profile_inference import make_samples
+
+    return list(make_samples(n, N_FRAMES, seed)["video"])
+
+
+# -------------------------------------------------------------- phase 21
+def qlora_entry_point(torch, wrappers, card, train_summary):
+    """Phase 21: QLoRA-style training at full width, ``python -m
+    mr_blip_tpu_torch.train`` on ``configs/projects/train/qvh.yaml`` with
+    ``model.int8_base=True model.int8_vit=True`` (the T5 base weight-only int8
+    under the LoRA deltas, the ViT on the W8A8 kernels), random weights, over
+    QLORA_QUERIES synthetic train queries, one val and one test query,
+    micro-batches of 1 x 60 frames under ``use_grad_checkpoint``. Called
+    twice in this process: a run SIGTERMed from a thread of this process
+    after QLORA_PREEMPT_AFTER micro-batches (one update of 8 and one
+    micro-batch into the next window) must exit 143 with a resume state of
+    the unfinished epoch; a run resuming from it must load the weights
+    (every ``kernel_q`` among them), the AdamW state, the counters and the
+    partial gradients bit for bit, log ``(epoch 0)``, re-run the epoch and
+    exit 0. Every T5 ``kernel_q`` bit-equal to the built one after the update
+    and after the resumed run, every LoRA tensor moved, every loss finite,
+    each micro-batch's and each generate's launches as predicted; one more
+    forward of the trained model with checkpointing off must save for the
+    backward no float tensor of a frozen int8 weight's shape. Then the
+    depth-2 model against the CPU's plain path (loss, LoRA gradients by
+    cosine, phase 7's bars). Returns the two runs' launch counts."""
+    import logging
+    import os
+    import signal
+    import tempfile
+    import threading
+
+    from mr_blip_tpu_torch import train
+    from mr_blip_tpu_torch.datasets.synthetic import make_mr_annotations
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.profile_inference import make_samples
+    from mr_blip_tpu_torch.runners.runner_base import RunnerBase
+    from mr_blip_tpu_torch.runners.train_state import TrainCtx
+
+    models, steps, generates, messages = [], [], [], []
+    built, saved, loaded, peaks = {}, {}, {}, {}
+    stop_after = [QLORA_PREEMPT_AFTER]
+    from_config = BLIP2_MR.from_config.__func__
+    step, dispatch = TrainCtx.step, BLIP2_MR.generate_dispatch
+    write_resume, load_checkpoint = RunnerBase._write_resume_state, RunnerBase.load_checkpoint
+
+    def counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def int8_t5(model):
+        return [b for n, b in model.module.named_buffers()
+                if n.startswith("t5.") and n.endswith("kernel_q")]
+
+    def lora_moved(model):
+        lora = {n: p for n, p in model.module.named_parameters() if "lora_" in n}
+        same = [n for n, p in lora.items() if torch.equal(p.detach().float(), built["lora"][n])]
+        require(lora and not same, f"QLoRA: {len(same)} LoRA tensors never moved, e.g. "
+                f"{same[:3]}")
+        return len(lora)
+
+    def tapped_from_config(cls, cfg, device="cuda"):
+        model = from_config(cls, cfg, device=device)
+        models.append(model)
+        if not built:  # the first run's weights as built
+            built["kernel_q"] = checksums(torch, int8_t5(model))
+            built["lora"] = {n: p.detach().float().clone()
+                             for n, p in model.module.named_parameters() if "lora_" in n}
+        return model
+
+    def tapped_step(ctx, batch):
+        before = counts()
+        torch.cuda.synchronize()
+        if not steps:  # the peak so far is the build's (and the resume state's load)
+            peaks["build"] = max(peaks.get("build", 0), torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        start = time.time()
+        loss = step(ctx, batch)
+        torch.cuda.synchronize()
+        steps.append(({n: w.launches - before[n] for n, w in wrappers.items()},
+                      time.time() - start, loss, ctx.updates))
+        if len(steps) == stop_after[0]:  # SIGTERM from another thread
+            thread = threading.Thread(target=os.kill, args=(os.getpid(), signal.SIGTERM))
+            thread.start()
+            thread.join()
+        return loss
+
+    def tapped_dispatch(model, samples):
+        before = counts()
+        handle = dispatch(model, samples)
+        generates.append({n: w.launches - before[n] for n, w in wrappers.items()})
+        return handle
+
+    def state_snapshot(runner):
+        """Bit checksums of every weight, ``kernel_q`` apart; exact host
+        copies of the train state (small: the LoRA tensors, their gradients
+        and moments)."""
+        ctx = runner.train_ctx.state_dict()
+
+        def copy(t):
+            return None if t is None else t.to("cpu", copy=True)
+
+        return {"weights": checksums(torch, list(runner.model.state_dict().values())),
+                "kernel_q": checksums(torch, int8_t5(runner.model)),
+                "params": {n: copy(t) for n, t in ctx["params"].items()},
+                "grads": {n: copy(g) for n, g in ctx["grads"].items()},
+                "moments": {(i, k): copy(v) for i, st in ctx["optimizer"]["state"].items()
+                            for k, v in st.items()},
+                "counters": (ctx["calls"], ctx["updates"])}
+
+    def tapped_write_resume(runner, cur_epoch, epoch_complete=True):
+        if epoch_complete:  # not the preemption's state
+            return write_resume(runner, cur_epoch, epoch_complete)
+        saved.update(state_snapshot(runner))
+        lora_moved(runner.model)
+        torch.cuda.synchronize()
+        start = time.time()
+        path = write_resume(runner, cur_epoch, epoch_complete)
+        saved["write_s"] = time.time() - start
+        saved["bytes"] = os.path.getsize(path)
+        return path
+
+    def tapped_load_checkpoint(runner, path):
+        start = time.time()
+        load_checkpoint(runner, path)
+        torch.cuda.synchronize()
+        loaded["load_s"] = time.time() - start
+        loaded.update(state_snapshot(runner))
+        loaded["start_epoch"] = runner.start_epoch
+
+    class Messages(logging.Filter):  # survives setup_logger's basicConfig(force=True)
+        def filter(self, record):
+            messages.append(record.getMessage())
+            return True
+
+    def free():
+        models.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    taps = ((BLIP2_MR, "from_config", classmethod(tapped_from_config)),
+            (TrainCtx, "step", tapped_step), (BLIP2_MR, "generate_dispatch", tapped_dispatch),
+            (RunnerBase, "_write_resume_state", tapped_write_resume),
+            (RunnerBase, "load_checkpoint", tapped_load_checkpoint))
+    originals = [(cls, name, cls.__dict__[name]) for cls, name, _ in taps]
+    log_filter = Messages()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_mr_annotations(f"{tmp}/run", n_train=QLORA_QUERIES, n_val=1, n_test=1,
+                                    n_video_frames=EVAL_VIDEO_FRAMES, fps=EVAL_FPS)
+
+        def argv(out, *options):
+            return ["--cfg-path", str(ROOT / "configs/projects/train/qvh.yaml"), "--options",
+                    *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
+                      for split, path in paths.items()),
+                    "datasets.qvh.build_info.videos.storage=synthetic",
+                    f"run.output_dir={Path(tmp) / out}", "run.max_epoch=1",
+                    "model.int8_base=True", "model.int8_vit=True", *options]
+
+        free()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        for cls, name, tap in taps:
+            setattr(cls, name, tap)
+        logging.getLogger().addFilter(log_filter)
+        try:
+            # --- the run, preempted
+            code = None
+            t0 = time.time()
+            try:
+                train.main(argv("preempt"))
+            except SystemExit as e:
+                code = e.code
+            preempt_wall = time.time() - t0
+            peaks["run"] = torch.cuda.max_memory_allocated()
+            stop_after[0] = None
+            require(code == 143, f"QLoRA preempted run: exit code {code}, expected 143")
+            (model,) = models
+            require(model.t5_config.int8_base and model.vit_config.int8_matmul
+                    and model.t5_config.use_remat and model.task == "qformer_freeze_lora",
+                    "QLoRA: not qvh.yaml's model with int8_base and int8_vit")
+            del model
+            run_steps = list(steps)
+            require(len(run_steps) == QLORA_PREEMPT_AFTER,
+                    f"QLoRA preempted run: {len(run_steps)} micro-batches")
+            (resume_path,) = (Path(tmp) / "preempt").glob("*/resume_state.pth")
+            state = torch.load(resume_path, map_location="cpu", mmap=True, weights_only=True)
+            require(state["epoch"] == 0 and state["epoch_complete"] is False,
+                    f"QLoRA resume state: epoch {state['epoch']}, epoch_complete "
+                    f"{state['epoch_complete']}")
+            del state
+            free()
+            torch.cuda.reset_peak_memory_stats()
+            steps.clear()
+            messages.clear()
+
+            # --- the run, resumed
+            t0 = time.time()
+            resume_logs = train.main(argv("resume", f"run.resume_ckpt_path={resume_path}"))
+            torch.cuda.synchronize()
+            resume_wall = time.time() - t0
+            peaks["run"] = max(peaks["run"], torch.cuda.max_memory_allocated())
+        finally:
+            logging.getLogger().removeFilter(log_filter)
+            for cls, name, original in originals:
+                setattr(cls, name, original)
+        launches = counts()
+    (model,) = models
+    for i, (rose, _, loss, _) in enumerate(run_steps + steps):
+        require(rose == EXPECTED_QLORA_LAUNCHES, f"QLoRA micro-batch {i}: launches {rose}, "
+                f"expected {EXPECTED_QLORA_LAUNCHES}")
+        require(math.isfinite(loss), f"QLoRA micro-batch {i}: loss {loss}")
+    require(len(generates) == 2 and all(g == EXPECTED_QLORA_GENERATE_LAUNCHES
+                                        for g in generates),
+            f"QLoRA val/test generates: {generates}")
+    # The preempted run's state after its update, bit-equal after the load.
+    require(saved["kernel_q"] == built["kernel_q"], "QLoRA: a T5 kernel_q changed in the update")
+    require(loaded["start_epoch"] == 0, f"QLoRA resumed run: start epoch {loaded['start_epoch']}")
+    require(any("Resume checkpoint loaded" in m and "(epoch 0)" in m for m in messages),
+            "QLoRA resumed run: no 'Resume checkpoint loaded ... (epoch 0)' in its log")
+    require(loaded["weights"] == saved["weights"] and loaded["kernel_q"] == built["kernel_q"],
+            "QLoRA resumed run: weights differ from the saved")
+    require(loaded["counters"] == saved["counters"] == (
+        QLORA_PREEMPT_AFTER, QLORA_PREEMPT_AFTER // TRAIN_ACCUM),
+        f"QLoRA resumed run: calls, updates {loaded['counters']} (saved {saved['counters']})")
+    for key in ("params", "grads", "moments"):
+        require(saved[key].keys() == loaded[key].keys(), f"QLoRA resumed run: {key} names differ")
+        for name, want in saved[key].items():
+            got = loaded[key][name]
+            require(want is not None and torch.equal(got, want),
+                    f"QLoRA resumed run: {key} {name} differs from the saved (or is missing)")
+    require(len(steps) == QLORA_QUERIES and steps[-1][3] == (
+        QLORA_PREEMPT_AFTER + QLORA_QUERIES) // TRAIN_ACCUM,
+        f"QLoRA resumed run: {len(steps)} micro-batches, {steps[-1][3]} updates")
+    require(json.loads(json.dumps(resume_logs["test"], default=float))["total"] == 1,
+            f"QLoRA resumed run: test logs {resume_logs}")
+    require(checksums(torch, int8_t5(model)) == built["kernel_q"],
+            "QLoRA: a T5 kernel_q changed in the resumed run")
+    n_lora = lora_moved(model)
+    int8_bytes = sum(b.numel() for b in model.module.buffers() if b.dtype == torch.int8)
+
+    # Nothing float of an int8 weight's shape is saved for the backward: one
+    # forward without checkpointing (which would hide the blocks' tensors).
+    shapes = set()
+    for b in int8_t5(model):
+        shapes |= {tuple(b.shape), tuple(b.t().shape)}
+    saved_floats = []
+
+    def pack(t):
+        if t.is_floating_point() and tuple(t.shape) in shapes:
+            saved_floats.append((t.dtype, tuple(t.shape)))
+        return t
+
+    t5 = model.module.t5
+    t5.encoder.use_remat = t5.decoder.use_remat = False
+    model.train()
+    batch = model.prepare_mr_batch(make_samples(1, N_FRAMES, seed=17))
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss = model.loss(batch)
+    del loss
+    t5.encoder.use_remat = t5.decoder.use_remat = True
+    model.eval()
+    require(not saved_floats, f"QLoRA: float copies of int8 weights saved for the backward: "
+            f"{saved_floats[:5]}")
+    del model, t5, batch
+    free()
+
+    seconds = [s[1] for s in run_steps]
+    say(f"QLoRA entry point (configs/projects/train/qvh.yaml + model.int8_base=True "
+        f"model.int8_vit=True, {QLORA_QUERIES} queries, B=1 x {N_FRAMES} frames, "
+        f"accum_grad_iters {TRAIN_ACCUM}, use_grad_checkpoint): every micro-batch of both "
+        f"runs launched { {k: v for k, v in EXPECTED_QLORA_LAUNCHES.items() if v} } and the "
+        f"val/test generates { {k: v for k, v in EXPECTED_QLORA_GENERATE_LAUNCHES.items() if v} }; "
+        f"losses {[round(s[2], 4) for s in run_steps]} then, resumed, "
+        f"{[round(s[2], 4) for s in steps]}; {len(built['kernel_q'])} T5 kernel_q bit-equal "
+        f"after the update and after the resumed run, {n_lora} LoRA tensors moved; "
+        f"{int8_bytes / 1e9:.3f} GB of int8 weights; no float copy of an int8 weight saved "
+        f"for the backward")
+    say(f"QLoRA preemption: SIGTERM after {QLORA_PREEMPT_AFTER} micro-batches -> exit 143 "
+        f"({preempt_wall:.3f} s); resume_state.pth {saved['bytes']:,} bytes written in "
+        f"{saved['write_s']:.3f} s, loaded in {loaded['load_s']:.3f} s; weights (every "
+        f"kernel_q among them), AdamW state, counters {saved['counters']} and partial "
+        f"gradients bit-equal after the load; the resumed run re-ran epoch 0 ({len(steps)} "
+        f"micro-batches, {resume_wall:.3f} s) and exited 0")
+    say(f"QLoRA vs phase 17 (bf16 base), seconds: micro-batch steady "
+        f"{statistics.median(seconds[1:]):.3f} vs {train_summary['steady_s']:.3f} (first "
+        f"{seconds[0]:.3f}); update {sum(seconds[:TRAIN_ACCUM]):.3f} (its {TRAIN_ACCUM} "
+        f"micro-batches, the first included) vs {train_summary['update_s']:.3f}; peak memory "
+        f"of the micro-batches and generates {(peaks['run'] - resident) / 2**30:.2f} vs "
+        f"{train_summary['peak_gib']:.2f} GiB above what earlier phases held (model build with "
+        f"its int8 conversions, or with the resume state's load, "
+        f"{(peaks['build'] - resident) / 2**30:.2f}); {card}")
+    qlora_kernel_vs_plain_path(torch, wrappers)
+    return launches
+
+
+def qlora_kernel_vs_plain_path(torch, wrappers):
+    """Phase 21's depth-2 check: the ``qformer_freeze_lora`` model with
+    ``int8_base`` and the int8 ViT, weights as phase 7 draws them, one
+    forward and backward of 1 x GRAD_FRAMES frames on the card (kernels) and
+    on the CPU (plain versions) in bf16: loss within LOSS_REL_TOL, every LoRA
+    gradient's cosine >= GRAD_COSINE_MIN."""
+    from mr_blip_tpu_torch.profile_inference import make_samples
+
+    task = "qformer_freeze_lora"
+    samples = make_samples(1, GRAD_FRAMES, seed=7)
+    gpu = reduced_model("cuda", task=task)
+    cfg = gpu.t5_config
+    state = gpu.state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state[RELPOS_TABLE] = torch.randn(state[RELPOS_TABLE].shape, generator=gen, device="cuda")
+    for name in state:
+        if name.startswith("t5.") and name.endswith("attention.q.weight"):
+            state[name] = (torch.randn(state[name].shape, generator=gen, device="cuda")
+                           * (cfg.d_model * cfg.d_kv) ** -0.5)
+    gpu.load_state_dict(state)
+    gpu.quantize_vit().quantize_base_for_train()
+    batch = gpu.prepare_mr_batch(samples)
+    for w in wrappers.values():
+        w.launches = 0
+    loss_gpu, g_gpu, _ = path_gradients(torch, gpu, batch, task)
+    rose = {name: w.launches for name, w in wrappers.items() if w.launches}
+    state = {k: v.cpu() for k, v in gpu.state_dict().items()}
+    del gpu
+    torch.cuda.empty_cache()
+    cpu = reduced_model("cpu", task=task, init_params=False)
+    cpu.quantize_vit().quantize_base_for_train()
+    cpu.load_state_dict(state)
+    t0 = time.time()
+    loss_cpu, g_cpu, _ = path_gradients(torch, cpu, batch, task)
+    seconds = time.time() - t0
+    require(g_gpu.keys() == g_cpu.keys() and all("lora_" in n for n in g_gpu),
+            f"QLoRA depth {REDUCED_DEPTH}: trainable sets {sorted(g_gpu)[:3]}")
+    cos = {n: cosine(torch, g_gpu[n], g_cpu[n]) for n in g_gpu}
+    worst = min(cos, key=cos.get)
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    say(f"QLoRA kernel path vs plain path (depth {REDUCED_DEPTH}, full width, 1 x "
+        f"{GRAD_FRAMES} frames, int8_base + int8 ViT): loss {loss_gpu:.5f} vs plain "
+        f"{loss_cpu:.5f} (rel {rel:.2e}); {len(cos)} LoRA gradients, cosine min "
+        f"{cos[worst]:.6f} ({worst}), mean {statistics.mean(cos.values()):.6f}; launches "
+        f"{rose}; CPU run {seconds:.1f} s")
+    require(rel <= LOSS_REL_TOL, f"QLoRA depth {REDUCED_DEPTH}: loss rel diff {rel}")
+    require(cos[worst] >= GRAD_COSINE_MIN, f"QLoRA depth {REDUCED_DEPTH}: {worst} cosine "
+            f"{cos[worst]}")
+    require(rose.get("w8a8_attn_block") == REDUCED_DEPTH and rose.get("w8a8_mlp") == REDUCED_DEPTH
+            and rose.get("flash_bias_bwd_dkv") == REDUCED_DEPTH,
+            f"QLoRA depth {REDUCED_DEPTH}: launches {rose}")
+    del cpu, g_gpu, g_cpu
+
+
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
     the ``kernels`` line (source in the port, TPU kernel replaced)."""
@@ -3663,7 +4171,7 @@ def main():
         f"launches of kernels 1-3 { {k: eval_launches[k] for k in GENERATE_KERNELS} }")
     done(16)
     # phase 17: the train entry point on configs/projects/train/qvh.yaml
-    train_entry_launches = train_entry_point(torch, wrappers, smi)
+    train_entry_launches, train_entry_summary = train_entry_point(torch, wrappers, smi)
     done(17)
     # phase 18: the grounded-QA evaluation entry point on configs/projects/eval/nextGQA.yaml
     qa_entry_launches, _ = qa_entry_point(torch, wrappers, smi)
@@ -3672,6 +4180,13 @@ def main():
     # configs/projects/eval/opt_charades.yaml, a LoRA step, depth 2 vs plain
     opt_entry_launches, _ = opt_entry_point(torch, wrappers, smi)
     done(19)
+    # phase 20: online serving at full width (load_model, the server, HTTP,
+    # python -m mr_blip_tpu_torch.serve)
+    serve_launches, _ = serving_entry_point(torch, wrappers, smi, bf16_summary)
+    done(20)
+    # phase 21: QLoRA-style training at full width (int8_base, int8 ViT)
+    qlora_launches = qlora_entry_point(torch, wrappers, smi, train_entry_summary)
+    done(21)
 
     for key, entry in kernels.items():
         if key == "flash_attention":
@@ -3693,12 +4208,14 @@ def main():
         entry["train_entry_launches"] = train_entry_launches[key]
         entry["qa_entry_launches"] = qa_entry_launches[key]
         entry["opt_entry_launches"] = opt_entry_launches[key]
+        entry["serve_launches"] = serve_launches[key]
+        entry["qlora_launches"] = qlora_launches[key]
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "train_entry_launches", "qa_entry_launches",
-                               "opt_entry_launches")}
+                               "opt_entry_launches", "serve_launches", "qlora_launches")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -33,6 +33,10 @@ the loaded float weights (W8A8 ViT, Q-Former cross K/V and T5 encoder on the
 kernels of ``ops/int8_matmul.py``; weight-only int8 decoder and LM head; int8
 cross-attention cache) and generates as before. Inference only.
 
+QLoRA-style training: ``model.quantize_base_for_train()`` (``model.int8_base``
+in a config) stores the frozen T5 base weight-only int8 under the float LoRA
+deltas; ``TrainCtx`` then trains the LoRA tensors as before.
+
 Long context: ``BLIP2_MR(relpos_in_kernel=True)`` (120/240-frame videos) has
 the T5 encoder look its rel-pos bias up inside the flash kernels, in
 ``generate`` (bf16 and int8) and in ``loss``; no (1, H, L, L) bias is built
@@ -68,6 +72,7 @@ from mr_blip_tpu_torch.models.quantize import (
     quantize_qformer_cross_params,
     quantize_t5_decoder_params,
     quantize_t5_encoder_params,
+    quantize_t5_params,
     quantize_vit_params,
 )
 from mr_blip_tpu_torch.models.t5 import (
@@ -310,10 +315,11 @@ class BLIP2_MR(BaseModel):
             p.requires_grad_(mask[name])
 
     def trainable_param_count(self) -> tuple[int, int]:
-        """(trainable, total) parameter counts."""
+        """(trainable, total) parameter counts; the total counts the int8
+        weights and their scales (buffers here, parameters in JAX) too."""
         mask = self.trainable_mask()
         params = dict(self.module.named_parameters())
-        total = sum(p.numel() for p in params.values())
+        total = sum(t.numel() for t in (*params.values(), *self.module.buffers()))
         return sum(params[n].numel() for n, m in mask.items() if m), total
 
     # ------------------------------------------------------- int8 inference
@@ -380,6 +386,20 @@ class BLIP2_MR(BaseModel):
         return (self.quantize_vit().quantize_qformer().quantize_encoder()
                 .quantize_for_decode())
 
+    def quantize_base_for_train(self):
+        """QLoRA-style training layout (``int8_base=True``): the whole frozen
+        T5 base, every encoder and decoder block Dense and the LM head, stored
+        weight-only int8; the LoRA deltas stay float and train. Both T5 stacks
+        of a QA model. Call after loading float weights and before building
+        ``TrainCtx``. Raises without LoRA or on a T5 already quantized."""
+        if not self.use_lora:
+            raise ValueError(f"task {self.task!r}: int8 base training needs LoRA "
+                             "(a frozen base)")
+        cfg = self.t5_config
+        if cfg.int8_base or cfg.int8_encoder or cfg.int8_decode:
+            raise RuntimeError("the T5 is already quantized")
+        return self._rebuild_t5(quantize_t5_params, int8_base=True)
+
     # --------------------------------------------------------------- config
     # ``from_config`` keys (those ``mr_blip_tpu/models/blip2_mr.py::from_config``
     # reads) whose settings the port cannot compute yet: key -> (the settings
@@ -394,8 +414,6 @@ class BLIP2_MR(BaseModel):
                        "The unfrozen-ViT train path"),
         "fast_gelu": ((False,), "the tanh-GELU ViT", "Variants of BLIP2_MR"),
         "sequence_parallel": ((False,), "sequence-parallel frames", "Parallelism"),
-        "int8_base": ((False,), "the int8 T5 base under LoRA training",
-                      "The rest of int8"),
     }
     # Read and without effect in the port: layouts of the TPU program
     # (scan_layers, remat_policy); the ViT's stochastic depth, which a frozen
@@ -409,7 +427,7 @@ class BLIP2_MR(BaseModel):
         "num_frames_for_answer", "resample_frames", "relpos_in_kernel", "compute_dtype",
         "vocab_size", "params_dtype", "pretrained", "finetuned", "load_finetuned",
         "int8_inference", "int8_decode", "int8_vit", "int8_qformer", "int8_encoder",
-        "use_grad_checkpoint")
+        "int8_base", "use_grad_checkpoint")
 
     @classmethod
     def from_config(cls, cfg, device="cuda"):
@@ -420,9 +438,9 @@ class BLIP2_MR(BaseModel):
         tensor; the tensors keep the port's storage dtypes); then
         ``pretrained`` and, under ``load_finetuned``, ``finetuned`` loaded
         non-strict (a missing file logs a warning); then the int8
-        conversions in the JAX order. A key the port cannot compute raises
-        ``NotImplementedError``; a key ``from_config`` does not read is
-        logged."""
+        conversions in the JAX order, ``int8_base`` last. A key the port
+        cannot compute raises ``NotImplementedError``; a key ``from_config``
+        does not read is logged."""
         for key, (computable, what, item) in cls.UNSUPPORTED_CONFIG.items():
             if key in cfg and cfg[key] not in computable:
                 raise NotImplementedError(
@@ -493,6 +511,8 @@ class BLIP2_MR(BaseModel):
                 model.quantize_qformer()
             if cfg.get("int8_encoder", False):
                 model.quantize_encoder()
+        if cfg.get("int8_base", False):
+            model.quantize_base_for_train()
         return model
 
     def train(self, mode: bool = True):

@@ -83,14 +83,16 @@ class Blip2MRModule(nn.Module):
         """Replace ``visual_encoder``, ``qformer``, ``t5`` or ``answerer_t5``
         by one built from ``config`` (the same config with an int8 flag set)
         holding ``state_dict`` (the converted weights), frozen and in eval
-        mode."""
+        mode. The old submodule is dropped before the new one is built, so
+        the weights it alone held (those ``state_dict`` replaced) are freed
+        first."""
         cls, cfg_attr = {"visual_encoder": (EvaViT, "vit_config"),
                          "qformer": (QFormer, "qformer_config"),
                          "t5": (T5ForConditionalGeneration, "t5_config"),
                          "answerer_t5": (T5ForConditionalGeneration, "t5_config"),
                          }[name]
-        old = getattr(self, name)
-        device = next(old.parameters()).device
+        device = next(getattr(self, name).parameters()).device
+        setattr(self, name, None)
         new = cls(config, device=device, dtype=self.compute_dtype)
         new.load_state_dict(state_dict, strict=True)
         new.requires_grad_(False)

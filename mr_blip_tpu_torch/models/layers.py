@@ -8,7 +8,8 @@ the compute dtype; training turns the trainable ones to fp32 master copies
 (``BLIP2_MR.set_trainable``), as the JAX package keeps fp32 params.
 
 ``Dense(quantize=True)`` stores its weight as int8 with one fp32 scale per
-output channel (weight-only int8, inference); ``QDenseParams`` holds the same
+output channel (weight-only int8: the int8 decoder of inference and the
+frozen base of QLoRA-style training); ``QDenseParams`` holds the same
 layout for the modules that hand it to the W8A8 kernels of
 ``ops/int8_matmul.py``. ``models/quantize.py`` converts float weights.
 
@@ -120,6 +121,28 @@ def _int8_weight_buffers(module: nn.Module, in_features: int, out_features: int,
     module.register_buffer("kernel_scale", torch.ones(out_features, device=device))
 
 
+class _Int8WeightProduct(torch.autograd.Function):
+    """``x @ dequantize(kernel_q, kernel_scale)`` of a frozen weight-only int8
+    weight: the product of ``x`` and the int8 values accumulated in fp32,
+    scaled per output channel in fp32, cast to ``x``'s dtype. The backward
+    keeps the int8 weight and its scales, never an fp32 copy of the weight
+    (which autograd would keep for ``x.float() @ kernel_q.float()``), and
+    dequantizes when it runs; the weight gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_q, kernel_scale):
+        ctx.save_for_backward(kernel_q, kernel_scale)
+        # bf16 x int8 products are exact in fp32, so the fp32 matmul is the
+        # fp32-accumulated product of the compute-dtype operands.
+        return ((x.float() @ kernel_q.float()) * kernel_scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        kernel_q, kernel_scale = ctx.saved_tensors
+        grad_x = (grad.float() * kernel_scale) @ kernel_q.float().t()
+        return grad_x.to(grad.dtype), None, None
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype`` whatever its weights are stored
     in (bf16 frozen weights, fp32 trainable ones), with an optional LoRA
@@ -134,7 +157,8 @@ class Dense(nn.Linear):
     ``kernel_scale`` (out,), no ``weight``): the product of the activations
     and the int8 values is accumulated in fp32, scaled per output channel in
     fp32, and only then cast to the compute dtype; bias and the LoRA delta
-    (which stays float) follow.
+    (which stays float) follow. Under autograd the product saves only the
+    int8 weight and its scales for the backward (``_Int8WeightProduct``).
     """
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
@@ -166,10 +190,7 @@ class Dense(nn.Linear):
         cdt = self.compute_dtype
         x = x.to(cdt)
         if self.quantize:
-            # bf16 x int8 products are exact in fp32, so the fp32 matmul is
-            # the fp32-accumulated product of the compute-dtype operands.
-            y = (x.float() @ self.kernel_q.float()) * self.kernel_scale
-            y = y.to(cdt)
+            y = _Int8WeightProduct.apply(x, self.kernel_q, self.kernel_scale)
             if self.bias is not None:
                 y = y + self.bias.to(cdt)
         else:

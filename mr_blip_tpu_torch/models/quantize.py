@@ -4,7 +4,8 @@
 Every function takes the ``state_dict`` of a float module and returns the
 ``state_dict`` of the same module built with its int8 flag set
 (``ViTConfig.int8_matmul``, ``QFormerConfig.int8_cross``,
-``T5Config.int8_encoder`` / ``int8_decode``); the input is not modified.
+``T5Config.int8_encoder`` / ``int8_decode`` / ``int8_base``); the input is
+not modified.
 Symmetric, round half to even, one scale per output channel, computed in
 fp32 from the stored weight (frozen weights are stored in bf16 on the card):
 
@@ -95,6 +96,20 @@ def quantize_t5_decoder_params(t5_sd: StateDict) -> StateDict:
     stay float); encoder, embedding, norms and rel-pos tables untouched."""
     out = dict(t5_sd)
     for prefix in _dense_prefixes(out, r"decoder\.block\.\d+\.(" + _T5_DENSE + ")"):
+        quantize_dense(out, prefix)
+    if "lm_head.weight" in out:
+        quantize_dense(out, "lm_head.")
+    return out
+
+
+def quantize_t5_params(t5_sd: StateDict) -> StateDict:
+    """Float T5 weights -> those of ``T5Config(int8_base=True)``, the
+    QLoRA-style training layout (a frozen int8 base under float LoRA): every
+    encoder- and decoder-block Dense and the LM head weight-only int8; the
+    LoRA deltas, the shared embedding, the norms and the rel-pos tables
+    untouched."""
+    out = dict(t5_sd)
+    for prefix in _dense_prefixes(out, r"(en|de)coder\.block\.\d+\.(" + _T5_DENSE + ")"):
         quantize_dense(out, prefix)
     if "lm_head.weight" in out:
         quantize_dense(out, "lm_head.")

@@ -36,6 +36,11 @@ the attention itself stays the biased flash kernel in bf16);
 ``int8_decode`` stores every decoder Dense and the LM head weight-only int8;
 ``int8_cross_cache`` keeps the decode-time cross-attention K/V int8 with one
 scale per (batch row, channel).
+
+QLoRA-style training (``int8_base``): every encoder and decoder Dense and the
+LM head are weight-only int8 and frozen, the LoRA deltas float and trained;
+the backward of an int8 product keeps only the int8 weight and its scales
+(``layers.Dense``).
 """
 
 from __future__ import annotations
@@ -91,6 +96,9 @@ class T5Config:
     int8_cross_cache: bool = False
     # every encoder block on the W8A8 kernels (LoRA merged into the weights):
     int8_encoder: bool = False
+    # Training (QLoRA-style): every encoder and decoder block Dense and the LM
+    # head weight-only int8, frozen, under float trainable LoRA deltas.
+    int8_base: bool = False
     # Long context: the encoder's rel-pos bias is computed inside the flash
     # kernels from the table (O(N) memory) instead of being materialized as
     # (1, H, N, N). Changes no parameter.
@@ -375,8 +383,9 @@ class T5Encoder(nn.Module):
         self.cfg = cfg
         self.compute_dtype = dtype or torch.get_default_dtype()
         self.rel_bias = T5RelativeBias(cfg, bidirectional=True, device=device)
-        self.block = nn.ModuleList([T5Block(cfg, False, w8a8=cfg.int8_encoder,
-                                            device=device, dtype=dtype)
+        self.block = nn.ModuleList([T5Block(cfg, False, quantize_dense=cfg.int8_base,
+                                            w8a8=cfg.int8_encoder, device=device,
+                                            dtype=dtype)
                                     for _ in range(cfg.num_layers)])
         self.final_norm = RMSNormFP32(cfg.d_model, cfg.layer_norm_epsilon,
                                       device=device)
@@ -414,7 +423,8 @@ class T5Decoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.rel_bias = T5RelativeBias(cfg, bidirectional=False, device=device)
-        self.block = nn.ModuleList([T5Block(cfg, True, quantize_dense=cfg.int8_decode,
+        self.block = nn.ModuleList([T5Block(cfg, True,
+                                            quantize_dense=cfg.int8_decode or cfg.int8_base,
                                             device=device, dtype=dtype)
                                     for _ in range(cfg.num_decoder_layers)])
         self.final_norm = RMSNormFP32(cfg.d_model, cfg.layer_norm_epsilon,
@@ -482,8 +492,8 @@ class T5ForConditionalGeneration(nn.Module):
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, bias=False,
                              lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
                              lora_dropout=cfg.lora_dropout,
-                             quantize=cfg.int8_decode, device=device,
-                             dtype=dtype)
+                             quantize=cfg.int8_decode or cfg.int8_base,
+                             device=device, dtype=dtype)
 
     def encode(self, inputs_embeds, mask=None, position_bias=None):
         return self.encoder(inputs_embeds, mask=mask, position_bias=position_bias)

@@ -105,16 +105,26 @@ def test_from_config_constructor_values_equal_jax(path, options):
     ("frame_token_aggregation", "mean", "Variants of BLIP2_MR"),
     ("freeze_vit", False, "The unfrozen-ViT train path"),
     ("fast_gelu", True, "Variants of BLIP2_MR"),
-    ("sequence_parallel", True, "Parallelism"), ("int8_base", True, "The rest of int8"),
+    ("sequence_parallel", True, "Parallelism"),
+    ("int8_base", True, None),  # ported ("The rest of int8"): builds its layout
 ])
 def test_from_config_unsupported_settings_raise(key, value, item):
     cfg, _ = _model_cfg("configs/projects/train/tiny_synthetic.yaml")
     cfg[key] = value
-    with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
-        BLIP2_MR.from_config(cfg, device="cpu")
+    if item is None:
+        model = BLIP2_MR.from_config(cfg, device="cpu")
+        sd = model.state_dict()
+        assert model.t5_config.int8_base and key in BLIP2_MR.SUPPORTED_CONFIG
+        for dense in ("encoder.block.0.self_attention.q", "decoder.block.1.ff.wo",
+                      "lm_head"):
+            assert sd[f"t5.{dense}.kernel_q"].dtype == torch.int8
+            assert f"t5.{dense}.weight" not in sd and f"t5.{dense}.lora_a" in sd
+    else:
+        with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
+            BLIP2_MR.from_config(cfg, device="cpu")
     assert set(BLIP2_MR.UNSUPPORTED_CONFIG) == {
         "interleave_data", "frame_token_aggregation", "freeze_vit", "fast_gelu",
-        "sequence_parallel", "int8_base"}
+        "sequence_parallel"}
 
 
 @pytest.mark.parametrize("path", ["configs/projects/eval/nextGQA.yaml",

@@ -192,9 +192,10 @@ def test_span_grammar_copy_matches():
 # --------------------------------------------------------- import rules
 def test_port_imports_no_jax_or_triton():
     """Nor pyyaml or scikit-learn, which the card's machine lacks: the
-    configs are read and every module of the evaluation and train entry
-    points imported, the grounded-QA and TAL tasks, the OPT variant,
-    metrics, datasets and video reader with them."""
+    configs are read and every module of the evaluation, train and serving
+    entry points imported, the grounded-QA and TAL tasks, the OPT variant,
+    metrics, datasets and video reader with them, and a model built by
+    ``load_model``."""
     code = (
         "import sys\n"
         "import mr_blip_tpu_torch\n"
@@ -223,6 +224,10 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.models.opt, mr_blip_tpu_torch.models.blip2_mr_opt\n"
         "import mr_blip_tpu_torch.tasks.temporal_action_localization\n"
         "import mr_blip_tpu_torch.metrics.span_ops\n"
+        "import mr_blip_tpu_torch.serving, mr_blip_tpu_torch.serving.server\n"
+        "import mr_blip_tpu_torch.serve, mr_blip_tpu_torch.models\n"
+        "from mr_blip_tpu_torch.models import load_model\n"
+        "load_model('blip2_mr', 'tiny', device='cpu')\n"
         "from mr_blip_tpu_torch.common.config import Config\n"
         "Config(cfg_path='configs/projects/eval/anet_TAL.yaml')\n"
         "Config(cfg_path='configs/projects/eval/opt_charades.yaml')\n"
