@@ -141,8 +141,8 @@ is nonzero and the final line is not printed:
 12. long context, kernel path vs plain path: the depth-2 full-width
     ``relpos_in_kernel`` model (weights as in phase 7), one forward and
     backward on the card and on the CPU in bf16: ``qformer_freeze_lora`` at
-    1 x 40 frames (also against the card's own ``relpos_in_kernel=False``
-    run of the same weights) and ``qformer_freeze`` at 1 x 40 frames (the
+    1 x 24 frames (also against the card's own ``relpos_in_kernel=False``
+    run of the same weights) and ``qformer_freeze`` at 1 x 24 frames (the
     rel-pos table trains: kernel 11 launches once per encoder layer and the
     table's gradient is compared with the plain path's); T5 encoder rows
     cosine >= 0.999, loss and gradients within phase 7's bars. Then the fp32
@@ -164,7 +164,7 @@ is nonzero and the final line is not printed:
     split route, per batch kernel 4 39 times, the W8A8 linear 132 (54 as in
     phase 8 and 2 per ViT block), the GELU MLP 39, the fused attention block
     never, LayerNorm 32. Then the fp32 parity mode: the depth-2 model with
-    ``compute_dtype="float32"`` at 224 pixels generates one batch of 4 x 60
+    ``compute_dtype="float32"`` at 224 pixels generates one batch of 2 x 60
     frames (encoder length 2,056) with kernel 4's and kernel 3's fp32
     instantiations once per ViT block and per encoder layer and no other
     kernel, and its frame features and T5 encoder rows must agree with the
@@ -302,6 +302,38 @@ is nonzero and the final line is not printed:
     depth-2 model (``int8_base`` and the int8 ViT, weights as phase 7 draws
     them) on the card against the CPU's plain path in bf16: loss within 1e-2
     relative, every LoRA gradient's cosine >= 0.99.
+22. data and sequence parallelism on the one card: two ranks under
+    ``python -m torch.distributed.run --standalone --nproc_per_node=2`` (this
+    script as the worker, ``--dp-worker``), both on the one card over
+    ``gloo`` (``run.dist_backend=gloo``: NCCL refuses two ranks on one
+    device), each launch under a subprocess timeout and a group timeout.
+    (a) ``mr_blip_tpu_torch.train`` on ``configs/projects/train/qvh.yaml``
+    as published over phase 17's synthetic annotations (8 train, 2 val, 2
+    test queries), one epoch, ``accum_grad_iters`` 4: each rank takes 4
+    micro-batches of 1 x 60 frames, one update over the 8 rows. Gates: every
+    trainable tensor bit-equal across the ranks after the run (all-gathered
+    fingerprints), every frozen one bit-equal to its value as built; each
+    rank's micro-batch launches phase 17's counts (kernel 5 48, 6 and 8 24,
+    LayerNorm 110, packed QKV 39); the merged val and test rows hold each
+    query once, each equal to rank 0's own ``model.generate`` of that query
+    after the run. Prints each rank's seconds per micro-batch, seconds per
+    update, the gradient all-reduce's milliseconds and peak memory. (b) A
+    worker at phase 4's flagship widths and depth (task ``lora``: the
+    Q-Former trains too), dropout 0: dp, one update over one 1 x 60 row per
+    rank (targets of unequal length) against rank 0's one-process update
+    over both rows from the same start, each row a batch of its own, no
+    collective (the rows as one batch of 2 printed beside it: at this depth
+    the random-weight model turns the float noise of other shapes into
+    large differences): loss within 1e-3 relative, gradient cosine >= 0.999 (the whole gradient), the trainable
+    tensors within 1e-3 x their max |value| and at most 1e-3 of their
+    elements more than the lr apart (AdamW's first update is about lr·sign(g): a near-zero gradient
+    whose sign flips lands 2·lr away; a wrong gradient flips many); sp (``sequence_parallel``), one 1 x 60 row on both
+    ranks, each rank's ViT over 30 frames, against the one-process step over
+    the two frame shares one after the other (one pass over the 60 printed
+    beside it): the same bars, and ``generate``'s spans identical. Then NCCL at world size 1: rank 0 alone joins a one-rank
+    ``nccl`` group and takes dp's reference update through it (the
+    update's all-reduce on NCCL), against the update without a group; prints
+    NCCL's version.
 
 Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
 (4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
@@ -341,7 +373,8 @@ and 8 from phase 6, 7 from phase 7's ``qformer_freeze`` run, 13-16 from phase
 ``opt_entry_launches`` from phase 19's evaluation (all its questions);
 ``serve_launches`` from phase 20's server batches, warmup and reference
 generates; ``qlora_launches`` from phase 21's two runs (their micro-batches
-and the resumed run's generates); each count is taken with the counts set to 0 just before its path runs); the
+and the resumed run's generates); ``dp_launches`` per micro-batch on one
+rank in phase 22 (a); each count is taken with the counts set to 0 just before its path runs); the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -441,9 +474,9 @@ EXPECTED_LONG_TRAIN_LAUNCHES = dict(EXPECTED_LONG_LAUNCHES, flash_relpos_bwd_dq=
 # Phase 12, (task, frames): the CPU plain path took 154 s at 1 x 240 frames,
 # 72 s (later 47.7 s) at 1 x 120 and 20.9-30.5 s at 1 x 60 (bf16 on the card
 # machine's 8 cores), the largest CPU share of the script, so both tasks run
-# at 40 frames (the encoder length is printed). Phase 3 holds kernels 9-12 at
-# the full 8,000 tokens.
-LONG_GRAD_TASKS = (("qformer_freeze_lora", 40), ("qformer_freeze", 40))
+# at 24 frames (encoder length ~860; 40 frames, 11.9 and 15.9 s of CPU, until
+# phase 22 came). Phase 3 holds kernels 9-12 at the full 8,000 tokens.
+LONG_GRAD_TASKS = (("qformer_freeze_lora", 24), ("qformer_freeze", 24))
 # Phase 12 in the fp32 parity mode (kernels 9, 10, 12 and 9, 11, 12 in fp32)
 # on a short clip, where the CPU's fp32 runs take about a second (at 1 x 60
 # frames they took 8-14 s each).
@@ -473,6 +506,9 @@ EXPECTED_BIG_INT8_LAUNCHES = dict(EXPECTED_INT8_LAUNCHES, flash_attention=39,
                                   w8a8_attn_block=0, w8a8_linear=54 + 2 * 39)
 FP32_REL_TOL = 1e-4   # kernels 3-5 in fp32: max |kernel - plain| / max |plain|
 FP32_FRAMES = 60      # frames a video in the fp32 run: encoder length 2,056 (kernel 3)
+# Videos in the fp32 run: 2 (4 until phase 22 came; the CPU's fp32 reference
+# took 24.9 s at 4).
+FP32_BATCH = 2
 FP32_PATH_REL_TOL = 1e-4
 # Phase 16, the evaluation entry point on configs/projects/eval/qvh.yaml: 8
 # synthetic queries over 150 s videos at 10 fps (the length of QVHighlights
@@ -547,6 +583,18 @@ INT8_VIT_LAUNCHES = dict(layer_norm=32, qkv_packed_attention=0, w8a8_mlp=39,
                          w8a8_attn_block=39)
 EXPECTED_QLORA_LAUNCHES = dict(EXPECTED_REMAT_TRAIN_LAUNCHES, **INT8_VIT_LAUNCHES)
 EXPECTED_QLORA_GENERATE_LAUNCHES = dict(EXPECTED_LAUNCHES, **INT8_VIT_LAUNCHES)
+# Phase 22, two ranks on the one card over gloo. (a): qvh.yaml over phase
+# 17's train queries and DP_EVAL_QUERIES val and test queries, one epoch,
+# accum_grad_iters DP_ACCUM: each rank takes DP_ACCUM micro-batches, one
+# update over every train row. (b): the flagship model, one row per rank
+# (dp) or one row on both (sp), against one process; the bars.
+DP_RANKS, DP_ACCUM, DP_EVAL_QUERIES = 2, 4, 2
+DP_LAUNCH_TIMEOUT_S, DP_GROUP_TIMEOUT_S = 420, 300
+DP_LOSS_REL_TOL, DP_GRAD_COSINE_MIN, DP_TENSOR_REL_TOL = 1e-3, 0.999, 1e-3
+# The share of trainable elements whose two updates land more than the lr
+# apart (a flipped near-zero gradient; see _dp_rel).
+DP_APART_MAX = 1e-3
+DP_WINDOWS = ("[[10, 25]]", "[[10, 25], [30, 42], [100, 120]]")
 
 
 def say(*parts):
@@ -1985,7 +2033,7 @@ def train_path(torch, wrappers, long=False):
                 f"the update, e.g. {bad[:3]}")
         clock["grad_check"] = time.time() - start
 
-    model.loss = timed("forward", model.loss)
+    model.loss_terms = timed("forward", model.loss_terms)
     optimizer_step = timed("optimizer", ctx.optimizer.step)
     ctx.optimizer.step = lambda *a, **kw: check_grads() or optimizer_step(*a, **kw)
     torch.cuda.reset_peak_memory_stats()
@@ -2039,7 +2087,7 @@ def train_path(torch, wrappers, long=False):
     # methods: reference cycles that kept the model's 7.5 GiB allocated until
     # the cyclic garbage collector happened to run (phase 13's peak read 20.53
     # GiB). Unwrap them, so that the model is freed here.
-    del model.loss, ctx.optimizer.step
+    del model.loss_terms, ctx.optimizer.step
     del model, ctx, batches, lora, frozen, named, snapshot
     torch.cuda.empty_cache()
     return launches
@@ -2280,7 +2328,7 @@ def fp32_path(torch, wrappers):
     from mr_blip_tpu_torch.profile_inference import make_samples
     from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
 
-    samples = make_samples(BATCH, FP32_FRAMES, seed=3)
+    samples = make_samples(FP32_BATCH, FP32_FRAMES, seed=3)
     gpu = reduced_model("cuda", compute_dtype="float32")
     for w in wrappers.values():
         w.launches = 0
@@ -2312,7 +2360,7 @@ def fp32_path(torch, wrappers):
         scale = float(want.abs().max())
         errs.append(f"{label} max|diff| {err:.3e} (max|plain| {scale:.4f})")
         require(err <= FP32_PATH_REL_TOL * scale, f"fp32 path: {label} off by {err}")
-    say(f"fp32 path (depth {REDUCED_DEPTH}, full width, {BATCH} x {FP32_FRAMES} frames at "
+    say(f"fp32 path (depth {REDUCED_DEPTH}, full width, {FP32_BATCH} x {FP32_FRAMES} frames at "
         f"224², encoder length {enc_gpu.shape[1]}): generate {seconds:.3f} s, launches "
         f"{rose}; against the CPU's fp32 plain path ({cpu_seconds:.1f} s): "
         + ", ".join(errs) + f" (bar {FP32_PATH_REL_TOL:g} x)")
@@ -3994,6 +4042,480 @@ def qlora_kernel_vs_plain_path(torch, wrappers):
     del cpu, g_gpu, g_cpu
 
 
+# -------------------------------------------------------------- phase 22
+def dp_launch(mode, workdir, *args, timeout=DP_LAUNCH_TIMEOUT_S):
+    """``torch.distributed.run --standalone`` of DP_RANKS copies of this
+    script as ``--dp-worker mode``, its output to ``<workdir>/<mode>.log``;
+    raises on a nonzero exit or the timeout. On the timeout torchrun gets
+    SIGTERM (it stops its ranks), then every process of its group SIGKILL."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={DP_RANKS}", str(ROOT / "chip_smoke.py"), "--dp-worker",
+           mode, str(workdir), *args]
+    log = Path(workdir) / f"{mode}.log"
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=30)
+            finally:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                proc.wait()
+            raise RuntimeError(f"phase 22 ({mode}): no end within {timeout} s:\n"
+                               f"{log.read_text()[-6000:]}")
+    require(proc.returncode == 0,
+            f"phase 22 ({mode}): exit {proc.returncode}:\n{log.read_text()[-6000:]}")
+
+
+def dp_read(workdir, mode):
+    return [json.loads((Path(workdir) / f"{mode}_rank{r}.json").read_text())
+            for r in range(DP_RANKS)]
+
+
+def parallel_entry_points(torch, card):
+    """Phase 22 (see the module docstring): (a) the train entry point over
+    two ranks, (b) dp, sp and the one-rank NCCL update at flagship widths.
+    Returns (a)'s launches per micro-batch of one rank."""
+    import tempfile
+
+    from mr_blip_tpu_torch.datasets.synthetic import make_mr_annotations
+
+    phase_start = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks need the card's memory, not this process
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_mr_annotations(
+            f"{tmp}/run", n_train=TRAIN_QUERIES, n_val=DP_EVAL_QUERIES,
+            n_test=DP_EVAL_QUERIES, n_video_frames=EVAL_VIDEO_FRAMES, fps=EVAL_FPS)
+        argv = ["--cfg-path", str(ROOT / "configs/projects/train/qvh.yaml"), "--options",
+                *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
+                  for split, path in paths.items()),
+                "datasets.qvh.build_info.videos.storage=synthetic",
+                f"run.output_dir={Path(tmp) / 'train'}", "run.max_epoch=1",
+                f"run.accum_grad_iters={DP_ACCUM}", "run.dist_backend=gloo",
+                f"run.dist_timeout_s={DP_GROUP_TIMEOUT_S}"]
+        t0 = time.time()
+        dp_launch("train", tmp, *argv)
+        train_wall = time.time() - t0
+        ranks = dp_read(tmp, "train")
+        dp_train_report(ranks, train_wall, card)
+        t0 = time.time()
+        dp_launch("step", tmp)
+        step_wall = time.time() - t0
+        step = dp_read(tmp, "step")
+    dp_step_report(step, step_wall, card)
+    say(f"phase 22 (a) and (b): {time.time() - phase_start:.1f} s")
+    return ranks[0]["steps"][0]
+
+
+def dp_train_report(ranks, train_wall, card):
+    """Phase 22 (a)'s gates and lines."""
+    n_micro = TRAIN_QUERIES // DP_RANKS
+    for r, rank in enumerate(ranks):
+        require(len(rank["steps"]) == n_micro and rank["updates"] == 1,
+                f"phase 22 rank {r}: {len(rank['steps'])} micro-batches, "
+                f"{rank['updates']} updates")
+        for i, launched in enumerate(rank["steps"]):
+            require(launched == EXPECTED_REMAT_TRAIN_LAUNCHES, f"phase 22 rank {r} "
+                    f"micro-batch {i}: launches {launched}, expected "
+                    f"{EXPECTED_REMAT_TRAIN_LAUNCHES}")
+        for i, launched in enumerate(rank["generates"]):
+            require(launched == EXPECTED_LAUNCHES, f"phase 22 rank {r} generate {i}: "
+                    f"launches {launched}")
+        require(rank["frozen_equal"] and rank["moved"], f"phase 22 rank {r}: frozen "
+                f"tensors equal {rank['frozen_equal']}, trainable moved {rank['moved']}")
+        require(all(math.isfinite(x) for x in rank["losses"]), f"phase 22 rank {r}: "
+                f"losses {rank['losses']}")
+    require(len({rank["fingerprint"] for rank in ranks}) == 1,
+            "phase 22: the ranks' trainable tensors differ after the run")
+    require(ranks[0]["losses"] == ranks[1]["losses"], "phase 22: the ranks report "
+            "different global losses")
+    rows = ranks[0]["rows"]
+    for split in ("val", "test"):
+        require(rows[split]["merged"] == DP_EVAL_QUERIES and rows[split]["unique"]
+                == DP_EVAL_QUERIES and rows[split]["equal"], f"phase 22 {split} rows {rows}")
+    seconds = [rank["seconds"] for rank in ranks]
+    say(f"dp train entry point (configs/projects/train/qvh.yaml, {DP_RANKS} ranks on one "
+        f"card over gloo, {n_micro} micro-batches of 1 x {N_FRAMES} frames each, "
+        f"accum_grad_iters {DP_ACCUM}, one update over {TRAIN_QUERIES} rows): every "
+        f"micro-batch launched { {k: v for k, v in EXPECTED_REMAT_TRAIN_LAUNCHES.items() if v} } "
+        f"on each rank, every generate { {k: v for k, v in EXPECTED_LAUNCHES.items() if v} }; "
+        f"trainable tensors bit-equal across the ranks, frozen ones as built; merged val "
+        f"and test rows each query once, equal to rank 0's generate; losses "
+        f"{[round(x, 4) for x in ranks[0]['losses']]}")
+    say("dp train entry point seconds per micro-batch: " + "; ".join(
+        f"rank {r} {[round(x, 3) for x in sec]} (steady median "
+        f"{statistics.median(sec[1:]):.3f})" for r, sec in enumerate(seconds))
+        + "; update " + ", ".join(f"rank {r} {sum(sec):.3f}" for r, sec in enumerate(seconds))
+        + "; gradient all-reduce ms " + ", ".join(
+            f"rank {r} {rank['all_reduce_ms']}" for r, rank in enumerate(ranks))
+        + " (" + f"{ranks[0]['grad_bytes'] / 1e6:.2f} MB" + "); peak memory "
+        + ", ".join(f"rank {r} {rank['peak_gib']:.2f} GiB" for r, rank in enumerate(ranks))
+        + f"; launch {train_wall:.1f} s; {card}")
+
+
+def dp_step_report(step, step_wall, card):
+    """Phase 22 (b)'s gates and lines."""
+    dp, sp, nccl = step[0]["dp"], step[0]["sp"], step[0]["nccl"]
+    for name, run in (("dp", dp), ("sp", sp)):
+        require(run["loss_rel"] <= DP_LOSS_REL_TOL and run["grad_cos"] >= DP_GRAD_COSINE_MIN
+                and run["tensor_rel"] <= DP_TENSOR_REL_TOL and run["apart"] <= DP_APART_MAX,
+                f"phase 22 {name} vs one process: {run}")
+    require(sp["spans_equal"], f"phase 22 sp: spans differ from one process's: {sp}")
+    require([s_["sp"]["vit_frames"] for s_ in step] == [[N_FRAMES // DP_RANKS]] * DP_RANKS,
+            f"phase 22 sp: ViT frames per rank {[s_['sp']['vit_frames'] for s_ in step]}")
+    require(len({s_["dp"]["fingerprint"] for s_ in step}) == 1
+            and len({s_["sp"]["fingerprint"] for s_ in step}) == 1,
+            "phase 22: the ranks' tensors differ after the dp or sp update")
+    require(nccl["backend"] == "nccl" and nccl["tensor_rel"] <= DP_TENSOR_REL_TOL
+            and nccl["loss_rel"] <= DP_LOSS_REL_TOL, f"phase 22 NCCL: {nccl}")
+
+    def line(run):
+        return (f"loss {run['loss']:.6f} vs {run['loss_ref']:.6f} (rel {run['loss_rel']:.2e}), "
+                f"gradient cosine {run['grad_cos']:.6f} (per tensor min "
+                f"{run['grad_cos_tensor']:.6f} over those whose gradient norm is >= 1e-3 of "
+                f"the largest), post-update max |diff| / max |tensor| {run['tensor_rel']:.2e}, "
+                f"share of elements more than the lr apart {run['apart']:.2e}")
+
+    say(f"dp step (flagship, task lora, dropout 0, 1 x {N_FRAMES} frames a rank, targets of "
+        f"{dp['tokens']} tokens) against one process over both rows one by one: {line(dp)}; "
+        f"seconds dp {[s_['dp']['seconds'] for s_ in step]} vs one process {dp['seconds_ref']}; "
+        f"launches per rank {dp['launches']}. Beside it, not held (other shapes): against "
+        f"one process over both rows as one batch of 2: {line(dp['batch_of_2'])}")
+    say(f"sp step (1 x {N_FRAMES} frames, the ViT over {N_FRAMES // DP_RANKS} a rank) against "
+        f"one process over the two frame shares: {line(sp)}, spans equal; seconds sp "
+        f"{[s_['sp']['seconds'] for s_ in step]} vs {sp['seconds_ref']}; generate sp "
+        f"{[s_['sp']['generate_s'] for s_ in step]} vs {sp['generate_ref_s']:.3f} s. Beside it, "
+        f"not held: against one pass over the {N_FRAMES} frames: {line(sp['one_pass'])}, "
+        f"spans equal {sp['one_pass']['spans_equal']}; {card}")
+    say(f"NCCL {nccl['version']} at world size 1: the update of both rows as one batch through "
+        f"a one-rank nccl group against the same update without a group: loss rel "
+        f"{nccl['loss_rel']:.2e}, post-update max |diff| / max |tensor| "
+        f"{nccl['tensor_rel']:.2e} (bit-equal: {nccl['bit_equal']}); launch {step_wall:.1f} s; "
+        f"{card}")
+
+
+def _dp_rel(torch, got, want):
+    """(max |got - want| / max |want| over all the tensors, the share of
+    elements apart by more than the lr). AdamW's first update moves each
+    element by about lr·sign(g), so an element whose near-zero gradient
+    flips sign between two exact-in-math computations lands 2·lr away:
+    the share of those counts the flips, which a wrong gradient would make
+    common."""
+    diff = max(float((got[n].float() - w.float()).abs().max()) for n, w in want.items())
+    scale = max(float(w.float().abs().max()) for w in want.values())
+    apart = sum(int(((got[n].float() - w.float()).abs() > TRAIN_LR).sum())
+                for n, w in want.items())
+    return diff / scale, apart / sum(w.numel() for w in want.values())
+
+
+def _dp_samples(rows):
+    """One batch of the rows of ``make_samples`` dicts."""
+    import numpy as np
+
+    out = {}
+    for key, value in rows[0].items():
+        out[key] = (np.concatenate([r[key] for r in rows]) if hasattr(value, "shape")
+                    else [x for r in rows for x in r[key]])
+    return out
+
+
+def dp_train_worker(torch, workdir, argv):
+    """Phase 22 (a), one rank: ``train.main(argv)`` with taps."""
+    import os
+
+    from mr_blip_tpu_torch import train
+    from mr_blip_tpu_torch.common import dist as dist_utils
+    from mr_blip_tpu_torch.datasets.loader import DataLoader
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.parallel import mesh
+    from mr_blip_tpu_torch.runners.runner_base import RunnerBase
+    from mr_blip_tpu_torch.runners.train_state import TrainCtx
+
+    wrappers, _ = kernel_tables()
+    rank = int(os.environ["RANK"])
+    built, steps, seconds, losses, generates, reduce_ms, runners = {}, [], [], [], [], [], []
+
+    def counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    from_config = BLIP2_MR.from_config.__func__
+    step, dispatch, train_fn = TrainCtx.step, BLIP2_MR.generate_dispatch, RunnerBase.train
+    all_reduce_grads, destroy = mesh.all_reduce_grads, dist_utils.destroy
+
+    def tapped_from_config(cls, cfg, device="cuda"):
+        model = from_config(cls, cfg, device=device)
+        mask = model.trainable_mask()
+        built["trainable"] = {n: p.detach().float().clone()
+                              for n, p in model.module.named_parameters() if mask[n]}
+        built["frozen"] = checksums(torch, [p for n, p in model.module.named_parameters()
+                                            if not mask[n]])
+        return model
+
+    def tapped_step(ctx, batch):
+        before = counts()
+        torch.cuda.synchronize()
+        start = time.time()
+        loss = step(ctx, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - start)
+        steps.append({k: v - before[k] for k, v in counts().items()})
+        losses.append(loss)
+        return loss
+
+    def tapped_dispatch(model, samples):
+        before = counts()
+        handle = dispatch(model, samples)
+        generates.append({k: v - before[k] for k, v in counts().items()})
+        return handle
+
+    def tapped_reduce(params, *a, **kw):
+        params = list(params)
+        built["grad_bytes"] = sum(p.grad.numel() * 4 for p in params if p.grad is not None)
+        torch.cuda.synchronize()
+        start = time.time()
+        all_reduce_grads(params, *a, **kw)
+        torch.cuda.synchronize()
+        reduce_ms.append(round((time.time() - start) * 1e3, 1))
+
+    def tapped_train(runner):
+        runners.append(runner)
+        return train_fn(runner)
+
+    BLIP2_MR.from_config = classmethod(tapped_from_config)
+    TrainCtx.step, BLIP2_MR.generate_dispatch = tapped_step, tapped_dispatch
+    RunnerBase.train = tapped_train
+    mesh.all_reduce_grads = tapped_reduce
+    dist_utils.destroy = lambda: None  # the checks below still gather
+    torch.cuda.reset_peak_memory_stats()
+    train.main(argv)
+    peak = torch.cuda.max_memory_allocated()
+    (runner,) = runners
+    model, ctx = runner.model, runner.train_ctx
+    named = dict(model.module.named_parameters())
+    frozen = [p for n, p in named.items() if n not in built["trainable"]]
+    summary = {
+        "steps": steps, "seconds": seconds, "generates": generates,
+        "all_reduce_ms": reduce_ms, "grad_bytes": built["grad_bytes"],
+        "peak_gib": peak / 2**30, "updates": ctx.updates,
+        "losses": losses, "frozen_equal": checksums(torch, frozen) == built["frozen"],
+        "moved": all(not torch.equal(named[n].detach().float(), v)
+                     for n, v in built["trainable"].items()),
+        "fingerprint": mesh.assert_replicated(ctx.named_params, "phase 22 (a)"),
+    }
+    if rank == 0:
+        summary["rows"] = {}
+        for split, name in (("val", "val_epoch0"), ("test", "test_epochbest")):
+            merged = json.loads((runner.result_dir / f"{name}.json").read_text())
+            loader = DataLoader(runner.datasets["qvh"][split], batch_size=1, num_workers=1)
+            own = [row for samples in loader
+                   for row in runner.task._rows_from_outputs(model.generate(samples))]
+            key = lambda r: r["qid"]  # noqa: E731
+            summary["rows"][split] = {
+                "merged": len(merged), "unique": len({r["qid"] for r in merged}),
+                "equal": sorted(merged, key=key) == sorted(
+                    json.loads(json.dumps(own, default=float)), key=key)}
+    dist_utils.barrier()
+    (Path(workdir) / f"train_rank{rank}.json").write_text(json.dumps(summary))
+    destroy()
+
+
+def dp_step_worker(torch, workdir):
+    """Phase 22 (b), one rank: dp and sp updates of the flagship model
+    against one process, then rank 0's update through a one-rank NCCL
+    group.
+
+    The one-process references run the shapes the ranks run: dp's each row
+    as a batch of 1 (its token-loss sum over both rows' token count, one
+    update), sp's the two frame shares one after the other. At full depth
+    this random-weight model turns float noise into large differences: the
+    same two rows as one batch of 2 gave a loss 1.2% apart from the rows one
+    by one and a gradient cosine of -0.04 in bf16 (3.4e-4 and 0.968 in fp32;
+    0.017% and 0.9994 at depth 2; no collective in any of these; NVIDIA H100
+    80GB HBM3 at 700.00 W). So batches of other shapes are printed beside the
+    references, not held to the bars."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    from mr_blip_tpu_torch.common import dist as dist_utils
+    from mr_blip_tpu_torch.models.layers import Dropout
+    from mr_blip_tpu_torch.parallel import mesh
+    from mr_blip_tpu_torch.profile_inference import make_samples
+    from mr_blip_tpu_torch.runners.train_state import TrainCtx
+
+    dist_utils.init_distributed_mode({"device": "cuda", "dist_backend": "gloo",
+                                      "dist_timeout_s": DP_GROUP_TIMEOUT_S})
+    rank = dist_utils.get_rank()
+    wrappers, _ = kernel_tables()
+    model = flagship_model(device=dist_utils.local_device("cuda"))
+    for m in model.module.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    model.set_trainable()
+    module = model.module
+    trainable = {n: p for n, p in module.named_parameters() if p.requires_grad}
+    masters = {n: p.detach().clone() for n, p in trainable.items()}
+    mesh.assert_replicated(masters, "phase 22: the flagship model as built")
+    rows = []
+    for r, window in enumerate(DP_WINDOWS):
+        row = make_samples(1, N_FRAMES, seed=220 + r)
+        row["relevant_windows"], row["query_id"] = [window], [f"q{r}"]
+        rows.append(row)
+
+    def restore():
+        with torch.no_grad():
+            for n, p in trainable.items():
+                p.copy_(masters[n])
+                p.grad = None
+
+    def update(samples, alone=False, rows_one_by_one=False):
+        """One update from the masters (``alone``: no collective; with
+        ``rows_one_by_one`` ``samples`` is a list of rows, each a forward
+        and backward of its own, their loss sums over all their tokens);
+        returns (loss, gradients, post-update tensors, seconds, launches)."""
+        restore()
+        ctx = TrainCtx(model, weight_decay=TRAIN_WEIGHT_DECAY, seed=0)
+        ctx.distributed = ctx.distributed and not alone
+        ctx.set_lr(TRAIN_LR)
+        grads, optimizer_step = {}, ctx.optimizer.step
+
+        def snapshot(*a, **k):
+            grads.update({n: p.grad.detach().float().clone() for n, p in trainable.items()})
+            return optimizer_step(*a, **k)
+
+        ctx.optimizer.step = snapshot
+        before = {k: w.launches for k, w in wrappers.items()}
+        torch.cuda.synchronize()
+        start = time.time()
+        if rows_one_by_one:
+            batches = [model.prepare_mr_batch(r) for r in samples]
+            count = sum(int(b["target_mask"].sum()) for b in batches)
+            model.train()
+            loss = 0.0
+            for b in batches:
+                total, _ = model.loss_terms(b)
+                (total / count).backward()
+                loss += float(total.detach()) / count
+            for group in ctx.optimizer.param_groups:
+                group["lr"] = TRAIN_LR
+            ctx.optimizer.step()
+            ctx.optimizer.zero_grad(set_to_none=True)
+        else:
+            loss = ctx.step(model.prepare_mr_batch(samples))
+        torch.cuda.synchronize()
+        took = time.time() - start
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()
+                    if w.launches - before[k]}
+        post = {n: p.detach().clone() for n, p in trainable.items()}
+        del ctx.optimizer.step
+        return loss, grads, post, took, launched
+
+    def compare(run, ref):
+        rel, apart = _dp_rel(torch, run[2], ref[2])
+        names = list(ref[1])
+        norms = {n: float(ref[1][n].norm()) for n in names}
+        return {"loss": run[0], "loss_ref": ref[0], "loss_rel": abs(run[0] - ref[0]) / abs(ref[0]),
+                "tensor_rel": rel, "apart": apart, "seconds_ref": round(ref[3], 3),
+                # the whole gradient; per tensor only where the tensor's
+                # gradient is not noise (a key bias's is zero in exact math)
+                "grad_cos": cosine(torch, torch.cat([run[1][n].flatten() for n in names]),
+                                   torch.cat([ref[1][n].flatten() for n in names])),
+                "grad_cos_tensor": min(cosine(torch, run[1][n], ref[1][n]) for n in names
+                                       if norms[n] >= 1e-3 * max(norms.values()))}
+
+    def shares(frames):
+        """sp's encode_frames in one process: the shares one after the other."""
+        b, t = frames.shape[:2]
+        flat = frames.reshape((b * t,) + frames.shape[2:])
+        q = torch.cat([module.encode_flat(flat[slice(*mesh.frame_share(b * t, r, DP_RANKS))])
+                       for r in range(DP_RANKS)])
+        return q.reshape(b, t * q.shape[1], model.t5_config.d_model)
+
+    out = {}
+    # dp: each rank its row; rank 0 then both rows in one process
+    dp = update(rows[rank])
+    out["dp"] = {"seconds": round(dp[3], 3), "launches": dp[4],
+                 "fingerprint": mesh.assert_replicated(dp[2], "phase 22 dp"),
+                 "tokens": [int(model.prepare_mr_batch(r)["target_mask"].sum()) for r in rows]}
+    if rank == 0:
+        dp_ref = update(rows, alone=True, rows_one_by_one=True)
+        out["dp"].update(compare(dp, dp_ref))
+        dp_batch = update(_dp_samples(rows), alone=True)
+        out["dp"]["batch_of_2"] = compare(dp, dp_batch)
+    dist_utils.barrier()
+    # sp: the same row on both ranks, the frames shared out
+    vit_frames = []
+    hook = module.visual_encoder.register_forward_pre_hook(
+        lambda mod, args: vit_frames.append(int(args[0].shape[0])))
+    module.sequence_parallel = True
+    sp = update(rows[0])
+    hook.remove()
+    out["sp"] = {"seconds": round(sp[3], 3), "vit_frames": vit_frames,
+                 "fingerprint": mesh.assert_replicated(sp[2], "phase 22 sp")}
+    restore()
+    torch.cuda.synchronize()
+    start = time.time()
+    spans = model.generate(rows[1])["raw_prediction"]
+    torch.cuda.synchronize()
+    out["sp"]["generate_s"] = round(time.time() - start, 3)
+    if rank == 0:
+        module.sequence_parallel = False
+        module.encode_frames = shares
+        start = time.time()
+        want = model.generate(rows[1])["raw_prediction"]
+        torch.cuda.synchronize()
+        generate_ref_s = time.time() - start
+        out["sp"].update(compare(sp, update(rows[0], alone=True)),
+                         spans_equal=spans == want, generate_ref_s=generate_ref_s)
+        del module.encode_frames  # one pass over the 60 frames
+        out["sp"]["one_pass"] = compare(sp, update(rows[0], alone=True))
+        out["sp"]["one_pass"]["spans_equal"] = spans == model.generate(rows[1])["raw_prediction"]
+    dist_utils.barrier()
+    tdist.destroy_process_group()
+    # NCCL at world size 1: rank 0's batch of both rows through a one-rank group
+    if rank == 0:
+        # a store of this process's own: a tcp:// rendezvous would look for
+        # torchrun's agent store (TORCHELASTIC_USE_AGENT_STORE) and wait
+        tdist.init_process_group("nccl", store=tdist.HashStore(), world_size=1, rank=0,
+                                 timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+        nccl = update(_dp_samples(rows))
+        out["nccl"] = dict(compare(nccl, dp_batch), backend=tdist.get_backend(),
+                           version=".".join(map(str, torch.cuda.nccl.version())),
+                           bit_equal=all(torch.equal(nccl[2][n], t)
+                                         for n, t in dp_batch[2].items()))
+        tdist.destroy_process_group()
+    (Path(workdir) / f"step_rank{rank}.json").write_text(json.dumps(out))
+
+
+def dp_worker(argv):
+    """``chip_smoke.py --dp-worker <train|step> <dir> [train argv]``: one
+    rank of phase 22 under ``torch.distributed.run``."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+    mode, workdir = argv[0], argv[1]
+    if mode == "train":
+        dp_train_worker(torch, workdir, argv[2:])
+    else:
+        dp_step_worker(torch, workdir)
+
+
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
     the ``kernels`` line (source in the port, TPU kernel replaced)."""
@@ -4187,6 +4709,9 @@ def main():
     # phase 21: QLoRA-style training at full width (int8_base, int8 ViT)
     qlora_launches = qlora_entry_point(torch, wrappers, smi, train_entry_summary)
     done(21)
+    # phase 22: data and sequence parallelism, two ranks on the one card
+    dp_launches = parallel_entry_points(torch, smi)
+    done(22)
 
     for key, entry in kernels.items():
         if key == "flash_attention":
@@ -4210,16 +4735,21 @@ def main():
         entry["opt_entry_launches"] = opt_entry_launches[key]
         entry["serve_launches"] = serve_launches[key]
         entry["qlora_launches"] = qlora_launches[key]
+        entry["dp_launches"] = dp_launches[key]
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "train_entry_launches", "qa_entry_launches",
-                               "opt_entry_launches", "serve_launches", "qlora_launches")}
+                               "opt_entry_launches", "serve_launches", "qlora_launches",
+                               "dp_launches")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2:])
+    else:
+        main()

@@ -89,6 +89,11 @@ def create_runner_config_validator() -> ConfigValidator:
     for key in ("output_dir", "resume_ckpt_path", "wandb_project",
                 "wandb_name", "device", "dist_url"):
         v.add_argument(key, type=str)
+    v.add_argument("dist_backend", type=str, choices=lambda: ["nccl", "gloo"],
+                   help="torch.distributed backend (default: nccl on the card, "
+                        "gloo for run.device=cpu)")
+    v.add_argument("dist_timeout_s", type=float,
+                   help="seconds a collective may wait before it raises")
     v.add_argument("world_size", type=int)
     # framework extensions beyond the reference vocabulary
     for key in ("validate_config", "use_orbax", "orbax_async", "sequence_parallel"):

@@ -101,17 +101,21 @@ class PreemptionGuard:
     def requested_locally(self) -> bool:
         return self._flag.is_set()
 
-    def should_stop(self, step: int) -> bool:
-        """Synchronized stop decision for step boundary ``step``.
+    def should_stop(self, step: int, last: bool = False) -> bool:
+        """Synchronized stop decision for step boundary ``step`` (``last``:
+        the epoch's last step).
 
         Single-process: the local flag. Multi-process: every
-        ``sync_every`` steps, allgather the flag and stop iff any process
-        has it — between sync points the answer is always False, so all
-        processes agree on the exact stop step.
+        ``sync_every`` steps and at the epoch's last step, allgather the
+        flag and stop iff any process has it — between sync points the
+        answer is always False, so all processes agree on the exact stop
+        step (every rank takes as many steps an epoch, and reads
+        ``sync_every`` from the same config). The epoch's last step syncs
+        too, so that an epoch shorter than ``sync_every`` still stops.
         """
         if not dist_utils.is_dist_avail_and_initialized():
             return self._flag.is_set()
-        if step % self.sync_every != self.sync_every - 1:
+        if step % self.sync_every != self.sync_every - 1 and not last:
             return False
         flags = dist_utils.all_gather_object(bool(self._flag.is_set()))
         return any(flags)

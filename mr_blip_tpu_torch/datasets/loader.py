@@ -6,9 +6,11 @@ Replacements for the reference loader stack
 with DistributedSampler):
 
 * :class:`DataLoader` — deterministic per-process sharding
-  (``index % world_size == rank``, epoch-seeded shuffle) with a background
-  thread pool decoding samples ahead (the host-side analog of DataLoader
-  workers).
+  (``order[rank::world_size]`` of an epoch-seeded shuffle that every rank
+  draws alike; with ``drop_last``, training, only whole global batches of
+  ``world_size · batch_size`` rows, so that every rank takes as many steps:
+  ``parallel/mesh.py::rank_rows``) with a background thread pool decoding
+  samples ahead (the host-side analog of DataLoader workers).
 * :class:`PrefetchLoader` — copies the next batch's frames into pinned host
   memory and on to the card on a side CUDA stream while the current batch
   computes (the JAX package puts it on the device one batch ahead); on the
@@ -25,6 +27,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from mr_blip_tpu_torch.parallel.mesh import rank_rows
 
 
 class DataLoader:
@@ -62,7 +66,8 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             order = rng.permutation(n)
-        return [int(i) for i in order[self.rank :: self.world_size]]
+        return rank_rows(order, self.rank, self.world_size,
+                         self.batch_size if self.drop_last else None)
 
     def __len__(self):
         n = len(self._indices())

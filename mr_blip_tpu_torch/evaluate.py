@@ -10,6 +10,14 @@ splits' result rows under ``run.output_dir/<job id>/result/`` and their
 metrics in the log. The model runs on ``run.device``, the card unless the
 options say ``run.device=cpu``. ``main(argv)`` returns the runner's test
 logs ({split: metrics}).
+
+Several processes (``run.distributed: True``), as the reference evaluates::
+
+    python -m torch.distributed.run --nproc_per_node=8 -m mr_blip_tpu_torch.evaluate \
+        --cfg-path configs/projects/eval/qvh.yaml --options ...
+
+Each rank generates its share of every split's rows on its own card and
+rank 0 merges the per-rank result files and computes the metrics.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ def main(argv=None):
 
         create_runner_config_validator().validate(dict(cfg.run_cfg))
     dist_utils.init_distributed_mode(cfg.run_cfg)
+    job_id = dist_utils.broadcast_object(job_id)  # one output directory
     seed = int(cfg.run_cfg.get("seed", 42)) + dist_utils.get_rank()
     random.seed(seed)
     np.random.seed(seed)
@@ -70,6 +79,7 @@ def main(argv=None):
     )
     test_logs = runner.evaluate(skip_reload=True)
     logging.info("test logs: %s", test_logs)
+    dist_utils.destroy()
     return test_logs
 
 

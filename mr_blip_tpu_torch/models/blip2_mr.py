@@ -164,6 +164,7 @@ class BLIP2_MR(BaseModel):
         device: str | torch.device = "cuda",
         relpos_in_kernel: bool = False,
         use_grad_checkpoint: bool = False,
+        sequence_parallel: bool = False,
     ):
         """``init_params`` draws random weights on ``device`` from ``seed``.
         ``relpos_in_kernel`` is the long-context mode (120/240-frame
@@ -175,6 +176,10 @@ class BLIP2_MR(BaseModel):
         the localizer's window, or with ``resample_frames=True`` re-decoded
         from the video file inside that window (``samples["video_path"]``).
         The ViT is frozen (``freeze_vit: True`` in every published config).
+        ``sequence_parallel``: under a process group each rank encodes its
+        contiguous share of the flat ``B·T`` frames (ViT, ``ln_vision``,
+        Q-Former, ``t5_proj``) and the shares are all-gathered before the
+        interleave; the rest runs replicated, every rank on the same rows.
         Without a card, the default ``device`` raises: ask for the CPU."""
         if "only_frames" in task:
             raise NotImplementedError(f"task {task!r}: the non-interleaved "
@@ -204,7 +209,8 @@ class BLIP2_MR(BaseModel):
         self.module = Blip2MRModule(vit_cfg, qf_cfg, t5_cfg,
                                     compute_dtype=self.compute_dtype,
                                     device=self.device,
-                                    with_answerer=self.is_qa).eval()
+                                    with_answerer=self.is_qa,
+                                    sequence_parallel=sequence_parallel).eval()
         self.module.requires_grad_(False)
         if init_params:
             self.init_params(seed)
@@ -413,7 +419,6 @@ class BLIP2_MR(BaseModel):
         "freeze_vit": ((True,), "the unfrozen-ViT train path",
                        "The unfrozen-ViT train path"),
         "fast_gelu": ((False,), "the tanh-GELU ViT", "Variants of BLIP2_MR"),
-        "sequence_parallel": ((False,), "sequence-parallel frames", "Parallelism"),
     }
     # Read and without effect in the port: layouts of the TPU program
     # (scan_layers, remat_policy); the ViT's stochastic depth, which a frozen
@@ -427,7 +432,7 @@ class BLIP2_MR(BaseModel):
         "num_frames_for_answer", "resample_frames", "relpos_in_kernel", "compute_dtype",
         "vocab_size", "params_dtype", "pretrained", "finetuned", "load_finetuned",
         "int8_inference", "int8_decode", "int8_vit", "int8_qformer", "int8_encoder",
-        "int8_base", "use_grad_checkpoint")
+        "int8_base", "use_grad_checkpoint", "sequence_parallel")
 
     @classmethod
     def from_config(cls, cfg, device="cuda"):
@@ -474,6 +479,7 @@ class BLIP2_MR(BaseModel):
             resample_frames=cfg.get("resample_frames", False),
             relpos_in_kernel=cfg.get("relpos_in_kernel", False),
             use_grad_checkpoint=cfg.get("use_grad_checkpoint", False),
+            sequence_parallel=cfg.get("sequence_parallel", False),
             compute_dtype=cfg.get("compute_dtype", "bfloat16"),
             init_params=params_dtype is None,
             vocab_size=cfg.get("vocab_size"),
@@ -514,6 +520,13 @@ class BLIP2_MR(BaseModel):
         if cfg.get("int8_base", False):
             model.quantize_base_for_train()
         return model
+
+    @property
+    def sequence_parallel(self) -> bool:
+        """Whether the frames are shared out over the ranks (the loaders then
+        give every rank the same rows). Never for the OPT variant, which has
+        no sequence parallelism in the JAX package either."""
+        return getattr(self.module, "sequence_parallel", False)
 
     def train(self, mode: bool = True):
         """Train mode turns every dropout on; ``eval()`` off."""
@@ -656,9 +669,15 @@ class BLIP2_MR(BaseModel):
 
     def loss(self, batch: Dict[str, Any]) -> torch.Tensor:
         """Teacher-forced span loss of a ``prepare_mr_batch`` batch (the
-        JAX ``_loss_fn``). The encoder bias comes from the per-length cache
-        while the rel-pos table is frozen, and is computed in the graph from
-        the table when it trains."""
+        JAX ``_loss_fn``)."""
+        total, count = self.loss_terms(batch)
+        return total / count.clamp_min(1.0)
+
+    def loss_terms(self, batch: Dict[str, Any]):
+        """(token-loss sum, target-token count) of ``loss``. The encoder
+        bias comes from the per-length cache while the rel-pos table is
+        frozen, and is computed in the graph from the table when it
+        trains."""
         tensors = self._to_device(batch)
         table = self.module.t5.encoder.rel_bias.rel_embedding
         enc_bias = None if table.requires_grad else self._encoder_bias_for(batch)
@@ -666,10 +685,10 @@ class BLIP2_MR(BaseModel):
             self.frames_to_t5(tensors), tensors["time_ids"], tensors["src_type"],
             tensors["src_idx"], tensors["int_mask"], tensors["end_ids"],
             tensors["end_mask"], tensors["text_ids"], tensors["text_mask"])
-        loss, _ = self.module.loss_from_encoder_input(
+        terms, _ = self.module.loss_terms_from_encoder_input(
             embeds, attn, tensors["target_ids"], tensors["target_mask"],
             position_bias=enc_bias)
-        return loss
+        return terms
 
     # ------------------------------------------------------------- task API
     def forward(self, samples) -> Dict[str, Any]:

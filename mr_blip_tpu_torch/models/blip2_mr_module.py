@@ -14,20 +14,24 @@ a second ``T5ForConditionalGeneration`` beside ``t5`` (the localizer's).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mr_blip_tpu_torch.common import dist as dist_utils
 from mr_blip_tpu_torch.models.eva_vit import EvaViT, ViTConfig
-from mr_blip_tpu_torch.models.layers import Dense, LayerNormFP32
+from mr_blip_tpu_torch.models.layers import Dense, Dropout, LayerNormFP32
 from mr_blip_tpu_torch.models.prompt_assembly import interleave_on_device
 from mr_blip_tpu_torch.models.qformer import QFormer, QFormerConfig
 from mr_blip_tpu_torch.models.t5 import (
     T5Config,
     T5ForConditionalGeneration,
-    cross_entropy_lm_loss,
+    cross_entropy_lm_loss_terms,
     shift_right,
 )
+from mr_blip_tpu_torch.parallel import mesh
 
 # CLIP normalization of the reference processors (mr_blip_tpu's
 # processors/video_processors.py).
@@ -60,11 +64,28 @@ def _pad_seq_to_sublane(inputs_embeds, attn, mult: int = 8):
     return inputs_embeds, attn
 
 
+@contextlib.contextmanager
+def _rank_stream(module: nn.Module, rank):
+    """With ``rank`` set: ``module``'s dropout generator reseeded from its
+    seed and the rank inside the block, and set back to its state after."""
+    gen = next((m.generator for m in module.modules() if isinstance(m, Dropout)), None)
+    if rank is None or gen is None:
+        yield
+        return
+    state = gen.get_state()
+    gen.manual_seed(gen.initial_seed() ^ ((rank + 1) << 40))
+    try:
+        yield
+    finally:
+        gen.set_state(state)
+
+
 class Blip2MRModule(nn.Module):
     def __init__(self, vit_config: ViTConfig, qformer_config: QFormerConfig,
                  t5_config: T5Config, compute_dtype=torch.bfloat16, device=None,
-                 with_answerer: bool = False):
+                 with_answerer: bool = False, sequence_parallel: bool = False):
         super().__init__()
+        self.sequence_parallel = sequence_parallel
         self.vit_config = vit_config
         self.qformer_config = qformer_config
         self.t5_config = t5_config
@@ -108,15 +129,36 @@ class Blip2MRModule(nn.Module):
 
         uint8 frames are CLIP-normalized here, in the compute dtype, as the
         JAX package does on device. The ViT is frozen and runs without
-        building a graph (the JAX package's stop-gradient on its output)."""
+        building a graph (the JAX package's stop-gradient on its output).
+
+        Sequence parallelism (``sequence_parallel`` under a process group):
+        this rank encodes its contiguous share of the flat ``B·T`` frames
+        (``parallel/mesh.py::frame_share``) and the shares are gathered
+        before the interleave, as the JAX package's ``P("dp")`` constraint
+        on the flat axis has GSPMD do. In train mode the Q-Former's dropouts
+        then draw from a stream of the rank's own (its frames are not the
+        other ranks'), and the shared stream is set back after, so that the
+        replicated T5 draws the same masks on every rank."""
         b, t = frames.shape[:2]
-        frames = clip_normalize(frames, self.compute_dtype)
-        flat = frames.reshape((b * t,) + frames.shape[2:])
+        n = b * t
+        flat = frames.reshape((n,) + frames.shape[2:])
+        if self.sequence_parallel and dist_utils.get_world_size() > 1:
+            rank = dist_utils.get_rank()
+            start, stop = mesh.frame_share(n, rank, dist_utils.get_world_size())
+            with _rank_stream(self.qformer, rank if self.training else None):
+                q = mesh.gather_frames(self.encode_flat(flat[start:stop]), n)
+        else:
+            q = self.encode_flat(flat)
+        return q.reshape(b, t * q.shape[1], self.t5_config.d_model)
+
+    def encode_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        """(n, H, W, C) frames -> (n, num_query_tokens, d_model): CLIP
+        normalization, the frozen ViT, ``ln_vision``, the Q-Former and
+        ``t5_proj``, each frame on its own."""
+        flat = clip_normalize(flat, self.compute_dtype)
         with torch.no_grad():
             image_embeds = self.visual_encoder(flat)
-        image_embeds = self.ln_vision(image_embeds)
-        q = self.t5_proj(self.qformer(image_embeds))
-        return q.reshape(b, t * q.shape[1], self.t5_config.d_model)
+        return self.t5_proj(self.qformer(self.ln_vision(image_embeds)))
 
     def assemble_encoder_input(self, frames_for_t5, time_ids, src_type, src_idx,
                                int_mask, end_ids, end_mask, text_ids, text_mask):
@@ -151,6 +193,14 @@ class Blip2MRModule(nn.Module):
         """Teacher-forced span LM loss -> (loss, fp32 logits): pad targets
         become -100 labels, the decoder input is the labels shifted right.
         ``t5``: the stack to run (default: ``self.t5``)."""
+        (total, count), logits = self.loss_terms_from_encoder_input(
+            inputs_embeds, attn_mask, target_ids, target_mask, position_bias, t5)
+        return total / count.clamp_min(1.0), logits
+
+    def loss_terms_from_encoder_input(self, inputs_embeds, attn_mask, target_ids,
+                                      target_mask, position_bias=None, t5=None):
+        """``loss_from_encoder_input`` with the loss as (token-loss sum,
+        token count)."""
         t5 = t5 or self.t5
         cfg = self.t5_config
         labels = torch.where(target_ids == cfg.pad_token_id,
@@ -161,4 +211,4 @@ class Blip2MRModule(nn.Module):
                         position_bias=position_bias)
         logits = t5.decode(decoder_input_ids, enc, decoder_mask=target_mask,
                            encoder_mask=attn_mask)
-        return cross_entropy_lm_loss(logits, labels, target_mask), logits
+        return cross_entropy_lm_loss_terms(logits, labels, target_mask), logits

@@ -97,10 +97,11 @@ class Blip2OPTModule(nn.Module):
         return self.assemble(self.encode_frames(frames), vid_ids, vid_mask,
                              end_ids, end_mask, text_ids, text_mask)
 
-    def loss(self, frames, vid_ids, vid_mask, end_ids, end_mask, text_ids,
-             text_mask, answer_ids, answer_mask):
-        """Causal LM loss on the answer region only: the logits at position
-        p predict token p + 1, and answer token j sits at prompt_len + j."""
+    def loss_terms(self, frames, vid_ids, vid_mask, end_ids, end_mask, text_ids,
+                   text_mask, answer_ids, answer_mask):
+        """Causal LM loss on the answer region only, as (token-loss sum,
+        answer-token count): the logits at position p predict token p + 1,
+        and answer token j sits at prompt_len + j."""
         prompt_embeds, prompt_mask = self.prefill(
             frames, vid_ids, vid_mask, end_ids, end_mask, text_ids, text_mask)
         embeds = torch.cat([prompt_embeds,
@@ -112,7 +113,7 @@ class Blip2OPTModule(nn.Module):
         log_probs = torch.log_softmax(logits, dim=-1)
         token_ll = log_probs.gather(-1, answer_ids[..., None].long())[..., 0]
         w = answer_mask.float()
-        return -(token_ll * w).sum() / w.sum().clamp_min(1.0)
+        return -(token_ll * w).sum(), w.sum()
 
     def decode_step(self, tokens, full_mask, cache, position: int):
         """(rows, n) token ids at ``position`` -> (rows, n, vocab) fp32
@@ -184,12 +185,16 @@ class BLIP2_MR_OPT(BLIP2_MR):
         """The keys the JAX package's ``from_config`` reads, with its
         defaults; it loads no checkpoint, so ``pretrained``, ``finetuned``
         and ``load_finetuned`` are logged as unread with every other key.
-        ``freeze_vit: False`` raises ``NotImplementedError``."""
+        ``freeze_vit: False`` raises ``NotImplementedError``,
+        ``sequence_parallel: True`` ``ValueError``."""
         computable, what, item = BLIP2_MR.UNSUPPORTED_CONFIG["freeze_vit"]
         if cfg.get("freeze_vit", True) not in computable:
             raise NotImplementedError(
                 f"model.freeze_vit={cfg['freeze_vit']!r}: {what} is not ported "
                 f"yet (ROADMAP Queue 1, \"{item}\")")
+        if cfg.get("sequence_parallel", False):
+            raise ValueError("model.sequence_parallel=True: the OPT variant has no "
+                             "sequence parallelism (nor has the JAX package's)")
         unread = sorted(set(cfg) - set(cls.SUPPORTED_CONFIG))
         if unread:
             logging.warning("BLIP2_MR_OPT.from_config does not read model.%s",
@@ -295,11 +300,12 @@ class BLIP2_MR_OPT(BLIP2_MR):
     _PROMPT_KEYS = ("vid_ids", "vid_mask", "end_ids", "end_mask", "text_ids",
                     "text_mask")
 
-    def loss(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """The answer-region LM loss of a ``prepare_opt_batch`` batch."""
+    def loss_terms(self, batch: Dict[str, Any]):
+        """(token-loss sum, answer-token count) of a ``prepare_opt_batch``
+        batch; ``loss`` (inherited) is their quotient."""
         t = self._to_device(batch)
-        return self.module.loss(t["frames"], *(t[k] for k in self._PROMPT_KEYS),
-                                t["answer_ids"], t["answer_mask"])
+        return self.module.loss_terms(t["frames"], *(t[k] for k in self._PROMPT_KEYS),
+                                      t["answer_ids"], t["answer_mask"])
 
     def forward(self, samples) -> Dict[str, Any]:
         return {"loss": self.loss(self.prepare_opt_batch(samples))}

@@ -523,11 +523,20 @@ def shift_right(labels: torch.Tensor, decoder_start_token_id: int = 0,
                        shifted)
 
 
-def cross_entropy_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
-                          label_mask: torch.Tensor) -> torch.Tensor:
-    """Mean token-level cross entropy over unmasked label positions."""
+def cross_entropy_lm_loss_terms(logits: torch.Tensor, labels: torch.Tensor,
+                                label_mask: torch.Tensor):
+    """(sum of the token-level cross entropy, number of tokens) over the
+    unmasked label positions, both fp32 scalars: a data-parallel step
+    divides the sum by the count over every rank's rows."""
     labels_clipped = torch.where(labels == -100, torch.zeros_like(labels), labels)
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     token_ll = log_probs.gather(-1, labels_clipped[..., None].long())[..., 0]
     mask = label_mask.float() * (labels != -100).float()
-    return -(token_ll * mask).sum() / mask.sum().clamp_min(1.0)
+    return -(token_ll * mask).sum(), mask.sum()
+
+
+def cross_entropy_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                          label_mask: torch.Tensor) -> torch.Tensor:
+    """Mean token-level cross entropy over unmasked label positions."""
+    total, count = cross_entropy_lm_loss_terms(logits, labels, label_mask)
+    return total / count.clamp_min(1.0)

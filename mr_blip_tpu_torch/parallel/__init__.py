@@ -1,0 +1,14 @@
+"""Data and sequence parallelism over ``torch.distributed`` (the port's
+counterpart of ``mr_blip_tpu/parallel/``)."""
+
+from mr_blip_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    assert_replicated,
+    frame_share,
+    gather_frames,
+    global_sum,
+    rank_rows,
+)
+
+__all__ = ["all_reduce_grads", "assert_replicated", "frame_share", "gather_frames",
+           "global_sum", "rank_rows"]

@@ -6,9 +6,20 @@ Lazily built ``TrainCtx`` (AdamW, accumulation, dropout stream), LR
 scheduler and per-split loaders; the epoch loop with per-split validation
 and the best checkpoint by ``agg_metrics`` on ``val`` (a checkpoint per epoch
 when there is no validation split); the final evaluation of the test splits
-with the best checkpoint. One process, no mesh: the train loader's frames
-move to ``run.device`` in the step, evaluation loaders copy theirs one batch
-ahead (``PrefetchLoader``).
+with the best checkpoint. The train loader's frames move to ``run.device``
+in the step, evaluation loaders copy theirs one batch ahead
+(``PrefetchLoader``).
+
+Under a process group (``torchrun``; ``common/dist.py``) every rank holds
+the whole model on its own card (``cuda:LOCAL_RANK``), the ranks' trainable
+tensors are checked bit-equal after the build, and ``TrainCtx`` sums the
+gradients over the ranks once per update (data parallelism). The train
+loader gives each rank ``order[rank::world]`` of the whole global batches,
+so every rank takes as many steps; an evaluation loader gives each rank its
+share, uneven when the split does not divide, and rank 0 merges the
+per-rank result files. With ``model.sequence_parallel`` the loaders give
+every rank the same rows (the frames are shared out inside the model) and
+only rank 0's rows are kept. ``run.tp`` > 1 (tensor parallelism) raises.
 
 Checkpoints are ``torch.save`` files in the job's output directory:
 ``checkpoint_{best,<epoch>}.pth`` holds ``{"model": the trainable tensors
@@ -17,8 +28,12 @@ as the JAX package's ``resume_state`` does: every weight, the ``TrainCtx``
 state (AdamW moments and step, the call and update counters, the gradients
 accumulated in the current window), the epoch and whether it completed.
 ``load_checkpoint`` maps it (``mmap=True``) rather than reading it into host
-memory. Orbax, the JAX package's other format, is a JAX library: the port
-refuses ``run.use_orbax``.
+memory. Under a process group rank 0 writes both, after every rank reached
+the write (the trainable tensors checked bit-equal across the ranks); the
+resume state then holds every rank's gradients of the current window
+(``TrainCtx.shared_state_dict``), and each rank loads its own. Orbax, the
+JAX package's other format, is a JAX library: the port refuses
+``run.use_orbax``.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ from mr_blip_tpu_torch.datasets.loader import (
     MultiIterLoader,
     PrefetchLoader,
 )
+from mr_blip_tpu_torch.parallel.mesh import assert_replicated
 from mr_blip_tpu_torch.runners.train_state import TrainCtx
 
 
@@ -63,6 +79,16 @@ class RunnerBase:
             raise ValueError(
                 "run.use_orbax=True: orbax is a JAX checkpoint library; the port "
                 "writes torch.save files (checkpoint_<epoch>.pth, resume_state.pth)")
+        tp = int(self.run_cfg.get("tp", 1))
+        if tp > 1:
+            raise NotImplementedError(
+                f"run.tp={tp}: tensor parallelism is not ported yet (ROADMAP "
+                "Queue 1, \"Parallelism\")")
+        if dist_utils.get_world_size() > 1:
+            mask = model.trainable_mask()
+            assert_replicated(
+                {n: p for n, p in model.module.named_parameters() if mask[n]},
+                "the trainable tensors as built")
 
         self.setup_output_dir()
 
@@ -73,7 +99,13 @@ class RunnerBase:
 
     @property
     def device(self):
-        return self.run_cfg.get("device", "cuda")
+        """``run.device``; ``cuda`` is this rank's card under ``torchrun``."""
+        return dist_utils.local_device(self.run_cfg.get("device", "cuda"))
+
+    @property
+    def rows_replicated(self) -> bool:
+        """Whether every rank runs the same rows (sequence parallelism)."""
+        return bool(getattr(self.model, "sequence_parallel", False))
 
     @property
     def use_dist_eval_sampler(self):
@@ -161,10 +193,13 @@ class RunnerBase:
 
         Multiple train datasets become a MultiIterLoader with
         ``train_dataset_ratios``; eval splits shard across processes like
-        DistributedSampler (runner_base.py:176-277,491-570).
+        DistributedSampler (runner_base.py:176-277,491-570). Under sequence
+        parallelism no loader is sharded.
         """
         run = self.run_cfg
         rank, world = dist_utils.get_rank(), dist_utils.get_world_size()
+        if self.rows_replicated:
+            rank, world = 0, 1
         num_workers = int(run.get("num_workers", 2))
 
         split_datasets = {}
@@ -256,6 +291,7 @@ class RunnerBase:
                     val_log = self.eval_epoch(
                         split_name=split_name, cur_epoch=cur_epoch
                     )
+                    is_best = False
                     if val_log is not None and dist_utils.is_main_process():
                         tracker = tracking.get()
                         if tracker is not None:
@@ -269,9 +305,12 @@ class RunnerBase:
                         agg_metrics = val_log["agg_metrics"]
                         if agg_metrics > best_agg_metric and split_name == "val":
                             best_epoch, best_agg_metric = cur_epoch, agg_metrics
-                            self._save_checkpoint(cur_epoch, is_best=True)
+                            is_best = True
                         val_log.update({"best_epoch": best_epoch})
                         self.log_stats(val_log, split_name)
+                    # rank 0 decides; every rank takes part in the save
+                    if dist_utils.broadcast_object(is_best):
+                        self._save_checkpoint(cur_epoch, is_best=True)
             elif not self.evaluate_only:
                 self._save_checkpoint(cur_epoch, is_best=False)
 
@@ -323,6 +362,8 @@ class RunnerBase:
 
         self.task.before_evaluation(model=self.model, dataset=None)
         results = self.task.evaluation(self.model, data_loader)
+        if results is not None and self.rows_replicated and not dist_utils.is_main_process():
+            results = []  # every rank ran rank 0's rows: keep one copy
         if results is not None:
             return self.task.after_evaluation(
                 val_result=results, split_name=split_name, epoch=cur_epoch
@@ -337,18 +378,27 @@ class RunnerBase:
                 for name, p in self.model.module.named_parameters() if mask[name]}
 
     def _save_checkpoint(self, cur_epoch, is_best=False):
-        if not dist_utils.is_main_process():
-            return
-        save_obj = {
-            "model": self._trainable_only(),
-            "config": self.config.to_dict(),
-            "epoch": cur_epoch,
-        }
-        name = "checkpoint_{}.pth".format("best" if is_best else cur_epoch)
-        path = os.path.join(self.output_dir, name)
-        logging.info("Saving checkpoint at epoch %s to %s.", cur_epoch, path)
-        _save(save_obj, path)
+        """The trainable tensors (rank 0 writes) and the resume state. Every
+        rank calls it."""
+        self._check_replicated("checkpoint")
+        if dist_utils.is_main_process():
+            save_obj = {
+                "model": self._trainable_only(),
+                "config": self.config.to_dict(),
+                "epoch": cur_epoch,
+            }
+            name = "checkpoint_{}.pth".format("best" if is_best else cur_epoch)
+            path = os.path.join(self.output_dir, name)
+            logging.info("Saving checkpoint at epoch %s to %s.", cur_epoch, path)
+            _save(save_obj, path)
         self._write_resume_state(cur_epoch)
+
+    def _check_replicated(self, what):
+        """Under a process group: raise unless every rank's trainable tensors
+        are bit-equal (a collective; a barrier too)."""
+        if dist_utils.get_world_size() > 1:
+            assert_replicated(dict(self.train_ctx.named_params),
+                              f"the trainable tensors at the {what}")
 
     def _write_resume_state(self, cur_epoch, epoch_complete=True):
         """Full state for resume: every weight, the ``TrainCtx`` state and
@@ -356,19 +406,24 @@ class RunnerBase:
         resume (reference runner_base.py:622-644): dropping the AdamW state
         would re-run warmup on a resumed schedule. ``epoch_complete=False``
         (preemption mid-epoch) makes resume re-run ``cur_epoch`` instead of
-        starting at ``cur_epoch + 1``."""
+        starting at ``cur_epoch + 1``. Every rank calls it (the ranks'
+        partial gradients are gathered); rank 0 writes, and no rank returns
+        before the file is whole."""
         resume_path = os.path.join(self.output_dir, "resume_state.pth")
-        resume_obj = {
-            "params": self.model.state_dict(),
-            "train_ctx": self.train_ctx.state_dict(),
-            "epoch": cur_epoch,
-            "epoch_complete": epoch_complete,
-        }
-        _save(resume_obj, resume_path)
+        train_ctx = self.train_ctx.shared_state_dict()
+        if dist_utils.is_main_process():
+            resume_obj = {
+                "params": self.model.state_dict(),
+                "train_ctx": train_ctx,
+                "epoch": cur_epoch,
+                "epoch_complete": epoch_complete,
+            }
+            _save(resume_obj, resume_path)
+        dist_utils.barrier()
         return resume_path
 
     def save_preemption_checkpoint(self, cur_epoch):
-        """Resume state at the preemption step boundary (rank 0).
+        """Resume state at the preemption step boundary (rank 0 writes).
 
         Resume semantics (epoch granularity, like the reference's
         runner_base.py:622-644 resume): the interrupted epoch RE-RUNS from
@@ -379,11 +434,12 @@ class RunnerBase:
         warm from the preempted pass), and the step count keeps increasing,
         which only affects AdamW's bias correction (negligible outside the
         first ~100 steps). Exact-batch resume would need the loader's
-        iterator state checkpointed too; documented trade-off.
+        iterator state checkpointed too; documented trade-off. Every rank
+        calls it: the guard stops them all at the same step boundary.
         """
-        path = None
+        self._check_replicated("preemption")
+        path = self._write_resume_state(cur_epoch, epoch_complete=False)
         if dist_utils.is_main_process():
-            path = self._write_resume_state(cur_epoch, epoch_complete=False)
             logging.warning(
                 "preemption checkpoint written to %s (resume with "
                 "run.resume_ckpt_path to re-run epoch %d)", path, cur_epoch,

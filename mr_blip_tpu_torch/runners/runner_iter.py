@@ -88,6 +88,7 @@ class RunnerIter(RunnerBase):
                         split_name=split_name,
                         cur_epoch=self._progress(end_iters),
                     )
+                    is_best = False
                     if val_log is not None and dist_utils.is_main_process():
                         assert "agg_metrics" in val_log, (
                             "No agg_metrics found in validation log."
@@ -95,9 +96,12 @@ class RunnerIter(RunnerBase):
                         agg_metrics = val_log["agg_metrics"]
                         if agg_metrics > best_agg_metric and split_name == "val":
                             best_iters, best_agg_metric = end_iters, agg_metrics
-                            self._save_checkpoint(end_iters, is_best=True)
+                            is_best = True
                         val_log.update({"best_iters": best_iters})
                         self.log_stats(val_log, split_name)
+                    # rank 0 decides; every rank takes part in the save
+                    if dist_utils.broadcast_object(is_best):
+                        self._save_checkpoint(end_iters, is_best=True)
             elif not self.evaluate_only:
                 self._save_checkpoint(end_iters, is_best=False)
 

@@ -14,7 +14,19 @@ The JAX package's semantics, in PyTorch:
   with the mean, at the lr set for that call.
 * Dropout draws from a ``torch.Generator`` on the model's device, reseeded
   from (run seed, call index) at every call, as JAX folds the step into
-  its key; a NaN loss raises before the update (``base_task.py`` guard).
+  its key, and under data parallelism from the rank too, so that the ranks
+  draw different masks for their different rows (under sequence
+  parallelism every rank runs the same rows and draws the same masks); a
+  NaN loss raises before the update (``base_task.py`` guard).
+* Data parallelism (a process group, ``torchrun``): the step is the JAX
+  package's step on a dp mesh over the union of the ranks' rows. The loss
+  is the mean over every target token of the global micro-batch, so each
+  rank divides its token-loss sum by the token count summed over the ranks
+  (not a mean of per-rank means); the gradients are summed over the ranks
+  once per update, after the ``accum_grad_iters``-th backward (no
+  collective on the other micro-batches' gradients), and clipped after
+  that sum. ``shared_state_dict`` gathers every rank's partial window of
+  gradients for a resume state.
 * Trainable parameters are fp32 master weights (``BLIP2_MR.set_trainable``).
 * ``state_dict`` / ``load_state_dict`` carry what a resume needs: the fp32
   masters, the AdamW moments and step, the call and update counters (the
@@ -31,7 +43,9 @@ from typing import Iterable, Optional
 
 import torch
 
+from mr_blip_tpu_torch.common import dist as dist_utils
 from mr_blip_tpu_torch.models.layers import set_dropout_generator
+from mr_blip_tpu_torch.parallel import mesh
 
 
 def make_optimizer(named_params: Iterable, weight_decay: float = 0.05,
@@ -83,6 +97,11 @@ class TrainCtx:
         self.seed = seed
         self.generator = torch.Generator(device=model.device)
         set_dropout_generator(model.module, self.generator)
+        self.distributed = dist_utils.is_dist_avail_and_initialized()
+        self.rank, self.world = dist_utils.get_rank(), dist_utils.get_world_size()
+        # The dropout stream's rank: 0 under sequence parallelism, where
+        # every rank runs the same rows.
+        self.stream = 0 if getattr(model, "sequence_parallel", False) else self.rank
         self.calls = 0
         self.updates = 0
         self._lr = 0.0
@@ -103,11 +122,36 @@ class TrainCtx:
             "updates": self.updates,
         }
 
+    def shared_state_dict(self) -> dict:
+        """``state_dict()`` for a resume state that rank 0 writes (a
+        collective: every rank calls it). Under a process group the
+        gradients of the current window differ between the ranks, so
+        ``grads`` is replaced by ``rank_grads``, every rank's on the host in
+        rank order; ``load_state_dict`` gives each rank its own back."""
+        state = self.state_dict()
+        if self.distributed:
+            own = {n: None if g is None else g.cpu() for n, g in state.pop("grads").items()}
+            state["rank_grads"] = dist_utils.all_gather_object(own)
+        return state
+
     @torch.no_grad()
     def load_state_dict(self, state: dict):
         """Copy ``state_dict()``'s values in (any device, e.g. a file mapped
-        to host memory); a trainable tensor missing from it raises."""
-        params, grads = state["params"], state["grads"]
+        to host memory); a trainable tensor missing from it raises. Under a
+        process group each rank takes its own ``rank_grads``; the gradients
+        of a one-process state go to rank 0 alone, since the update sums the
+        ranks'."""
+        params = state["params"]
+        grads = state["grads"] if "rank_grads" not in state else None
+        if grads is not None and self.distributed and self.rank:
+            grads = {}
+        elif grads is None:
+            rank_grads = state["rank_grads"]
+            if len(rank_grads) != self.world:
+                raise ValueError(
+                    f"the train state holds the partial gradients of "
+                    f"{len(rank_grads)} ranks; resume it with as many, not {self.world}")
+            grads = rank_grads[self.rank]
         missing = sorted(set(self.named_params) - set(params))
         if missing:
             raise KeyError(f"train state lacks {len(missing)} trainable tensors, "
@@ -130,11 +174,21 @@ class TrainCtx:
 
     def step(self, batch) -> float:
         """Forward and backward of one micro-batch in train mode; every
-        ``accum_grad_iters``-th call also updates the weights."""
-        self.generator.manual_seed((self.seed << 32) + self.calls)
+        ``accum_grad_iters``-th call also updates the weights. Returns the
+        micro-batch's loss, over every rank's rows under a process group."""
+        self.generator.manual_seed((self.seed << 32) + self.calls + (self.stream << 56))
         self.model.train()
-        loss = self.model.loss(batch)
-        value = float(loss.detach())
+        loss_sum, count = self.model.loss_terms(batch)
+        if self.distributed:
+            # this micro-batch's loss sum and target tokens over the ranks:
+            # the token count divides, the sum gives the global mean
+            totals = mesh.global_sum(torch.stack([loss_sum.detach().float(),
+                                                  count.float()]))
+            loss = loss_sum / totals[1].clamp_min(1.0)
+            value = float(totals[0] / totals[1].clamp_min(1.0))
+        else:
+            loss = loss_sum / count.clamp_min(1.0)
+            value = float(loss.detach())
         if not value == value:  # NaN guard: fail before the update
             raise FloatingPointError(
                 f"NaN loss at call {self.calls} (lr={self._lr:.3g}); aborting "
@@ -142,6 +196,8 @@ class TrainCtx:
         (loss / self.accum_grad_iters).backward()
         self.calls += 1
         if self.calls % self.accum_grad_iters == 0:
+            if self.distributed:
+                mesh.all_reduce_grads(self.params)
             if self.max_grad_norm:
                 clip_by_global_norm(self.params, self.max_grad_norm)
             for group in self.optimizer.param_groups:

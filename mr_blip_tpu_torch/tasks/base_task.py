@@ -34,12 +34,14 @@ class BaseTask:
 
     def build_model(self, cfg):
         """The registered model's ``from_config`` on ``cfg.model_cfg``, on
-        ``run.device`` (the card unless the config asks for the CPU)."""
+        ``run.device`` (the card unless the config asks for the CPU; under
+        ``torchrun`` this rank's card)."""
         model_config = cfg.model_cfg
         model_cls = registry.get_model_class(model_config.arch)
         assert model_cls is not None, f"unknown model {model_config.arch!r}"
-        return model_cls.from_config(model_config,
-                                     device=cfg.run_cfg.get("device", "cuda"))
+        return model_cls.from_config(
+            model_config,
+            device=dist_utils.local_device(cfg.run_cfg.get("device", "cuda")))
 
     def build_datasets(self, cfg):
         """name -> {split: dataset} for every entry in datasets_cfg."""
@@ -144,7 +146,7 @@ class BaseTask:
             # moments and accumulated gradients are whole-step consistent
             # here; the runner turns the raise into a resume state.
             guard = preempt.get_guard()
-            if guard is not None and guard.should_stop(i):
+            if guard is not None and guard.should_stop(i, last=i == iters_per_epoch - 1):
                 raise preempt.TrainingPreempted(inner_epoch, i)
             metric_logger.update(lr=float(lr))
             if tracker is not None:

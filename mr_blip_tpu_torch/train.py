@@ -12,8 +12,21 @@ test splits evaluated at the end, under ``run.output_dir/<job id>/``. The
 model runs on ``run.device``, the card unless the options say
 ``run.device=cpu``.
 
+Several processes, as the reference launches its training (data
+parallelism; ``run.distributed: True``, ``nccl`` on the cards by default)::
+
+    python -m torch.distributed.run --nproc_per_node=8 -m mr_blip_tpu_torch.train \
+        --cfg-path configs/projects/train/qvh.yaml --options ...
+
+Each rank takes ``batch_size_train`` rows per micro-batch on its own card
+(``cuda:LOCAL_RANK``) and the update is the one of the global batch. On the
+host: ``run.device=cpu`` (``gloo``); two ranks on one card:
+``run.dist_backend=gloo``. ``model.sequence_parallel=True`` shares each
+video's frames out over the ranks instead of the rows.
+
 SIGTERM (a preemption, a maintenance drain) finishes the current step,
-writes ``resume_state.pth`` and exits with code 143; run again with
+writes ``resume_state.pth`` and exits with code 143 (every rank at the same
+step); run again with
 ``run.resume_ckpt_path=<output dir>/<job id>/resume_state.pth`` to re-run
 the interrupted epoch and go on. ``main(argv)`` returns the runner's test
 logs ({split: metrics}).
@@ -64,6 +77,7 @@ def main(argv=None):
 
         create_runner_config_validator().validate(dict(cfg.run_cfg))
     dist_utils.init_distributed_mode(cfg.run_cfg)
+    job_id = dist_utils.broadcast_object(job_id)  # one output directory
     seed = int(cfg.run_cfg.get("seed", 42)) + dist_utils.get_rank()
     random.seed(seed)
     np.random.seed(seed)
@@ -89,11 +103,13 @@ def main(argv=None):
         test_logs = runner.train()
     except preempt.TrainingPreempted as e:
         logging.warning("%s — exiting for restart", e)
+        dist_utils.destroy()
         sys.exit(143)
     finally:
         preempt.uninstall_guard()
     runner.finalize_checkpoints()
     logging.info("test logs: %s", test_logs)
+    dist_utils.destroy()
     return test_logs
 
 

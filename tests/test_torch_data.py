@@ -198,20 +198,35 @@ class _Ints:
 @pytest.mark.parametrize("world", [1, 2])
 @pytest.mark.parametrize("shuffle,drop_last", [(False, False), (True, True), (True, False)])
 def test_dataloader_order_and_sharding_equal_jax(world, shuffle, drop_last):
+    """Each rank's batches equal the JAX loader's for that rank; in training
+    (``drop_last``) over several ranks, where every rank takes only whole
+    global batches, the union of the ranks' i-th batches is the i-th batch
+    of the JAX loader over one process with the global batch size."""
     ds = _Ints(11)
-    seen = []
+    seen, global_steps = [], []
     for rank in range(world):
         kw = dict(batch_size=3, shuffle=shuffle, drop_last=drop_last, num_workers=2,
                   rank=rank, world_size=world, seed=5)
-        got, want = tloader.DataLoader(ds, **kw), jloader.DataLoader(ds, **kw)
+        got = tloader.DataLoader(ds, **kw)
+        if drop_last and world > 1:
+            kw.update(batch_size=3 * world, rank=0, world_size=1)
+        want = jloader.DataLoader(ds, **kw)
         for epoch in (0, 1):
             got.set_epoch(epoch)
             want.set_epoch(epoch)
             assert len(got) == len(want)
             got_batches, want_batches = list(got), list(want)
-            _assert_same(got_batches, want_batches)
+            if drop_last and world > 1:
+                global_steps.append((epoch, got_batches, want_batches))
+            else:
+                _assert_same(got_batches, want_batches)
             if epoch == 0:
                 seen += [i for b in got_batches for i in b["i"].tolist()]
+    for epoch in (0, 1):
+        steps = [(g, w) for e, g, w in global_steps if e == epoch]
+        for i in range(len(steps[0][1]) if steps else 0):
+            union = sorted(x for g, _ in steps for x in g[i]["i"].tolist())
+            assert union == sorted(steps[0][1][i]["i"].tolist())
         if not shuffle:
             assert [i for b in got_batches for i in b["i"].tolist()] == list(
                 range(rank, 11, world))

@@ -71,7 +71,8 @@ PORT_KEYS = ("img_size", "vit_model", "t5_model", "tokenizer_path", "num_query_t
              "num_beams", "min_new_tokens", "max_txt_len", "max_new_tokens",
              "input_time_format", "task", "num_frames_for_answer", "resample_frames",
              "relpos_in_kernel",
-             "compute_dtype", "init_params", "vocab_size", "use_grad_checkpoint")
+             "compute_dtype", "init_params", "vocab_size", "use_grad_checkpoint",
+             "sequence_parallel")
 
 
 @pytest.mark.parametrize("path,options", [
@@ -105,13 +106,18 @@ def test_from_config_constructor_values_equal_jax(path, options):
     ("frame_token_aggregation", "mean", "Variants of BLIP2_MR"),
     ("freeze_vit", False, "The unfrozen-ViT train path"),
     ("fast_gelu", True, "Variants of BLIP2_MR"),
-    ("sequence_parallel", True, "Parallelism"),
+    # ported ("Parallelism"): builds a model that shares its frames out
+    pytest.param("sequence_parallel", True, None, id="sequence_parallel-True-Parallelism"),
     ("int8_base", True, None),  # ported ("The rest of int8"): builds its layout
 ])
 def test_from_config_unsupported_settings_raise(key, value, item):
     cfg, _ = _model_cfg("configs/projects/train/tiny_synthetic.yaml")
     cfg[key] = value
-    if item is None:
+    if key == "sequence_parallel":
+        model = BLIP2_MR.from_config(cfg, device="cpu")
+        assert model.sequence_parallel and model.module.sequence_parallel
+        assert key in BLIP2_MR.SUPPORTED_CONFIG
+    elif item is None:
         model = BLIP2_MR.from_config(cfg, device="cpu")
         sd = model.state_dict()
         assert model.t5_config.int8_base and key in BLIP2_MR.SUPPORTED_CONFIG
@@ -123,8 +129,7 @@ def test_from_config_unsupported_settings_raise(key, value, item):
         with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
             BLIP2_MR.from_config(cfg, device="cpu")
     assert set(BLIP2_MR.UNSUPPORTED_CONFIG) == {
-        "interleave_data", "frame_token_aggregation", "freeze_vit", "fast_gelu",
-        "sequence_parallel"}
+        "interleave_data", "frame_token_aggregation", "freeze_vit", "fast_gelu"}
 
 
 @pytest.mark.parametrize("path", ["configs/projects/eval/nextGQA.yaml",

@@ -193,7 +193,7 @@ def test_span_grammar_copy_matches():
 def test_port_imports_no_jax_or_triton():
     """Nor pyyaml or scikit-learn, which the card's machine lacks: the
     configs are read and every module of the evaluation, train and serving
-    entry points imported, the grounded-QA and TAL tasks, the OPT variant,
+    entry points imported (data and sequence parallelism with them), the grounded-QA and TAL tasks, the OPT variant,
     metrics, datasets and video reader with them, and a model built by
     ``load_model``."""
     code = (
@@ -224,6 +224,7 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.models.opt, mr_blip_tpu_torch.models.blip2_mr_opt\n"
         "import mr_blip_tpu_torch.tasks.temporal_action_localization\n"
         "import mr_blip_tpu_torch.metrics.span_ops\n"
+        "import mr_blip_tpu_torch.parallel, mr_blip_tpu_torch.parallel.mesh\n"
         "import mr_blip_tpu_torch.serving, mr_blip_tpu_torch.serving.server\n"
         "import mr_blip_tpu_torch.serve, mr_blip_tpu_torch.models\n"
         "from mr_blip_tpu_torch.models import load_model\n"

@@ -261,7 +261,8 @@ def test_nan_loss_raises_before_the_update():
     port = BLIP2_MR(**TINY, device="cpu", task="qformer_freeze_lora", seed=9)
     ctx = TrainCtx(port, seed=0)
     before = {k: v.clone() for k, v in port.state_dict().items()}
-    port.loss = lambda batch: torch.tensor(float("nan"), requires_grad=True)
+    port.loss_terms = lambda batch: (torch.tensor(float("nan"), requires_grad=True),
+                                     torch.tensor(1.0))
     with pytest.raises(FloatingPointError, match="NaN loss"):
         ctx.step({})
     assert all(torch.equal(v, before[k]) for k, v in port.state_dict().items())
