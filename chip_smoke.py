@@ -334,6 +334,35 @@ is nonzero and the final line is not printed:
     ``nccl`` group and takes dp's reference update through it (the
     update's all-reduce on NCCL), against the update without a group; prints
     NCCL's version.
+23. the reference-checkpoint import and the BLIP2_MR variants. (a) Phase 4's
+    model (full width and depth, seed 0) exported to the reference's four
+    sources in their own names (LAVIS EVA ViT-g with ``q_bias``/``v_bias``,
+    the BLIP-2 stage-2 ``Qformer.*``/``query_tokens``/``ln_vision``/
+    ``t5_proj``, the HF T5, the PEFT ``lora_A``/``lora_B`` under
+    ``t5_model.``), every parameter filled with NaN, imported through
+    ``models/port.py::port_checkpoints``: no NaN left, every tensor bit-equal
+    to before, and one 4 x 60 batch's T5 encoder states, beam scores and
+    spans bit-equal to the batch run before the round trip (kernels 1-3
+    twice phase 4's counts: the encode and the generate). (b) The depth-2
+    model at published widths, its weights drawn from another seed, written
+    as the reference's files (``eva_vit_g.pth``, a ``{"model": ...}`` BLIP-2
+    ``.pth``, a two-shard safetensors T5 directory with its index, a
+    finetuned ``.pth`` with ``t5_model.`` and ``answerer_model.`` LoRA), then
+    ``port_weights.main`` and ``from_config`` with ``pretrained`` set to its
+    output (``load_model`` at depth 2): every tensor equal to the source's.
+    (c) Each variant at full width and depth on (a)'s weights, one 1 x 60
+    batch: ``only_frames`` (encoder length 1,992, where phase 3 holds kernel
+    3), ``frame_token_aggregation="mean"`` (200 tokens: the plain attention),
+    ``fast_gelu`` and ``blip2_fmr`` (per-frame rows of ~85 tokens): spans
+    parse or the 60 scores are finite, and kernels 1-3 launch 110 / 39 / 24
+    (0 for mean and blip2_fmr); then each at depth 2 on 1 x 8 frames (4 new
+    tokens) on the card against the CPU's plain path (rel-pos table at N(0,
+    1)): T5 encoder
+    rows cosine >= 0.999 and equal spans (blip2_fmr: first-step logits
+    cosine >= 0.999, yes-no scores within 2% of the largest logit and equal
+    answers where a score is clear of a threshold put in the widest gap of
+    the CPU's scores). Prints each
+    part's seconds and peak memory beside the card.
 
 Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
 (4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
@@ -352,7 +381,7 @@ on the same packed tensor, and at (240, 257) in bf16 beside kernel 2 again.
 The other kernels of the 364-pixel paths are held at the shapes those paths
 give them: LayerNorm at (162,480, 1,408) (240 x 677 ViT rows), the biased
 flash forward at the answerer's encoder length (4 x 2,040, the last 5 keys
-masked), the W8A8 linear at the two shapes of the split int8 ViT route
+masked) and at phase 23's ``only_frames`` length (1 x 1,992), the W8A8 linear at the two shapes of the split int8 ViT route
 ((162,480, 1,408) x 4,224 with LN and bias, x 1,408 with the residual) and
 the W8A8 GELU MLP at (162,480, 1,408, 6,144). The biased flash forward is also
 held at phase 18's encoder lengths, batch 1: 2,088 (the localizer) and 2,024
@@ -374,7 +403,8 @@ and 8 from phase 6, 7 from phase 7's ``qformer_freeze`` run, 13-16 from phase
 ``serve_launches`` from phase 20's server batches, warmup and reference
 generates; ``qlora_launches`` from phase 21's two runs (their micro-batches
 and the resumed run's generates); ``dp_launches`` per micro-batch on one
-rank in phase 22 (a); each count is taken with the counts set to 0 just before its path runs); the
+rank in phase 22 (a); ``variant_launches`` from phase 23 (c)'s four
+full-width batches; each count is taken with the counts set to 0 just before its path runs); the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -595,6 +625,25 @@ DP_LOSS_REL_TOL, DP_GRAD_COSINE_MIN, DP_TENSOR_REL_TOL = 1e-3, 0.999, 1e-3
 # apart (a flipped near-zero gradient; see _dp_rel).
 DP_APART_MAX = 1e-3
 DP_WINDOWS = ("[[10, 25]]", "[[10, 25], [30, 42], [100, 120]]")
+# Phase 23, the reference-checkpoint import and the BLIP2_MR variants. The
+# encoder length of an only_frames 1 x 60 batch of make_samples ("<vid>" 5
+# tokens, 60 x 32 frame tokens, the end's 2 and the text's 64, padded to a
+# multiple of 8): phase 3 holds kernel 3 at it, and phase 23 must show it.
+ONLY_FRAMES_ENCODER_LENGTH = 1992
+# Frames of the depth-2 card-vs-CPU runs (only_frames 328 tokens, fast_gelu
+# past 256: kernel 3 on the card; mean and blip2_fmr stay under 256).
+VARIANT_CPU_FRAMES = 8
+# Their beam search: 4 new tokens and no minimum, so that the CPU's runs stay
+# short (a step of the full-width head and its beams is most of them).
+VARIANT_CPU_NEW_TOKENS = 4
+EXPECTED_NO_BIAS_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_bias_attention=0)
+# Per full-width 1 x 60 batch: the ViT, ln_vision and Q-Former as phase 4's;
+# the biased flash kernel over the encoder's 24 layers where the sequence
+# is 256 tokens or more (mean aggregation: 200; blip2_fmr's rows: ~85).
+VARIANTS = {"only_frames": (dict(task="lora_only_frames"), EXPECTED_LAUNCHES),
+            "mean": (dict(frame_token_aggregation="mean"), EXPECTED_NO_BIAS_LAUNCHES),
+            "fast_gelu": (dict(fast_gelu=True), EXPECTED_LAUNCHES),
+            "blip2_fmr": ({}, EXPECTED_NO_BIAS_LAUNCHES)}
 
 
 def say(*parts):
@@ -788,6 +837,9 @@ def check_kernels(torch, kernels):
                                           QA_ENTRY_LOCALIZER_LENGTH, None, False),
                                          (1, QA_ENTRY_ANSWERER_LENGTH,
                                           QA_ENTRY_ANSWERER_LENGTH, "entry_pad", False),
+                                         # phase 23's only_frames prompt
+                                         (1, ONLY_FRAMES_ENCODER_LENGTH,
+                                          ONLY_FRAMES_ENCODER_LENGTH, None, False),
                                          (2, 300, 300, None, False),
                                          (2, 300, 300, "row1_all", False)):
         q = randn(b, n, heads, d)
@@ -1747,27 +1799,37 @@ def flagship_model(device="cuda", **kw):
     return BLIP2_MR(**dict(FLAGSHIP, **kw), device=device)
 
 
-def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False, **kw):
-    """The flagship model at full widths, every stack REDUCED_DEPTH deep;
-    ``kw`` overrides entries of the flagship configuration."""
+def reduced_vit_config(**kw):
+    import dataclasses
+
+    from mr_blip_tpu_torch.models.eva_vit import eva_vit_g_config
+
+    return dataclasses.replace(eva_vit_g_config(**kw), depth=REDUCED_DEPTH)
+
+
+def reduced_t5_config(**kw):
+    import dataclasses
+
+    from mr_blip_tpu_torch.models.t5 import t5_flan_xl_config
+
+    return dataclasses.replace(t5_flan_xl_config(**kw), num_layers=REDUCED_DEPTH,
+                               num_decoder_layers=REDUCED_DEPTH)
+
+
+def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False,
+                  cls=None, **kw):
+    """The flagship model (``cls``, default ``BLIP2_MR``) at full widths,
+    every stack REDUCED_DEPTH deep; ``kw`` overrides entries of the flagship
+    configuration."""
     import dataclasses
 
     from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
     from mr_blip_tpu_torch.models.blip2_mr_module import Blip2MRModule
-    from mr_blip_tpu_torch.models.eva_vit import eva_vit_g_config
-    from mr_blip_tpu_torch.models.t5 import t5_flan_xl_config
     from mr_blip_tpu_torch.profile_inference import FLAGSHIP
 
-    def vit_config(**kw):
-        return dataclasses.replace(eva_vit_g_config(**kw), depth=REDUCED_DEPTH)
-
-    def t5_config(**kw):
-        return dataclasses.replace(t5_flan_xl_config(**kw), num_layers=REDUCED_DEPTH,
-                                   num_decoder_layers=REDUCED_DEPTH)
-
-    class ReducedDepth(BLIP2_MR):
-        VIT_CONFIGS = {"eva_vit_g": vit_config}
-        T5_CONFIGS = {"flan-t5-xl": t5_config}
+    class ReducedDepth(cls or BLIP2_MR):
+        VIT_CONFIGS = {"eva_vit_g": reduced_vit_config}
+        T5_CONFIGS = {"flan-t5-xl": reduced_t5_config}
 
         def __init__(self):
             super().__init__(**dict(FLAGSHIP, task=task or FLAGSHIP["task"], **kw),
@@ -1778,7 +1840,8 @@ def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False, *
             self.module = Blip2MRModule(
                 self.vit_config, self.qformer_config, self.t5_config,
                 compute_dtype=self.compute_dtype, device=self.device,
-                with_answerer=self.is_qa).eval()
+                with_answerer=self.is_qa,
+                frame_token_aggregation=self.frame_token_aggregation).eval()
             self.module.requires_grad_(False)
             if init_params:
                 self.init_params(FLAGSHIP["seed"])
@@ -4516,6 +4579,418 @@ def dp_worker(argv):
         dp_step_worker(torch, workdir)
 
 
+# -------------------------------------------------------------- phase 23
+def _hf_t5_name(name):
+    """The port's T5 name -> HF ``T5ForConditionalGeneration``'s."""
+    if name in ("shared.weight", "lm_head.weight"):
+        return name
+    side, rest = name.split(".", 1)
+    if rest == "rel_bias.rel_embedding":
+        return f"{side}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    if rest == "final_norm.weight":
+        return f"{side}.final_layer_norm.weight"
+    _, block, module, leaf = rest.split(".", 3)
+    ff = 2 if side == "decoder" else 1
+    layer = {"self_attention": "0.SelfAttention", "self_attn_norm": "0.layer_norm",
+             "cross_attention": "1.EncDecAttention", "cross_attn_norm": "1.layer_norm",
+             "ff": f"{ff}.DenseReluDense", "ff_norm": f"{ff}.layer_norm"}[module]
+    return f"{side}.block.{block}.layer.{layer}.{leaf}"
+
+
+def _blip2_name(name):
+    """The port's Q-Former name -> the BLIP-2 stage-2 checkpoint's."""
+    if name == "query_tokens":
+        return name
+    if name.startswith("embeddings_norm."):
+        return "Qformer.bert.embeddings.LayerNorm." + name.split(".")[-1]
+    _, i, module, rest = name.split(".", 3)
+    p = f"Qformer.bert.encoder.layer.{i}."
+    if module in ("self_attention", "cross_attention"):
+        src = "attention" if module == "self_attention" else "crossattention"
+        proj, leaf = rest.split(".")
+        if proj in ("query", "key", "value"):
+            return f"{p}{src}.self.{proj}.{leaf}"
+        return f"{p}{src}.output.{'dense' if proj == 'output' else 'LayerNorm'}.{leaf}"
+    return {"intermediate_query": f"{p}intermediate_query.dense.",
+            "output_query": f"{p}output_query.dense.",
+            "output_query_norm": f"{p}output_query.LayerNorm."}[module] + rest
+
+
+def reference_sources(state):
+    """A ``BLIP2_MR`` state dict as the reference's four sources, in their own
+    names, each tensor a copy: the LAVIS EVA ViT-g (``q_bias``/``v_bias``,
+    ``patch_embed.proj``), the BLIP-2 stage-2 checkpoint (``Qformer.*``,
+    ``query_tokens``, ``ln_vision``, ``t5_proj``), the HF T5, and the PEFT
+    LoRA tensors under ``t5_model.`` as the finetuned checkpoint holds them."""
+    eva, blip2, t5, finetuned = {}, {}, {}, {}
+    for name, value in state.items():
+        top, rest = name.split(".", 1)
+        value = value.detach().clone()
+        if top == "visual_encoder":
+            eva[rest.replace("patch_embed.", "patch_embed.proj.")] = value
+        elif top in ("ln_vision", "t5_proj"):
+            blip2[name] = value
+        elif top == "qformer":
+            blip2[_blip2_name(rest)] = value
+        elif top == "t5" and ".lora_" in rest:
+            module, leaf = rest.rsplit(".", 1)
+            hf = module if module == "lm_head" else _hf_t5_name(module + ".weight")[:-7]
+            finetuned[f"t5_model.base_model.model.{hf}.lora_{leaf[-1].upper()}"
+                      ".default.weight"] = value.t().contiguous()
+        elif top == "t5":
+            t5[_hf_t5_name(rest)] = value
+        else:
+            raise ValueError(f"no reference source holds {name}")
+    return eva, blip2, t5, finetuned
+
+
+def write_safetensors(torch, path, tensors):
+    """The safetensors format (the machine has no package for it): a u64
+    header length, the JSON header, the raw bytes."""
+    names = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"}
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        data = t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for data in blobs:
+            f.write(data)
+
+
+def reduced_depth_load():
+    """Within it, ``load_model`` and ``from_config`` build BLIP2_MR at
+    REDUCED_DEPTH (ViT, Q-Former and T5), full widths."""
+    import contextlib
+    import dataclasses
+
+    from mr_blip_tpu_torch.models import blip2_mr
+
+    @contextlib.contextmanager
+    def patched():
+        saved = (blip2_mr.BLIP2_MR.VIT_CONFIGS, blip2_mr.BLIP2_MR.T5_CONFIGS,
+                 blip2_mr.qformer_base_config)
+        blip2_mr.BLIP2_MR.VIT_CONFIGS = {"eva_vit_g": reduced_vit_config}
+        blip2_mr.BLIP2_MR.T5_CONFIGS = {"flan-t5-xl": reduced_t5_config}
+        blip2_mr.qformer_base_config = lambda *a, **kw: dataclasses.replace(
+            saved[2](*a, **kw), num_layers=REDUCED_DEPTH)
+        try:
+            yield
+        finally:
+            (blip2_mr.BLIP2_MR.VIT_CONFIGS, blip2_mr.BLIP2_MR.T5_CONFIGS,
+             blip2_mr.qformer_base_config) = saved
+
+    return patched()
+
+
+def fmr_samples(samples):
+    """``make_samples`` with the frame-level baseline's inputs."""
+    b, t = samples["video"].shape[:2]
+    return dict(samples, loc_input=["Question: a person is doing something "
+                                    "interesting? Is this frame relevant?"] * b,
+                qa_output=["_".join(["no"] * t)] * b)
+
+
+def import_round_trip(torch, wrappers, card):
+    """Phase 23 (a): phase 4's flagship model through the reference's sources
+    and back, in memory. Returns the model (its weights are phase 4's)."""
+    from mr_blip_tpu_torch.models import port
+    from mr_blip_tpu_torch.profile_inference import make_samples
+
+    t0 = time.time()
+    model = flagship_model()
+    samples = make_samples(BATCH, N_FRAMES, seed=0)
+
+    def run():
+        for w in wrappers.values():
+            w.launches = 0
+        with torch.inference_mode():
+            batch = model.prepare_mr_batch(samples, need_targets=False)
+            tensors = model._to_device(batch)
+            enc, _ = model.encode_t5(tensors, model.frames_to_t5(tensors),
+                                     model._encoder_bias_for(batch))
+        handle = model.generate_dispatch(samples)
+        out = model.generate_collect(handle)
+        torch.cuda.synchronize()
+        rose = {k: w.launches for k, w in wrappers.items()}
+        require(rose == {k: 2 * v for k, v in EXPECTED_LAUNCHES.items()},
+                f"import round trip: launches {rose}, expected twice phase 4's")
+        return enc, handle["scores"].float(), out["prediction"], rose
+
+    enc0, scores0, pred0, _ = run()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    sources = reference_sources(before)
+    with torch.no_grad():
+        for p in model.module.parameters():
+            p.fill_(float("nan"))
+    model.clear_bias_cache()
+    t1 = time.time()
+    eva, blip2, t5, finetuned = sources
+    model.load_state_dict(port.port_checkpoints(
+        model.state_dict(), eva_vit=eva, blip2=blip2, t5=t5, finetuned=finetuned))
+    torch.cuda.synchronize()
+    import_s = time.time() - t1
+    after = model.state_dict()
+    nan_left = [k for k, v in after.items() if v.is_floating_point() and v.isnan().any()]
+    differ = [k for k in before if not torch.equal(after[k], before[k])]
+    enc1, scores1, pred1, rose = run()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[{card}] import round trip (phase 4's model, full width and depth): "
+        f"{len(before)} tensors, {sum(len(s) for s in sources)} reference tensors "
+        f"(EVA {len(eva)}, BLIP-2 {len(blip2)}, HF T5 {len(t5)}, LoRA {len(finetuned)}); "
+        f"import {import_s:.2f} s; NaN left in {len(nan_left)}, tensors off {len(differ)}; "
+        f"encoder states ({tuple(enc1.shape)}) bit-equal {torch.equal(enc0, enc1)}, "
+        f"beam scores bit-equal {torch.equal(scores0, scores1)}, predictions equal "
+        f"{pred0 == pred1}; launches of the two batches {rose}; phase {time.time() - t0:.1f} s, "
+        f"peak {peak:.2f} GiB")
+    require(not nan_left, f"import: NaN left in {nan_left[:3]}")
+    require(not differ, f"import: {len(differ)} tensors differ, e.g. {differ[:3]}")
+    require(torch.equal(enc0, enc1) and torch.equal(scores0, scores1) and pred0 == pred1,
+            "import: the generate batch moved after the round trip")
+    del before, sources, eva, blip2, t5, finetuned, enc0, enc1
+    torch.cuda.empty_cache()
+    return model
+
+
+def import_file_route(torch, card):
+    """Phase 23 (b): the depth-2 model at published widths written as the
+    reference's files, ``port_weights.main`` over them, ``from_config`` over
+    its output."""
+    import tempfile
+
+    from mr_blip_tpu_torch import port_weights
+    from mr_blip_tpu_torch.common.config import load_yaml
+    from mr_blip_tpu_torch.common.utils import get_abs_path
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+
+    t0 = time.time()
+    src = reduced_model("cuda")
+    src.init_params(123)  # not the seeds the port_weights and from_config models draw
+    want = {k: v.cpu() for k, v in src.state_dict().items()}
+    del src
+    eva, blip2, t5, finetuned = reference_sources(want)
+    finetuned.update({"answerer_model." + k[len("t5_model."):]: v
+                      for k, v in finetuned.items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.save(eva, tmp / "eva_vit_g.pth")
+        torch.save({"model": blip2}, tmp / "blip2_pretrained_flant5xl.pth")
+        torch.save({"model": finetuned, "epoch": 0}, tmp / "checkpoint_best.pth")
+        (tmp / "flan-t5-xl").mkdir()
+        keys = sorted(t5)
+        shards = {"model-00001-of-00002.safetensors": keys[::2],
+                  "model-00002-of-00002.safetensors": keys[1::2]}
+        for shard, part in shards.items():
+            write_safetensors(torch, tmp / "flan-t5-xl" / shard, {k: t5[k] for k in part})
+        (tmp / "flan-t5-xl" / "model.safetensors.index.json").write_text(json.dumps(
+            {"metadata": {}, "weight_map": {k: n for n, part in shards.items()
+                                            for k in part}}))
+        file_mb = sum(f.stat().st_size for f in tmp.rglob("*") if f.is_file()) / 1e6
+        t1 = time.time()
+        out = tmp / "ported.pth"
+        with reduced_depth_load():
+            port_weights.main([
+                "--arch", "blip2_mr", "--model-type", "pretrain_flant5xl",
+                "--eva-vit", str(tmp / "eva_vit_g.pth"),
+                "--blip2", str(tmp / "blip2_pretrained_flant5xl.pth"),
+                "--t5", str(tmp / "flan-t5-xl"), "--lora", str(tmp / "checkpoint_best.pth"),
+                "--output", str(out)])
+            port_s = time.time() - t1
+            t1 = time.time()
+            cfg = dict(load_yaml(get_abs_path(BLIP2_MR.PRETRAINED_MODEL_CONFIG_DICT[
+                "pretrain_flant5xl"]))["model"], pretrained=str(out), vocab_size=32128)
+            model = BLIP2_MR.from_config(cfg, device="cuda")
+            load_s = time.time() - t1
+        got = model.state_dict()
+        differ = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+        say(f"[{card}] file route (depth {REDUCED_DEPTH}, published widths): sources "
+            f"{file_mb:.1f} MB (a two-shard safetensors T5 with its index), port_weights "
+            f"{port_s:.2f} s, output {out.stat().st_size / 1e6:.1f} MB, from_config "
+            f"{load_s:.2f} s; {len(got)} tensors, {len(differ)} off the sources; phase "
+            f"{time.time() - t0:.1f} s")
+        require(set(got) == set(want) and not differ,
+                f"file route: {len(differ)} tensors off the sources, e.g. {differ[:3]}")
+    del model, got
+    torch.cuda.empty_cache()
+
+
+def variant_outputs(torch, model, samples):
+    """One encode and decode of a batch -> (T5 encoder states, the first
+    decoding step's logits of blip2_fmr's frame rows or None, the outputs
+    ``generate`` would give)."""
+    from mr_blip_tpu_torch.models.blip2_fmr import Blip2FMR
+
+    with torch.inference_mode():
+        if isinstance(model, Blip2FMR):
+            embeds, mask = model._frame_rows(model._prepare(samples, with_targets=False))
+            enc = model.module.t5.encode(embeds, mask=mask)
+            start = torch.full((enc.shape[0], 1), model.t5_config.decoder_start_token_id,
+                               dtype=torch.long, device=enc.device)
+            logits = model.module.t5.decode(start, enc, encoder_mask=mask)[:, 0]
+            scores = (logits[:, model.yes_id] - logits[:, model.no_id]).reshape(
+                samples["video"].shape[:2])
+            return (enc.float().cpu(), logits.cpu(),
+                    model.answers(scores.cpu().numpy(), samples))
+        batch = model.prepare_mr_batch(samples, need_targets=False)
+        tensors = model._to_device(batch)
+        enc, attn = model.encode_t5(tensors, model.frames_to_t5(tensors),
+                                    model._encoder_bias_for(batch))
+        seqs, _ = model.decode(enc, attn)
+    return enc.float().cpu(), None, model.generate_collect({"seqs": seqs,
+                                                            "samples": samples})
+
+
+def no_weight_init():
+    """Within it, modules skip ``torch.nn.init`` (a model whose every tensor
+    is loaded right after)."""
+    import contextlib
+
+    import torch
+
+    names = ("kaiming_uniform_", "uniform_", "normal_", "trunc_normal_", "zeros_",
+             "ones_", "xavier_uniform_")
+
+    @contextlib.contextmanager
+    def patched():
+        saved = {n: getattr(torch.nn.init, n) for n in names}
+        for n in names:
+            setattr(torch.nn.init, n, lambda tensor, *a, **kw: tensor)
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(torch.nn.init, n, fn)
+
+    return patched()
+
+
+def variants_path(torch, wrappers, card, model):
+    """Phase 23 (c): each variant at full width and depth on phase 4's weights,
+    one 1 x 60 batch; then at depth 2 on the card against the CPU's plain
+    path. Returns the launch counts of the full-width runs."""
+    import numpy as np
+
+    from mr_blip_tpu_torch.models.blip2_fmr import Blip2FMR
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.profile_inference import FLAGSHIP, make_samples
+    from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
+
+    state = model.state_dict()
+    total = {k: 0 for k in wrappers}
+    for name, (kw, expected) in VARIANTS.items():
+        cls = Blip2FMR if name == "blip2_fmr" else BLIP2_MR
+        t0 = time.time()
+        variant = cls(**dict(FLAGSHIP, **kw), init_params=False, device="cuda")
+        variant.load_state_dict(state)
+        samples = fmr_samples(make_samples(1, N_FRAMES, seed=31))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        built = time.time() - t0
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        out = variant.generate(samples)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        rose = {k: w.launches for k, w in wrappers.items()}
+        for k in total:
+            total[k] += rose[k]
+        lengths = sorted(variant._enc_bias_cache)
+        detail = {k: rose[k] for k in GENERATE_KERNELS}
+        if name == "blip2_fmr":
+            scores = out["yes_score"]
+            require(scores.shape == (1, N_FRAMES) and bool(np.isfinite(scores).all()),
+                    f"{name}: scores {scores.shape}")
+            shown = f"scores [{float(scores.min()):.4f}, {float(scores.max()):.4f}]"
+        else:
+            for p in out["prediction"]:
+                moment_str_to_list(p)
+            shown = f"prediction {out['prediction']}"
+        say(f"[{card}] {name} (full width and depth, 1 x {N_FRAMES} frames): "
+            f"{seconds:.3f} s (built and loaded in {built:.1f} s), encoder lengths {lengths}, "
+            f"launches {detail}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"{shown}")
+        require(rose == expected, f"{name}: launches {rose}, expected {expected}")
+        if name == "only_frames":
+            require(lengths == [ONLY_FRAMES_ENCODER_LENGTH],
+                    f"only_frames: encoder length {lengths}, phase 3 held kernel 3 at "
+                    f"{ONLY_FRAMES_ENCODER_LENGTH}")
+        del variant
+        torch.cuda.empty_cache()
+
+    # Depth 2: the card against the CPU's plain path, rel-pos table at N(0, 1).
+    for name, (kw, _) in VARIANTS.items():
+        cls = Blip2FMR if name == "blip2_fmr" else None
+        samples = fmr_samples(make_samples(1, VARIANT_CPU_FRAMES, seed=37))
+        kw = dict(kw, max_new_tokens=VARIANT_CPU_NEW_TOKENS, min_new_tokens=0)
+        gpu = reduced_model("cuda", cls=cls, **kw)
+        sd = gpu.state_dict()
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        sd[RELPOS_TABLE] = torch.randn(sd[RELPOS_TABLE].shape, generator=gen, device="cuda")
+        gpu.load_state_dict(sd)
+        before = {k: w.launches for k, w in wrappers.items()}
+        enc_gpu, logits_gpu, out_gpu = variant_outputs(torch, gpu, samples)
+        rose = {k: wrappers[k].launches - before[k] for k in GENERATE_KERNELS}
+        sd = {k: v.cpu() for k, v in gpu.state_dict().items()}
+        del gpu
+        t0 = time.time()
+        with no_weight_init():
+            cpu = reduced_model("cpu", init_params=False, cls=cls, **kw)
+        cpu.load_state_dict(sd)
+        built = time.time() - t0
+        t0 = time.time()
+        enc_cpu, logits_cpu, out_cpu = variant_outputs(torch, cpu, samples)
+        cpu_s = time.time() - t0
+        cos = torch.nn.functional.cosine_similarity(enc_gpu, enc_cpu, dim=-1)
+        line = (f"[{card}] {name} at depth {REDUCED_DEPTH}, 1 x {VARIANT_CPU_FRAMES} frames, "
+                f"card vs CPU plain path: encoder length {enc_gpu.shape[1]}, rows cosine "
+                f"min {float(cos.min()):.6f}; launches on the card {rose}; CPU {cpu_s:.1f} s "
+                f"(model built in {built:.1f} s)")
+        require(float(cos.min()) >= COSINE_MIN, f"{name}: encoder cosine {float(cos.min())}")
+        if logits_gpu is not None:
+            # The scores are differences of bf16 logits: the bar is 2% of the
+            # largest logit's magnitude; the answers must agree where a
+            # score is clear of the threshold by twice the largest difference.
+            lcos = torch.nn.functional.cosine_similarity(logits_gpu.float(),
+                                                         logits_cpu.float(), dim=-1)
+            s_gpu = torch.as_tensor(out_gpu["yes_score"])
+            s_cpu = torch.as_tensor(out_cpu["yes_score"])
+            err = float((s_gpu - s_cpu).abs().max())
+            bar = GRAD_REL_TOL * float(logits_cpu.float().abs().max())
+            # The threshold in the widest gap of the CPU's scores, so that
+            # frames fall on both sides of it.
+            ordered = s_cpu.flatten().sort().values
+            gap = int((ordered[1:] - ordered[:-1]).argmax())
+            cpu.threshold = float(ordered[gap] + ordered[gap + 1]) / 2
+            clear = (s_cpu - cpu.threshold).abs() > 2 * err
+            agree = (torch.as_tensor(cpu.answers(s_gpu.numpy(), samples)["pred_ans"])
+                     == torch.as_tensor(cpu.answers(s_cpu.numpy(), samples)["pred_ans"])
+                     )[clear]
+            say(line + f"; first-step logits cosine min {float(lcos.min()):.6f}; yes-no "
+                f"scores max|diff| {err:.5f} (bar {bar:.5f}), answers equal "
+                f"{bool(agree.all())} on the {int(clear.sum())} of {s_cpu.numel()} frames "
+                f"clear of the threshold {cpu.threshold:.4f}")
+            require(float(lcos.min()) >= COSINE_MIN and err <= bar and bool(agree.all()),
+                    f"{name}: logits cosine {float(lcos.min())}, scores off by {err}")
+        else:
+            say(line + f"; predictions {out_gpu['prediction']} vs {out_cpu['prediction']}")
+            require(out_gpu["prediction"] == out_cpu["prediction"],
+                    f"{name}: spans differ between the card and the CPU")
+        del cpu
+        if name in ("only_frames", "fast_gelu"):
+            require(rose["flash_bias_attention"] == REDUCED_DEPTH,
+                    f"{name} at depth {REDUCED_DEPTH}: the biased flash kernel launched "
+                    f"{rose['flash_bias_attention']} times")
+        torch.cuda.empty_cache()
+    return total
+
+
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
     the ``kernels`` line (source in the port, TPU kernel replaced)."""
@@ -4712,6 +5187,18 @@ def main():
     # phase 22: data and sequence parallelism, two ranks on the one card
     dp_launches = parallel_entry_points(torch, smi)
     done(22)
+    # phase 23: the reference-checkpoint import (in memory at full width, the
+    # file route at depth 2) and the BLIP2_MR variants at full width
+    t23 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    imported = import_round_trip(torch, wrappers, smi)
+    import_file_route(torch, smi)
+    variant_launches = variants_path(torch, wrappers, smi, imported)
+    del imported
+    torch.cuda.empty_cache()
+    say(f"[{smi}] phase 23: {time.time() - t23:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    done(23)
 
     for key, entry in kernels.items():
         if key == "flash_attention":
@@ -4736,13 +5223,14 @@ def main():
         entry["serve_launches"] = serve_launches[key]
         entry["qlora_launches"] = qlora_launches[key]
         entry["dp_launches"] = dp_launches[key]
+        entry["variant_launches"] = variant_launches[key]
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "train_entry_launches", "qa_entry_launches",
                                "opt_entry_launches", "serve_launches", "qlora_launches",
-                               "dp_launches")}
+                               "dp_launches", "variant_launches")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

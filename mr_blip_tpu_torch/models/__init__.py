@@ -1,5 +1,6 @@
 """The BLIP2-MR float generate and train paths: EVA ViT-g, Q-Former, Flan-T5,
-and the decoder-only variant over OPT.
+the decoder-only variant over OPT and the frame-level baseline
+(``blip2_fmr``).
 
 ``load_model(name, model_type)`` builds a registered family from its default
 YAML (counterpart of ``mr_blip_tpu/models/__init__.py``, reference
@@ -10,8 +11,8 @@ family's processors; ``model_zoo`` lists the families and their types.
 from __future__ import annotations
 
 # Families of the JAX package's registry that the port has not ported, by
-# the title of their ROADMAP Queue 1 item.
-UNPORTED_FAMILIES = {"blip2_fmr": "Variants of BLIP2_MR"}
+# the title of their ROADMAP Queue 1 item (beside the zoo's).
+UNPORTED_FAMILIES: dict = {}
 ZOO_ITEM = "Dormant LAVIS zoo"
 ZOO_FAMILIES = (
     "albef_classification", "albef_feature_extractor", "albef_nlvr", "albef_nlvr_model",

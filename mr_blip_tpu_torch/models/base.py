@@ -4,9 +4,11 @@ counterpart of ``mr_blip_tpu/models/base.py``, reference
 
 ``from_config`` builds from a ConfigDict, ``default_config_path`` resolves
 per-model YAML defaults, and checkpoints are ``torch.save`` state dicts with
-non-strict loading: missing and extra keys are logged, not fatal. A Flax
-msgpack file is not read here (it needs flax): convert the JAX parameters
-with ``models/convert.py::state_dict_from_jax`` on the JAX side and
+non-strict loading: missing and extra keys are logged, not fatal. The
+reference's checkpoints become such a file through ``python -m
+mr_blip_tpu_torch.port_weights``. A Flax msgpack file is not read here (it
+needs flax): convert the JAX parameters with
+``models/convert.py::state_dict_from_jax`` on the JAX side and
 ``torch.save`` the result.
 """
 
@@ -51,10 +53,12 @@ class BaseModel:
         base_model.py:40-57). A missing file raises FileNotFoundError."""
         if str(path).endswith(".msgpack"):
             raise ValueError(
-                f"{path}: a Flax msgpack checkpoint is not read by the port; "
-                "convert it on the JAX side with mr_blip_tpu_torch/models/"
-                "convert.py::state_dict_from_jax (after scan_utils."
-                "unstack_blip2_mr_params) and torch.save the result")
+                f"{path}: a Flax msgpack checkpoint is not read by the port; the "
+                "reference's own .pth / HF checkpoints go through python -m "
+                "mr_blip_tpu_torch.port_weights (no JAX needed), and a JAX "
+                "parameter tree through mr_blip_tpu_torch/models/convert.py::"
+                "state_dict_from_jax (after scan_utils.unstack_blip2_mr_params) "
+                "and torch.save")
         if not os.path.exists(path):
             raise FileNotFoundError(path)
         loaded = torch.load(path, map_location="cpu", weights_only=True)

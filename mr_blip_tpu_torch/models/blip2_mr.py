@@ -9,11 +9,20 @@ the teacher-forced span loss against ``samples["relevant_windows"]``;
 tokenization, timestamp formatting and the interleave plan run on the host;
 every tensor op runs in PyTorch on ``device``.
 
-Task-string flags supported here: ``lora`` (LoRA r=8 on every T5 Linear),
-``qformer_freeze``, ``add_duration``, ``no_task_prompt``, ``QA`` (adds the
-answerer T5) and ``with_localizer`` / ``oracle_localizer`` (where the QA
-stage-1 moments come from). The non-interleaved prompt is not ported yet.
-``train()``/``eval()`` switch every dropout (eval is the default).
+Task-string flags, as the JAX package reads them: ``lora`` (LoRA r=8 on
+every T5 Linear), ``qformer_freeze``, ``add_duration``, ``no_task_prompt``,
+``only_frames`` (no timestamps: the prompt is ``"<vid>"``, the frame tokens
+and ``"<extra_id_0>\n"``), ``QA`` (adds the answerer T5) and
+``with_localizer`` / ``oracle_localizer`` (where the QA stage-1 moments come
+from). ``train()``/``eval()`` switch every dropout (eval is the default).
+
+Prompt layouts: interleaved, ``[timestamp | frame tokens | ... |
+video_prompt_end | query + task prompt]`` (the published configs), or with
+``interleave_data=False`` (and under ``only_frames``) the non-interleaved
+``[video prompt text | every frame's tokens | video_prompt_end | query + task
+prompt]``. ``frame_token_aggregation="mean"`` gives each frame one token, the
+mean of its 32 projected queries; ``fast_gelu`` makes the float ViT's GELU
+the tanh approximation.
 
 Grounded QA: ``videoQA_generate(samples)`` runs the two-stage pipeline, the
 localizer's ``generate`` -> frames cropped to the predicted window ->
@@ -76,6 +85,7 @@ from mr_blip_tpu_torch.models.quantize import (
     quantize_vit_params,
 )
 from mr_blip_tpu_torch.models.t5 import (
+    check_w8a8_ffn,
     materialize_encoder_relpos_bias,
     t5_flan_xl_config,
     t5_flan_xxl_config,
@@ -165,6 +175,9 @@ class BLIP2_MR(BaseModel):
         relpos_in_kernel: bool = False,
         use_grad_checkpoint: bool = False,
         sequence_parallel: bool = False,
+        interleave_data: bool = True,
+        frame_token_aggregation: str | None = None,
+        fast_gelu: bool = False,
     ):
         """``init_params`` draws random weights on ``device`` from ``seed``.
         ``relpos_in_kernel`` is the long-context mode (120/240-frame
@@ -180,16 +193,19 @@ class BLIP2_MR(BaseModel):
         contiguous share of the flat ``B·T`` frames (ViT, ``ln_vision``,
         Q-Former, ``t5_proj``) and the shares are all-gathered before the
         interleave; the rest runs replicated, every rank on the same rows.
+        ``interleave_data``, ``frame_token_aggregation`` (False, None or
+        "mean") and ``fast_gelu``: the variants of the module doc.
         Without a card, the default ``device`` raises: ask for the CPU."""
-        if "only_frames" in task:
-            raise NotImplementedError(f"task {task!r}: the non-interleaved "
-                                      "prompt is not ported")
+        self.interleave_data = interleave_data
+        self.frame_token_aggregation = frame_token_aggregation
         self._init_host(
             img_size=img_size, vit_model=vit_model, tokenizer_path=tokenizer_path,
             num_query_token=num_query_token, num_beams=num_beams,
             min_new_tokens=min_new_tokens, max_txt_len=max_txt_len,
             max_new_tokens=max_new_tokens, input_time_format=input_time_format,
             task=task, compute_dtype=compute_dtype, device=device)
+        if fast_gelu:
+            self.vit_config = dataclasses.replace(self.vit_config, fast_gelu=True)
         self.num_frames_for_answer = num_frames_for_answer
         self.resample_frames = resample_frames
         vit_cfg, qf_cfg = self.vit_config, self.qformer_config
@@ -210,7 +226,9 @@ class BLIP2_MR(BaseModel):
                                     compute_dtype=self.compute_dtype,
                                     device=self.device,
                                     with_answerer=self.is_qa,
-                                    sequence_parallel=sequence_parallel).eval()
+                                    sequence_parallel=sequence_parallel,
+                                    frame_token_aggregation=frame_token_aggregation
+                                    ).eval()
         self.module.requires_grad_(False)
         if init_params:
             self.init_params(seed)
@@ -371,6 +389,7 @@ class BLIP2_MR(BaseModel):
         untouched, so the cached encoder biases stay. Inference only."""
         if self.t5_config.int8_encoder:
             raise RuntimeError("the T5 encoder is already quantized")
+        check_w8a8_ffn(self.t5_config)
         alpha = self.t5_config.lora_alpha
         return self._rebuild_t5(
             lambda sd: quantize_t5_encoder_params(sd, lora_alpha=alpha),
@@ -412,13 +431,8 @@ class BLIP2_MR(BaseModel):
     # it can compute, what is missing and the title of its ROADMAP Queue 1
     # item).
     UNSUPPORTED_CONFIG = {
-        "interleave_data": ((True,), "the non-interleaved prompt",
-                            "Variants of BLIP2_MR"),
-        "frame_token_aggregation": ((False, None), "frame-token aggregation",
-                                    "Variants of BLIP2_MR"),
         "freeze_vit": ((True,), "the unfrozen-ViT train path",
                        "The unfrozen-ViT train path"),
-        "fast_gelu": ((False,), "the tanh-GELU ViT", "Variants of BLIP2_MR"),
     }
     # Read and without effect in the port: layouts of the TPU program
     # (scan_layers, remat_policy); the ViT's stochastic depth, which a frozen
@@ -432,7 +446,8 @@ class BLIP2_MR(BaseModel):
         "num_frames_for_answer", "resample_frames", "relpos_in_kernel", "compute_dtype",
         "vocab_size", "params_dtype", "pretrained", "finetuned", "load_finetuned",
         "int8_inference", "int8_decode", "int8_vit", "int8_qformer", "int8_encoder",
-        "int8_base", "use_grad_checkpoint", "sequence_parallel")
+        "int8_base", "use_grad_checkpoint", "sequence_parallel", "interleave_data",
+        "frame_token_aggregation", "fast_gelu")
 
     @classmethod
     def from_config(cls, cfg, device="cuda"):
@@ -480,6 +495,9 @@ class BLIP2_MR(BaseModel):
             relpos_in_kernel=cfg.get("relpos_in_kernel", False),
             use_grad_checkpoint=cfg.get("use_grad_checkpoint", False),
             sequence_parallel=cfg.get("sequence_parallel", False),
+            interleave_data=cfg.get("interleave_data", True),
+            frame_token_aggregation=cfg.get("frame_token_aggregation"),
+            fast_gelu=cfg.get("fast_gelu", False),
             compute_dtype=cfg.get("compute_dtype", "bfloat16"),
             init_params=params_dtype is None,
             vocab_size=cfg.get("vocab_size"),
@@ -553,12 +571,16 @@ class BLIP2_MR(BaseModel):
         timestamps = np.asarray(samples["timestamps"], np.float64)
         durations = np.asarray(samples["duration"], np.float64)
         video_prompt_end = list(samples["video_prompt_end"])
-        if "add_duration" in self.task:
-            video_prompt_end = [">{}<extra_id_0>\n".format(round(float(d), 2))
-                                for d in durations]
-        fmt_ts, fmt_dur, _ = format_timestamps(
-            self.input_time_format, timestamps, durations,
-            self.annoying_numbers_replacement_dict)
+        if "only_frames" in self.task:
+            video_prompts = ["<vid>"] * len(video_prompt_end)
+            video_prompt_end = ["<extra_id_0>\n"] * len(video_prompt_end)
+        else:
+            if "add_duration" in self.task:
+                video_prompt_end = [">{}<extra_id_0>\n".format(round(float(d), 2))
+                                    for d in durations]
+            fmt_ts, fmt_dur, video_prompts = format_timestamps(
+                self.input_time_format, timestamps, durations,
+                self.annoying_numbers_replacement_dict)
         query_prompt = list(samples["query_prompt"])
         if "no_task_prompt" in self.task:
             text_prompt = query_prompt
@@ -570,19 +592,22 @@ class BLIP2_MR(BaseModel):
                       truncation=True, max_length=self.max_txt_len)
         text_enc = tok(text_prompt, truncation=True, max_length=self.max_txt_len)
         text_len = _bucket(text_enc.input_ids.shape[1])
-        plan = build_interleave_plan(tok, fmt_ts, fmt_dur,
-                                     self.module.tokens_per_frame)
         batch = {
             "frames": video,
             "end_ids": end_enc.input_ids,
             "end_mask": end_enc.attention_mask,
             "text_ids": _pad_to(text_enc.input_ids, text_len),
             "text_mask": _pad_to(text_enc.attention_mask, text_len),
-            "time_ids": plan.time_ids,
-            "src_type": plan.src_type,
-            "src_idx": plan.src_idx,
-            "int_mask": plan.attn_mask,
         }
+        if self.interleaved:
+            plan = build_interleave_plan(tok, fmt_ts, fmt_dur,
+                                         self.module.tokens_per_frame)
+            batch.update(time_ids=plan.time_ids, src_type=plan.src_type,
+                         src_idx=plan.src_idx, int_mask=plan.attn_mask)
+        else:
+            vid_enc = tok(video_prompts, add_special_tokens=False, truncation=True,
+                          max_length=self.max_txt_len)
+            batch.update(vid_ids=vid_enc.input_ids, vid_mask=vid_enc.attention_mask)
         if need_targets and "relevant_windows" in samples:
             target = tok(list(samples["relevant_windows"]), truncation=True,
                          max_length=self.max_txt_len)
@@ -623,23 +648,45 @@ class BLIP2_MR(BaseModel):
                 ).to(self.compute_dtype).contiguous()
         return cache[key]
 
+    @property
+    def interleaved(self) -> bool:
+        """Whether the prompt interleaves timestamps and frames (else the
+        non-interleaved layout: ``interleave_data=False`` or ``only_frames``)."""
+        return self.interleave_data and "only_frames" not in self.task
+
     def _encoder_bias_for(self, batch: Dict[str, Any]) -> torch.Tensor | None:
-        """The cached bias for a ``prepare_mr_batch`` batch's length."""
-        return self._encoder_bias(
-            batch["int_mask"].shape[1] + batch["end_ids"].shape[1]
-            + batch["text_ids"].shape[1])
+        """The cached bias for a ``prepare_mr_batch`` batch's length. The
+        non-interleaved length counts the module's ``tokens_per_frame``
+        (the JAX package counts 32 a frame whatever the Q-Former gives)."""
+        if self.interleaved:
+            prompt = batch["int_mask"].shape[1]
+        else:
+            prompt = (batch["vid_ids"].shape[1]
+                      + batch["frames"].shape[1] * self.module.tokens_per_frame)
+        return self._encoder_bias(prompt + batch["end_ids"].shape[1]
+                                  + batch["text_ids"].shape[1])
 
     # --------------------------------------------------------- device path
     def frames_to_t5(self, tensors):
         """Stage 1: frames -> ViT -> ln_vision -> Q-Former -> t5_proj."""
         return self.module.encode_frames(tensors["frames"])
 
+    def encoder_input(self, tensors, frames_for_t5):
+        """The prompt layout -> (inputs_embeds, mask), padded to a multiple
+        of 8."""
+        t = tensors
+        if self.interleaved:
+            return self.module.assemble_encoder_input(
+                frames_for_t5, t["time_ids"], t["src_type"], t["src_idx"],
+                t["int_mask"], t["end_ids"], t["end_mask"], t["text_ids"],
+                t["text_mask"])
+        return self.module.assemble_encoder_input_noninterleaved(
+            frames_for_t5, t["vid_ids"], t["vid_mask"], t["end_ids"], t["end_mask"],
+            t["text_ids"], t["text_mask"])
+
     def encode_t5(self, tensors, frames_for_t5, enc_bias):
-        """Stage 2: interleave + T5 encoder -> (encoder states, mask)."""
-        embeds, attn = self.module.assemble_encoder_input(
-            frames_for_t5, tensors["time_ids"], tensors["src_type"],
-            tensors["src_idx"], tensors["int_mask"], tensors["end_ids"],
-            tensors["end_mask"], tensors["text_ids"], tensors["text_mask"])
+        """Stage 2: the prompt layout + T5 encoder -> (encoder states, mask)."""
+        embeds, attn = self.encoder_input(tensors, frames_for_t5)
         return self.module.encode(embeds, attn, position_bias=enc_bias), attn
 
     def _decode_step_fn(self, t5, enc, attn):
@@ -681,10 +728,7 @@ class BLIP2_MR(BaseModel):
         tensors = self._to_device(batch)
         table = self.module.t5.encoder.rel_bias.rel_embedding
         enc_bias = None if table.requires_grad else self._encoder_bias_for(batch)
-        embeds, attn = self.module.assemble_encoder_input(
-            self.frames_to_t5(tensors), tensors["time_ids"], tensors["src_type"],
-            tensors["src_idx"], tensors["int_mask"], tensors["end_ids"],
-            tensors["end_mask"], tensors["text_ids"], tensors["text_mask"])
+        embeds, attn = self.encoder_input(tensors, self.frames_to_t5(tensors))
         terms, _ = self.module.loss_terms_from_encoder_input(
             embeds, attn, tensors["target_ids"], tensors["target_mask"],
             position_bias=enc_bias)

@@ -2,9 +2,10 @@
 ``mr_blip_tpu/models/blip2_mr_module.py``).
 
 Frozen EVA ViT over every frame, fp32 vision LayerNorm, Q-Former (32 query
-tokens per frame), the Q-Former->T5 projection, the interleaved prompt
-gather, and the T5 encoder-decoder. String work happens in the host
-wrapper (:mod:`mr_blip_tpu_torch.models.blip2_mr`).
+tokens per frame, or their mean under ``frame_token_aggregation="mean"``),
+the Q-Former->T5 projection, the interleaved prompt gather (or the
+non-interleaved layout), and the T5 encoder-decoder. String work happens in
+the host wrapper (:mod:`mr_blip_tpu_torch.models.blip2_mr`).
 
 Under a QA task the module holds a second T5, ``answerer_t5``: the JAX
 package keeps a second parameter tree for the answerer and reads only its
@@ -83,8 +84,13 @@ def _rank_stream(module: nn.Module, rank):
 class Blip2MRModule(nn.Module):
     def __init__(self, vit_config: ViTConfig, qformer_config: QFormerConfig,
                  t5_config: T5Config, compute_dtype=torch.bfloat16, device=None,
-                 with_answerer: bool = False, sequence_parallel: bool = False):
+                 with_answerer: bool = False, sequence_parallel: bool = False,
+                 frame_token_aggregation=None):
         super().__init__()
+        if frame_token_aggregation not in (False, None, "mean"):
+            raise ValueError(f"frame_token_aggregation={frame_token_aggregation!r}: "
+                             "False, None or 'mean'")
+        self.frame_token_aggregation = frame_token_aggregation
         self.sequence_parallel = sequence_parallel
         self.vit_config = vit_config
         self.qformer_config = qformer_config
@@ -122,7 +128,7 @@ class Blip2MRModule(nn.Module):
 
     @property
     def tokens_per_frame(self) -> int:
-        return self.qformer_config.num_query_tokens
+        return 1 if self.frame_token_aggregation else self.qformer_config.num_query_tokens
 
     def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, C) frames -> (B, T*n, d_model) T5 tokens.
@@ -152,13 +158,17 @@ class Blip2MRModule(nn.Module):
         return q.reshape(b, t * q.shape[1], self.t5_config.d_model)
 
     def encode_flat(self, flat: torch.Tensor) -> torch.Tensor:
-        """(n, H, W, C) frames -> (n, num_query_tokens, d_model): CLIP
+        """(n, H, W, C) frames -> (n, tokens_per_frame, d_model): CLIP
         normalization, the frozen ViT, ``ln_vision``, the Q-Former and
-        ``t5_proj``, each frame on its own."""
+        ``t5_proj`` (then the mean over the queries under mean aggregation),
+        each frame on its own."""
         flat = clip_normalize(flat, self.compute_dtype)
         with torch.no_grad():
             image_embeds = self.visual_encoder(flat)
-        return self.t5_proj(self.qformer(self.ln_vision(image_embeds)))
+        q = self.t5_proj(self.qformer(self.ln_vision(image_embeds)))
+        if self.frame_token_aggregation == "mean":
+            q = q.mean(dim=1, keepdim=True)
+        return q
 
     def assemble_encoder_input(self, frames_for_t5, time_ids, src_type, src_idx,
                                int_mask, end_ids, end_mask, text_ids, text_mask):
@@ -171,6 +181,20 @@ class Blip2MRModule(nn.Module):
         inputs_embeds = torch.cat(
             [inter, embed(end_ids).to(dtype), embed(text_ids).to(dtype)], dim=1)
         attn = torch.cat([int_mask, end_mask, text_mask], dim=1)
+        return _pad_seq_to_sublane(inputs_embeds, attn)
+
+    def assemble_encoder_input_noninterleaved(self, frames_for_t5, vid_ids, vid_mask,
+                                              end_ids, end_mask, text_ids, text_mask):
+        """[video prompt text | frame tokens | video_prompt_end | query+task
+        prompt]."""
+        embed = self.t5.shared
+        dtype = frames_for_t5.dtype
+        frames_mask = torch.ones(frames_for_t5.shape[:2], dtype=vid_mask.dtype,
+                                 device=vid_mask.device)
+        inputs_embeds = torch.cat([embed(vid_ids).to(dtype), frames_for_t5,
+                                   embed(end_ids).to(dtype), embed(text_ids).to(dtype)],
+                                  dim=1)
+        attn = torch.cat([vid_mask, frames_mask, end_mask, text_mask], dim=1)
         return _pad_seq_to_sublane(inputs_embeds, attn)
 
     def qa_encoder_input(self, frames_for_t5, text_ids, text_mask, t5=None):

@@ -3,8 +3,8 @@
 
 39 pre-norm blocks, d=1408, 16 heads of 88, MLP hidden 6144, patch 14,
 absolute position embeddings, fused QKV with q and v bias only (the k bias
-is identically zero), erf-GELU MLP and no final norm: all 257 tokens are
-returned for the Q-Former.
+is identically zero), erf-GELU MLP (tanh GELU with ``ViTConfig.fast_gelu``)
+and no final norm: all 257 tokens are returned for the Q-Former.
 
 With ``ViTConfig.int8_matmul`` (inference only) every block runs on the W8A8
 kernels of ``ops/int8_matmul.py``: norm1, the qkv product, the attention,
@@ -48,14 +48,18 @@ class ViTConfig:
     # W8A8 int8 matmuls (qkv, proj, fc1, fc2) with per-token activation
     # quantization inside the kernels; the weights use the quantized layout.
     int8_matmul: bool = False
+    # The float MLP's GELU as the tanh approximation (the int8 MLP's is
+    # tanh whatever this says).
+    fast_gelu: bool = False
 
     @property
     def num_patches(self) -> int:
         return (self.img_size // self.patch_size) ** 2
 
 
-def eva_vit_g_config(img_size: int = 224, int8_matmul: bool = False) -> ViTConfig:
-    return ViTConfig(img_size=img_size, int8_matmul=int8_matmul)
+def eva_vit_g_config(img_size: int = 224, int8_matmul: bool = False,
+                     fast_gelu: bool = False) -> ViTConfig:
+    return ViTConfig(img_size=img_size, int8_matmul=int8_matmul, fast_gelu=fast_gelu)
 
 
 def vit_tiny_config(img_size: int = 28) -> ViTConfig:
@@ -162,7 +166,7 @@ class ViTBlock(nn.Module):
             self.mlp = Int8Mlp(cfg.embed_dim, cfg.mlp_hidden_dim, device=device)
         else:
             self.mlp = Mlp(cfg.embed_dim, cfg.mlp_hidden_dim, device=device,
-                           dtype=dtype)
+                           dtype=dtype, approximate="tanh" if cfg.fast_gelu else "none")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.int8:

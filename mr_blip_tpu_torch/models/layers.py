@@ -255,13 +255,15 @@ class RMSNormFP32(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Two-layer exact (erf) GELU MLP, ViT style."""
+    """Two-layer GELU MLP, ViT style: exact (erf) GELU, or with
+    ``approximate="tanh"`` the tanh approximation."""
 
     def __init__(self, in_features: int, hidden_features: int, device=None,
-                 dtype=None):
+                 dtype=None, approximate: str = "none"):
         super().__init__()
         self.fc1 = Dense(in_features, hidden_features, device=device, dtype=dtype)
         self.fc2 = Dense(hidden_features, in_features, device=device, dtype=dtype)
+        self.approximate = approximate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))

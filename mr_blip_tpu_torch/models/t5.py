@@ -5,7 +5,11 @@ Flan-T5 geometry: relative-position-bucket attention bias (computed by the
 first layer's table and shared by every layer), RMSNorm, gated exact-GELU
 FFN, untied LM head with fp32 logits, LoRA deltas on every Linear. T5 applies
 no 1/sqrt(d) scale, so q is multiplied by sqrt(d_kv) before the attention
-core, which divides it back out.
+core, which divides it back out. The other T5 layouts of HF's config, as
+the JAX package has them: ``dense_act_fn`` ("gelu" exact, "gelu_new" tanh,
+"relu"), ``is_gated_act`` (``wi_0``/``wi_1`` or one ``wi``) and
+``tie_word_embeddings`` (no ``lm_head``: the logits are ``x * d_model**-0.5``
+against ``shared.weight``, in fp32).
 
 Decoding keeps a static self-attention cache per layer, (B*K, max_len,
 H*D) for K and for V, written in place at the step's position, and the
@@ -76,6 +80,9 @@ class T5Config:
     relative_attention_max_distance: int = 128
     dropout_rate: float = 0.1
     layer_norm_epsilon: float = 1e-6
+    dense_act_fn: str = "gelu"  # exact GELU (the reference's override)
+    is_gated_act: bool = True
+    tie_word_embeddings: bool = False
     pad_token_id: int = 0
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
@@ -288,14 +295,32 @@ class T5Attention(nn.Module):
         return self.o(out.reshape(b, n, -1))
 
 
+_ACTIVATIONS = {"gelu": F.gelu,
+                "gelu_new": lambda y: F.gelu(y, approximate="tanh"),
+                "relu": F.relu}
+
+
+def check_w8a8_ffn(cfg: T5Config) -> None:
+    """The W8A8 FFN kernel computes the gated GELU FFN only (tanh inside)."""
+    if not (cfg.is_gated_act and cfg.dense_act_fn.startswith("gelu")):
+        raise ValueError(
+            f"the W8A8 T5 FFN takes a gated GELU, not dense_act_fn="
+            f"{cfg.dense_act_fn!r} with is_gated_act={cfg.is_gated_act}")
+
+
 class T5FeedForward(nn.Module):
-    """Gated exact-GELU FFN: wo(dropout(gelu(wi_0 x) * wi_1 x))."""
+    """Gated FFN wo(dropout(act(wi_0 x) * wi_1 x)), or with ``is_gated_act``
+    off wo(dropout(act(wi x))); ``act`` by ``dense_act_fn``."""
 
     def __init__(self, cfg: T5Config, quantize_dense: bool = False,
                  w8a8: bool = False, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
+        if cfg.dense_act_fn not in _ACTIVATIONS:
+            raise ValueError(f"dense_act_fn={cfg.dense_act_fn!r}")
+        self.act = _ACTIVATIONS[cfg.dense_act_fn]
         if w8a8:
+            check_w8a8_ffn(cfg)
             kw = dict(use_bias=False, device=device)
             self.wi_0 = QDenseParams(cfg.d_model, cfg.d_ff, **kw)
             self.wi_1 = QDenseParams(cfg.d_model, cfg.d_ff, **kw)
@@ -304,13 +329,20 @@ class T5FeedForward(nn.Module):
             kw = dict(bias=False, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
                       lora_dropout=cfg.lora_dropout, quantize=quantize_dense,
                       device=device, dtype=dtype)
-            self.wi_0 = Dense(cfg.d_model, cfg.d_ff, **kw)
-            self.wi_1 = Dense(cfg.d_model, cfg.d_ff, **kw)
+            if cfg.is_gated_act:
+                self.wi_0 = Dense(cfg.d_model, cfg.d_ff, **kw)
+                self.wi_1 = Dense(cfg.d_model, cfg.d_ff, **kw)
+            else:
+                self.wi = Dense(cfg.d_model, cfg.d_ff, **kw)
             self.wo = Dense(cfg.d_ff, cfg.d_model, **kw)
         self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x):
-        return self.wo(self.dropout(F.gelu(self.wi_0(x)) * self.wi_1(x)))
+        if self.cfg.is_gated_act:
+            h = self.act(self.wi_0(x)) * self.wi_1(x)
+        else:
+            h = self.act(self.wi(x))
+        return self.wo(self.dropout(h))
 
     def forward_w8a8(self, x, norm_scale, residual):
         """The whole FFN in one ``w8a8_mlp_gated`` (tanh-GELU inside), with
@@ -480,7 +512,8 @@ class T5Decoder(nn.Module):
 
 
 class T5ForConditionalGeneration(nn.Module):
-    """Encoder-decoder with a shared token embedding and an untied LM head."""
+    """Encoder-decoder with a shared token embedding and an untied LM head
+    (``tie_word_embeddings``: the embedding is the head)."""
 
     def __init__(self, cfg: T5Config, device=None, dtype=None):
         super().__init__()
@@ -489,11 +522,19 @@ class T5ForConditionalGeneration(nn.Module):
                                    dtype=dtype)
         self.encoder = T5Encoder(cfg, device=device, dtype=dtype)
         self.decoder = T5Decoder(cfg, device=device, dtype=dtype)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, bias=False,
-                             lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
-                             lora_dropout=cfg.lora_dropout,
-                             quantize=cfg.int8_decode or cfg.int8_base,
-                             device=device, dtype=dtype)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = Dense(cfg.d_model, cfg.vocab_size, bias=False,
+                                 lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+                                 lora_dropout=cfg.lora_dropout,
+                                 quantize=cfg.int8_decode or cfg.int8_base,
+                                 device=device, dtype=dtype)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Decoder states -> fp32 logits."""
+        if self.cfg.tie_word_embeddings:
+            x = (x * self.cfg.d_model ** -0.5).float()
+            return x @ self.shared.weight.float().t()
+        return self.lm_head(x).float()
 
     def encode(self, inputs_embeds, mask=None, position_bias=None):
         return self.encoder(inputs_embeds, mask=mask, position_bias=position_bias)
@@ -503,14 +544,14 @@ class T5ForConditionalGeneration(nn.Module):
         """Teacher-forced decoder -> (B, n, vocab) fp32 logits."""
         x = self.decoder(self.shared(decoder_input_ids), encoder_states,
                          decoder_mask=decoder_mask, encoder_mask=encoder_mask)
-        return self.lm_head(x).float()
+        return self.logits(x)
 
     def decode_step(self, tokens, position: int, cache, cross_kv, encoder_mask):
         """(rows, n) token ids -> (rows, n, vocab) fp32 logits; writes the
         self-attention caches in place."""
         x = self.decoder.decode_step(self.shared(tokens), position, cache,
                                      cross_kv, encoder_mask)
-        return self.lm_head(x).float()
+        return self.logits(x)
 
 
 def shift_right(labels: torch.Tensor, decoder_start_token_id: int = 0,

@@ -72,7 +72,7 @@ PORT_KEYS = ("img_size", "vit_model", "t5_model", "tokenizer_path", "num_query_t
              "input_time_format", "task", "num_frames_for_answer", "resample_frames",
              "relpos_in_kernel",
              "compute_dtype", "init_params", "vocab_size", "use_grad_checkpoint",
-             "sequence_parallel")
+             "sequence_parallel", "interleave_data", "frame_token_aggregation", "fast_gelu")
 
 
 @pytest.mark.parametrize("path,options", [
@@ -91,6 +91,9 @@ PORT_KEYS = ("img_size", "vit_model", "t5_model", "tokenizer_path", "num_query_t
     ("configs/projects/train/qvh.yaml", ()),
     ("configs/projects/eval/nextGQA.yaml", ()),
     ("configs/projects/eval/nextQA.yaml", ()),
+    ("configs/projects/train/tiny_synthetic.yaml",
+     ("model.interleave_data=False", "model.frame_token_aggregation=mean",
+      "model.fast_gelu=True", "model.task=lora_only_frames")),
 ])
 def test_from_config_constructor_values_equal_jax(path, options):
     cfg, jcfg = _model_cfg(path, options)
@@ -102,10 +105,13 @@ def test_from_config_constructor_values_equal_jax(path, options):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("interleave_data", False, "Variants of BLIP2_MR"),
-    ("frame_token_aggregation", "mean", "Variants of BLIP2_MR"),
+    # ported ("Variants of BLIP2_MR"): each builds its variant
+    pytest.param("interleave_data", False, None,
+                 id="interleave_data-False-Variants of BLIP2_MR"),
+    pytest.param("frame_token_aggregation", "mean", None,
+                 id="frame_token_aggregation-mean-Variants of BLIP2_MR"),
     ("freeze_vit", False, "The unfrozen-ViT train path"),
-    ("fast_gelu", True, "Variants of BLIP2_MR"),
+    pytest.param("fast_gelu", True, None, id="fast_gelu-True-Variants of BLIP2_MR"),
     # ported ("Parallelism"): builds a model that shares its frames out
     pytest.param("sequence_parallel", True, None, id="sequence_parallel-True-Parallelism"),
     ("int8_base", True, None),  # ported ("The rest of int8"): builds its layout
@@ -113,7 +119,14 @@ def test_from_config_constructor_values_equal_jax(path, options):
 def test_from_config_unsupported_settings_raise(key, value, item):
     cfg, _ = _model_cfg("configs/projects/train/tiny_synthetic.yaml")
     cfg[key] = value
-    if key == "sequence_parallel":
+    if key in ("interleave_data", "frame_token_aggregation", "fast_gelu"):
+        model = BLIP2_MR.from_config(cfg, device="cpu")
+        assert key in BLIP2_MR.SUPPORTED_CONFIG
+        assert not model.interleaved if key == "interleave_data" else model.interleaved
+        assert model.module.tokens_per_frame == (1 if key == "frame_token_aggregation"
+                                                 else 4)
+        assert model.vit_config.fast_gelu == (key == "fast_gelu")
+    elif key == "sequence_parallel":
         model = BLIP2_MR.from_config(cfg, device="cpu")
         assert model.sequence_parallel and model.module.sequence_parallel
         assert key in BLIP2_MR.SUPPORTED_CONFIG
@@ -128,8 +141,7 @@ def test_from_config_unsupported_settings_raise(key, value, item):
     else:
         with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
             BLIP2_MR.from_config(cfg, device="cpu")
-    assert set(BLIP2_MR.UNSUPPORTED_CONFIG) == {
-        "interleave_data", "frame_token_aggregation", "freeze_vit", "fast_gelu"}
+    assert set(BLIP2_MR.UNSUPPORTED_CONFIG) == {"freeze_vit"}
 
 
 @pytest.mark.parametrize("path", ["configs/projects/eval/nextGQA.yaml",

@@ -191,11 +191,13 @@ def test_span_grammar_copy_matches():
 
 # --------------------------------------------------------- import rules
 def test_port_imports_no_jax_or_triton():
-    """Nor pyyaml or scikit-learn, which the card's machine lacks: the
-    configs are read and every module of the evaluation, train and serving
-    entry points imported (data and sequence parallelism with them), the grounded-QA and TAL tasks, the OPT variant,
-    metrics, datasets and video reader with them, and a model built by
-    ``load_model``."""
+    """Nor pyyaml, scikit-learn, transformers, peft or safetensors, which
+    the card's machine lacks: the configs are read and every module of the
+    evaluation, train and serving entry points imported (data and sequence
+    parallelism with them), the grounded-QA and TAL tasks, the OPT variant,
+    ``blip2_fmr``, the checkpoint import (``models/port.py``,
+    ``port_weights``), metrics, datasets and video reader with them, and
+    models built by ``load_model``."""
     code = (
         "import sys\n"
         "import mr_blip_tpu_torch\n"
@@ -227,8 +229,11 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.parallel, mr_blip_tpu_torch.parallel.mesh\n"
         "import mr_blip_tpu_torch.serving, mr_blip_tpu_torch.serving.server\n"
         "import mr_blip_tpu_torch.serve, mr_blip_tpu_torch.models\n"
+        "import mr_blip_tpu_torch.models.port, mr_blip_tpu_torch.port_weights\n"
+        "import mr_blip_tpu_torch.models.blip2_fmr\n"
         "from mr_blip_tpu_torch.models import load_model\n"
         "load_model('blip2_mr', 'tiny', device='cpu')\n"
+        "load_model('blip2_fmr', 'tiny', device='cpu')\n"
         "from mr_blip_tpu_torch.common.config import Config\n"
         "Config(cfg_path='configs/projects/eval/anet_TAL.yaml')\n"
         "Config(cfg_path='configs/projects/eval/opt_charades.yaml')\n"
@@ -239,7 +244,8 @@ def test_port_imports_no_jax_or_triton():
         "from mr_blip_tpu_torch.datasets.video_reader import VideoReader\n"
         "VideoReader('synthetic://8x16x16').get_batch_async([0, 1]).result()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu', 'yaml', 'sklearn')]\n"
+        "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu', 'yaml', 'sklearn', "
+        "'transformers', 'peft', 'safetensors')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

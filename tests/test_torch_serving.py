@@ -583,7 +583,7 @@ def test_load_model_and_preprocess():
     assert txt["eval"]("What  Happens?") == txt["train"]("What  Happens?")
 
 
-@pytest.mark.parametrize("name,item", [("blip2_fmr", "Variants of BLIP2_MR"),
+@pytest.mark.parametrize("name,item", [("blip2_feature_extractor", "Dormant LAVIS zoo"),
                                        ("blip_caption", "Dormant LAVIS zoo"),
                                        ("timesformer", "Dormant LAVIS zoo")])
 def test_unported_family_raises_with_its_roadmap_item(name, item):
@@ -605,8 +605,8 @@ def test_families_are_the_jax_registry_s():
     jax_names = families(jax_registry, "mr_blip_tpu")
     ported = families(registry, "mr_blip_tpu_torch")
     zoo = dict(model_zoo)
-    assert ported == {"blip2_mr", "blip2_opt_mr"} <= zoo.keys()
-    assert sum(len(zoo[name]) for name in ported) == 5
+    assert ported == {"blip2_mr", "blip2_opt_mr", "blip2_fmr"} <= zoo.keys()
+    assert sum(len(zoo[name]) for name in ported) == 8
     assert jax_names == ported | set(UNPORTED_FAMILIES) | set(ZOO_FAMILIES)
     with pytest.raises(ValueError, match="unknown model"):
         load_model("no_such_model", device="cpu")
