@@ -318,8 +318,8 @@ is nonzero and the final line is not printed:
     query once, each equal to rank 0's own ``model.generate`` of that query
     after the run. Prints each rank's seconds per micro-batch, seconds per
     update, the gradient all-reduce's milliseconds and peak memory. (b) A
-    worker at phase 4's flagship widths and depth (task ``lora``: the
-    Q-Former trains too), dropout 0: dp, one update over one 1 x 60 row per
+    worker at phase 4's flagship widths, every stack 2 deep (full depth before
+    phase 24 came; task ``lora``: the Q-Former trains too), dropout 0: dp, one update over one 1 x 60 row per
     rank (targets of unequal length) against rank 0's one-process update
     over both rows from the same start, each row a batch of its own, no
     collective (the rows as one batch of 2 printed beside it: at this depth
@@ -363,6 +363,23 @@ is nonzero and the final line is not printed:
     answers where a score is clear of a threshold put in the widest gap of
     the CPU's scores). Prints each
     part's seconds and peak memory beside the card.
+24. the unfrozen-ViT train path. (a) ``mr_blip_tpu_torch.train.main`` on
+    ``configs/projects/train/qvh.yaml`` as published with
+    ``model.freeze_vit=False``: the EVA ViT-g trains (fp32 masters cast to
+    bf16 at use, stochastic depth ramped to 0.4, every block checkpointed),
+    8 synthetic train queries (one update over 8 micro-batches of 1 x 60),
+    one val query. Gates: every ViT tensor moved, every frozen tensor (T5
+    base, Q-Former) bit-equal, every loss finite, per micro-batch LayerNorm
+    188 and packed QKV 78 (forward and recompute: bf16 reaches kernel 2
+    from the fp32 masters), kernel 5 48, 6 and 8 24, the val generate phase
+    4's. Prints the seconds per micro-batch and update, the optimizer
+    step's, the peak; then one more micro-batch under ``torch.profiler``:
+    its device time and the shares of the plain backward of kernels 1 and 2
+    and of the ViT's forward, backward and recompute. (b) The depth-2 model
+    at full width with the ViT trained, 1 x 8 frames, at 224 and 364 pixels
+    (kernels 1, 2 and 1, 4 under autograd): the card's loss and every
+    trainable gradient against the CPU's plain path in bf16, loss within
+    1e-2 relative, every cosine >= 0.99 (phase 7's bars).
 
 Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
 (4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
@@ -404,7 +421,8 @@ and 8 from phase 6, 7 from phase 7's ``qformer_freeze`` run, 13-16 from phase
 generates; ``qlora_launches`` from phase 21's two runs (their micro-batches
 and the resumed run's generates); ``dp_launches`` per micro-batch on one
 rank in phase 22 (a); ``variant_launches`` from phase 23 (c)'s four
-full-width batches; each count is taken with the counts set to 0 just before its path runs); the
+full-width batches; ``unfrozen_launches`` per micro-batch of phase 24 (a);
+each count is taken with the counts set to 0 just before its path runs); the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -616,8 +634,8 @@ EXPECTED_QLORA_GENERATE_LAUNCHES = dict(EXPECTED_LAUNCHES, **INT8_VIT_LAUNCHES)
 # Phase 22, two ranks on the one card over gloo. (a): qvh.yaml over phase
 # 17's train queries and DP_EVAL_QUERIES val and test queries, one epoch,
 # accum_grad_iters DP_ACCUM: each rank takes DP_ACCUM micro-batches, one
-# update over every train row. (b): the flagship model, one row per rank
-# (dp) or one row on both (sp), against one process; the bars.
+# update over every train row. (b): the flagship model at depth 2, one row
+# per rank (dp) or one row on both (sp), against one process; the bars.
 DP_RANKS, DP_ACCUM, DP_EVAL_QUERIES = 2, 4, 2
 DP_LAUNCH_TIMEOUT_S, DP_GROUP_TIMEOUT_S = 420, 300
 DP_LOSS_REL_TOL, DP_GRAD_COSINE_MIN, DP_TENSOR_REL_TOL = 1e-3, 0.999, 1e-3
@@ -644,6 +662,20 @@ VARIANTS = {"only_frames": (dict(task="lora_only_frames"), EXPECTED_LAUNCHES),
             "mean": (dict(frame_token_aggregation="mean"), EXPECTED_NO_BIAS_LAUNCHES),
             "fast_gelu": (dict(fast_gelu=True), EXPECTED_LAUNCHES),
             "blip2_fmr": ({}, EXPECTED_NO_BIAS_LAUNCHES)}
+# Phase 24, the unfrozen-ViT train path: configs/projects/train/qvh.yaml with
+# model.freeze_vit=False (stochastic depth at the constructor's default rate),
+# UNFROZEN_QUERIES train queries: one update of UNFROZEN_ACCUM (qvh.yaml's
+# accum_grad_iters) micro-batches of 1 x 60 frames; one val query, no test
+# split. Per micro-batch every ViT block is checkpointed: LayerNorm norm1 and
+# norm2 in the forward and again in the recompute (4 x 39), ln_vision and the
+# Q-Former's 31 once (a graph, no recompute); packed QKV once a block in each;
+# the T5 encoder's kernels as phase 17's. The val generate launches phase 4's.
+UNFROZEN_QUERIES, UNFROZEN_ACCUM, UNFROZEN_DROP_PATH = 8, 8, 0.4
+EXPECTED_UNFROZEN_LAUNCHES = dict(EXPECTED_REMAT_TRAIN_LAUNCHES, layer_norm=4 * 39 + 32,
+                                  qkv_packed_attention=2 * 39)
+# Phase 24 (b): depth 2 against the CPU at 224 pixels (kernel 2 under
+# autograd) and at 364 (kernel 4 under autograd).
+UNFROZEN_IMG_SIZES = (224, BIG_IMG)
 
 
 def say(*parts):
@@ -2157,6 +2189,24 @@ def train_path(torch, wrappers, long=False):
 
 
 # --------------------------------------------------------------- phase 7
+def bf16_friendly_state(torch, model):
+    """``model``'s state with the rel-pos table at N(0, 1), as in phase 5,
+    and the T5 query projections at HF T5's init scale (d_model *
+    d_kv)^-1/2, drawn on the card from seed 1: at the random init's 0.02,
+    T5's unscaled logits have std ~6, attention is near one-hot and bf16
+    rounding flips near-ties (the plain path in bf16 against the plain path
+    in fp32, both on the CPU, gave gradient cosines down to 0.85)."""
+    cfg = model.t5_config
+    state = model.state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state[RELPOS_TABLE] = torch.randn(state[RELPOS_TABLE].shape, generator=gen, device="cuda")
+    for name in state:
+        if name.startswith("t5.") and name.endswith("attention.q.weight"):
+            state[name] = (torch.randn(state[name].shape, generator=gen, device="cuda")
+                           * (cfg.d_model * cfg.d_kv) ** -0.5)
+    return state
+
+
 def path_gradients(torch, model, batch, task):
     """Loss and gradients of the trainable tensors, in eval mode (dropouts
     off). Under ``qformer_freeze`` the JAX policy trains nothing, so the
@@ -2202,22 +2252,7 @@ def gradients_kernel_vs_plain(torch, wrappers, long=False, fp32=False):
         samples = make_samples(1, frames, seed=7)
         size = f"1 x {frames}"
         gpu = reduced_model("cuda", task=task, relpos_in_kernel=long, **dtype_kw)
-        cfg = gpu.t5_config
-        # The rel-pos table at N(0, 1), as in phase 5. The T5 query
-        # projections at HF T5's init scale (d_model * d_kv)^-1/2: at the
-        # random init's 0.02, T5's unscaled logits have std ~6, attention is
-        # near one-hot and bf16 rounding flips near-ties: there the plain
-        # path in bf16 against the plain path in fp32 (both on the CPU) gave
-        # gradient cosines down to 0.85.
-        state = gpu.state_dict()
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        state[RELPOS_TABLE] = torch.randn(state[RELPOS_TABLE].shape, generator=gen,
-                                          device="cuda")
-        for name in state:
-            if name.startswith("t5.") and name.endswith("attention.q.weight"):
-                state[name] = (torch.randn(state[name].shape, generator=gen, device="cuda")
-                               * (cfg.d_model * cfg.d_kv) ** -0.5)
-        gpu.load_state_dict(state)
+        gpu.load_state_dict(bf16_friendly_state(torch, gpu))
         batch = gpu.prepare_mr_batch(samples)
         for w in wrappers.values():
             w.launches = 0
@@ -2326,17 +2361,7 @@ def int8_kernel_vs_plain_path(torch, wrappers):
 
     samples = make_samples(2, 8, seed=7)
     gpu = reduced_model("cuda")
-    cfg = gpu.t5_config
-    # The rel-pos table and the T5 query projections as in phases 5 and 7, so
-    # that the bias moves the attention and bf16 rounding flips no near-tie.
-    state = gpu.state_dict()
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    state[RELPOS_TABLE] = torch.randn(state[RELPOS_TABLE].shape, generator=gen,
-                                      device="cuda")
-    for name in state:
-        if name.startswith("t5.") and name.endswith("attention.q.weight"):
-            state[name] = (torch.randn(state[name].shape, generator=gen, device="cuda")
-                           * (cfg.d_model * cfg.d_kv) ** -0.5)
+    state = bf16_friendly_state(torch, gpu)
     gpu.load_state_dict(state)
     state = {k: v.cpu() for k, v in state.items()}
     enc_bf16, logits_bf16 = int8_outputs(torch, gpu, samples)
@@ -4062,15 +4087,7 @@ def qlora_kernel_vs_plain_path(torch, wrappers):
     task = "qformer_freeze_lora"
     samples = make_samples(1, GRAD_FRAMES, seed=7)
     gpu = reduced_model("cuda", task=task)
-    cfg = gpu.t5_config
-    state = gpu.state_dict()
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    state[RELPOS_TABLE] = torch.randn(state[RELPOS_TABLE].shape, generator=gen, device="cuda")
-    for name in state:
-        if name.startswith("t5.") and name.endswith("attention.q.weight"):
-            state[name] = (torch.randn(state[name].shape, generator=gen, device="cuda")
-                           * (cfg.d_model * cfg.d_kv) ** -0.5)
-    gpu.load_state_dict(state)
+    gpu.load_state_dict(bf16_friendly_state(torch, gpu))
     gpu.quantize_vit().quantize_base_for_train()
     batch = gpu.prepare_mr_batch(samples)
     for w in wrappers.values():
@@ -4147,7 +4164,8 @@ def dp_read(workdir, mode):
 
 def parallel_entry_points(torch, card):
     """Phase 22 (see the module docstring): (a) the train entry point over
-    two ranks, (b) dp, sp and the one-rank NCCL update at flagship widths.
+    two ranks, (b) dp, sp and the one-rank NCCL update at flagship widths
+    and depth 2.
     Returns (a)'s launches per micro-batch of one rank."""
     import tempfile
 
@@ -4250,7 +4268,8 @@ def dp_step_report(step, step_wall, card):
                 f"the largest), post-update max |diff| / max |tensor| {run['tensor_rel']:.2e}, "
                 f"share of elements more than the lr apart {run['apart']:.2e}")
 
-    say(f"dp step (flagship, task lora, dropout 0, 1 x {N_FRAMES} frames a rank, targets of "
+    say(f"dp step (flagship widths, depth {REDUCED_DEPTH}, task lora, dropout 0, 1 x "
+        f"{N_FRAMES} frames a rank, targets of "
         f"{dp['tokens']} tokens) against one process over both rows one by one: {line(dp)}; "
         f"seconds dp {[s_['dp']['seconds'] for s_ in step]} vs one process {dp['seconds_ref']}; "
         f"launches per rank {dp['launches']}. Beside it, not held (other shapes): against "
@@ -4394,8 +4413,9 @@ def dp_train_worker(torch, workdir, argv):
 
 
 def dp_step_worker(torch, workdir):
-    """Phase 22 (b), one rank: dp and sp updates of the flagship model
-    against one process, then rank 0's update through a one-rank NCCL
+    """Phase 22 (b), one rank: dp and sp updates of the flagship model at
+    depth REDUCED_DEPTH (full depth until the script passed 990 s with phase
+    24) against one process, then rank 0's update through a one-rank NCCL
     group.
 
     The one-process references run the shapes the ranks run: dp's each row
@@ -4421,7 +4441,7 @@ def dp_step_worker(torch, workdir):
                                       "dist_timeout_s": DP_GROUP_TIMEOUT_S})
     rank = dist_utils.get_rank()
     wrappers, _ = kernel_tables()
-    model = flagship_model(device=dist_utils.local_device("cuda"))
+    model = reduced_model(dist_utils.local_device("cuda"))
     for m in model.module.modules():
         if isinstance(m, Dropout):
             m.rate = 0.0
@@ -4429,7 +4449,7 @@ def dp_step_worker(torch, workdir):
     module = model.module
     trainable = {n: p for n, p in module.named_parameters() if p.requires_grad}
     masters = {n: p.detach().clone() for n, p in trainable.items()}
-    mesh.assert_replicated(masters, "phase 22: the flagship model as built")
+    mesh.assert_replicated(masters, "phase 22: the depth-2 model as built")
     rows = []
     for r, window in enumerate(DP_WINDOWS):
         row = make_samples(1, N_FRAMES, seed=220 + r)
@@ -4991,6 +5011,340 @@ def variants_path(torch, wrappers, card, model):
     return total
 
 
+# -------------------------------------------------------------- phase 24
+def unfrozen_vit_entry_point(torch, wrappers, card):
+    """Phase 24 (a): ``python -m mr_blip_tpu_torch.train`` on
+    ``configs/projects/train/qvh.yaml`` as published with
+    ``model.freeze_vit=False`` (the EVA ViT-g trains: fp32 masters cast to
+    bf16 at use, stochastic depth up to the default 0.4, every block
+    checkpointed under ``use_grad_checkpoint``), random weights, over
+    UNFROZEN_QUERIES synthetic train queries (one update of 8 micro-batches
+    of 1 x 60 frames), one val query and no test split. Gates: every ViT
+    tensor moved, every frozen tensor (the T5 base, the Q-Former)
+    bit-equal, every loss finite, each micro-batch's launches as predicted
+    (kernel 2 twice a block: the forward and the recompute, in bf16 from the
+    fp32 masters) and the val generate's as phase 4's. Prints the seconds
+    per micro-batch, per update and of the optimizer step, and the peak.
+    Then one more micro-batch of the trained model under ``torch.profiler``
+    (``profile_unfrozen_step``). Returns the run's launches per
+    micro-batch."""
+    import tempfile
+
+    from mr_blip_tpu_torch import train
+    from mr_blip_tpu_torch.datasets.synthetic import make_mr_annotations
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.runners.train_state import TrainCtx
+
+    phase_start = time.time()
+    models, steps, generates, optimizer_s = [], [], [], []
+    built = {}
+
+    def counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def rose(before):
+        return {name: w.launches - before[name] for name, w in wrappers.items()}
+
+    from_config = BLIP2_MR.from_config.__func__
+    step, dispatch = TrainCtx.step, BLIP2_MR.generate_dispatch
+
+    def tapped_from_config(cls, cfg, device="cuda"):
+        model = from_config(cls, cfg, device=device)
+        models.append(model)
+        named, mask = dict(model.module.named_parameters()), model.trainable_mask()
+        # fp32 bits: the masters start as the bf16 weights, exactly
+        built["vit"] = {n: checksums(torch, [p.float()]) for n, p in named.items()
+                        if n.startswith("visual_encoder.")}
+        built["frozen"] = checksums(torch, [p for n, p in named.items() if not mask[n]])
+        return model
+
+    def timed(optimizer_step):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.time()
+            out = optimizer_step(*args, **kwargs)
+            torch.cuda.synchronize()
+            optimizer_s.append(time.time() - start)
+            return out
+        return run
+
+    def tapped_step(ctx, batch):
+        if "step" not in vars(ctx.optimizer):  # the optimizer step, timed alone
+            ctx.optimizer.step = timed(ctx.optimizer.step)
+        before = counts()
+        torch.cuda.synchronize()
+        start = time.time()
+        loss = step(ctx, batch)
+        torch.cuda.synchronize()
+        steps.append((rose(before), time.time() - start, loss, ctx.updates))
+        return loss
+
+    def tapped_dispatch(model, samples):
+        before = counts()
+        handle = dispatch(model, samples)
+        generates.append(rose(before))
+        return handle
+
+    taps = ((BLIP2_MR, "from_config", classmethod(tapped_from_config)),
+            (TrainCtx, "step", tapped_step),
+            (BLIP2_MR, "generate_dispatch", tapped_dispatch))
+    originals = [(cls, name, cls.__dict__[name]) for cls, name, _ in taps]
+    with tempfile.TemporaryDirectory() as tmp:
+        run_paths = make_mr_annotations(
+            f"{tmp}/run", n_train=UNFROZEN_QUERIES, n_val=1, n_test=1,
+            n_video_frames=EVAL_VIDEO_FRAMES, fps=EVAL_FPS)
+        argv = ["--cfg-path", str(ROOT / "configs/projects/train/qvh.yaml"), "--options",
+                *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
+                  for split, path in run_paths.items()),
+                "datasets.qvh.build_info.videos.storage=synthetic",
+                f"run.output_dir={Path(tmp) / 'train'}", "run.max_epoch=1",
+                "run.test_splits=[]", "model.freeze_vit=False"]
+        for cls, name, tap in taps:
+            setattr(cls, name, tap)
+        try:
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.time()
+            train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            for cls, name, original in originals:
+                setattr(cls, name, original)
+    (model,) = models
+    require(not model.freeze_vit and model.vit_config.drop_path_rate == UNFROZEN_DROP_PATH
+            and model.vit_config.use_checkpoint, f"qvh.yaml with model.freeze_vit=False "
+            f"built {model.vit_config}")
+    named = dict(model.module.named_parameters())
+    vit = {n: p for n, p in named.items() if n.startswith("visual_encoder.")}
+    require(all(p.requires_grad and p.dtype == torch.float32 for p in vit.values()),
+            "the ViT's tensors are not trainable fp32 masters")
+    same = [n for n, p in vit.items() if checksums(torch, [p]) == built["vit"][n]]
+    require(not same, f"unfrozen ViT: {len(same)} ViT tensors never moved, e.g. {same[:3]}")
+    mask = model.trainable_mask()
+    require(checksums(torch, [p for n, p in named.items() if not mask[n]]) == built["frozen"],
+            "unfrozen ViT: a frozen tensor (the T5 base or the Q-Former) changed")
+    require(len(steps) == UNFROZEN_QUERIES and steps[-1][3] == 1,
+            f"unfrozen ViT: {len(steps)} micro-batches, {steps[-1][3] if steps else 0} updates")
+    for i, (r, _, loss, _) in enumerate(steps):
+        require(r == EXPECTED_UNFROZEN_LAUNCHES, f"unfrozen ViT micro-batch {i}: launches "
+                f"{r}, expected {EXPECTED_UNFROZEN_LAUNCHES}")
+        require(math.isfinite(loss), f"unfrozen ViT micro-batch {i}: loss {loss}")
+    require(len(optimizer_s) == 1, f"unfrozen ViT: {len(optimizer_s)} optimizer steps")
+    require(generates == [EXPECTED_LAUNCHES], f"unfrozen ViT: val generates {generates}")
+    seconds = [r[1] for r in steps]
+    trainable, total = model.trainable_param_count()
+    say(f"[{card}] unfrozen ViT (configs/projects/train/qvh.yaml, model.freeze_vit=False, "
+        f"drop_path_rate {UNFROZEN_DROP_PATH}, use_grad_checkpoint, {trainable / 1e6:.2f} M of "
+        f"{total / 1e6:.2f} M parameters train): {UNFROZEN_QUERIES} micro-batches of 1 x "
+        f"{N_FRAMES}, one update, one val generate; every micro-batch launched "
+        f"{ {k: v for k, v in EXPECTED_UNFROZEN_LAUNCHES.items() if v} }, the generate "
+        f"{ {k: v for k, v in EXPECTED_LAUNCHES.items() if v} }; losses "
+        f"{[round(r[2], 4) for r in steps]}; all {len(vit)} ViT tensors moved, every "
+        f"frozen one bit-equal")
+    say(f"[{card}] unfrozen ViT seconds: micro-batch steady {statistics.median(seconds[1:]):.3f} "
+        f"(median of 1-{len(seconds) - 1}; mean {statistics.mean(seconds[1:]):.3f}, first "
+        f"{seconds[0]:.3f}); update {sum(seconds):.3f} (the 8 micro-batches), of it the "
+        f"optimizer step {optimizer_s[0]:.3f}; main() {wall:.3f}; peak memory "
+        f"{(peak - resident) / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB earlier "
+        f"phases held")
+    gc.collect()  # the run's optimizer state
+    torch.cuda.empty_cache()
+    profile_unfrozen_step(torch, wrappers, model, card)
+    del model, vit, named
+    models.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 24 (a): {time.time() - phase_start:.1f} s")
+    return steps[0][0]
+
+
+def device_shares(trace, ranges):
+    """Device microseconds of a Chrome trace: the total over every kernel,
+    memcpy and memset, and for each entry of ``ranges`` (name -> predicate
+    on an event name) the time of the device work launched while a CPU op
+    or ``record_function`` range that it accepts was open on the launching
+    thread (a launch is tied to its device work by the trace's correlation
+    id; nested ranges count once)."""
+    events = json.loads(Path(trace).read_text())["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    spans = {name: {} for name in ranges}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("cpu_op", "user_annotation"):
+            continue
+        for name, accepts in ranges.items():
+            if accepts(e["name"]):
+                spans[name].setdefault(e["tid"], []).append(
+                    (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    out = {name: 0.0 for name in ranges}
+    out["total"] = sum(float(e["dur"]) for e in device)
+    for e in device:
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        if launch is None:
+            continue
+        ts = float(launch["ts"])
+        for name in ranges:
+            if any(start <= ts <= end for start, end in spans[name].get(launch["tid"], ())):
+                out[name] += float(e["dur"])
+    return out
+
+
+def profile_unfrozen_step(torch, wrappers, model, card):
+    """One more 1 x 60 micro-batch of phase 24 (a)'s trained model (a fresh
+    ``TrainCtx``, no update) under ``torch.profiler``, with ranges on the
+    ViT's forward, its backward (from the gradient of its output to the
+    accumulation of the patch conv's weight) and each block's recompute
+    inside it. Prints the device time of the step and the shares of the
+    plain backward of kernels 1 and 2 (the autograd nodes
+    ``_FusedLayerNormBackward`` and ``_QkvPackedBackward``: the plain
+    versions recomputed and differentiated) and of the ViT's forward,
+    backward and recompute, with the launches of the step."""
+    import tempfile
+
+    from mr_blip_tpu_torch.profile_inference import make_samples
+    from mr_blip_tpu_torch.runners.train_state import TrainCtx
+
+    ctx = TrainCtx(model, accum_grad_iters=UNFROZEN_ACCUM)
+    ctx.set_lr(0.0)
+    batch = model.prepare_mr_batch(make_samples(1, N_FRAMES, seed=41))
+    vit = model.module.visual_encoder
+    open_ranges, hooks = {}, []
+
+    def enter(name):
+        leave(name)
+        open_ranges[name] = torch.profiler.record_function(name)
+        open_ranges[name].__enter__()
+
+    def leave(name):
+        if name in open_ranges:
+            open_ranges.pop(name).__exit__(None, None, None)
+
+    def vit_out(module, args, out):
+        leave("vit_forward")
+        if out.requires_grad:
+            out.register_hook(lambda grad: enter("vit_backward"))
+
+    def in_backward():
+        return torch._C._current_autograd_node() is not None
+
+    hooks.append(vit.register_forward_pre_hook(lambda m, a: enter("vit_forward")))
+    hooks.append(vit.register_forward_hook(vit_out))
+    for blk in vit.blocks:
+        hooks.append(blk.register_forward_pre_hook(
+            lambda m, a: enter("vit_recompute") if in_backward() else None))
+        hooks.append(blk.register_forward_hook(
+            lambda m, a, o: leave("vit_recompute") if in_backward() else None))
+    hooks.append(vit.patch_embed.weight.register_post_accumulate_grad_hook(
+        lambda p: leave("vit_backward")))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            # The whole block forward in each recompute (checkpoint's early
+            # stop would leave it before its forward hook closes the range).
+            with torch.utils.checkpoint.set_checkpoint_early_stop(False), \
+                    torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                start = time.time()
+                ctx.step(batch)
+                torch.cuda.synchronize()
+                wall = time.time() - start
+            launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+            trace = Path(tmp) / "unfrozen_step.json"
+            prof.export_chrome_trace(str(trace))
+            us = device_shares(trace, {
+                "layer_norm_backward": lambda n: n.endswith("_FusedLayerNormBackward"),
+                "qkv_packed_backward": lambda n: n.endswith("_QkvPackedBackward"),
+                "vit_forward": lambda n: n == "vit_forward",
+                "vit_backward": lambda n: n == "vit_backward",
+                "vit_recompute": lambda n: n == "vit_recompute"})
+    finally:
+        for h in hooks:
+            h.remove()
+        for name in list(open_ranges):
+            leave(name)
+        for p in ctx.params:
+            p.grad = None
+    require(launched == {k: v for k, v in EXPECTED_UNFROZEN_LAUNCHES.items() if v},
+            f"profiled unfrozen step: launches {launched}")
+    total = us.pop("total")
+    require(total > 0, "the profiled step shows no device time")
+    say(f"[{card}] unfrozen ViT, one profiled 1 x {N_FRAMES} micro-batch (torch.profiler): "
+        f"device {total / 1e3:.1f} ms of {wall * 1e3:.1f} ms wall (busy {total / 1e6 / wall:.3f}); "
+        + ", ".join(f"{name} {v / 1e3:.1f} ms ({v / total:.1%})" for name, v in us.items())
+        + f"; plain backward of kernels 1 and 2 together "
+        f"{(us['layer_norm_backward'] + us['qkv_packed_backward']) / total:.1%} of the device "
+        f"time; launches {launched}")
+
+
+def unfrozen_vit_vs_plain(torch, wrappers, card):
+    """Phase 24 (b): the depth-2 model at full width with the ViT trained
+    (``qformer_freeze_lora``, ``freeze_vit=False``), one 1 x GRAD_FRAMES
+    batch in eval mode (no dropout, no stochastic depth), at 224 pixels
+    (kernels 1 and 2 under autograd) and at 364 (kernels 1 and 4): the
+    card's loss and the gradient of every trainable tensor (every ViT
+    tensor, the LoRA deltas) against the CPU's plain path in bf16, phase
+    7's bars (loss within LOSS_REL_TOL relative, every cosine >=
+    GRAD_COSINE_MIN); weights drawn as phase 7 draws them."""
+    from mr_blip_tpu_torch.profile_inference import make_samples
+
+    start = time.time()
+    for img_size in UNFROZEN_IMG_SIZES:
+        samples = make_samples(1, GRAD_FRAMES, seed=43, img_size=img_size)
+        kw = dict(task=TRAIN_TASK, freeze_vit=False, img_size=img_size)
+        gpu = reduced_model("cuda", **kw)
+        gpu.load_state_dict(bf16_friendly_state(torch, gpu))
+        batch = gpu.prepare_mr_batch(samples)
+        for w in wrappers.values():
+            w.launches = 0
+        loss_gpu, g_gpu, _ = path_gradients(torch, gpu, batch, TRAIN_TASK)
+        launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        state = {k: v.cpu() for k, v in gpu.state_dict().items()}
+        del gpu
+        torch.cuda.empty_cache()
+        with no_weight_init():
+            cpu = reduced_model("cpu", init_params=False, **kw)
+        cpu.load_state_dict(state)
+        t0 = time.time()
+        loss_cpu, g_cpu, _ = path_gradients(torch, cpu, batch, TRAIN_TASK)
+        cpu_s = time.time() - t0
+        del cpu
+        vit = [n for n in g_gpu if n.startswith("visual_encoder.")]
+        require(g_gpu.keys() == g_cpu.keys() and vit, f"{img_size}²: trainable sets differ")
+        cos = {n: cosine(torch, g_gpu[n], g_cpu[n]) for n in g_gpu}
+        worst = min(cos, key=cos.get)
+        worst_vit = min(vit, key=cos.get)
+        rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        attention = "qkv_packed_attention" if img_size == 224 else "flash_attention"
+        say(f"[{card}] unfrozen ViT gradients at {img_size}² (depth {REDUCED_DEPTH}, full width, "
+            f"1 x {GRAD_FRAMES} frames, {TRAIN_TASK}): loss {loss_gpu:.5f} vs plain "
+            f"{loss_cpu:.5f} (rel {rel:.2e}); {len(cos)} trainable tensors ({len(vit)} of the "
+            f"ViT), cosine min {cos[worst]:.6f} ({worst}), ViT min {cos[worst_vit]:.6f} "
+            f"({worst_vit}), mean {statistics.mean(cos.values()):.6f}; launches {launched}; "
+            f"CPU run {cpu_s:.1f} s")
+        require(rel <= LOSS_REL_TOL, f"unfrozen ViT {img_size}²: loss rel diff {rel}")
+        require(cos[worst] >= GRAD_COSINE_MIN, f"unfrozen ViT {img_size}²: {worst} cosine "
+                f"{cos[worst]}")
+        require(all(float(g_gpu[n].abs().max()) > 0 and bool(torch.isfinite(g_gpu[n]).all())
+                    for n in vit), f"unfrozen ViT {img_size}²: a ViT gradient is zero or "
+                "not finite")
+        require(launched.get(attention) == REDUCED_DEPTH and launched.get("layer_norm", 0) > 0,
+                f"unfrozen ViT {img_size}²: launches {launched}")
+    say(f"phase 24 (b): {time.time() - start:.1f} s")
+
+
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
     the ``kernels`` line (source in the port, TPU kernel replaced)."""
@@ -5199,6 +5553,11 @@ def main():
     say(f"[{smi}] phase 23: {time.time() - t23:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     done(23)
+    # phase 24: the unfrozen-ViT train path (the train entry point with
+    # model.freeze_vit=False, a profiled micro-batch, depth 2 against the CPU)
+    unfrozen_launches = unfrozen_vit_entry_point(torch, wrappers, smi)
+    unfrozen_vit_vs_plain(torch, wrappers, smi)
+    done(24)
 
     for key, entry in kernels.items():
         if key == "flash_attention":
@@ -5224,13 +5583,14 @@ def main():
         entry["qlora_launches"] = qlora_launches[key]
         entry["dp_launches"] = dp_launches[key]
         entry["variant_launches"] = variant_launches[key]
+        entry["unfrozen_launches"] = unfrozen_launches[key]
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "train_entry_launches", "qa_entry_launches",
                                "opt_entry_launches", "serve_launches", "qlora_launches",
-                               "dp_launches", "variant_launches")}
+                               "dp_launches", "variant_launches", "unfrozen_launches")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -42,6 +42,12 @@ the loaded float weights (W8A8 ViT, Q-Former cross K/V and T5 encoder on the
 kernels of ``ops/int8_matmul.py``; weight-only int8 decoder and LM head; int8
 cross-attention cache) and generates as before. Inference only.
 
+Unfrozen ViT (``freeze_vit=False``): ``TrainCtx`` trains the EVA ViT too,
+fp32 masters cast to the compute dtype at use, with the reference's
+stochastic depth (``drop_path_rate``, default 0.4) and, under
+``use_grad_checkpoint``, every ViT block checkpointed. The int8 ViT does
+not train: ``set_trainable`` raises for it.
+
 QLoRA-style training: ``model.quantize_base_for_train()`` (``model.int8_base``
 in a config) stores the frozen T5 base weight-only int8 under the float LoRA
 deltas; ``TrainCtx`` then trains the LoRA tensors as before.
@@ -178,6 +184,8 @@ class BLIP2_MR(BaseModel):
         interleave_data: bool = True,
         frame_token_aggregation: str | None = None,
         fast_gelu: bool = False,
+        freeze_vit: bool = True,
+        drop_path_rate: float = 0.4,
     ):
         """``init_params`` draws random weights on ``device`` from ``seed``.
         ``relpos_in_kernel`` is the long-context mode (120/240-frame
@@ -188,7 +196,11 @@ class BLIP2_MR(BaseModel):
         ``num_frames_for_answer``: frames the QA answerer sees, cropped from
         the localizer's window, or with ``resample_frames=True`` re-decoded
         from the video file inside that window (``samples["video_path"]``).
-        The ViT is frozen (``freeze_vit: True`` in every published config).
+        ``freeze_vit`` (True in every published config) keeps the ViT out
+        of training; with ``freeze_vit=False`` it trains, with stochastic
+        depth up to ``drop_path_rate`` (its last block's rate) and, under
+        ``use_grad_checkpoint``, its blocks checkpointed too; the EVA ViT-g
+        only, as in the JAX package (the tiny test ViT takes neither).
         ``sequence_parallel``: under a process group each rank encodes its
         contiguous share of the flat ``B·T`` frames (ViT, ``ln_vision``,
         Q-Former, ``t5_proj``) and the shares are all-gathered before the
@@ -206,6 +218,13 @@ class BLIP2_MR(BaseModel):
             task=task, compute_dtype=compute_dtype, device=device)
         if fast_gelu:
             self.vit_config = dataclasses.replace(self.vit_config, fast_gelu=True)
+        self.freeze_vit = freeze_vit
+        if vit_model == "eva_vit_g":
+            # The reference's default rate for unfrozen training; a frozen
+            # ViT never samples it.
+            self.vit_config = dataclasses.replace(
+                self.vit_config, use_checkpoint=use_grad_checkpoint,
+                drop_path_rate=0.0 if freeze_vit else drop_path_rate)
         self.num_frames_for_answer = num_frames_for_answer
         self.resample_frames = resample_frames
         vit_cfg, qf_cfg = self.vit_config, self.qformer_config
@@ -310,16 +329,18 @@ class BLIP2_MR(BaseModel):
         return self.module.t5.encoder.rel_bias.rel_embedding.requires_grad
 
     def trainable_mask(self) -> Dict[str, bool]:
-        """Parameter name -> trains, by the JAX package's policy with the
-        ViT frozen, whatever the task: in the main T5 only ``lora_a``/
-        ``lora_b`` train, and only under a ``lora`` task; the Q-Former,
-        ``t5_proj`` and ``ln_vision`` train unless the task has
-        ``qformer_freeze``. A QA model's ``answerer_t5`` never trains: the
-        JAX package keeps its tree out of every train state."""
+        """Parameter name -> trains, by the JAX package's policy: the ViT
+        unless ``freeze_vit``; in the main T5 only ``lora_a``/``lora_b``,
+        and only under a ``lora`` task; the Q-Former, ``t5_proj`` and
+        ``ln_vision`` unless the task has ``qformer_freeze``. A QA model's
+        ``answerer_t5`` never trains: the JAX package keeps its tree out of
+        every train state."""
         qformer_frozen = "qformer_freeze" in self.task
 
         def trains(name: str) -> bool:
             top = name.split(".")[0]
+            if top == "visual_encoder":
+                return not self.freeze_vit
             if top == "t5":
                 return self.use_lora and "lora_" in name
             if top in ("qformer", "t5_proj", "ln_vision"):
@@ -331,7 +352,14 @@ class BLIP2_MR(BaseModel):
     def set_trainable(self):
         """``requires_grad`` by ``trainable_mask``; trainable tensors become
         fp32 master weights (cast to the compute dtype at use), frozen ones
-        stay as stored."""
+        stay as stored. An unfrozen int8 ViT raises ``ValueError`` (its
+        kernels are forward only and it has no stochastic depth; the JAX
+        package fails in its first train step)."""
+        if not self.freeze_vit and self.vit_config.int8_matmul:
+            raise ValueError(
+                "freeze_vit=False with the int8 ViT (int8_vit / int8_inference): the "
+                "int8 ViT has no backward and no stochastic depth; train an unfrozen "
+                "ViT with float weights, or keep it frozen")
         mask = self.trainable_mask()
         for name, p in self.module.named_parameters():
             if mask[name] and p.is_floating_point():
@@ -429,15 +457,11 @@ class BLIP2_MR(BaseModel):
     # ``from_config`` keys (those ``mr_blip_tpu/models/blip2_mr.py::from_config``
     # reads) whose settings the port cannot compute yet: key -> (the settings
     # it can compute, what is missing and the title of its ROADMAP Queue 1
-    # item).
-    UNSUPPORTED_CONFIG = {
-        "freeze_vit": ((True,), "the unfrozen-ViT train path",
-                       "The unfrozen-ViT train path"),
-    }
+    # item). None since the unfrozen-ViT train path.
+    UNSUPPORTED_CONFIG: Dict[str, tuple] = {}
     # Read and without effect in the port: layouts of the TPU program
-    # (scan_layers, remat_policy); the ViT's stochastic depth, which a frozen
-    # ViT never samples; the seed of the JAX package's zero init.
-    IGNORED_CONFIG = ("scan_layers", "remat_policy", "drop_path_rate", "seed")
+    # (scan_layers, remat_policy); the seed of the JAX package's zero init.
+    IGNORED_CONFIG = ("scan_layers", "remat_policy", "seed")
     # The keys it computes (``arch`` and ``model_type`` are the Config's).
     SUPPORTED_CONFIG = (
         "arch", "model_type", "image_size", "vit_model", "t5_model",
@@ -447,7 +471,7 @@ class BLIP2_MR(BaseModel):
         "vocab_size", "params_dtype", "pretrained", "finetuned", "load_finetuned",
         "int8_inference", "int8_decode", "int8_vit", "int8_qformer", "int8_encoder",
         "int8_base", "use_grad_checkpoint", "sequence_parallel", "interleave_data",
-        "frame_token_aggregation", "fast_gelu")
+        "frame_token_aggregation", "fast_gelu", "freeze_vit", "drop_path_rate")
 
     @classmethod
     def from_config(cls, cfg, device="cuda"):
@@ -498,6 +522,8 @@ class BLIP2_MR(BaseModel):
             interleave_data=cfg.get("interleave_data", True),
             frame_token_aggregation=cfg.get("frame_token_aggregation"),
             fast_gelu=cfg.get("fast_gelu", False),
+            freeze_vit=cfg.get("freeze_vit", True),
+            drop_path_rate=cfg.get("drop_path_rate", 0.4),
             compute_dtype=cfg.get("compute_dtype", "bfloat16"),
             init_params=params_dtype is None,
             vocab_size=cfg.get("vocab_size"),

@@ -1,7 +1,8 @@
 """Device-side BLIP2-MR graph (counterpart of
 ``mr_blip_tpu/models/blip2_mr_module.py``).
 
-Frozen EVA ViT over every frame, fp32 vision LayerNorm, Q-Former (32 query
+EVA ViT over every frame (frozen, or trained with ``freeze_vit: False``),
+fp32 vision LayerNorm, Q-Former (32 query
 tokens per frame, or their mean under ``frame_token_aggregation="mean"``),
 the Q-Former->T5 projection, the interleaved prompt gather (or the
 non-interleaved layout), and the T5 encoder-decoder. String work happens in
@@ -23,7 +24,7 @@ from torch import nn
 
 from mr_blip_tpu_torch.common import dist as dist_utils
 from mr_blip_tpu_torch.models.eva_vit import EvaViT, ViTConfig
-from mr_blip_tpu_torch.models.layers import Dense, Dropout, LayerNormFP32
+from mr_blip_tpu_torch.models.layers import Dense, Dropout, LayerNormFP32, stream_seed
 from mr_blip_tpu_torch.models.prompt_assembly import interleave_on_device
 from mr_blip_tpu_torch.models.qformer import QFormer, QFormerConfig
 from mr_blip_tpu_torch.models.t5 import (
@@ -66,19 +67,27 @@ def _pad_seq_to_sublane(inputs_embeds, attn, mult: int = 8):
 
 
 @contextlib.contextmanager
-def _rank_stream(module: nn.Module, rank):
-    """With ``rank`` set: ``module``'s dropout generator reseeded from its
+def _rank_stream(modules, rank):
+    """With ``rank`` set: every generator the dropouts of ``modules`` draw
+    from (one, the train step's, unless set otherwise) reseeded from its
     seed and the rank inside the block, and set back to its state after."""
-    gen = next((m.generator for m in module.modules() if isinstance(m, Dropout)), None)
-    if rank is None or gen is None:
-        yield
-        return
-    state = gen.get_state()
-    gen.manual_seed(gen.initial_seed() ^ ((rank + 1) << 40))
+    gens = [] if rank is None else list(
+        {id(m.generator): m.generator for module in modules for m in module.modules()
+         if isinstance(m, Dropout) and m.generator is not None}.values())
+    states = [gen.get_state() for gen in gens]
+    for gen in gens:
+        gen.manual_seed(stream_seed(gen.initial_seed(), rank + 1))
     try:
         yield
     finally:
-        gen.set_state(state)
+        for gen, state in zip(gens, states):
+            gen.set_state(state)
+
+
+def vit_trains(module: nn.Module) -> bool:
+    """Whether a tensor of ``module.visual_encoder`` requires grad (the ViT
+    of ``freeze_vit: False`` after ``set_trainable``)."""
+    return any(p.requires_grad for p in module.visual_encoder.parameters())
 
 
 class Blip2MRModule(nn.Module):
@@ -134,24 +143,27 @@ class Blip2MRModule(nn.Module):
         """(B, T, H, W, C) frames -> (B, T*n, d_model) T5 tokens.
 
         uint8 frames are CLIP-normalized here, in the compute dtype, as the
-        JAX package does on device. The ViT is frozen and runs without
-        building a graph (the JAX package's stop-gradient on its output).
+        JAX package does on device. A frozen ViT (none of its tensors
+        requires grad) runs without building a graph (the JAX package's
+        stop-gradient on its output); a trained one builds it.
 
         Sequence parallelism (``sequence_parallel`` under a process group):
         this rank encodes its contiguous share of the flat ``B·T`` frames
         (``parallel/mesh.py::frame_share``) and the shares are gathered
         before the interleave, as the JAX package's ``P("dp")`` constraint
-        on the flat axis has GSPMD do. In train mode the Q-Former's dropouts
-        then draw from a stream of the rank's own (its frames are not the
-        other ranks'), and the shared stream is set back after, so that the
-        replicated T5 draws the same masks on every rank."""
+        on the flat axis has GSPMD do. In train mode the ViT's stochastic
+        depth and the Q-Former's dropouts then draw from a stream of the
+        rank's own (its frames are not the other ranks'), and the shared
+        stream is set back after, so that the replicated T5 draws the same
+        masks on every rank."""
         b, t = frames.shape[:2]
         n = b * t
         flat = frames.reshape((n,) + frames.shape[2:])
         if self.sequence_parallel and dist_utils.get_world_size() > 1:
             rank = dist_utils.get_rank()
             start, stop = mesh.frame_share(n, rank, dist_utils.get_world_size())
-            with _rank_stream(self.qformer, rank if self.training else None):
+            with _rank_stream((self.visual_encoder, self.qformer),
+                              rank if self.training else None):
                 q = mesh.gather_frames(self.encode_flat(flat[start:stop]), n)
         else:
             q = self.encode_flat(flat)
@@ -159,11 +171,11 @@ class Blip2MRModule(nn.Module):
 
     def encode_flat(self, flat: torch.Tensor) -> torch.Tensor:
         """(n, H, W, C) frames -> (n, tokens_per_frame, d_model): CLIP
-        normalization, the frozen ViT, ``ln_vision``, the Q-Former and
-        ``t5_proj`` (then the mean over the queries under mean aggregation),
-        each frame on its own."""
+        normalization, the ViT (without a graph while frozen), ``ln_vision``,
+        the Q-Former and ``t5_proj`` (then the mean over the queries under
+        mean aggregation), each frame on its own."""
         flat = clip_normalize(flat, self.compute_dtype)
-        with torch.no_grad():
+        with contextlib.nullcontext() if vit_trains(self) else torch.no_grad():
             image_embeds = self.visual_encoder(flat)
         q = self.t5_proj(self.qformer(self.ln_vision(image_embeds)))
         if self.frame_token_aggregation == "mean":

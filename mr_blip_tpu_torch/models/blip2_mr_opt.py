@@ -12,6 +12,10 @@ the prompt but its last token into the KV cache in one block-causal pass,
 then beam-searches the continuation seeded with each row's last prompt
 token.
 
+With ``freeze_vit=False`` the ViT trains too, as in ``BLIP2_MR``, but
+without stochastic depth: the JAX module calls its ViT deterministic, so
+its drop-path rate is never sampled.
+
 uint8 frames are CLIP-normalized on the device, as ``BLIP2_MR`` does. The
 JAX package's ``prepare_opt_batch`` casts every frame array to float32, so
 uint8 frames reach its ViT unnormalized (its module's uint8 branch never
@@ -20,6 +24,7 @@ runs); the port keeps them uint8 (ROADMAP Queue 3, known differences).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Any, Dict
 
@@ -29,7 +34,7 @@ from torch import nn
 
 from mr_blip_tpu_torch.common.registry import registry
 from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR, _bucket, _pad_to
-from mr_blip_tpu_torch.models.blip2_mr_module import clip_normalize
+from mr_blip_tpu_torch.models.blip2_mr_module import clip_normalize, vit_trains
 from mr_blip_tpu_torch.models.eva_vit import EvaViT
 from mr_blip_tpu_torch.models.generation import beam_search
 from mr_blip_tpu_torch.models.layers import Dense, LayerNormFP32
@@ -67,11 +72,11 @@ class Blip2OPTModule(nn.Module):
         return self.qformer_config.num_query_tokens
 
     def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        """(B, T, H, W, C) frames -> (B, T*n, hidden) OPT tokens; the frozen
+        """(B, T, H, W, C) frames -> (B, T*n, hidden) OPT tokens; a frozen
         ViT runs without building a graph."""
         b, t = frames.shape[:2]
         frames = clip_normalize(frames, self.compute_dtype)
-        with torch.no_grad():
+        with contextlib.nullcontext() if vit_trains(self) else torch.no_grad():
             image_embeds = self.visual_encoder(frames.reshape((b * t,) + frames.shape[2:]))
         q = self.opt_proj(self.qformer(self.ln_vision(image_embeds)))
         return q.reshape(b, t * q.shape[1], self.opt_config.hidden_size)
@@ -160,15 +165,18 @@ class BLIP2_MR_OPT(BLIP2_MR):
         seed: int = 42,
         init_params: bool = True,
         device: str | torch.device = "cuda",
+        freeze_vit: bool = True,
     ):
         """LoRA r=8 on every OPT linear under a ``lora`` task; the
-        vocabulary is the tokenizer's when ``tokenizer_path`` is None."""
+        vocabulary is the tokenizer's when ``tokenizer_path`` is None;
+        ``freeze_vit=False`` trains the ViT too."""
         self._init_host(
             img_size=img_size, vit_model=vit_model, tokenizer_path=tokenizer_path,
             num_query_token=num_query_token, num_beams=num_beams,
             min_new_tokens=min_new_tokens, max_txt_len=max_txt_len,
             max_new_tokens=max_new_tokens, input_time_format=input_time_format,
             task=task, compute_dtype=compute_dtype, device=device)
+        self.freeze_vit = freeze_vit
         opt_kw = dict(lora_rank=8 if self.use_lora else 0)
         if tokenizer_path is None:
             opt_kw["vocab_size"] = self.tokenizer.vocab_size
@@ -185,13 +193,7 @@ class BLIP2_MR_OPT(BLIP2_MR):
         """The keys the JAX package's ``from_config`` reads, with its
         defaults; it loads no checkpoint, so ``pretrained``, ``finetuned``
         and ``load_finetuned`` are logged as unread with every other key.
-        ``freeze_vit: False`` raises ``NotImplementedError``,
-        ``sequence_parallel: True`` ``ValueError``."""
-        computable, what, item = BLIP2_MR.UNSUPPORTED_CONFIG["freeze_vit"]
-        if cfg.get("freeze_vit", True) not in computable:
-            raise NotImplementedError(
-                f"model.freeze_vit={cfg['freeze_vit']!r}: {what} is not ported "
-                f"yet (ROADMAP Queue 1, \"{item}\")")
+        ``sequence_parallel: True`` raises ``ValueError``."""
         if cfg.get("sequence_parallel", False):
             raise ValueError("model.sequence_parallel=True: the OPT variant has no "
                              "sequence parallelism (nor has the JAX package's)")
@@ -212,18 +214,21 @@ class BLIP2_MR_OPT(BLIP2_MR):
             input_time_format=cfg.get("input_time_format", "seconds_integers"),
             task=cfg.get("task", "qformer_freeze_lora"),
             compute_dtype=cfg.get("compute_dtype", "bfloat16"),
+            freeze_vit=cfg.get("freeze_vit", True),
             device=device,
         )
 
     def trainable_mask(self) -> Dict[str, bool]:
-        """Parameter name -> trains, by the JAX package's mask with the ViT
-        frozen: in the OPT only ``lora_a``/``lora_b`` train, and only under
-        a ``lora`` task; the Q-Former, ``opt_proj`` and ``ln_vision`` train
-        unless the task has ``qformer_freeze``."""
+        """Parameter name -> trains, by the JAX package's mask: the ViT
+        unless ``freeze_vit``; in the OPT only ``lora_a``/``lora_b``, and
+        only under a ``lora`` task; the Q-Former, ``opt_proj`` and
+        ``ln_vision`` unless the task has ``qformer_freeze``."""
         qformer_frozen = "qformer_freeze" in self.task
 
         def trains(name: str) -> bool:
             top = name.split(".")[0]
+            if top == "visual_encoder":
+                return not self.freeze_vit
             if top == "opt":
                 return self.use_lora and "lora_" in name
             if top in ("qformer", "opt_proj", "ln_vision"):

@@ -6,6 +6,14 @@ absolute position embeddings, fused QKV with q and v bias only (the k bias
 is identically zero), erf-GELU MLP (tanh GELU with ``ViTConfig.fast_gelu``)
 and no final norm: all 257 tokens are returned for the Q-Former.
 
+Training the ViT (``freeze_vit: False``): block i drops its two residual
+branches per frame with probability ``drop_path_rate * i / max(depth - 1,
+1)`` (stochastic depth, ``layers.DropPath``; train mode only), and with
+``use_checkpoint`` every block runs under ``layers.remat``. The weights may
+be fp32 masters: every one of them, the patch conv, ``cls_token`` and
+``pos_embed`` included, is cast at use to the compute dtype the ViT was
+built with, so the bf16 kernels see bf16 whatever the stored dtype.
+
 With ``ViTConfig.int8_matmul`` (inference only) every block runs on the W8A8
 kernels of ``ops/int8_matmul.py``: norm1, the qkv product, the attention,
 the proj product and the skip add are one ``w8a8_attn_block`` (three calls
@@ -22,9 +30,17 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from mr_blip_tpu_torch.models.layers import Dense, LayerNormFP32, Mlp, QDenseParams
+from mr_blip_tpu_torch.models.layers import (
+    Dense,
+    DropPath,
+    LayerNormFP32,
+    Mlp,
+    QDenseParams,
+    remat,
+)
 from mr_blip_tpu_torch.ops.attention import dot_product_attention
 from mr_blip_tpu_torch.ops.flash_attention import flash_attention_qkv_packed
 from mr_blip_tpu_torch.ops.int8_matmul import w8a8_attn_block, w8a8_linear, w8a8_mlp
@@ -51,6 +67,11 @@ class ViTConfig:
     # The float MLP's GELU as the tanh approximation (the int8 MLP's is
     # tanh whatever this says).
     fast_gelu: bool = False
+    # Stochastic depth: the rate of the last block (a linear ramp from 0 at
+    # block 0); sampled in train mode only.
+    drop_path_rate: float = 0.0
+    # Every block under gradient checkpointing.
+    use_checkpoint: bool = False
 
     @property
     def num_patches(self) -> int:
@@ -58,8 +79,16 @@ class ViTConfig:
 
 
 def eva_vit_g_config(img_size: int = 224, int8_matmul: bool = False,
-                     fast_gelu: bool = False) -> ViTConfig:
-    return ViTConfig(img_size=img_size, int8_matmul=int8_matmul, fast_gelu=fast_gelu)
+                     fast_gelu: bool = False, drop_path_rate: float = 0.0,
+                     use_checkpoint: bool = False) -> ViTConfig:
+    return ViTConfig(img_size=img_size, int8_matmul=int8_matmul, fast_gelu=fast_gelu,
+                     drop_path_rate=drop_path_rate, use_checkpoint=use_checkpoint)
+
+
+def drop_path_rates(cfg: ViTConfig) -> list[float]:
+    """Each block's stochastic-depth rate: ``drop_path_rate`` ramped
+    linearly from 0 at the first block to the full rate at the last."""
+    return [cfg.drop_path_rate * i / max(cfg.depth - 1, 1) for i in range(cfg.depth)]
 
 
 def vit_tiny_config(img_size: int = 28) -> ViTConfig:
@@ -156,8 +185,9 @@ class ViTAttention(nn.Module):
 
 
 class ViTBlock(nn.Module):
-    def __init__(self, cfg: ViTConfig, device=None, dtype=None):
+    def __init__(self, cfg: ViTConfig, drop_path: float = 0.0, device=None, dtype=None):
         super().__init__()
+        self.drop_path = DropPath(drop_path)
         self.norm1 = LayerNormFP32(cfg.embed_dim, 1e-6, device=device)
         self.attn = ViTAttention(cfg, device=device, dtype=dtype)
         self.norm2 = LayerNormFP32(cfg.embed_dim, 1e-6, device=device)
@@ -170,6 +200,9 @@ class ViTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.int8:
+            if self.drop_path.active_rate:
+                raise ValueError("the int8 ViT has no stochastic depth (drop_path); "
+                                 "train an unfrozen ViT with float weights")
             # Both pre-norms fold into the kernels' quantization step and both
             # skip adds ride their epilogues; norm1/norm2 only hold the
             # parameters.
@@ -177,16 +210,19 @@ class ViTBlock(nn.Module):
                                    _INT8_NORM_EPS))
             return self.mlp(x, norm=("ln", self.norm2.weight, self.norm2.bias,
                                      _INT8_NORM_EPS), residual=x)
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path(self.attn(self.norm1(x)))
+        return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
 class EvaViT(nn.Module):
-    """(B, H, W, C) NHWC images -> (B, 1 + num_patches, embed_dim) tokens."""
+    """(B, H, W, C) NHWC images -> (B, 1 + num_patches, embed_dim) tokens,
+    computed in ``dtype`` (the compute dtype) whatever the weights are
+    stored in."""
 
     def __init__(self, cfg: ViTConfig, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = dtype or torch.get_default_dtype()
         d = cfg.embed_dim
         self.patch_embed = nn.Conv2d(cfg.in_chans, d, cfg.patch_size,
                                      stride=cfg.patch_size, device=device,
@@ -195,15 +231,19 @@ class EvaViT(nn.Module):
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.num_patches + 1, d, device=device, dtype=dtype))
         self.blocks = nn.ModuleList(
-            [ViTBlock(cfg, device=device, dtype=dtype) for _ in range(cfg.depth)])
+            [ViTBlock(cfg, rate, device=device, dtype=dtype)
+             for rate in drop_path_rates(cfg)])
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        dtype = self.patch_embed.weight.dtype
-        x = self.patch_embed(images.to(dtype).permute(0, 3, 1, 2))
+        dtype = self.compute_dtype
+        conv = self.patch_embed
+        x = F.conv2d(images.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype),
+                     conv.bias.to(dtype), stride=conv.stride)
         b = x.shape[0]
         x = x.flatten(2).transpose(1, 2)  # (B, P, D), row-major over the grid
         x = torch.cat([self.cls_token.to(dtype).expand(b, -1, -1), x], dim=1)
         x = x + self.pos_embed.to(dtype)
+        checkpointed = self.cfg.use_checkpoint and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            x = remat(blk, x) if checkpointed else blk(x)
         return x

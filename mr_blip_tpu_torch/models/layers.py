@@ -57,7 +57,9 @@ class Dropout(nn.Module):
 
 class DropPath(Dropout):
     """Stochastic depth (timm ``drop_path``): drops a whole residual branch
-    per sample with probability ``rate``, survivors scaled by 1/(1-rate)."""
+    per sample (one draw for each index of the leading axis, the flat
+    ``B·T`` frame axis in the ViT) with probability ``rate``, survivors
+    scaled by 1/(1-rate). Identity in eval mode or at rate 0."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rate = self.active_rate
@@ -67,6 +69,22 @@ class DropPath(Dropout):
         keep = torch.rand(shape, generator=self.generator,
                           device=x.device) < 1.0 - rate
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def stream_seed(*parts: int) -> int:
+    """A generator seed from integer parts (splitmix64 over each), in which
+    every part reaches the low 32 bits: a CPU ``torch.Generator`` seeds from
+    those alone, a CUDA one from all 64."""
+    x = 0
+    for part in parts:
+        x = (x + part + 0x9E3779B97F4A7C15) & _MASK64
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+        x ^= x >> 31
+    return x
 
 
 def set_dropout_generator(root: nn.Module, generator: torch.Generator | None):

@@ -44,7 +44,7 @@ from typing import Iterable, Optional
 import torch
 
 from mr_blip_tpu_torch.common import dist as dist_utils
-from mr_blip_tpu_torch.models.layers import set_dropout_generator
+from mr_blip_tpu_torch.models.layers import set_dropout_generator, stream_seed
 from mr_blip_tpu_torch.parallel import mesh
 
 
@@ -176,7 +176,7 @@ class TrainCtx:
         """Forward and backward of one micro-batch in train mode; every
         ``accum_grad_iters``-th call also updates the weights. Returns the
         micro-batch's loss, over every rank's rows under a process group."""
-        self.generator.manual_seed((self.seed << 32) + self.calls + (self.stream << 56))
+        self.generator.manual_seed(stream_seed(self.seed, self.stream, self.calls))
         self.model.train()
         loss_sum, count = self.model.loss_terms(batch)
         if self.distributed:

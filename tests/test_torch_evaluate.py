@@ -72,7 +72,8 @@ PORT_KEYS = ("img_size", "vit_model", "t5_model", "tokenizer_path", "num_query_t
              "input_time_format", "task", "num_frames_for_answer", "resample_frames",
              "relpos_in_kernel",
              "compute_dtype", "init_params", "vocab_size", "use_grad_checkpoint",
-             "sequence_parallel", "interleave_data", "frame_token_aggregation", "fast_gelu")
+             "sequence_parallel", "interleave_data", "frame_token_aggregation", "fast_gelu",
+             "freeze_vit", "drop_path_rate")
 
 
 @pytest.mark.parametrize("path,options", [
@@ -110,7 +111,8 @@ def test_from_config_constructor_values_equal_jax(path, options):
                  id="interleave_data-False-Variants of BLIP2_MR"),
     pytest.param("frame_token_aggregation", "mean", None,
                  id="frame_token_aggregation-mean-Variants of BLIP2_MR"),
-    ("freeze_vit", False, "The unfrozen-ViT train path"),
+    # ported ("The unfrozen-ViT train path"): builds the model whose ViT trains
+    pytest.param("freeze_vit", False, None, id="freeze_vit-False-The unfrozen-ViT train path"),
     pytest.param("fast_gelu", True, None, id="fast_gelu-True-Variants of BLIP2_MR"),
     # ported ("Parallelism"): builds a model that shares its frames out
     pytest.param("sequence_parallel", True, None, id="sequence_parallel-True-Parallelism"),
@@ -126,6 +128,16 @@ def test_from_config_unsupported_settings_raise(key, value, item):
         assert model.module.tokens_per_frame == (1 if key == "frame_token_aggregation"
                                                  else 4)
         assert model.vit_config.fast_gelu == (key == "fast_gelu")
+    elif key == "freeze_vit":
+        model = BLIP2_MR.from_config(cfg, device="cpu")
+        mask = model.trainable_mask()
+        assert not model.freeze_vit and key in BLIP2_MR.SUPPORTED_CONFIG
+        vit = [n for n in mask if n.startswith("visual_encoder.")]
+        assert vit and all(mask[n] for n in vit)
+        assert all(mask[n] == ("lora_" in n) for n in mask if n.startswith("t5."))
+        model.set_trainable()
+        assert all(p.requires_grad and p.dtype == torch.float32
+                   for p in model.module.visual_encoder.parameters())
     elif key == "sequence_parallel":
         model = BLIP2_MR.from_config(cfg, device="cpu")
         assert model.sequence_parallel and model.module.sequence_parallel
@@ -141,7 +153,7 @@ def test_from_config_unsupported_settings_raise(key, value, item):
     else:
         with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
             BLIP2_MR.from_config(cfg, device="cpu")
-    assert set(BLIP2_MR.UNSUPPORTED_CONFIG) == {"freeze_vit"}
+    assert set(BLIP2_MR.UNSUPPORTED_CONFIG) == set()
 
 
 @pytest.mark.parametrize("path", ["configs/projects/eval/nextGQA.yaml",
@@ -213,6 +225,9 @@ def test_from_config_reads_every_key_the_jax_one_reads(caplog):
     port_keys = (set(BLIP2_MR.UNSUPPORTED_CONFIG) | set(BLIP2_MR.IGNORED_CONFIG)
                  | set(BLIP2_MR.SUPPORTED_CONFIG))
     assert jax_keys <= port_keys
+    # the ViT's stochastic depth reaches the model since the unfrozen ViT trains
+    assert "drop_path_rate" in BLIP2_MR.SUPPORTED_CONFIG
+    assert "drop_path_rate" not in BLIP2_MR.IGNORED_CONFIG
     cfg, _ = _model_cfg("configs/projects/train/tiny_synthetic.yaml",
                         ("model.no_such_key=1",))
     with caplog.at_level(logging.WARNING):

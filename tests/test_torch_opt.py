@@ -336,7 +336,6 @@ def test_from_config_opt_charades_equals_jax(caplog):
     with caplog.at_level("WARNING"):
         got = _constructor_kwargs(BLIP2_MR_OPT, cfg, device="cpu")
     assert got.pop("device") == "cpu"
-    want.pop("freeze_vit")
     assert got == want
     assert got["opt_model"] == "opt-2.7b" and got["num_beams"] == 1
     assert got["min_new_tokens"] == 5
@@ -350,8 +349,13 @@ def test_from_config_opt_charades_equals_jax(caplog):
     assert model.opt_config.vocab_size == model.tokenizer.vocab_size
     assert model.opt_config.lora_rank == 8 and model.num_beams == 1
     cfg.freeze_vit = False
-    with pytest.raises(NotImplementedError, match='"The unfrozen-ViT train path"'):
-        BLIP2_MR_OPT.from_config(cfg, device="cpu")
+    model = BLIP2_MR_OPT.from_config(cfg, device="cpu")
+    mask = model.trainable_mask()
+    assert not model.freeze_vit
+    # qformer_freeze_lora: the ViT and the OPT's LoRA tensors train
+    assert all(m == (n.startswith("visual_encoder.") or "lora_" in n)
+               for n, m in mask.items())
+    assert all(blk.drop_path.rate == 0.0 for blk in model.module.visual_encoder.blocks)
 
 
 def test_train_ctx_steps_the_opt_model(_jax_keeps_uint8, opt_pair):

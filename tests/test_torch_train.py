@@ -389,3 +389,18 @@ def test_model_dropouts_follow_train_mode_and_generator():
         port.eval()
         assert float(port.loss(batch)) == eval_loss
     assert a == b and a != c and a != eval_loss
+
+
+def test_train_ctx_seed_and_rank_reach_the_cpu_dropout_stream():
+    """A CPU generator seeds from the low 32 bits only: the run seed, the
+    rank's stream and the call index must each move the masks there."""
+    batch = None
+    losses = {}
+    for seed, stream in ((0, 0), (1, 0), (0, 1)):
+        port = BLIP2_MR(**TINY, device="cpu", task="lora", seed=2)
+        batch = batch or port.prepare_mr_batch(_samples(b=2, seed=10))
+        ctx = TrainCtx(port, accum_grad_iters=2, seed=seed)
+        ctx.stream = stream
+        losses[seed, stream] = [ctx.step(batch), ctx.step(batch)]
+    assert len({v[0] for v in losses.values()}) == 3
+    assert all(a != b for a, b in losses.values())
