@@ -380,6 +380,23 @@ is nonzero and the final line is not printed:
     (kernels 1, 2 and 1, 4 under autograd): the card's loss and every
     trainable gradient against the CPU's plain path in bf16, loss within
     1e-2 relative, every cosine >= 0.99 (phase 7's bars).
+25. the real vocabulary, the offline scorer and the asset-day gates. (a)
+    The committed tokenizer directories (``tests/data/torch_tokenizer/``:
+    the JAX fixture, the Flan-T5-shaped one with its precompiled charsmap,
+    OPT's byte-level BPE) through the port's own reader: every golden
+    string's ids and decodes equal to those ``transformers`` wrote into
+    ``ids.json``, and no ``transformers``, ``tokenizers``, ``sentencepiece``
+    or ``regex`` in the process. (b) The flagship built with
+    ``tokenizer_path`` (the Flan-T5-shaped directory: 32,128 rows, phase 4's
+    geometry, so the seed draws phase 4's weights, checksummed), one 4 x 60
+    batch of phase 4's samples: kernels 1-3 110 / 39 / 24, the encoder
+    length 2,024 (prompt 2,017; phase 3 holds kernel 3 there), the spans
+    parse; the host's prompt preparation a batch beside the mock's. (c)
+    ``python -m mr_blip_tpu_torch.standalone_eval`` on the committed QVH
+    goldens (``qvh_expected.json`` exactly) and ``python -m
+    mr_blip_tpu_torch.asset_gates`` on two ``log.txt`` files of phase 16's
+    metrics (int8 drift gate exit 0, baseline gate exit 1), in processes of
+    their own.
 
 Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
 (4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
@@ -402,7 +419,8 @@ masked) and at phase 23's ``only_frames`` length (1 x 1,992), the W8A8 linear at
 ((162,480, 1,408) x 4,224 with LN and bias, x 1,408 with the residual) and
 the W8A8 GELU MLP at (162,480, 1,408, 6,144). The biased flash forward is also
 held at phase 18's encoder lengths, batch 1: 2,088 (the localizer) and 2,024
-(the answerer, its last 5 keys masked). LayerNorm is also held at phase 19's
+(the answerer, its last 5 keys masked), and at phase 25's, 4 x 2,024 (the
+last 7 keys masked). LayerNorm is also held at phase 19's
 OPT shapes, width 2,560 through its generic 16-byte kernel: the prefill's
 1,988 rows and a decode step's single row, each timed beside ``F.layer_norm``
 and its bound, and, since an event pair around so short a call times the
@@ -422,7 +440,7 @@ generates; ``qlora_launches`` from phase 21's two runs (their micro-batches
 and the resumed run's generates); ``dp_launches`` per micro-batch on one
 rank in phase 22 (a); ``variant_launches`` from phase 23 (c)'s four
 full-width batches; ``unfrozen_launches`` per micro-batch of phase 24 (a);
-each count is taken with the counts set to 0 just before its path runs); the
+``vocab_launches`` from phase 25 (b)'s batch; each count is taken with the counts set to 0 just before its path runs); the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -648,6 +666,15 @@ DP_WINDOWS = ("[[10, 25]]", "[[10, 25], [30, 42], [100, 120]]")
 # tokens, 60 x 32 frame tokens, the end's 2 and the text's 64, padded to a
 # multiple of 8): phase 3 holds kernel 3 at it, and phase 23 must show it.
 ONLY_FRAMES_ENCODER_LENGTH = 1992
+# Phase 25, the real vocabulary. The committed tokenizer directories (the
+# JAX fixture, the Flan-T5-shaped one, OPT's BPE) and the prompt of phase
+# 4's 4 x 60 batch under the Flan-T5-shaped one: 1,984 interleaved tokens
+# (64 timestamp pieces, 60 x 32 frame tokens), the end's 1 and the text's 32
+# (the mock's 64), padded to a multiple of 8; phase 3 holds kernel 3 there
+# with the last 7 keys masked.
+VOCAB_DIRS = ("fixture_t5", "flan_t5", "opt_bpe")
+VOCAB_PROMPT_TOKENS, VOCAB_ENCODER_LENGTH = 2017, 2024
+TOKENIZE_REPS = 20
 # Frames of the depth-2 card-vs-CPU runs (only_frames 328 tokens, fast_gelu
 # past 256: kernel 3 on the card; mean and blip2_fmr stay under 256).
 VARIANT_CPU_FRAMES = 8
@@ -872,6 +899,10 @@ def check_kernels(torch, kernels):
                                          # phase 23's only_frames prompt
                                          (1, ONLY_FRAMES_ENCODER_LENGTH,
                                           ONLY_FRAMES_ENCODER_LENGTH, None, False),
+                                         # phase 25's flagship under the
+                                         # Flan-T5-shaped tokenizer
+                                         (4, VOCAB_ENCODER_LENGTH, VOCAB_ENCODER_LENGTH,
+                                          "vocab_pad", False),
                                          (2, 300, 300, None, False),
                                          (2, 300, 300, "row1_all", False)):
         q = randn(b, n, heads, d)
@@ -886,6 +917,9 @@ def check_kernels(torch, kernels):
                        < QA_ENCODER_TOKENS).to(torch.int8)
         elif mask_kind == "entry_pad":
             kv_mask = (torch.arange(m, device=dev)[None].expand(b, m) < m - 5).to(torch.int8)
+        elif mask_kind == "vocab_pad":
+            kv_mask = (torch.arange(m, device=dev)[None].expand(b, m)
+                       < VOCAB_PROMPT_TOKENS).to(torch.int8)
         elif mask_kind == "row1_all":
             kv_mask = torch.ones(b, m, dtype=torch.int8, device=dev)
             kv_mask[1] = 0
@@ -1912,6 +1946,7 @@ def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None,
     torch.cuda.synchronize()
     say(f"model built with random weights in {time.time() - t0:.1f} s; "
         f"{sum(p.numel() for p in model.module.parameters()) / 1e9:.3f} B params")
+    weight_sums = weight_checksums(torch, model)
     if int8:
         t0 = time.time()
         model.quantize_for_inference()
@@ -2001,6 +2036,7 @@ def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None,
         "before the batches); stage peaks above their start "
         + ", ".join(f"{k} {v:.2f}" for k, v in stage_peak.items()) + " GiB")
     summary = dict(stage, steady_s=steady, first_s=seconds[0], peak_gib=peak / 2**30,
+                   weight_checksums=weight_sums,
                    decode_steps=len(steps), encoder_length=enc.shape[1])
     del model, enc, frames
     torch.cuda.empty_cache()
@@ -2781,7 +2817,7 @@ def evaluation_entry_point(torch, wrappers, card):
     del model, calls
     torch.cuda.empty_cache()
     return launches, dict(steady_s=steady, first_s=seconds[0], wall_s=wall,
-                          peak_gib=(peak - resident) / 2**30)
+                          peak_gib=(peak - resident) / 2**30, metrics=metrics)
 
 
 def tal_entry_point(torch, wrappers, model, calls, tapped_dispatch):
@@ -5345,6 +5381,180 @@ def unfrozen_vit_vs_plain(torch, wrappers, card):
     say(f"phase 24 (b): {time.time() - start:.1f} s")
 
 
+def weight_checksums(torch, model):
+    """Checksums of every eighth parameter tensor: two models drawn from one
+    seed at one geometry give the same."""
+    params = list(model.module.parameters())
+    return checksums(torch, params[::8])
+
+
+def vocabulary_entry_point(torch, wrappers, card, phase4, eval_metrics):
+    """Phase 25: (a) each committed tokenizer directory of
+    ``tests/data/torch_tokenizer/`` through the port's own reader
+    (``HFT5Tokenizer``): every golden string's ids (with and without special
+    tokens) and decodes (with and without ``skip_special_tokens``) equal to
+    what ``transformers`` wrote into ``ids.json``, the vocabulary size and
+    special ids too, ``check_vocab``'s facts on the Flan-T5-shaped one, and
+    no ``transformers``, ``tokenizers``, ``sentencepiece`` or ``regex`` in
+    the process. (b) The flagship under ``tokenizer_path`` (the
+    Flan-T5-shaped directory; 32,100 pieces padded to 128: 32,128 rows,
+    phase 4's geometry, so the seed draws phase 4's weights, checksummed),
+    one 4 x 60 batch of phase 4's samples: kernels 1-3 launch what phase 4's
+    batches launch, the encoder length is the one phase 3 held kernel 3 at,
+    the spans parse; the host's tokenize time a batch beside the mock's.
+    (c) ``python -m mr_blip_tpu_torch.standalone_eval`` on the committed QVH
+    goldens (``qvh_expected.json`` exactly) and ``python -m
+    mr_blip_tpu_torch.asset_gates`` on two ``log.txt`` files holding phase
+    16's metrics: the int8 drift gate passes (exit 0), the baseline gate
+    fails (exit 1: random weights). Returns the launch counts of (b)."""
+    import tempfile
+
+    from mr_blip_tpu_torch.profile_inference import make_samples
+    from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
+    from mr_blip_tpu_torch.text.timestamps import (
+        find_annoying_numbers,
+        find_annoying_numbers_replacement_dict,
+    )
+    from mr_blip_tpu_torch.text.tokenizer import HFT5Tokenizer, MockT5Tokenizer
+    from mr_blip_tpu_torch.text.vocab_facts import check_vocab
+
+    phase_start = time.time()
+    data = ROOT / "tests" / "data" / "torch_tokenizer"
+    goldens = json.loads((data / "ids.json").read_text(encoding="utf-8"))
+    for name in VOCAB_DIRS:
+        t0 = time.perf_counter()
+        tok = HFT5Tokenizer(str(data / name))
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        want = goldens[name]
+        got = (tok.vocab_size, tok.pad_token_id, tok.eos_token_id, tok.unk_token_id)
+        require(got == (want["vocab_size"], want["pad_token_id"], want["eos_token_id"],
+                        want["unk_token_id"]), f"tokenizer {name}: vocab and ids {got}")
+        bad = [c["text"] for c in want["cases"]
+               if tok.encode(c["text"]) != c["ids"]
+               or tok.encode(c["text"], add_special_tokens=False) != c["ids_plain"]
+               or tok.decode(c["ids"]) != c["decode"]
+               or tok.decode(c["ids"], skip_special_tokens=True) != c["decode_skip"]]
+        require(not bad, f"tokenizer {name}: ids or decodes differ from transformers' on {bad}")
+        say(f"tokenizer {name}: {len(want['cases'])} golden strings, ids and decodes "
+            f"equal to transformers'; vocab {tok.vocab_size}, pad/eos/unk {got[1:]}; "
+            f"read in {load_ms:.1f} ms")
+    facts = check_vocab(HFT5Tokenizer(str(data / "flan_t5")))
+    require(not facts["failures"], f"check_vocab: {facts['failures']}")
+    say(f"check_vocab (flan_t5): answer ids {facts['answer_ids']}, extra ids "
+        f"{facts['extra_ids']}, annoying {facts['annoying']} / {facts['annoying_space']}")
+    # (b) the flagship under the tokenizer directory
+    t0 = time.time()
+    model = flagship_model(tokenizer_path=str(data / "flan_t5"), vocab_size=None)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    require(model.t5_config.vocab_size == 32128
+            and model.answer_ids == [71, 272, 205, 309, 262]
+            and type(model.tokenizer) is HFT5Tokenizer,
+            f"phase 25: vocabulary {model.t5_config.vocab_size}, answer ids "
+            f"{model.answer_ids}, tokenizer {type(model.tokenizer).__name__}")
+    require(weight_checksums(torch, model) == phase4["weight_checksums"],
+            "phase 25: the weights differ from phase 4's")
+    samples = make_samples(BATCH, N_FRAMES, 0)
+    mock = MockT5Tokenizer()
+    mock_remap = find_annoying_numbers_replacement_dict(find_annoying_numbers(mock, 200)[0])
+
+    def tokenize_ms(tok, remap):
+        saved = model.tokenizer, model.annoying_numbers_replacement_dict
+        model.tokenizer, model.annoying_numbers_replacement_dict = tok, remap
+        try:
+            times = []
+            for _ in range(TOKENIZE_REPS):
+                t = time.perf_counter()
+                model.prepare_mr_batch(samples, need_targets=False)
+                times.append(1e3 * (time.perf_counter() - t))
+            return statistics.median(times)
+        finally:
+            model.tokenizer, model.annoying_numbers_replacement_dict = saved
+
+    real_ms = tokenize_ms(model.tokenizer, model.annoying_numbers_replacement_dict)
+    mock_ms = tokenize_ms(mock, mock_remap)
+    batch = model.prepare_mr_batch(samples, need_targets=False)
+    prompt = (batch["int_mask"].shape[1] + batch["end_ids"].shape[1]
+              + batch["text_ids"].shape[1])
+    length = -(-prompt // 8) * 8
+    require((prompt, length) == (VOCAB_PROMPT_TOKENS, VOCAB_ENCODER_LENGTH),
+            f"phase 25: prompt {prompt} tokens, encoder length {length}; phase 3 held "
+            f"kernel 3 at {VOCAB_ENCODER_LENGTH} ({VOCAB_PROMPT_TOKENS} keys)")
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    handle = model.generate_dispatch(samples)
+    out = model.generate_collect(handle)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    require(launches == EXPECTED_LAUNCHES, f"phase 25: launches {launches}, "
+            f"expected {EXPECTED_LAUNCHES}")
+    scores = handle["scores"].float().cpu()
+    require(bool(torch.isfinite(scores).all()), "phase 25: beam scores not finite")
+    require(len(out["prediction"]) == BATCH, "phase 25: wrong number of predictions")
+    for p in out["prediction"]:
+        moment_str_to_list(p)
+    say(f"flagship under tokenizer_path=tests/data/torch_tokenizer/flan_t5 (vocabulary "
+        f"32,128, phase 4's weights; built in {build_s:.1f} s): B={BATCH} x {N_FRAMES} "
+        f"frames, prompt {prompt} tokens, encoder length {length} (the mock's phase 4 "
+        f"{phase4['encoder_length']}); generate {seconds:.3f} s (first batch of this model; "
+        f"phase 4 steady {phase4['steady_s']:.3f} s, first {phase4['first_s']:.3f} s); "
+        f"launches { {k: v for k, v in launches.items() if v} }; predictions "
+        f"{out['prediction']}")
+    say(f"host tokenize (prepare_mr_batch, 4 x 60, median of {TOKENIZE_REPS}): "
+        f"Flan-T5-shaped tokenizer {real_ms:.2f} ms/batch vs mock {mock_ms:.2f} ms/batch; "
+        f"{card}")
+    del model, handle, out
+    torch.cuda.empty_cache()
+
+    # (c) the offline scorer and the asset-day gates, each a process
+    golden = ROOT / "tests" / "data" / "golden"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        row = {f"test_{k}": v for k, v in eval_metrics.items()}
+        for tag in ("bf16", "int8"):
+            (tmp / tag / "job").mkdir(parents=True)
+            (tmp / tag / "job" / "log.txt").write_text(json.dumps(row, default=float) + "\n")
+        commands = {
+            "scorer": (["-m", "mr_blip_tpu_torch.standalone_eval", "--submission_path",
+                        str(golden / "qvh_submission.jsonl"), "--gt_path",
+                        str(golden / "qvh_gt.jsonl"), "--save_path", str(tmp / "qvh.json"),
+                        "--not_verbose"], 0),
+            "int8 gate": (["-m", "mr_blip_tpu_torch.asset_gates", "int8", str(tmp / "bf16"),
+                           str(tmp / "int8")], 0),
+            "baseline gate": (["-m", "mr_blip_tpu_torch.asset_gates", "baseline",
+                               str(tmp / "bf16"), "1.0"], 1),
+        }
+        t0 = time.time()
+        procs = {name: subprocess.Popen([sys.executable, *argv], cwd=ROOT, text=True,
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                 for name, (argv, _) in commands.items()}
+        for name, proc in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=300)
+            finally:
+                proc.kill()
+            require(proc.returncode == commands[name][1],
+                    f"phase 25: {name} exited {proc.returncode}, expected "
+                    f"{commands[name][1]}: {stdout[-1000:]} {stderr[-2000:]}")
+            if name != "scorer":
+                say(f"asset_gates {name} (phase 16's metrics): exit {proc.returncode}; "
+                    + " | ".join(line.strip() for line in stdout.splitlines()))
+        got = json.loads((tmp / "qvh.json").read_text())
+        require(got == json.loads((golden / "qvh_expected.json").read_text()),
+                "phase 25: the scorer's output differs from qvh_expected.json")
+        say(f"python -m mr_blip_tpu_torch.standalone_eval on the QVH goldens: equal to "
+            f"qvh_expected.json (brief {json.dumps(got['brief'])}); three processes "
+            f"{time.time() - t0:.1f} s")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "transformers", "tokenizers", "sentencepiece", "regex", "jax", "flax"))
+    require(not loaded, f"phase 25: {loaded} imported")
+    say(f"[{card}] phase 25: {time.time() - phase_start:.1f} s; no transformers, tokenizers, "
+        "sentencepiece, regex, jax or flax in the process")
+    return launches
+
+
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
     the ``kernels`` line (source in the port, TPU kernel replaced)."""
@@ -5558,6 +5768,12 @@ def main():
     unfrozen_launches = unfrozen_vit_entry_point(torch, wrappers, smi)
     unfrozen_vit_vs_plain(torch, wrappers, smi)
     done(24)
+    # phase 25: the real vocabulary (the committed tokenizer directories
+    # through the port's reader, the flagship under the Flan-T5-shaped one
+    # on phase 4's weights), the offline scorer and the asset-day gates
+    vocab_launches = vocabulary_entry_point(torch, wrappers, smi, bf16_summary,
+                                            eval_summary["metrics"])
+    done(25)
 
     for key, entry in kernels.items():
         if key == "flash_attention":
@@ -5584,13 +5800,15 @@ def main():
         entry["dp_launches"] = dp_launches[key]
         entry["variant_launches"] = variant_launches[key]
         entry["unfrozen_launches"] = unfrozen_launches[key]
+        entry["vocab_launches"] = vocab_launches[key]
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "train_entry_launches", "qa_entry_launches",
                                "opt_entry_launches", "serve_launches", "qlora_launches",
-                               "dp_launches", "variant_launches", "unfrozen_launches")}
+                               "dp_launches", "variant_launches", "unfrozen_launches",
+                               "vocab_launches")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -2,9 +2,10 @@
 
 Two implementations behind one interface:
 
-* :class:`HFT5Tokenizer` — wraps a HuggingFace ``T5TokenizerFast`` loaded
-  from a **local** path (this environment has no network egress; the real
-  flan-t5 vocab ships with deployment checkpoints).
+* :class:`HFT5Tokenizer` — reads a HuggingFace tokenizer directory from a
+  **local** path (Flan-T5's ``tokenizer.json``, or OPT's ``vocab.json`` +
+  ``merges.txt``) with the port's own reader, giving what
+  ``AutoTokenizer`` gives; nothing is downloaded.
 * :class:`MockT5Tokenizer` — deterministic SentencePiece-like tokenizer for
   tests and benchmarks.  It reproduces the *structural* properties the
   Mr. BLIP prompt pipeline depends on (reference blip2_mr.py:1497-1608):
@@ -22,6 +23,8 @@ import re
 from typing import List, Sequence
 
 import numpy as np
+
+from mr_blip_tpu_torch.text.tokenizer_json import HFDirectory
 
 
 class BatchEncoding(dict):
@@ -83,29 +86,48 @@ class TokenizerBase:
 
 
 class HFT5Tokenizer(TokenizerBase):
-    """Adapter over a locally stored HF T5 tokenizer."""
+    """A locally stored HF tokenizer directory (Flan-T5's ``tokenizer.json``,
+    OPT's ``vocab.json`` + ``merges.txt``), read by the port's own reader
+    (``text/tokenizer_json.py``): the ids, decodes, special ids and
+    ``vocab_size`` that ``AutoTokenizer`` gives (``T5TokenizerFast``,
+    ``GPT2TokenizerFast``), with no ``transformers``, ``tokenizers`` or
+    ``sentencepiece``."""
 
     def __init__(self, path: str):
-        import os
+        self._dir = HFDirectory(path)
+        self._pipeline = self._dir.pipeline
+        specials = self._dir.specials
+        self.pad_token_id = self._special_id(specials.get("pad_token"))
+        self.eos_token_id = self._special_id(specials.get("eos_token"))
+        self.unk_token_id = self._special_id(specials.get("unk_token"))
+        self.vocab_size = self._pipeline.vocab_size
 
-        os.environ.setdefault("HF_HUB_OFFLINE", "1")
-        os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
-        from transformers import AutoTokenizer
-
-        self._tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
-        self.pad_token_id = self._tok.pad_token_id
-        self.eos_token_id = self._tok.eos_token_id
-        self.unk_token_id = self._tok.unk_token_id
-        self.vocab_size = self._tok.vocab_size
+    def _special_id(self, token):
+        return None if token is None else self.convert_tokens_to_ids(token)
 
     def encode(self, text, add_special_tokens=True):
-        return self._tok.encode(text, add_special_tokens=add_special_tokens)
+        return self._pipeline.encode(text, add_special_tokens=add_special_tokens)
 
     def decode(self, ids, skip_special_tokens=False):
-        return self._tok.decode(ids, skip_special_tokens=skip_special_tokens)
+        text = self._pipeline.decode([int(i) for i in ids],
+                                     skip_special_tokens=skip_special_tokens)
+        if self._dir.clean_up_tokenization_spaces:
+            for before, after in _CLEAN_UP:
+                text = text.replace(before, after)
+        return text
 
     def convert_tokens_to_ids(self, token):
-        return self._tok.convert_tokens_to_ids(token)
+        idx = self._pipeline.token_to_id(token)
+        if idx is None:
+            unk = self._dir.specials.get("unk_token")
+            idx = None if unk is None else self._pipeline.token_to_id(unk)
+        return idx
+
+
+# ``PreTrainedTokenizerBase.clean_up_tokenization``, in its order.
+_CLEAN_UP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+             (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"),
+             (" 're", "'re"))
 
 
 class MockT5Tokenizer(TokenizerBase):

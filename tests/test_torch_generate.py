@@ -191,8 +191,11 @@ def test_span_grammar_copy_matches():
 
 # --------------------------------------------------------- import rules
 def test_port_imports_no_jax_or_triton():
-    """Nor pyyaml, scikit-learn, transformers, peft or safetensors, which
-    the card's machine lacks: the configs are read and every module of the
+    """Nor pyyaml, scikit-learn, transformers, tokenizers, sentencepiece,
+    regex, peft or safetensors, which the card's machine lacks: the configs
+    are read, models built under the committed Flan-T5-shaped and OPT BPE
+    tokenizer directories, ``port_weights`` run with ``--tokenizer-path``,
+    the scorer, gates and asset-day modules imported, and every module of the
     evaluation, train and serving entry points imported (data and sequence
     parallelism with them), the grounded-QA and TAL tasks, the OPT variant,
     ``blip2_fmr``, the checkpoint import (``models/port.py``,
@@ -231,9 +234,26 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.serve, mr_blip_tpu_torch.models\n"
         "import mr_blip_tpu_torch.models.port, mr_blip_tpu_torch.port_weights\n"
         "import mr_blip_tpu_torch.models.blip2_fmr\n"
+        "import mr_blip_tpu_torch.text.tokenizer_json, mr_blip_tpu_torch.text.bpe\n"
+        "import mr_blip_tpu_torch.text.precompiled_charsmap\n"
+        "import mr_blip_tpu_torch.text.vocab_facts, mr_blip_tpu_torch.standalone_eval\n"
+        "import mr_blip_tpu_torch.asset_gates, mr_blip_tpu_torch.asset_day\n"
         "from mr_blip_tpu_torch.models import load_model\n"
         "load_model('blip2_mr', 'tiny', device='cpu')\n"
         "load_model('blip2_fmr', 'tiny', device='cpu')\n"
+        "tok = 'tests/data/torch_tokenizer/'\n"
+        "m = load_model('blip2_mr', 'tiny', device='cpu', tokenizer_path=tok + 'flan_t5')\n"
+        "assert m.answer_ids == [71, 272, 205, 309, 262], m.answer_ids\n"
+        "assert m.tokenizer.encode('[[10, 25]]')[-1] == 1\n"
+        "from mr_blip_tpu_torch.models.blip2_mr_opt import BLIP2_MR_OPT\n"
+        "m = BLIP2_MR_OPT(opt_model='tiny', vit_model='tiny', img_size=28, device='cpu', "
+        "tokenizer_path=tok + 'opt_bpe')\n"
+        "assert m.tokenizer.encode('Query')[0] == 2\n"
+        "import tempfile, os\n"
+        "from mr_blip_tpu_torch import port_weights\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    port_weights.main(['--model-type', 'tiny', '--device', 'cpu', "
+        "'--tokenizer-path', tok + 'fixture_t5', '--output', os.path.join(d, 'x.pth')])\n"
         "from mr_blip_tpu_torch.common.config import Config\n"
         "Config(cfg_path='configs/projects/eval/anet_TAL.yaml')\n"
         "Config(cfg_path='configs/projects/eval/opt_charades.yaml')\n"
@@ -245,7 +265,7 @@ def test_port_imports_no_jax_or_triton():
         "VideoReader('synthetic://8x16x16').get_batch_async([0, 1]).result()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu', 'yaml', 'sklearn', "
-        "'transformers', 'peft', 'safetensors')]\n"
+        "'transformers', 'peft', 'safetensors', 'tokenizers', 'sentencepiece', 'regex')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
