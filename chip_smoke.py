@@ -141,8 +141,8 @@ is nonzero and the final line is not printed:
 12. long context, kernel path vs plain path: the depth-2 full-width
     ``relpos_in_kernel`` model (weights as in phase 7), one forward and
     backward on the card and on the CPU in bf16: ``qformer_freeze_lora`` at
-    1 x 24 frames (also against the card's own ``relpos_in_kernel=False``
-    run of the same weights) and ``qformer_freeze`` at 1 x 24 frames (the
+    1 x 16 frames (also against the card's own ``relpos_in_kernel=False``
+    run of the same weights) and ``qformer_freeze`` at 1 x 16 frames (the
     rel-pos table trains: kernel 11 launches once per encoder layer and the
     table's gradient is compared with the plain path's); T5 encoder rows
     cosine >= 0.999, loss and gradients within phase 7's bars. Then the fp32
@@ -283,11 +283,12 @@ is nonzero and the final line is not printed:
 21. QLoRA-style training: ``mr_blip_tpu_torch.train.main`` on
     ``configs/projects/train/qvh.yaml`` with ``model.int8_base=True
     model.int8_vit=True`` (the T5 base weight-only int8 under the LoRA
-    deltas, the ViT on the W8A8 kernels; random weights) over 10 synthetic
+    deltas, the ViT on the W8A8 kernels; random weights) over 4 synthetic
     train queries, one val and one test, micro-batches of 1 x 60 frames
-    under ``use_grad_checkpoint``, 8 to an update. A first run is SIGTERMed
-    from a thread of this process after 9 micro-batches (one update and one
-    micro-batch into the next window): it must exit 143 with a
+    under ``use_grad_checkpoint``, 2 to an update (``run.accum_grad_iters``;
+    10 queries and qvh.yaml's 8 until phase 26 came). A first run is
+    SIGTERMed from a thread of this process after 3 micro-batches (one
+    update and one micro-batch into the next window): it must exit 143 with a
     ``resume_state.pth`` of ``epoch_complete`` False; a second, resuming from
     it, must load the weights (every ``kernel_q`` among them), AdamW state,
     counters and partial gradients bit for bit, log ``(epoch 0)``, re-run the
@@ -308,9 +309,10 @@ is nonzero and the final line is not printed:
     ``gloo`` (``run.dist_backend=gloo``: NCCL refuses two ranks on one
     device), each launch under a subprocess timeout and a group timeout.
     (a) ``mr_blip_tpu_torch.train`` on ``configs/projects/train/qvh.yaml``
-    as published over phase 17's synthetic annotations (8 train, 2 val, 2
-    test queries), one epoch, ``accum_grad_iters`` 4: each rank takes 4
-    micro-batches of 1 x 60 frames, one update over the 8 rows. Gates: every
+    as published over synthetic annotations (4 train, 1 val, 1 test query;
+    8 train and 2 of each until phase 26 came), one epoch, ``accum_grad_iters`` 2: each
+    rank takes 2 micro-batches of 1 x 60 frames, one update over the 4 rows.
+    Gates: every
     trainable tensor bit-equal across the ranks after the run (all-gathered
     fingerprints), every frozen one bit-equal to its value as built; each
     rank's micro-batch launches phase 17's counts (kernel 5 48, 6 and 8 24,
@@ -367,7 +369,8 @@ is nonzero and the final line is not printed:
     ``configs/projects/train/qvh.yaml`` as published with
     ``model.freeze_vit=False``: the EVA ViT-g trains (fp32 masters cast to
     bf16 at use, stochastic depth ramped to 0.4, every block checkpointed),
-    8 synthetic train queries (one update over 8 micro-batches of 1 x 60),
+    4 synthetic train queries (one update over 4 micro-batches of 1 x 60, 8
+    until phase 26 came),
     one val query. Gates: every ViT tensor moved, every frozen tensor (T5
     base, Q-Former) bit-equal, every loss finite, per micro-batch LayerNorm
     188 and packed QKV 78 (forward and recompute: bf16 reaches kernel 2
@@ -397,6 +400,48 @@ is nonzero and the final line is not printed:
     mr_blip_tpu_torch.asset_gates`` on two ``log.txt`` files of phase 16's
     metrics (int8 drift gate exit 0, baseline gate exit 1), in processes of
     their own.
+26. tensor parallelism and the dp server on the one card. (a) Two ranks of
+    one tensor-parallel group (``run.tp=2``, dp 1) under
+    ``python -m torch.distributed.run`` (``--dp-worker tp``), both on the
+    card over gloo, every T5 attention on 16 of its 32 heads, the FFN on
+    2,560 of its 5,120 columns (the row-parallel partial products summed in
+    fp32 and rounded once), the LM head's logits gathered. First, on the
+    card alone, ``layers._RowProduct`` (bf16 operands, fp32 out) at a rank's
+    FFN output shape against the fp32 product (1e-5 of its max) and its
+    backward against ``F.linear``'s. Then phase 4's model (full depth and
+    width, seed 0) in fp32 on 1 x 60 frames, its encoder states and first
+    decode step's logits: rank 0 alone on the unsharded model, plain and
+    with its ``o`` / ``wo`` sums split in two as tp splits them (a noise
+    baseline, printed), then both ranks sharded with a synchronize around
+    each collective (their milliseconds by size): the ranks' logits
+    bit-equal, encoder states and logits cosine >= 0.999 against the plain
+    run (24 random-weight layers amplify fp32 rounding: the beams are
+    compared at depth 2, where they are equal). The depth-2 model at full width, dropout 0, in bf16 and in fp32:
+    a 1 x 60 generate (16 new tokens; the ranks' beams equal) and one LoRA
+    update against rank 0 alone on the unsharded model; fp32: beams equal, scores and loss within 1e-4,
+    gradient cosine >= 0.9999, the update within phase 22's bars; bf16: loss
+    within 1e-3 (relative), gradient cosine >= 0.97, the update within 1e-3
+    of the largest tensor, and the same update with the partial LoRA
+    gradients, or the row-parallel partial products, not summed over the
+    group must each fall outside one of those bars; the
+    ranks' tensors bit-equal. ``mr_blip_tpu_torch.train`` on
+    ``configs/projects/train/qvh.yaml`` with ``run.tp=2`` and
+    ``model.max_new_tokens=16`` over 1 train query (one update of one 1 x 60
+    micro-batch) and 1 val query (no test split): the micro-batch phase
+    17's launches on each rank, the generate phase 4's, trainable tensors
+    and losses bit-equal across the ranks, the
+    frozen shards as built, the merged rows each query once. (b) Phase
+    20's model behind the server
+    (batches of 4), then with a second replica on the same card
+    (``set_mesh``) behind a server of batches of 8: 8 frame requests, then a
+    ragged 3 (padded to 8; its first block is the one model's batch padded
+    to 4); every row of the replicas equal to the one model's, each batch
+    two blocks of 4 rows, 2 x 110 / 39 / 24 launches a batch; requests/s of
+    both beside phase 20's.
+
+Phase 3 holds kernels 3, 5, 6 and 8 at 4 x 2,056 with the 16 heads a
+tensor-parallel rank runs (phase 26), at their 32-head bars, each timed
+beside its plain version and its bound.
 
 Phase 3 holds kernel 2 (the packed-QKV attention) at (240, 257) (timed),
 (4, 264) with 257 valid keys and large pad values, (6, 194), (8, 300) and
@@ -440,12 +485,16 @@ generates; ``qlora_launches`` from phase 21's two runs (their micro-batches
 and the resumed run's generates); ``dp_launches`` per micro-batch on one
 rank in phase 22 (a); ``variant_launches`` from phase 23 (c)'s four
 full-width batches; ``unfrozen_launches`` per micro-batch of phase 24 (a);
-``vocab_launches`` from phase 25 (b)'s batch; each count is taken with the counts set to 0 just before its path runs); the
-last line is {"ok": true, "device": {...}}.
+``vocab_launches`` from phase 25 (b)'s batch; ``tp_launches`` rank 0's over
+phase 26 (a)'s train entry point (one micro-batch and a val generate);
+``dp_serve_launches`` the replicas' over phase 26 (b)'s two batches (four
+blocks); each count is taken with the counts set to 0 just before its path
+runs); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -540,9 +589,9 @@ EXPECTED_LONG_TRAIN_LAUNCHES = dict(EXPECTED_LONG_LAUNCHES, flash_relpos_bwd_dq=
 # Phase 12, (task, frames): the CPU plain path took 154 s at 1 x 240 frames,
 # 72 s (later 47.7 s) at 1 x 120 and 20.9-30.5 s at 1 x 60 (bf16 on the card
 # machine's 8 cores), the largest CPU share of the script, so both tasks run
-# at 24 frames (encoder length ~860; 40 frames, 11.9 and 15.9 s of CPU, until
-# phase 22 came). Phase 3 holds kernels 9-12 at the full 8,000 tokens.
-LONG_GRAD_TASKS = (("qformer_freeze_lora", 24), ("qformer_freeze", 24))
+# at 16 frames (encoder length ~600; 40 frames until phase 22 came, 24 until
+# phase 26). Phase 3 holds kernels 9-12 at the full 8,000 tokens.
+LONG_GRAD_TASKS = (("qformer_freeze_lora", 16), ("qformer_freeze", 16))
 # Phase 12 in the fp32 parity mode (kernels 9, 10, 12 and 9, 11, 12 in fp32)
 # on a short clip, where the CPU's fp32 runs take about a second (at 1 x 60
 # frames they took 8-14 s each).
@@ -572,8 +621,8 @@ EXPECTED_BIG_INT8_LAUNCHES = dict(EXPECTED_INT8_LAUNCHES, flash_attention=39,
                                   w8a8_attn_block=0, w8a8_linear=54 + 2 * 39)
 FP32_REL_TOL = 1e-4   # kernels 3-5 in fp32: max |kernel - plain| / max |plain|
 FP32_FRAMES = 60      # frames a video in the fp32 run: encoder length 2,056 (kernel 3)
-# Videos in the fp32 run: 2 (4 until phase 22 came; the CPU's fp32 reference
-# took 24.9 s at 4).
+# Videos in the fp32 run: 2 (4 until phase 22 came; the CPU's fp32
+# reference took 24.9 s at 4).
 FP32_BATCH = 2
 FP32_PATH_REL_TOL = 1e-4
 # Phase 16, the evaluation entry point on configs/projects/eval/qvh.yaml: 8
@@ -635,32 +684,64 @@ SERVE_FORM_WAIT_MS, SERVE_WAIT_MS = 5000, 50
 SERVE_REQUESTS, SERVE_CLIENTS = 16, 8
 SERVE_PROCESS_TIMEOUT_S = 300
 # Phase 21, QLoRA-style training on configs/projects/train/qvh.yaml with
-# model.int8_base and model.int8_vit: micro-batches of 1 x 60 frames, 8 to an
-# update. Per micro-batch the T5 encoder's kernels as phase 17's (kernel 5 in the forward
-# and the recompute, 6 and 8 in the backward); the ViT's blocks on the fused
+# model.int8_base and model.int8_vit: micro-batches of 1 x 60 frames,
+# QLORA_ACCUM to an update (qvh.yaml's 8, and 10 queries, until phase 26
+# came). Per micro-batch the T5 encoder's kernels as phase 17's (kernel 5 in
+# the forward and the recompute, 6 and 8 in the backward); the ViT's blocks on the fused
 # W8A8 attention block (16) and GELU MLP (14), their pre-norms inside them:
 # LayerNorm 32 (ln_vision and the Q-Former), packed QKV never. Its val and
 # test generates: phase 8's ViT and phase 4's T5 encoder. The first run is
 # SIGTERMed after QLORA_PREEMPT_AFTER micro-batches (one update and one
-# micro-batch into the second window, not a multiple of 8); a second run
+# micro-batch into the second window, not a multiple of QLORA_ACCUM); a second run
 # resumes it and re-runs the epoch.
-QLORA_QUERIES, QLORA_PREEMPT_AFTER = 10, 9
+QLORA_QUERIES, QLORA_PREEMPT_AFTER, QLORA_ACCUM = 4, 3, 2
 INT8_VIT_LAUNCHES = dict(layer_norm=32, qkv_packed_attention=0, w8a8_mlp=39,
                          w8a8_attn_block=39)
 EXPECTED_QLORA_LAUNCHES = dict(EXPECTED_REMAT_TRAIN_LAUNCHES, **INT8_VIT_LAUNCHES)
 EXPECTED_QLORA_GENERATE_LAUNCHES = dict(EXPECTED_LAUNCHES, **INT8_VIT_LAUNCHES)
-# Phase 22, two ranks on the one card over gloo. (a): qvh.yaml over phase
-# 17's train queries and DP_EVAL_QUERIES val and test queries, one epoch,
-# accum_grad_iters DP_ACCUM: each rank takes DP_ACCUM micro-batches, one
-# update over every train row. (b): the flagship model at depth 2, one row
-# per rank (dp) or one row on both (sp), against one process; the bars.
-DP_RANKS, DP_ACCUM, DP_EVAL_QUERIES = 2, 4, 2
+# Phase 22, two ranks on the one card over gloo. (a): qvh.yaml over
+# DP_QUERIES train queries (8, accum 4, until phase 26 came) and
+# DP_EVAL_QUERIES val and test queries (2 until phase 26; 1: rank 1's share
+# is empty), one epoch, accum_grad_iters DP_ACCUM:
+# each rank takes DP_ACCUM micro-batches, one update over every train row.
+# (b): the flagship model at depth 2, one row per rank (dp) or one row on
+# both (sp), against one process; the bars.
+DP_RANKS, DP_QUERIES, DP_ACCUM, DP_EVAL_QUERIES = 2, 4, 2, 1
 DP_LAUNCH_TIMEOUT_S, DP_GROUP_TIMEOUT_S = 420, 300
 DP_LOSS_REL_TOL, DP_GRAD_COSINE_MIN, DP_TENSOR_REL_TOL = 1e-3, 0.999, 1e-3
 # The share of trainable elements whose two updates land more than the lr
 # apart (a flipped near-zero gradient; see _dp_rel).
 DP_APART_MAX = 1e-3
 DP_WINDOWS = ("[[10, 25]]", "[[10, 25], [30, 42], [100, 120]]")
+# Phase 26, tensor parallelism and the dp server on the one card. (a): two
+# gloo ranks, tp=2: Flan-T5-XL's 32 heads a layer run as 16 on each rank
+# (phase 3 holds kernels 3, 5, 6 and 8 at TP_HEADS); phase 4's model at full
+# depth in fp32 on TP_FULL_ROWS rows, its encoder states and first-step
+# logits against one process's to TP_FULL_COSINE_MIN (on an H100 tp came to
+# cosine 0.99995 of the logits: 24 random-weight layers amplify fp32
+# rounding, so the beams differ; the same model in one process with its
+# row-parallel sums split as tp splits them shows that noise beside it);
+# the depth-2 model's generate and one LoRA update against one process in
+# bf16 and fp32; qvh.yaml under run.tp=2 over TP_QUERIES train queries (one
+# update of TP_QUERIES micro-batches) and one val query. Every tp generate
+# stops at TP_NEW_TOKENS new tokens (phase 4 decodes 50): a tp decode step
+# runs 72 all-reduces through host memory, about 0.25 s. (b):
+# phase 20's model and a second replica of it on the same card behind the
+# server: DP_SERVE_REQUESTS requests, then a ragged 3.
+TP_SIZE, TP_HEADS, TP_QUERIES = 2, 16, 1
+TP_FULL_ROWS, TP_NEW_TOKENS, TP_FULL_COSINE_MIN = 1, 16, 0.999
+TP_DEPTH2_DTYPES = ("bfloat16", "float32")
+TP_FP32_COSINE_MIN = 0.9999
+# bf16 at depth 2 rounds the half-width GEMMs and the summed partial
+# products in another order than one process: on an H100 its loss came 6.7e-5
+# (relative) and its gradients at cosine 0.980 from one process's. The bars
+# sit just outside those readings; each planted fault must fall outside one.
+TP_BF16_LOSS_REL, TP_BF16_COSINE_MIN = 1e-3, 0.97
+# layers._RowProduct on the card: fp32 accumulation of bf16 operands against
+# the fp32 product of the same operands (max |diff| / max |product|).
+TP_ROW_PRODUCT_REL_TOL = 1e-5
+DP_SERVE_REQUESTS, DP_SERVE_RAGGED = 8, 3
+DP_SERVE_FORM_WAIT_MS = 1000  # the ragged 3 arrive within it: one batch
 # Phase 23, the reference-checkpoint import and the BLIP2_MR variants. The
 # encoder length of an only_frames 1 x 60 batch of make_samples ("<vid>" 5
 # tokens, 60 x 32 frame tokens, the end's 2 and the text's 64, padded to a
@@ -691,13 +772,14 @@ VARIANTS = {"only_frames": (dict(task="lora_only_frames"), EXPECTED_LAUNCHES),
             "blip2_fmr": ({}, EXPECTED_NO_BIAS_LAUNCHES)}
 # Phase 24, the unfrozen-ViT train path: configs/projects/train/qvh.yaml with
 # model.freeze_vit=False (stochastic depth at the constructor's default rate),
-# UNFROZEN_QUERIES train queries: one update of UNFROZEN_ACCUM (qvh.yaml's
-# accum_grad_iters) micro-batches of 1 x 60 frames; one val query, no test
+# UNFROZEN_QUERIES train queries: one update of UNFROZEN_ACCUM micro-batches
+# of 1 x 60 frames (8, qvh.yaml's accum_grad_iters, until phase 26 came);
+# one val query, no test
 # split. Per micro-batch every ViT block is checkpointed: LayerNorm norm1 and
 # norm2 in the forward and again in the recompute (4 x 39), ln_vision and the
 # Q-Former's 31 once (a graph, no recompute); packed QKV once a block in each;
 # the T5 encoder's kernels as phase 17's. The val generate launches phase 4's.
-UNFROZEN_QUERIES, UNFROZEN_ACCUM, UNFROZEN_DROP_PATH = 8, 8, 0.4
+UNFROZEN_QUERIES, UNFROZEN_ACCUM, UNFROZEN_DROP_PATH = 4, 4, 0.4
 EXPECTED_UNFROZEN_LAUNCHES = dict(EXPECTED_REMAT_TRAIN_LAUNCHES, layer_norm=4 * 39 + 32,
                                   qkv_packed_attention=2 * 39)
 # Phase 24 (b): depth 2 against the CPU at 224 pixels (kernel 2 under
@@ -1339,6 +1421,88 @@ def check_train_kernels(torch, kernels):
         torch.cuda.empty_cache()
 
 
+def check_tp_kernels(torch, kernels):
+    """Kernels 3, 5, 6 and 8 at 4 x 2,056 with the 16 heads a rank runs
+    under tensor parallelism (Flan-T5-XL's 32 over tp=2, phase 26), against
+    their plain versions at the bars of their 32-head shapes; each timed
+    beside its plain version and its bound (printed, the ``kernels`` line
+    keeps the 32-head numbers). Returns {kernel: (ms, plain ms, bound ms)}."""
+    from mr_blip_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    b, n, heads, d = BATCH, 2056, TP_HEADS, 64
+    q, k, v, dout = (randn(b, n, heads, d) for _ in range(4))
+    bias = randn(1, heads, n, n)
+    kv_mask = torch.ones(b, n, dtype=torch.int8, device=dev)
+    f32 = [t.float() for t in (q, k, v, bias)]
+    out_ref, lse_ref = fa._flash_bias_fwd_stats_reference(*f32, kv_mask)
+    delta = torch.einsum("bnhd,bnhd->bhn", dout.float(), out_ref).contiguous()
+    bwd_args = (q, k, v, bias, kv_mask, dout, lse_ref, delta)
+    dq_r, dk_r, dv_r, _ = fa._flash_bias_bwd_reference(*f32, kv_mask, dout.float(),
+                                                       lse_ref, delta)
+    out3 = fa.flash_attention_bias(q, k, v, bias, kv_mask)
+    out5, lse5 = fa.flash_bias_fwd_stats(q, k, v, bias, kv_mask)
+    dq6 = fa.flash_bias_bwd_dq(*bwd_args)
+    dk8, dv8 = fa.flash_bias_bwd_dkv(*bwd_args)
+    torch.cuda.synchronize()
+    shape = f"({b}, {n}x{n}, {heads}, {d})"
+    for key, name, got, want in (("flash_bias_attention", "out", out3, out_ref),
+                                 ("flash_bias_fwd_stats", "out", out5, out_ref)):
+        err = max_err(torch, got, want)
+        say(f"{key} {shape} (a tp=2 rank's heads): {name} max|diff| {err:.5f}")
+        require(err <= TOL, f"{key} {shape}: {name} off by {err}")
+        kernels[key]["max_abs_err"] = max(kernels[key].get("max_abs_err", 0.0), err)
+    err_lse = max_err(torch, lse5, lse_ref)
+    say(f"flash_bias_fwd_stats {shape}: lse max|diff| {err_lse:.6f}")
+    require(err_lse <= LSE_TOL, f"fwd_stats {shape}: lse off by {err_lse}")
+    for key, name, got, want in (("flash_bias_bwd_dq", "dq", dq6, dq_r),
+                                 ("flash_bias_bwd_dkv", "dk", dk8, dk_r),
+                                 ("flash_bias_bwd_dkv", "dv", dv8, dv_r)):
+        err, scale, cos = max_err(torch, got, want), float(want.abs().max()), \
+            cosine(torch, got, want)
+        say(f"{key} {shape} (a tp=2 rank's heads): {name} max|diff| {err:.5f} (max|plain| "
+            f"{scale:.4f}), cosine {cos:.6f}")
+        require(err <= GRAD_REL_TOL * scale and cos >= COSINE_MIN,
+                f"{key} {shape}: {name} off by {err} (x {scale}), cosine {cos}")
+        kernels[key]["max_abs_err"] = max(kernels[key].get("max_abs_err", 0.0), err)
+    unit = float(b) * heads * n * n * d
+    qkv_io = nbytes(q, k, v, bias)
+    plain_bwd = lambda: fa._flash_bias_bwd_reference(  # noqa: E731
+        q, k, v, bias, kv_mask, dout, lse_ref, delta)
+    timed = {
+        "flash_bias_attention": (lambda: fa.flash_attention_bias(q, k, v, bias, kv_mask),
+                                 lambda: fa._flash_bias_fwd_stats_reference(
+                                     q, k, v, bias, kv_mask),
+                                 qkv_io + nbytes(out3), 4 * unit),
+        "flash_bias_fwd_stats": (lambda: fa.flash_bias_fwd_stats(q, k, v, bias, kv_mask),
+                                 lambda: fa._flash_bias_fwd_stats_reference(
+                                     q, k, v, bias, kv_mask),
+                                 qkv_io + nbytes(out5, lse5), 4 * unit),
+        "flash_bias_bwd_dq": (lambda: fa.flash_bias_bwd_dq(*bwd_args), plain_bwd,
+                              qkv_io + nbytes(dout, lse_ref, delta, dq6), 6 * unit),
+        "flash_bias_bwd_dkv": (lambda: fa.flash_bias_bwd_dkv(*bwd_args), plain_bwd,
+                               qkv_io + nbytes(dout, lse_ref, delta, dk8, dv8), 8 * unit),
+    }
+    times = {}
+    for key, (kernel_fn, plain_fn, io, flops) in timed.items():
+        entry = {}
+        entry["ms"], entry["plain_ms"] = median_ms(torch, kernel_fn), median_ms(torch, plain_fn)
+        entry["library_ms"] = None
+        set_bound(entry, io, bf16_flops=flops)
+        times[key] = (entry["ms"], entry["plain_ms"], entry["bound_ms"])
+        say(f"{key} {shape} (a tp=2 rank's heads):" + timing_line(entry)
+            + f"; {kernels[key].get('ms', float('nan')):.4f} ms at 32 heads")
+    del q, k, v, dout, bias, f32, out_ref, lse_ref, delta, dq_r, dk_r, dv_r
+    del out3, out5, lse5, dq6, dk8, dv8
+    torch.cuda.empty_cache()
+    return times
+
+
 def check_relpos_kernels(torch, kernels):
     """Kernels 9-12 against their plain versions (fp32 math from the same
     bf16 inputs, the bias materialized from the table; the backward kernels
@@ -1913,6 +2077,21 @@ def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False,
                 self.init_params(FLAGSHIP["seed"])
 
     return ReducedDepth()
+
+
+def first_step(torch, model, samples):
+    """{"enc0": the T5 encoder states, "logits0": the first decode step's
+    fp32 logits} of ``samples`` on the host (the teacher-forced decoder on
+    the start token)."""
+    with torch.inference_mode():
+        batch = model.prepare_mr_batch(samples, need_targets=False)
+        tensors = model._to_device(batch)
+        enc, attn = model.encode_t5(tensors, model.frames_to_t5(tensors),
+                                    model._encoder_bias_for(batch))
+        start = torch.full((enc.shape[0], 1), model.t5_config.decoder_start_token_id,
+                           dtype=torch.long, device=enc.device)
+        logits = model.module.t5.decode(start, enc, encoder_mask=attn)[:, 0]
+        return {"enc0": enc.cpu(), "logits0": logits.float().cpu()}
 
 
 def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None,
@@ -3039,6 +3218,7 @@ def train_entry_point(torch, wrappers, card):
 
     seconds = [r[1] for r in steps]
     windows = [sum(seconds[i:i + TRAIN_ACCUM]) for i in range(0, n_steps, TRAIN_ACCUM)]
+    update_s = statistics.mean(windows[1:] or windows)
     steady = statistics.median(seconds[1:])
     say(f"train entry point (configs/projects/train/qvh.yaml, {TRAIN_QUERIES} queries x "
         f"{TRAIN_EPOCHS} epochs, B=1 x {N_FRAMES} frames, accum_grad_iters {TRAIN_ACCUM}, "
@@ -3049,8 +3229,9 @@ def train_entry_point(torch, wrappers, card):
         f"frozen one bit-equal; test metrics (random weights) {json.dumps(metrics)}")
     say(f"train entry point seconds: micro-batch steady {steady:.3f} (median of 1-{n_steps - 1}; "
         f"mean {statistics.mean(seconds[1:]):.3f}, first {seconds[0]:.3f}); update "
-        f"{statistics.mean(windows[1:]):.3f} (mean of windows 1-{len(windows) - 1} of "
-        f"{TRAIN_ACCUM} micro-batches; first {windows[0]:.3f}); main() {wall:.3f}; peak memory "
+        f"{update_s:.3f} (the mean of the windows of {TRAIN_ACCUM} micro-batches after the "
+        f"first, or the first alone: {[round(w, 3) for w in windows]}); main() {wall:.3f}; "
+        f"peak memory "
         f"{(peak - resident) / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB earlier phases "
         f"held; {card}")
     say(f"train entry point checkpointing: one 1 x {N_FRAMES} micro-batch, dropout on, the same "
@@ -3059,7 +3240,7 @@ def train_entry_point(torch, wrappers, card):
         f"max |g| {remat['rel']:.2e}; peak memory on {remat['peak'][True]:.2f} GiB, off "
         f"{remat['peak'][False]:.2f} GiB; seconds on {remat['s'][True]:.3f}, off "
         f"{remat['s'][False]:.3f}; phase {time.time() - phase_start:.1f} s; {card}")
-    return launches, dict(steady_s=steady, update_s=statistics.mean(windows[1:]),
+    return launches, dict(steady_s=steady, update_s=update_s,
                           peak_gib=(peak - resident) / 2**30)
 
 
@@ -3628,10 +3809,10 @@ def serving_entry_point(torch, wrappers, card, main_summary):
     (c) SERVE_REQUESTS ``synthetic://`` requests of QVHighlights' 150 s from
     SERVE_CLIENTS client threads through ``make_httpd`` on 127.0.0.1: every
     reply 200 and spans. Every dispatched batch, warmup included, launches
-    kernels 1-3 110 / 39 / 24 times. Then the model is freed and ``python -m
+    kernels 1-3 110 / 39 / 24 times. Then ``python -m
     mr_blip_tpu_torch.serve`` runs as a process: four requests, SIGTERM, exit
-    0 with its stats line. Returns the launch counts of (a)-(c) and its
-    summary numbers."""
+    0 with its stats line. Returns the launch counts of (a)-(c), its
+    summary numbers and the model (phase 26 (b) serves it again)."""
     import os
     import signal
     import tempfile
@@ -3767,7 +3948,7 @@ def serving_entry_point(torch, wrappers, card, main_summary):
                    rps=st_c.throughput_rps, p50_s=st_c.latency_p50_s,
                    p95_s=st_c.latency_p95_s, p99_s=st_c.latency_p99_s,
                    batch_s=per_batch, peak_gib=(peak - resident) / 2**30)
-    del model, srv
+    del srv
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3810,7 +3991,7 @@ def serving_entry_point(torch, wrappers, card, main_summary):
         f"answered (batches {stats['batches']}, occupancy "
         f"{stats['mean_batch_occupancy']:.3f}); SIGTERM -> exit 0 after draining, stats line "
         f"{json.dumps(stats)}; {time.time() - t0:.1f} s in all")
-    return launches, summary
+    return launches, summary, model
 
 
 def make_serving_samples(n, seed):
@@ -3829,8 +4010,8 @@ def qlora_entry_point(torch, wrappers, card, train_summary):
     QLORA_QUERIES synthetic train queries, one val and one test query,
     micro-batches of 1 x 60 frames under ``use_grad_checkpoint``. Called
     twice in this process: a run SIGTERMed from a thread of this process
-    after QLORA_PREEMPT_AFTER micro-batches (one update of 8 and one
-    micro-batch into the next window) must exit 143 with a resume state of
+    after QLORA_PREEMPT_AFTER micro-batches (one update of QLORA_ACCUM and
+    one micro-batch into the next window) must exit 143 with a resume state of
     the unfinished epoch; a run resuming from it must load the weights
     (every ``kernel_q`` among them), the AdamW state, the counters and the
     partial gradients bit for bit, log ``(epoch 0)``, re-run the epoch and
@@ -3971,6 +4152,7 @@ def qlora_entry_point(torch, wrappers, card, train_summary):
                       for split, path in paths.items()),
                     "datasets.qvh.build_info.videos.storage=synthetic",
                     f"run.output_dir={Path(tmp) / out}", "run.max_epoch=1",
+                    f"run.accum_grad_iters={QLORA_ACCUM}",
                     "model.int8_base=True", "model.int8_vit=True", *options]
 
         free()
@@ -4039,7 +4221,7 @@ def qlora_entry_point(torch, wrappers, card, train_summary):
     require(loaded["weights"] == saved["weights"] and loaded["kernel_q"] == built["kernel_q"],
             "QLoRA resumed run: weights differ from the saved")
     require(loaded["counters"] == saved["counters"] == (
-        QLORA_PREEMPT_AFTER, QLORA_PREEMPT_AFTER // TRAIN_ACCUM),
+        QLORA_PREEMPT_AFTER, QLORA_PREEMPT_AFTER // QLORA_ACCUM),
         f"QLoRA resumed run: calls, updates {loaded['counters']} (saved {saved['counters']})")
     for key in ("params", "grads", "moments"):
         require(saved[key].keys() == loaded[key].keys(), f"QLoRA resumed run: {key} names differ")
@@ -4048,7 +4230,7 @@ def qlora_entry_point(torch, wrappers, card, train_summary):
             require(want is not None and torch.equal(got, want),
                     f"QLoRA resumed run: {key} {name} differs from the saved (or is missing)")
     require(len(steps) == QLORA_QUERIES and steps[-1][3] == (
-        QLORA_PREEMPT_AFTER + QLORA_QUERIES) // TRAIN_ACCUM,
+        QLORA_PREEMPT_AFTER + QLORA_QUERIES) // QLORA_ACCUM,
         f"QLoRA resumed run: {len(steps)} micro-batches, {steps[-1][3]} updates")
     require(json.loads(json.dumps(resume_logs["test"], default=float))["total"] == 1,
             f"QLoRA resumed run: test logs {resume_logs}")
@@ -4086,7 +4268,7 @@ def qlora_entry_point(torch, wrappers, card, train_summary):
     seconds = [s[1] for s in run_steps]
     say(f"QLoRA entry point (configs/projects/train/qvh.yaml + model.int8_base=True "
         f"model.int8_vit=True, {QLORA_QUERIES} queries, B=1 x {N_FRAMES} frames, "
-        f"accum_grad_iters {TRAIN_ACCUM}, use_grad_checkpoint): every micro-batch of both "
+        f"accum_grad_iters {QLORA_ACCUM}, use_grad_checkpoint): every micro-batch of both "
         f"runs launched { {k: v for k, v in EXPECTED_QLORA_LAUNCHES.items() if v} } and the "
         f"val/test generates { {k: v for k, v in EXPECTED_QLORA_GENERATE_LAUNCHES.items() if v} }; "
         f"losses {[round(s[2], 4) for s in run_steps]} then, resumed, "
@@ -4102,7 +4284,7 @@ def qlora_entry_point(torch, wrappers, card, train_summary):
         f"micro-batches, {resume_wall:.3f} s) and exited 0")
     say(f"QLoRA vs phase 17 (bf16 base), seconds: micro-batch steady "
         f"{statistics.median(seconds[1:]):.3f} vs {train_summary['steady_s']:.3f} (first "
-        f"{seconds[0]:.3f}); update {sum(seconds[:TRAIN_ACCUM]):.3f} (its {TRAIN_ACCUM} "
+        f"{seconds[0]:.3f}); update {sum(seconds[:QLORA_ACCUM]):.3f} (its {QLORA_ACCUM} "
         f"micro-batches, the first included) vs {train_summary['update_s']:.3f}; peak memory "
         f"of the micro-batches and generates {(peaks['run'] - resident) / 2**30:.2f} vs "
         f"{train_summary['peak_gib']:.2f} GiB above what earlier phases held (model build with "
@@ -4159,7 +4341,7 @@ def qlora_kernel_vs_plain_path(torch, wrappers):
 
 
 # -------------------------------------------------------------- phase 22
-def dp_launch(mode, workdir, *args, timeout=DP_LAUNCH_TIMEOUT_S):
+def dp_launch(mode, workdir, *args, timeout=DP_LAUNCH_TIMEOUT_S, phase=22):
     """``torch.distributed.run --standalone`` of DP_RANKS copies of this
     script as ``--dp-worker mode``, its output to ``<workdir>/<mode>.log``;
     raises on a nonzero exit or the timeout. On the timeout torchrun gets
@@ -4187,10 +4369,10 @@ def dp_launch(mode, workdir, *args, timeout=DP_LAUNCH_TIMEOUT_S):
                 except ProcessLookupError:
                     pass
                 proc.wait()
-            raise RuntimeError(f"phase 22 ({mode}): no end within {timeout} s:\n"
+            raise RuntimeError(f"phase {phase} ({mode}): no end within {timeout} s:\n"
                                f"{log.read_text()[-6000:]}")
     require(proc.returncode == 0,
-            f"phase 22 ({mode}): exit {proc.returncode}:\n{log.read_text()[-6000:]}")
+            f"phase {phase} ({mode}): exit {proc.returncode}:\n{log.read_text()[-6000:]}")
 
 
 def dp_read(workdir, mode):
@@ -4212,7 +4394,7 @@ def parallel_entry_points(torch, card):
     torch.cuda.empty_cache()  # the ranks need the card's memory, not this process
     with tempfile.TemporaryDirectory() as tmp:
         paths = make_mr_annotations(
-            f"{tmp}/run", n_train=TRAIN_QUERIES, n_val=DP_EVAL_QUERIES,
+            f"{tmp}/run", n_train=DP_QUERIES, n_val=DP_EVAL_QUERIES,
             n_test=DP_EVAL_QUERIES, n_video_frames=EVAL_VIDEO_FRAMES, fps=EVAL_FPS)
         argv = ["--cfg-path", str(ROOT / "configs/projects/train/qvh.yaml"), "--options",
                 *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
@@ -4237,7 +4419,7 @@ def parallel_entry_points(torch, card):
 
 def dp_train_report(ranks, train_wall, card):
     """Phase 22 (a)'s gates and lines."""
-    n_micro = TRAIN_QUERIES // DP_RANKS
+    n_micro = DP_QUERIES // DP_RANKS
     for r, rank in enumerate(ranks):
         require(len(rank["steps"]) == n_micro and rank["updates"] == 1,
                 f"phase 22 rank {r}: {len(rank['steps'])} micro-batches, "
@@ -4264,7 +4446,7 @@ def dp_train_report(ranks, train_wall, card):
     seconds = [rank["seconds"] for rank in ranks]
     say(f"dp train entry point (configs/projects/train/qvh.yaml, {DP_RANKS} ranks on one "
         f"card over gloo, {n_micro} micro-batches of 1 x {N_FRAMES} frames each, "
-        f"accum_grad_iters {DP_ACCUM}, one update over {TRAIN_QUERIES} rows): every "
+        f"accum_grad_iters {DP_ACCUM}, one update over {DP_QUERIES} rows): every "
         f"micro-batch launched { {k: v for k, v in EXPECTED_REMAT_TRAIN_LAUNCHES.items() if v} } "
         f"on each rank, every generate { {k: v for k, v in EXPECTED_LAUNCHES.items() if v} }; "
         f"trainable tensors bit-equal across the ranks, frozen ones as built; merged val "
@@ -4348,8 +4530,10 @@ def _dp_samples(rows):
     return out
 
 
-def dp_train_worker(torch, workdir, argv):
-    """Phase 22 (a), one rank: ``train.main(argv)`` with taps."""
+def dp_train_worker(torch, workdir, argv, mode="train"):
+    """Phase 22 (a) (and phase 26 (a)'s tp run, ``mode`` "tp_train"), one
+    rank: ``train.main(argv)`` with taps; the frozen tensors are checksummed
+    at the first step (after a tensor-parallel rank cut its shards)."""
     import os
 
     from mr_blip_tpu_torch import train
@@ -4376,11 +4560,13 @@ def dp_train_worker(torch, workdir, argv):
         mask = model.trainable_mask()
         built["trainable"] = {n: p.detach().float().clone()
                               for n, p in model.module.named_parameters() if mask[n]}
-        built["frozen"] = checksums(torch, [p for n, p in model.module.named_parameters()
-                                            if not mask[n]])
         return model
 
     def tapped_step(ctx, batch):
+        if "frozen" not in built:
+            built["frozen"] = checksums(torch, [
+                p for n, p in ctx.model.module.named_parameters()
+                if n not in built["trainable"]])
         before = counts()
         torch.cuda.synchronize()
         start = time.time()
@@ -4416,7 +4602,9 @@ def dp_train_worker(torch, workdir, argv):
     mesh.all_reduce_grads = tapped_reduce
     dist_utils.destroy = lambda: None  # the checks below still gather
     torch.cuda.reset_peak_memory_stats()
+    start = counts()
     train.main(argv)
+    launched = {k: v - start[k] for k, v in counts().items()}
     peak = torch.cuda.max_memory_allocated()
     (runner,) = runners
     model, ctx = runner.model, runner.train_ctx
@@ -4424,27 +4612,35 @@ def dp_train_worker(torch, workdir, argv):
     frozen = [p for n, p in named.items() if n not in built["trainable"]]
     summary = {
         "steps": steps, "seconds": seconds, "generates": generates,
-        "all_reduce_ms": reduce_ms, "grad_bytes": built["grad_bytes"],
+        "all_reduce_ms": reduce_ms, "grad_bytes": built.get("grad_bytes", 0),
+        "launches": launched,
         "peak_gib": peak / 2**30, "updates": ctx.updates,
         "losses": losses, "frozen_equal": checksums(torch, frozen) == built["frozen"],
         "moved": all(not torch.equal(named[n].detach().float(), v)
                      for n, v in built["trainable"].items()),
-        "fingerprint": mesh.assert_replicated(ctx.named_params, "phase 22 (a)"),
+        "unmoved": [n for n, v in built["trainable"].items()
+                    if torch.equal(named[n].detach().float(), v)][:5],
+        "fingerprint": mesh.assert_replicated(ctx.named_params, f"{mode} run"),
+        "tp": dist_utils.tp_size(),
     }
     if rank == 0:
         summary["rows"] = {}
         for split, name in (("val", "val_epoch0"), ("test", "test_epochbest")):
+            if split not in list(runner.valid_splits) + list(runner.test_splits):
+                continue
             merged = json.loads((runner.result_dir / f"{name}.json").read_text())
+            summary["rows"][split] = {"merged": len(merged),
+                                      "unique": len({r["qid"] for r in merged})}
+            if dist_utils.tp_size() > 1:
+                continue  # a group's generate is a collective: held on the CPU
             loader = DataLoader(runner.datasets["qvh"][split], batch_size=1, num_workers=1)
             own = [row for samples in loader
                    for row in runner.task._rows_from_outputs(model.generate(samples))]
             key = lambda r: r["qid"]  # noqa: E731
-            summary["rows"][split] = {
-                "merged": len(merged), "unique": len({r["qid"] for r in merged}),
-                "equal": sorted(merged, key=key) == sorted(
-                    json.loads(json.dumps(own, default=float)), key=key)}
+            summary["rows"][split]["equal"] = sorted(merged, key=key) == sorted(
+                json.loads(json.dumps(own, default=float)), key=key)
     dist_utils.barrier()
-    (Path(workdir) / f"train_rank{rank}.json").write_text(json.dumps(summary))
+    (Path(workdir) / f"{mode}_rank{rank}.json").write_text(json.dumps(summary))
     destroy()
 
 
@@ -4617,6 +4813,531 @@ def dp_step_worker(torch, workdir):
     (Path(workdir) / f"step_rank{rank}.json").write_text(json.dumps(out))
 
 
+# -------------------------------------------------------------- phase 26
+def check_row_product(torch):
+    """``layers._RowProduct``'s card branch (bf16 operands, ``torch.mm``
+    with an fp32 ``out_dtype``: a row-parallel shard's partial product) at
+    a tp=2 rank's FFN output shape (4 x 2,056 rows, 2,560 of the 5,120
+    inputs, 2,048 outputs): forward against the fp32 product of the same
+    bf16 operands, backward against ``F.linear``'s on them. Returns
+    (forward, input-gradient, weight-gradient) max |diff| / max |want|."""
+    from mr_blip_tpu_torch.models.layers import _RowProduct
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    x = torch.randn(BATCH, 2056, 2560, generator=gen, device="cuda").bfloat16()
+    w = (0.02 * torch.randn(2048, 2560, generator=gen, device="cuda")).bfloat16()
+    dy = torch.randn(BATCH, 2056, 2048, generator=gen, device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (x, w, x, w)]
+    y = _RowProduct.apply(leaves[0], leaves[1])
+    y.backward(dy)
+    torch.nn.functional.linear(leaves[2], leaves[3]).backward(dy.bfloat16())
+    want = x.float() @ w.float().t()
+
+    def rel(got, ref):
+        return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+    errs = (rel(y.detach(), want), rel(leaves[0].grad, leaves[2].grad),
+            rel(leaves[1].grad, leaves[3].grad))
+    require(y.dtype == torch.float32 and errs[0] <= TP_ROW_PRODUCT_REL_TOL
+            and max(errs[1:]) <= GRAD_REL_TOL,
+            f"phase 26 (a): _RowProduct on the card off by {errs} (dtype {y.dtype})")
+    del x, w, dy, leaves, y, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def tp_entry_point(torch, card, main_summary):
+    """Phase 26 (a): tensor parallelism, two ranks of one tensor-parallel
+    group (tp=2, dp=1) on the one card over gloo, this script as the worker
+    (``--dp-worker tp``): phase 4's model (full depth and width, seed 0) in
+    fp32 against one process, beside a one-process noise baseline; the
+    depth-2 model in bf16 and fp32 against one process, bf16 beside two
+    planted faults; ``train/qvh.yaml`` under
+    ``run.tp=2`` (see the module docstring). Prints every number, then
+    holds them. Returns rank 0's launches over the train entry point's run."""
+    import tempfile
+
+    from mr_blip_tpu_torch.datasets.synthetic import make_mr_annotations
+
+    phase_start = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    row_errs = check_row_product(torch)
+    say(f"tp row-parallel partial product on the card (layers._RowProduct, bf16 operands, "
+        f"fp32 out, {BATCH} x 2,056 x 2,560 by 2,048): forward max |diff| / max |fp32 product| "
+        f"{row_errs[0]:.2e} (bar {TP_ROW_PRODUCT_REL_TOL}), backward against F.linear's: "
+        f"input {row_errs[1]:.2e}, weight {row_errs[2]:.2e} (bar {GRAD_REL_TOL})")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_mr_annotations(
+            f"{tmp}/run", n_train=TP_QUERIES, n_val=1, n_test=1,
+            n_video_frames=EVAL_VIDEO_FRAMES, fps=EVAL_FPS)
+        argv = ["--cfg-path", str(ROOT / "configs/projects/train/qvh.yaml"), "--options",
+                *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
+                  for split, path in paths.items()),
+                "datasets.qvh.build_info.videos.storage=synthetic",
+                f"run.output_dir={Path(tmp) / 'train'}", "run.max_epoch=1",
+                "run.test_splits=[]", f"model.max_new_tokens={TP_NEW_TOKENS}",
+                f"run.accum_grad_iters={TP_QUERIES}", "run.dist_backend=gloo",
+                f"run.dist_timeout_s={DP_GROUP_TIMEOUT_S}", f"run.tp={TP_SIZE}"]
+        t0 = time.time()
+        dp_launch("tp", tmp, *argv, phase=26)
+        wall = time.time() - t0
+        ranks = dp_read(tmp, "tp")
+        train = dp_read(tmp, "tp_train")
+    full = [r["full"] for r in ranks]
+    ref = full[0]
+    d2 = {dtype: ranks[0][dtype] for dtype in TP_DEPTH2_DTYPES}
+    seconds = [rank["seconds"] for rank in train]
+    say(f"tp at full depth in float32 (phase 4's model, seed 0, {TP_FULL_ROWS} x {N_FRAMES} "
+        f"frames, {TP_SIZE} ranks of one tensor-parallel group on one card over gloo, "
+        f"{TP_HEADS} heads a rank), the encoder states and the first decode step's logits "
+        f"against one process (rank 0 alone, unsharded): encoder states cosine "
+        f"{ref['tp']['enc_cos']:.9f}, logits cosine {ref['tp']['logits_cos']:.9f} (max |diff| "
+        f"{ref['tp']['logits_err']:.2e} of {ref['logits_max']:.4f}), top-1 equal "
+        f"{ref['tp']['top1_equal']}; the noise baseline, one process with its o and wo sums "
+        f"split in two as tp splits them: encoder states cosine {ref['split']['enc_cos']:.9f}, "
+        f"logits cosine {ref['split']['logits_cos']:.9f} (max |diff| "
+        f"{ref['split']['logits_err']:.2e}), top-1 equal {ref['split']['top1_equal']}; the "
+        f"ranks' logits bit-equal {full[0]['logits_sha'] == full[1]['logits_sha']}; launches a "
+        f"rank {ref['launches']}; one process {ref['seconds_ref']:.3f} s; fp32 weights "
+        + ", ".join(f"{f['weight_gib']:.2f}" for f in full) + " GiB a rank")
+    for r, f in enumerate(full):
+        say(f"tp rank {r} collectives (the fp32 encoder and one teacher-forced decoder step of "
+            f"{TP_FULL_ROWS} x {N_FRAMES} with a synchronize around each collective, "
+            f"{f['tapped_seconds']:.3f} s): "
+            + "; ".join(f"{c['kind']} of {c['numel']:,} elements x{c['count']}: "
+                        f"{c['ms']:.3f} ms each" for c in f["collectives"])
+            + f"; all-reduce ms per encoder layer {f['encoder_ms_per_layer']:.3f}, per "
+            f"decoder layer and step {f['decode_ms_per_layer_step']:.3f}")
+    for dtype, res in d2.items():
+        say(f"tp depth {REDUCED_DEPTH} in {dtype} (full width, dropout 0, 1 x {N_FRAMES} "
+            f"frames) against one process (rank 0 alone, unsharded): beams equal "
+            f"{res['seqs_equal']}, scores max |diff| {res['score_err']:.2e}; one LoRA update: "
+            f"loss {res['loss']:.6f} vs {res['loss_ref']:.6f} (rel {res['loss_rel']:.2e}), "
+            f"gradient cosine {res['grad_cos']:.6f}, post-update max |diff| / max |tensor| "
+            f"{res['tensor_rel']:.2e}, share more than the lr apart {res['apart']:.2e}; "
+            f"seconds tp {[r[dtype]['update_s'] for r in ranks]} vs one process "
+            f"{res['seconds_ref']}")
+    for fault, res in d2["bfloat16"]["faults"].items():
+        say(f"tp depth {REDUCED_DEPTH} bf16 with a planted fault ({fault}): loss rel "
+            f"{res['loss_rel']:.2e} (bar {TP_BF16_LOSS_REL}), gradient cosine "
+            f"{res['grad_cos']:.6f} (bar {TP_BF16_COSINE_MIN})")
+    say(f"tp train entry point (configs/projects/train/qvh.yaml, run.tp={TP_SIZE}, "
+        f"{TP_QUERIES} micro-batches of 1 x {N_FRAMES} on both ranks, one update, 1 val "
+        f"query, {TP_NEW_TOKENS} new tokens): launches a micro-batch "
+        f"{[{k: v for k, v in x.items() if v} for x in train[0]['steps']]}, a generate "
+        f"{[{k: v for k, v in x.items() if v} for x in train[0]['generates']]}; losses "
+        f"{[round(x, 4) for x in train[0]['losses']]}; seconds per micro-batch "
+        + "; ".join(f"rank {r} {[round(x, 3) for x in sec]}" for r, sec in enumerate(seconds))
+        + "; peak " + ", ".join(f"rank {r} {rank['peak_gib']:.2f} GiB"
+                                for r, rank in enumerate(train))
+        + "; worker parts (s) " + ", ".join(f"rank {r} {rank['parts']}"
+                                            for r, rank in enumerate(ranks))
+        + f"; launch {wall:.1f} s; phase 26 (a) {time.time() - phase_start:.1f} s; "
+        f"phase 4 steady {main_summary['steady_s']:.3f} s a batch; {card}")
+    require(full[0]["logits_sha"] == full[1]["logits_sha"],
+            "phase 26 (a): the ranks' full-depth logits differ")
+    require(min(ref["tp"]["enc_cos"], ref["tp"]["logits_cos"]) >= TP_FULL_COSINE_MIN,
+            f"phase 26 (a) full depth fp32 against one process: {ref}")
+    for dtype in TP_DEPTH2_DTYPES:
+        require(all(r[dtype]["seqs"] == ranks[0][dtype]["seqs"]
+                    and r[dtype]["scores"] == ranks[0][dtype]["scores"] for r in ranks)
+                and all(math.isfinite(x) for x in ranks[0][dtype]["scores"]),
+                f"phase 26 (a): the ranks' depth-2 {dtype} beams differ or are not finite")
+    fp32, bf16 = d2["float32"], d2["bfloat16"]
+    require(fp32["seqs_equal"] and fp32["score_err"] <= FP32_PATH_REL_TOL
+            and fp32["loss_rel"] <= FP32_PATH_REL_TOL and fp32["grad_cos"] >= TP_FP32_COSINE_MIN
+            and fp32["tensor_rel"] <= DP_TENSOR_REL_TOL and fp32["apart"] <= DP_APART_MAX,
+            f"phase 26 (a) depth {REDUCED_DEPTH} fp32 against one process: {fp32}")
+    require(bf16["loss_rel"] <= TP_BF16_LOSS_REL and bf16["grad_cos"] >= TP_BF16_COSINE_MIN
+            and bf16["tensor_rel"] <= DP_TENSOR_REL_TOL,
+            f"phase 26 (a) depth {REDUCED_DEPTH} bf16 against one process: {bf16}")
+    for fault, res in bf16["faults"].items():
+        require(res["loss_rel"] > TP_BF16_LOSS_REL or res["grad_cos"] < TP_BF16_COSINE_MIN,
+                f"phase 26 (a): the bf16 bars pass a planted fault ({fault}): {res}")
+    for dtype in TP_DEPTH2_DTYPES:
+        require(len({r[dtype]["fingerprint"] for r in ranks}) == 1, f"phase 26 (a): the "
+                f"ranks' trainable tensors differ after the depth-2 {dtype} update")
+    for r, rank in enumerate(train):
+        require(rank["tp"] == TP_SIZE and len(rank["steps"]) == TP_QUERIES
+                and rank["updates"] == 1, f"phase 26 (a) rank {r}: tp {rank['tp']}, "
+                f"{len(rank['steps'])} micro-batches, {rank['updates']} updates")
+        for i, launched in enumerate(rank["steps"]):
+            require(launched == EXPECTED_REMAT_TRAIN_LAUNCHES, f"phase 26 (a) rank {r} "
+                    f"micro-batch {i}: launches {launched}")
+        for i, launched in enumerate(rank["generates"]):
+            require(launched == EXPECTED_LAUNCHES, f"phase 26 (a) rank {r} generate {i}: "
+                    f"launches {launched}")
+        require(rank["frozen_equal"] and rank["moved"] and all(
+            math.isfinite(x) for x in rank["losses"]), f"phase 26 (a) rank {r}: frozen "
+            f"equal {rank['frozen_equal']}, unmoved {rank['unmoved']}, losses {rank['losses']}")
+    require(len({rank["fingerprint"] for rank in train}) == 1
+            and train[0]["losses"] == train[1]["losses"],
+            "phase 26 (a): the ranks' trainable tensors or losses differ after the run")
+    for split, rows in train[0]["rows"].items():
+        require(rows["merged"] == rows["unique"] == 1, f"phase 26 (a) {split} rows {rows}")
+    say(f"tp gates passed: at full depth in fp32 encoder states and first-step logits "
+        f"cosine >= {TP_FULL_COSINE_MIN}, the ranks' logits bit-equal; at depth "
+        f"{REDUCED_DEPTH} in fp32 beams equal, scores and loss within {FP32_PATH_REL_TOL}, "
+        f"gradient cosine >= {TP_FP32_COSINE_MIN}, the update within phase 22's bars, in bf16 "
+        f"loss within {TP_BF16_LOSS_REL}, gradient cosine >= {TP_BF16_COSINE_MIN}, and each "
+        f"planted fault outside them; the ranks' beams equal; every bf16 launch count as "
+        f"one process's; the ranks' tensors bit-equal")
+    return train[0]["launches"]
+
+
+def cosine64(torch, got, want):
+    """``cosine`` in float64 (fp32 sums over millions of elements drift)."""
+    return float(torch.nn.functional.cosine_similarity(
+        got.double().flatten(), want.double().flatten(), dim=0))
+
+
+@contextlib.contextmanager
+def split_row_sums(torch, model, parts=TP_SIZE):
+    """The T5's row-parallel layers (``o``, ``wo``) computing their product
+    as ``parts`` fp32 partial products over slices of the input features,
+    summed and rounded once: tensor parallelism's order for those sums, in
+    one process (a noise baseline for its rounding)."""
+    from mr_blip_tpu_torch.models.t5 import T5Attention, T5FeedForward
+
+    denses = [m.o if isinstance(m, T5Attention) else m.wo for m in model.module.t5.modules()
+              if isinstance(m, (T5Attention, T5FeedForward))]
+
+    def split(dense):
+        def forward(x):  # layers.Dense._forward_tp's row mode, every rank's part
+            cdt = dense.compute_dtype
+            x, w = x.to(cdt), dense.weight.to(cdt)
+            step = x.shape[-1] // parts
+            y = 0.0
+            for lo in range(0, x.shape[-1], step):
+                part = x[..., lo:lo + step].float() @ w[:, lo:lo + step].float().t()
+                if dense.lora_rank:
+                    delta = (dense.lora_dropout(x[..., lo:lo + step])
+                             @ dense.lora_a[lo:lo + step].to(cdt)) @ dense.lora_b.to(cdt)
+                    part = part + (delta * dense.lora_scaling).to(part.dtype)
+                y = y + part
+            return y.to(cdt)
+        return forward
+
+    for dense in denses:
+        require(dense.bias is None and dense.tp is None, "split_row_sums: a biased or "
+                "sharded row-parallel layer")
+        dense.forward = split(dense)
+    try:
+        yield
+    finally:
+        for dense in denses:
+            del dense.forward
+
+
+def tp_full_depth(torch, dev, rank, group, counts):
+    """Phase 26 (a) (1), one rank: phase 4's model (seed 0, full depth and
+    width) in fp32 on TP_FULL_ROWS rows of 60 frames, the encoder states and
+    the first decode step's logits (``first_step``). Rank 0 first runs them
+    on the whole model alone (no collective), plain and with the
+    row-parallel sums split as tensor parallelism splits them
+    (``split_row_sums``); then both ranks shard the model and run them with
+    every collective timed; rank 0 compares."""
+    import hashlib
+
+    import torch.distributed as tdist
+
+    from mr_blip_tpu_torch.common import dist as dist_utils
+    from mr_blip_tpu_torch.profile_inference import make_samples
+
+    samples = make_samples(TP_FULL_ROWS, N_FRAMES, 0, 224)
+    model = flagship_model(dev, compute_dtype="float32")
+    if rank == 0:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = first_step(torch, model, samples)
+        ref_s = time.time() - t0
+        with split_row_sums(torch, model):
+            base = first_step(torch, model, samples)
+    dist_utils.barrier()
+    model.set_tensor_parallel(group)
+    gc.collect()
+    torch.cuda.empty_cache()
+    weight_gib = sum(t.numel() * t.element_size() for t in
+                     (*model.module.parameters(), *model.module.buffers())) / 2**30
+    seen = []
+    real = {"all_reduce": tdist.all_reduce, "all_gather": tdist.all_gather}
+
+    def timed(kind):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = real[kind](*a, **k)
+            torch.cuda.synchronize()
+            seen.append((kind, a[0].numel() if kind == "all_reduce" else a[1].numel(),
+                         time.perf_counter() - start))
+            return result
+        return call
+
+    before = counts()
+    tdist.all_reduce, tdist.all_gather = timed("all_reduce"), timed("all_gather")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        mine = first_step(torch, model, samples)
+        tapped_s = time.time() - t0
+    finally:
+        tdist.all_reduce, tdist.all_gather = real["all_reduce"], real["all_gather"]
+    launches = {k: v - before[k] for k, v in counts().items() if v - before[k]}
+    groups = {}
+    for kind, numel, took in seen:
+        groups.setdefault((kind, numel), []).append(took)
+    collectives = sorted(({"kind": k, "numel": n, "count": len(t),
+                           "ms": 1e3 * statistics.mean(t)} for (k, n), t in groups.items()),
+                         key=lambda c: -c["count"] * c["ms"])
+    cfg = model.t5_config
+    # The encoder's two all-reduces a layer (o, wo) over (B, L, d_model), the
+    # decoder's three a layer (self o, cross o, wo) over its rows for the
+    # one step, the logits' gather.
+    encoder = [c for c in collectives if c["kind"] == "all_reduce"
+               and c["count"] == 2 * cfg.num_layers]
+    decode = [c for c in collectives if c["kind"] == "all_reduce" and c not in encoder]
+    out = {"launches": launches, "tapped_seconds": tapped_s, "weight_gib": weight_gib,
+           "logits_sha": hashlib.sha256(mine["logits0"].numpy().tobytes()).hexdigest(),
+           "collectives": collectives[:6],
+           "encoder_ms_per_layer": 2 * sum(c["ms"] * c["count"] for c in encoder)
+           / max(1, sum(c["count"] for c in encoder)),
+           "decode_ms_per_layer_step": 3 * sum(c["ms"] * c["count"] for c in decode)
+           / max(1, sum(c["count"] for c in decode))}
+    if rank == 0:
+        want = ref["logits0"]
+        for key, run in (("tp", mine), ("split", base)):
+            out[key] = {"enc_cos": cosine64(torch, run["enc0"], ref["enc0"]),
+                        "logits_cos": cosine64(torch, run["logits0"], want),
+                        "logits_err": float((run["logits0"] - want).abs().max()),
+                        "top1_equal": bool((run["logits0"].argmax(-1)
+                                            == want.argmax(-1)).all())}
+        out.update(logits_max=float(want.abs().max()), seconds_ref=ref_s)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_depth2(torch, dev, rank, group, compute_dtype):
+    """Phase 26 (a) (2), one rank: the depth-2 model at full width in
+    ``compute_dtype``, dropout 0, sharded over ``group``: a 1 x 60 generate
+    and one LoRA update (in bf16 then again under each planted fault: the
+    partial LoRA gradients, or the row-parallel partial products, not
+    summed over the group); rank 0 also runs both on the unsharded model
+    alone (no collective) and compares."""
+    from mr_blip_tpu_torch.models import layers
+    from mr_blip_tpu_torch.models.layers import Dropout
+    from mr_blip_tpu_torch.parallel import mesh
+    from mr_blip_tpu_torch.parallel import tensor as tensor_parallel
+    from mr_blip_tpu_torch.profile_inference import make_samples
+    from mr_blip_tpu_torch.runners.train_state import TrainCtx
+
+    def no_dropout(m):
+        for mod in m.module.modules():
+            if isinstance(mod, Dropout):
+                mod.rate = 0.0
+        return m
+
+    row = make_samples(1, N_FRAMES, seed=260)
+    row["relevant_windows"], row["query_id"] = [DP_WINDOWS[1]], ["q26"]
+    small = no_dropout(reduced_model(dev, compute_dtype=compute_dtype,
+                                     max_new_tokens=TP_NEW_TOKENS))
+    ref = no_dropout(reduced_model(dev, compute_dtype=compute_dtype,
+                                   max_new_tokens=TP_NEW_TOKENS)) if rank == 0 else None
+    small.set_tensor_parallel(group)
+
+    def generate(m):
+        h = m.generate_dispatch(row)
+        return h["seqs"].cpu().tolist(), h["scores"].float().cpu().tolist()
+
+    def update(m, alone):
+        """(loss, gradients, tensors after, seconds) of one update from the
+        model's tensors as they are, which it puts back after."""
+        ctx = TrainCtx(m, weight_decay=TRAIN_WEIGHT_DECAY, seed=0)
+        if alone:
+            ctx.distributed = False
+        ctx.set_lr(TRAIN_LR)
+        start_state = {n: p.detach().clone() for n, p in ctx.named_params.items()}
+        grads, optimizer_step = {}, ctx.optimizer.step
+
+        def snapshot(*a, **k):
+            grads.update({n: p.grad.detach().float().clone()
+                          for n, p in ctx.named_params.items()})
+            return optimizer_step(*a, **k)
+
+        ctx.optimizer.step = snapshot
+        torch.cuda.synchronize()
+        start = time.time()
+        loss = ctx.step(m.prepare_mr_batch(row))
+        torch.cuda.synchronize()
+        took = round(time.time() - start, 3)
+        after = {n: p.detach().clone() for n, p in ctx.named_params.items()}
+        with torch.no_grad():
+            for n, p in ctx.named_params.items():
+                p.copy_(start_state[n])
+        return loss, grads, after, took
+
+    def compare(run, ref_run):
+        names = list(ref_run[1])
+        return {"loss_rel": abs(run[0] - ref_run[0]) / abs(ref_run[0]),
+                "grad_cos": cosine(torch, torch.cat([run[1][n].flatten() for n in names]),
+                                   torch.cat([ref_run[1][n].flatten() for n in names]))}
+
+    seqs, scores = generate(small)
+    tp_run = update(small, alone=False)
+    out = {"update_s": tp_run[3], "seqs": seqs, "scores": scores,
+           "fingerprint": mesh.assert_replicated(tp_run[2], "phase 26 (a) update")}
+    faults = {}
+    if compute_dtype == "bfloat16":
+        summed = tensor_parallel.reduce_partial_grads
+        tensor_parallel.reduce_partial_grads = lambda params, group: None
+        try:
+            faults["the partial gradients not summed over the group"] = update(small, False)
+        finally:
+            tensor_parallel.reduce_partial_grads = summed
+        reduced = layers.reduce_from_tp
+        layers.reduce_from_tp = lambda x, group: x
+        try:
+            faults["the row-parallel partial products not summed"] = update(small, False)
+        finally:
+            layers.reduce_from_tp = reduced
+    if rank == 0:
+        ref_seqs, ref_scores = generate(ref)
+        ref_run = update(ref, alone=True)
+        rel, apart = _dp_rel(torch, tp_run[2], ref_run[2])
+        out.update(seqs_equal=seqs == ref_seqs,
+                   score_err=max(abs(a - b) for a, b in zip(scores, ref_scores)),
+                   loss=tp_run[0], loss_ref=ref_run[0], tensor_rel=rel, apart=apart,
+                   seconds_ref=ref_run[3], faults={
+                       name: compare(run, ref_run) for name, run in faults.items()},
+                   **compare(tp_run, ref_run))
+    return out
+
+
+def tp_worker(torch, workdir, argv):
+    """Phase 26 (a), one rank: (1) ``tp_full_depth``; (2) ``tp_depth2`` in
+    bf16 and in fp32; (3) ``train.main(argv)`` under run.tp
+    (``dp_train_worker``)."""
+    from mr_blip_tpu_torch.common import dist as dist_utils
+
+    dist_utils.init_distributed_mode({"device": "cuda", "dist_backend": "gloo", "tp": TP_SIZE,
+                                      "dist_timeout_s": DP_GROUP_TIMEOUT_S})
+    rank, group = dist_utils.get_rank(), dist_utils.tp_group()
+    dev = dist_utils.local_device("cuda")
+    wrappers, _ = kernel_tables()
+    out, parts, part_start = {}, {}, time.time()
+
+    def part(name):
+        nonlocal part_start
+        parts[name] = round(time.time() - part_start, 1)
+        part_start = time.time()
+
+    out["full"] = tp_full_depth(torch, dev, rank, group, lambda: {
+        name: w.launches for name, w in wrappers.items()})
+    part("full depth fp32")
+    for dtype in TP_DEPTH2_DTYPES:
+        out[dtype] = tp_depth2(torch, dev, rank, group, dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist_utils.barrier()
+    part("depth 2")
+    out["parts"] = parts
+    (Path(workdir) / f"tp_rank{rank}.json").write_text(json.dumps(out))
+
+    # (3) the train entry point under run.tp
+    torch.cuda.reset_peak_memory_stats(dev)
+    dp_train_worker(torch, workdir, argv, mode="tp_train")
+
+
+def dp_server_entry_point(torch, wrappers, card, model, serve_summary):
+    """Phase 26 (b): phase 20's model behind the server (batches of 4), then
+    the same model with a second replica on the same card behind a server of
+    batches of 8 (``set_mesh``: each batch split into two blocks of 4 rows,
+    each on its replica's thread and stream), over the same
+    DP_SERVE_REQUESTS frame requests and then a ragged DP_SERVE_RAGGED
+    (padded to 4, and to 8: its first block is the one model's padded
+    batch). Every block has the shape of a one-model batch, so every row
+    equals the one model's bit for bit (a block of another shape rounds its
+    bf16 products in another order, which 24 random-weight layers amplify).
+    Prints requests/s of both beside phase 20's. Returns the replicas'
+    launches over their run."""
+    import threading
+
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.serving import MomentRetrievalServer, MRRequest
+
+    phase_start = time.time()
+    videos = make_serving_samples(DP_SERVE_REQUESTS, seed=26)
+
+    def requests(n):
+        return [MRRequest(query=f"a person is doing something {i}", duration=150.0,
+                          video=videos[i], qid=f"d{i}") for i in range(n)]
+
+    def serve(m, max_batch):
+        srv = MomentRetrievalServer(m, max_batch=max_batch, max_wait_ms=DP_SERVE_FORM_WAIT_MS,
+                                    batch_buckets=[max_batch], decode_workers=0)
+        torch.cuda.synchronize()
+        start = time.time()
+        got = [f.result(timeout=600) for f in [srv.submit(r) for r in
+                                                requests(DP_SERVE_REQUESTS)]]
+        full_s = time.time() - start
+        got += [f.result(timeout=600) for f in [srv.submit(r) for r in
+                                                 requests(DP_SERVE_RAGGED)]]
+        srv.close(timeout=600)
+        return got, full_s, srv.stats()
+
+    one, one_s, one_st = serve(model, BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.time()
+    model.set_mesh([model.device, model.device])
+    torch.cuda.synchronize()
+    copy_s = time.time() - t0
+    copied = torch.cuda.memory_allocated() - resident
+    blocks, real = [], BLIP2_MR._generate_prepared
+    lock = threading.Lock()
+
+    def tapped(view, batch):
+        with lock:
+            blocks.append(len(batch["end_ids"]))
+        return real(view, batch)
+
+    BLIP2_MR._generate_prepared = tapped
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        two, two_s, two_st = serve(model, 2 * BATCH)
+    finally:
+        BLIP2_MR._generate_prepared = real
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    model.set_mesh(None)
+    n_blocks = 2 * (DP_SERVE_REQUESTS // (2 * BATCH) + 1)
+    equal = [a["raw_prediction"] == b["raw_prediction"] and a["prediction"] == b["prediction"]
+             for a, b in zip(two, one)]
+    say(f"dp server (phase 20's model and a second replica on the same card, set_mesh, "
+        f"batches of 8 split 4 + 4, a thread and a stream a replica): {DP_SERVE_REQUESTS} "
+        f"requests then a ragged {DP_SERVE_RAGGED} (padded to 8), rows equal to the one "
+        f"model's (batches of 4) {sum(equal)} of {len(equal)}; blocks {blocks}; launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({n_blocks} blocks); "
+        f"requests/s over the {DP_SERVE_REQUESTS}: two replicas "
+        f"{DP_SERVE_REQUESTS / two_s:.3f}, one model {DP_SERVE_REQUESTS / one_s:.3f} (same "
+        f"server, same requests), phase 20's closed loop {serve_summary['rps']:.3f}; latency "
+        f"p50 {two_st.latency_p50_s:.3f} vs {one_st.latency_p50_s:.3f} s; replica copied in "
+        f"{copy_s:.1f} s ({copied / 2**30:.2f} GiB); peak {peak / 2**30:.2f} GiB; phase 26 (b) "
+        f"{time.time() - phase_start:.1f} s; {card}")
+    require(all(equal), f"phase 26 (b): the replicas' rows differ from the one model's: "
+            f"{two} vs {one}")
+    require(blocks == [BATCH] * n_blocks and two_st.completed == DP_SERVE_REQUESTS
+            + DP_SERVE_RAGGED, f"phase 26 (b): blocks {blocks}, {two_st}")
+    want = {k: n_blocks * v for k, v in EXPECTED_LAUNCHES.items()}
+    require(launches == want, f"phase 26 (b): launches {launches}, expected {want}")
+    return launches
+
+
 def dp_worker(argv):
     """``chip_smoke.py --dp-worker <train|step> <dir> [train argv]``: one
     rank of phase 22 under ``torch.distributed.run``."""
@@ -4631,6 +5352,8 @@ def dp_worker(argv):
     mode, workdir = argv[0], argv[1]
     if mode == "train":
         dp_train_worker(torch, workdir, argv[2:])
+    elif mode == "tp":
+        tp_worker(torch, workdir, argv[2:])
     else:
         dp_step_worker(torch, workdir)
 
@@ -5054,8 +5777,8 @@ def unfrozen_vit_entry_point(torch, wrappers, card):
     ``model.freeze_vit=False`` (the EVA ViT-g trains: fp32 masters cast to
     bf16 at use, stochastic depth up to the default 0.4, every block
     checkpointed under ``use_grad_checkpoint``), random weights, over
-    UNFROZEN_QUERIES synthetic train queries (one update of 8 micro-batches
-    of 1 x 60 frames), one val query and no test split. Gates: every ViT
+    UNFROZEN_QUERIES synthetic train queries (one update of UNFROZEN_ACCUM
+    micro-batches of 1 x 60 frames), one val query and no test split. Gates: every ViT
     tensor moved, every frozen tensor (the T5 base, the Q-Former)
     bit-equal, every loss finite, each micro-batch's launches as predicted
     (kernel 2 twice a block: the forward and the recompute, in bf16 from the
@@ -5134,6 +5857,7 @@ def unfrozen_vit_entry_point(torch, wrappers, card):
                   for split, path in run_paths.items()),
                 "datasets.qvh.build_info.videos.storage=synthetic",
                 f"run.output_dir={Path(tmp) / 'train'}", "run.max_epoch=1",
+                f"run.accum_grad_iters={UNFROZEN_ACCUM}",
                 "run.test_splits=[]", "model.freeze_vit=False"]
         for cls, name, tap in taps:
             setattr(cls, name, tap)
@@ -5186,7 +5910,7 @@ def unfrozen_vit_entry_point(torch, wrappers, card):
         f"frozen one bit-equal")
     say(f"[{card}] unfrozen ViT seconds: micro-batch steady {statistics.median(seconds[1:]):.3f} "
         f"(median of 1-{len(seconds) - 1}; mean {statistics.mean(seconds[1:]):.3f}, first "
-        f"{seconds[0]:.3f}); update {sum(seconds):.3f} (the 8 micro-batches), of it the "
+        f"{seconds[0]:.3f}); update {sum(seconds):.3f} (the {len(seconds)} micro-batches), of it the "
         f"optimizer step {optimizer_s[0]:.3f}; main() {wall:.3f}; peak memory "
         f"{(peak - resident) / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB earlier "
         f"phases held")
@@ -5652,6 +6376,7 @@ def main():
     check_kernels(torch, kernels)
     check_flash_kernel(torch, kernels)
     check_train_kernels(torch, kernels)
+    tp_kernel_times = check_tp_kernels(torch, kernels)
     check_relpos_kernels(torch, kernels)
     check_int8_kernels(torch, kernels)
     done(3)
@@ -5743,7 +6468,8 @@ def main():
     done(19)
     # phase 20: online serving at full width (load_model, the server, HTTP,
     # python -m mr_blip_tpu_torch.serve)
-    serve_launches, _ = serving_entry_point(torch, wrappers, smi, bf16_summary)
+    serve_launches, serve_summary, serve_model = serving_entry_point(torch, wrappers, smi,
+                                                                      bf16_summary)
     done(20)
     # phase 21: QLoRA-style training at full width (int8_base, int8 ViT)
     qlora_launches = qlora_entry_point(torch, wrappers, smi, train_entry_summary)
@@ -5774,6 +6500,14 @@ def main():
     vocab_launches = vocabulary_entry_point(torch, wrappers, smi, bf16_summary,
                                             eval_summary["metrics"])
     done(25)
+    # phase 26: tensor parallelism (two ranks, tp=2) and the dp server (phase
+    # 20's model with a second replica)
+    tp_launches = tp_entry_point(torch, smi, bf16_summary)
+    say("tp=2 kernels 3, 5, 6, 8 at 16 heads (phase 3), ms kernel / plain / bound: " + "; ".join(
+        f"{k} {v[0]:.4f} / {v[1]:.4f} / {v[2]:.4f}" for k, v in tp_kernel_times.items()))
+    dp_serve_launches = dp_server_entry_point(torch, wrappers, smi, serve_model, serve_summary)
+    del serve_model
+    done(26)
 
     for key, entry in kernels.items():
         if key == "flash_attention":
@@ -5801,6 +6535,8 @@ def main():
         entry["variant_launches"] = variant_launches[key]
         entry["unfrozen_launches"] = unfrozen_launches[key]
         entry["vocab_launches"] = vocab_launches[key]
+        entry["tp_launches"] = tp_launches[key]
+        entry["dp_serve_launches"] = dp_serve_launches[key]
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
@@ -5808,7 +6544,7 @@ def main():
                                "library_ms", "train_entry_launches", "qa_entry_launches",
                                "opt_entry_launches", "serve_launches", "qlora_launches",
                                "dp_launches", "variant_launches", "unfrozen_launches",
-                               "vocab_launches")}
+                               "vocab_launches", "tp_launches", "dp_serve_launches")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

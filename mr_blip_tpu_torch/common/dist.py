@@ -11,6 +11,15 @@ degrades to the single-process answer. Under ``torchrun`` (``WORLD_SIZE`` >
 collective a rank never reaches raises instead of stalling. There is no
 fallback: a host without a card when ``run.device`` is ``cuda``, a backend
 that fails to start and a collective that times out all raise.
+
+Tensor parallelism (``run.tp`` = t > 1) splits the world of ``dp x t``
+ranks into groups, the counterpart of ``make_mesh(tp=t)``'s (dp, tp) grid:
+ranks ``i·t .. i·t + t - 1`` form tensor-parallel group ``i`` (they hold
+the shards of one model and read the same rows), and ranks ``j, j + t,
+j + 2t, ...`` form data-parallel group ``j`` (they hold the same shard and
+read other rows). ``tp_group`` / ``dp_group`` and their sizes and ranks
+answer for the calling rank; without tensor parallelism the dp group is the
+world and the tp group is None.
 """
 
 from __future__ import annotations
@@ -39,6 +48,13 @@ def init_distributed_mode(run_cfg=None) -> bool:
     run_cfg = {} if run_cfg is None else run_cfg
     world = _env_int("WORLD_SIZE", 1)
     if world <= 1:
+        tp = int(run_cfg.get("tp", 1))
+        if tp > 1:
+            raise ValueError(
+                f"run.tp={tp} in one process: tensor parallelism runs one process "
+                f"a shard; launch python -m torch.distributed.run "
+                f"--nproc_per_node={tp} -m mr_blip_tpu_torch.train|evaluate ... "
+                f"--options run.distributed=True run.tp={tp}")
         logging.info("single process: no process group")
         return False
     if not run_cfg.get("distributed", True):
@@ -61,9 +77,65 @@ def init_distributed_mode(run_cfg=None) -> bool:
                              world_size=world, rank=rank, timeout=timeout)
     logging.info("process group: rank %d of %d (local %d), %s, timeout %s",
                  rank, world, local_rank, backend, timeout)
+    init_model_parallel(int(run_cfg.get("tp", 1)))
     if on_card:
         build_kernels_once()
     return True
+
+
+_MODEL_PARALLEL = {"tp": 1, "tp_group": None, "dp_group": None}
+
+
+def init_model_parallel(tp: int = 1):
+    """Split the world into tensor-parallel groups of ``tp`` consecutive
+    ranks and data-parallel groups of the ranks ``tp`` apart (a collective:
+    every rank calls it with the same ``tp``). ``tp`` 1 sets the groups back
+    to none (the dp group is then the world)."""
+    world, rank = get_world_size(), get_rank()
+    if tp < 1 or world % tp:
+        raise ValueError(f"run.tp={tp} does not divide the world of {world} ranks")
+    _MODEL_PARALLEL.update(tp=1, tp_group=None, dp_group=None)
+    if tp == 1:
+        return
+    for i in range(world // tp):
+        ranks = list(range(i * tp, (i + 1) * tp))
+        group = tdist.new_group(ranks)
+        if rank in ranks:
+            _MODEL_PARALLEL["tp_group"] = group
+    for j in range(tp):
+        ranks = list(range(j, world, tp))
+        group = tdist.new_group(ranks)
+        if rank in ranks:
+            _MODEL_PARALLEL["dp_group"] = group
+    _MODEL_PARALLEL["tp"] = tp
+    logging.info("tensor parallelism: %d x %d (dp x tp), rank %d: tp rank %d, dp "
+                 "rank %d", world // tp, tp, rank, tp_rank(), dp_rank())
+
+
+def tp_size() -> int:
+    return _MODEL_PARALLEL["tp"]
+
+
+def tp_rank() -> int:
+    return get_rank() % tp_size()
+
+
+def tp_group():
+    """This rank's tensor-parallel group (None without tensor parallelism)."""
+    return _MODEL_PARALLEL["tp_group"]
+
+
+def dp_size() -> int:
+    return get_world_size() // tp_size()
+
+
+def dp_rank() -> int:
+    return get_rank() // tp_size()
+
+
+def dp_group():
+    """This rank's data-parallel group (None: the world)."""
+    return _MODEL_PARALLEL["dp_group"]
 
 
 def build_kernels_once():
@@ -128,10 +200,12 @@ def barrier():
         tdist.barrier()
 
 
-def all_reduce(tensor: torch.Tensor, op=None) -> torch.Tensor:
-    """Sum (or ``op``) ``tensor`` over the ranks, in place; returned."""
+def all_reduce(tensor: torch.Tensor, op=None, group=None) -> torch.Tensor:
+    """Sum (or ``op``) ``tensor`` over the ranks of ``group`` (default: the
+    world), in place; returned."""
     if is_dist_avail_and_initialized():
-        tdist.all_reduce(tensor, op=tdist.ReduceOp.SUM if op is None else op)
+        tdist.all_reduce(tensor, op=tdist.ReduceOp.SUM if op is None else op,
+                         group=group)
     return tensor
 
 
@@ -163,5 +237,6 @@ def all_gather_object(obj):
 def destroy():
     """Leave the process group (the entry points call it before they
     return, so that a process can start another run)."""
+    _MODEL_PARALLEL.update(tp=1, tp_group=None, dp_group=None)
     if is_dist_avail_and_initialized():
         tdist.destroy_process_group()

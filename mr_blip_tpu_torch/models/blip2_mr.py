@@ -60,6 +60,19 @@ or cached.
 The model lives on ``device``, the card by default; pass ``device="cpu"``
 to run the kernels' plain versions on the host.
 
+Tensor parallelism (``run.tp`` under ``torchrun``): ``set_tensor_parallel
+(group)`` shards the T5 (or OPT) over a group of processes
+(``parallel/tensor.py``); every rank of the group then runs the same rows
+and gets the same gathered logits, loss and beams. ``state_dict`` holds
+the rank's shards, ``full_state_dict`` (a collective) whole tensors at the
+group's rank 0, and ``load_state_dict`` cuts whole tensors to the shards.
+
+Replicas in one process (``set_mesh(devices)``, the dp server): one copy of
+the weights on each device; ``generate_dispatch`` splits the prepared rows
+into contiguous blocks, one a replica (an empty block is skipped), runs
+each on its device in its own thread (its own CUDA stream) and joins the
+beams in row order.
+
 Registered as ``blip2_mr``: ``BLIP2_MR.from_config(cfg)`` builds it from the
 ``model:`` section of a project config (``configs/projects/eval/qvh.yaml``
 layered over ``configs/models/blip2/*.yaml``), loads its checkpoints and
@@ -69,8 +82,11 @@ setting the port cannot compute yet raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import itertools
 import logging
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict
 
 import numpy as np
@@ -81,6 +97,7 @@ from mr_blip_tpu_torch.models.base import BaseModel
 from mr_blip_tpu_torch.models.blip2_mr_module import Blip2MRModule
 from mr_blip_tpu_torch.models.eva_vit import eva_vit_g_config, vit_tiny_config
 from mr_blip_tpu_torch.models.generation import beam_search, greedy_decode_with_scores
+from mr_blip_tpu_torch.models.layers import Dropout
 from mr_blip_tpu_torch.models.prompt_assembly import build_interleave_plan
 from mr_blip_tpu_torch.models.qformer import qformer_base_config, qformer_tiny_config
 from mr_blip_tpu_torch.models.quantize import (
@@ -97,6 +114,7 @@ from mr_blip_tpu_torch.models.t5 import (
     t5_flan_xxl_config,
     t5_tiny_config,
 )
+from mr_blip_tpu_torch.parallel import tensor as tensor_parallel
 from mr_blip_tpu_torch.text.span_grammar import (
     convert_to_absolute_time,
     moment_str_to_list,
@@ -141,6 +159,21 @@ def _moments_from_strings(strings, durations, whole_end):
             m[1] = round(float(duration))
         moments.append(m)
     return moments
+
+
+def _module_copy(module: torch.nn.Module, device) -> torch.nn.Module:
+    """A copy of ``module`` with every parameter and buffer copied to
+    ``device`` (never through another copy on the source device); the
+    dropouts' generators are not carried over."""
+    memo = {}
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        moved = t.detach().to(device, copy=True)
+        memo[id(t)] = (torch.nn.Parameter(moved, requires_grad=t.requires_grad)
+                       if isinstance(t, torch.nn.Parameter) else moved)
+    for m in module.modules():
+        if isinstance(m, Dropout) and m.generator is not None:
+            memo[id(m.generator)] = None
+    return copy.deepcopy(module, memo)
 
 
 def _bucket(n: int, multiple: int = 16) -> int:
@@ -291,6 +324,9 @@ class BLIP2_MR(BaseModel):
                                else qformer_tiny_config(vit_cfg.embed_dim))
         # Keyed by the length (the localizer's T5) or ("answerer_t5", length).
         self._enc_bias_cache: Dict[Any, torch.Tensor] = {}
+        self.tp_group = None  # set_tensor_parallel
+        self._replicas = None  # set_mesh
+        self._stream = None  # a replica's CUDA stream
 
     # ------------------------------------------------------------ weights
     @torch.no_grad()
@@ -309,14 +345,124 @@ class BLIP2_MR(BaseModel):
         self._enc_bias_cache.clear()
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The module's tensors (under tensor parallelism the rank's shards:
+        ``full_state_dict`` gathers them)."""
         return self.module.state_dict()
+
+    def full_state_dict(self):
+        """Every tensor whole; under tensor parallelism a collective of the
+        group (every rank calls it) whose result, on the host, only the
+        group's rank 0 gets (``None`` elsewhere)."""
+        return tensor_parallel.full_state_dict(self.module)
 
     def load_state_dict(self, state_dict, strict: bool = True):
         """Load weights (e.g. from ``models/convert.py::state_dict_from_jax``)
         into the tensors as they are stored (fp32 trainable, compute-dtype
-        frozen); clears the per-length encoder bias cache."""
+        frozen); whole tensors of sharded weights are cut to the rank's
+        shards. Clears the per-length encoder bias cache."""
         self._enc_bias_cache.clear()
-        return self.module.load_state_dict(state_dict, strict=strict)
+        return self.module.load_state_dict(
+            tensor_parallel.local_state_dict(self.module, state_dict), strict=strict)
+
+    def set_tensor_parallel(self, group):
+        """Shard the language model over the tensor-parallel ``group``
+        (``parallel/tensor.py::shard_module``), in place, after the weights
+        are loaded and the int8 conversions made; returns the sharded
+        tensors' {name: mode}."""
+        if self._replicas is not None:
+            raise RuntimeError("set_tensor_parallel after set_mesh")
+        described = tensor_parallel.shard_module(self.module, group)
+        self.tp_group = group
+        self._enc_bias_cache.clear()
+        logging.info("tensor parallelism: %d tensors sharded, %d used in slices",
+                     sum(v != "partial" for v in described.values()),
+                     sum(v == "partial" for v in described.values()))
+        return described
+
+    # ------------------------------------------------------------- replicas
+    def set_mesh(self, devices, tp: int = 1):
+        """Replicate the model over ``devices`` (torch devices or names; the
+        first keeps ``self.module``, moved there if it is elsewhere) for
+        ``generate``: the counterpart of the JAX ``set_mesh`` with a dp-only
+        mesh. ``None`` drops the replicas. ``tp`` > 1 raises: the port's
+        tensor parallelism is a group of processes."""
+        if tp > 1:
+            raise ValueError(
+                f"set_mesh(tp={tp}): tensor parallelism runs one process a shard; "
+                f"launch python -m torch.distributed.run --nproc_per_node={tp} -m "
+                f"mr_blip_tpu_torch.evaluate ... --options run.distributed=True "
+                f"run.tp={tp}")
+        if self.tp_group is not None:
+            raise RuntimeError("set_mesh on a tensor-parallel model")
+        if self._replicas is not None:
+            self._mesh_pool.shutdown()
+            self._replicas = None
+        if devices is None:
+            return self
+        devices = [torch.device(d) for d in devices]
+        if not devices:
+            raise ValueError("set_mesh: no device")
+        if devices[0] != self.device:
+            self.module.to(devices[0])
+            self.device = devices[0]
+            self._enc_bias_cache.clear()
+        replicas = [self._replica(self.module, devices[0], self._enc_bias_cache)]
+        for device in devices[1:]:
+            replicas.append(self._replica(_module_copy(self.module, device), device, {}))
+        self._replicas = replicas
+        self._mesh_pool = ThreadPoolExecutor(len(replicas),
+                                             thread_name_prefix="mr-replica")
+        return self
+
+    @property
+    def replica_devices(self):
+        """The replicas' devices (``[self.device]`` without ``set_mesh``)."""
+        return [self.device] if self._replicas is None else [
+            r.device for r in self._replicas]
+
+    def _replica(self, module, device, bias_cache):
+        """A shallow copy of this wrapper that runs ``module`` on ``device``
+        (the host state, tokenizer and settings shared)."""
+        view = copy.copy(self)
+        view.module, view.device = module, device
+        view._enc_bias_cache, view._replicas = bias_cache, None
+        view._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        return view
+
+    def mesh_blocks(self, n: int):
+        """[(replica index, lo, hi)]: ``n`` rows in contiguous blocks of
+        ceil(n / replicas), as ``P("dp")`` places a padded batch; replicas
+        past the rows get none."""
+        count = len(self.replica_devices)
+        size = -(-n // count)
+        return [(i, lo, min(lo + size, n)) for i, lo in enumerate(range(0, n, size))]
+
+    def _mesh_generate(self, batch):
+        """The prepared ``batch``'s rows over the replicas, each block on its
+        replica's device and stream in a thread of its own; (seqs, scores)
+        joined in row order, on the host."""
+        n = len(batch["end_ids"])
+        callers = {r.device: torch.cuda.current_stream(r.device)
+                   for r in self._replicas if r.device.type == "cuda"}
+
+        def run(block):
+            i, lo, hi = block
+            view = self._replicas[i]
+            part = {k: v[lo:hi] for k, v in batch.items()}
+            with torch.inference_mode():
+                if view._stream is None:
+                    seqs, scores = view._generate_prepared(part)
+                    return seqs.cpu(), scores.cpu()
+                with torch.cuda.device(view.device), torch.cuda.stream(view._stream):
+                    view._stream.wait_stream(callers[view.device])
+                    frames = part["frames"]
+                    if isinstance(frames, torch.Tensor) and frames.device == view.device:
+                        frames.record_stream(view._stream)
+                    seqs, scores = view._generate_prepared(part)
+                    return seqs.cpu(), scores.cpu()
+
+        outs = list(self._mesh_pool.map(run, self.mesh_blocks(n)))
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
     def clear_bias_cache(self):
         """Drop the cached encoder biases (after the rel-pos table changed)."""
@@ -402,7 +548,10 @@ class BLIP2_MR(BaseModel):
         return self
 
     def _rebuild_t5(self, convert, **flags):
-        """Both T5 stacks of a QA model are converted, as in JAX."""
+        """Both T5 stacks of a QA model are converted, as in JAX. Before any
+        sharding: the converters read whole float weights."""
+        if self.tp_group is not None:
+            raise RuntimeError("quantize before set_tensor_parallel")
         self.t5_config = dataclasses.replace(self.t5_config, **flags)
         for name in ("t5", "answerer_t5") if self.is_qa else ("t5",):
             self.module.rebuild_submodule(
@@ -664,7 +813,7 @@ class BLIP2_MR(BaseModel):
         if key not in cache:
             if len(cache) >= _BIAS_CACHE_ENTRIES:
                 cache.pop(next(iter(cache)))
-            table = getattr(self.module, t5_name).encoder.rel_bias.rel_embedding
+            table = getattr(self.module, t5_name).encoder.rel_bias.local_table()
             # Never an inference tensor, though generate fills the cache
             # under inference mode: a train step saves it for its backward.
             with torch.inference_mode(False), torch.no_grad():
@@ -774,18 +923,32 @@ class BLIP2_MR(BaseModel):
     def generate_dispatch(self, samples) -> Dict[str, Any]:
         """Host prep + device work; pair with ``generate_collect``. Runs in
         eval mode (every dropout off, as the JAX generate is
-        deterministic) and restores the module's mode after."""
-        batch = self.prepare_mr_batch(samples, need_targets=False)
+        deterministic) and restores the module's mode after. With
+        ``set_mesh`` the prepared rows are split over the replicas."""
+        batch = self._generate_batch(samples)
+        if self._replicas is not None:
+            seqs, scores = self._mesh_generate(batch)
+        else:
+            seqs, scores = self._generate_prepared(batch)
+        return {"seqs": seqs, "scores": scores, "samples": samples}
+
+    def _generate_batch(self, samples) -> Dict[str, Any]:
+        """The host prep of ``generate``: arrays whose leading axis is the
+        rows."""
+        return self.prepare_mr_batch(samples, need_targets=False)
+
+    def _generate_prepared(self, batch):
+        """(seqs, scores) of a ``_generate_batch`` batch on this model's
+        module and device, in eval mode."""
         tensors = self._to_device(batch)
         enc_bias = self._encoder_bias_for(batch)
         training = self.module.training
         self.module.eval()
         try:
             enc, attn = self.encode_t5(tensors, self.frames_to_t5(tensors), enc_bias)
-            seqs, scores = self.decode(enc, attn)
+            return self.decode(enc, attn)
         finally:
             self.module.train(training)
-        return {"seqs": seqs, "scores": scores, "samples": samples}
 
     def generate_collect(self, handle) -> Dict[str, Any]:
         """Copy the beams to the host and post-process them."""

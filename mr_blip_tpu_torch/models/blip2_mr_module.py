@@ -159,9 +159,9 @@ class Blip2MRModule(nn.Module):
         b, t = frames.shape[:2]
         n = b * t
         flat = frames.reshape((n,) + frames.shape[2:])
-        if self.sequence_parallel and dist_utils.get_world_size() > 1:
-            rank = dist_utils.get_rank()
-            start, stop = mesh.frame_share(n, rank, dist_utils.get_world_size())
+        if self.sequence_parallel and dist_utils.dp_size() > 1:
+            rank = dist_utils.dp_rank()
+            start, stop = mesh.frame_share(n, rank, dist_utils.dp_size())
             with _rank_stream((self.visual_encoder, self.qformer),
                               rank if self.training else None):
                 q = mesh.gather_frames(self.encode_flat(flat[start:stop]), n)

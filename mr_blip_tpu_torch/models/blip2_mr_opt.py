@@ -318,12 +318,10 @@ class BLIP2_MR_OPT(BLIP2_MR):
     __call__ = forward
 
     # ------------------------------------------------------------- generate
-    @torch.inference_mode()
-    def generate_dispatch(self, samples) -> Dict[str, Any]:
-        """Host prep + device work (pairs with the inherited
-        ``generate_collect``). Each row's text block is right-aligned so that
-        its last prompt token, the seed of the search, is real. Runs in eval
-        mode and restores the module's mode after."""
+    def _generate_batch(self, samples) -> Dict[str, Any]:
+        """The host prep of the inherited ``generate_dispatch``: each row's
+        text block right-aligned so that its last prompt token, the seed of
+        the search (``start_tokens``), is real."""
         batch = self.prepare_opt_batch(samples, need_targets=False)
         text_ids, text_mask = batch["text_ids"], batch["text_mask"]
         last_real = text_mask.sum(axis=1) - 1
@@ -335,16 +333,18 @@ class BLIP2_MR_OPT(BLIP2_MR):
             shifted_ids[i, width - n:] = text_ids[i, :n]
             shifted_mask[i, width - n:] = 1
         batch["text_ids"], batch["text_mask"] = shifted_ids, shifted_mask
+        batch["start_tokens"] = start_tokens.astype(np.int64)
+        return batch
 
+    def _generate_prepared(self, batch):
+        """(seqs, scores) of a ``_generate_batch`` batch, in eval mode."""
         tensors = self._to_device(batch)
         training = self.module.training
         self.module.eval()
         try:
-            seqs, scores = self._search(tensors, torch.as_tensor(
-                start_tokens, dtype=torch.long, device=self.device))
+            return self._search(tensors, tensors["start_tokens"])
         finally:
             self.module.train(training)
-        return {"seqs": seqs, "scores": scores, "samples": samples}
 
     def _search(self, tensors, start_tokens):
         """Prefill the prompt but its last token at B rows, copy the cache

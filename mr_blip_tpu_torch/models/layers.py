@@ -15,8 +15,12 @@ layout for the modules that hand it to the W8A8 kernels of
 
 Dropout draws its keep masks from an explicit ``torch.Generator``, set on
 every dropout module of a tree by ``set_dropout_generator``; it is active
-in train mode only. ``remat`` runs a block under gradient checkpointing with
-those generators replayed in the recompute.
+in train mode only. Under tensor parallelism (``parallel/tensor.py``) a
+``Dense`` holds one shard of its weight (``tp``: column or row mode) and a
+dropout on a sharded activation draws the whole mask and keeps the rank's
+slice (``tp_slice``), so that the masks are one process's. ``remat`` runs
+a block under gradient checkpointing with those generators replayed in the
+recompute.
 """
 
 from __future__ import annotations
@@ -29,29 +33,47 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mr_blip_tpu_torch.ops.layer_norm import _ln_reference, fused_layer_norm
+from mr_blip_tpu_torch.parallel.tensor import copy_to_tp, gather_from_tp, reduce_from_tp
 
 
 class Dropout(nn.Module):
     """Inverted dropout (``flax.linen.Dropout``): keep with probability
     1 - rate and scale by 1 / (1 - rate). Identity in eval mode or at
     rate 0. ``rate`` is the attention-probability rate for the callers that
-    pass it to ``dot_product_attention`` (read ``active_rate``)."""
+    pass it to ``dot_product_attention`` (read ``active_rate``).
+
+    ``tp_slice`` = (dim, lo, hi, full): ``x`` is the slice ``lo:hi`` along
+    ``dim`` of a tensor ``full`` wide there (a tensor-parallel shard); the
+    mask is drawn over the whole tensor and sliced."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: torch.Generator | None = None
+        self.tp_slice: tuple | None = None
 
     @property
     def active_rate(self) -> float:
         return self.rate if self.training else 0.0
 
+    def keep_mask(self, shape, device) -> torch.Tensor:
+        """The keep mask of a tensor of ``shape`` (its ``tp_slice`` of the
+        whole tensor's)."""
+        if self.tp_slice is None:
+            return torch.rand(shape, generator=self.generator,
+                              device=device) < 1.0 - self.rate
+        dim, lo, hi, full = self.tp_slice
+        whole = list(shape)
+        whole[dim] = full
+        keep = torch.rand(whole, generator=self.generator,
+                          device=device) < 1.0 - self.rate
+        return keep.narrow(dim, lo, hi - lo)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rate = self.active_rate
         if rate == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < 1.0 - rate
+        keep = self.keep_mask(x.shape, x.device)
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -161,6 +183,33 @@ class _Int8WeightProduct(torch.autograd.Function):
         return grad_x.to(grad.dtype), None, None
 
 
+class _RowProduct(torch.autograd.Function):
+    """``x @ w.T`` accumulated in fp32 and returned in fp32: a row-parallel
+    shard's partial product, summed over its group before the one rounding
+    to the compute dtype that one process's product gets (bf16 operands on
+    the card: ``torch.mm`` with ``out_dtype``). The backward in ``x``'s
+    dtype, as ``F.linear``'s."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        flat = x.reshape(-1, x.shape[-1])
+        if x.is_cuda and x.dtype != torch.float32:
+            y = torch.mm(flat, w.t(), out_dtype=torch.float32)
+        else:
+            y = flat.float() @ w.float().t()
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        grad = grad.to(x.dtype)
+        grad_x = grad @ w if ctx.needs_input_grad[0] else None
+        grad_w = (grad.reshape(-1, grad.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+                  if ctx.needs_input_grad[1] else None)
+        return grad_x, grad_w
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype`` whatever its weights are stored
     in (bf16 frozen weights, fp32 trainable ones), with an optional LoRA
@@ -177,6 +226,15 @@ class Dense(nn.Linear):
     fp32, and only then cast to the compute dtype; bias and the LoRA delta
     (which stays float) follow. Under autograd the product saves only the
     int8 weight and its scales for the backward (``_Int8WeightProduct``).
+
+    ``tp`` (``parallel/tensor.py::shard_dense``; float layers only): the
+    layer holds rows ``lo:hi`` of its weight (column mode: the rank's
+    output features, the bias and ``lora_b`` read in that slice; the input
+    through ``copy_to_tp`` unless its module passed it already; with
+    ``gather_output`` the slices all-gathered) or columns ``lo:hi`` (row
+    mode: its input is the rank's slice, ``lora_a`` read in it; the partial
+    products, kept in fp32, summed over the group and rounded to the compute
+    dtype once, then the bias added once).
     """
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
@@ -195,6 +253,7 @@ class Dense(nn.Linear):
                              dtype=dtype)
             self.compute_dtype = self.weight.dtype
         self.quantize = quantize
+        self.tp = None
         self.lora_rank = lora_rank
         self.lora_scaling = lora_alpha / lora_rank if lora_rank else 0.0
         if lora_rank:
@@ -207,6 +266,9 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
         x = x.to(cdt)
+        tp = self.tp
+        if tp is not None:
+            return self._forward_tp(x, tp)
         if self.quantize:
             y = _Int8WeightProduct.apply(x, self.kernel_q, self.kernel_scale)
             if self.bias is not None:
@@ -218,6 +280,29 @@ class Dense(nn.Linear):
             h = self.lora_dropout(x)
             y = y + (h @ self.lora_a.to(cdt)) @ self.lora_b.to(cdt) * self.lora_scaling
         return y
+
+    def _forward_tp(self, x: torch.Tensor, tp) -> torch.Tensor:
+        cdt = self.compute_dtype
+        column = tp.mode == "column"
+        if column and tp.copy_input:
+            x = copy_to_tp(x, tp.group)
+        if column:
+            bias = None if self.bias is None else self.bias[tp.lo:tp.hi].to(cdt)
+            y = F.linear(x, self.weight.to(cdt), bias)
+        else:
+            y = _RowProduct.apply(x, self.weight.to(cdt))
+        if self.lora_rank:
+            a, b = self.lora_a, self.lora_b
+            if column:
+                b = b[:, tp.lo:tp.hi]
+            else:
+                a = a[tp.lo:tp.hi]
+            delta = (self.lora_dropout(x) @ a.to(cdt)) @ b.to(cdt) * self.lora_scaling
+            y = y + delta.to(y.dtype)
+        if column:
+            return gather_from_tp(y, tp.group) if tp.gather_output else y
+        y = reduce_from_tp(y, tp.group).to(cdt)
+        return y if self.bias is None else y + self.bias.to(cdt)
 
 
 class QDenseParams(nn.Module):

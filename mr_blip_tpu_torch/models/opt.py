@@ -15,6 +15,11 @@ and the causal product then spreads NaN to every logit.
 
 Every attention mask has a query axis, so ``dot_product_attention`` takes
 its plain path on every device, as the JAX package takes ``xla_attention``.
+
+Tensor parallelism (``parallel/tensor.py``): ``q_proj`` / ``k_proj`` /
+``v_proj`` and ``fc1`` column-parallel, ``out_proj`` and ``fc2``
+row-parallel; an attention layer runs the rank's heads (``set_heads``) and
+its KV cache holds them; the tied fp32 head stays whole.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch import nn
 
 from mr_blip_tpu_torch.models.layers import Dense, Dropout, LayerNormFP32
 from mr_blip_tpu_torch.ops.attention import dot_product_attention
+from mr_blip_tpu_torch.parallel.tensor import copy_to_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +87,14 @@ class OPTAttention(nn.Module):
         self.v_proj = Dense(d, d, **kw)
         self.out_proj = Dense(d, d, **kw)
         self.attn_dropout = Dropout(cfg.dropout)
+        self.heads = cfg.num_heads
+        self.head_lo, self.head_hi = 0, cfg.num_heads
+        self.tp_group = None
+
+    def set_heads(self, group, lo: int, hi: int):
+        """Run heads ``lo:hi`` of the tensor-parallel ``group``."""
+        self.tp_group, self.head_lo, self.head_hi = group, lo, hi
+        self.heads = hi - lo
 
     def forward(self, x, key_mask=None, cache=None, position: int = 0):
         """``key_mask``: (B, K) nonzero = attend, K the keys' length (the
@@ -88,7 +102,8 @@ class OPTAttention(nn.Module):
         cache_len, hidden), written in place at ``position``."""
         cfg = self.cfg
         b, n, _ = x.shape
-        heads = (b, -1, cfg.num_heads, cfg.hidden_size // cfg.num_heads)
+        heads = (b, -1, self.heads, cfg.hidden_size // cfg.num_heads)
+        x = copy_to_tp(x, self.tp_group)
         q = self.q_proj(x)
         k = self.k_proj(x)
         v = self.v_proj(x)
@@ -107,8 +122,10 @@ class OPTAttention(nn.Module):
         out = dot_product_attention(
             q.reshape(heads), k.reshape(heads), v.reshape(heads), mask=mask,
             dropout_rate=self.attn_dropout.active_rate,
-            generator=self.attn_dropout.generator)
-        return self.out_proj(out.reshape(b, n, cfg.hidden_size))
+            generator=self.attn_dropout.generator,
+            dropout_heads=None if self.tp_group is None else (
+                self.head_lo, self.head_hi, cfg.num_heads))
+        return self.out_proj(out.reshape(b, n, -1))
 
 
 class OPTDecoderLayer(nn.Module):
@@ -150,11 +167,15 @@ class OPTForCausalLM(nn.Module):
                                         device=device)
 
     def init_cache(self, rows: int, cache_len: int, device):
-        """Zeroed (K, V) caches of every layer, (rows, cache_len, hidden)."""
-        shape = (rows, cache_len, self.cfg.hidden_size)
-        return [(torch.zeros(shape, dtype=self.compute_dtype, device=device),
-                 torch.zeros(shape, dtype=self.compute_dtype, device=device))
-                for _ in self.layers]
+        """Zeroed (K, V) caches of every layer, (rows, cache_len, hidden) (the
+        rank's heads' columns under tensor parallelism)."""
+        caches = []
+        for layer in self.layers:
+            attn = layer.self_attn
+            shape = (rows, cache_len, attn.heads * (self.cfg.hidden_size // self.cfg.num_heads))
+            caches.append((torch.zeros(shape, dtype=self.compute_dtype, device=device),
+                           torch.zeros(shape, dtype=self.compute_dtype, device=device)))
+        return caches
 
     def forward(self, inputs_embeds, attention_mask=None, cache=None,
                 position: int = 0, return_logits: bool = True):

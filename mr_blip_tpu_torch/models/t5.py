@@ -45,6 +45,14 @@ QLoRA-style training (``int8_base``): every encoder and decoder Dense and the
 LM head are weight-only int8 and frozen, the LoRA deltas float and trained;
 the backward of an int8 product keeps only the int8 weight and its scales
 (``layers.Dense``).
+
+Tensor parallelism (``parallel/tensor.py::shard_module``): an attention
+module runs the rank's heads ``head_lo:head_hi`` (``set_heads``; its KV
+caches and ``project_kv`` hold those heads only), its stack's rel-pos bias
+is built from the table's columns of those heads (``T5RelativeBias.heads``),
+the FFN runs the rank's slice of ``d_ff``; the input of each column group
+passes ``copy_to_tp`` once, the ``o`` / ``wo`` partial products are summed
+in their ``Dense``, and the LM head gathers its logits.
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ from mr_blip_tpu_torch.models.layers import (
 from mr_blip_tpu_torch.ops.attention import dot_product_attention, relpos_attention
 from mr_blip_tpu_torch.ops.int8_matmul import div_exact, w8a8_linear, w8a8_mlp_gated
 from mr_blip_tpu_torch.ops.relpos import materialize_relpos_bias
+from mr_blip_tpu_torch.parallel.tensor import copy_to_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +146,8 @@ def materialize_encoder_relpos_bias(table: torch.Tensor, length: int,
 
 
 class T5RelativeBias(nn.Module):
-    """Relative position bias table (fp32), (num_buckets, H)."""
+    """Relative position bias table (fp32), (num_buckets, H). ``heads`` =
+    (lo, hi) under tensor parallelism: the bias of heads ``lo:hi`` only."""
 
     def __init__(self, cfg: T5Config, bidirectional: bool, device=None):
         super().__init__()
@@ -145,16 +155,27 @@ class T5RelativeBias(nn.Module):
         self.bidirectional = bidirectional
         self.rel_embedding = nn.Parameter(torch.zeros(
             cfg.relative_attention_num_buckets, cfg.num_heads, device=device))
+        self.heads: tuple | None = None
+
+    def local_table(self) -> torch.Tensor:
+        """(num_buckets, heads of this rank) columns of the table."""
+        if self.heads is None:
+            return self.rel_embedding
+        return self.rel_embedding[:, self.heads[0]:self.heads[1]]
 
     def forward(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         return materialize_relpos_bias(
-            self.rel_embedding, q_pos, k_pos, self.bidirectional,
+            self.local_table(), q_pos, k_pos, self.bidirectional,
             cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance)
 
     def head_major_table(self) -> torch.Tensor:
-        """(H, num_buckets) table for the in-kernel rel-pos path."""
-        return self.rel_embedding.T
+        """(H, num_buckets) table for the in-kernel rel-pos path (a rank's
+        heads under tensor parallelism, copied contiguous: the kernels read
+        it so)."""
+        if self.heads is None:
+            return self.rel_embedding.T
+        return self.local_table().T.contiguous()
 
 
 def _quantize_cache(t: torch.Tensor):
@@ -189,9 +210,18 @@ class T5Attention(nn.Module):
             self.o = Dense(inner, cfg.d_model, **kw)
         self.attn_dropout = Dropout(cfg.dropout_rate if cfg.attn_weight_dropout
                                     else 0.0)
+        self.heads = cfg.num_heads
+        self.head_lo, self.head_hi = 0, cfg.num_heads
+        self.tp_group = None
+
+    def set_heads(self, group, lo: int, hi: int):
+        """Run heads ``lo:hi`` of the tensor-parallel ``group`` (the q, k, v
+        and o weights already cut to them)."""
+        self.tp_group, self.head_lo, self.head_hi = group, lo, hi
+        self.heads = hi - lo
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
-        return t.reshape(t.shape[0], t.shape[1], self.cfg.num_heads, self.cfg.d_kv)
+        return t.reshape(t.shape[0], t.shape[1], self.heads, self.cfg.d_kv)
 
     def _attend(self, q, k, v, bias, mask, relpos_table=None):
         # Cancel the D^-1/2 inside the attention core: T5 has no scale.
@@ -199,6 +229,8 @@ class T5Attention(nn.Module):
         q = q * (cfg.d_kv ** 0.5)
         drop = dict(dropout_rate=self.attn_dropout.active_rate,
                     generator=self.attn_dropout.generator)
+        if self.tp_group is not None:
+            drop["dropout_heads"] = (self.head_lo, self.head_hi, cfg.num_heads)
         if relpos_table is not None:
             out = relpos_attention(
                 q, k, v, relpos_table,
@@ -214,7 +246,8 @@ class T5Attention(nn.Module):
         """Uncached attention: self-attention, or cross-attention over
         ``kv_states``. ``relpos_table`` (encoder self-attention only): the
         (H, num_buckets) table in place of ``position_bias``."""
-        kv = x if kv_states is None else kv_states
+        x = copy_to_tp(x, self.tp_group)
+        kv = x if kv_states is None else copy_to_tp(kv_states, self.tp_group)
         out = self._attend(self._heads(self.q(x)), self._heads(self.k(kv)),
                            self._heads(self.v(kv)), position_bias, mask,
                            relpos_table)
@@ -246,6 +279,7 @@ class T5Attention(nn.Module):
     def project_kv(self, kv_states):
         """Cross-attention K and V, (B, M, H*D) each, computed once; with
         ``int8_cross_cache`` as (K int8, V int8, K scale, V scale)."""
+        kv_states = copy_to_tp(kv_states, self.tp_group)
         k, v = self.k(kv_states), self.v(kv_states)
         if self.cfg.int8_cross_cache:
             (k, k_scale), (v, v_scale) = _quantize_cache(k), _quantize_cache(v)
@@ -256,6 +290,7 @@ class T5Attention(nn.Module):
         """One cached step: write this step's K/V at ``position`` of the
         (B*K, max_len, H*D) cache in place and attend over the written slots."""
         cache_k, cache_v = cache
+        x = copy_to_tp(x, self.tp_group)
         n = x.shape[1]
         cache_k[:, position:position + n] = self.k(x)
         cache_v[:, position:position + n] = self.v(x)
@@ -271,10 +306,11 @@ class T5Attention(nn.Module):
         beam-expanded query rows are folded into the query length (the K
         beams of one row share its K/V), keeping the sqrt(d_kv) pre-scale."""
         k_flat, v_flat = kv[:2]
+        x = copy_to_tp(x, self.tp_group)
         b, n, _ = x.shape
         b_enc = k_flat.shape[0]
         beams = b // b_enc
-        heads, d_kv = self.cfg.num_heads, self.cfg.d_kv
+        heads, d_kv = self.heads, self.cfg.d_kv
         q = self.q(x).reshape(b_enc, beams * n, heads, d_kv)
         if len(kv) == 4:
             # int8 K/V feed the products directly: the per-channel K scale
@@ -336,8 +372,10 @@ class T5FeedForward(nn.Module):
                 self.wi = Dense(cfg.d_model, cfg.d_ff, **kw)
             self.wo = Dense(cfg.d_ff, cfg.d_model, **kw)
         self.dropout = Dropout(cfg.dropout_rate)
+        self.tp_group = None  # set when the FFN runs a slice of d_ff
 
     def forward(self, x):
+        x = copy_to_tp(x, self.tp_group)
         if self.cfg.is_gated_act:
             h = self.act(self.wi_0(x)) * self.wi_1(x)
         else:
@@ -491,11 +529,14 @@ class T5Decoder(nn.Module):
         return [blk.cross_attention.project_kv(encoder_states) for blk in self.block]
 
     def init_cache(self, rows: int, max_len: int, dtype, device):
-        """Zeroed self-attention (K, V) caches, (rows, max_len, H*D) each."""
-        inner = self.cfg.num_heads * self.cfg.d_kv
-        return [(torch.zeros(rows, max_len, inner, dtype=dtype, device=device),
-                 torch.zeros(rows, max_len, inner, dtype=dtype, device=device))
-                for _ in self.block]
+        """Zeroed self-attention (K, V) caches, (rows, max_len, H*D) each (the
+        rank's heads under tensor parallelism)."""
+        caches = []
+        for blk in self.block:
+            inner = blk.self_attention.heads * self.cfg.d_kv
+            caches.append((torch.zeros(rows, max_len, inner, dtype=dtype, device=device),
+                           torch.zeros(rows, max_len, inner, dtype=dtype, device=device)))
+        return caches
 
     def decode_step(self, x, position: int, cache, cross_kv, encoder_mask):
         dtype = self.block[0].ff.wo.compute_dtype

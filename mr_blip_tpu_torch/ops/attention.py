@@ -38,13 +38,17 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: torch.Tensor | None = None,
                   mask: torch.Tensor | None = None,
                   dropout_rate: float = 0.0,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None,
+                  dropout_heads: tuple | None = None) -> torch.Tensor:
     """Plain attention: fp32 logits and softmax, output in v's dtype.
 
     ``mask`` is boolean, broadcastable to (B, H, N, M), True = attend;
     masked logits are filled with ``finfo(float32).min`` as in JAX.
     ``dropout_rate`` > 0 drops attention probabilities (inverted scaling,
-    HF T5 / BERT semantics), with keep draws from ``generator``."""
+    HF T5 / BERT semantics), with keep draws from ``generator``;
+    ``dropout_heads`` = (lo, hi, H): q holds heads ``lo:hi`` of H (a
+    tensor-parallel shard), and the keep draws are those of all H heads,
+    sliced."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     if bias is not None:
@@ -53,8 +57,13 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0:
-        keep = torch.rand(probs.shape, generator=generator,
+        shape = list(probs.shape)
+        if dropout_heads is not None:
+            shape[1] = dropout_heads[2]
+        keep = torch.rand(shape, generator=generator,
                           device=probs.device) < 1.0 - dropout_rate
+        if dropout_heads is not None:
+            keep = keep[:, dropout_heads[0]:dropout_heads[1]]
         probs = torch.where(keep, probs / (1.0 - dropout_rate),
                             torch.zeros((), device=probs.device))
     return torch.einsum("bhnm,bmhd->bnhd", probs.to(v.dtype), v)
@@ -64,15 +73,16 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor | None = None,
                           mask: torch.Tensor | None = None,
                           dropout_rate: float = 0.0,
-                          generator: torch.Generator | None = None
+                          generator: torch.Generator | None = None,
+                          dropout_heads: tuple | None = None
                           ) -> torch.Tensor:
     """Multi-head attention with the JAX package's backend selection.
 
     q: (B, N, H, D), scaled inside by D**-0.5; k, v: (B, M, H, D); bias
     broadcastable to (B, H, N, M); mask boolean, True = attend.
     ``dropout_rate`` > 0 (training) forces the plain path, whose dropout
-    draws from ``generator``. A bias that requires grad gets its gradient
-    on either path.
+    draws from ``generator`` (``dropout_heads``: see ``xla_attention``). A
+    bias that requires grad gets its gradient on either path.
 
     Under the "auto" backend a CUDA call with at least 256 queries goes to
     ``flash_attention`` when it has neither bias nor mask (q_len != k_len
@@ -85,7 +95,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if dropout_rate > 0.0:
         return xla_attention(q, k, v, bias=bias, mask=mask,
-                             dropout_rate=dropout_rate, generator=generator)
+                             dropout_rate=dropout_rate, generator=generator,
+                             dropout_heads=dropout_heads)
     k_only_mask = (
         mask is not None and mask.ndim == 4
         and mask.shape[1] == 1 and mask.shape[2] == 1
@@ -123,7 +134,8 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_mask: torch.Tensor | None = None,
                      num_buckets: int = 32, max_distance: int = 128,
                      dropout_rate: float = 0.0,
-                     generator: torch.Generator | None = None) -> torch.Tensor:
+                     generator: torch.Generator | None = None,
+                     dropout_heads: tuple | None = None) -> torch.Tensor:
     """Attention with the T5 bidirectional rel-pos bias derived from a
     (H, num_buckets) table.
 
@@ -150,4 +162,5 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         max_distance)
     mask = None if kv_mask is None else (kv_mask != 0)[:, None, None, :]
     return xla_attention(q, k, v, bias=bias, mask=mask,
-                         dropout_rate=dropout_rate, generator=generator)
+                         dropout_rate=dropout_rate, generator=generator,
+                         dropout_heads=dropout_heads)

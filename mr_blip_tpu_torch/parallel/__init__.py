@@ -1,5 +1,6 @@
-"""Data and sequence parallelism over ``torch.distributed`` (the port's
-counterpart of ``mr_blip_tpu/parallel/``)."""
+"""Data, sequence and tensor parallelism over ``torch.distributed`` (the
+port's counterpart of ``mr_blip_tpu/parallel/``): ``mesh.py`` for dp and sp,
+``tensor.py`` for tp."""
 
 from mr_blip_tpu_torch.parallel.mesh import (
     all_reduce_grads,

@@ -19,7 +19,12 @@ so every rank takes as many steps; an evaluation loader gives each rank its
 share, uneven when the split does not divide, and rank 0 merges the
 per-rank result files. With ``model.sequence_parallel`` the loaders give
 every rank the same rows (the frames are shared out inside the model) and
-only rank 0's rows are kept. ``run.tp`` > 1 (tensor parallelism) raises.
+only rank 0's rows are kept. ``run.tp`` = t > 1 (tensor parallelism, the
+JAX runner's (dp, tp) mesh): the world is dp x t ranks
+(``common/dist.py::init_model_parallel``), each rank holds its shard of the
+language model (``BLIP2_MR.set_tensor_parallel``), the loaders give the t
+ranks of a tensor-parallel group the rows of their dp rank, and only the
+group's tp rank 0 keeps its evaluation rows.
 
 Checkpoints are ``torch.save`` files in the job's output directory:
 ``checkpoint_{best,<epoch>}.pth`` holds ``{"model": the trainable tensors
@@ -31,7 +36,10 @@ accumulated in the current window), the epoch and whether it completed.
 memory. Under a process group rank 0 writes both, after every rank reached
 the write (the trainable tensors checked bit-equal across the ranks); the
 resume state then holds every rank's gradients of the current window
-(``TrainCtx.shared_state_dict``), and each rank loads its own. Orbax, the
+(``TrainCtx.shared_state_dict``), and each rank loads its own. Under tensor
+parallelism the files hold whole tensors (gathered over the group) and
+loading cuts them to the rank's shards, so a file loads under any ``tp``;
+a resume state's window of gradients resumes under the same world. Orbax, the
 JAX package's other format, is a JAX library: the port refuses
 ``run.use_orbax``.
 """
@@ -58,6 +66,7 @@ from mr_blip_tpu_torch.datasets.loader import (
     MultiIterLoader,
     PrefetchLoader,
 )
+from mr_blip_tpu_torch.parallel import tensor as tensor_parallel
 from mr_blip_tpu_torch.parallel.mesh import assert_replicated
 from mr_blip_tpu_torch.runners.train_state import TrainCtx
 
@@ -81,9 +90,11 @@ class RunnerBase:
                 "writes torch.save files (checkpoint_<epoch>.pth, resume_state.pth)")
         tp = int(self.run_cfg.get("tp", 1))
         if tp > 1:
-            raise NotImplementedError(
-                f"run.tp={tp}: tensor parallelism is not ported yet (ROADMAP "
-                "Queue 1, \"Parallelism\")")
+            if dist_utils.tp_size() != tp:
+                raise ValueError(
+                    f"run.tp={tp}: the process group was built for tp="
+                    f"{dist_utils.tp_size()} (init_distributed_mode reads run.tp)")
+            model.set_tensor_parallel(dist_utils.tp_group())
         if dist_utils.get_world_size() > 1:
             mask = model.trainable_mask()
             assert_replicated(
@@ -197,7 +208,7 @@ class RunnerBase:
         parallelism no loader is sharded.
         """
         run = self.run_cfg
-        rank, world = dist_utils.get_rank(), dist_utils.get_world_size()
+        rank, world = dist_utils.dp_rank(), dist_utils.dp_size()
         if self.rows_replicated:
             rank, world = 0, 1
         num_workers = int(run.get("num_workers", 2))
@@ -362,8 +373,10 @@ class RunnerBase:
 
         self.task.before_evaluation(model=self.model, dataset=None)
         results = self.task.evaluation(self.model, data_loader)
-        if results is not None and self.rows_replicated and not dist_utils.is_main_process():
-            results = []  # every rank ran rank 0's rows: keep one copy
+        if results is not None and (
+                (self.rows_replicated and not dist_utils.is_main_process())
+                or dist_utils.tp_rank() != 0):
+            results = []  # the rows of another rank: keep one copy
         if results is not None:
             return self.task.after_evaluation(
                 val_result=results, split_name=split_name, epoch=cur_epoch
@@ -411,9 +424,12 @@ class RunnerBase:
         before the file is whole."""
         resume_path = os.path.join(self.output_dir, "resume_state.pth")
         train_ctx = self.train_ctx.shared_state_dict()
+        # Whole tensors at rank 0: a collective of the first tensor-parallel
+        # group alone (the other groups hold the same weights).
+        params = self.model.full_state_dict() if dist_utils.dp_rank() == 0 else None
         if dist_utils.is_main_process():
             resume_obj = {
-                "params": self.model.state_dict(),
+                "params": params,
                 "train_ctx": train_ctx,
                 "epoch": cur_epoch,
                 "epoch_complete": epoch_complete,
@@ -454,7 +470,9 @@ class RunnerBase:
 
     def _restore_trainable(self, saved):
         """Copy the tensors of ``saved`` whose names the model has into the
-        model's tensors (in their dtype)."""
+        model's tensors (in their dtype; whole tensors cut to the rank's
+        shards)."""
+        saved = tensor_parallel.local_state_dict(self.model.module, saved)
         params = dict(self.model.module.named_parameters())
         restored = 0
         with torch.no_grad():

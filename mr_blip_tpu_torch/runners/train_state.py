@@ -27,6 +27,16 @@ The JAX package's semantics, in PyTorch:
   collective on the other micro-batches' gradients), and clipped after
   that sum. ``shared_state_dict`` gathers every rank's partial window of
   gradients for a resume state.
+* Tensor parallelism (``run.tp``; ``parallel/tensor.py``): the ranks of a
+  tensor-parallel group run the same rows, draw the same dropout masks (the
+  stream folds in the dp rank) and compute the same loss, so the loss terms
+  and the gradients are summed over the dp group only. Once per update, in
+  this order: the partial gradients of the replicated tensors used in
+  slices (LoRA of a sharded layer) summed over the tp group, then every
+  gradient summed over the dp group, then the clip. No sharded weight
+  trains (only replicated tensors do; a trainable shard raises), so after
+  the tp sum every gradient is whole and the plain global norm is one
+  process's. The trainable tensors then stay bit-equal over the world.
 * Trainable parameters are fp32 master weights (``BLIP2_MR.set_trainable``).
 * ``state_dict`` / ``load_state_dict`` carry what a resume needs: the fp32
   masters, the AdamW moments and step, the call and update counters (the
@@ -46,6 +56,7 @@ import torch
 from mr_blip_tpu_torch.common import dist as dist_utils
 from mr_blip_tpu_torch.models.layers import set_dropout_generator, stream_seed
 from mr_blip_tpu_torch.parallel import mesh
+from mr_blip_tpu_torch.parallel import tensor as tensor_parallel
 
 
 def make_optimizer(named_params: Iterable, weight_decay: float = 0.05,
@@ -90,6 +101,11 @@ class TrainCtx:
         self.named_params = {n: p for n, p in model.module.named_parameters()
                              if p.requires_grad}
         self.params = list(self.named_params.values())
+        sharded = [n for n, p in self.named_params.items() if hasattr(p, "tp_dim")]
+        if sharded:
+            raise ValueError(
+                f"training a tensor-parallel shard ({sharded[0]}): only replicated "
+                "tensors train under run.tp")
         self.optimizer = make_optimizer(model.module.named_parameters(),
                                         weight_decay, beta1, beta2, eps)
         self.accum_grad_iters = accum_grad_iters
@@ -99,9 +115,12 @@ class TrainCtx:
         set_dropout_generator(model.module, self.generator)
         self.distributed = dist_utils.is_dist_avail_and_initialized()
         self.rank, self.world = dist_utils.get_rank(), dist_utils.get_world_size()
-        # The dropout stream's rank: 0 under sequence parallelism, where
-        # every rank runs the same rows.
-        self.stream = 0 if getattr(model, "sequence_parallel", False) else self.rank
+        self.tp_group = getattr(model, "tp_group", None)
+        # The dropout stream's rank: the dp rank (the ranks of a tensor-
+        # parallel group run the same rows); 0 under sequence parallelism,
+        # where every rank runs the same rows.
+        self.stream = (0 if getattr(model, "sequence_parallel", False)
+                       else dist_utils.dp_rank())
         self.calls = 0
         self.updates = 0
         self._lr = 0.0
@@ -196,9 +215,12 @@ class TrainCtx:
         (loss / self.accum_grad_iters).backward()
         self.calls += 1
         if self.calls % self.accum_grad_iters == 0:
+            if self.tp_group is not None:
+                tensor_parallel.reduce_partial_grads(self.params, self.tp_group)
             if self.distributed:
                 mesh.all_reduce_grads(self.params)
             if self.max_grad_norm:
+                # Whole gradients here (the tp sum above): one process's norm.
                 clip_by_global_norm(self.params, self.max_grad_norm)
             for group in self.optimizer.param_groups:
                 group["lr"] = self._lr

@@ -20,7 +20,11 @@ Usage:
         --model-type pretrain_flant5xl --checkpoint mr_blip_qvh.pth \
         --n-frms 60 --int8 --port 8080
 
-The model runs on ``--device``, the card unless ``--device cpu``.
+The model runs on ``--device``, the card unless ``--device cpu``; with
+``--devices cuda:0,cuda:1,...`` one replica of it runs on each device and
+every batch is split over them (``BLIP2_MR.set_mesh``). The replicas are
+threads of this process: on one card two serve fewer requests a second
+than one model (their host-bound decodes share one interpreter lock).
 SIGTERM or SIGINT stops the HTTP server, drains the batching engine (queued
 requests finish), prints the final stats as one JSON line and exits 0.
 """
@@ -106,6 +110,10 @@ def parse_args(argv=None):
                          "traffic so that its prompt lengths are the ones warmed")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: the card unless 'cpu'")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated devices, one model replica on each "
+                         "(e.g. cuda:0,cuda:1); each batch is split over them, "
+                         "in threads of this process")
     return ap.parse_args(argv)
 
 
@@ -117,10 +125,14 @@ def main(argv=None):
     from mr_blip_tpu_torch.serving import MomentRetrievalServer
 
     extra = {"params_dtype": args.params_dtype} if args.params_dtype else {}
+    devices = args.devices.split(",") if args.devices else [args.device]
     model = load_model(args.model, args.model_type, is_eval=True,
-                       checkpoint=args.checkpoint, device=args.device, **extra)
+                       checkpoint=args.checkpoint, device=devices[0], **extra)
     if args.int8:
         model.quantize_for_inference()
+    if args.devices:
+        model.set_mesh(devices)
+        print(f"replicas on {', '.join(devices)}", flush=True)
     proc = BlipVideoEvalProcessor(image_size=getattr(model, "img_size", 224),
                                   n_frms=args.n_frms, normalize=False)
     mr_server = MomentRetrievalServer(

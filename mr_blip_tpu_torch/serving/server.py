@@ -43,6 +43,12 @@ Design:
   wait on the host and are copied inside the dispatch. Frames already on
   the model's device are taken as they are. A model on the CPU stages
   nothing.
+* **Replicas** (``model.set_mesh(devices)``, the dp server). The server
+  does not change: ``generate_dispatch`` splits each batch over the
+  replicas. ``self.device`` is the first replica's; with every replica on
+  that card the frames are staged there as above, and with replicas on
+  several cards each batch's frames wait in pinned host memory and each
+  replica copies its block of rows to its own card.
 
 Usage::
 
@@ -151,9 +157,14 @@ class MomentRetrievalServer:
         self.vis_processor = vis_processor
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
-        self.device = torch.device(getattr(model, "device", "cpu"))
+        devices = [torch.device(d) for d in getattr(
+            model, "replica_devices", [getattr(model, "device", "cpu")])]
+        self.device = devices[0]
+        # Replicas on several devices: each copies its own rows (no staging).
+        self._spread = len(set(devices)) > 1
         self.stage_to_device = bool(stage_to_device)
-        self._staging = self.stage_to_device and self.device.type == "cuda"
+        self._staging = (self.stage_to_device and self.device.type == "cuda"
+                         and not self._spread)
         self._stage_stream = torch.cuda.Stream(self.device) if self._staging else None
         # Card-memory guard: at most this many queued requests hold staged
         # frames (~9 MB each at 60 frames of 224²); a backlog past the cap
@@ -418,7 +429,11 @@ class MomentRetrievalServer:
     def _batch_frames(self, rows) -> torch.Tensor:
         """(bucket, T, H, W, 3) frames on the model's device. A staged row
         is read on the dispatch stream after its copy's event; other rows
-        are copied here."""
+        are copied here. Replicas on several cards: the frames in pinned
+        host memory (host tensors) for the replicas to copy."""
+        if self._spread:
+            host = torch.stack([_host_tensor(r.video).cpu() for r in rows])
+            return host.pin_memory() if torch.cuda.is_available() else host
         stream = torch.cuda.current_stream(self.device) if self._staging else None
         videos = []
         for r in rows:

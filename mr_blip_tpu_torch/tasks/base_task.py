@@ -167,21 +167,24 @@ class BaseTask:
     # --------------------------------------------------------------- results
     @staticmethod
     def save_result(result, result_dir, filename, remove_duplicate=""):
-        """Per-process result JSON + process-0 merge (base_task.py:250-288)."""
+        """Per-process result JSON + process-0 merge (base_task.py:250-288).
+        Under tensor parallelism only tp rank 0 of each group writes (its
+        peers ran the same rows), as ``<filename>_rank<dp rank>.json``."""
         os.makedirs(result_dir, exist_ok=True)
         result_file = os.path.join(
-            result_dir, "%s_rank%d.json" % (filename, dist_utils.get_rank())
+            result_dir, "%s_rank%d.json" % (filename, dist_utils.dp_rank())
         )
         final_result_file = os.path.join(result_dir, "%s.json" % filename)
-        with open(result_file, "w") as f:
-            json.dump(result, f, default=float)
+        if dist_utils.tp_rank() == 0:
+            with open(result_file, "w") as f:
+                json.dump(result, f, default=float)
 
         dist_utils.barrier()
 
         if dist_utils.is_main_process():
             logging.info("rank %d starts merging results." % dist_utils.get_rank())
             merged = []
-            for rank in range(dist_utils.get_world_size()):
+            for rank in range(dist_utils.dp_size()):
                 result_file = os.path.join(
                     result_dir, "%s_rank%d.json" % (filename, rank)
                 )

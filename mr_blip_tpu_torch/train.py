@@ -78,7 +78,7 @@ def main(argv=None):
         create_runner_config_validator().validate(dict(cfg.run_cfg))
     dist_utils.init_distributed_mode(cfg.run_cfg)
     job_id = dist_utils.broadcast_object(job_id)  # one output directory
-    seed = int(cfg.run_cfg.get("seed", 42)) + dist_utils.get_rank()
+    seed = int(cfg.run_cfg.get("seed", 42)) + dist_utils.dp_rank()
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)

@@ -20,7 +20,12 @@ same entry points in one process:
    resume state takes the uninterrupted step, bit-equal on both ranks; a
    one-process resume state's partial gradients go to rank 0 alone.
 7. ``WORLD_SIZE=2`` with ``run.device=cuda`` on a host without a card
-   raises, as do ``run.distributed=False`` under a launcher and ``run.tp=2``.
+   raises, as do ``run.distributed=False`` under a launcher and ``run.tp=2``
+   in one process.
+8. ``run.tp=2`` over two ranks (tensor parallelism, dp=1), the T5 model and
+   the OPT variant: training with batches of 2 equals one process, the
+   merged rows once each, the resume state's tensors whole (it loads into a
+   one-process model); evaluation gives the one-process rows.
 
 The workers (this file run as a script) import no JAX. Every launch has a
 timeout of 120 s.
@@ -40,6 +45,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = str(REPO / "configs/projects/train/tiny_synthetic.yaml")
+TINY_OPT = str(REPO / "configs/projects/train/tiny_synthetic_opt.yaml")
 LAUNCH_TIMEOUT_S = 120
 N_TRAIN, N_VAL, N_TEST = 9, 3, 3
 
@@ -49,8 +55,8 @@ def _split_options(synth):
             for s in ("train", "val", "test")]
 
 
-def _options(synth, out_dir, *extra):
-    return ["--cfg-path", TINY, "--options", *_split_options(synth),
+def _options(synth, out_dir, *extra, cfg=TINY):
+    return ["--cfg-path", cfg, "--options", *_split_options(synth),
             f"run.output_dir={out_dir}", "run.device=cpu", "run.num_workers=1",
             "run.batch_size_eval=1", "run.distributed=True",
             "datasets.qvh.vis_processor.train.name=blip_video_eval", *extra]
@@ -65,10 +71,11 @@ def _zero_dropout(model):
     return model
 
 
-def _train_capturing(argv, out: Path, dropout: bool = False):
+def _train_capturing(argv, out: Path, dropout: bool = False, resume_state: bool = False):
     """``train.main(argv)`` with the model's dropout rates 0 (unless
     ``dropout``); the runner's trained tensors, test logs and job directory
-    to ``<out>.rank<r>``."""
+    to ``<out>.rank<r>``; with ``resume_state`` the runner also writes its
+    resume state after training."""
     from mr_blip_tpu_torch import train
     from mr_blip_tpu_torch.common import dist as dist_utils
     from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
@@ -83,7 +90,10 @@ def _train_capturing(argv, out: Path, dropout: bool = False):
 
     def captured(self):
         runners.append(self)
-        return train_fn(self)
+        logs = train_fn(self)
+        if resume_state:
+            self._write_resume_state(0)
+        return logs
 
     BLIP2_MR.from_config = classmethod(built)
     RunnerBase.train = captured
@@ -188,7 +198,7 @@ if __name__ == "__main__":
     if mode == "resume":
         _resume_worker(workdir)
     else:  # a training, its results under <workdir>/<mode>.rank<r>
-        _train_capturing(argv, workdir / mode)
+        _train_capturing(argv, workdir / mode, resume_state=mode == "tp")
     sys.exit(0)
 
 
@@ -196,6 +206,7 @@ if __name__ == "__main__":
 import pytest  # noqa: E402
 
 from mr_blip_tpu_torch import evaluate, train  # noqa: E402
+from mr_blip_tpu_torch.common.config import Config  # noqa: E402
 from mr_blip_tpu_torch.datasets.synthetic import make_mr_annotations  # noqa: E402
 
 
@@ -390,5 +401,64 @@ def test_world_of_two_without_a_card_raises(synth, tmp_path, monkeypatch):
         train.main(argv[:-1] + ["run.distributed=False", "run.device=cpu"])
     for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
         monkeypatch.delenv(var)
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1, "Parallelism"'):
+    with pytest.raises(ValueError, match="run.tp=2 in one process.*torch.distributed.run"):
         train.main(argv + ["run.device=cpu", "run.tp=2"])
+
+
+@pytest.mark.parametrize("variant", ["t5", "opt"])
+def test_tp2_train_and_evaluate_equal_one_process(synth, tmp_path, variant):
+    """Case 8: ``run.tp=2`` on two ranks (one tensor-parallel group, both
+    ranks on the same batches of 2) trains what one process trains, both
+    ranks bit-equal; the merged validation and test rows are one process's,
+    each query once (only tp rank 0 writes its rows); the resume state
+    holds whole tensors that load into a one-process model; the evaluation
+    entry point under ``run.tp=2`` gives the one-process rows. The T5 model
+    and the OPT variant (``tiny_synthetic_opt.yaml``; its LoRA dropout on,
+    the same masks at tp=2)."""
+    from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
+    from mr_blip_tpu_torch.models.blip2_mr_opt import BLIP2_MR_OPT
+
+    cfg, cls, sharded = {
+        "t5": (TINY, BLIP2_MR, "37 tensors sharded, 76 used in slices"),
+        "opt": (TINY_OPT, BLIP2_MR_OPT, "12 tensors sharded, 32 used in slices")}[variant]
+    tp_train = _torchrun(str(tmp_path), "tp",
+                         *_options(synth / "synth", tmp_path / "tp", "run.batch_size_train=2",
+                                   "run.tp=2", cfg=cfg))
+    tp_eval = _torchrun("--cfg-path", cfg, "--options",
+                        *_options(synth / "synth", tmp_path / "tp_eval", "run.evaluate=True",
+                                  "run.tp=2", cfg=cfg)[3:],
+                        module="mr_blip_tpu_torch.evaluate")
+    try:
+        _train_capturing(_options(synth / "synth", tmp_path / "one", "run.batch_size_train=2",
+                                  cfg=cfg), tmp_path / "one")
+        evaluate.main(_options(synth / "synth", tmp_path / "one_eval", "run.evaluate=True",
+                               cfg=cfg))
+    finally:
+        train_log = _finish(tp_train)
+        eval_log = _finish(tp_eval)
+    one = torch.load(f"{tmp_path / 'one'}.rank0", weights_only=False)
+    tp = [torch.load(f"{tmp_path / 'tp'}.rank{r}", weights_only=False) for r in (0, 1)]
+    assert one["updates"] == tp[0]["updates"] == tp[1]["updates"] == N_TRAIN // 2
+    for name, want in one["trained"].items():
+        assert torch.equal(tp[0]["trained"][name], tp[1]["trained"][name]), name
+        np.testing.assert_allclose(tp[0]["trained"][name].numpy(), want.numpy(),
+                                   atol=1e-5, err_msg=name)
+    result = Path(tp[0]["job"]) / "result"
+    for split in ("val_epoch0", "test_epochbest"):
+        got, want = _rows(tp[0]["job"], split), _rows(one["job"], split)
+        assert got == want, split
+        assert len({r["qid"] for r in got}) == len(got) == N_VAL
+        assert not (result / f"{split}_rank1.json").exists()
+    assert tp[0]["logs"] == one["logs"]
+    state = torch.load(Path(tp[0]["job"]) / "resume_state.pth", weights_only=True)
+    model = cls.from_config(Config(cfg_path=cfg, options=[]).model_cfg, device="cpu")
+    model.load_state_dict(state["params"])  # strict: every tensor whole
+    for name, p in model.module.named_parameters():
+        if name in tp[0]["trained"]:
+            assert torch.equal(p.detach(), tp[0]["trained"][name]), name
+    (job,) = [p for p in (tmp_path / "tp_eval").iterdir() if p.is_dir()]
+    (one_job,) = [p for p in (tmp_path / "one_eval").iterdir() if p.is_dir()]
+    assert _rows(job, "test_epochbest") == _rows(one_job, "test_epochbest")
+    for log in (train_log, eval_log):  # rank 0 logs its sharding
+        assert f"tensor parallelism: {sharded}" in log
+    assert "Traceback" not in train_log + eval_log

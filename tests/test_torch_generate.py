@@ -198,7 +198,7 @@ def test_port_imports_no_jax_or_triton():
     the scorer, gates and asset-day modules imported, and every module of the
     evaluation, train and serving entry points imported (data and sequence
     parallelism with them), the grounded-QA and TAL tasks, the OPT variant,
-    ``blip2_fmr``, the checkpoint import (``models/port.py``,
+    ``blip2_fmr``, tensor parallelism, the checkpoint import (``models/port.py``,
     ``port_weights``), metrics, datasets and video reader with them, and
     models built by ``load_model``."""
     code = (
@@ -230,6 +230,7 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.tasks.temporal_action_localization\n"
         "import mr_blip_tpu_torch.metrics.span_ops\n"
         "import mr_blip_tpu_torch.parallel, mr_blip_tpu_torch.parallel.mesh\n"
+        "import mr_blip_tpu_torch.parallel.tensor\n"
         "import mr_blip_tpu_torch.serving, mr_blip_tpu_torch.serving.server\n"
         "import mr_blip_tpu_torch.serve, mr_blip_tpu_torch.models\n"
         "import mr_blip_tpu_torch.models.port, mr_blip_tpu_torch.port_weights\n"
