@@ -6,7 +6,12 @@
 Run from the root of a checkout, on a machine with an NVIDIA H100 (sm_90a),
 the CUDA toolkit (nvcc) and PyTorch built for CUDA. It imports no JAX.
 Phases, each printing its own lines; any failure raises, so the exit code
-is nonzero and the final line is not printed:
+is nonzero and the final line is not printed. Phase 4 decodes the flagship's
+published 50 new tokens; the flagship's generates of phases 8, 10, 13, 14,
+16-18, 20-24 and 26 (b) decode SHORT_NEW_TOKENS (16): random weights never
+emit EOS, so each runs to its cap, and what those phases hold (launches per
+batch, rows equal to ``generate`` on the same model) holds at any length.
+The OPT variant (phase 19), the serve process (phase 20) and phase 25 keep 50.
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: nvcc compiles ``mr_blip_tpu_torch/csrc/*.cu`` for sm_90a;
@@ -141,8 +146,8 @@ is nonzero and the final line is not printed:
 12. long context, kernel path vs plain path: the depth-2 full-width
     ``relpos_in_kernel`` model (weights as in phase 7), one forward and
     backward on the card and on the CPU in bf16: ``qformer_freeze_lora`` at
-    1 x 16 frames (also against the card's own ``relpos_in_kernel=False``
-    run of the same weights) and ``qformer_freeze`` at 1 x 16 frames (the
+    1 x 8 frames (also against the card's own ``relpos_in_kernel=False``
+    run of the same weights) and ``qformer_freeze`` at 1 x 8 frames (the
     rel-pos table trains: kernel 11 launches once per encoder layer and the
     table's gradient is compared with the plain path's); T5 encoder rows
     cosine >= 0.999, loss and gradients within phase 7's bars. Then the fp32
@@ -164,7 +169,7 @@ is nonzero and the final line is not printed:
     split route, per batch kernel 4 39 times, the W8A8 linear 132 (54 as in
     phase 8 and 2 per ViT block), the GELU MLP 39, the fused attention block
     never, LayerNorm 32. Then the fp32 parity mode: the depth-2 model with
-    ``compute_dtype="float32"`` at 224 pixels generates one batch of 2 x 60
+    ``compute_dtype="float32"`` at 224 pixels generates one batch of 1 x 60
     frames (encoder length 2,056) with kernel 4's and kernel 3's fp32
     instantiations once per ViT block and per encoder layer and no other
     kernel, and its frame features and T5 encoder rows must agree with the
@@ -215,7 +220,7 @@ is nonzero and the final line is not printed:
     frozen, Flan-T5-XL with LoRA r=8, ``use_grad_checkpoint``, micro-batches
     of 1 x 60 frames, ``accum_grad_iters`` 8, ``linear_warmup_cosine_lr``,
     random weights) but for synthetic annotations (8 train queries, 1 val, 1
-    test, 150 s videos at 10 fps), ``run.max_epoch=2`` and a temporary output
+    test, 150 s videos at 10 fps), ``run.max_epoch=1`` and a temporary output
     directory: every micro-batch must launch kernel 5 48 times (the forward
     and each encoder block's recompute), 6 and 8 24, LayerNorm 110, packed QKV
     39, kernels 3 and 7 never, and every val/test generate 110 / 39 / 24;
@@ -271,7 +276,7 @@ is nonzero and the final line is not printed:
     requests from one thread form one batch whose rows equal
     ``model.generate`` on the same four rows; (b) three requests form one
     batch padded to 4 whose rows equal ``generate`` on the padded rows' first
-    three; (c) 16 ``synthetic://`` requests of 150 s (QVHighlights' length)
+    three; (c) 8 ``synthetic://`` requests of 150 s (QVHighlights' length)
     from 8 client threads through ``serve.make_httpd`` on 127.0.0.1: every
     reply 200 and a span list. Every dispatched batch, warmup and reference
     generates included, launches kernels 1 / 2 / 3 110 / 39 / 24 times.
@@ -369,8 +374,8 @@ is nonzero and the final line is not printed:
     ``configs/projects/train/qvh.yaml`` as published with
     ``model.freeze_vit=False``: the EVA ViT-g trains (fp32 masters cast to
     bf16 at use, stochastic depth ramped to 0.4, every block checkpointed),
-    4 synthetic train queries (one update over 4 micro-batches of 1 x 60, 8
-    until phase 26 came),
+    2 synthetic train queries (one update over 2 micro-batches of 1 x 60, 8
+    until phase 26 came, 4 until phase 28),
     one val query. Gates: every ViT tensor moved, every frozen tensor (T5
     base, Q-Former) bit-equal, every loss finite, per micro-batch LayerNorm
     188 and packed QKV 78 (forward and recompute: bf16 reaches kernel 2
@@ -417,7 +422,7 @@ is nonzero and the final line is not printed:
     bit-equal, encoder states and logits cosine >= 0.999 against the plain
     run (24 random-weight layers amplify fp32 rounding: the beams are
     compared at depth 2, where they are equal). The depth-2 model at full width, dropout 0, in bf16 and in fp32:
-    a 1 x 60 generate (16 new tokens; the ranks' beams equal) and one LoRA
+    a 1 x 60 generate (8 new tokens; the ranks' beams equal) and one LoRA
     update against rank 0 alone on the unsharded model; fp32: beams equal, scores and loss within 1e-4,
     gradient cosine >= 0.9999, the update within phase 22's bars; bf16: loss
     within 1e-3 (relative), gradient cosine >= 0.97, the update within 1e-3
@@ -426,7 +431,7 @@ is nonzero and the final line is not printed:
     group must each fall outside one of those bars; the
     ranks' tensors bit-equal. ``mr_blip_tpu_torch.train`` on
     ``configs/projects/train/qvh.yaml`` with ``run.tp=2`` and
-    ``model.max_new_tokens=16`` over 1 train query (one update of one 1 x 60
+    ``model.max_new_tokens=8`` over 1 train query (one update of one 1 x 60
     micro-batch) and 1 val query (no test split): the micro-batch phase
     17's launches on each rank, the generate phase 4's, trainable tensors
     and losses bit-equal across the ranks, the
@@ -438,6 +443,36 @@ is nonzero and the final line is not printed:
     to 4); every row of the replicas equal to the one model's, each batch
     two blocks of 4 rows, 2 x 110 / 39 / 24 launches a batch; requests/s of
     both beside phase 20's.
+27. pipeline parallelism (``parallel/pipeline.py``, ``models/t5_pipeline.py``),
+    run in phase 26 (a)'s launch (``pp_worker_part``: no process start of
+    its own): the two gloo ranks are two stages on the one card, each
+    building only its 12 + 12 blocks of Flan-T5-XL at full width and depth
+    (LoRA rank 8 on every Linear, bf16, every tensor drawn by its name in
+    the whole model), 4 rows of 2,056 encoder tokens and 32 decoder tokens
+    with ragged masks. (a) One LoRA AdamW update through
+    ``t5_pipeline_forward`` at M = 2 and 4 against the whole model in one
+    process (rank 0 alone): logits cosine >= 0.999, loss within 1e-2, the
+    LoRA gradients' cosine >= 0.99, kernels 5, 6 and 8 12 x M launches a
+    rank an update; a no-grad pipelined forward (kernel 3, 12 x M a rank)
+    within the logits bar; two planted faults (rank 1's encoder blocks in
+    reverse order; microbatch 1 zeroed) must each fall outside it. (b)
+    Depth 2 in fp32: logits, loss and LoRA gradients within 1e-5 of the
+    largest, the update's elements more than the lr apart <= 1e-3. Per
+    rank: s per pipelined update, each send and receive's ms by microbatch
+    and stack, weights and peak.
+28. the BLIP-v1 zoo's evaluation entry points: ``mr_blip_tpu_torch.evaluate``
+    on ``configs/projects/zoo/caption_coco_eval.yaml`` (blip_caption
+    base_coco: ViT-B/16 at 224², BERT-base, fp32, beam 3) and
+    ``ret_coco_eval.yaml`` (with ``model.model_type=coco``: its published
+    base_coco names no type of blip_retrieval, so both packages would build
+    the tiny model) over 64 synthetic:// images x 5 captions, batches of 64,
+    ``run.device: tpu`` read as the card: metrics finite, the first batch's
+    captions and score_i2t rows equal to the wrapper's own call on its rows,
+    no kernel launched (fp32 LayerNorm and attention under 256 tokens take
+    the plain path, as in JAX); s per batch and the peak. Then the depth-2
+    base-width BLIPv1 on the card against the CPU: caption loss, ITC
+    features and ITM logits within 1e-4 of the largest, greedy caption ids
+    equal.
 
 Phase 3 holds kernels 3, 5, 6 and 8 at 4 x 2,056 with the 16 heads a
 tensor-parallel rank runs (phase 26), at their 32-head bars, each timed
@@ -488,7 +523,10 @@ full-width batches; ``unfrozen_launches`` per micro-batch of phase 24 (a);
 ``vocab_launches`` from phase 25 (b)'s batch; ``tp_launches`` rank 0's over
 phase 26 (a)'s train entry point (one micro-batch and a val generate);
 ``dp_serve_launches`` the replicas' over phase 26 (b)'s two batches (four
-blocks); each count is taken with the counts set to 0 just before its path
+blocks); ``pp_launches`` rank 0's over phase 27 (a)'s M = 4 pipelined update
+and its no-grad forward (M = 2);
+``zoo_launches`` phase 28's two evaluations (0: no kernel on that path);
+each count is taken with the counts set to 0 just before its path
 runs); the last line is {"ok": true, "device": {...}}.
 """
 
@@ -511,6 +549,12 @@ GRAD_REL_TOL = 0.02  # backward outputs: max |kernel - plain| / max |plain|
 COSINE_MIN = 0.999
 N_FRAMES, BATCH, N_BATCHES = 60, 4, 2
 REDUCED_DEPTH = 2  # layers per stack in phase 5
+# New tokens of the flagship's generates after phase 4, which decodes the
+# published 50. Random weights never emit EOS, so every generate runs to its
+# cap, and no gate depends on it: launch counts are the encoder's, rows are
+# compared with generate on the same model. Cut from 50 when the whole
+# script passed its 1,200 s on a slower host.
+SHORT_NEW_TOKENS = 16
 # Per generate batch at the flagship depth: LayerNorm 78 (ViT norm1/norm2 x 39)
 # + 1 (ln_vision) + 31 (Q-Former); packed QKV once per ViT block; biased
 # flash once per T5 encoder layer.
@@ -589,9 +633,10 @@ EXPECTED_LONG_TRAIN_LAUNCHES = dict(EXPECTED_LONG_LAUNCHES, flash_relpos_bwd_dq=
 # Phase 12, (task, frames): the CPU plain path took 154 s at 1 x 240 frames,
 # 72 s (later 47.7 s) at 1 x 120 and 20.9-30.5 s at 1 x 60 (bf16 on the card
 # machine's 8 cores), the largest CPU share of the script, so both tasks run
-# at 16 frames (encoder length ~600; 40 frames until phase 22 came, 24 until
-# phase 26). Phase 3 holds kernels 9-12 at the full 8,000 tokens.
-LONG_GRAD_TASKS = (("qformer_freeze_lora", 16), ("qformer_freeze", 16))
+# at GRAD_FRAMES (encoder length 344, still past the kernels' 256; 40 frames
+# until phase 22 came, 24 until phase 26, 16 until phase 28). Phase 3 holds
+# kernels 9-12 at the full 8,000 tokens.
+LONG_GRAD_TASKS = (("qformer_freeze_lora", GRAD_FRAMES), ("qformer_freeze", GRAD_FRAMES))
 # Phase 12 in the fp32 parity mode (kernels 9, 10, 12 and 9, 11, 12 in fp32)
 # on a short clip, where the CPU's fp32 runs take about a second (at 1 x 60
 # frames they took 8-14 s each).
@@ -621,9 +666,9 @@ EXPECTED_BIG_INT8_LAUNCHES = dict(EXPECTED_INT8_LAUNCHES, flash_attention=39,
                                   w8a8_attn_block=0, w8a8_linear=54 + 2 * 39)
 FP32_REL_TOL = 1e-4   # kernels 3-5 in fp32: max |kernel - plain| / max |plain|
 FP32_FRAMES = 60      # frames a video in the fp32 run: encoder length 2,056 (kernel 3)
-# Videos in the fp32 run: 2 (4 until phase 22 came; the CPU's fp32
-# reference took 24.9 s at 4).
-FP32_BATCH = 2
+# Videos in the fp32 run: 1 (4 until phase 22 came, 2 until the script
+# passed 1,200 s; the CPU's fp32 reference took 24.9 s at 4, 18.8 s at 2).
+FP32_BATCH = 1
 FP32_PATH_REL_TOL = 1e-4
 # Phase 16, the evaluation entry point on configs/projects/eval/qvh.yaml: 8
 # synthetic queries over 150 s videos at 10 fps (the length of QVHighlights
@@ -631,8 +676,9 @@ FP32_PATH_REL_TOL = 1e-4
 EVAL_QUERIES, EVAL_VIDEO_FRAMES, EVAL_FPS = 8, 1500, 10.0
 # Phase 17, the train entry point on configs/projects/train/qvh.yaml (batches
 # of 1 x 60 frames, accum_grad_iters 8, use_grad_checkpoint): 8 synthetic
-# train queries (1 update an epoch), 1 val and 1 test, 2 epochs.
-TRAIN_QUERIES, TRAIN_EVAL_QUERIES, TRAIN_EPOCHS, TRAIN_ACCUM = 8, 1, 2, 8
+# train queries (1 update an epoch), 1 val and 1 test, 1 epoch (2 until the
+# script passed 1,200 s).
+TRAIN_QUERIES, TRAIN_EVAL_QUERIES, TRAIN_EPOCHS, TRAIN_ACCUM = 8, 1, 1, 8
 # Per micro-batch under use_grad_checkpoint: kernel 5 once per encoder layer
 # in the forward and once more in the layer's recompute, kernels 6 and 8 once
 # per encoder layer in the backward, kernels 3 and 7 never; the frozen ViT,
@@ -671,7 +717,8 @@ TAL_METRIC_KEYS = ("agg_metrics", "r1", "mAP", "mIoU", "invalid_predictions",
 # prompt and 50 new tokens fit, found at run time: OPT_FRAMES (prompt 1,989,
 # last position 2,037). The prefill writes the prompt but its last token:
 # OPT_PREFILL_ROWS rows, where phase 3 holds kernel 1 at the OPT's width.
-OPT_WIDTH, OPT_QUESTIONS, OPT_VIDEO_FRAMES, OPT_FPS = 2560, 4, 300, 10.0
+# 2 queries (4 until phases 27-28 came).
+OPT_WIDTH, OPT_QUESTIONS, OPT_VIDEO_FRAMES, OPT_FPS = 2560, 2, 300, 10.0
 OPT_FRAMES, OPT_PREFILL_ROWS = 57, 1988
 # Per pass of the OPT decoder (the prefill, each decode step, the train
 # forward): 2 LayerNorms a layer over 32 layers and the final norm.
@@ -679,9 +726,10 @@ OPT_LN_PER_PASS = 2 * 32 + 1
 # Phase 20, online serving: (a) and (b) on a server whose ragged batches wait
 # SERVE_FORM_WAIT_MS (so that (b)'s three requests form one batch); (c)
 # SERVE_REQUESTS synthetic:// requests of 150 s from SERVE_CLIENTS client
-# threads through the HTTP server, max_wait serve.py's default.
+# threads through the HTTP server, max_wait serve.py's default (16 requests
+# until phases 27-28 came).
 SERVE_FORM_WAIT_MS, SERVE_WAIT_MS = 5000, 50
-SERVE_REQUESTS, SERVE_CLIENTS = 16, 8
+SERVE_REQUESTS, SERVE_CLIENTS = 8, 8
 SERVE_PROCESS_TIMEOUT_S = 300
 # Phase 21, QLoRA-style training on configs/projects/train/qvh.yaml with
 # model.int8_base and model.int8_vit: micro-batches of 1 x 60 frames,
@@ -724,12 +772,13 @@ DP_WINDOWS = ("[[10, 25]]", "[[10, 25], [30, 42], [100, 120]]")
 # the depth-2 model's generate and one LoRA update against one process in
 # bf16 and fp32; qvh.yaml under run.tp=2 over TP_QUERIES train queries (one
 # update of TP_QUERIES micro-batches) and one val query. Every tp generate
-# stops at TP_NEW_TOKENS new tokens (phase 4 decodes 50): a tp decode step
-# runs 72 all-reduces through host memory, about 0.25 s. (b):
+# stops at TP_NEW_TOKENS new tokens (phase 4 decodes 50; 16 until phases
+# 27-28 came): a tp decode step runs 72 all-reduces through host memory,
+# about 0.25 s. (b):
 # phase 20's model and a second replica of it on the same card behind the
 # server: DP_SERVE_REQUESTS requests, then a ragged 3.
 TP_SIZE, TP_HEADS, TP_QUERIES = 2, 16, 1
-TP_FULL_ROWS, TP_NEW_TOKENS, TP_FULL_COSINE_MIN = 1, 16, 0.999
+TP_FULL_ROWS, TP_NEW_TOKENS, TP_FULL_COSINE_MIN = 1, 8, 0.999
 TP_DEPTH2_DTYPES = ("bfloat16", "float32")
 TP_FP32_COSINE_MIN = 0.9999
 # bf16 at depth 2 rounds the half-width GEMMs and the summed partial
@@ -742,6 +791,41 @@ TP_BF16_LOSS_REL, TP_BF16_COSINE_MIN = 1e-3, 0.97
 TP_ROW_PRODUCT_REL_TOL = 1e-5
 DP_SERVE_REQUESTS, DP_SERVE_RAGGED = 8, 3
 DP_SERVE_FORM_WAIT_MS = 1000  # the ragged 3 arrive within it: one batch
+# Phase 27, pipeline parallelism (in phase 26 (a)'s launch: its two gloo
+# ranks are the two stages). Flan-T5-XL at full width and depth with LoRA
+# rank 8 on every Linear (the flagship's), bf16, each rank building only its
+# 12 + 12 blocks; PP_ROWS rows of phase 4's encoder length (the last 7 keys
+# of row 1 and the last 300 of row 3 masked), PP_TARGET decoder tokens (the
+# last 8 of row 2 masked), every tensor drawn by its global name from one
+# seed so that a stage and the whole model agree. (a) One LoRA AdamW update
+# at each M of PP_MICROBATCHES against the whole model in one process (rank
+# 0 alone), and a no-grad pipelined forward (kernel 3); bars stated before
+# the first chip run: logits cosine >= PP_BF16_COSINE_MIN, loss within
+# PP_BF16_LOSS_REL, the LoRA gradients' cosine >= PP_BF16_GRAD_COSINE_MIN;
+# two planted faults (rank 1's encoder blocks in reverse order; microbatch 1
+# zeroed) must each fall outside the logits bar. (b) Depth 2 at full width
+# in fp32, M = 2: logits, loss and LoRA gradients within PP_FP32_REL of the
+# largest (max |diff| / max |one process|), the update's share of elements
+# more than the lr apart <= DP_APART_MAX.
+PP_SIZE, PP_ROWS, PP_TARGET, PP_ENCODER_LENGTH = 2, 4, 32, 2056
+PP_MICROBATCHES, PP_LORA_RANK, PP_SEED = (2, 4), 8, 27
+PP_BF16_COSINE_MIN, PP_BF16_LOSS_REL, PP_BF16_GRAD_COSINE_MIN = 0.999, 1e-2, 0.99
+PP_FP32_REL = 1e-5
+# Phase 28, the BLIP-v1 zoo's evaluation entry points at base width
+# (ViT-B/16 at 224², BERT-base MED, fp32 as the JAX wrappers run it):
+# caption_coco_eval.yaml and ret_coco_eval.yaml as published over synthetic
+# annotations of ZOO_IMAGES synthetic:// images x ZOO_CAPTIONS captions
+# (string image ids), evaluated at the published batch of 64;
+# ret_coco_eval.yaml's model_type base_coco names no type of blip_retrieval
+# (coco, flickr), so both packages build the tiny model from it: the run
+# adds model.model_type=coco (base width). Then the depth-2 base-width
+# BLIPv1 on the card against the CPU (FP32_PATH_REL_TOL of the largest;
+# greedy caption ids equal). No kernel runs on this path (fp32 LayerNorm,
+# attention under 256 tokens), as in JAX.
+ZOO_IMAGES, ZOO_CAPTIONS, ZOO_SEED = 64, 5, 28
+ZOO_WORDS = ("a man woman dog cat red blue small large old young riding holding "
+             "standing sitting near on in of the street field table water tree "
+             "bike horse ball car train plate food sky grass beach snow window").split()
 # Phase 23, the reference-checkpoint import and the BLIP2_MR variants. The
 # encoder length of an only_frames 1 x 60 batch of make_samples ("<vid>" 5
 # tokens, 60 x 32 frame tokens, the end's 2 and the text's 64, padded to a
@@ -773,13 +857,14 @@ VARIANTS = {"only_frames": (dict(task="lora_only_frames"), EXPECTED_LAUNCHES),
 # Phase 24, the unfrozen-ViT train path: configs/projects/train/qvh.yaml with
 # model.freeze_vit=False (stochastic depth at the constructor's default rate),
 # UNFROZEN_QUERIES train queries: one update of UNFROZEN_ACCUM micro-batches
-# of 1 x 60 frames (8, qvh.yaml's accum_grad_iters, until phase 26 came);
+# of 1 x 60 frames (8, qvh.yaml's accum_grad_iters, until phase 26 came, 4
+# until phase 28);
 # one val query, no test
 # split. Per micro-batch every ViT block is checkpointed: LayerNorm norm1 and
 # norm2 in the forward and again in the recompute (4 x 39), ln_vision and the
 # Q-Former's 31 once (a graph, no recompute); packed QKV once a block in each;
 # the T5 encoder's kernels as phase 17's. The val generate launches phase 4's.
-UNFROZEN_QUERIES, UNFROZEN_ACCUM, UNFROZEN_DROP_PATH = 4, 4, 0.4
+UNFROZEN_QUERIES, UNFROZEN_ACCUM, UNFROZEN_DROP_PATH = 2, 2, 0.4
 EXPECTED_UNFROZEN_LAUNCHES = dict(EXPECTED_REMAT_TRAIN_LAUNCHES, layer_norm=4 * 39 + 32,
                                   qkv_packed_attention=2 * 39)
 # Phase 24 (b): depth 2 against the CPU at 224 pixels (kernel 2 under
@@ -2050,7 +2135,9 @@ def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False,
                   cls=None, **kw):
     """The flagship model (``cls``, default ``BLIP2_MR``) at full widths,
     every stack REDUCED_DEPTH deep; ``kw`` overrides entries of the flagship
-    configuration."""
+    configuration. Without ``init_params`` every tensor is loaded right
+    after, so the modules skip ``torch.nn.init`` (on the host that init took
+    12 s of a model's build)."""
     import dataclasses
 
     from mr_blip_tpu_torch.models.blip2_mr import BLIP2_MR
@@ -2076,7 +2163,10 @@ def reduced_model(device, init_params=True, task=None, relpos_in_kernel=False,
             if init_params:
                 self.init_params(FLAGSHIP["seed"])
 
-    return ReducedDepth()
+    if init_params:
+        return ReducedDepth()
+    with no_weight_init():
+        return ReducedDepth()
 
 
 def first_step(torch, model, samples):
@@ -2095,14 +2185,15 @@ def first_step(torch, model, samples):
 
 
 def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None,
-              img_size=224):
+              img_size=224, new_tokens=None):
     """Phase 4 (bf16) or, with ``int8``, phase 8: the same model after
     ``quantize_for_inference()``. With ``long``, phase 10: LONG_BATCHES
     batches of 4 x LONG_FRAMES frames through the ``relpos_in_kernel`` model
     (``relpos_in_kernel=False`` for its materialized-bias comparison run).
     With ``img_size=364``, phase 13: BIG_BATCHES batches at 364 pixels, the
     ViT's attention through kernel 4 (with ``int8`` between two W8A8 linears).
-    Returns the launch counts of the run and its summary numbers."""
+    ``new_tokens`` caps the decode (default the flagship's 50). Returns the
+    launch counts of the run and its summary numbers."""
     from mr_blip_tpu_torch.profile_inference import make_samples
     from mr_blip_tpu_torch.text.span_grammar import moment_str_to_list
 
@@ -2121,7 +2212,8 @@ def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None,
         n_batches = BIG_BATCHES
         name = f"{img_size}-pixel " + ("int8 path" if int8 else "path")
     t0 = time.time()
-    model = flagship_model(relpos_in_kernel=relpos, img_size=img_size)
+    model = flagship_model(relpos_in_kernel=relpos, img_size=img_size,
+                           **({"max_new_tokens": new_tokens} if new_tokens else {}))
     torch.cuda.synchronize()
     say(f"model built with random weights in {time.time() - t0:.1f} s; "
         f"{sum(p.numel() for p in model.module.parameters()) / 1e9:.3f} B params")
@@ -2220,6 +2312,18 @@ def main_path(torch, wrappers, int8=False, long=False, relpos_in_kernel=None,
     del model, enc, frames
     torch.cuda.empty_cache()
     return launches, summary
+
+
+def generates_side_by_side(label, a, b):
+    """One line of two ``main_path`` summaries; their decodes side by side
+    per step too (the two may cap the decode at different lengths)."""
+    per_step = [1e3 * x["decode_s"] / x["decode_steps"] for x in (a, b)]
+    return (f"{label}, seconds: " + ", ".join(
+        f"{k} {a[k]:.3f} vs {b[k]:.3f}"
+        for k in ("steady_s", "frames_to_qformer_s", "t5_encode_s", "decode_s"))
+        + f" ({a['decode_steps']} vs {b['decode_steps']} decode steps, {per_step[0]:.1f} vs "
+        f"{per_step[1]:.1f} ms each); peak memory {a['peak_gib']:.2f} vs "
+        f"{b['peak_gib']:.2f} GiB")
 
 
 # --------------------------------------------------------------- phase 5
@@ -2694,7 +2798,8 @@ def qa_path(torch, wrappers):
 
     t0 = time.time()
     model = flagship_model(img_size=BIG_IMG, task=QA_TASK,
-                           num_frames_for_answer=QA_ANSWER_FRAMES)
+                           num_frames_for_answer=QA_ANSWER_FRAMES,
+                           max_new_tokens=SHORT_NEW_TOKENS)
     torch.cuda.synchronize()
     say(f"QA model built with random weights in {time.time() - t0:.1f} s; "
         f"{sum(p.numel() for p in model.module.parameters()) / 1e9:.3f} B params, "
@@ -2923,7 +3028,8 @@ def evaluation_entry_point(torch, wrappers, card):
                 *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
                   for split, path in paths.items()),
                 "datasets.qvh.build_info.videos.storage=synthetic",
-                "model.load_finetuned=False", f"run.output_dir={out_dir}"]
+                "model.load_finetuned=False", f"run.output_dir={out_dir}",
+                f"model.max_new_tokens={SHORT_NEW_TOKENS}"]
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -3171,7 +3277,8 @@ def train_entry_point(torch, wrappers, card):
                 *(f"datasets.qvh.build_info.annotations.{split}.storage={path}"
                   for split, path in run_paths.items()),
                 "datasets.qvh.build_info.videos.storage=synthetic",
-                f"run.output_dir={Path(tmp) / 'train'}", f"run.max_epoch={TRAIN_EPOCHS}"]
+                f"run.output_dir={Path(tmp) / 'train'}", f"run.max_epoch={TRAIN_EPOCHS}",
+                f"model.max_new_tokens={SHORT_NEW_TOKENS}"]
         for cls, name, tap in taps:
             setattr(cls, name, tap)
         try:
@@ -3366,7 +3473,8 @@ def qa_entry_point(torch, wrappers, card):
                 *(f"datasets.nextgqa.build_info.annotations.{split}.storage={path}"
                   for split, path in paths.items()),
                 "datasets.nextgqa.build_info.videos.storage=synthetic",
-                "model.load_finetuned=False", f"run.output_dir={out_dir}"]
+                "model.load_finetuned=False", f"run.output_dir={out_dir}",
+                f"model.max_new_tokens={SHORT_NEW_TOKENS}"]
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -3706,7 +3814,8 @@ def opt_entry_point(torch, wrappers, card):
 
 def reduced_opt_model(device, init_params=True):
     """The OPT variant at full widths, ViT, Q-Former and OPT REDUCED_DEPTH
-    deep, opt_charades.yaml's settings."""
+    deep, opt_charades.yaml's settings (without ``init_params``, built as
+    ``reduced_model`` builds it)."""
     import dataclasses
 
     from mr_blip_tpu_torch.models.blip2_mr_opt import BLIP2_MR_OPT, Blip2OPTModule
@@ -3731,7 +3840,10 @@ def reduced_opt_model(device, init_params=True):
             if init_params:
                 self.init_params(0)
 
-    return ReducedDepth()
+    if init_params:
+        return ReducedDepth()
+    with no_weight_init():
+        return ReducedDepth()
 
 
 def opt_logits(torch, model, samples):
@@ -3847,6 +3959,7 @@ def serving_entry_point(torch, wrappers, card, main_summary):
     t0 = time.time()
     model = load_model("blip2_mr", "pretrain_flant5xl")
     model.init_params(0)
+    model.max_new_tokens = SHORT_NEW_TOKENS
     torch.cuda.synchronize()
     build_s = time.time() - t0
     require(model.num_beams == 5 and model.compute_dtype == torch.bfloat16
@@ -3941,8 +4054,9 @@ def serving_entry_point(torch, wrappers, card, main_summary):
         f"{st_c.throughput_rps:.3f} requests/s ({SERVE_REQUESTS / load_s:.3f} over the "
         f"clients' {load_s:.3f} s), latency p50 {st_c.latency_p50_s:.3f} p95 "
         f"{st_c.latency_p95_s:.3f} p99 {st_c.latency_p99_s:.3f} s; seconds per batch under "
-        f"load {per_batch:.3f} (each {[round(b[3], 3) for b in loaded]}) vs phase 4's steady "
-        f"{main_summary['steady_s']:.3f}; peak memory {(peak - resident) / 2**30:.2f} GiB "
+        f"load {per_batch:.3f} (each {[round(b[3], 3) for b in loaded]}; {SHORT_NEW_TOKENS} new "
+        f"tokens) vs phase 4's steady {main_summary['steady_s']:.3f} "
+        f"({main_summary['decode_steps']}); peak memory {(peak - resident) / 2**30:.2f} GiB "
         f"above the {resident / 2**30:.2f} GiB earlier phases held; {card}")
     summary = dict(batches=st_c.batches, occupancy=st_c.mean_batch_occupancy,
                    rps=st_c.throughput_rps, p50_s=st_c.latency_p50_s,
@@ -4153,6 +4267,7 @@ def qlora_entry_point(torch, wrappers, card, train_summary):
                     "datasets.qvh.build_info.videos.storage=synthetic",
                     f"run.output_dir={Path(tmp) / out}", "run.max_epoch=1",
                     f"run.accum_grad_iters={QLORA_ACCUM}",
+                    f"model.max_new_tokens={SHORT_NEW_TOKENS}",
                     "model.int8_base=True", "model.int8_vit=True", *options]
 
         free()
@@ -4402,7 +4517,8 @@ def parallel_entry_points(torch, card):
                 "datasets.qvh.build_info.videos.storage=synthetic",
                 f"run.output_dir={Path(tmp) / 'train'}", "run.max_epoch=1",
                 f"run.accum_grad_iters={DP_ACCUM}", "run.dist_backend=gloo",
-                f"run.dist_timeout_s={DP_GROUP_TIMEOUT_S}"]
+                f"run.dist_timeout_s={DP_GROUP_TIMEOUT_S}",
+                f"model.max_new_tokens={SHORT_NEW_TOKENS}"]
         t0 = time.time()
         dp_launch("train", tmp, *argv)
         train_wall = time.time() - t0
@@ -4846,7 +4962,7 @@ def check_row_product(torch):
     return errs
 
 
-def tp_entry_point(torch, card, main_summary):
+def tp_entry_point(torch, card, main_summary, pp_ranks):
     """Phase 26 (a): tensor parallelism, two ranks of one tensor-parallel
     group (tp=2, dp=1) on the one card over gloo, this script as the worker
     (``--dp-worker tp``): phase 4's model (full depth and width, seed 0) in
@@ -4974,6 +5090,7 @@ def tp_entry_point(torch, card, main_summary):
     require(len({rank["fingerprint"] for rank in train}) == 1
             and train[0]["losses"] == train[1]["losses"],
             "phase 26 (a): the ranks' trainable tensors or losses differ after the run")
+    pp_ranks[:] = [r["pp"] for r in ranks]
     for split, rows in train[0]["rows"].items():
         require(rows["merged"] == rows["unique"] == 1, f"phase 26 (a) {split} rows {rows}")
     say(f"tp gates passed: at full depth in fp32 encoder states and first-step logits "
@@ -4984,6 +5101,91 @@ def tp_entry_point(torch, card, main_summary):
         f"planted fault outside them; the ranks' beams equal; every bf16 launch count as "
         f"one process's; the ranks' tensors bit-equal")
     return train[0]["launches"]
+
+
+def pipeline_report(pp_ranks, card):
+    """Phase 27 (run in phase 26 (a)'s launch, ``pp_worker_part``): prints
+    every number per rank, then holds the bars. Returns rank 0's launches
+    over the M = 4 pipelined LoRA step and the no-grad forward."""
+    bf16, fp32 = [r["bf16"] for r in pp_ranks], [r["fp32"] for r in pp_ranks]
+
+    def whole(runs, m):
+        """The rank shares of one run combined."""
+        parts = [r[f"M{m}"] for r in runs]
+        dot, g2, r2 = (sum(p[k] for p in parts) for k in ("dot", "g2", "r2"))
+        return dict(parts[0], grad_cos=dot / math.sqrt(g2 * r2),
+                    grad_rel=max(p["grad_diff"] for p in parts)
+                    / max(p["grad_max"] for p in parts),
+                    apart=sum(p["apart"] for p in parts) / sum(p["numel"] for p in parts))
+
+    for tag, runs in (("bf16 Flan-T5-XL (24 + 24 layers)", bf16),
+                      (f"fp32 depth {REDUCED_DEPTH}", fp32)):
+        say(f"pp={PP_SIZE} {tag} at full width, {PP_ROWS} x {PP_ENCODER_LENGTH} encoder "
+            f"tokens, {PP_TARGET} decoder tokens, LoRA rank {PP_LORA_RANK}, two gloo ranks on "
+            f"one card (each holding its half of the blocks): one process "
+            f"{runs[0]['seconds_ref']:.3f} s an update (peak {runs[0]['peak_ref_gib']:.2f} "
+            "GiB); weights a rank " + ", ".join(f"{r['weight_gib']:.2f}" for r in runs)
+            + " GiB; peak a rank " + ", ".join(f"{r['peak_gib']:.2f}" for r in runs) + " GiB")
+        for key in sorted(k for k in runs[0] if k.startswith("M")):
+            res = whole(runs, int(key[1:]))
+            say(f"  {key}: loss {res['loss']:.6f} vs {res['loss_ref']:.6f} (rel "
+                f"{abs(res['loss'] - res['loss_ref']) / abs(res['loss_ref']):.2e}), logits "
+                f"cosine {res['logits_cos']:.9f} (max |diff| / max {res['logits_rel']:.2e}), "
+                f"LoRA gradient cosine {res['grad_cos']:.9f} (max |diff| / max "
+                f"{res['grad_rel']:.2e}), update elements more than the lr apart "
+                f"{res['apart']:.2e}; s per pipelined update a rank "
+                + ", ".join(f"{r[key]['seconds']:.3f}" for r in runs)
+                + "; launches a rank " + "; ".join(str(r[key]["launches"]) for r in runs))
+            for r, run in enumerate(runs):
+                for stack, transfers in run[key]["wire"].items():
+                    by_kind = {}
+                    for t in transfers:
+                        by_kind.setdefault(t["kind"], []).append(t["ms"])
+                    say(f"    rank {r} (stage {r}) {stack}: " + ", ".join(
+                        f"{kind} {len(ms)} x, {statistics.mean(ms):.3f} ms each (max "
+                        f"{max(ms):.3f})" for kind, ms in by_kind.items())
+                        + f"; {transfers[0]['bytes'] / 2**20:.1f} MiB the first")
+    say(f"pp bf16 no-grad pipelined forward (M={PP_MICROBATCHES[0]}): logits cosine "
+        f"{bf16[0]['nograd_cos']:.9f}; launches a rank "
+        + "; ".join(str(r["nograd_launches"]) for r in bf16))
+    for fault, cos in bf16[0]["faults"].items():
+        say(f"pp bf16 with a planted fault ({fault}): logits cosine {cos:.6f} (bar "
+            f"{PP_BF16_COSINE_MIN})")
+    layers = 24 // PP_SIZE
+    for tag, runs in (("bf16", bf16), ("fp32", fp32)):
+        for key in (k for k in runs[0] if k.startswith("M")):
+            m, res = int(key[1:]), whole(runs, int(key[1:]))
+            loss_rel = abs(res["loss"] - res["loss_ref"]) / abs(res["loss_ref"])
+            if tag == "bf16":
+                require(res["logits_cos"] >= PP_BF16_COSINE_MIN and loss_rel <= PP_BF16_LOSS_REL
+                        and res["grad_cos"] >= PP_BF16_GRAD_COSINE_MIN,
+                        f"phase 27 bf16 {key} against one process: {res}")
+                want = {"flash_bias_fwd_stats": layers * m, "flash_bias_bwd_dq": layers * m,
+                        "flash_bias_bwd_dkv": layers * m}
+                for r, run in enumerate(runs):
+                    require(run[key]["launches"] == want, f"phase 27 rank {r} {key}: launches "
+                            f"{run[key]['launches']}, want {want}")
+            else:
+                require(res["logits_rel"] <= PP_FP32_REL and loss_rel <= PP_FP32_REL
+                        and res["grad_rel"] <= PP_FP32_REL and res["apart"] <= DP_APART_MAX,
+                        f"phase 27 fp32 {key} against one process: {res}")
+            require(math.isfinite(res["loss"]), f"phase 27 {tag} {key}: loss {res['loss']}")
+    require(bf16[0]["nograd_cos"] >= PP_BF16_COSINE_MIN,
+            f"phase 27: the no-grad pipelined forward's logits cosine {bf16[0]['nograd_cos']}")
+    for r, run in enumerate(bf16):
+        want = {"flash_bias_attention": layers * PP_MICROBATCHES[0]}
+        require(run["nograd_launches"] == want, f"phase 27 rank {r} no-grad forward: "
+                f"launches {run['nograd_launches']}, want {want}")
+    for fault, cos in bf16[0]["faults"].items():
+        require(cos < PP_BF16_COSINE_MIN, f"phase 27: the bf16 bar passes a planted fault "
+                f"({fault}): cosine {cos}")
+    say(f"pp gates passed: bf16 at full depth logits cosine >= {PP_BF16_COSINE_MIN}, loss "
+        f"within {PP_BF16_LOSS_REL}, LoRA gradient cosine >= {PP_BF16_GRAD_COSINE_MIN} at M = "
+        f"{', '.join(map(str, PP_MICROBATCHES))}, each planted fault outside the logits bar, "
+        f"kernels 5, 6 and 8 {layers} x M launches a rank an update, kernel 3 {layers} x M a "
+        f"no-grad forward; fp32 at depth {REDUCED_DEPTH} within {PP_FP32_REL}; {card}")
+    step, nograd = bf16[0][f"M{PP_MICROBATCHES[-1]}"]["launches"], bf16[0]["nograd_launches"]
+    return {k: step.get(k, 0) + nograd.get(k, 0) for k in {*step, *nograd}}
 
 
 def cosine64(torch, got, want):
@@ -5214,10 +5416,255 @@ def tp_depth2(torch, dev, rank, group, compute_dtype):
                    **compare(tp_run, ref_run))
     return out
 
+# -------------------------------------------------------------- phase 27
+def pp_fill(torch, model, cfg, n_stages, stage):
+    """Every tensor of ``model`` (a stage of ``n_stages``, or the whole
+    model at 1) drawn from PP_SEED and its name in the whole model, at the
+    scales of HF's T5 init (T5 has no 1/sqrt(d) in its attention, so ``q``
+    carries it: N(0, 1/(d_model·d_kv))): RMSNorm weights 1, the shared
+    embedding N(0, 1), the rel-pos tables N(0, 0.5), ``lora_b`` N(0, 0.01),
+    every other matrix N(0, 1/fan-in)."""
+    import zlib
+
+    from mr_blip_tpu_torch.models.t5_pipeline import global_name
+
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            whole = global_name(name, cfg, n_stages, stage)
+            parent, leaf = whole.rsplit(".", 2)[-2:]
+            if whole.endswith("norm.weight"):
+                t.fill_(1.0)
+                continue
+            std = {"rel_embedding": 0.5, "lora_b": 0.01}.get(leaf)
+            if std is None:
+                std = (1.0 if whole.startswith("shared.")
+                       else t.shape[0 if leaf == "lora_a" else 1] ** -0.5)
+                if parent == "q" and leaf == "weight":
+                    std *= cfg.d_kv ** -0.5
+            gen = torch.Generator(device=t.device)
+            gen.manual_seed(PP_SEED * 1_000_003 + zlib.crc32(whole.encode()))
+            t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * std)
+
+
+def pp_model(torch, cfg, dev, dtype, n_stages=1, stage=0):
+    """The whole T5 (``n_stages`` 1) or stage ``stage``'s, built on the meta
+    device then allocated on ``dev`` (a stage never holds another's blocks),
+    filled by ``pp_fill``; the LoRA tensors fp32 masters and trainable, the
+    rest frozen; eval mode (the pipelined path runs without dropout)."""
+    from mr_blip_tpu_torch.models.t5 import T5ForConditionalGeneration
+    from mr_blip_tpu_torch.models.t5_pipeline import build_stage_model
+
+    model = (T5ForConditionalGeneration(cfg, device="meta", dtype=dtype) if n_stages == 1
+             else build_stage_model(cfg, n_stages, device="meta", dtype=dtype))
+    model = model.to_empty(device=dev)
+    pp_fill(torch, model, cfg, n_stages, stage)
+    for name, p in model.named_parameters():
+        lora = name.rsplit(".", 1)[1] in ("lora_a", "lora_b")
+        if lora:
+            p.data = p.data.float()
+        p.requires_grad_(lora)
+    return model.eval()
+
+
+def pp_inputs(torch, cfg, dev, dtype):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(PP_SEED)
+    x = torch.randn(PP_ROWS, PP_ENCODER_LENGTH, cfg.d_model, generator=gen,
+                    device=dev).to(dtype)
+    labels = torch.randint(2, cfg.vocab_size, (PP_ROWS, PP_TARGET), generator=gen, device=dev)
+    enc_mask = torch.ones(PP_ROWS, PP_ENCODER_LENGTH, dtype=torch.int32, device=dev)
+    enc_mask[1, -7:] = 0
+    enc_mask[3, -300:] = 0
+    label_mask = torch.ones(PP_ROWS, PP_TARGET, dtype=torch.int32, device=dev)
+    label_mask[2, -8:] = 0
+    return x, labels, enc_mask, label_mask
+
+
+def pp_step(torch, model, logits_fn, labels, label_mask):
+    """One LoRA AdamW update from the model's tensors as they are: (loss,
+    logits, gradients, updated tensors, seconds); the tensors put back."""
+    from mr_blip_tpu_torch.models.t5 import cross_entropy_lm_loss
+
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    start = {n: p.detach().clone() for n, p in params.items()}
+    opt = torch.optim.AdamW(params.values(), lr=TRAIN_LR, weight_decay=TRAIN_WEIGHT_DECAY)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits = logits_fn()
+    loss = cross_entropy_lm_loss(logits, labels, label_mask)
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    took = time.time() - t0
+    grads = {n: p.grad.detach().clone() for n, p in params.items()}
+    after = {n: p.detach().clone() for n, p in params.items()}
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(start[n])
+            p.grad = None
+    return float(loss.detach()), logits.detach(), grads, after, took
+
+
+def pp_compare(torch, rank, names, run, ref):
+    """This rank's share of the comparison with one process: sums for the
+    gradient cosine (float64), max |diff| and max |ref| of the gradients
+    and of the updated tensors, the update's elements apart by more than
+    the lr; the logits and loss on rank 0 (every rank holds them)."""
+    g, rg = run[2], ref["grads"]
+    out = {"dot": 0.0, "g2": 0.0, "r2": 0.0, "grad_diff": 0.0, "grad_max": 0.0,
+           "apart": 0, "numel": 0}
+    for local, whole in names.items():
+        a, b = g[local].double(), rg[whole].to(g[local].device).double()
+        out["dot"] += float((a * b).sum())
+        out["g2"] += float((a * a).sum())
+        out["r2"] += float((b * b).sum())
+        out["grad_diff"] = max(out["grad_diff"], float((a - b).abs().max()))
+        out["grad_max"] = max(out["grad_max"], float(b.abs().max()))
+        u = run[3][local].float()
+        ru = ref["after"][whole].to(u.device).float()
+        out["apart"] += int(((u - ru).abs() > TRAIN_LR).sum())
+        out["numel"] += u.numel()
+    if rank == 0:
+        logits, want = run[1].float(), ref["logits"].to(run[1].device).float()
+        out.update(loss=run[0], loss_ref=ref["loss"],
+                   logits_cos=cosine64(torch, logits, want),
+                   logits_rel=float((logits - want).abs().max() / want.abs().max()))
+    return out
+
+
+def pp_worker_part(torch, dev, rank, workdir, counts):
+    """Phase 27, one rank (in phase 26 (a)'s launch): (a) Flan-T5-XL at full
+    depth in bf16, (b) depth 2 in fp32, each against one process (see
+    PP_SIZE). Returns the rank's numbers (JSON)."""
+    import dataclasses
+
+    import torch.distributed as tdist
+
+    from mr_blip_tpu_torch.common import dist as dist_utils
+    from mr_blip_tpu_torch.models.t5 import shift_right, t5_flan_xl_config
+    from mr_blip_tpu_torch.models.t5_pipeline import global_name, t5_pipeline_forward
+    from mr_blip_tpu_torch.parallel import pipeline
+
+    group = tdist.new_group(list(range(PP_SIZE)))
+    full_cfg = t5_flan_xl_config(lora_rank=PP_LORA_RANK, dropout_rate=0.0)
+    out = {}
+    for tag, cfg, dtype, micro in (
+            ("bf16", full_cfg, torch.bfloat16, PP_MICROBATCHES),
+            ("fp32", dataclasses.replace(full_cfg, num_layers=REDUCED_DEPTH,
+                                         num_decoder_layers=REDUCED_DEPTH),
+             torch.float32, PP_MICROBATCHES[:1])):
+        x, labels, enc_mask, label_mask = pp_inputs(torch, cfg, dev, dtype)
+        dec_ids = shift_right(labels, cfg.decoder_start_token_id, cfg.pad_token_id)
+        ref_path = Path(workdir) / f"pp_ref_{tag}.pt"
+        res = {}
+        if rank == 0:  # one process: the whole model, alone
+            torch.cuda.reset_peak_memory_stats(dev)
+            whole = pp_model(torch, cfg, dev, dtype)
+            loss, logits, grads, after, took = pp_step(
+                torch, whole, lambda: whole.decode(dec_ids, whole.encode(x, mask=enc_mask),
+                                                   decoder_mask=label_mask,
+                                                   encoder_mask=enc_mask),
+                labels, label_mask)
+            torch.save({"loss": loss, "logits": logits.cpu(),
+                        "grads": {n: t.cpu() for n, t in grads.items()},
+                        "after": {n: t.cpu() for n, t in after.items()}}, ref_path)
+            res.update(seconds_ref=took,
+                       peak_ref_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            del whole, logits, grads, after
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist_utils.barrier()
+        ref = torch.load(ref_path, weights_only=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = pp_model(torch, cfg, dev, dtype, n_stages=PP_SIZE, stage=rank)
+        res["weight_gib"] = sum(t.numel() * t.element_size()
+                                for t in model.state_dict().values()) / 2**30
+        names = {n: global_name(n, cfg, PP_SIZE, rank) for n, p in model.named_parameters()
+                 if p.requires_grad and (rank == 0 or ".block." in n)}
+
+        def forward(m, timings=None):
+            return t5_pipeline_forward(cfg, model, x, dec_ids, group, encoder_mask=enc_mask,
+                                       decoder_mask=label_mask, num_microbatches=m,
+                                       compute_dtype=dtype, timings=timings)
+
+        want = ref["logits"].to(dev)
+        if tag == "bf16":  # also the warm-up of the steps below
+            before = counts()
+            with torch.no_grad():
+                logits = forward(micro[0])
+            res["nograd_launches"] = {k: v - before[k] for k, v in counts().items()
+                                      if v - before[k]}
+            res["nograd_cos"] = cosine64(torch, logits, want)
+        for m in micro:
+            timings = {}
+            before = counts()
+            run = pp_step(torch, model, lambda: forward(m, timings), labels, label_mask)
+            launched = {k: v - before[k] for k, v in counts().items() if v - before[k]}
+            res[f"M{m}"] = dict(pp_compare(torch, rank, names, run, ref), seconds=run[4],
+                                launches=launched, wire={
+                                    stack: [dict(t, ms=round(t["ms"], 3)) for t in ts]
+                                    for stack, ts in timings.items()})
+        if tag == "bf16":
+            faults = {}
+            blocks = model.encoder.block
+            if rank == 1:
+                model.encoder.block = torch.nn.ModuleList(list(blocks)[::-1])
+            with torch.no_grad():
+                faults["rank 1's encoder blocks in reverse order"] = cosine64(
+                    torch, forward(micro[0]), want)
+            model.encoder.block = blocks
+            split = pipeline._split
+            pipeline._split = lambda leaves, m: [
+                mb if i != 1 else [t * 0 for t in mb] for i, mb in enumerate(split(leaves, m))]
+            try:
+                with torch.no_grad():
+                    faults["microbatch 1 zeroed"] = cosine64(torch, forward(micro[0]), want)
+            finally:
+                pipeline._split = split
+            res["faults"] = faults
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out[tag] = res
+        del model, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist_utils.barrier()
+    return out
+
+
+
+def pp_worker(torch, workdir):
+    """Phase 27 alone (``--dp-worker pp``), one rank: ``pp_worker_part``
+    over a two-rank gloo world, its numbers to ``pp_rank<r>.json``."""
+    from mr_blip_tpu_torch.common import dist as dist_utils
+
+    dist_utils.init_distributed_mode({"device": "cuda", "dist_backend": "gloo",
+                                      "dist_timeout_s": DP_GROUP_TIMEOUT_S})
+    wrappers, _ = kernel_tables()
+    out = {"pp": pp_worker_part(torch, dist_utils.local_device("cuda"),
+                                dist_utils.get_rank(), workdir,
+                                lambda: {name: w.launches for name, w in wrappers.items()})}
+    (Path(workdir) / f"pp_rank{dist_utils.get_rank()}.json").write_text(json.dumps(out))
+    dist_utils.destroy()
+
+
+def pp_entry_point(torch, card):
+    """Phase 27 in a launch of its own (for running it alone; the whole
+    script runs it in phase 26 (a)'s launch): returns ``pipeline_report``'s
+    launches."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_launch("pp", tmp, phase=27)
+        ranks = dp_read(tmp, "pp")
+    return pipeline_report([r["pp"] for r in ranks], card)
+
 
 def tp_worker(torch, workdir, argv):
     """Phase 26 (a), one rank: (1) ``tp_full_depth``; (2) ``tp_depth2`` in
-    bf16 and in fp32; (3) ``train.main(argv)`` under run.tp
+    bf16 and in fp32; then phase 27 (``pp_worker_part``, the two ranks as
+    two pipeline stages); (3) ``train.main(argv)`` under run.tp
     (``dp_train_worker``)."""
     from mr_blip_tpu_torch.common import dist as dist_utils
 
@@ -5242,6 +5689,9 @@ def tp_worker(torch, workdir, argv):
         torch.cuda.empty_cache()
     dist_utils.barrier()
     part("depth 2")
+    out["pp"] = pp_worker_part(torch, dev, rank, workdir, lambda: {
+        name: w.launches for name, w in wrappers.items()})
+    part("pp (phase 27)")
     out["parts"] = parts
     (Path(workdir) / f"tp_rank{rank}.json").write_text(json.dumps(out))
 
@@ -5339,8 +5789,8 @@ def dp_server_entry_point(torch, wrappers, card, model, serve_summary):
 
 
 def dp_worker(argv):
-    """``chip_smoke.py --dp-worker <train|step> <dir> [train argv]``: one
-    rank of phase 22 under ``torch.distributed.run``."""
+    """``chip_smoke.py --dp-worker <train|step|tp|pp> <dir> [train argv]``:
+    one rank of phase 22 (26, 27) under ``torch.distributed.run``."""
     import os
 
     import torch
@@ -5354,6 +5804,8 @@ def dp_worker(argv):
         dp_train_worker(torch, workdir, argv[2:])
     elif mode == "tp":
         tp_worker(torch, workdir, argv[2:])
+    elif mode == "pp":
+        pp_worker(torch, workdir)
     else:
         dp_step_worker(torch, workdir)
 
@@ -5483,7 +5935,7 @@ def import_round_trip(torch, wrappers, card):
     from mr_blip_tpu_torch.profile_inference import make_samples
 
     t0 = time.time()
-    model = flagship_model()
+    model = flagship_model(max_new_tokens=SHORT_NEW_TOKENS)
     samples = make_samples(BATCH, N_FRAMES, seed=0)
 
     def run():
@@ -5665,7 +6117,8 @@ def variants_path(torch, wrappers, card, model):
     for name, (kw, expected) in VARIANTS.items():
         cls = Blip2FMR if name == "blip2_fmr" else BLIP2_MR
         t0 = time.time()
-        variant = cls(**dict(FLAGSHIP, **kw), init_params=False, device="cuda")
+        variant = cls(**dict(FLAGSHIP, **kw, max_new_tokens=SHORT_NEW_TOKENS),
+                      init_params=False, device="cuda")
         variant.load_state_dict(state)
         samples = fmr_samples(make_samples(1, N_FRAMES, seed=31))
         torch.cuda.synchronize()
@@ -5858,7 +6311,8 @@ def unfrozen_vit_entry_point(torch, wrappers, card):
                 "datasets.qvh.build_info.videos.storage=synthetic",
                 f"run.output_dir={Path(tmp) / 'train'}", "run.max_epoch=1",
                 f"run.accum_grad_iters={UNFROZEN_ACCUM}",
-                "run.test_splits=[]", "model.freeze_vit=False"]
+                "run.test_splits=[]", "model.freeze_vit=False",
+                f"model.max_new_tokens={SHORT_NEW_TOKENS}"]
         for cls, name, tap in taps:
             setattr(cls, name, tap)
         try:
@@ -6278,6 +6732,206 @@ def vocabulary_entry_point(torch, wrappers, card, phase4, eval_metrics):
         "sentencepiece, regex, jax or flax in the process")
     return launches
 
+# -------------------------------------------------------------- phase 28
+def zoo_annotations(path):
+    """ZOO_IMAGES x ZOO_CAPTIONS caption records of synthetic:// images,
+    image-major, string image ids (a COCO Karpathy split's schema)."""
+    import numpy as np
+
+    rng = np.random.default_rng(ZOO_SEED)
+    anns = [{"image": f"1x64x64#{i}", "image_id": f"img{i}",
+             "caption": " ".join(rng.choice(ZOO_WORDS, int(rng.integers(6, 12))))}
+            for i in range(ZOO_IMAGES) for _ in range(ZOO_CAPTIONS)]
+    Path(path).write_text(json.dumps(anns))
+    return str(path)
+
+
+@contextlib.contextmanager
+def captured_zoo_models(torch, built):
+    """Every zoo wrapper ``from_config`` builds goes into ``built``, its
+    ``generate`` and ``compute_sim_matrix`` timed (each call's seconds and
+    result appended to ``built[i].calls``)."""
+    from mr_blip_tpu_torch.models import zoo_wrappers
+
+    originals = {cls: cls.__dict__["from_config"] for cls in
+                 (zoo_wrappers.BlipCaptionModel, zoo_wrappers.BlipRetrievalModel)}
+
+    def timed(model, name):
+        fn = getattr(model, name)
+
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            model.calls.append((name, time.time() - t0, res))
+            return res
+        return call
+
+    def hook(original):
+        def from_config(cls, cfg, device="cuda"):
+            model = original.__func__(cls, cfg, device=device)
+            model.calls = []
+            for name in ("generate", "compute_sim_matrix"):
+                if hasattr(model, name):
+                    setattr(model, name, timed(model, name))
+            built.append(model)
+            return model
+        return classmethod(from_config)
+
+    for cls, original in originals.items():
+        cls.from_config = hook(original)
+    try:
+        yield
+    finally:
+        for cls, original in originals.items():
+            cls.from_config = original
+
+
+def zoo_depth2_vs_cpu(torch):
+    """The depth-2 base-width BLIPv1 (2 ViT blocks, 2 MED layers a stack) on
+    the card against the same weights on the CPU: caption loss, the ITC
+    features, ITM logits and greedy caption ids of 4 images."""
+    import numpy as np
+
+    from mr_blip_tpu_torch.models import blip_v1, med, vit, zoo_wrappers
+
+    cfg = blip_v1.BLIPConfig(vision=vit.BaseViTConfig(depth=REDUCED_DEPTH),
+                             text=med.MedConfig(num_layers=REDUCED_DEPTH))
+    models = {}
+    for dev in ("cpu", "cuda"):  # the tiny wrapper, its module and vocabulary swapped
+        w = zoo_wrappers.BlipCaptionModel(model_size="tiny", device=dev)
+        w.config, w.tokenizer = cfg, zoo_wrappers.WordTokenizer(cfg.text.vocab_size)
+        w.module = blip_v1.BLIPv1(cfg, device=dev, dtype=torch.float32).eval()
+        models[dev] = w
+    zoo_wrappers.init_blip_weights_(models["cpu"].module, ZOO_SEED)
+    models["cuda"].module.load_state_dict(models["cpu"].module.state_dict())
+    rng = np.random.default_rng(ZOO_SEED)
+    batch = {"image": rng.standard_normal((4, 224, 224, 3)).astype(np.float32),
+             "text_input": [" ".join(rng.choice(ZOO_WORDS, 8)) for _ in range(4)]}
+    out = {}
+    for dev, w in models.items():
+        with torch.no_grad():
+            ims = zoo_wrappers._stack_images(batch, w.device)
+            ids, mask = w._text(batch["text_input"])
+            states = w.module.encode_image(ims)
+            out[dev] = {"loss": w(batch)["loss"].detach(),
+                        "image_feat": w.module.image_feat(ims),
+                        "text_feat": w.module.text_feat(ids, mask),
+                        "itm": w.module.itm_logits_from_states(states, ids, mask),
+                        "greedy": w._greedy(ims, 12)}
+    errs = {k: float((out["cuda"][k].cpu().float() - v.float()).abs().max()
+                     / v.float().abs().max()) for k, v in out["cpu"].items() if k != "greedy"}
+    return errs, bool(torch.equal(out["cuda"]["greedy"].cpu(), out["cpu"]["greedy"]))
+
+
+def zoo_entry_point(torch, wrappers, card):
+    """Phase 28: ``mr_blip_tpu_torch.evaluate.main`` on
+    configs/projects/zoo/caption_coco_eval.yaml and ret_coco_eval.yaml at
+    base width (see ZOO_IMAGES); the metrics finite, the evaluation's first
+    batch equal to the wrapper's own call on its rows (captions; score_i2t
+    rows), no kernel launched; then ``zoo_depth2_vs_cpu``. Returns the
+    launches of the two evaluations (all 0)."""
+    import tempfile
+
+    import numpy as np
+
+    from mr_blip_tpu_torch import evaluate
+    from mr_blip_tpu_torch.datasets.base_dataset import default_collate
+    from mr_blip_tpu_torch.datasets.image_datasets import CaptionDataset, RetrievalDataset
+    from mr_blip_tpu_torch.processors.text_processors import BlipCaptionProcessor
+
+    phase_start = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = zoo_annotations(Path(tmp) / "ann.json")
+        for name, ds, extra in (("caption_coco_eval", "coco_caption", []),
+                                ("ret_coco_eval", "coco_retrieval", ["model.model_type=coco"])):
+            out_dir = Path(tmp) / name
+            argv = ["--cfg-path", str(ROOT / f"configs/projects/zoo/{name}.yaml"), "--options",
+                    *(f"datasets.{ds}.build_info.annotations.{split}.storage={ann}"
+                      for split in ("train", "val", "test")),
+                    f"datasets.{ds}.build_info.images.storage=synthetic://",
+                    f"run.output_dir={out_dir}", *extra]
+            built = []
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()  # what earlier phases still hold
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.time()
+            with captured_zoo_models(torch, built):
+                logs = evaluate.main(argv)
+            torch.cuda.synchronize()
+            runs[name] = {"logs": logs["test"], "wall": time.time() - t0, "model": built[0],
+                          "launches": {k: w.launches for k, w in wrappers.items()},
+                          "peak": (torch.cuda.max_memory_allocated() - resident) / 2**30,
+                          "rows": [json.loads(f.read_text()) for f in
+                                   out_dir.glob("*/result/test_epochbest.json")]}
+            require(len(built) == 1, f"phase 28 {name}: {len(built)} models built")
+        cap, ret = runs["caption_coco_eval"], runs["ret_coco_eval"]
+        # the wrapper's own call on the evaluation's first batch (the loader's
+        # rows 0-63 in order, collated as the loader collates them)
+        ds_cap = CaptionDataset(text_processor=BlipCaptionProcessor(), vis_root="synthetic://",
+                                ann_paths=[ann])
+        first = default_collate([ds_cap[i] for i in range(64)])
+        model = cap["model"]
+        gen_s = [t for name, t, _ in model.calls if name == "generate"]  # the evaluation's
+        mine = model.generate(first, max_length=30, num_beams=3, min_length=5)["captions"]
+        by_image = {r["image_id"]: r["caption"] for r in cap["rows"][0]}
+        cap_equal = all(by_image[i] == c for i, c in zip(first["image_id"], mine))
+        ds_ret = RetrievalDataset(text_processor=BlipCaptionProcessor(),
+                                  vis_root="synthetic://", ann_paths=[ann])
+        rmodel = ret["model"]
+        score_i2t = next(res for name, _, res in rmodel.calls
+                         if name == "compute_sim_matrix")[0]
+        batches = [default_collate([ds_ret[i] for i in range(lo, min(lo + 64, len(ds_ret)))])
+                   for lo in range(0, len(ds_ret), 64)]
+        gallery = rmodel.gallery(batches)
+        first_images = sorted({int(i[3:]) for i in batches[0]["image_id"]})
+        rows_equal = all(np.array_equal(rmodel.rerank_i2t(gallery, i), score_i2t[i])
+                         for i in first_images)
+    sim_s = [t for name, t, _ in rmodel.calls if name == "compute_sim_matrix"]
+    errs, greedy_equal = zoo_depth2_vs_cpu(torch)
+    say(f"zoo captioning (configs/projects/zoo/caption_coco_eval.yaml as published: "
+        f"blip_caption base_coco, ViT-B/16 at 224², BERT-base, fp32, beam 3, 5-30 tokens, "
+        f"{ZOO_IMAGES} synthetic images x {ZOO_CAPTIONS} captions, batches of 64): metrics "
+        f"{cap['logs']}; s per generate batch {[round(t, 3) for t in gen_s]}; wall "
+        f"{cap['wall']:.1f} s; peak {cap['peak']:.2f} GiB above what earlier phases hold; the "
+        f"first batch's captions equal "
+        f"to the wrapper's own call {cap_equal}; first captions {mine[:2]}")
+    say(f"zoo retrieval (ret_coco_eval.yaml, model.model_type=coco: blip_retrieval base, "
+        f"k_test 128, {ZOO_IMAGES} images x {ZOO_IMAGES * ZOO_CAPTIONS} texts): metrics "
+        f"{ret['logs']}; compute_sim_matrix {[round(t, 3) for t in sim_s]} s (the ITC pass, "
+        f"{ZOO_IMAGES} i2t and {ZOO_IMAGES * ZOO_CAPTIONS} t2i reranks); wall "
+        f"{ret['wall']:.1f} s; peak {ret['peak']:.2f} GiB above; score_i2t rows of the first "
+        f"batch's {len(first_images)} images equal to the wrapper's own rerank {rows_equal}")
+    say(f"zoo depth {REDUCED_DEPTH} at base width, card vs CPU (fp32): max |diff| / max "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; greedy caption ids equal {greedy_equal}; phase 28 "
+        f"{time.time() - phase_start:.1f} s; {card}")
+    for name, run in runs.items():
+        require(not any(run["launches"].values()), f"phase 28 {name}: kernels launched "
+                f"{ {k: v for k, v in run['launches'].items() if v} } (none on this path)")
+        require(all(math.isfinite(v) for v in run["logs"].values() if isinstance(v, float))
+                and run["model"].model_size == "base"
+                and run["model"].device.type == "cuda", f"phase 28 {name}: {run['logs']}")
+    require(cap["logs"]["total"] == ZOO_IMAGES and len(gen_s) == ZOO_IMAGES * ZOO_CAPTIONS // 64
+            and cap_equal, f"phase 28 captioning: {cap['logs']}, {len(gen_s)} batches, first "
+            f"batch equal {cap_equal}")
+    require({"txt_r1", "img_r1", "r_mean"} <= set(ret["logs"]) and rows_equal
+            and score_i2t.shape == (ZOO_IMAGES, ZOO_IMAGES * ZOO_CAPTIONS),
+            f"phase 28 retrieval: {ret['logs']}, rows equal {rows_equal}")
+    require(max(errs.values()) <= FP32_PATH_REL_TOL and greedy_equal,
+            f"phase 28 depth {REDUCED_DEPTH} card vs CPU: {errs}, greedy equal {greedy_equal}")
+    say(f"zoo gates passed: both configs' metrics finite at base width, the first batch "
+        f"equal to the wrapper's own call, no kernel launched, depth {REDUCED_DEPTH} within "
+        f"{FP32_PATH_REL_TOL} of the CPU")
+    return {k: cap["launches"][k] + ret["launches"][k] for k in cap["launches"]}
+
+
 
 def kernel_tables():
     """The wrappers whose launches are counted, and one entry per kernel for
@@ -6394,23 +7048,25 @@ def main():
     gradients_kernel_vs_plain(torch, wrappers, fp32=True)
     done(7)
     # phase 8: the int8 generate path at full width and depth (kernels 13-16)
-    int8_launches, int8_summary = main_path(torch, wrappers, int8=True)
-    say("generate, bf16 (phase 4) vs int8 (phase 8), seconds: " + ", ".join(
-        f"{k} {bf16_summary[k]:.3f} vs {int8_summary[k]:.3f}"
-        for k in ("steady_s", "frames_to_qformer_s", "t5_encode_s", "decode_s"))
-        + f"; peak memory {bf16_summary['peak_gib']:.2f} vs "
-        f"{int8_summary['peak_gib']:.2f} GiB")
+    int8_launches, int8_summary = main_path(torch, wrappers, int8=True,
+                                            new_tokens=SHORT_NEW_TOKENS)
+    say(generates_side_by_side("generate, bf16 (phase 4) vs int8 (phase 8)", bf16_summary,
+                               int8_summary))
     done(8)
     # phase 9: int8 kernel path vs int8 plain path, and int8 vs bf16
     int8_kernel_vs_plain_path(torch, wrappers)
     done(9)
     # phase 10: long-context generate at full depth and width (kernel 9), bf16
     # and int8, and one materialized-bias run of the same batches beside them
-    long_launches, long_summary = main_path(torch, wrappers, long=True)
-    _, long_int8_summary = main_path(torch, wrappers, int8=True, long=True)
-    _, long_mat_summary = main_path(torch, wrappers, long=True, relpos_in_kernel=False)
+    long_launches, long_summary = main_path(torch, wrappers, long=True,
+                                            new_tokens=SHORT_NEW_TOKENS)
+    _, long_int8_summary = main_path(torch, wrappers, int8=True, long=True,
+                                     new_tokens=SHORT_NEW_TOKENS)
+    _, long_mat_summary = main_path(torch, wrappers, long=True, relpos_in_kernel=False,
+                                    new_tokens=SHORT_NEW_TOKENS)
     say(f"long-context generate (4 x {LONG_FRAMES} frames, encoder length "
-        f"{long_summary['encoder_length']}), in-kernel bias bf16 / in-kernel bias int8 / "
+        f"{long_summary['encoder_length']}, {SHORT_NEW_TOKENS} decode steps), in-kernel bias "
+        "bf16 / in-kernel bias int8 / "
         "materialized bias bf16 (kernel 3), seconds: " + ", ".join(
             f"{k} " + " / ".join(f"{x[k]:.3f}" for x in (long_summary, long_int8_summary,
                                                          long_mat_summary))
@@ -6427,19 +7083,15 @@ def main():
     gradients_kernel_vs_plain(torch, wrappers, long=True, fp32=True)
     done(12)
     # phase 13: generate at 364 pixels (kernel 4), then the fp32 parity mode
-    big_launches, big_summary = main_path(torch, wrappers, img_size=BIG_IMG)
-    say(f"generate at 224² (phase 4) vs {BIG_IMG}² (phase 13), seconds: " + ", ".join(
-        f"{k} {bf16_summary[k]:.3f} vs {big_summary[k]:.3f}"
-        for k in ("steady_s", "frames_to_qformer_s", "t5_encode_s", "decode_s"))
-        + f"; peak memory {bf16_summary['peak_gib']:.2f} vs "
-        f"{big_summary['peak_gib']:.2f} GiB")
-    _, big_int8_summary = main_path(torch, wrappers, int8=True, img_size=BIG_IMG)
-    say(f"generate at {BIG_IMG}², bf16 vs int8 (the ViT's split route), seconds: "
-        + ", ".join(f"{k} {big_summary[k]:.3f} vs {big_int8_summary[k]:.3f}"
-                    for k in ("steady_s", "frames_to_qformer_s", "t5_encode_s", "decode_s"))
-        + f"; peak memory {big_summary['peak_gib']:.2f} vs "
-        f"{big_int8_summary['peak_gib']:.2f} GiB (int8 with kernel 14's fp32 hidden "
-        f"workspace: {INT8_BIG_PEAK_FP32_HIDDEN_GIB} GiB)")
+    big_launches, big_summary = main_path(torch, wrappers, img_size=BIG_IMG,
+                                          new_tokens=SHORT_NEW_TOKENS)
+    say(generates_side_by_side(f"generate at 224² (phase 4) vs {BIG_IMG}² (phase 13)",
+                               bf16_summary, big_summary))
+    _, big_int8_summary = main_path(torch, wrappers, int8=True, img_size=BIG_IMG,
+                                    new_tokens=SHORT_NEW_TOKENS)
+    say(generates_side_by_side(f"generate at {BIG_IMG}², bf16 vs int8 (the ViT's split route)",
+                               big_summary, big_int8_summary)
+        + f" (int8 with kernel 14's fp32 hidden workspace: {INT8_BIG_PEAK_FP32_HIDDEN_GIB} GiB)")
     fp32_path(torch, wrappers)
     done(13)
     # phase 14: two-stage grounded QA at 364 pixels
@@ -6450,7 +7102,8 @@ def main():
     done(15)
     # phase 16: the evaluation entry point on configs/projects/eval/qvh.yaml
     eval_launches, eval_summary = evaluation_entry_point(torch, wrappers, smi)
-    say(f"generate batch (phase 4) vs evaluation batch (phase 16), seconds: steady "
+    say(f"generate batch (phase 4, {bf16_summary['decode_steps']} new tokens) vs evaluation "
+        f"batch (phase 16, {SHORT_NEW_TOKENS}), seconds: steady "
         f"{bf16_summary['steady_s']:.3f} vs {eval_summary['steady_s']:.3f}, first "
         f"{bf16_summary['first_s']:.3f} vs {eval_summary['first_s']:.3f}; peak memory "
         f"{bf16_summary['peak_gib']:.2f} vs {eval_summary['peak_gib']:.2f} GiB; evaluation "
@@ -6502,12 +7155,20 @@ def main():
     done(25)
     # phase 26: tensor parallelism (two ranks, tp=2) and the dp server (phase
     # 20's model with a second replica)
-    tp_launches = tp_entry_point(torch, smi, bf16_summary)
+    pp_ranks = []
+    tp_launches = tp_entry_point(torch, smi, bf16_summary, pp_ranks)
     say("tp=2 kernels 3, 5, 6, 8 at 16 heads (phase 3), ms kernel / plain / bound: " + "; ".join(
         f"{k} {v[0]:.4f} / {v[1]:.4f} / {v[2]:.4f}" for k, v in tp_kernel_times.items()))
     dp_serve_launches = dp_server_entry_point(torch, wrappers, smi, serve_model, serve_summary)
     del serve_model
     done(26)
+    # phase 27: pipeline parallelism (run in phase 26 (a)'s two-rank launch:
+    # Flan-T5-XL over two stages against one process, the planted faults)
+    pp_launches = pipeline_report(pp_ranks, smi)
+    done(27)
+    # phase 28: the BLIP-v1 zoo's evaluation entry points at base width
+    zoo_launches = zoo_entry_point(torch, wrappers, smi)
+    done(28)
 
     for key, entry in kernels.items():
         if key == "flash_attention":
@@ -6537,6 +7198,8 @@ def main():
         entry["vocab_launches"] = vocab_launches[key]
         entry["tp_launches"] = tp_launches[key]
         entry["dp_serve_launches"] = dp_serve_launches[key]
+        entry["pp_launches"] = pp_launches.get(key, 0)
+        entry["zoo_launches"] = zoo_launches[key]
     say(f"wall time {time.time() - start:.1f} s")
     say(json.dumps({"kernels": [
         {k: entry[k] for k in ("name", "route", "source", "replaces", "launches",
@@ -6544,7 +7207,8 @@ def main():
                                "library_ms", "train_entry_launches", "qa_entry_launches",
                                "opt_entry_launches", "serve_launches", "qlora_launches",
                                "dp_launches", "variant_launches", "unfrozen_launches",
-                               "vocab_launches", "tp_launches", "dp_serve_launches")}
+                               "vocab_launches", "tp_launches", "dp_serve_launches",
+                               "pp_launches", "zoo_launches")}
         for entry in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -62,7 +62,7 @@ def init_distributed_mode(run_cfg=None) -> bool:
             f"WORLD_SIZE={world} but run.distributed=False: set "
             "run.distributed=True to train or evaluate over the process group")
     rank, local_rank = _env_int("RANK", 0), _env_int("LOCAL_RANK", 0)
-    device = str(run_cfg.get("device", "cuda"))
+    device = run_device(run_cfg.get("device", "cuda"))
     on_card = device.startswith("cuda")
     if on_card:
         if not torch.cuda.is_available():
@@ -148,13 +148,35 @@ def build_kernels_once():
     barrier()
 
 
+_TPU_READ: list = []
+
+
+def run_device(device="cuda") -> str:
+    """``run.device`` as a torch device name. The zoo configs' ``tpu`` (the
+    JAX package's accelerator) means the accelerator here, the card: read as
+    ``cuda``, with a log line saying so. Any other name torch does not know
+    raises ``ValueError`` naming the key."""
+    name = str(device)
+    if name == "tpu":
+        if not _TPU_READ:
+            logging.info("run.device: 'tpu' read as the accelerator here, 'cuda'")
+            _TPU_READ.append(True)
+        return "cuda"
+    try:
+        torch.device(name)
+    except RuntimeError as err:
+        raise ValueError(f"run.device={name!r}: not a device ({err}); use cuda, "
+                         "cuda:N or cpu") from None
+    return name
+
+
 def local_device(device="cuda") -> torch.device:
-    """``device`` with this process's card: ``cuda`` becomes
+    """``device`` (``run_device``) with this process's card: ``cuda`` becomes
     ``cuda:LOCAL_RANK`` under a launcher that sets ``LOCAL_RANK`` (with more
     local ranks than cards, ``cuda:LOCAL_RANK % cards``: two ranks on one
     card share it, which ``gloo`` allows and ``nccl`` refuses); the CPU and
     an explicit index are returned as they are."""
-    device = torch.device(device)
+    device = torch.device(run_device(device))
     if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
         cards = torch.cuda.device_count()
         if cards == 0:

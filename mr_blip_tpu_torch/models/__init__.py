@@ -1,6 +1,7 @@
 """The BLIP2-MR float generate and train paths: EVA ViT-g, Q-Former, Flan-T5,
 the decoder-only variant over OPT and the frame-level baseline
-(``blip2_fmr``).
+(``blip2_fmr``); of the LAVIS zoo, BLIP-v1 captioning and retrieval
+(``blip_caption``, ``blip_retrieval``: ``models/zoo_wrappers.py``).
 
 ``load_model(name, model_type)`` builds a registered family from its default
 YAML (counterpart of ``mr_blip_tpu/models/__init__.py``, reference
@@ -18,9 +19,8 @@ ZOO_FAMILIES = (
     "albef_classification", "albef_feature_extractor", "albef_nlvr", "albef_nlvr_model",
     "albef_pretrain", "albef_retrieval", "albef_vqa", "alpro_qa", "alpro_retrieval",
     "blip2", "blip2_feature_extractor", "blip2_image_text_matching", "blip2_opt",
-    "blip2_t5", "blip_caption", "blip_classification", "blip_feature_extractor",
-    "blip_image_text_matching", "blip_nlvr", "blip_pretrain", "blip_retrieval",
-    "blip_v1", "blip_vqa", "clip", "clip_feature_extractor", "gpt_dialogue",
+    "blip2_t5", "blip_classification", "blip_feature_extractor",
+    "blip_image_text_matching", "blip_nlvr", "blip_pretrain", "blip_v1", "blip_vqa", "clip", "clip_feature_extractor", "gpt_dialogue",
     "gpt_dialogue_model", "img2prompt_vqa", "pnp_unifiedqav2_fid", "pnp_vqa",
     "timesformer")
 
@@ -61,26 +61,47 @@ def load_model(name, model_type=None, is_eval=False, checkpoint=None,
     return model
 
 
+VIDEO_FAMILIES = ("blip2_mr", "blip2_opt_mr", "blip2_fmr", "alpro", "gpt_dialogue",
+                  "timesformer")
+
+
 def load_model_and_preprocess(name, model_type=None, is_eval=False, device="cuda",
                               **kwargs):
-    """(model, vis_processors, txt_processors) as the reference returns them:
-    the video processors at the model's image size emitting uint8 frames
-    (``normalize=False``: the model normalizes on the device) and the text
-    processors (``blip_question`` for both splits)."""
-    from mr_blip_tpu_torch.processors.text_processors import BlipQuestionProcessor
-    from mr_blip_tpu_torch.processors.video_processors import (
-        Blip2VideoTrainProcessor,
-        BlipVideoEvalProcessor,
+    """(model, vis_processors, txt_processors) as the reference returns them,
+    per family as the JAX package resolves them: the video families get the
+    video processors at the model's image size (the MR families emitting
+    uint8 frames, ``normalize=False``: the model normalizes on the device),
+    the image families the still-image ones (``blip_image_train`` /
+    ``blip_image_eval``, CLIP-normalized fp32); the text processors are
+    ``blip_caption`` for training and ``blip_question`` for evaluation."""
+    from mr_blip_tpu_torch.processors.text_processors import (
+        BlipCaptionProcessor,
+        BlipQuestionProcessor,
     )
 
     model = load_model(name, model_type=model_type, is_eval=is_eval, device=device,
                        **kwargs)
     img = getattr(model, "img_size", 224)
-    vis_processors = {
-        "train": Blip2VideoTrainProcessor(image_size=img, normalize=False),
-        "eval": BlipVideoEvalProcessor(image_size=img, normalize=False),
-    }
-    txt_processors = {"train": BlipQuestionProcessor(), "eval": BlipQuestionProcessor()}
+    if any(name.startswith(f) for f in VIDEO_FAMILIES):
+        from mr_blip_tpu_torch.processors.video_processors import (
+            Blip2VideoTrainProcessor,
+            BlipVideoEvalProcessor,
+        )
+
+        uint8_ok = name.startswith(("blip2_mr", "blip2_opt_mr", "blip2_fmr"))
+        vis_processors = {
+            "train": Blip2VideoTrainProcessor(image_size=img, normalize=not uint8_ok),
+            "eval": BlipVideoEvalProcessor(image_size=img, normalize=not uint8_ok),
+        }
+    else:
+        from mr_blip_tpu_torch.processors.image_processors import (
+            BlipImageEvalProcessor,
+            BlipImageTrainProcessor,
+        )
+
+        vis_processors = {"train": BlipImageTrainProcessor(image_size=img),
+                          "eval": BlipImageEvalProcessor(image_size=img)}
+    txt_processors = {"train": BlipCaptionProcessor(), "eval": BlipQuestionProcessor()}
     return model, vis_processors, txt_processors
 
 

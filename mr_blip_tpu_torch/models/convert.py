@@ -1,7 +1,8 @@
 """JAX package parameters -> the port's ``state_dict``.
 
 Input: the nested parameter dict of ``mr_blip_tpu``'s ``BLIP2_MR`` (or
-``BLIP2_MR_OPT``) as numpy arrays, in the unscanned layout (``blocks_{i}``
+``BLIP2_MR_OPT``, a bare T5, or the zoo's ``BLIPv1``: ViT, MED, heads) as
+numpy arrays, in the unscanned layout (``blocks_{i}``
 / ``block_{i}`` subtrees; convert a scanned tree with
 ``mr_blip_tpu.models.scan_utils.unstack_blip2_mr_params`` first). Output: a flat ``{name: tensor}`` dict
 that ``Blip2MRModule.load_state_dict(..., strict=True)`` (or
@@ -10,8 +11,9 @@ that ``Blip2MRModule.load_state_dict(..., strict=True)`` (or
 Rules: flax ``Dense_0/kernel`` (in, out) becomes ``weight`` (out, in);
 ``LayerNorm_0/{scale,bias}`` and RMSNorm ``scale`` become
 ``weight``/``bias``; the patch conv goes HWIO -> OIHW; ``shared/embedding``
-becomes ``shared.weight`` (OPT's ``embed_tokens`` / ``embed_positions``
-likewise); numbered children ``blocks_3`` become ``blocks.3``, and OPT's
+becomes ``shared.weight`` (OPT's ``embed_tokens`` / ``embed_positions`` and
+MED's ``word_embeddings`` / ``position_embeddings`` likewise); numbered
+children ``blocks_3`` become ``blocks.3``, and OPT's
 ``opt/layer_3`` becomes ``opt.layers.3``. Every other leaf keeps its name. A tree the JAX package has
 already quantized converts too: ``kernel_q`` (int8, (in, out), stored here
 with the input axis contiguous, as the W8A8 kernels read it),
@@ -63,7 +65,8 @@ def _convert_leaf(path, arr: np.ndarray, quantized_parents=frozenset()):
     elif parents and parents[-1] == "patch_embed" and leaf in ("kernel", "bias"):
         return parents + ["weight" if leaf == "kernel" else "bias"], (
             arr.transpose(3, 2, 0, 1) if leaf == "kernel" else arr)
-    elif parents and parents[-1] in ("shared", "embed_tokens", "embed_positions") \
+    elif parents and parents[-1] in ("shared", "embed_tokens", "embed_positions",
+                                     "word_embeddings", "position_embeddings") \
             and leaf == "embedding":
         return parents + ["weight"], arr
     elif leaf == "scale":  # RMSNormFP32

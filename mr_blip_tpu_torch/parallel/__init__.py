@@ -1,6 +1,6 @@
-"""Data, sequence and tensor parallelism over ``torch.distributed`` (the
-port's counterpart of ``mr_blip_tpu/parallel/``): ``mesh.py`` for dp and sp,
-``tensor.py`` for tp."""
+"""Data, sequence, tensor and pipeline parallelism over ``torch.distributed``
+(the port's counterpart of ``mr_blip_tpu/parallel/``): ``mesh.py`` for dp and
+sp, ``tensor.py`` for tp, ``pipeline.py`` for pp."""
 
 from mr_blip_tpu_torch.parallel.mesh import (
     all_reduce_grads,

@@ -1,9 +1,9 @@
 """Text processors (caption/question pre-tokenization cleanup; the port's
 copy of ``mr_blip_tpu/processors/text_processors.py``).
 
-Mirror the reference ``BlipQuestionProcessor``
+Mirror the reference ``BlipCaptionProcessor`` / ``BlipQuestionProcessor``
 (lavis/processors/blip_processors.py:73-130): lowercase, strip punctuation
-variants, cap word count. The caption processor waits for the zoo tasks.
+variants, cap word count.
 """
 
 from __future__ import annotations
@@ -20,6 +20,32 @@ class BaseProcessor:
     @classmethod
     def from_config(cls, cfg=None):
         return cls()
+
+
+@registry.register_processor("blip_caption")
+class BlipCaptionProcessor(BaseProcessor):
+    def __init__(self, prompt: str = "", max_words: int = 50):
+        self.prompt = prompt
+        self.max_words = max_words
+
+    def __call__(self, caption: str) -> str:
+        return self.prompt + self.pre_caption(caption)
+
+    @classmethod
+    def from_config(cls, cfg=None):
+        cfg = cfg or {}
+        return cls(
+            prompt=cfg.get("prompt", ""), max_words=cfg.get("max_words", 50)
+        )
+
+    def pre_caption(self, caption: str) -> str:
+        caption = re.sub(r"([.!\"()*#:;~])", " ", caption.lower())
+        caption = re.sub(r"\s{2,}", " ", caption)
+        caption = caption.rstrip("\n").strip(" ")
+        words = caption.split(" ")
+        if len(words) > self.max_words:
+            caption = " ".join(words[: self.max_words])
+        return caption
 
 
 @registry.register_processor("blip_question")

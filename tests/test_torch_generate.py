@@ -198,9 +198,12 @@ def test_port_imports_no_jax_or_triton():
     the scorer, gates and asset-day modules imported, and every module of the
     evaluation, train and serving entry points imported (data and sequence
     parallelism with them), the grounded-QA and TAL tasks, the OPT variant,
-    ``blip2_fmr``, tensor parallelism, the checkpoint import (``models/port.py``,
-    ``port_weights``), metrics, datasets and video reader with them, and
-    models built by ``load_model``."""
+    ``blip2_fmr``, tensor and pipeline parallelism (``dryrun_multichip``), the
+    checkpoint import (``models/port.py``, ``port_weights``), metrics, datasets
+    and video reader with them, the BLIP-v1 zoo (ViT, MED, the wrappers, the
+    caption and retrieval tasks, the image datasets and processors, WordPiece,
+    the caption metrics; no PIL until a RandAugment op runs) and models built
+    by ``load_model``."""
     code = (
         "import sys\n"
         "import mr_blip_tpu_torch\n"
@@ -239,9 +242,20 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.text.precompiled_charsmap\n"
         "import mr_blip_tpu_torch.text.vocab_facts, mr_blip_tpu_torch.standalone_eval\n"
         "import mr_blip_tpu_torch.asset_gates, mr_blip_tpu_torch.asset_day\n"
+        "import mr_blip_tpu_torch.parallel.pipeline, mr_blip_tpu_torch.models.t5_pipeline\n"
+        "import mr_blip_tpu_torch.dryrun_multichip\n"
+        "import mr_blip_tpu_torch.models.vit, mr_blip_tpu_torch.models.med\n"
+        "import mr_blip_tpu_torch.models.blip_v1, mr_blip_tpu_torch.models.zoo_wrappers\n"
+        "import mr_blip_tpu_torch.tasks.captioning, mr_blip_tpu_torch.tasks.retrieval\n"
+        "import mr_blip_tpu_torch.datasets.image_datasets\n"
+        "import mr_blip_tpu_torch.processors.image_processors\n"
+        "import mr_blip_tpu_torch.processors.randaugment\n"
+        "import mr_blip_tpu_torch.text.wordpiece, mr_blip_tpu_torch.metrics.caption_metrics\n"
         "from mr_blip_tpu_torch.models import load_model\n"
         "load_model('blip2_mr', 'tiny', device='cpu')\n"
         "load_model('blip2_fmr', 'tiny', device='cpu')\n"
+        "load_model('blip_caption', 'tiny', device='cpu')\n"
+        "load_model('blip_retrieval', 'tiny', device='cpu')\n"
         "tok = 'tests/data/torch_tokenizer/'\n"
         "m = load_model('blip2_mr', 'tiny', device='cpu', tokenizer_path=tok + 'flan_t5')\n"
         "assert m.answer_ids == [71, 272, 205, 309, 262], m.answer_ids\n"
@@ -262,11 +276,15 @@ def test_port_imports_no_jax_or_triton():
         "Config(cfg_path='configs/projects/train/qvh.yaml')\n"
         "Config(cfg_path='configs/projects/eval/nextGQA.yaml')\n"
         "Config(cfg_path='configs/projects/eval/nextQA.yaml')\n"
+        "Config(cfg_path='configs/projects/zoo/caption_coco_eval.yaml')\n"
+        "Config(cfg_path='configs/projects/zoo/ret_coco_eval.yaml')\n"
+        "Config(cfg_path='configs/projects/zoo/ret_flickr_eval.yaml')\n"
         "from mr_blip_tpu_torch.datasets.video_reader import VideoReader\n"
         "VideoReader('synthetic://8x16x16').get_batch_async([0, 1]).result()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'triton', 'mr_blip_tpu', 'yaml', 'sklearn', "
-        "'transformers', 'peft', 'safetensors', 'tokenizers', 'sentencepiece', 'regex')]\n"
+        "'transformers', 'peft', 'safetensors', 'tokenizers', 'sentencepiece', 'regex', "
+        "'PIL')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -580,11 +580,14 @@ def test_load_model_and_preprocess():
     assert isinstance(model, BLIP2_MR)
     assert vis["eval"].image_size == vis["train"].image_size == 28
     assert not vis["eval"].do_normalize and not vis["train"].do_normalize
-    assert txt["eval"]("What  Happens?") == txt["train"]("What  Happens?")
+    # the JAX package's text processors: blip_caption to train, blip_question
+    # to evaluate
+    assert txt["train"]("What  Happens?") == "what happens?"
+    assert txt["eval"]("What  Happens?") == "what  happens?"
 
 
 @pytest.mark.parametrize("name,item", [("blip2_feature_extractor", "Dormant LAVIS zoo"),
-                                       ("blip_caption", "Dormant LAVIS zoo"),
+                                       ("clip", "Dormant LAVIS zoo"),
                                        ("timesformer", "Dormant LAVIS zoo")])
 def test_unported_family_raises_with_its_roadmap_item(name, item):
     with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
@@ -605,8 +608,9 @@ def test_families_are_the_jax_registry_s():
     jax_names = families(jax_registry, "mr_blip_tpu")
     ported = families(registry, "mr_blip_tpu_torch")
     zoo = dict(model_zoo)
-    assert ported == {"blip2_mr", "blip2_opt_mr", "blip2_fmr"} <= zoo.keys()
-    assert sum(len(zoo[name]) for name in ported) == 8
+    assert ported == {"blip2_mr", "blip2_opt_mr", "blip2_fmr", "blip_caption",
+                      "blip_retrieval"} <= zoo.keys()
+    assert sum(len(zoo[name]) for name in ported) == 13
     assert jax_names == ported | set(UNPORTED_FAMILIES) | set(ZOO_FAMILIES)
     with pytest.raises(ValueError, match="unknown model"):
         load_model("no_such_model", device="cpu")
