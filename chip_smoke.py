@@ -460,7 +460,7 @@ The OPT variant (phase 19), the serve process (phase 20) and phase 25 keep 50.
     largest, the update's elements more than the lr apart <= 1e-3. Per
     rank: s per pipelined update, each send and receive's ms by microbatch
     and stack, weights and peak.
-28. the BLIP-v1 zoo's evaluation entry points: ``mr_blip_tpu_torch.evaluate``
+28. the LAVIS zoo's evaluation entry points: ``mr_blip_tpu_torch.evaluate``
     on ``configs/projects/zoo/caption_coco_eval.yaml`` (blip_caption
     base_coco: ViT-B/16 at 224², BERT-base, fp32, beam 3) and
     ``ret_coco_eval.yaml`` (with ``model.model_type=coco``: its published
@@ -472,7 +472,27 @@ The OPT variant (phase 19), the serve process (phase 20) and phase 25 keep 50.
     the plain path, as in JAX); s per batch and the peak. Then the depth-2
     base-width BLIPv1 on the card against the CPU: caption loss, ITC
     features and ITM logits within 1e-4 of the largest, greedy caption ids
-    equal.
+    equal. Then the CLIP and ALBEF families: (c) ``clip_ret_coco_eval.yaml``
+    with ``model.model_size=ViT-B-16`` (its ``model_type`` names no size the
+    wrapper reads) over the same images and captions, fp32: metrics finite,
+    the similarity matrix equal to the wrapper's own call on the loader's
+    batches (its call on the first batch alone printed beside: the host's
+    product of another shape rounds otherwise), no kernel launched (197
+    tokens, fp32, as in JAX). (d) The
+    CLIP towers at ViT-L/14, full width and depth, on the same 64 images and
+    320 captions: the ``CLIP`` module in bf16 (its default) launches kernel
+    1 50 times and kernel 4 24 times (257 x 16 x 64) for the image batch and
+    kernel 1 25 times per text batch of 64, its features within cosine
+    0.999 (per row) of the same module on its kernels' plain versions on the
+    card; the fp32 ``ClipModel`` wrapper's ``compute_sim_matrix`` launches
+    kernel 4's fp32 body 24 times per batch that brings new images; at depth
+    2 its matrix within 1e-5 of the largest against the CPU; RN50 at full
+    width in fp32 on 8 images (TF32 off) within 1e-4 of the CPU. (e)
+    ``nlvr_eval.yaml`` with ``model.model_size=base`` (ALBEF base: ViT-B/16,
+    MED with fusion at layer 6, fp32) over 64 synthetic pairs: accuracy
+    finite, the first batch's predictions equal to the wrapper's own call,
+    no kernel launched; depth 2 (fusion at layer 1) within 1e-5 of the
+    largest against the CPU.
 
 Phase 3 holds kernels 3, 5, 6 and 8 at 4 x 2,056 with the 16 heads a
 tensor-parallel rank runs (phase 26), at their 32-head bars, each timed
@@ -491,7 +511,10 @@ with and without ``causal``, in both types; a call whose gradient is taken
 (the recompute backward against the plain gradient, cosine >= 0.999); float16
 and a head dim of 104 on the card must raise. It is timed at the 364-pixel
 shape beside its plain version, ``scaled_dot_product_attention`` and kernel 2
-on the same packed tensor, and at (240, 257) in bf16 beside kernel 2 again.
+on the same packed tensor, and at (240, 257) in bf16 beside kernel 2 again,
+and at phase 28 (d)'s CLIP ViT-L/14 shape (64, 257, H 16, D 64) in bf16 and
+fp32, each timed beside its plain version, ``scaled_dot_product_attention``
+and its bound.
 The other kernels of the 364-pixel paths are held at the shapes those paths
 give them: LayerNorm at (162,480, 1,408) (240 x 677 ViT rows), the biased
 flash forward at the answerer's encoder length (4 x 2,040, the last 5 keys
@@ -525,7 +548,8 @@ phase 26 (a)'s train entry point (one micro-batch and a val generate);
 ``dp_serve_launches`` the replicas' over phase 26 (b)'s two batches (four
 blocks); ``pp_launches`` rank 0's over phase 27 (a)'s M = 4 pipelined update
 and its no-grad forward (M = 2);
-``zoo_launches`` phase 28's two evaluations (0: no kernel on that path);
+``zoo_launches`` phase 28's (0 in its four evaluations; kernels 1 and 4 in
+(d)'s ViT-L/14 towers, bf16 module and fp32 wrapper);
 each count is taken with the counts set to 0 just before its path
 runs); the last line is {"ok": true, "device": {...}}.
 """
@@ -533,6 +557,7 @@ runs); the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -826,6 +851,32 @@ ZOO_IMAGES, ZOO_CAPTIONS, ZOO_SEED = 64, 5, 28
 ZOO_WORDS = ("a man woman dog cat red blue small large old young riding holding "
              "standing sitting near on in of the street field table water tree "
              "bike horse ball car train plate food sky grass beach snow window").split()
+# Phase 28 (c)-(e), the CLIP and ALBEF families. (c) clip_ret_coco_eval.yaml
+# with model.model_size=ViT-B-16 (its model_type names no size the wrapper
+# reads: the tiny model otherwise) over phase 28's images and captions, fp32:
+# ViT-B/16 has 197 tokens, under the 256 of the flash dispatch, and fp32
+# LayerNorm is plain, so no kernel runs, as in JAX. (d) The towers at
+# ViT-L/14 (257 tokens: kernel 4 at 16 heads of 64): the CLIP module in bf16
+# (its default), the 64 images in one batch and the 320 captions in batches
+# of 64; per image batch kernel 1 ln_pre + 2 x 24 blocks + the final norm
+# and kernel 4 once a block, per text batch kernel 1 2 x 12 blocks +
+# ln_final (the causal text attention has a mask: plain). Features held
+# against the same module with its kernels' plain versions on the card
+# (cosine >= CLIP_BF16_COSINE_MIN per row, a bar set before the first
+# run). Then the fp32 wrapper (kernel 4's fp32 body, once a block for each
+# batch's new images), the sim matrix at depth 2 against the CPU within
+# CLIP_CPU_REL_TOL of the largest, and RN50 at full width in fp32 on
+# CLIP_RN50_IMAGES images against the CPU (TF32 off) within
+# FP32_PATH_REL_TOL. (e) nlvr_eval.yaml with model.model_size=base (ALBEF
+# base: ViT-B/16, MED with fusion at layer 6, fp32) over ZOO_NLVR_PAIRS
+# synthetic pairs; then depth 2 (fusion at layer 1) against the CPU within
+# CLIP_CPU_REL_TOL.
+CLIP_EVAL_SIZE, CLIP_L14, CLIP_L14_SHAPE = "ViT-B-16", "ViT-L-14", (ZOO_IMAGES, 257, 16, 64)
+CLIP_TEXT_BATCH = 64
+EXPECTED_CLIP_IMAGE_LAUNCHES = {"layer_norm": 50, "flash_attention": 24}
+EXPECTED_CLIP_TEXT_LAUNCHES = {"layer_norm": 25, "flash_attention": 0}
+CLIP_BF16_COSINE_MIN, CLIP_CPU_REL_TOL, CLIP_RN50_IMAGES = 0.999, 1e-5, 8
+ZOO_NLVR_PAIRS = 64
 # Phase 23, the reference-checkpoint import and the BLIP2_MR variants. The
 # encoder length of an only_frames 1 x 60 batch of make_samples ("<vid>" 5
 # tokens, 60 x 32 frame tokens, the end's 2 and the text's 64, padded to a
@@ -1345,6 +1396,33 @@ def check_flash_kernel(torch, kernels):
                 f"({flops / ms / 1e9:.1f} TFLOP/s), library {lib_ms:.4f} ms, bound "
                 f"{by_ops:.4f} ms (operations, fp32 outside the tensor cores)")
         del qkv, q, k, v, q4, k4, v4, got, want
+        torch.cuda.empty_cache()
+
+    # The CLIP ViT-L/14 tower of phase 28 (d): 257 tokens, 16 heads of 64,
+    # through the packed QKV views, bf16 from the module and fp32 from the
+    # zoo wrapper; timed beside its plain version, the library call and its
+    # bound (fp32: the operations over the CUDA-core peak).
+    b, n, heads, hd = CLIP_L14_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = randn(b, n, 3 * heads * hd, dtype=dtype)
+        q, k, v = qkv.view(b, n, 3, heads, hd).unbind(2)
+        got = fa.flash_attention(q, k, v)
+        label = f"({b}, {n}, {heads}, {hd}) CLIP ViT-L/14"
+        err = hold(label, got, plain(q, k, v, False), dtype)
+        if dtype == torch.bfloat16:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        flops = 4.0 * b * heads * n * n * hd
+        fig = {"ms": median_ms(torch, lambda: fa.flash_attention(q, k, v)),
+               "plain_ms": median_ms(torch, lambda: fa._flash_reference(q, k, v), iters=3,
+                                     warmup=1)}
+        q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+        fig["library_ms"] = median_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        set_bound(fig, nbytes(qkv, got), bf16_flops=flops if dtype == torch.bfloat16 else 0.0)
+        if dtype == torch.float32 and 1e3 * flops / PEAK_FP32_FLOPS > fig["bound_ms"]:
+            fig["bound_ms"], fig["bound_by"] = 1e3 * flops / PEAK_FP32_FLOPS, "operations"
+        say(f"flash_attention {label} {str(dtype)[6:]}:" + timing_line(fig)
+            + f"  ({flops / fig['ms'] / 1e9:.1f} TFLOP/s)")
+        del qkv, q, k, v, q4, k4, v4, got
         torch.cuda.empty_cache()
 
     # Rectangular and causal, ragged lengths, both types.
@@ -6749,12 +6827,13 @@ def zoo_annotations(path):
 @contextlib.contextmanager
 def captured_zoo_models(torch, built):
     """Every zoo wrapper ``from_config`` builds goes into ``built``, its
-    ``generate`` and ``compute_sim_matrix`` timed (each call's seconds and
-    result appended to ``built[i].calls``)."""
+    ``generate``, ``compute_sim_matrix`` and ``predict`` timed (each call's
+    seconds and result appended to ``built[i].calls``)."""
     from mr_blip_tpu_torch.models import zoo_wrappers
 
     originals = {cls: cls.__dict__["from_config"] for cls in
-                 (zoo_wrappers.BlipCaptionModel, zoo_wrappers.BlipRetrievalModel)}
+                 (zoo_wrappers.BlipCaptionModel, zoo_wrappers.BlipRetrievalModel,
+                  zoo_wrappers.ClipModel, zoo_wrappers.AlbefNLVRModel)}
 
     def timed(model, name):
         fn = getattr(model, name)
@@ -6772,7 +6851,7 @@ def captured_zoo_models(torch, built):
         def from_config(cls, cfg, device="cuda"):
             model = original.__func__(cls, cfg, device=device)
             model.calls = []
-            for name in ("generate", "compute_sim_matrix"):
+            for name in ("generate", "compute_sim_matrix", "predict"):
                 if hasattr(model, name):
                     setattr(model, name, timed(model, name))
             built.append(model)
@@ -6825,13 +6904,353 @@ def zoo_depth2_vs_cpu(torch):
     return errs, bool(torch.equal(out["cuda"]["greedy"].cpu(), out["cpu"]["greedy"]))
 
 
+@contextlib.contextmanager
+def plain_versions_on_card():
+    """Every ``LayerNormFP32`` and attention site of the port on its kernel's
+    plain version, on the card: no kernel wrapper is called."""
+    from mr_blip_tpu_torch.models import layers
+    from mr_blip_tpu_torch.ops.attention import set_attention_backend
+    from mr_blip_tpu_torch.ops.layer_norm import _ln_reference
+
+    original = layers.fused_layer_norm
+
+    def plain(x, weight, bias, eps=1e-6):
+        return _ln_reference(x.reshape(-1, x.shape[-1]), weight, bias, eps).reshape(x.shape)
+
+    layers.fused_layer_norm = plain
+    set_attention_backend("xla")
+    try:
+        yield
+    finally:
+        layers.fused_layer_norm = original
+        set_attention_backend("auto")
+
+
+def zoo_gallery(ann):
+    """Phase 28's retrieval rows as the evaluation's loader batches them
+    (64 captions a batch, in order)."""
+    from mr_blip_tpu_torch.datasets.base_dataset import default_collate
+    from mr_blip_tpu_torch.datasets.image_datasets import RetrievalDataset
+    from mr_blip_tpu_torch.processors.text_processors import BlipCaptionProcessor
+
+    ds = RetrievalDataset(text_processor=BlipCaptionProcessor(), vis_root="synthetic://",
+                          ann_paths=[ann])
+    return [default_collate([ds[i] for i in range(lo, min(lo + 64, len(ds)))])
+            for lo in range(0, len(ds), 64)]
+
+
+def rel_err(torch, got, want):
+    return float((got.cpu().float() - want.cpu().float()).abs().max()
+                 / want.cpu().float().abs().max())
+
+
+def clip_l14_towers(torch, wrappers, batches):
+    """Phase 28 (d): the CLIP towers at ViT-L/14, full width and depth, on
+    phase 28's 64 images and 320 captions. Returns the launches, the
+    figures and the gates' readings."""
+    import numpy as np
+
+    from mr_blip_tpu_torch.models import clip, zoo_wrappers
+
+    images, seen = [], set()  # every image once, first seen first
+    for batch in batches:
+        for j, img_id in enumerate(batch["image_id"]):
+            if img_id not in seen:
+                seen.add(img_id)
+                images.append(torch.as_tensor(np.asarray(batch["image"][j])))
+    images = torch.stack(images).float().cuda()
+    texts = [t for b in batches for t in b["text_input"]]
+    out = {}
+    # the fp32 wrapper (its tokenizer, its weights), then the bf16 module
+    # (CLIP's default dtype) on the same weights
+    model = zoo_wrappers.ClipModel(model_size=CLIP_L14, device="cuda", seed=ZOO_SEED)
+    text_batches = [model.tokenize(texts[lo:lo + CLIP_TEXT_BATCH])
+                    for lo in range(0, len(texts), CLIP_TEXT_BATCH)]
+    module = clip.CLIP(model.config, device="cuda").eval()
+    module.load_state_dict(model.state_dict())
+    counts = {"image": [], "text": []}
+
+    def encode(count):
+        feats = {}
+        with torch.no_grad():
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            feats["image"] = module.encode_image(images)
+            torch.cuda.synchronize()
+            feats["image_s"] = time.time() - t0
+            if count:
+                counts["image"].append({k: w.launches for k, w in wrappers.items()})
+            txt = []
+            t0 = time.time()
+            for ids in text_batches:
+                for w in wrappers.values():
+                    w.launches = 0
+                txt.append(module.encode_text(ids))
+                if count:
+                    counts["text"].append({k: w.launches for k, w in wrappers.items()})
+            torch.cuda.synchronize()
+            feats["text_s"] = time.time() - t0
+            feats["text"] = torch.cat(txt)
+        return feats
+
+    encode(count=True)  # the launches; each path's second call is timed
+    with plain_versions_on_card():
+        encode(count=False)
+    kernel = encode(count=False)
+    with plain_versions_on_card():
+        plain = encode(count=False)
+    for w in wrappers.values():
+        w.launches = 0
+    out["bf16_cos"] = {k: float(torch.nn.functional.cosine_similarity(
+        kernel[k].float(), plain[k].float(), dim=-1).min()) for k in ("image", "text")}
+    out["bf16_err"] = {k: rel_err(torch, kernel[k], plain[k]) for k in ("image", "text")}
+    out["bf16_s"] = {k: (kernel[f"{k}_s"], plain[f"{k}_s"]) for k in ("image", "text")}
+    launches = {k: sum(c[k] for part in counts.values() for c in part) for k in wrappers}
+    out["counts"] = counts
+    del module, kernel, plain
+    torch.cuda.empty_cache()
+
+    # fp32 through the wrapper: its compute_sim_matrix over the same batches
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sims = model.compute_sim_matrix(batches)
+    torch.cuda.synchronize()
+    out["fp32_s"] = time.time() - t0
+    out["fp32_launches"] = {k: w.launches for k, w in wrappers.items()}
+    out["sims_shape"] = sims.shape
+    out["sims_finite"] = bool(np.isfinite(sims).all())
+    for k in wrappers:
+        launches[k] += out["fp32_launches"][k]
+    del model
+    torch.cuda.empty_cache()
+
+    # depth 2 at full width, card against the CPU, on the first batch
+    cfg = dataclasses.replace(clip.clip_config_from_name(CLIP_L14), text_layers=REDUCED_DEPTH,
+                              vision=dataclasses.replace(clip.clip_config_from_name(
+                                  CLIP_L14).vision, depth=REDUCED_DEPTH))
+    reduced = {}
+    for dev in ("cpu", "cuda"):
+        w = zoo_wrappers.ClipModel(model_size="tiny", device=dev)
+        w.config, w.model_size = cfg, CLIP_L14
+        w._word_tok = zoo_wrappers.WordTokenizer(cfg.vocab_size)
+        w.module = clip.CLIP(cfg, device=dev, dtype=torch.float32).eval()
+        reduced[dev] = w
+    zoo_wrappers.init_clip_weights_(reduced["cpu"].module, ZOO_SEED)
+    reduced["cuda"].load_state_dict(reduced["cpu"].state_dict())
+    before = wrappers["flash_attention"].launches
+    depth2 = {dev: w.compute_sim_matrix(batches[:1]) for dev, w in reduced.items()}
+    out["depth2_flash"] = wrappers["flash_attention"].launches - before
+    out["depth2_err"] = rel_err(torch, torch.as_tensor(depth2["cuda"]),
+                                torch.as_tensor(depth2["cpu"]))
+
+    # RN50 at full width in fp32, card against the CPU (TF32 off)
+    rn = {dev: zoo_wrappers.ClipModel(model_size="RN50", device=dev) for dev in ("cpu", "cuda")}
+    zoo_wrappers.init_clip_weights_(rn["cpu"].module, ZOO_SEED)
+    rn["cuda"].load_state_dict(rn["cpu"].state_dict())
+    ims = images[:CLIP_RN50_IMAGES].cpu()
+    ids = rn["cpu"].tokenize(texts[:CLIP_RN50_IMAGES])
+    rn_out = {}
+    for dev, w in rn.items():
+        with torch.no_grad():
+            rn_out[dev] = {"image": w.module.encode_image(ims.to(dev)),
+                           "logits": w.module(ims.to(dev), ids.to(dev))[0]}
+    out["rn50_err"] = {k: rel_err(torch, rn_out["cuda"][k], v) for k, v in rn_out["cpu"].items()}
+    out["rn50_stride_ok"] = tuple(rn["cpu"].module.visual.attnpool.pos_embed.shape) == (50, 2048)
+    del rn, reduced
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def nlvr_annotations(path):
+    """ZOO_NLVR_PAIRS NLVR2 rows of synthetic:// image pairs."""
+    import numpy as np
+
+    rng = np.random.default_rng(ZOO_SEED)
+    rows = [{"image": f"1x64x64#{i}", "image2": f"1x64x64#{i + ZOO_NLVR_PAIRS}",
+             "sentence": " ".join(rng.choice(ZOO_WORDS, int(rng.integers(6, 12)))),
+             "label": int(rng.integers(0, 2))} for i in range(ZOO_NLVR_PAIRS)]
+    Path(path).write_text(json.dumps(rows))
+    return str(path)
+
+
+def albef_depth2_vs_cpu(torch, ann):
+    """Phase 28 (e)'s depth-2 AlbefNLVR at base width (2 ViT blocks, 2 MED
+    layers, fusion at layer 1) on the card against the CPU: the logits of
+    the first 8 pairs."""
+    from mr_blip_tpu_torch.datasets.base_dataset import default_collate
+    from mr_blip_tpu_torch.datasets.image_datasets import ClassificationDataset
+    from mr_blip_tpu_torch.models import albef, med, vit, zoo_wrappers
+    from mr_blip_tpu_torch.processors.text_processors import BlipCaptionProcessor
+
+    cfg = albef.ALBEFConfig(vision=vit.BaseViTConfig(depth=REDUCED_DEPTH),
+                            text=med.MedConfig(vocab_size=30522, num_layers=REDUCED_DEPTH,
+                                               fusion_layer=1))
+    models = {}
+    for dev in ("cpu", "cuda"):
+        w = zoo_wrappers.AlbefNLVRModel(model_size="tiny", device=dev)
+        w.config, w.tokenizer = cfg, zoo_wrappers.WordTokenizer(cfg.text.vocab_size)
+        w.module = albef.AlbefNLVR(cfg, device=dev, dtype=torch.float32).eval()
+        models[dev] = w
+    zoo_wrappers.init_blip_weights_(models["cpu"].module, ZOO_SEED)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    ds = ClassificationDataset(text_processor=BlipCaptionProcessor(), vis_root="synthetic://",
+                               ann_paths=[ann])
+    batch = default_collate([ds[i] for i in range(min(8, len(ds)))])
+    logits = {}
+    for dev, w in models.items():
+        with torch.no_grad():
+            logits[dev] = w._logits(batch)
+    return rel_err(torch, logits["cuda"], logits["cpu"])
+
+
+def clip_albef_entry_points(torch, wrappers, card, tmp, ann):
+    """Phase 28 (c)-(e): see CLIP_EVAL_SIZE. Returns the launches of (c),
+    (d) and (e)."""
+    import numpy as np
+
+    from mr_blip_tpu_torch import evaluate
+    from mr_blip_tpu_torch.datasets.base_dataset import default_collate
+    from mr_blip_tpu_torch.datasets.image_datasets import ClassificationDataset
+    from mr_blip_tpu_torch.processors.text_processors import BlipCaptionProcessor
+
+    part_start = time.time()
+    runs = {}
+    nlvr_ann = nlvr_annotations(Path(tmp) / "nlvr.json")
+    for name, ds, a, extra in (
+            ("clip_ret_coco_eval", "coco_retrieval", ann, [f"model.model_size={CLIP_EVAL_SIZE}"]),
+            ("nlvr_eval", "nlvr", nlvr_ann, ["model.model_size=base"])):
+        out_dir = Path(tmp) / name
+        argv = ["--cfg-path", str(ROOT / f"configs/projects/zoo/{name}.yaml"), "--options",
+                *(f"datasets.{ds}.build_info.annotations.{split}.storage={a}"
+                  for split in ("train", "val", "test")),
+                f"datasets.{ds}.build_info.images.storage=synthetic://",
+                f"run.output_dir={out_dir}", *extra]
+        built = []
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with captured_zoo_models(torch, built):
+            logs = evaluate.main(argv)
+        torch.cuda.synchronize()
+        runs[name] = {"logs": logs["test"], "wall": time.time() - t0, "model": built[0],
+                      "launches": {k: w.launches for k, w in wrappers.items()},
+                      "rows": [json.loads(f.read_text()) for f in
+                               out_dir.glob("*/result/test_epochbest.json")]}
+        require(len(built) == 1, f"phase 28 {name}: {len(built)} models built")
+    clip_run, nlvr_run = runs["clip_ret_coco_eval"], runs["nlvr_eval"]
+    # (c) the wrapper's own call on the loader's batches (the cosine matrix is
+    # one product over the gallery, so a part of it is rounded by the host's
+    # GEMM of another shape: the whole is compared), and its first batch's
+    # rows alone (max |diff|, printed)
+    batches = zoo_gallery(ann)
+    cmodel = clip_run["model"]
+    sims = next(res for name, _, res in cmodel.calls if name == "compute_sim_matrix")
+    clip_rows_equal = bool(np.array_equal(cmodel.compute_sim_matrix(batches), sims))
+    first = cmodel.compute_sim_matrix(batches[:1])
+    first_err = float(np.abs(first - sims[:first.shape[0], :first.shape[1]]).max())
+    # (e) the first batch's predictions: the wrapper's own call on it
+    ds = ClassificationDataset(text_processor=BlipCaptionProcessor(), vis_root="synthetic://",
+                               ann_paths=[nlvr_ann])
+    nmodel = nlvr_run["model"]
+    mine = nmodel.predict(default_collate([ds[i] for i in range(min(64, len(ds)))]))
+    eval_preds = [r["prediction"] for r in nlvr_run["rows"][0]][:len(mine["predictions"])]
+    nlvr_equal = eval_preds == mine["predictions"]
+    sim_s = [t for n, t, _ in cmodel.calls if n == "compute_sim_matrix"]
+    cmodel_size, cdev = cmodel.model_size, cmodel.device.type
+    nmodel_size, ndev = nmodel.model_size, nmodel.device.type
+    fusion = nmodel.config.text.fusion_layer
+    del cmodel, nmodel, clip_run["model"], nlvr_run["model"]
+    torch.cuda.empty_cache()
+    t_d = time.time()
+    l14_launches, l14 = clip_l14_towers(torch, wrappers, batches)
+    d_s = time.time() - t_d
+    albef_err = albef_depth2_vs_cpu(torch, nlvr_ann)
+
+    say(f"zoo CLIP retrieval (clip_ret_coco_eval.yaml, model.model_size={CLIP_EVAL_SIZE}: "
+        f"ViT-B/16 at 224², 197 tokens, fp32, {ZOO_IMAGES} images x "
+        f"{ZOO_IMAGES * ZOO_CAPTIONS} texts): metrics {clip_run['logs']}; compute_sim_matrix "
+        f"{[round(t, 3) for t in sim_s]} s; wall "
+        f"{clip_run['wall']:.1f} s; equal to the wrapper's own call on the loader's batches "
+        f"{clip_rows_equal}; its call on the first batch alone within {first_err:.1e}; {card}")
+    image_counts, text_counts = l14["counts"]["image"], l14["counts"]["text"]
+    say(f"zoo CLIP {CLIP_L14} towers, bf16 module (kernels), {ZOO_IMAGES} images in one batch "
+        f"and {ZOO_IMAGES * ZOO_CAPTIONS} captions in batches of {CLIP_TEXT_BATCH}: launches per "
+        f"image batch { {k: v for k, v in image_counts[0].items() if v} }, per text batch "
+        f"{ {k: v for k, v in text_counts[0].items() if v} }; against its plain versions on "
+        f"the card: min row cosine {l14['bf16_cos']}, max |diff| / max {l14['bf16_err']}; "
+        f"s kernels / plain: images {l14['bf16_s']['image'][0]:.4f} / "
+        f"{l14['bf16_s']['image'][1]:.4f}, texts {l14['bf16_s']['text'][0]:.4f} / "
+        f"{l14['bf16_s']['text'][1]:.4f}; {card}")
+    say(f"zoo CLIP {CLIP_L14} fp32 wrapper: compute_sim_matrix {l14['sims_shape']} in "
+        f"{l14['fp32_s']:.3f} s, launches { {k: v for k, v in l14['fp32_launches'].items() if v} }"
+        f"; depth {REDUCED_DEPTH} card vs CPU max |diff| / max {l14['depth2_err']:.2e} "
+        f"(kernel 4 fp32 launches {l14['depth2_flash']}); RN50 full width fp32 card vs CPU on "
+        f"{CLIP_RN50_IMAGES} images {l14['rn50_err']}; part (d) {d_s:.1f} s; {card}")
+    say(f"zoo NLVR (nlvr_eval.yaml, model.model_size=base: ALBEF base, fusion at layer "
+        f"{fusion}, fp32, {ZOO_NLVR_PAIRS} synthetic pairs): metrics {nlvr_run['logs']}; wall "
+        f"{nlvr_run['wall']:.1f} s; the first batch's predictions equal to the wrapper's own "
+        f"call {nlvr_equal}; depth {REDUCED_DEPTH} card vs CPU logits max |diff| / max "
+        f"{albef_err:.2e}; (c)-(e) {time.time() - part_start:.1f} s; {card}")
+    for name, run in runs.items():
+        require(not any(run["launches"].values()), f"phase 28 {name}: kernels launched "
+                f"{ {k: v for k, v in run['launches'].items() if v} } (none on this path)")
+        require(all(math.isfinite(v) for v in run["logs"].values() if isinstance(v, float)),
+                f"phase 28 {name}: {run['logs']}")
+    require(cmodel_size == CLIP_EVAL_SIZE and cdev == "cuda" and clip_rows_equal
+            and {"txt_r1", "img_r1", "r_mean"} <= set(clip_run["logs"])
+            and sims.shape == (ZOO_IMAGES, ZOO_IMAGES * ZOO_CAPTIONS),
+            f"phase 28 (c): {clip_run['logs']}, rows equal {clip_rows_equal}")
+    for counts, expected, what in ((image_counts, EXPECTED_CLIP_IMAGE_LAUNCHES, "image"),
+                                   (text_counts, EXPECTED_CLIP_TEXT_LAUNCHES, "text")):
+        for c in counts:
+            require({k: c[k] for k in expected} == expected
+                    and not any(v for k, v in c.items() if k not in expected),
+                    f"phase 28 (d) {what} batch launches {c}, expected {expected}")
+    require(min(l14["bf16_cos"].values()) >= CLIP_BF16_COSINE_MIN,
+            f"phase 28 (d) bf16 against its plain versions: {l14['bf16_cos']}")
+    require(l14["fp32_launches"]["flash_attention"] == 24 * new_image_batches(batches)
+            and not any(v for k, v in l14["fp32_launches"].items() if k != "flash_attention")
+            and l14["sims_finite"] and l14["depth2_flash"] == REDUCED_DEPTH
+            and l14["depth2_err"] <= CLIP_CPU_REL_TOL,
+            f"phase 28 (d) fp32: launches {l14['fp32_launches']}, depth 2 {l14['depth2_err']}")
+    require(max(l14["rn50_err"].values()) <= FP32_PATH_REL_TOL and l14["rn50_stride_ok"],
+            f"phase 28 (d) RN50 card vs CPU: {l14['rn50_err']}")
+    require(nmodel_size == "base" and ndev == "cuda" and fusion == 6 and nlvr_equal
+            and nlvr_run["logs"]["total"] == ZOO_NLVR_PAIRS
+            and albef_err <= CLIP_CPU_REL_TOL,
+            f"phase 28 (e): {nlvr_run['logs']}, equal {nlvr_equal}, depth 2 {albef_err}")
+    say("zoo CLIP and ALBEF gates passed: (c) and (e) finite at base width, equal to the "
+        f"wrappers' own calls, no kernel launched; (d) kernels 1 and 4 in the predicted counts, "
+        f"bf16 within cosine {CLIP_BF16_COSINE_MIN} of the plain versions, depth {REDUCED_DEPTH} "
+        f"within {CLIP_CPU_REL_TOL} and RN50 within {FP32_PATH_REL_TOL} of the CPU")
+    return {k: runs["clip_ret_coco_eval"]["launches"][k] + runs["nlvr_eval"]["launches"][k]
+            + l14_launches[k] for k in wrappers}
+
+
+def new_image_batches(batches):
+    """The batches that bring an image not seen before: the CLIP wrapper's
+    image-tower calls over them."""
+    seen, n = set(), 0
+    for batch in batches:
+        ids = set(batch["image_id"]) - seen
+        n += bool(ids)
+        seen |= ids
+    return n
+
+
 def zoo_entry_point(torch, wrappers, card):
     """Phase 28: ``mr_blip_tpu_torch.evaluate.main`` on
     configs/projects/zoo/caption_coco_eval.yaml and ret_coco_eval.yaml at
     base width (see ZOO_IMAGES); the metrics finite, the evaluation's first
     batch equal to the wrapper's own call on its rows (captions; score_i2t
-    rows), no kernel launched; then ``zoo_depth2_vs_cpu``. Returns the
-    launches of the two evaluations (all 0)."""
+    rows), no kernel launched; then ``zoo_depth2_vs_cpu``; then the CLIP and
+    ALBEF parts (``clip_albef_entry_points``). Returns the launches of the
+    phase: 0 in the four evaluations, the CLIP ViT-L/14 towers' in (d)."""
     import tempfile
 
     import numpy as np
@@ -6893,7 +7312,11 @@ def zoo_entry_point(torch, wrappers, card):
         first_images = sorted({int(i[3:]) for i in batches[0]["image_id"]})
         rows_equal = all(np.array_equal(rmodel.rerank_i2t(gallery, i), score_i2t[i])
                          for i in first_images)
-    sim_s = [t for name, t, _ in rmodel.calls if name == "compute_sim_matrix"]
+        sim_s = [t for name, t, _ in rmodel.calls if name == "compute_sim_matrix"]
+        for run in runs.values():
+            run["model"] = (run["model"].model_size, run["model"].device.type)
+        del model, rmodel, gallery
+        torch.cuda.empty_cache()
     errs, greedy_equal = zoo_depth2_vs_cpu(torch)
     say(f"zoo captioning (configs/projects/zoo/caption_coco_eval.yaml as published: "
         f"blip_caption base_coco, ViT-B/16 at 224², BERT-base, fp32, beam 3, 5-30 tokens, "
@@ -6916,8 +7339,7 @@ def zoo_entry_point(torch, wrappers, card):
         require(not any(run["launches"].values()), f"phase 28 {name}: kernels launched "
                 f"{ {k: v for k, v in run['launches'].items() if v} } (none on this path)")
         require(all(math.isfinite(v) for v in run["logs"].values() if isinstance(v, float))
-                and run["model"].model_size == "base"
-                and run["model"].device.type == "cuda", f"phase 28 {name}: {run['logs']}")
+                and run["model"] == ("base", "cuda"), f"phase 28 {name}: {run['logs']}")
     require(cap["logs"]["total"] == ZOO_IMAGES and len(gen_s) == ZOO_IMAGES * ZOO_CAPTIONS // 64
             and cap_equal, f"phase 28 captioning: {cap['logs']}, {len(gen_s)} batches, first "
             f"batch equal {cap_equal}")
@@ -6929,7 +7351,12 @@ def zoo_entry_point(torch, wrappers, card):
     say(f"zoo gates passed: both configs' metrics finite at base width, the first batch "
         f"equal to the wrapper's own call, no kernel launched, depth {REDUCED_DEPTH} within "
         f"{FP32_PATH_REL_TOL} of the CPU")
-    return {k: cap["launches"][k] + ret["launches"][k] for k in cap["launches"]}
+    # (c)-(e): the CLIP and ALBEF families
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_albef = clip_albef_entry_points(torch, wrappers, card, tmp,
+                                             zoo_annotations(Path(tmp) / "ann.json"))
+    say(f"phase 28: {time.time() - phase_start:.1f} s; {card}")
+    return {k: cap["launches"][k] + ret["launches"][k] + clip_albef[k] for k in wrappers}
 
 
 

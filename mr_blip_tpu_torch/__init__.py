@@ -30,6 +30,9 @@ from mr_blip_tpu_torch.models import blip2_fmr as _blip2_fmr  # noqa: E402
 from mr_blip_tpu_torch.models import blip2_mr_opt as _blip2_mr_opt  # noqa: E402
 from mr_blip_tpu_torch.datasets import builders as _builders  # noqa: E402
 from mr_blip_tpu_torch.datasets import image_datasets as _image_datasets  # noqa: E402
+from mr_blip_tpu_torch.models import blip_v1 as _blip_v1  # noqa: E402
+from mr_blip_tpu_torch.models import clip as _clip  # noqa: E402
+from mr_blip_tpu_torch.models import albef as _albef  # noqa: E402
 from mr_blip_tpu_torch.models import zoo_wrappers as _zoo_wrappers  # noqa: E402
 from mr_blip_tpu_torch import tasks as _tasks  # noqa: E402
 from mr_blip_tpu_torch import runners as _runners  # noqa: E402

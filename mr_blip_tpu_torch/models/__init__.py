@@ -1,7 +1,13 @@
 """The BLIP2-MR float generate and train paths: EVA ViT-g, Q-Former, Flan-T5,
 the decoder-only variant over OPT and the frame-level baseline
-(``blip2_fmr``); of the LAVIS zoo, BLIP-v1 captioning and retrieval
-(``blip_caption``, ``blip_retrieval``: ``models/zoo_wrappers.py``).
+(``blip2_fmr``); of the LAVIS zoo, the BLIP-v1 wrappers (captioning,
+retrieval, classification, NLVR, VQA, feature extraction, ITM,
+pretraining), CLIP (``clip``) and the ALBEF wrappers (NLVR, retrieval,
+pretraining, classification: ``models/zoo_wrappers.py``), and the modules
+registered by name as in JAX (``blip_v1``, ``clip_feature_extractor``,
+``albef_feature_extractor``, ``albef_nlvr``, ``albef_vqa``: ``load_model``
+raises ``AttributeError`` on them, as JAX's does, since a module has no
+default config).
 
 ``load_model(name, model_type)`` builds a registered family from its default
 YAML (counterpart of ``mr_blip_tpu/models/__init__.py``, reference
@@ -16,11 +22,8 @@ from __future__ import annotations
 UNPORTED_FAMILIES: dict = {}
 ZOO_ITEM = "Dormant LAVIS zoo"
 ZOO_FAMILIES = (
-    "albef_classification", "albef_feature_extractor", "albef_nlvr", "albef_nlvr_model",
-    "albef_pretrain", "albef_retrieval", "albef_vqa", "alpro_qa", "alpro_retrieval",
-    "blip2", "blip2_feature_extractor", "blip2_image_text_matching", "blip2_opt",
-    "blip2_t5", "blip_classification", "blip_feature_extractor",
-    "blip_image_text_matching", "blip_nlvr", "blip_pretrain", "blip_v1", "blip_vqa", "clip", "clip_feature_extractor", "gpt_dialogue",
+    "alpro_qa", "alpro_retrieval", "blip2", "blip2_feature_extractor",
+    "blip2_image_text_matching", "blip2_opt", "blip2_t5", "gpt_dialogue",
     "gpt_dialogue_model", "img2prompt_vqa", "pnp_unifiedqav2_fid", "pnp_vqa",
     "timesformer")
 
@@ -82,6 +85,12 @@ def load_model_and_preprocess(name, model_type=None, is_eval=False, device="cuda
     model = load_model(name, model_type=model_type, is_eval=is_eval, device=device,
                        **kwargs)
     img = getattr(model, "img_size", 224)
+    if img == 224 and hasattr(model, "config"):  # a ResNet tower's own size, as JAX reads it
+        resnet_cfg = getattr(model.config, "resnet", None)
+        if resnet_cfg is not None:
+            img = resnet_cfg.image_size
+        else:
+            img = getattr(getattr(model.config, "vision", None), "img_size", img)
     if any(name.startswith(f) for f in VIDEO_FAMILIES):
         from mr_blip_tpu_torch.processors.video_processors import (
             Blip2VideoTrainProcessor,

@@ -22,6 +22,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from mr_blip_tpu_torch.common.registry import registry
 from mr_blip_tpu_torch.models.layers import Dense
 from mr_blip_tpu_torch.models.med import MedConfig, MedLMHead, MedModel, med_tiny_config
 from mr_blip_tpu_torch.models.t5 import cross_entropy_lm_loss
@@ -56,6 +57,7 @@ def _l2(f: torch.Tensor) -> torch.Tensor:
     return f / torch.linalg.vector_norm(f.float(), dim=-1, keepdim=True)
 
 
+@registry.register_model("blip_v1")
 class BLIPv1(nn.Module):
     def __init__(self, cfg: BLIPConfig, device=None, dtype=None):
         super().__init__()

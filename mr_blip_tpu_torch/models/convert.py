@@ -1,7 +1,8 @@
 """JAX package parameters -> the port's ``state_dict``.
 
 Input: the nested parameter dict of ``mr_blip_tpu``'s ``BLIP2_MR`` (or
-``BLIP2_MR_OPT``, a bare T5, or the zoo's ``BLIPv1``: ViT, MED, heads) as
+``BLIP2_MR_OPT``, a bare T5, or the zoo's ``BLIPv1``, ``CLIP`` and ALBEF
+modules: ViT or ResNet, MED, heads) as
 numpy arrays, in the unscanned layout (``blocks_{i}``
 / ``block_{i}`` subtrees; convert a scanned tree with
 ``mr_blip_tpu.models.scan_utils.unstack_blip2_mr_params`` first). Output: a flat ``{name: tensor}`` dict
@@ -11,10 +12,13 @@ that ``Blip2MRModule.load_state_dict(..., strict=True)`` (or
 Rules: flax ``Dense_0/kernel`` (in, out) becomes ``weight`` (out, in);
 ``LayerNorm_0/{scale,bias}`` and RMSNorm ``scale`` become
 ``weight``/``bias``; the patch conv goes HWIO -> OIHW; ``shared/embedding``
-becomes ``shared.weight`` (OPT's ``embed_tokens`` / ``embed_positions`` and
-MED's ``word_embeddings`` / ``position_embeddings`` likewise); numbered
-children ``blocks_3`` become ``blocks.3``, and OPT's
-``opt/layer_3`` becomes ``opt.layers.3``. Every other leaf keeps its name. A tree the JAX package has
+becomes ``shared.weight`` (OPT's ``embed_tokens`` / ``embed_positions``,
+MED's ``word_embeddings`` / ``position_embeddings`` and CLIP's
+``token_embedding`` likewise); numbered children ``blocks_3`` become
+``blocks.3`` (CLIP's ``text_block_3``: ``text_block.3``), and OPT's
+``opt/layer_3`` becomes ``opt.layers.3``. The CLIP ResNet's convs go HWIO ->
+OIHW; its BatchNorm ``scale`` becomes ``weight``, and ``bias`` and the
+running ``mean`` / ``var`` (params in JAX, buffers here) keep their names. Every other leaf keeps its name. A tree the JAX package has
 already quantized converts too: ``kernel_q`` (int8, (in, out), stored here
 with the input axis contiguous, as the W8A8 kernels read it),
 ``kernel_scale`` and the ``bias`` beside them keep their names under their
@@ -35,9 +39,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_NUMBERED = re.compile(r"^(blocks|block|layer)_(\d+)$")
+_NUMBERED = re.compile(r"^(blocks|block|layer|text_block)_(\d+)$")
 _KEPT = {"lora_a", "lora_b", "q_bias", "v_bias", "cls_token", "pos_embed",
-         "query_tokens", "rel_embedding"}
+         "query_tokens", "rel_embedding", "positional_embedding", "logit_scale"}
+_BATCH_NORM = re.compile(r"^(ds_)?bn\d*$")  # the CLIP ResNet's BatchNorm2d
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -66,9 +71,14 @@ def _convert_leaf(path, arr: np.ndarray, quantized_parents=frozenset()):
         return parents + ["weight" if leaf == "kernel" else "bias"], (
             arr.transpose(3, 2, 0, 1) if leaf == "kernel" else arr)
     elif parents and parents[-1] in ("shared", "embed_tokens", "embed_positions",
-                                     "word_embeddings", "position_embeddings") \
+                                     "word_embeddings", "position_embeddings",
+                                     "token_embedding") \
             and leaf == "embedding":
         return parents + ["weight"], arr
+    elif leaf == "kernel" and arr.ndim == 4:  # a conv: HWIO -> OIHW
+        return parents + ["weight"], arr.transpose(3, 2, 0, 1)
+    elif parents and _BATCH_NORM.match(parents[-1]) and leaf in ("bias", "mean", "var"):
+        return parents + [leaf], arr
     elif leaf == "scale":  # RMSNormFP32
         return parents + ["weight"], arr
     elif leaf in _KEPT:

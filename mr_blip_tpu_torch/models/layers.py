@@ -359,14 +359,19 @@ class RMSNormFP32(nn.Module):
 
 class Mlp(nn.Module):
     """Two-layer GELU MLP, ViT style: exact (erf) GELU, or with
-    ``approximate="tanh"`` the tanh approximation."""
+    ``approximate="tanh"`` the tanh approximation; ``quick_gelu`` takes
+    x·sigmoid(1.702x), the OpenAI CLIP nonlinearity."""
 
     def __init__(self, in_features: int, hidden_features: int, device=None,
-                 dtype=None, approximate: str = "none"):
+                 dtype=None, approximate: str = "none", quick_gelu: bool = False):
         super().__init__()
         self.fc1 = Dense(in_features, hidden_features, device=device, dtype=dtype)
         self.fc2 = Dense(hidden_features, in_features, device=device, dtype=dtype)
         self.approximate = approximate
+        self.quick_gelu = quick_gelu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        h = self.fc1(x)
+        h = h * torch.sigmoid(1.702 * h) if self.quick_gelu else F.gelu(
+            h, approximate=self.approximate)
+        return self.fc2(h)

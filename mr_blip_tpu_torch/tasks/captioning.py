@@ -4,8 +4,9 @@ reference ``lavis/tasks/captioning.py``).
 ``valid_step`` expects ``model.generate(samples) -> {"captions": [...]}``
 with ``samples["image_id"]``; reporting computes corpus BLEU-4 and CIDEr-D
 against the ground-truth caption lists (``metrics/caption_metrics.py``, pure
-python, where the reference shells out to pycocoevalcap). The
-multimodal classification task waits for ALBEF NLVR (ROADMAP Queue 1).
+python, where the reference shells out to pycocoevalcap). The multimodal
+classification task (NLVR, SNLI-VE) reports accuracy over the model's
+``predict``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,11 @@ def _tokenizer_is_fallback(model) -> bool:
     """True when the model's text side runs on the offline hash-bucket
     WordTokenizer (collisions by construction): text metrics computed
     through it are pipeline smoke values, and the metric dicts say so."""
-    return bool(getattr(getattr(model, "tokenizer", None), "is_fallback", False))
+    for attr in ("tokenizer", "_word_tok"):  # CLIP: no BPE table -> the word fallback
+        tok = getattr(model, attr, None)
+        if tok is not None:
+            return bool(getattr(tok, "is_fallback", False))
+    return False
 
 
 @registry.register_task("captioning")
@@ -88,5 +93,33 @@ class CaptionTask(BaseTask):
         if getattr(self, "_tokenizer_fallback", False):
             # hash-bucket offline tokenizer: scores are smoke values only
             metrics["tokenizer_fallback"] = True
+        logging.info(metrics)
+        return metrics
+
+
+@registry.register_task("multimodal_classification")
+class MultimodalClassificationTask(BaseTask):
+    """Accuracy over predicted class indices (reference
+    ``lavis/tasks/multimodal_classification.py``)."""
+
+    def valid_step(self, model, samples):
+        out = model.predict(samples)
+        return [{"id": i, "prediction": int(p), "target": int(t)}
+                for i, (p, t) in enumerate(zip(out["predictions"], out["targets"]))]
+
+    def after_evaluation(self, val_result, split_name, epoch, **kwargs):
+        eval_result_file = self.save_result(
+            result=val_result,
+            result_dir=registry.get_path("result_dir"),
+            filename="{}_epoch{}".format(split_name, epoch),
+        )
+        return self._report_metrics(eval_result_file, split_name)
+
+    @dist_utils.main_process
+    def _report_metrics(self, eval_result_file, split_name):
+        with open(eval_result_file) as f:
+            results = json.load(f)
+        acc = sum(r["prediction"] == r["target"] for r in results) / max(len(results), 1)
+        metrics = {"agg_metrics": acc * 100, "acc": acc * 100, "total": len(results)}
         logging.info(metrics)
         return metrics

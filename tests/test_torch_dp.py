@@ -20,6 +20,11 @@ computed while it runs.
 3. sp: B=1 x T=5 frames (2 and 3 per rank, ``frame_share``) with the
    Q-Former training, against the JAX sp step on a dp=2 mesh with the
    batch replicated; the spans of ``generate`` against the JAX model's.
+4. CLIP's ``all_gather_features``: each rank's 3 image and text feature
+   rows gathered, a rank's contrastive loss over its rows against the
+   gathered ones, and the backward: the gathered tensor and each rank's
+   gradients against JAX's ``all_gather_features`` under ``shard_map`` on
+   the dp=2 mesh (1e-5).
 
 Bars: loss 1e-4 relative, post-step trainable tensors 1e-4, the fp64 sum of
 |every tensor| 1e-5 relative (``dryrun_multichip``'s fingerprint). Also the
@@ -78,6 +83,42 @@ def _sp_samples():
     return _samples(1, 5, seed=20, windows=WINDOWS[1:2])
 
 
+CLIP_ROWS, CLIP_WIDTH, CLIP_SCALE = 3, 8, 10.0
+
+
+def _clip_features():
+    """(image, text) features of both ranks, rank-major rows."""
+    rng = np.random.default_rng(24)
+    return tuple(rng.standard_normal((2 * CLIP_ROWS, CLIP_WIDTH)).astype(np.float32)
+                 for _ in range(2))
+
+
+def _clip_rank_loss(img, txt, img_all, txt_all, rank, xp):
+    """A rank's contrastive loss: its rows against every rank's, in numpy-
+    like ``xp`` (torch or jax.numpy) with ``log_softmax`` from ``xp``'s nn."""
+    labels = xp.arange(CLIP_ROWS) + rank * CLIP_ROWS
+    log_softmax = (torch.log_softmax if xp is torch
+                   else __import__("jax").nn.log_softmax)
+
+    def ce(logits):
+        ll = log_softmax(CLIP_SCALE * logits, -1)
+        return -ll[xp.arange(CLIP_ROWS), labels].mean()
+
+    return (ce(img @ txt_all.T) + ce(txt @ img_all.T)) / 2
+
+
+def _clip_gather_worker(rank):
+    from mr_blip_tpu_torch.models.clip import all_gather_features
+
+    rows = slice(rank * CLIP_ROWS, (rank + 1) * CLIP_ROWS)
+    img, txt = (torch.from_numpy(a[rows]).requires_grad_() for a in _clip_features())
+    img_all, txt_all = all_gather_features(img), all_gather_features(txt)
+    loss = _clip_rank_loss(img, txt, img_all, txt_all, rank, torch)
+    loss.backward()
+    return {"gathered": (img_all.detach(), txt_all.detach()), "loss": float(loss),
+            "grads": (img.grad, txt.grad)}
+
+
 # ------------------------------------------------------------------ worker
 def _worker(workdir: Path):
     """One rank: every case on the port, results to ``out_rank<r>.pt``."""
@@ -123,6 +164,7 @@ def _worker(workdir: Path):
         res["fingerprint"] = assert_replicated(ctx.named_params, name)
         res["state"] = {k: v.clone() for k, v in model.state_dict().items()}
         out[name] = res
+    out["clip_gather"] = _clip_gather_worker(rank)
     torch.save(out, workdir / f"out_rank{rank}.pt")
     dist_utils.destroy()
 
@@ -229,10 +271,50 @@ def runs(tmp_path_factory):
             res["state"] = state_dict_from_jax(
                 jax.tree.map(np.asarray, unstack_blip2_mr_params(state.params)))
             want[name] = res
+        want["clip_gather"] = _jax_clip_gather(mesh)
     finally:
         log = finish(proc)
     got = [torch.load(workdir / f"out_rank{r}.pt", weights_only=False) for r in (0, 1)]
     return {"want": want, "got": got, "log": log}
+
+
+def _jax_clip_gather(mesh):
+    """Case 4 in JAX: ``all_gather_features`` under ``shard_map``, every
+    rank's loss, and the gradient of their sum (the transpose of the gather
+    sums the ranks' cotangents)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from mr_blip_tpu.models.clip import all_gather_features
+
+    def per_rank(img, txt):
+        img_all, txt_all = all_gather_features(img, "dp"), all_gather_features(txt, "dp")
+        loss = _clip_rank_loss(img, txt, img_all, txt_all, jax.lax.axis_index("dp"), jnp)
+        return loss[None], img_all, txt_all
+
+    sharded = jax.shard_map(per_rank, mesh=mesh, in_specs=(P("dp"), P("dp")),
+                            out_specs=(P("dp"), P(), P()), check_vma=False)
+    img, txt = _clip_features()
+    losses, img_all, txt_all = sharded(img, txt)
+    grads = jax.grad(lambda i, t: sharded(i, t)[0].sum(), argnums=(0, 1))(img, txt)
+    return {"losses": np.asarray(losses), "gathered": (np.asarray(img_all),
+                                                        np.asarray(txt_all)),
+            "grads": tuple(np.asarray(g) for g in grads)}
+
+
+def test_clip_all_gather_features_forward_and_gradient(runs):
+    """Case 4: the gathered features are both ranks' rows in rank order, and
+    each rank's gradient is JAX's (every rank's loss reaching its rows)."""
+    want = runs["want"]["clip_gather"]
+    for rank, got in enumerate(g["clip_gather"] for g in runs["got"]):
+        for g, w in zip(got["gathered"], want["gathered"]):
+            np.testing.assert_array_equal(g.numpy(), w)
+        np.testing.assert_allclose(got["loss"], want["losses"][rank], rtol=1e-5)
+        rows = slice(rank * CLIP_ROWS, (rank + 1) * CLIP_ROWS)
+        for g, w in zip(got["grads"], want["grads"]):
+            np.testing.assert_allclose(g.numpy(), w[rows], rtol=1e-5, atol=1e-6)
+    assert np.abs(want["grads"][0]).max() > 1e-3
 
 
 @pytest.mark.parametrize("name", ["dp", "dp_clip", "sp"])

@@ -202,8 +202,9 @@ def test_port_imports_no_jax_or_triton():
     checkpoint import (``models/port.py``, ``port_weights``), metrics, datasets
     and video reader with them, the BLIP-v1 zoo (ViT, MED, the wrappers, the
     caption and retrieval tasks, the image datasets and processors, WordPiece,
-    the caption metrics; no PIL until a RandAugment op runs) and models built
-    by ``load_model``."""
+    the caption metrics; no PIL until a RandAugment op runs), the CLIP and
+    ALBEF families (CLIP BPE, both CLIP towers, ALBEF, their wrappers and
+    the BLIP-v1 ones) and models built by ``load_model``."""
     code = (
         "import sys\n"
         "import mr_blip_tpu_torch\n"
@@ -251,11 +252,18 @@ def test_port_imports_no_jax_or_triton():
         "import mr_blip_tpu_torch.processors.image_processors\n"
         "import mr_blip_tpu_torch.processors.randaugment\n"
         "import mr_blip_tpu_torch.text.wordpiece, mr_blip_tpu_torch.metrics.caption_metrics\n"
+        "import mr_blip_tpu_torch.text.clip_bpe, mr_blip_tpu_torch.models.clip\n"
+        "import mr_blip_tpu_torch.models.clip_resnet, mr_blip_tpu_torch.models.albef\n"
         "from mr_blip_tpu_torch.models import load_model\n"
         "load_model('blip2_mr', 'tiny', device='cpu')\n"
         "load_model('blip2_fmr', 'tiny', device='cpu')\n"
         "load_model('blip_caption', 'tiny', device='cpu')\n"
         "load_model('blip_retrieval', 'tiny', device='cpu')\n"
+        "for name in ('clip', 'albef_nlvr_model', 'albef_retrieval', 'albef_pretrain',\n"
+        "             'albef_classification', 'blip_classification', 'blip_nlvr', 'blip_vqa',\n"
+        "             'blip_feature_extractor', 'blip_image_text_matching', 'blip_pretrain'):\n"
+        "    load_model(name, 'tiny', device='cpu')\n"
+        "load_model('clip', 'RN50', device='cpu', model_size='RN50')\n"
         "tok = 'tests/data/torch_tokenizer/'\n"
         "m = load_model('blip2_mr', 'tiny', device='cpu', tokenizer_path=tok + 'flan_t5')\n"
         "assert m.answer_ids == [71, 272, 205, 309, 262], m.answer_ids\n"
@@ -279,6 +287,9 @@ def test_port_imports_no_jax_or_triton():
         "Config(cfg_path='configs/projects/zoo/caption_coco_eval.yaml')\n"
         "Config(cfg_path='configs/projects/zoo/ret_coco_eval.yaml')\n"
         "Config(cfg_path='configs/projects/zoo/ret_flickr_eval.yaml')\n"
+        "Config(cfg_path='configs/projects/zoo/clip_ret_coco_eval.yaml')\n"
+        "Config(cfg_path='configs/projects/zoo/clip_ret_flickr_eval.yaml')\n"
+        "Config(cfg_path='configs/projects/zoo/nlvr_eval.yaml')\n"
         "from mr_blip_tpu_torch.datasets.video_reader import VideoReader\n"
         "VideoReader('synthetic://8x16x16').get_batch_async([0, 1]).result()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -587,7 +587,7 @@ def test_load_model_and_preprocess():
 
 
 @pytest.mark.parametrize("name,item", [("blip2_feature_extractor", "Dormant LAVIS zoo"),
-                                       ("clip", "Dormant LAVIS zoo"),
+                                       ("alpro_qa", "Dormant LAVIS zoo"),
                                        ("timesformer", "Dormant LAVIS zoo")])
 def test_unported_family_raises_with_its_roadmap_item(name, item):
     with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
@@ -609,8 +609,18 @@ def test_families_are_the_jax_registry_s():
     ported = families(registry, "mr_blip_tpu_torch")
     zoo = dict(model_zoo)
     assert ported == {"blip2_mr", "blip2_opt_mr", "blip2_fmr", "blip_caption",
-                      "blip_retrieval"} <= zoo.keys()
-    assert sum(len(zoo[name]) for name in ported) == 13
+                      "blip_retrieval", "clip", "clip_feature_extractor",
+                      "albef_feature_extractor", "albef_nlvr", "albef_vqa", "albef_nlvr_model",
+                      "albef_retrieval", "albef_pretrain", "albef_classification",
+                      "blip_classification", "blip_nlvr", "blip_vqa", "blip_feature_extractor",
+                      "blip_image_text_matching", "blip_pretrain", "blip_v1"} <= zoo.keys()
+    # 13 types before the CLIP and ALBEF families; CLIP's 15, the wrappers' 22
+    # and the five module registrations' one ("default") each; JAX's lists
+    assert sum(len(zoo[name]) for name in ported) == 13 + 15 + 22 + 5
+    from mr_blip_tpu.models import model_zoo as jax_zoo
+
+    assert {n: t for n, t in jax_zoo if n in ported} == {n: zoo[n] for n in ported}
+    assert not set(ZOO_FAMILIES) & ported and len(ZOO_FAMILIES) == 13
     assert jax_names == ported | set(UNPORTED_FAMILIES) | set(ZOO_FAMILIES)
     with pytest.raises(ValueError, match="unknown model"):
         load_model("no_such_model", device="cpu")
